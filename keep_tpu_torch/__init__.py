@@ -1,0 +1,21 @@
+"""keep_tpu_torch — the KEEP serving path in PyTorch, for an NVIDIA H100.
+
+A port of ``keep_tpu`` (JAX on a TPU), which stays beside it as the
+reference. Module paths mirror the JAX package: ``keep_tpu_torch.models.vit``
+is the counterpart of ``keep_tpu.models.vit``. The package imports torch and
+numpy, never JAX, and builds nothing when imported: CUDA kernels are
+compiled the first time a wrapper launches one.
+
+- ``configs``            — ViT / BERT / KEEP / preprocess dataclasses.
+- ``ops``                — linear, fp32 LayerNorm, GELU, attention, L2 norm;
+  tile normalisation and the resize window arithmetic.
+- ``kernels``            — hand-written Hopper kernels and their plain
+  PyTorch versions (``attention_qkv_slab``).
+- ``models``             — ViT-L/16, BERT and the ``KEEPModel`` facade.
+- ``compat.torch_loader`` — released checkpoint and JAX pytree → state dict.
+- ``text``               — WordPiece tokenizer.
+- ``serve``              — batching HTTP inference server
+  (``python -m keep_tpu_torch.serve``).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,246 @@
+"""Checkpoint layouts → the port's state dict (counterpart of
+``keep_tpu/compat/torch_loader.py``).
+
+- ``load_keep_state_dict``: the released KEEP layout (timm ``visual.*``,
+  ``visual_head.{0,2}.*``, HF ``text.*``, ``logit_scale``) with the same
+  quirks as the JAX converter: an unwrapped ``{'state_dict': ...}``, DDP
+  ``module.`` prefixes stripped, ``position_ids`` buffers dropped. The patch
+  conv becomes a ``[D, P·P·3]`` matmul weight in (ph, pw, c) order, and
+  BERT's q/k/v are fused into one ``[3D, D]`` projection.
+- ``from_jax_params``: the JAX package's parameter pytree (numpy leaves) →
+  the port's state dict: ``kernel [in, out]`` → ``weight [out, in]``, LN
+  ``scale`` → ``weight``, stacked ``[L, ...]`` block leaves unstacked.
+- ``random_keep_state_dict``: random weights in the released layout, drawn
+  from a ``torch.Generator``, for tests and smoke runs.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from keep_tpu_torch.configs import KEEPConfig
+
+
+def _tensor(v) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.detach()
+    arr = np.asarray(v)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes arrays from JAX
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.array(arr))  # a writable copy
+
+
+def _reject_quantized(keys) -> None:
+    if any("kernel_q" in k for k in keys):
+        raise NotImplementedError(
+            "quantized (int8) checkpoints are not supported by the PyTorch "
+            "port yet")
+
+
+def normalize_state_dict(sd: Mapping) -> dict:
+    """Unwraps a training ``{'state_dict': ...}`` dict, strips DDP
+    ``module.`` prefixes and drops ``position_ids`` buffers."""
+    if isinstance(sd, Mapping) and "state_dict" in sd and not hasattr(
+            sd["state_dict"], "shape"):
+        sd = sd["state_dict"]
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        if k.endswith("position_ids"):
+            continue
+        out[k] = v
+    return out
+
+
+def load_keep_state_dict(sd: Mapping, cfg: KEEPConfig) -> dict:
+    """Released KEEP state dict → ``KEEPModel`` state dict."""
+    sd = normalize_state_dict(sd)
+    _reject_quantized(sd)
+
+    def g(k: str) -> torch.Tensor:
+        return _tensor(sd[k])
+
+    out: dict[str, torch.Tensor] = {}
+
+    def lin(dst: str, src: str) -> None:
+        out[f"{dst}.weight"] = g(f"{src}.weight")
+        out[f"{dst}.bias"] = g(f"{src}.bias")
+
+    conv = g("visual.patch_embed.proj.weight")  # [D, 3, P, P]
+    out["visual.patch_embed.weight"] = conv.permute(0, 2, 3, 1).reshape(
+        conv.shape[0], -1)
+    out["visual.patch_embed.bias"] = g("visual.patch_embed.proj.bias")
+    out["visual.cls_token"] = g("visual.cls_token")
+    out["visual.pos_embed"] = g("visual.pos_embed")
+    for i in range(cfg.vision.depth):
+        p = f"visual.blocks.{i}"
+        for n in ("norm1", "attn.qkv", "attn.proj", "norm2", "mlp.fc1",
+                  "mlp.fc2"):
+            lin(f"{p}.{n}", f"{p}.{n}")
+        if cfg.vision.layerscale_init is not None:
+            out[f"{p}.ls1"] = g(f"{p}.ls1.gamma")
+            out[f"{p}.ls2"] = g(f"{p}.ls2.gamma")
+    lin("visual.norm", "visual.norm")
+    lin("visual_head.fc1", "visual_head.0")
+    lin("visual_head.fc2", "visual_head.2")
+
+    e = "text.embeddings"
+    out[f"{e}.word"] = g(f"{e}.word_embeddings.weight")
+    out[f"{e}.position"] = g(f"{e}.position_embeddings.weight")
+    out[f"{e}.token_type"] = g(f"{e}.token_type_embeddings.weight")
+    lin(f"{e}.norm", f"{e}.LayerNorm")
+    for i in range(cfg.text.num_hidden_layers):
+        src, dst = f"text.encoder.layer.{i}", f"text.blocks.{i}"
+        qkv = [f"{src}.attention.self.{n}" for n in ("query", "key", "value")]
+        out[f"{dst}.attn.qkv.weight"] = torch.cat(
+            [g(f"{n}.weight") for n in qkv], dim=0)
+        out[f"{dst}.attn.qkv.bias"] = torch.cat(
+            [g(f"{n}.bias") for n in qkv], dim=0)
+        lin(f"{dst}.attn.out", f"{src}.attention.output.dense")
+        lin(f"{dst}.attn.norm", f"{src}.attention.output.LayerNorm")
+        lin(f"{dst}.mlp.fc1", f"{src}.intermediate.dense")
+        lin(f"{dst}.mlp.fc2", f"{src}.output.dense")
+        lin(f"{dst}.norm", f"{src}.output.LayerNorm")
+    lin("text.pooler", "text.pooler.dense")
+    out["logit_scale"] = g("logit_scale").reshape(())
+    return out
+
+
+def from_jax_params(params: Mapping, cfg: KEEPConfig) -> dict:
+    """JAX KEEP parameter pytree (numpy or jax leaves) → ``KEEPModel``
+    state dict."""
+    depths = {"visual": cfg.vision.depth, "text": cfg.text.num_hidden_layers}
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node, path: tuple) -> None:
+        if isinstance(node, Mapping):
+            _reject_quantized(node.keys())
+            for key, child in node.items():
+                if key == "blocks":
+                    leaves = [np.asarray(x) for x in _leaves(child)]
+                    n = leaves[0].shape[0]
+                    if n != depths[path[0]]:
+                        raise ValueError(
+                            f"{path[0]} has {n} stacked layers, the config "
+                            f"{depths[path[0]]}")
+                    for i in range(n):
+                        walk(_index(child, i), path + ("blocks", str(i)))
+                else:
+                    walk(child, path + (key,))
+            return
+        t = _tensor(node)
+        *head, last = path
+        if last == "kernel":
+            t, last = t.transpose(-1, -2).contiguous(), "weight"
+        elif last == "scale":
+            last = "weight"
+        out[".".join((*head, last))] = t
+
+    walk(params, ())
+    return out
+
+
+def _leaves(node):
+    if isinstance(node, Mapping):
+        for v in node.values():
+            yield from _leaves(v)
+    else:
+        yield node
+
+
+def _index(node, i: int):
+    if isinstance(node, Mapping):
+        return {k: _index(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]
+
+
+def load_state_dict_file(path: str) -> dict:
+    """Reads ``.safetensors`` or a torch ``.bin``/``.pt`` weights file."""
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        return load_file(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def released_keep_shapes(cfg: KEEPConfig) -> dict[str, tuple]:
+    """Every key of a released KEEP state dict with its shape."""
+    v, t = cfg.vision, cfg.text
+    d, p, f = v.embed_dim, v.patch_size, v.mlp_dim
+    shapes: dict[str, tuple] = {
+        "visual.patch_embed.proj.weight": (d, 3, p, p),
+        "visual.patch_embed.proj.bias": (d,),
+        "visual.cls_token": (1, 1, d),
+        "visual.pos_embed": (1, 1 + v.num_patches, d),
+        "visual.norm.weight": (d,), "visual.norm.bias": (d,),
+    }
+    lin = {"attn.qkv": (3 * d, d), "attn.proj": (d, d), "mlp.fc1": (f, d),
+           "mlp.fc2": (d, f)}
+    for i in range(v.depth):
+        b = f"visual.blocks.{i}"
+        for n, shape in lin.items():
+            shapes[f"{b}.{n}.weight"] = shape
+            shapes[f"{b}.{n}.bias"] = shape[:1]
+        for n in ("norm1", "norm2"):
+            shapes[f"{b}.{n}.weight"] = shapes[f"{b}.{n}.bias"] = (d,)
+        if v.layerscale_init is not None:
+            shapes[f"{b}.ls1.gamma"] = shapes[f"{b}.ls2.gamma"] = (d,)
+    k = cfg.projection_dim
+    shapes.update({"visual_head.0.weight": (k, d), "visual_head.0.bias": (k,),
+                   "visual_head.2.weight": (k, k), "visual_head.2.bias": (k,)})
+    h, ff = t.hidden_size, t.intermediate_size
+    e = "text.embeddings"
+    shapes.update({
+        f"{e}.word_embeddings.weight": (t.vocab_size, h),
+        f"{e}.position_embeddings.weight": (t.max_position_embeddings, h),
+        f"{e}.token_type_embeddings.weight": (t.type_vocab_size, h),
+        f"{e}.LayerNorm.weight": (h,), f"{e}.LayerNorm.bias": (h,),
+        "text.pooler.dense.weight": (h, h), "text.pooler.dense.bias": (h,),
+    })
+    blk = {"attention.self.query": (h, h), "attention.self.key": (h, h),
+           "attention.self.value": (h, h), "attention.output.dense": (h, h),
+           "intermediate.dense": (ff, h), "output.dense": (h, ff)}
+    for i in range(t.num_hidden_layers):
+        b = f"text.encoder.layer.{i}"
+        for n, shape in blk.items():
+            shapes[f"{b}.{n}.weight"] = shape
+            shapes[f"{b}.{n}.bias"] = shape[:1]
+        for n in ("attention.output.LayerNorm", "output.LayerNorm"):
+            shapes[f"{b}.{n}.weight"] = shapes[f"{b}.{n}.bias"] = (h,)
+    shapes["logit_scale"] = ()
+    return shapes
+
+
+@torch.no_grad()
+def random_keep_state_dict(cfg: KEEPConfig, generator: torch.Generator,
+                           device=None) -> dict:
+    """A released-layout KEEP state dict of random fp32 weights.
+
+    Linear and conv weights are normal with std fan_in^-0.5, biases and
+    embeddings normal(.02), LayerNorm gains 1 + normal(.1), and LayerScale
+    gammas uniform in [0.1, 0.5], so that every block moves the residual
+    stream (timm's 1e-5 init would leave the towers close to identity)."""
+    out = {}
+    for key, shape in released_keep_shapes(cfg).items():
+        if key == "logit_scale":
+            out[key] = torch.tensor(math.log(1.0 / cfg.logit_scale_init),
+                                    device=device)
+            continue
+        t = torch.empty(shape, device=device)
+        if key.endswith(".gamma"):
+            t.uniform_(0.1, 0.5, generator=generator)
+        elif key.endswith(("norm.weight", "norm1.weight", "norm2.weight",
+                           "LayerNorm.weight")):
+            t.normal_(1.0, 0.1, generator=generator)
+        elif len(shape) >= 2 and key.endswith(".weight") and (
+                "embeddings" not in key):
+            t.normal_(0.0, math.prod(shape[1:]) ** -0.5, generator=generator)
+        else:
+            t.normal_(0.0, 0.02, generator=generator)
+        out[key] = t
+    return out

@@ -1,0 +1,267 @@
+// Fused multi-head attention over the unsplit qkv slab, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel keep_tpu/kernels/flash_attention.py
+// `_slab_attn_fwd_kernel` (pallas_call at :190, body `_sdpa` at :43-56),
+// reached through `attention_qkv_slab` from both KEEP towers.
+//
+// What it computes, per batch row b and head h, with q/k/v read as 64-wide
+// column slices of qkv[B, S, 3*H*64] (q at h*64, k at H*64 + h*64, v at
+// 2*H*64 + h*64):
+//   s = (q . k^T) in fp32 * Dh^-0.5 + key_bias[b, :]        (fp32)
+//   p = exp(s - rowmax(s)) / rowsum(...), then cast to the input dtype
+//   o = p . v accumulated in fp32, cast to the input dtype -> out[B, S, H*64]
+// The cast of p happens after the normalisation, as on the TPU.
+//
+// What bounds it on this card: bytes. The slab is read from device memory
+// once per layer (each K/V head slice is re-read by every query tile, from
+// L2), while the S x S scores never leave the SM: they live in registers and
+// the normalised rows in shared memory. At S <= 512 the score work is small
+// next to the projections around it.
+//
+// Design (simple first): one block per (query tile of 32 rows, head, batch
+// row); 8 warps, one warp per query row at a time.
+//   Phase 1: the block stages K for (b, h) in shared memory, each lane
+//            computes the scores of keys lane, lane+32, ... in registers, the
+//            warp reduces max and sum with shuffles, and the rounded p row is
+//            written to shared memory.
+//   Phase 2: V overwrites K in the same buffer; lane l accumulates output
+//            columns 2l and 2l+1 over all keys.
+// Shared rows are padded by one 32-bit word so that lane-per-key reads hit
+// 32 distinct banks. Dynamic shared memory: S*(row words)*4 + 32*S*4 bytes,
+// at most 194 KB (fp32, S = 512), above the 48 KB default, so the launcher
+// raises the limit with cudaFuncSetAttribute.
+//
+// What the simple design leaves on the table: the dot products run on the
+// fp32 pipes, not the tensor cores (no mma/wgmma); K and V are staged with
+// plain loads, not TMA or cp.async, so copy and compute do not overlap; each
+// query tile re-stages the whole K/V slice; and the softmax is the exact
+// two-pass one over a full row, not an online softmax over key blocks.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kHeadDim = 64;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerBlock = 32;
+constexpr int kMaxSeq = 512;
+constexpr int kKeysPerLane = kMaxSeq / 32;
+
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  // one element per 32-bit word; 64 + 1 pad words per row
+  static constexpr int kRowWords = kHeadDim + 1;
+  __device__ static void pair(const uint32_t* row, int i, float& a, float& b) {
+    a = __uint_as_float(row[2 * i]);
+    b = __uint_as_float(row[2 * i + 1]);
+  }
+  __device__ static float round(float x) { return x; }
+  __device__ static void store(float* dst, float a, float b) {
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  // two elements per 32-bit word (low half first); 32 + 1 pad words per row
+  static constexpr int kRowWords = kHeadDim / 2 + 1;
+  __device__ static void pair(const uint32_t* row, int i, float& a, float& b) {
+    const uint32_t w = row[i];
+    a = __uint_as_float(w << 16);
+    b = __uint_as_float(w & 0xffff0000u);
+  }
+  __device__ static float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+  __device__ static void store(__nv_bfloat16* dst, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+  }
+};
+
+// Copies the 64-wide slice of S rows (row stride `stride` elements) into
+// padded shared rows, with 16-byte global loads.
+template <typename T>
+__device__ void stage_rows(uint32_t* dst, const T* src, int S,
+                           long long stride) {
+  constexpr int kChunks = kHeadDim * int(sizeof(T)) / 16;
+  constexpr int kElemsPerChunk = 16 / int(sizeof(T));
+  constexpr int W = Elem<T>::kRowWords;
+  for (int idx = threadIdx.x; idx < S * kChunks; idx += kThreads) {
+    const int j = idx / kChunks;
+    const int c = idx - j * kChunks;
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(
+        src + j * stride + c * kElemsPerChunk));
+    uint32_t* d = dst + j * W + c * 4;
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  }
+}
+
+__device__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+slab_attention_kernel(const T* __restrict__ qkv,
+                      const float* __restrict__ key_bias, T* __restrict__ out,
+                      int S, int H, float scale) {
+  extern __shared__ uint32_t smem[];
+  constexpr int W = Elem<T>::kRowWords;
+  uint32_t* kv_s = smem;                                  // [S][W]
+  float* p_s = reinterpret_cast<float*>(smem + S * W);    // [32][S]
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int row0 = blockIdx.x * kRowsPerBlock;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int D = H * kHeadDim;
+  const long long stride = 3LL * D;
+  const T* slab = qkv + (long long)b * S * stride;
+  const float* bias = key_bias ? key_bias + (long long)b * S : nullptr;
+
+  // Phase 1: K -> shared memory; scores, softmax, rounded p -> shared memory.
+  stage_rows<T>(kv_s, slab + D + h * kHeadDim, S, stride);
+  __syncthreads();
+  for (int r = warp; r < kRowsPerBlock; r += kWarps) {
+    const int row = row0 + r;
+    if (row >= S) break;  // uniform across the warp
+    // every lane reads the whole q row: one broadcast transaction per load
+    float q[kHeadDim];
+    const uint4* qsrc =
+        reinterpret_cast<const uint4*>(slab + row * stride + h * kHeadDim);
+#pragma unroll
+    for (int c = 0; c < kHeadDim * int(sizeof(T)) / 16; ++c) {
+      const uint4 v = __ldg(qsrc + c);
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+      // a 16-byte chunk holds 8 / sizeof(T) element pairs
+#pragma unroll
+      for (int k = 0; k < 8 / int(sizeof(T)); ++k) {
+        float a, bb;
+        Elem<T>::pair(w, k, a, bb);
+        const int base = c * (16 / int(sizeof(T))) + 2 * k;
+        q[base] = a;
+        q[base + 1] = bb;
+      }
+    }
+
+    float s[kKeysPerLane];
+    float m = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kKeysPerLane; ++i) {
+      const int j = lane + 32 * i;
+      s[i] = -INFINITY;
+      if (j < S) {
+        const uint32_t* krow = kv_s + j * W;
+        float acc = 0.f;
+#pragma unroll
+        for (int d = 0; d < kHeadDim / 2; ++d) {
+          float a, bb;
+          Elem<T>::pair(krow, d, a, bb);
+          acc = fmaf(q[2 * d], a, acc);
+          acc = fmaf(q[2 * d + 1], bb, acc);
+        }
+        float v = acc * scale;
+        if (bias) v += bias[j];
+        s[i] = v;
+        m = fmaxf(m, v);
+      }
+    }
+    m = warp_max(m);
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kKeysPerLane; ++i) {
+      if (lane + 32 * i < S) {
+        s[i] = expf(s[i] - m);
+        sum += s[i];
+      }
+    }
+    sum = warp_sum(sum);
+    float* prow = p_s + r * S;
+#pragma unroll
+    for (int i = 0; i < kKeysPerLane; ++i) {
+      const int j = lane + 32 * i;
+      if (j < S) prow[j] = Elem<T>::round(s[i] / sum);
+    }
+  }
+  __syncthreads();
+
+  // Phase 2: V -> the same buffer; lane l owns output columns 2l, 2l+1.
+  stage_rows<T>(kv_s, slab + 2 * D + h * kHeadDim, S, stride);
+  __syncthreads();
+  for (int r = warp; r < kRowsPerBlock; r += kWarps) {
+    const int row = row0 + r;
+    if (row >= S) break;
+    const float* prow = p_s + r * S;
+    float o0 = 0.f, o1 = 0.f;
+    for (int j = 0; j < S; ++j) {
+      const float p = prow[j];
+      float a, bb;
+      Elem<T>::pair(kv_s + j * W, lane, a, bb);
+      o0 = fmaf(p, a, o0);
+      o1 = fmaf(p, bb, o1);
+    }
+    Elem<T>::store(out + ((long long)b * S + row) * D + h * kHeadDim + 2 * lane,
+                   o0, o1);
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* qkv, const void* key_bias, void* out, int B,
+                   int S, int H, float scale, cudaStream_t stream) {
+  const size_t smem =
+      size_t(S) * Elem<T>::kRowWords * 4 + size_t(kRowsPerBlock) * S * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        slab_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
+  slab_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<const float*>(key_bias),
+      static_cast<T*>(out), S, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point, loaded with ctypes. `qkv` is a contiguous
+// [B, S, 3*H*head_dim] tensor, `key_bias` a contiguous fp32 [B, S] tensor or
+// null, `out` a contiguous [B, S, H*head_dim] tensor of qkv's dtype.
+// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+extern "C" int keep_attention_qkv_slab(const void* qkv, const void* key_bias,
+                                       void* out, int B, int S, int H,
+                                       int head_dim, int dtype, float scale,
+                                       void* stream) {
+  if (head_dim != kHeadDim || S < 1 || S > kMaxSeq || H < 1 || B < 1 ||
+      B > 65535 || H > 65535)
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return int(launch<float>(qkv, key_bias, out, B, S, H, scale, st));
+    case 1:
+      return int(launch<__nv_bfloat16>(qkv, key_bias, out, B, S, H, scale, st));
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}

@@ -1,0 +1,104 @@
+"""The KEEP model and its published inference API (counterpart of
+``keep_tpu/models/keep.py``).
+
+  encode_image(pixels)       = l2_normalize(visual_head(vit(pixels)))
+  encode_text(ids, mask, tt) = l2_normalize(bert(...).pooler_output)
+
+with ``visual_head`` = Linear(1024→768) → exact GELU → Linear(768→768).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import torch
+from torch import nn
+
+from keep_tpu_torch.configs import KEEPConfig
+from keep_tpu_torch.models.bert import BertModel
+from keep_tpu_torch.models.vit import VisionTransformer
+from keep_tpu_torch.ops.nn import Linear, gelu, l2_normalize
+
+
+class VisualHead(nn.Module):
+    def __init__(self, d_in: int, d_out: int, *, device=None):
+        super().__init__()
+        self.fc1 = Linear(d_in, d_out, device=device)
+        self.fc2 = Linear(d_out, d_out, device=device)
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        # the head's GELU is always the exact erf form
+        feats = self.fc2(gelu(self.fc1(feats)))
+        return l2_normalize(feats.float())
+
+
+class KEEPModel(nn.Module):
+    """ViT-L/16 image tower, visual head and BERT text tower.
+
+    ``dtype`` is the compute dtype. The matmul weights are stored in it
+    (``load_state_dict`` rounds fp32 values into them; the JAX package casts
+    its fp32 kernels to the same values on every call), while LayerNorm,
+    biases and embedding tables stay fp32. ``use_flash`` routes attention
+    through the fused kernel. ``gelu_approx=None`` means the tanh GELU under
+    bf16 and the erf GELU otherwise, as in the JAX package. Parameters are
+    created empty: load a state dict (``from_pretrained`` does)."""
+
+    def __init__(self, cfg: KEEPConfig, *, dtype: torch.dtype = torch.float32,
+                 use_flash: bool = False, gelu_approx: bool | None = None,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        self.use_flash = use_flash
+        self.gelu_approx = (dtype == torch.bfloat16 if gelu_approx is None
+                            else gelu_approx)
+        self.visual = VisionTransformer(cfg.vision, device=device)
+        self.visual_head = VisualHead(cfg.vision.embed_dim, cfg.projection_dim,
+                                      device=device)
+        self.text = BertModel(cfg.text, device=device)
+        self.logit_scale = nn.Parameter(torch.tensor(
+            math.log(1.0 / cfg.logit_scale_init), device=device))
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, Linear):
+                    m.weight.data = m.weight.data.to(dtype)
+
+    def encode_image(self, pixels: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 3] normalised pixels → [B, projection_dim] unit fp32."""
+        feats = self.visual(pixels, dtype=self.dtype, use_flash=self.use_flash,
+                            gelu_approx=self.gelu_approx)
+        return self.visual_head(feats)
+
+    def encode_text(self, input_ids: torch.Tensor,
+                    attention_mask: torch.Tensor | None = None,
+                    token_type_ids: torch.Tensor | None = None) -> torch.Tensor:
+        """[B, S] token ids (+ mask) → [B, hidden] unit fp32 features."""
+        out = self.text(input_ids, attention_mask, token_type_ids,
+                        dtype=self.dtype, use_flash=self.use_flash,
+                        gelu_approx=self.gelu_approx)
+        return l2_normalize(out["pooler_output"].float())
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str,
+                        dtype: torch.dtype = torch.float32,
+                        use_flash: bool = False, device=None,
+                        cfg: KEEPConfig | None = None) -> "KEEPModel":
+        """Reads ``config.json`` and ``pytorch_model.bin`` (or
+        ``model.safetensors``) in the released layout."""
+        from keep_tpu_torch.compat.torch_loader import (load_keep_state_dict,
+                                                        load_state_dict_file)
+
+        cfg = cfg or KEEPConfig.from_hf_json(os.path.join(model_dir,
+                                                          "config.json"))
+        for name in ("pytorch_model.bin", "model.safetensors"):
+            weights = os.path.join(model_dir, name)
+            if os.path.exists(weights):
+                break
+        else:
+            raise FileNotFoundError(
+                f"no pytorch_model.bin or model.safetensors in {model_dir}")
+        sd = load_keep_state_dict(load_state_dict_file(weights), cfg)
+        model = cls(cfg, dtype=dtype, use_flash=use_flash, device=device)
+        model.load_state_dict(sd, strict=True)
+        return model.eval()

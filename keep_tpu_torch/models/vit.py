@@ -1,0 +1,144 @@
+"""ViT-L/16 image encoder (counterpart of ``keep_tpu/models/vit.py``).
+
+timm ``vit_large_patch16_224`` semantics as the released KEEP model uses it:
+patch embed as a reshape plus one matmul, CLS token, learned pos embed,
+pre-LN blocks with LayerScale, final LayerNorm, CLS pooling. Pixels come in
+NHWC, [B, H, W, 3], as in the JAX package.
+
+Parameter names follow the JAX pytree (``patch_embed``, ``blocks.{i}.attn.qkv``,
+``ls1``, ...); weights are torch-layout ``[out, in]``. The patch-embed weight
+is ``[D, P·P·3]`` with the (ph, pw, c) flatten order of ``patchify``.
+
+Not ported yet: ``resample_pos_embed`` (image sizes other than the native
+one raise), ``fuse_ln``, patch dropout, ``ln_stats`` and ``act_sharding``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from keep_tpu_torch.configs import ViTConfig
+from keep_tpu_torch.kernels.flash_attention import attention_qkv_slab
+from keep_tpu_torch.ops.nn import LayerNorm, Linear, Mlp, mha_attention
+
+
+def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """[B, H, W, C] → [B, H/P · W/P, P·P·C] patches, flattened (ph, pw, c).
+    The embedding is then a plain matmul, which keeps cuDNN's TF32
+    convolutions out of the fp32 path."""
+    b, h, w, c = x.shape
+    gh, gw = h // patch_size, w // patch_size
+    x = x.reshape(b, gh, patch_size, gw, patch_size, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)  # [B, gh, gw, ph, pw, c]
+    return x.reshape(b, gh * gw, patch_size * patch_size * c)
+
+
+class Attention(nn.Module):
+    def __init__(self, dim: int, *, device=None):
+        super().__init__()
+        self.qkv = Linear(dim, 3 * dim, device=device)
+        self.proj = Linear(dim, dim, device=device)
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block with optional LayerScale (``ls1``/``ls2``;
+    ``fold_layerscale`` removes them)."""
+
+    def __init__(self, cfg: ViTConfig, *, device=None):
+        super().__init__()
+        d = cfg.embed_dim
+        self.cfg = cfg
+        self.norm1 = LayerNorm(d, cfg.ln_eps, device=device)
+        self.attn = Attention(d, device=device)
+        self.norm2 = LayerNorm(d, cfg.ln_eps, device=device)
+        self.mlp = Mlp(d, cfg.mlp_dim, device=device)
+        if cfg.layerscale_init is not None:
+            self.ls1 = nn.Parameter(torch.full((d,), cfg.layerscale_init,
+                                               device=device))
+            self.ls2 = nn.Parameter(torch.full((d,), cfg.layerscale_init,
+                                               device=device))
+        else:
+            self.ls1 = self.ls2 = None
+
+    def forward(self, x: torch.Tensor, *, use_flash: bool,
+                gelu_approx: bool) -> torch.Tensor:
+        b, s, d = x.shape
+        h = self.cfg.num_heads
+        qkv = self.attn.qkv(self.norm1(x))  # [B, S, 3D]
+        if use_flash:
+            # the kernel slices heads out of the slab: no split, no transpose
+            attn = attention_qkv_slab(qkv, num_heads=h)
+        else:
+            q, k, v = qkv.reshape(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4)
+            attn = mha_attention(q, k, v).transpose(1, 2).reshape(b, s, d)
+        attn = self.attn.proj(attn)
+        if self.ls1 is not None:
+            attn = attn * self.ls1.to(attn.dtype)
+        x = x + attn
+        y = self.mlp(self.norm2(x), gelu_approx=gelu_approx)
+        if self.ls2 is not None:
+            y = y * self.ls2.to(y.dtype)
+        return x + y
+
+
+class VisionTransformer(nn.Module):
+    def __init__(self, cfg: ViTConfig, *, device=None):
+        super().__init__()
+        unsupported = {
+            "num_prefix_tokens": cfg.num_prefix_tokens != 1,
+            "pool": cfg.pool != "token",
+            "act": cfg.act != "gelu",
+            "fc_norm": cfg.fc_norm,
+            "moe_experts": cfg.moe_experts != 0,
+        }
+        bad = [k for k, v in unsupported.items() if v]
+        if bad:
+            raise NotImplementedError(
+                f"ViTConfig fields {bad} are outside the ported KEEP ViT "
+                f"(CLS token, token pooling, GELU, dense trunk)")
+        d = cfg.embed_dim
+        self.cfg = cfg
+        self.patch_embed = Linear(cfg.patch_size * cfg.patch_size * 3, d,
+                                  device=device)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, d, device=device))
+        self.pos_embed = nn.Parameter(
+            torch.zeros(1, 1 + cfg.num_patches, d, device=device))
+        self.blocks = nn.ModuleList(
+            Block(cfg, device=device) for _ in range(cfg.depth))
+        self.norm = LayerNorm(d, cfg.ln_eps, device=device)
+
+    def forward(self, x: torch.Tensor, *, dtype: torch.dtype = torch.float32,
+                use_flash: bool = False,
+                gelu_approx: bool = False) -> torch.Tensor:
+        """[B, H, W, 3] normalised pixels → [B, D] CLS features."""
+        b, h, w, _ = x.shape
+        cfg = self.cfg
+        if (h, w) != (cfg.img_size, cfg.img_size):
+            raise ValueError(
+                f"image size {(h, w)} differs from the native "
+                f"{cfg.img_size}; pos-embed resampling is not ported yet")
+        x = x.to(dtype)
+        tokens = self.patch_embed(patchify(x, cfg.patch_size))
+        cls = self.cls_token.to(dtype).expand(b, 1, cfg.embed_dim)
+        tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(dtype)
+        for blk in self.blocks:
+            tokens = blk(tokens, use_flash=use_flash, gelu_approx=gelu_approx)
+        # LayerNorm is per token, so normalising the pooled CLS row alone
+        # equals the JAX package's norm-then-pool
+        return self.norm(tokens[:, 0])
+
+
+@torch.no_grad()
+def fold_layerscale(vit: VisionTransformer) -> VisionTransformer:
+    """Folds the LayerScale gammas into proj and fc2 in place,
+    γ·(Wx + b) = (γ⊙W)x + γ⊙b, and removes them. Exact; returns ``vit``."""
+    for blk in vit.blocks:
+        if blk.ls1 is None:
+            continue
+        for lin, gamma in ((blk.attn.proj, blk.ls1), (blk.mlp.fc2, blk.ls2)):
+            g = gamma.float()
+            lin.weight.copy_(lin.weight.float() * g[:, None])
+            lin.bias.copy_(lin.bias.float() * g)
+        blk.ls1 = blk.ls2 = None
+    return vit
