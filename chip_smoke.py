@@ -7,11 +7,20 @@ Phases, one line of output each (a failing phase raises, and the script
 exits non-zero without a result line):
 
 1. device   — needs CUDA; prints the card and its power limit; TF32 off.
-2. build    — compiles the CUDA kernels from ``keep_tpu_torch/kernels/csrc``.
+2. build    — compiles the CUDA kernels from ``keep_tpu_torch/kernels/csrc``
+   (one nvcc per source, in parallel).
 3. kernel   — ``attention_qkv_slab`` against its plain PyTorch version at the
    serving shapes (ViT-L: B=32, S=197, H=16, no bias; BERT-base: B=32,
    S=256, H=12, padded key bias), in fp32 (atol = rtol = 2e-5) and bf16
    (max |Δ| < 0.05 on unpadded query rows), each timed with CUDA events.
+   int8_kernel — the int8 counterparts of the TPU kernels (the ViT and BERT
+   attention sub-blocks, the MLP pair in both towers' forms, the patch-embed
+   and visual-head matmuls) against their plain versions at the serving
+   shapes, in fp32 at the JAX package's tolerances for each
+   (``tests/test_quant.py``), with the share of int8 codes that differ from
+   the plain version's; kernel and plain times in bf16. int8_primitive —
+   the three CUDA kernels alone (quant_rows, int8_gemm, ln_rows) against
+   their plain versions (the GEMM's is cuBLAS int8).
 4. server   — a full-width KEEP (ViT-L/16 + BERT-base) with random weights
    written in the released checkpoint layout, loaded by
    ``keep_tpu_torch.serve.build_server`` (bf16, fused attention), warmed up
@@ -21,6 +30,18 @@ exits non-zero without a result line):
    every dispatch went through it.
 5. numbers  — image and text throughput at bucket 128, and the device-time
    share of the attention kernel, beside the card's name and power limit.
+6. int8_drift — the int8 model of phase 4's weights against phase 4's
+   features, reported, not gated: on weights whose every block moves the
+   stream, W8A8 drifts further than on the JAX package's init statistics.
+   server (int8) — weights drawn with the statistics of the JAX package's
+   ``keep.init`` (on which its int8 gate, ``bench.py`` ``_int8_gate``, is
+   measured) served by ``build_server([..., "--int8"])`` and driven over
+   HTTP as in phase 4: finite unit features, cosine ≥ 0.999 per row against
+   the same weights served in bf16, and launch counts that show every block
+   of every dispatch went through the int8 attention sub-block and MLP pair
+   of its tower.
+7. numbers (int8) — the same throughputs for the int8 server, and a device
+   time breakdown of one bucket-128 image dispatch by kernel.
 
 Then one JSON line describing the kernels, and last the result line
 ``{"ok": true, "device": {...}}``.
@@ -44,6 +65,28 @@ import numpy as np
 
 SOURCE = "keep_tpu_torch/kernels/csrc/attention_qkv_slab.cu"
 REPLACES = "keep_tpu/kernels/flash_attention.py:190"
+CSRC = "keep_tpu_torch/kernels/csrc/"
+# the int8 counterparts of the TPU kernels: the module that composes them
+# and the CUDA sources they run, the TPU kernel each replaces
+INT8_KERNELS = {
+    "quantized_attention_block": (
+        "keep_tpu_torch/kernels/qblock.py",
+        ["quant_rows.cu", "int8_gemm.cu", "attention_qkv_slab.cu"],
+        "keep_tpu/kernels/qblock.py:79"),
+    "quantized_attention_block_postln": (
+        "keep_tpu_torch/kernels/qblock.py",
+        ["quant_rows.cu", "int8_gemm.cu", "attention_qkv_slab.cu"],
+        "keep_tpu/kernels/qblock.py:182"),
+    "quantized_mlp_bsd": (
+        "keep_tpu_torch/kernels/qmlp.py",
+        ["quant_rows.cu", "int8_gemm.cu"], "keep_tpu/kernels/qmlp.py:227"),
+    "quantized_matmul_bsd": (
+        "keep_tpu_torch/kernels/qmatmul.py",
+        ["quant_rows.cu", "int8_gemm.cu"], "keep_tpu/kernels/qmatmul.py:151"),
+    "quantized_matmul": (
+        "keep_tpu_torch/kernels/qmatmul.py",
+        ["quant_rows.cu", "int8_gemm.cu"], "keep_tpu/kernels/qmatmul.py:80"),
+}
 VOCAB = ("[PAD] [UNK] [CLS] [SEP] [MASK] an h & e image of breast invasive "
          "carcinoma normal tissue lung adeno ##carcinoma squamous cell "
          "melanoma skin kidney clear renal tumor . , -").split()
@@ -117,11 +160,198 @@ def check_kernel(fa, torch, gen) -> list[dict]:
     return rows
 
 
-def write_model(d: str, torch, cfg, device: str = "cuda") -> None:
+def check_int8_kernels(torch, gen) -> tuple[dict, list]:
+    """Phase 3b. Each int8 counterpart of a TPU kernel through the kernels
+    against its plain version (fp32 stream, the JAX tests' tolerance), the
+    share of int8 codes that differ from the plain quantizer's on the
+    tensors each one quantizes, and kernel and plain times in bf16. Then
+    the three CUDA kernels alone. Returns ({name: row}, primitive rows)."""
+    from keep_tpu_torch.kernels import _kops, qblock, qmatmul, qmlp
+    from keep_tpu_torch.ops.nn import LayerNorm, QLinear
+    from keep_tpu_torch.quant import quantize_kernel
+
+    P = _kops.PLAIN
+    dev = "cuda"
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, device=dev, generator=gen) * std
+
+    def qlin(k, n):
+        q, s = quantize_kernel(randn(n, k, std=k ** -0.5))
+        return QLinear.from_quantized(q, s, randn(n, std=0.02))
+
+    def norm(d, eps):
+        m = LayerNorm(d, eps, device=dev).requires_grad_(False)
+        m.weight.copy_(1 + randn(d, std=0.1))
+        m.bias.copy_(randn(d, std=0.05))
+        return m
+
+    def code_share(x2, *args, **kw):
+        """Share of quant_rows' codes that differ from the plain
+        version's on x2; a code may move by at most one."""
+        q, _ = _kops.quant_rows(x2, *args, **kw)
+        rq, _ = P.quant_rows(x2, *args, **kw)
+        diff = (q.int() - rq.int()).abs()
+        if diff.max().item() > 1:
+            raise AssertionError(f"int8 codes off by {diff.max().item()}")
+        return diff.count_nonzero().item(), diff.numel()
+
+    # ---- the serving shapes ---------------------------------------------
+    vb, vs, vd, vh, vf = 32, 197, 1024, 16, 4096  # ViT-L/16
+    tb, ts, td, th, tf = 32, 256, 768, 12, 3072   # BERT-base
+    vx = randn(vb, vs, vd)
+    vn1, vn2 = norm(vd, 1e-6), norm(vd, 1e-6)
+    vqkv, vproj, vfc1, vfc2 = (qlin(vd, 3 * vd), qlin(vd, vd), qlin(vd, vf),
+                               qlin(vf, vd))
+    tx = randn(tb, ts, td)
+    lens = torch.randint(8, ts + 1, (tb,), device=dev, generator=gen)
+    kb = (1.0 - (torch.arange(ts, device=dev)[None] < lens[:, None]).float()
+          ) * -1e9
+    tn1, tn2 = norm(td, 1e-12), norm(td, 1e-12)
+    tqkv, tout, tfc1, tfc2 = (qlin(td, 3 * td), qlin(td, td), qlin(td, tf),
+                              qlin(tf, td))
+    tqkv.pre_scale = torch.exp(randn(td, std=0.5))
+    tfc1.pre_scale = torch.exp(randn(td, std=0.5))
+    px = randn(vb, 196, 768)  # normalised 16×16×3 patches
+    pe = qlin(768, vd)
+    feats = randn(vb, vd)  # the pooled, normed CLS features
+    hd1 = qlin(vd, 768)
+
+    def mlp_args(x, f1, f2):
+        return (x, f1.weight_q, f1.weight_scale, f1.bias, f2.weight_q,
+                f2.weight_scale, f2.bias)
+
+    def hidden(x2, f1, **kw):
+        """The plain fc1 + GELU output, the tensor the MLP re-quantizes."""
+        xq, a = P.quant_rows(x2, **kw)
+        return P.int8_gemm(xq, a, f1.weight_q, f1.weight_scale, f1.bias,
+                           order=_kops.DEQUANT_PAIRED, gelu=True)
+
+    def attn_out(x2, b, s, d, h, qkv, key_bias, **kw):
+        """The plain fp32 attention output, the tensor the block
+        re-quantizes."""
+        xq, a = P.quant_rows(x2, **kw)
+        slab = P.int8_gemm(xq, a, qkv.weight_q, qkv.weight_scale, qkv.bias,
+                           order=_kops.DEQUANT_PAIRED,
+                           out_dtype=torch.bfloat16)
+        return P.attention(slab.view(b, s, 3 * d), key_bias, num_heads=h,
+                           out_dtype=torch.float32).view(b * s, d)
+
+    vx2, tx2 = vx.view(-1, vd), tx.view(-1, td)
+    cases = [
+        ("quantized_attention_block", "vit_l16 B=32 S=197 D=1024 H=16",
+         qblock.quantized_attention_block,
+         qblock.quantized_attention_block_reference,
+         lambda x: (x, vn1, vqkv, vproj), dict(num_heads=vh, eps=1e-6),
+         vx, 5e-3, 1e-3,
+         lambda: [code_share(vx2, vn1.weight, vn1.bias, 1e-6),
+                  code_share(attn_out(vx2, vb, vs, vd, vh, vqkv, None,
+                                      ln_scale=vn1.weight,
+                                      ln_bias=vn1.bias, eps=1e-6))]),
+        ("quantized_mlp_bsd", "vit_l16 B=32 S=197 D=1024 F=4096, LN + "
+         "residual", qmlp.quantized_mlp_bsd, qmlp.quantized_mlp_bsd_reference,
+         lambda x: mlp_args(x, vfc1, vfc2),
+         dict(ln_scale=vn2.weight, ln_bias=vn2.bias, eps=1e-6,
+              residual=True),
+         vx, 2e-4, 1e-4,
+         lambda: [code_share(vx2, vn2.weight, vn2.bias, 1e-6),
+                  code_share(hidden(vx2, vfc1, ln_scale=vn2.weight,
+                                    ln_bias=vn2.bias, eps=1e-6))]),
+        ("quantized_attention_block_postln", "bert_base B=32 S=256 D=768 "
+         "H=12, padded key bias, pre_scale",
+         qblock.quantized_attention_block_postln,
+         qblock.quantized_attention_block_postln_reference,
+         lambda x: (x, kb, tn1, tqkv, tout), dict(num_heads=th, eps=1e-12),
+         tx, 5e-3, 1e-3,
+         lambda: [code_share(tx2, pre_scale=tqkv.pre_scale),
+                  code_share(attn_out(tx2, tb, ts, td, th, tqkv, kb,
+                                      pre_scale=tqkv.pre_scale))]),
+        ("quantized_mlp_bsd", "bert_base B=32 S=256 D=768 F=3072, post-LN + "
+         "pre_scale", qmlp.quantized_mlp_bsd, qmlp.quantized_mlp_bsd_reference,
+         lambda x: mlp_args(x, tfc1, tfc2),
+         dict(ln_scale=tn2.weight, ln_bias=tn2.bias, eps=1e-12, post_ln=True,
+              pre_scale1=tfc1.pre_scale),
+         tx, 2e-3, 2e-3,
+         lambda: [code_share(tx2, pre_scale=tfc1.pre_scale),
+                  code_share(hidden(tx2, tfc1, pre_scale=tfc1.pre_scale))]),
+        ("quantized_matmul_bsd", "patch embed [32,196,768]x[768->1024]",
+         qmatmul.quantized_matmul_bsd, qmatmul.quantized_matmul_bsd_reference,
+         lambda x: (x, pe.weight_q, pe.weight_scale, pe.bias), {},
+         px, 1e-4, 1e-4, lambda: [code_share(px.view(-1, 768))]),
+        ("quantized_matmul", "visual head [32,1024]->768",
+         qmatmul.quantized_matmul, qmatmul.quantized_matmul_reference,
+         lambda x: (x, hd1.weight_q, hd1.weight_scale, hd1.bias), {},
+         feats, 1e-4, 1e-4, lambda: [code_share(feats)]),
+    ]
+    rows: dict[str, dict] = {}
+    for name, shape, fn, ref, args, kw, x, atol, rtol, codes in cases:
+        out_kw = {} if name.startswith("quantized_a") else {
+            "out_dtype": x.dtype}
+        got = fn(*args(x), **kw, **out_kw)
+        torch.cuda.synchronize()
+        want = ref(*args(x), **kw, **out_kw)
+        if got.dtype != torch.float32 or got.shape != want.shape:
+            raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}")
+        err = (got - want).abs().max().item()
+        if not torch.allclose(got, want, atol=atol, rtol=rtol):
+            raise AssertionError(f"{name} ({shape}) vs plain: max |Δ| {err} "
+                                 f"beyond atol {atol} / rtol {rtol}")
+        changed, total = map(sum, zip(*codes()))
+        x16 = x.bfloat16()
+        out16 = {} if not out_kw else {"out_dtype": torch.bfloat16}
+        ms = cuda_ms(lambda: fn(*args(x16), **kw, **out16))
+        plain_ms = cuda_ms(lambda: ref(*args(x16), **kw, **out16))
+        row = {"name": name, "shape": shape, "max_abs_err": err,
+               "atol": atol, "rtol": rtol,
+               "int8_codes_differing": changed, "int8_codes": total,
+               "int8_code_diff_share": changed / total,
+               "ms_bf16": ms, "plain_ms_bf16": plain_ms}
+        phase("int8_kernel", **row)
+        rows.setdefault(name, {"shapes": []})["shapes"].append(row)
+
+    # ---- the three CUDA kernels alone -------------------------------------
+    m, k, n = vb * vs, vd, vf
+    xq = torch.randint(-127, 128, (m, k), device=dev, generator=gen,
+                       dtype=torch.int8)
+    a = torch.rand(m, device=dev, generator=gen) * 1e-2
+    h32 = randn(m, n)
+    vx16 = vx2.bfloat16()
+    prims = []
+    for pname, fn, ref, flops in (
+            ("int8_gemm fc1+GELU [6304,1024]x[1024->4096] fp32 out",
+             lambda: _kops.int8_gemm(xq, a, vfc1.weight_q, vfc1.weight_scale,
+                                     vfc1.bias, order=1, gelu=True),
+             lambda: P.int8_gemm(xq, a, vfc1.weight_q, vfc1.weight_scale,
+                                 vfc1.bias, order=1, gelu=True),
+             2 * m * k * n),
+            ("cuBLAS int8 GEMM alone (torch._int_mm), same shape",
+             lambda: torch._int_mm(xq, vfc1.weight_q.t()),
+             lambda: torch._int_mm(xq, vfc1.weight_q.t()), 2 * m * k * n),
+            ("quant_rows LN [6304,1024] bf16",
+             lambda: _kops.quant_rows(vx16, vn1.weight, vn1.bias),
+             lambda: P.quant_rows(vx16, vn1.weight, vn1.bias), 0),
+            ("quant_rows [6304,4096] fp32 hidden",
+             lambda: _kops.quant_rows(h32), lambda: P.quant_rows(h32), 0),
+            ("ln_rows [8192,768] fp32 -> bf16",
+             lambda: _kops.ln_rows(tx2, tn1.weight, tn1.bias, 1e-12,
+                                   torch.bfloat16),
+             lambda: P.ln_rows(tx2, tn1.weight, tn1.bias, 1e-12,
+                               torch.bfloat16), 0)):
+        t, tp = cuda_ms(fn), cuda_ms(ref)
+        row = {"kernel": pname, "ms": t, "plain_ms": tp}
+        if flops:
+            row["tops"] = flops / t / 1e9
+        phase("int8_primitive", **row)
+        prims.append(row)
+    return rows, prims
+
+
+def write_model(d: str, torch, cfg, device: str = "cuda",
+                keep_init: bool = False) -> None:
     from keep_tpu_torch.compat.torch_loader import random_keep_state_dict
 
     gen = torch.Generator(device=device).manual_seed(0)
-    sd = random_keep_state_dict(cfg, gen, device=device)
+    sd = random_keep_state_dict(cfg, gen, device=device, keep_init=keep_init)
     torch.save({k: v.cpu() for k, v in sd.items()},
                os.path.join(d, "pytorch_model.bin"))
     t = cfg.text
@@ -141,6 +371,40 @@ def write_model(d: str, torch, cfg, device: str = "cuda") -> None:
         }, f)
     with open(os.path.join(d, "vocab.txt"), "w") as f:
         f.write("\n".join(VOCAB) + "\n")
+
+
+def smoke_images(cfg) -> tuple[np.ndarray, np.ndarray]:
+    """The tiles the server phases send: 8 model-size ones and one 260×300
+    image that takes the host-side resize."""
+    rng = np.random.default_rng(0)
+    size = cfg.vision.img_size
+    tiles = rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8)
+    odd = rng.integers(0, 256, (1, 260, 300, 3), dtype=np.uint8)
+    return tiles, odd
+
+
+def served_features(torch, serve, cfg, d: str, quantize: bool,
+                    device: str = "cuda") -> dict:
+    """The features a server built as ``build_server`` builds it (bf16,
+    fused attention; ``quantize`` as ``--int8``) gives for the server
+    phases' inputs, through its core in this process, without HTTP."""
+    from keep_tpu_torch.models.keep import KEEPModel
+    from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
+
+    model = KEEPModel.from_pretrained(d, dtype=torch.bfloat16, use_flash=True,
+                                      device=device, quantize=quantize)
+    core = serve.InferenceServer(
+        model, WordPieceTokenizer.from_pretrained(d),
+        max_length=min(cfg.max_text_length,
+                       cfg.text.max_position_embeddings),
+        image_size=cfg.vision.img_size)
+    tiles, odd = smoke_images(cfg)
+    try:
+        return {"text": core.encode_text(PROMPTS),
+                "image": core.encode_image(tiles),
+                "image_260x300": core.encode_image(odd)}
+    finally:
+        core.stop()
 
 
 def http(port: int, path: str, body: bytes | None = None,
@@ -167,28 +431,32 @@ def cosine_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
                               * np.linalg.norm(b, axis=-1))
 
 
-def drive_server(torch, fa, serve, cfg, d: str, device: str = "cuda"):
-    """Phase 4. Returns the phase's result and the running server core;
-    the caller stops the core."""
+def drive_server(torch, fa, serve, cfg, d: str, device: str = "cuda",
+                 bf16_features: dict | None = None):
+    """Phase 4, or with ``bf16_features`` (phase 4's served features) phase
+    6: the int8 server, held to those. Returns the phase's result, the
+    running server core (the caller stops it) and the served features."""
+    from keep_tpu_torch.kernels import _kops
     from keep_tpu_torch.models.keep import KEEPModel
 
+    int8 = bf16_features is not None
     t0 = time.perf_counter()
     core, httpd = serve.build_server(["--model-dir", d, "--port", "0",
-                                      "--device", device])
+                                      "--device", device]
+                                     + (["--int8"] if int8 else []))
     setup_s = time.perf_counter() - t0
     port = httpd.server_address[1]
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
     try:
-        rng = np.random.default_rng(0)
-        size = cfg.vision.img_size
-        tiles = rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8)
-        odd = rng.integers(0, 256, (1, 260, 300, 3), dtype=np.uint8)
+        tiles, odd = smoke_images(cfg)
         sim_imgs = tiles[:2]
 
         stats0 = core.stats()
         with fa._launch_lock:
             fa.LAUNCHES = 0
+        with _kops._launch_lock:
+            _kops.LAUNCHES.clear()
         # ---- the main path, through the HTTP front end -------------------
         txt = np.asarray(json.loads(http(port, "/encode_text", json.dumps(
             {"texts": PROMPTS}).encode()))["embeddings"], np.float32)
@@ -204,6 +472,7 @@ def drive_server(torch, fa, serve, cfg, d: str, device: str = "cuda"):
             {"images": odd.tolist()}).encode()))["embeddings"], np.float32)
         stats = json.loads(http(port, "/stats"))
         launches = fa.LAUNCHES
+        int8_launches = dict(_kops.LAUNCHES)
         # -----------------------------------------------------------------
         check_features("encode_text", txt, 3, cfg.text.hidden_size)
         check_features("encode_image_npy", img, 8, cfg.projection_dim)
@@ -220,6 +489,15 @@ def drive_server(torch, fa, serve, cfg, d: str, device: str = "cuda"):
             raise AssertionError(
                 f"kernel launches {launches} < {want} for {img_disp} image "
                 f"and {txt_disp} text dispatches")
+        feats = {"text": txt, "image": img, "image_260x300": odd_feat}
+        sim_err = float(np.abs(sim - img[:2] @ txt[:2].T).max())
+        if sim_err > 1e-2:
+            raise AssertionError(f"similarity vs features: {sim_err}")
+        if int8:
+            return (check_int8_server(cfg, feats, bf16_features,
+                                      int8_launches, img_disp, txt_disp,
+                                      launches, setup_s, sim_err),
+                    core, feats)
 
         # the same weights without the kernel (plain attention), same bf16
         plain = KEEPModel(cfg, dtype=torch.bfloat16, use_flash=False,
@@ -237,19 +515,16 @@ def drive_server(torch, fa, serve, cfg, d: str, device: str = "cuda"):
         cos = {"text": cosine_rows(txt, ref_txt),
                "image": cosine_rows(img, ref_img),
                "image_260x300": cosine_rows(odd_feat, ref_odd)}
-        sim_err = float(np.abs(sim - img[:2] @ txt[:2].T).max())
         for k, c in cos.items():
             if not (c >= 0.999).all():
                 raise AssertionError(f"{k}: cosine vs plain attention {c}")
-        if sim_err > 1e-2:
-            raise AssertionError(f"similarity vs features: {sim_err}")
         result = {"setup_s": setup_s, "launches": launches,
                   "image_dispatches": img_disp, "text_dispatches": txt_disp,
                   "min_cos_vs_plain": {k: float(c.min()) for k, c in
                                        cos.items()},
                   "similarity_max_err": sim_err}
         phase("server", **result)
-        return result, core
+        return result, core, feats
     except BaseException:
         core.stop()
         raise
@@ -259,10 +534,44 @@ def drive_server(torch, fa, serve, cfg, d: str, device: str = "cuda"):
         thread.join(timeout=10)
 
 
-def throughput(torch, core, rng) -> dict:
+def check_int8_server(cfg, feats, bf16_features, launches, img_disp,
+                      txt_disp, attention_launches, setup_s, sim_err) -> dict:
+    """Phase 6's checks: the int8 features against the bf16 server's, and
+    every block of every dispatch through its tower's int8 kernels."""
+    cos = {k: cosine_rows(v, bf16_features[k]) for k, v in feats.items()}
+    for k, c in cos.items():
+        if not (c >= 0.999).all():
+            raise AssertionError(f"{k}: int8 cosine vs the bf16 server {c}")
+    vit_l, bert_l = cfg.vision.depth, cfg.text.num_hidden_layers
+    want = {"quantized_attention_block": img_disp * vit_l,
+            "quantized_attention_block_postln": txt_disp * bert_l,
+            "quantized_mlp_bsd": img_disp * vit_l + txt_disp * bert_l,
+            "quantized_matmul_bsd": img_disp,   # the patch embed
+            "quantized_matmul": 2 * img_disp}   # the visual head's linears
+    for name, n in want.items():
+        if launches.get(name, 0) != n:
+            raise AssertionError(
+                f"{name}: {launches.get(name, 0)} launches, want {n} for "
+                f"{img_disp} image and {txt_disp} text dispatches")
+    if attention_launches < img_disp * vit_l + txt_disp * bert_l:
+        raise AssertionError(f"attention launches {attention_launches}")
+    result = {"setup_s": setup_s, "launches": launches,
+              "attention_launches": attention_launches,
+              "image_dispatches": img_disp, "text_dispatches": txt_disp,
+              "min_cos_vs_bf16_server": {k: float(c.min())
+                                         for k, c in cos.items()},
+              "similarity_max_err": sim_err}
+    phase("server_int8", **result)
+    return result
+
+
+def throughput(torch, core, rng, int8: bool = False) -> dict:
     """Serving throughput at bucket 128 through the server core (queue, H2D,
     dispatch, fetch), two callers at a time so that double buffering works,
-    plus a device-time breakdown of one bucket-128 image dispatch."""
+    plus a device-time breakdown of one bucket-128 image dispatch. For the
+    bf16 server (phase 5) the dispatches are also timed with plain attention
+    on the same weights; for the int8 server (phase 7) the breakdown is also
+    summed by kernel family."""
     tiles = rng.integers(0, 256, (128, 224, 224, 3), dtype=np.uint8)
     texts = [PROMPTS[i % 3] for i in range(128)]
 
@@ -297,18 +606,22 @@ def throughput(torch, core, rng) -> dict:
     from keep_tpu_torch.ops.preprocess import normalize_only
 
     model = core.model
-    plain = KEEPModel(model.cfg, dtype=model.dtype, use_flash=False,
-                      device="cuda")
-    plain.load_state_dict(model.state_dict())
+    models = [("int8", model)] if int8 else [("kernel", model)]
+    if not int8:
+        plain = KEEPModel(model.cfg, dtype=model.dtype, use_flash=False,
+                          device="cuda")
+        plain.load_state_dict(model.state_dict())
+        models.append(("plain", plain))
     px = torch.from_numpy(tiles).cuda()
     ids = torch.zeros(128, 256, dtype=torch.long, device="cuda")
     mask = torch.ones_like(ids)
     dev_ms = {}
     with torch.inference_mode():
-        for tag, m in (("kernel", model), ("plain", plain)):
-            dev_ms[f"image_b128_{tag}_attention"] = cuda_ms(
+        for tag, m in models:
+            suffix = tag if int8 else f"{tag}_attention"
+            dev_ms[f"image_b128_{suffix}"] = cuda_ms(
                 lambda: m.encode_image(normalize_only(px)), runs=10)
-            dev_ms[f"text_b128x256_{tag}_attention"] = cuda_ms(
+            dev_ms[f"text_b128x256_{suffix}"] = cuda_ms(
                 lambda: m.encode_text(ids, mask), runs=10)
         from torch.profiler import ProfilerActivity, profile
 
@@ -331,7 +644,14 @@ def throughput(torch, core, rng) -> dict:
            "attention_kernel_share_image_b128":
                attn / total if total else "not measured",
            "image_b128_top_kernels_ms": top}
-    phase("numbers", **out)
+    if int8:
+        families = {}
+        for k, v in by_kernel.items():
+            fam = next((f for f in ("int8_gemm", "quant_rows", "ln_rows",
+                                    "slab_attention") if f in k), "other")
+            families[fam] = families.get(fam, 0.0) + v
+        out["image_b128_ms_by_family"] = families
+    phase("numbers_int8" if int8 else "numbers", **out)
     return out
 
 
@@ -362,27 +682,62 @@ def main() -> int:
           compiled=_build.BUILD_SECONDS is not None,
           library=_build.library_path().name)
 
-    # 3. kernel vs plain at the serving shapes
-    rows = check_kernel(fa, torch, torch.Generator(device="cuda").manual_seed(0))
+    # 3. kernels vs plain at the serving shapes
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = check_kernel(fa, torch, gen)
+    int8_rows, _ = check_int8_kernels(torch, gen)
 
-    # 4. + 5. the server, end to end, and its numbers
+    # 4.–7. the bf16 and the int8 server, end to end, and their numbers
     cfg = KEEPConfig()
-    with tempfile.TemporaryDirectory() as d:
+    with tempfile.TemporaryDirectory() as d, \
+            tempfile.TemporaryDirectory() as d_init:
         write_model(d, torch, cfg)
-        served, core = drive_server(torch, fa, serve, cfg, d)
+        served, core, feats = drive_server(torch, fa, serve, cfg, d)
+        try:
+            throughput(torch, core, np.random.default_rng(1))
+        finally:
+            core.stop()
+        del core
+        torch.cuda.empty_cache()
+        # the int8 scheme on these weights, whose blocks all move the
+        # stream: measured and reported, not gated
+        drift = served_features(torch, serve, cfg, d, quantize=True)
+        phase("int8_drift", weights="random, every block moving the stream",
+              min_cos_vs_bf16_server={
+                  k: float(cosine_rows(v, feats[k]).min())
+                  for k, v in drift.items()})
+        # the int8 server, gated at cos >= 0.999 on weights with the
+        # statistics the repo's gate is measured on (keep.init)
+        write_model(d_init, torch, cfg, keep_init=True)
+        ref = served_features(torch, serve, cfg, d_init, quantize=False)
+        served8, core8, _ = drive_server(torch, fa, serve, cfg, d_init,
+                                         bf16_features=ref)
     try:
-        throughput(torch, core, np.random.default_rng(1))
+        throughput(torch, core8, np.random.default_rng(1), int8=True)
     finally:
-        core.stop()
+        core8.stop()
 
     vit_bf16 = next(r for r in rows
                     if r["shape"] == "vit_l16" and r["dtype"] == "bfloat16")
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "attention_qkv_slab", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": served["launches"],
+        "launches_int8_path": served8["attention_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": vit_bf16["ms"], "plain_ms": vit_bf16["plain_ms"],
-        "shapes": rows}]}), flush=True)
+        "shapes": rows}]
+    for kname, (module, cu, replaces) in INT8_KERNELS.items():
+        shapes = int8_rows[kname]["shapes"]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": CSRC + "int8_gemm.cu",
+            "sources": [CSRC + f for f in cu] + [CSRC + "kops.cuh", module],
+            "replaces": replaces, "launches": served8["launches"][kname],
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": shapes[0]["ms_bf16"], "plain_ms": shapes[0]["plain_ms_bf16"],
+            "int8_code_diff_share": max(r["int8_code_diff_share"]
+                                        for r in shapes),
+            "shapes": shapes})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

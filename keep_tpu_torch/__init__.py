@@ -10,7 +10,10 @@ compiled the first time a wrapper launches one.
 - ``ops``                — linear, fp32 LayerNorm, GELU, attention, L2 norm;
   tile normalisation and the resize window arithmetic.
 - ``kernels``            — hand-written Hopper kernels and their plain
-  PyTorch versions (``attention_qkv_slab``).
+  PyTorch versions: ``attention_qkv_slab``, and the int8 W8A8 kernels
+  (``quant_rows``, ``int8_gemm``, ``ln_rows``) that the int8 linear, MLP
+  pair and attention sub-blocks (``qmatmul``, ``qmlp``, ``qblock``) run.
+- ``quant``              — int8 weight quantization (``QLinear`` swap).
 - ``models``             — ViT-L/16, BERT and the ``KEEPModel`` facade.
 - ``compat.torch_loader`` — released checkpoint and JAX pytree → state dict.
 - ``text``               — WordPiece tokenizer.

@@ -9,7 +9,12 @@
   BERT's q/k/v are fused into one ``[3D, D]`` projection.
 - ``from_jax_params``: the JAX package's parameter pytree (numpy leaves) →
   the port's state dict: ``kernel [in, out]`` → ``weight [out, in]``, LN
-  ``scale`` → ``weight``, stacked ``[L, ...]`` block leaves unstacked.
+  ``scale`` → ``weight``, stacked ``[L, ...]`` block leaves unstacked. A
+  quantized linear (a node with ``kernel_q``, from
+  ``keep_tpu.quant.quantize_linear_weights``) maps to an ``ops.nn.QLinear``:
+  ``kernel_q [in, out]`` → ``weight_q [out, in]``, its per-column ``scale``
+  → ``weight_scale`` (not ``weight``: it is a dequant scale, not a LayerNorm
+  gain), ``bias`` and a SmoothQuant ``pre_scale`` as they are.
 - ``random_keep_state_dict``: random weights in the released layout, drawn
   from a ``torch.Generator``, for tests and smoke runs.
 """
@@ -36,9 +41,14 @@ def _tensor(v) -> torch.Tensor:
 
 def _reject_quantized(keys) -> None:
     if any("kernel_q" in k for k in keys):
-        raise NotImplementedError(
-            "quantized (int8) checkpoints are not supported by the PyTorch "
-            "port yet")
+        raise ValueError(
+            "the released checkpoint layout holds no int8 weights; load the "
+            "fp checkpoint and quantize it (KEEPModel.quantize), or convert "
+            "a quantized JAX tree with from_jax_params")
+
+# leaves of a quantized linear node and their names in ops.nn.QLinear
+_QUANTIZED_LEAVES = {"kernel_q": "weight_q", "scale": "weight_scale",
+                     "bias": "bias", "pre_scale": "pre_scale"}
 
 
 def normalize_state_dict(sd: Mapping) -> dict:
@@ -118,8 +128,22 @@ def from_jax_params(params: Mapping, cfg: KEEPConfig) -> dict:
     out: dict[str, torch.Tensor] = {}
 
     def walk(node, path: tuple) -> None:
+        if isinstance(node, Mapping) and "kernel_q" in node:
+            for key, child in node.items():
+                if key not in _QUANTIZED_LEAVES:
+                    raise ValueError(f"{'.'.join(path)}: quantized linear leaf "
+                                     f"{key!r} is not ported (W8A16 / MoE)")
+                t = _tensor(child)
+                if key == "kernel_q":
+                    t = t.transpose(-1, -2).contiguous()
+                out[".".join((*path, _QUANTIZED_LEAVES[key]))] = t
+            return
         if isinstance(node, Mapping):
-            _reject_quantized(node.keys())
+            if "pre_scale" in node:
+                raise NotImplementedError(
+                    f"{'.'.join(path)}: a smoothed linear that is not "
+                    f"quantized (a pre_scale beside an fp kernel) is not "
+                    f"ported; quantize the tree first")
             for key, child in node.items():
                 if key == "blocks":
                     leaves = [np.asarray(x) for x in _leaves(child)]
@@ -218,13 +242,21 @@ def released_keep_shapes(cfg: KEEPConfig) -> dict[str, tuple]:
 
 @torch.no_grad()
 def random_keep_state_dict(cfg: KEEPConfig, generator: torch.Generator,
-                           device=None) -> dict:
+                           device=None, *, keep_init: bool = False) -> dict:
     """A released-layout KEEP state dict of random fp32 weights.
 
-    Linear and conv weights are normal with std fan_in^-0.5, biases and
-    embeddings normal(.02), LayerNorm gains 1 + normal(.1), and LayerScale
-    gammas uniform in [0.1, 0.5], so that every block moves the residual
-    stream (timm's 1e-5 init would leave the towers close to identity)."""
+    By default linear and conv weights are normal with std fan_in^-0.5,
+    biases and embeddings normal(.02), LayerNorm gains 1 + normal(.1), and
+    LayerScale gammas uniform in [0.1, 0.5], so that every block moves the
+    residual stream (timm's 1e-5 init would leave the towers close to
+    identity). ``keep_init=True`` draws instead with the statistics of the
+    JAX package's ``keep.init``, on which its int8-vs-bf16 gate
+    (``bench.py`` ``_int8_gate``) is measured: ViT and head weights std
+    fan_in^-0.5, BERT weights and embeddings std .02, zero biases, unit
+    LayerNorms, LayerScale gammas at ``layerscale_init``."""
+    ln_gain = ("norm.weight", "norm1.weight", "norm2.weight",
+               "LayerNorm.weight")
+    ln_bias = ("norm.bias", "norm1.bias", "norm2.bias", "LayerNorm.bias")
     out = {}
     for key, shape in released_keep_shapes(cfg).items():
         if key == "logit_scale":
@@ -232,15 +264,28 @@ def random_keep_state_dict(cfg: KEEPConfig, generator: torch.Generator,
                                     device=device)
             continue
         t = torch.empty(shape, device=device)
-        if key.endswith(".gamma"):
-            t.uniform_(0.1, 0.5, generator=generator)
-        elif key.endswith(("norm.weight", "norm1.weight", "norm2.weight",
-                           "LayerNorm.weight")):
-            t.normal_(1.0, 0.1, generator=generator)
-        elif len(shape) >= 2 and key.endswith(".weight") and (
-                "embeddings" not in key):
-            t.normal_(0.0, math.prod(shape[1:]) ** -0.5, generator=generator)
-        else:
+        matrix = (len(shape) >= 2 and key.endswith(".weight")
+                  and "embeddings" not in key)
+        fan_in_std = math.prod(shape[1:]) ** -0.5 if matrix else 0.0
+        if not keep_init:
+            if key.endswith(".gamma"):
+                t.uniform_(0.1, 0.5, generator=generator)
+            elif key.endswith(ln_gain):
+                t.normal_(1.0, 0.1, generator=generator)
+            elif matrix:
+                t.normal_(0.0, fan_in_std, generator=generator)
+            else:
+                t.normal_(0.0, 0.02, generator=generator)
+        elif key.endswith(".gamma"):
+            t.fill_(cfg.vision.layerscale_init)
+        elif key.endswith(ln_gain):
+            t.fill_(1.0)
+        elif key.endswith(ln_bias) or (key.endswith(".bias") and len(shape)
+                                       == 1):
+            t.zero_()
+        elif matrix and not key.startswith("text."):
+            t.normal_(0.0, fan_in_std, generator=generator)
+        else:  # BERT weights and embeddings, pos / cls tokens
             t.normal_(0.0, 0.02, generator=generator)
         out[key] = t
     return out

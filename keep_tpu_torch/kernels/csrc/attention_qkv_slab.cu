@@ -9,8 +9,13 @@
 // 2*H*64 + h*64):
 //   s = (q . k^T) in fp32 * Dh^-0.5 + key_bias[b, :]        (fp32)
 //   p = exp(s - rowmax(s)) / rowsum(...), then cast to the input dtype
-//   o = p . v accumulated in fp32, cast to the input dtype -> out[B, S, H*64]
-// The cast of p happens after the normalisation, as on the TPU.
+//   o = p . v accumulated in fp32, cast to the output dtype -> out[B, S, H*64]
+// The cast of p happens after the normalisation, as on the TPU. The output
+// dtype is the input's, or fp32 for a bf16 slab: that instantiation replaces
+// the attention inside the int8 megakernels, keep_tpu/kernels/qblock.py
+// `_sdpa` / `_sdpa_masked` (:36-44, :131-139, in the pallas_calls at :79 and
+// :182), which return the fp32 sum into an fp32 scratch that is quantized
+// without a bf16 round.
 //
 // What bounds it on this card: bytes. The slab is read from device memory
 // once per layer (each K/V head slice is re-read by every query tile, from
@@ -118,11 +123,11 @@ __device__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
+template <typename T, typename TOut>
 __global__ void __launch_bounds__(kThreads)
 slab_attention_kernel(const T* __restrict__ qkv,
-                      const float* __restrict__ key_bias, T* __restrict__ out,
-                      int S, int H, float scale) {
+                      const float* __restrict__ key_bias,
+                      TOut* __restrict__ out, int S, int H, float scale) {
   extern __shared__ uint32_t smem[];
   constexpr int W = Elem<T>::kRowWords;
   uint32_t* kv_s = smem;                                  // [S][W]
@@ -219,26 +224,27 @@ slab_attention_kernel(const T* __restrict__ qkv,
       o0 = fmaf(p, a, o0);
       o1 = fmaf(p, bb, o1);
     }
-    Elem<T>::store(out + ((long long)b * S + row) * D + h * kHeadDim + 2 * lane,
-                   o0, o1);
+    Elem<TOut>::store(
+        out + ((long long)b * S + row) * D + h * kHeadDim + 2 * lane, o0, o1);
   }
 }
 
-template <typename T>
+template <typename T, typename TOut>
 cudaError_t launch(const void* qkv, const void* key_bias, void* out, int B,
                    int S, int H, float scale, cudaStream_t stream) {
   const size_t smem =
       size_t(S) * Elem<T>::kRowWords * 4 + size_t(kRowsPerBlock) * S * 4;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        slab_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        slab_attention_kernel<T, TOut>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         int(smem));
     if (e != cudaSuccess) return e;
   }
   const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
-  slab_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
+  slab_attention_kernel<T, TOut><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const float*>(key_bias),
-      static_cast<T*>(out), S, H, scale);
+      static_cast<TOut*>(out), S, H, scale);
   return cudaGetLastError();
 }
 
@@ -246,8 +252,9 @@ cudaError_t launch(const void* qkv, const void* key_bias, void* out, int B,
 
 // Plain C entry point, loaded with ctypes. `qkv` is a contiguous
 // [B, S, 3*H*head_dim] tensor, `key_bias` a contiguous fp32 [B, S] tensor or
-// null, `out` a contiguous [B, S, H*head_dim] tensor of qkv's dtype.
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// null, `out` a contiguous [B, S, H*head_dim] tensor.
+// dtype: 0 = float32 in and out, 1 = bfloat16 in and out, 2 = bfloat16 in and
+// float32 out. Returns the cudaError_t of the launch.
 extern "C" int keep_attention_qkv_slab(const void* qkv, const void* key_bias,
                                        void* out, int B, int S, int H,
                                        int head_dim, int dtype, float scale,
@@ -258,9 +265,13 @@ extern "C" int keep_attention_qkv_slab(const void* qkv, const void* key_bias,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return int(launch<float>(qkv, key_bias, out, B, S, H, scale, st));
+      return int(launch<float, float>(qkv, key_bias, out, B, S, H, scale, st));
     case 1:
-      return int(launch<__nv_bfloat16>(qkv, key_bias, out, B, S, H, scale, st));
+      return int(launch<__nv_bfloat16, __nv_bfloat16>(qkv, key_bias, out, B, S,
+                                                      H, scale, st));
+    case 2:
+      return int(launch<__nv_bfloat16, float>(qkv, key_bias, out, B, S, H,
+                                              scale, st));
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -7,6 +7,11 @@ tensor it runs ``attention_qkv_slab_reference``, the same math in plain
 PyTorch, which the tests and ``chip_smoke.py`` also hold the kernel against.
 There is no fallback from one to the other.
 
+``out_dtype=torch.float32`` on a bf16 slab gives the fp32 sum uncast: the
+attention inside the int8 megakernels (``keep_tpu/kernels/qblock.py``
+``_sdpa`` and ``_sdpa_masked``), whose fp32 scratch is quantized without a
+bf16 round.
+
 Forward only: the closed-form backward (``_slab_attn_bwd``) comes with
 training.
 """
@@ -27,7 +32,10 @@ HEAD_DIM = 64  # the kernel is written for the KEEP towers' head width
 LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# (input dtype, output dtype) → the kernel's dtype code
+_DTYPE_CODE = {(torch.float32, torch.float32): 0,
+               (torch.bfloat16, torch.bfloat16): 1,
+               (torch.bfloat16, torch.float32): 2}
 
 
 def _head_dim(qkv: torch.Tensor, num_heads: int) -> int:
@@ -41,26 +49,31 @@ def _head_dim(qkv: torch.Tensor, num_heads: int) -> int:
 
 def attention_qkv_slab_reference(qkv: torch.Tensor,
                                  key_bias: torch.Tensor | None = None, *,
-                                 num_heads: int) -> torch.Tensor:
+                                 num_heads: int,
+                                 out_dtype: torch.dtype | None = None
+                                 ) -> torch.Tensor:
     """The kernel's math in plain PyTorch: qkv [B, S, 3·H·Dh] (+ fp32 key
-    bias [B, S]) → [B, S, H·Dh]."""
+    bias [B, S]) → [B, S, H·Dh] in ``out_dtype`` (default: qkv's)."""
     b, s, _ = qkv.shape
     h = num_heads
     dh = _head_dim(qkv, h)
     q, k, v = qkv.reshape(b, s, 3, h, dh).permute(2, 0, 3, 1, 4)
     bias = None if key_bias is None else key_bias.float()[:, None, None, :]
-    out = mha_attention(q, k, v, bias=bias)  # [B, H, S, Dh]
-    return out.transpose(1, 2).reshape(b, s, h * dh)
+    out = mha_attention(q, k, v, bias=bias, out_dtype=out_dtype)
+    return out.transpose(1, 2).reshape(b, s, h * dh)  # from [B, H, S, Dh]
 
 
 def attention_qkv_slab(qkv: torch.Tensor, key_bias: torch.Tensor | None = None,
-                       *, num_heads: int) -> torch.Tensor:
-    """qkv [B, S, 3·H·Dh], the unsplit qkv-projection output, → [B, S, H·Dh].
+                       *, num_heads: int,
+                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """qkv [B, S, 3·H·Dh], the unsplit qkv-projection output, → [B, S, H·Dh]
+    in ``out_dtype`` (default: qkv's dtype).
 
     ``key_bias``: optional [B, S] additive mask on key positions (0 valid,
     −1e9 masked), taken in fp32. A CUDA tensor goes through the kernel,
-    which takes fp32 or bf16, Dh = 64, S ≤ 512 and a contiguous slab, and
-    raises on anything else; a CPU tensor goes through the plain version."""
+    which takes fp32 → fp32, bf16 → bf16 or bf16 → fp32, Dh = 64, S ≤ 512
+    and a contiguous slab, and raises on anything else; a CPU tensor goes
+    through the plain version."""
     global LAUNCHES
     b, s, _ = qkv.shape
     dh = _head_dim(qkv, num_heads)
@@ -71,16 +84,20 @@ def attention_qkv_slab(qkv: torch.Tensor, key_bias: torch.Tensor | None = None,
     if key_bias is not None and tuple(key_bias.shape) != (b, s):
         raise ValueError(f"key_bias must be [B, S] = {(b, s)}, got "
                          f"{tuple(key_bias.shape)}")
+    out_dtype = qkv.dtype if out_dtype is None else out_dtype
     if qkv.device.type == "cpu":
-        return attention_qkv_slab_reference(qkv, key_bias, num_heads=num_heads)
+        return attention_qkv_slab_reference(qkv, key_bias, num_heads=num_heads,
+                                            out_dtype=out_dtype)
     if qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
     if dh != HEAD_DIM:
         raise ValueError(f"the kernel takes head_dim {HEAD_DIM}, got {dh}")
     if s > MAX_SEQ:
         raise ValueError(f"the kernel takes S ≤ {MAX_SEQ}, got {s}")
-    if qkv.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the kernel takes float32 or bfloat16, got {qkv.dtype}")
+    if (qkv.dtype, out_dtype) not in _DTYPE_CODE:
+        raise TypeError(f"the kernel takes float32 or bfloat16 in and "
+                        f"float32 or the input's dtype out, got {qkv.dtype} "
+                        f"→ {out_dtype}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("the kernel takes a contiguous, 16-byte aligned slab")
     if b > 65535:
@@ -92,10 +109,10 @@ def attention_qkv_slab(qkv: torch.Tensor, key_bias: torch.Tensor | None = None,
 
     from keep_tpu_torch.kernels._build import library
 
-    out = torch.empty(b, s, num_heads * dh, dtype=qkv.dtype, device=qkv.device)
+    out = torch.empty(b, s, num_heads * dh, dtype=out_dtype, device=qkv.device)
     rc = library().keep_attention_qkv_slab(
         qkv.data_ptr(), None if key_bias is None else key_bias.data_ptr(),
-        out.data_ptr(), b, s, num_heads, dh, _DTYPE_CODE[qkv.dtype],
+        out.data_ptr(), b, s, num_heads, dh, _DTYPE_CODE[qkv.dtype, out_dtype],
         dh ** -0.5, torch.cuda.current_stream(qkv.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"attention_qkv_slab kernel launch failed: "

@@ -18,7 +18,9 @@ from torch import nn
 
 from keep_tpu_torch.configs import BertConfig
 from keep_tpu_torch.kernels.flash_attention import attention_qkv_slab
-from keep_tpu_torch.ops.nn import LayerNorm, Linear, Mlp, mha_attention
+from keep_tpu_torch.kernels.qblock import quantized_attention_block_postln
+from keep_tpu_torch.kernels.qmlp import quantized_mlp_bsd
+from keep_tpu_torch.ops.nn import LayerNorm, Linear, Mlp, QLinear, mha_attention
 
 # Additive bias on padded keys (the JAX package's constant): finite, so that
 # bf16 arithmetic never meets an infinity, and large enough to zero the
@@ -55,10 +57,32 @@ class Block(nn.Module):
         self.mlp = Mlp(cfg.hidden_size, cfg.intermediate_size, device=device)
         self.norm = LayerNorm(cfg.hidden_size, cfg.ln_eps, device=device)
 
+    def int8_megakernel(self) -> bool:
+        """Whether the block can run the int8 megakernel path: all four
+        linears quantized."""
+        return all(isinstance(m, QLinear) for m in (
+            self.attn.qkv, self.attn.out, self.mlp.fc1, self.mlp.fc2))
+
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor, *,
                 use_flash: bool, gelu_approx: bool) -> torch.Tensor:
         b, s, d = x.shape
         h = self.cfg.num_attention_heads
+        if use_flash and gelu_approx and self.int8_megakernel():
+            # the post-LN attention sub-block (int8 qkv → masked MHA → int8
+            # out → LN(x + ·)), then the int8 MLP pair with the exit LN; the
+            # SmoothQuant pre_scales of qkv and fc1 ride into the quantize
+            # steps
+            eps = self.cfg.ln_eps
+            x = quantized_attention_block_postln(
+                x, key_bias, self.attn.norm, self.attn.qkv, self.attn.out,
+                num_heads=h, eps=eps)
+            m = self.mlp
+            return quantized_mlp_bsd(
+                x, m.fc1.weight_q, m.fc1.weight_scale, m.fc1.bias,
+                m.fc2.weight_q, m.fc2.weight_scale, m.fc2.bias,
+                out_dtype=x.dtype, ln_scale=self.norm.weight,
+                ln_bias=self.norm.bias, eps=eps, post_ln=True,
+                pre_scale1=m.fc1.pre_scale)
         qkv = self.attn.qkv(x)
         if use_flash:
             attn = attention_qkv_slab(qkv, key_bias=key_bias, num_heads=h)

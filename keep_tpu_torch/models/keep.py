@@ -36,17 +36,19 @@ class VisualHead(nn.Module):
 class KEEPModel(nn.Module):
     """ViT-L/16 image tower, visual head and BERT text tower.
 
-    ``dtype`` is the compute dtype. The matmul weights are stored in it
-    (``load_state_dict`` rounds fp32 values into them; the JAX package casts
-    its fp32 kernels to the same values on every call), while LayerNorm,
-    biases and embedding tables stay fp32. ``use_flash`` routes attention
+    ``dtype`` is the compute dtype. The matmul weights are stored in
+    ``weight_dtype``, by default the same (``load_state_dict`` rounds fp32
+    values into them; the JAX package casts its fp32 kernels to the same
+    values on every call), while LayerNorm, biases and embedding tables stay
+    fp32. ``weight_dtype=torch.float32`` under a bf16 ``dtype`` keeps the
+    checkpoint's values for ``quantize()``. ``use_flash`` routes attention
     through the fused kernel. ``gelu_approx=None`` means the tanh GELU under
     bf16 and the erf GELU otherwise, as in the JAX package. Parameters are
     created empty: load a state dict (``from_pretrained`` does)."""
 
     def __init__(self, cfg: KEEPConfig, *, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, gelu_approx: bool | None = None,
-                 device=None):
+                 device=None, weight_dtype: torch.dtype | None = None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -59,10 +61,13 @@ class KEEPModel(nn.Module):
         self.text = BertModel(cfg.text, device=device)
         self.logit_scale = nn.Parameter(torch.tensor(
             math.log(1.0 / cfg.logit_scale_init), device=device))
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, Linear):
-                    m.weight.data = m.weight.data.to(dtype)
+        self._cast_linear_weights(weight_dtype or dtype)
+
+    @torch.no_grad()
+    def _cast_linear_weights(self, dtype: torch.dtype) -> None:
+        for m in self.modules():
+            if isinstance(m, Linear):
+                m.weight.data = m.weight.data.to(dtype)
 
     def encode_image(self, pixels: torch.Tensor) -> torch.Tensor:
         """[B, H, W, 3] normalised pixels → [B, projection_dim] unit fp32."""
@@ -79,16 +84,65 @@ class KEEPModel(nn.Module):
                         gelu_approx=self.gelu_approx)
         return l2_normalize(out["pooler_output"].float())
 
+    def quantize(self, calib_pixels=None, smooth_alpha: float = 0.5,
+                 calib_text=None, moe_w8a16: bool = False) -> "KEEPModel":
+        """The W8A8 int8 inference variant (see ``keep_tpu_torch.quant``),
+        made in place; returns ``self``. LayerScale is folded into proj and
+        fc2 first (exact), then every targeted linear of both towers and the
+        visual head is quantized from its stored weight, and the linears
+        that stay float (the text pooler) are cast to the compute dtype.
+        ``use_flash`` and ``gelu_approx`` are kept: with both on, the blocks
+        run the int8 megakernels.
+
+        The int8 codes equal the JAX package's ``KEEPModel.quantize()`` bit
+        for bit when the stored weights hold the checkpoint's fp32 values
+        (``weight_dtype=torch.float32``, or ``from_pretrained(...,
+        quantize=True)``); a model that stores bf16 weights quantizes the
+        bf16-rounded values. SmoothQuant calibration (``calib_pixels``,
+        ``calib_text``) and the MoE ``moe_w8a16`` option are not ported
+        yet and raise."""
+        from keep_tpu_torch.models.vit import fold_layerscale
+        from keep_tpu_torch.quant import is_quantized, quantize_linear_weights
+
+        if calib_pixels is not None or calib_text is not None or moe_w8a16:
+            raise NotImplementedError(
+                "SmoothQuant calibration (calib_pixels / calib_text) and "
+                "moe_w8a16 are not ported yet; quantize "
+                "plainly, or calibrate with keep_tpu and load the tree with "
+                "compat.torch_loader.from_jax_params")
+        if is_quantized(self):
+            raise ValueError(
+                "the model is already quantized (QLinear present): "
+                "double-quantizing int8 weights would corrupt them")
+        fold_layerscale(self.visual)
+        quantize_linear_weights(self)
+        self._cast_linear_weights(self.dtype)
+        return self
+
     @classmethod
     def from_pretrained(cls, model_dir: str,
                         dtype: torch.dtype = torch.float32,
                         use_flash: bool = False, device=None,
-                        cfg: KEEPConfig | None = None) -> "KEEPModel":
+                        cfg: KEEPConfig | None = None,
+                        quantize: bool = False) -> "KEEPModel":
         """Reads ``config.json`` and ``pytorch_model.bin`` (or
-        ``model.safetensors``) in the released layout."""
+        ``model.safetensors``) in the released layout. ``quantize=True``
+        returns the int8 model (``quantize()``), quantized from the
+        checkpoint's fp32 values before the float linears are cast to
+        ``dtype``.
+
+        The JAX package's own int8 artifact (a ``quantized/`` Orbax
+        checkpoint, ``keep_tpu.compat.export.save_quantized``) is not read
+        by the port: a model dir that carries one raises."""
         from keep_tpu_torch.compat.torch_loader import (load_keep_state_dict,
                                                         load_state_dict_file)
 
+        if os.path.isdir(os.path.join(model_dir, "quantized")):
+            raise NotImplementedError(
+                f"{model_dir} carries the JAX package's quantized artifact "
+                f"(quantized/, an Orbax checkpoint), which the PyTorch port "
+                f"does not read; serve it with python -m keep_tpu.serve, or "
+                f"load the fp checkpoint and quantize it here (--int8)")
         cfg = cfg or KEEPConfig.from_hf_json(os.path.join(model_dir,
                                                           "config.json"))
         for name in ("pytorch_model.bin", "model.safetensors"):
@@ -99,6 +153,9 @@ class KEEPModel(nn.Module):
             raise FileNotFoundError(
                 f"no pytorch_model.bin or model.safetensors in {model_dir}")
         sd = load_keep_state_dict(load_state_dict_file(weights), cfg)
-        model = cls(cfg, dtype=dtype, use_flash=use_flash, device=device)
+        model = cls(cfg, dtype=dtype, use_flash=use_flash, device=device,
+                    weight_dtype=torch.float32 if quantize else None)
         model.load_state_dict(sd, strict=True)
+        if quantize:
+            model.quantize()
         return model.eval()

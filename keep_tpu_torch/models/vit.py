@@ -20,7 +20,9 @@ from torch import nn
 
 from keep_tpu_torch.configs import ViTConfig
 from keep_tpu_torch.kernels.flash_attention import attention_qkv_slab
-from keep_tpu_torch.ops.nn import LayerNorm, Linear, Mlp, mha_attention
+from keep_tpu_torch.kernels.qblock import quantized_attention_block
+from keep_tpu_torch.kernels.qmlp import quantized_mlp_bsd
+from keep_tpu_torch.ops.nn import LayerNorm, Linear, Mlp, QLinear, mha_attention
 
 
 def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -61,10 +63,30 @@ class Block(nn.Module):
         else:
             self.ls1 = self.ls2 = None
 
+    def int8_megakernel(self) -> bool:
+        """Whether the block can run the int8 megakernel path: all four
+        linears quantized, LayerScale folded, GELU activation."""
+        return (self.cfg.act == "gelu" and self.ls1 is None
+                and all(isinstance(m, QLinear) for m in (
+                    self.attn.qkv, self.attn.proj, self.mlp.fc1,
+                    self.mlp.fc2)))
+
     def forward(self, x: torch.Tensor, *, use_flash: bool,
                 gelu_approx: bool) -> torch.Tensor:
         b, s, d = x.shape
         h = self.cfg.num_heads
+        if use_flash and gelu_approx and self.int8_megakernel():
+            # the whole attention sub-block (LN → int8 qkv → MHA → int8 proj
+            # → + x), then the int8 MLP pair with its LN and residual fused
+            x = quantized_attention_block(x, self.norm1, self.attn.qkv,
+                                          self.attn.proj, num_heads=h,
+                                          eps=self.cfg.ln_eps)
+            m = self.mlp
+            return quantized_mlp_bsd(
+                x, m.fc1.weight_q, m.fc1.weight_scale, m.fc1.bias,
+                m.fc2.weight_q, m.fc2.weight_scale, m.fc2.bias,
+                out_dtype=x.dtype, ln_scale=self.norm2.weight,
+                ln_bias=self.norm2.bias, eps=self.cfg.ln_eps, residual=True)
         qkv = self.attn.qkv(self.norm1(x))  # [B, S, 3D]
         if use_flash:
             # the kernel slices heads out of the slab: no split, no transpose

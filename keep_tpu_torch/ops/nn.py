@@ -6,9 +6,10 @@ Conventions, as in the JAX package:
 - LayerNorm and softmax always run in fp32.
 - ``Linear`` keeps the torch layout, ``weight [out, in]``; the JAX package's
   ``kernel [in, out]`` is its transpose.
-
-The int8 W8A8 branches (``kernel_q``) are not ported yet: an int8 weight
-raises ``NotImplementedError``.
+- ``QLinear`` is the W8A8 form (the JAX package's ``kernel_q`` leaves, made
+  by ``keep_tpu_torch.quant``): it runs through ``kernels.qmatmul``, and
+  ``Mlp`` takes the fused int8 pair when both of its linears are quantized
+  and the GELU is the tanh form, as ``keep_tpu.ops.nn.mlp`` does.
 """
 
 from __future__ import annotations
@@ -23,17 +24,9 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
-def _check_float_weight(weight: torch.Tensor) -> None:
-    if not weight.is_floating_point():
-        raise NotImplementedError(
-            f"quantized ({weight.dtype}) linear weights are not supported by "
-            f"the PyTorch port yet; serve the bf16 model")
-
-
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: torch.Tensor | None) -> torch.Tensor:
     """x @ weightᵀ in x's dtype (fp32 accumulation), + fp32 bias, cast back."""
-    _check_float_weight(weight)
     out = F.linear(x, weight.to(x.dtype))
     if bias is None:
         return out
@@ -48,19 +41,21 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  bias: torch.Tensor | None = None) -> torch.Tensor:
+                  bias: torch.Tensor | None = None,
+                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Multi-head attention over [B, H, S, Dh], the plain (non-kernel) path.
 
     Scores are taken in fp32 from the input values (a bf16·bf16 product is
     exact in fp32), softmax runs in fp32, p is cast to v's dtype, and p·v is
-    accumulated in fp32 before the cast back. ``bias`` is any additive mask
-    broadcastable to [B, H, S, S]."""
+    accumulated in fp32 before the cast to ``out_dtype`` (default: v's
+    dtype). ``bias`` is any additive mask broadcastable to [B, H, S, S]."""
     scale = q.shape[-1] ** -0.5
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         scores = scores + bias.float()
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.matmul(probs.float(), v.float()).to(v.dtype)
+    out = torch.matmul(probs.float(), v.float())
+    return out.to(v.dtype if out_dtype is None else out_dtype)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -84,6 +79,51 @@ class Linear(nn.Module):
         return linear(x, self.weight, self.bias)
 
 
+class QLinear(nn.Module):
+    """W8A8 linear: int8 ``weight_q`` [out, in] with per-output-channel fp32
+    ``weight_scale`` [out], fp32 ``bias`` [out], and an optional SmoothQuant
+    ``pre_scale`` [in] that multiplies the activations before they are
+    quantized per row. Inference only: all four are buffers. Built by
+    ``keep_tpu_torch.quant.quantize_linear_weights``, or loaded from a
+    state dict (``compat.torch_loader.from_jax_params``)."""
+
+    def __init__(self, in_features: int, out_features: int, *, device=None):
+        super().__init__()
+        self.register_buffer("weight_q", torch.zeros(
+            out_features, in_features, dtype=torch.int8, device=device))
+        self.register_buffer("weight_scale",
+                             torch.ones(out_features, device=device))
+        self.register_buffer("bias", torch.zeros(out_features, device=device))
+        self.register_buffer("pre_scale", None)
+
+    @classmethod
+    def from_quantized(cls, weight_q: torch.Tensor, weight_scale: torch.Tensor,
+                       bias: torch.Tensor,
+                       pre_scale: torch.Tensor | None = None) -> "QLinear":
+        """A QLinear holding the given int8 weight, scales and bias."""
+        out_features, in_features = weight_q.shape
+        m = cls(in_features, out_features, device=weight_q.device)
+        m.weight_q = weight_q.detach().to(torch.int8).contiguous()
+        m.weight_scale = weight_scale.detach().float().contiguous()
+        m.bias = bias.detach().float().contiguous()
+        if pre_scale is not None:
+            m.pre_scale = pre_scale.detach().float().contiguous()
+        return m
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # the optional pre_scale buffer exists once a state dict brings one
+        key = prefix + "pre_scale"
+        if key in state_dict and self.pre_scale is None:
+            self.pre_scale = torch.empty(state_dict[key].shape,
+                                         device=self.weight_scale.device)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from keep_tpu_torch.kernels.qmatmul import qlinear_fused
+
+        return qlinear_fused(self, x)
+
+
 class LayerNorm(nn.Module):
     def __init__(self, dim: int, eps: float, *, device=None):
         super().__init__()
@@ -96,7 +136,11 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 → GELU → fc2 (timm ``Mlp`` / BERT intermediate + output)."""
+    """fc1 → GELU → fc2 (timm ``Mlp`` / BERT intermediate + output).
+
+    With the tanh GELU and a quantized fc1, the int8 kernels take over: the
+    fused pair (``kernels.qmlp``) when fc2 is quantized too, else fc1 with
+    the GELU in its epilogue (``kernels.qmatmul``)."""
 
     def __init__(self, dim: int, hidden: int, *, device=None):
         super().__init__()
@@ -104,4 +148,12 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden, dim, device=device)
 
     def forward(self, x: torch.Tensor, gelu_approx: bool = False) -> torch.Tensor:
+        if gelu_approx and isinstance(self.fc1, QLinear):
+            if isinstance(self.fc2, QLinear):
+                from keep_tpu_torch.kernels.qmlp import qmlp_fused
+
+                return qmlp_fused(self.fc1, self.fc2, x)
+            from keep_tpu_torch.kernels.qmatmul import qlinear_fused
+
+            return self.fc2(qlinear_fused(self.fc1, x, activation="gelu_tanh"))
         return self.fc2(gelu(self.fc1(x), approximate=gelu_approx))

@@ -19,9 +19,12 @@ POST /encode_image_npy <raw .npy uint8 [N,H,W,3] body>   → raw .npy fp32 [N,D]
 POST /similarity       {"texts": [...], "images": [...]} → {"logits": [[...]]}
 GET  /healthz, GET /stats
 
-CLI: ``python -m keep_tpu_torch.serve --model-dir <released checkpoint>``
-serves the bf16 model with the fused attention kernel on the card. The
-JAX server's ``--int8``, ``--precision-policy``, ``--lora`` and
+CLI: ``python -m keep_tpu_torch.serve --model-dir <released checkpoint>
+[--int8]`` serves the bf16 model with the fused attention kernel on the
+card, or with ``--int8`` the W8A8 model (``KEEPModel.quantize``) through the
+int8 megakernels of both towers. ``--precision-policy {auto,all-int8}`` is
+accepted; co-located with the card, both serve int8 at every bucket, which
+is the JAX server's co-located branch. The JAX server's ``--lora`` and
 ``--mesh-dp`` are not ported yet and are refused.
 """
 
@@ -376,8 +379,7 @@ def make_http_server(core: InferenceServer, port: int = 0,
     return ThreadingHTTPServer((host, port), Handler)
 
 
-_NOT_PORTED = {"int8": "--int8", "precision_policy": "--precision-policy",
-               "lora": "--lora", "mesh_dp": "--mesh-dp"}
+_NOT_PORTED = {"lora": "--lora", "mesh_dp": "--mesh-dp"}
 
 
 def build_server(argv=None):
@@ -392,8 +394,12 @@ def build_server(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
     ap.add_argument("--max-delay-ms", type=float, default=3.0)
-    ap.add_argument("--int8", action="store_true", help="not ported yet")
-    ap.add_argument("--precision-policy", default=None, help="not ported yet")
+    ap.add_argument("--int8", action="store_true",
+                    help="serve the W8A8 megakernel path")
+    ap.add_argument("--precision-policy", choices=("auto", "all-int8"),
+                    default="auto",
+                    help="with --int8: co-located with the card, 'auto' "
+                         "serves int8 at every bucket, as 'all-int8' does")
     ap.add_argument("--lora", default="", help="not ported yet")
     ap.add_argument("--mesh-dp", type=int, default=0, help="not ported yet")
     args = ap.parse_args(argv)
@@ -409,9 +415,17 @@ def build_server(argv=None):
     from keep_tpu_torch.models.keep import KEEPModel
     from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
 
-    # the published quick-start setting: bf16 with the fused attention kernel
+    # the published quick-start setting: bf16 with the fused attention
+    # kernel; --int8 quantizes from the checkpoint's fp32 values
     model = KEEPModel.from_pretrained(args.model_dir, dtype=torch.bfloat16,
-                                      use_flash=True, device=device)
+                                      use_flash=True, device=device,
+                                      quantize=args.int8)
+    if args.int8 and args.precision_policy == "auto":
+        # the JAX server measures a relay's round trip here; with the card
+        # in the same host there is no relay, and its co-located branch
+        # serves int8 at every bucket
+        print("precision policy: co-located — int8 at every bucket",
+              flush=True)
     tokenizer = WordPieceTokenizer.from_pretrained(args.model_dir)
     max_len = min(model.cfg.max_text_length,
                   model.cfg.text.max_position_embeddings)

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version on the card. These need
+"""The CUDA kernels against their plain PyTorch versions on the card. These need
 an NVIDIA GPU and nvcc, and skip elsewhere; this file imports no JAX, so it
 also runs on a machine without it:
 
@@ -8,7 +8,10 @@ also runs on a machine without it:
 import pytest
 import torch
 
+from keep_tpu_torch.kernels import _kops, qblock, qmatmul, qmlp
 from keep_tpu_torch.kernels import flash_attention as fa
+from keep_tpu_torch.ops.nn import LayerNorm, QLinear
+from keep_tpu_torch.quant import quantize_kernel
 
 pytestmark = pytest.mark.gpu
 
@@ -60,3 +63,181 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.attention_qkv_slab(torch.zeros(1, 4, 192, device="cuda",
                                           dtype=torch.float16), num_heads=1)
+
+
+# ---- the int8 kernels -----------------------------------------------------------
+
+def _qlin(gen, k, n, std=0.05):
+    w = torch.randn(n, k, device="cuda", generator=gen) * std
+    q, s = quantize_kernel(w)
+    return QLinear.from_quantized(
+        q, s, torch.randn(n, device="cuda", generator=gen) * 0.01)
+
+
+def _norm(gen, d):
+    norm = LayerNorm(d, 1e-6, device="cuda").requires_grad_(False)
+    norm.weight.copy_(1 + 0.1 * torch.randn(d, device="cuda", generator=gen))
+    norm.bias.copy_(0.05 * torch.randn(d, device="cuda", generator=gen))
+    return norm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ln,ps", [(False, False), (True, False),
+                                   (False, True), (True, True)])
+@pytest.mark.parametrize("m,k", [(394, 1024), (5, 4096), (1, 48), (3, 3072)])
+def test_quant_rows_matches_plain(cuda, m, k, ln, ps, dtype):
+    x = (torch.randn(m, k, device="cuda", generator=cuda) * 3).to(dtype)
+    g = 1 + 0.1 * torch.randn(k, device="cuda", generator=cuda) if ln else None
+    b = 0.1 * torch.randn(k, device="cuda", generator=cuda) if ln else None
+    p = torch.rand(k, device="cuda", generator=cuda) + 0.5 if ps else None
+    n0 = _kops.LAUNCHES["quant_rows"]
+    q, s = _kops.quant_rows(x, g, b, 1e-6, p)
+    torch.cuda.synchronize()
+    assert _kops.LAUNCHES["quant_rows"] == n0 + 1
+    rq, rs = _kops.quant_rows_reference(x, g, b, 1e-6, p)
+    # the abs-max, the reciprocal and the rounding are exact, and the LN
+    # statistics are fp64 sums rounded once: the same bits
+    torch.testing.assert_close(q, rq, rtol=0, atol=0)
+    torch.testing.assert_close(s, rs, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 64, 8), (17, 48, 768), (591, 1024, 3072),
+                                   (300, 4096, 1024), (33, 768, 1000)])
+@pytest.mark.parametrize("order,gelu,res", [(0, False, None), (0, True, None),
+                                            (1, False, torch.float32),
+                                            (1, True, torch.bfloat16)])
+def test_int8_gemm_matches_plain(cuda, m, k, n, order, gelu, res, out_dtype):
+    xq = torch.randint(-127, 128, (m, k), device="cuda", generator=cuda,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), device="cuda", generator=cuda,
+                       dtype=torch.int8)
+    a = torch.rand(m, device="cuda", generator=cuda) * 1e-2
+    s = torch.rand(n, device="cuda", generator=cuda) * 1e-3
+    bias = torch.randn(n, device="cuda", generator=cuda)
+    r = None if res is None else torch.randn(m, n, device="cuda",
+                                             generator=cuda).to(res)
+    n0 = _kops.LAUNCHES["int8_gemm"]
+    got = _kops.int8_gemm(xq, a, wq, s, bias, order=order, gelu=gelu,
+                          residual=r, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert _kops.LAUNCHES["int8_gemm"] == n0 + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    ref = _kops.int8_gemm_reference(xq, a, wq, s, bias, order=order,
+                                    gelu=gelu, residual=r,
+                                    out_dtype=out_dtype)
+    # the int32 sums are exact in both; the epilogue is the same sequence of
+    # fp32 operations, up to the tanh of the GELU
+    tol = 1e-5 if out_dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d", [(394, 768), (1, 4096), (7, 48)])
+def test_ln_rows_matches_plain(cuda, m, d, out_dtype):
+    x = torch.randn(m, d, device="cuda", generator=cuda) * 4 + 1
+    g = 1 + 0.1 * torch.randn(d, device="cuda", generator=cuda)
+    b = 0.1 * torch.randn(d, device="cuda", generator=cuda)
+    got = _kops.ln_rows(x, g, b, 1e-12, out_dtype)
+    torch.cuda.synchronize()
+    ref = _kops.ln_rows_reference(x, g, b, 1e-12, out_dtype)
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+
+
+def test_attention_fp32_output_matches_plain(cuda):
+    """The bf16-in, fp32-out instantiation the int8 blocks use."""
+    qkv = torch.randn(3, 197, 3 * 4 * 64, device="cuda", generator=cuda)
+    qkv = qkv.bfloat16()
+    got = fa.attention_qkv_slab(qkv, num_heads=4, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    ref = fa.attention_qkv_slab_reference(qkv, num_heads=4,
+                                          out_dtype=torch.float32)
+    torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_int8_blocks_match_plain(cuda, b):
+    """The counterparts of the TPU kernels #4, #5, #6, #8, #9 through the
+    kernels, against their plain versions, at the JAX package's tolerances
+    for each (tests/test_quant.py)."""
+    s, d, h = 37, 128, 2
+    x = torch.randn(b, s, d, device="cuda", generator=cuda) * 0.5
+    n1, n2 = _norm(cuda, d), _norm(cuda, d)
+    qkv, proj = _qlin(cuda, d, 3 * d, 0.08), _qlin(cuda, d, d, 0.08)
+    fc1, fc2 = _qlin(cuda, d, 4 * d), _qlin(cuda, 4 * d, d)
+    qkv.pre_scale = torch.rand(d, device="cuda", generator=cuda) + 0.5
+    kb = torch.zeros(b, s, device="cuda")
+    kb[0, 20:] = -1e9
+    before = dict(_kops.LAUNCHES)
+
+    def both(fn, ref, *args, **kw):
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return got.float(), ref(*args, **kw).float()
+
+    got, ref = both(qmatmul.quantized_matmul, qmatmul.quantized_matmul_reference,
+                    x[0], fc1.weight_q, fc1.weight_scale, fc1.bias,
+                    activation="gelu_tanh", out_dtype=torch.float32)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-3)
+    got, ref = both(qmatmul.quantized_matmul_bsd,
+                    qmatmul.quantized_matmul_bsd_reference, x, fc1.weight_q,
+                    fc1.weight_scale, fc1.bias, out_dtype=torch.float32,
+                    pre_scale=qkv.pre_scale)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    mlp_args = (x, fc1.weight_q, fc1.weight_scale, fc1.bias, fc2.weight_q,
+                fc2.weight_scale, fc2.bias)
+    got, ref = both(qmlp.quantized_mlp_bsd, qmlp.quantized_mlp_bsd_reference,
+                    *mlp_args, out_dtype=torch.float32, ln_scale=n2.weight,
+                    ln_bias=n2.bias, residual=True)
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=1e-4)
+    got, ref = both(qmlp.quantized_mlp_bsd, qmlp.quantized_mlp_bsd_reference,
+                    *mlp_args, out_dtype=torch.float32, ln_scale=n2.weight,
+                    ln_bias=n2.bias, eps=1e-12, post_ln=True,
+                    pre_scale1=qkv.pre_scale)
+    torch.testing.assert_close(got, ref, atol=2e-3, rtol=2e-3)
+    got, ref = both(qblock.quantized_attention_block,
+                    qblock.quantized_attention_block_reference, x, n1, qkv,
+                    proj, num_heads=h, eps=1e-6)
+    torch.testing.assert_close(got, ref, atol=5e-3, rtol=1e-3)
+    got, ref = both(qblock.quantized_attention_block_postln,
+                    qblock.quantized_attention_block_postln_reference, x, kb,
+                    n1, qkv, proj, num_heads=h, eps=1e-12)
+    torch.testing.assert_close(got, ref, atol=2e-3, rtol=2e-3)
+    for name in ("quantized_matmul", "quantized_matmul_bsd",
+                 "quantized_attention_block",
+                 "quantized_attention_block_postln"):
+        assert _kops.LAUNCHES[name] == before.get(name, 0) + 1
+    assert _kops.LAUNCHES["quantized_mlp_bsd"] == before.get(
+        "quantized_mlp_bsd", 0) + 2
+
+
+def test_int8_kernels_refuse_what_they_do_not_take(cuda):
+    q8 = torch.zeros(4, 64, dtype=torch.int8, device="cuda")
+    one = torch.ones(4, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        _kops.int8_gemm(q8[:, :40].contiguous(), one, q8[:, :40].contiguous(),
+                        one, one, order=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        xt = torch.zeros(64, 32, dtype=torch.int8, device="cuda").t()
+        _kops.int8_gemm(xt, torch.ones(32, device="cuda"),
+                        torch.zeros(16, 64, dtype=torch.int8, device="cuda"),
+                        torch.ones(16, device="cuda"),
+                        torch.ones(16, device="cuda"), order=1)
+    with pytest.raises(TypeError, match="int8"):
+        _kops.int8_gemm(q8.float(), one, q8, one, one, order=1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        _kops.int8_gemm(q8, one, q8, one, one, order=1,
+                        out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="at most 4096"):
+        _kops.quant_rows(torch.zeros(2, 4097, device="cuda"))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        _kops.quant_rows(torch.zeros(2, 8, device="cuda",
+                                     dtype=torch.float16))
+    with pytest.raises(TypeError, match="float32 rows"):
+        _kops.ln_rows(torch.zeros(2, 8, device="cuda", dtype=torch.bfloat16),
+                      torch.ones(8, device="cuda"),
+                      torch.zeros(8, device="cuda"), 1e-6)
+    with pytest.raises(TypeError, match="float32 or the input"):
+        fa.attention_qkv_slab(torch.zeros(1, 4, 192, device="cuda"),
+                              num_heads=1, out_dtype=torch.bfloat16)

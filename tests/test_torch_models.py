@@ -139,13 +139,33 @@ def test_mha_attention_matches_jax(rng):
     np.testing.assert_allclose(got, ref, atol=2e-5, rtol=2e-5)
 
 
-def test_quantized_weights_raise():
-    with pytest.raises(NotImplementedError, match="quantized"):
-        nn.linear(torch.zeros(2, 4), torch.zeros(3, 4, dtype=torch.int8),
-                  None)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        from_jax_params({"visual_head": {"fc1": {
-            "kernel_q": np.zeros((4, 4), np.int8)}}}, CFG)
+def test_quantized_linear_dispatches_to_qmatmul(rng, monkeypatch):
+    """A QLinear runs the int8 matmul of kernels.qmatmul (the flat form for
+    2-D inputs, the bsd form for 3-D), and matches the JAX package's int8
+    linear on the same quantized weights."""
+    from keep_tpu.quant import quantize_kernel
+    from keep_tpu_torch.kernels import qmatmul
+
+    w = (rng.standard_normal((64, 48)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(48).astype(np.float32)
+    q = quantize_kernel(jnp.asarray(w))
+    lin = nn.QLinear.from_quantized(
+        torch.from_numpy(np.array(q["kernel_q"]).T.copy()),
+        torch.from_numpy(np.array(q["scale"])), torch.from_numpy(b))
+    calls = []
+    for name in ("quantized_matmul", "quantized_matmul_bsd"):
+        orig = getattr(qmatmul, name)
+        monkeypatch.setattr(qmatmul, name, lambda *a, _n=name, _f=orig, **k:
+                            calls.append(_n) or _f(*a, **k))
+    x = rng.standard_normal((5, 7, 64)).astype(np.float32)
+    got = lin(torch.from_numpy(x))
+    lin(torch.from_numpy(x[0]))
+    assert calls == ["quantized_matmul_bsd", "quantized_matmul"]
+    ref = np.asarray(jnn.linear({**q, "bias": jnp.asarray(b)},
+                                jnp.asarray(x)))
+    # the JAX CPU fallback divides by the row scale where the kernels
+    # multiply by its reciprocal: a rare code flip, inside the int8 tolerance
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-2, rtol=1e-2)
 
 
 # ---- towers ---------------------------------------------------------------
@@ -293,6 +313,29 @@ def test_random_released_state_dict_loads_in_both():
     with torch.no_grad():
         got = m.encode_image(torch.from_numpy(px)).numpy()
     np.testing.assert_allclose(got, ref, atol=2e-5, rtol=2e-5)
+
+
+def test_random_state_dict_keep_init_statistics():
+    """keep_init=True draws with the JAX package's keep.init statistics: the
+    LayerScale gammas at layerscale_init, unit LayerNorms, zero biases,
+    BERT weights std .02, ViT weights std fan_in^-0.5; the default draw is
+    unchanged by the option."""
+    gen = lambda: torch.Generator().manual_seed(3)  # noqa: E731
+    sd = random_keep_state_dict(CFG, gen(), keep_init=True)
+    assert sd.keys() == random_keep_state_dict(CFG, gen()).keys()
+    assert (sd["visual.blocks.0.ls1.gamma"] == 1e-5).all()
+    assert (sd["visual.blocks.1.norm2.weight"] == 1).all()
+    assert (sd["text.encoder.layer.0.output.LayerNorm.bias"] == 0).all()
+    assert (sd["visual.blocks.0.attn.qkv.bias"] == 0).all()
+    bert_w = sd["text.encoder.layer.1.intermediate.dense.weight"]
+    assert abs(bert_w.std().item() - 0.02) < 2e-3
+    vit_w = sd["visual.blocks.0.mlp.fc2.weight"]  # fan_in 256
+    assert abs(vit_w.std().item() - 256 ** -0.5) < 5e-3
+    default = random_keep_state_dict(CFG, gen())
+    torch.testing.assert_close(
+        default["visual.blocks.0.ls1.gamma"],
+        random_keep_state_dict(CFG, gen())["visual.blocks.0.ls1.gamma"])
+    assert default["visual.blocks.0.ls1.gamma"].min() >= 0.1
 
 
 def test_from_pretrained_matches_jax(tmp_path):

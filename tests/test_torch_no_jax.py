@@ -20,6 +20,8 @@ def test_imports_leave_jax_unloaded():
         "import keep_tpu_torch, keep_tpu_torch.serve, chip_smoke\n"
         "import keep_tpu_torch.models, keep_tpu_torch.compat, "
         "keep_tpu_torch.kernels, keep_tpu_torch.ops, keep_tpu_torch.text\n"
+        "import keep_tpu_torch.quant, keep_tpu_torch.models.keep\n"
+        "from keep_tpu_torch.kernels import _kops, qblock, qmatmul, qmlp\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'keep_tpu'))\n"
         "assert not bad, bad\n"

@@ -250,8 +250,72 @@ def test_build_server_loads_bf16_flash_model(model_dir):
         core.stop()
 
 
-@pytest.mark.parametrize("flag", [["--int8"], ["--precision-policy", "auto"],
-                                  ["--lora", "adapters"], ["--mesh-dp", "2"]])
+@pytest.fixture(scope="module")
+def int8_model_dir(tmp_path_factory):
+    """The tiny model with 32² images (16 patches): with 4 patches a token's
+    int8 rounding noise averages over too few positions for the 0.999 gate,
+    in the JAX package as in the port."""
+    d = tmp_path_factory.mktemp("keep_int8_model")
+    vision = dict(VISION, img_size=32)
+    cfg = configs.KEEPConfig(vision=configs.ViTConfig(**vision),
+                             text=configs.BertConfig(**TEXT),
+                             projection_dim=32, max_text_length=16)
+    torch.save(random_keep_state_dict(cfg, torch.Generator().manual_seed(0)),
+               d / "pytorch_model.bin")
+    (d / "config.json").write_text(json.dumps({
+        "vision_config": vision,
+        "text_config": TEXT, "projection_dim": 32, "max_text_length": 16}))
+    (d / "vocab.txt").write_text("\n".join(VOCAB))
+    return d
+
+
+@pytest.mark.parametrize("policy", [[], ["--precision-policy", "all-int8"]])
+def test_build_server_int8(int8_model_dir, policy, capsys):
+    """--int8 serves the quantized model (both towers, on the int8 path) and
+    its features agree with the bf16 server's (cosine ≥ 0.999, the repo's
+    int8 gate); the co-located policy line is printed for 'auto'."""
+    from keep_tpu_torch.quant import is_quantized
+
+    d = str(int8_model_dir)
+    core, httpd = serve.build_server(["--model-dir", d, "--port", "0",
+                                      "--device", "cpu", "--int8", *policy])
+    ref_core, ref_httpd = serve.build_server(
+        ["--model-dir", d, "--port", "0", "--device", "cpu"])
+    ref_httpd.server_close()
+    try:
+        assert is_quantized(core.model) and not is_quantized(ref_core.model)
+        assert core.model.use_flash and core.model.gelu_approx
+        assert core.model.dtype == torch.bfloat16
+        assert all(b.int8_megakernel() for b in core.model.visual.blocks)
+        assert all(b.int8_megakernel() for b in core.model.text.blocks)
+        line = "precision policy: co-located — int8 at every bucket"
+        assert (line in capsys.readouterr().out) == (not policy)
+        h = _Http(httpd)
+        try:
+            texts = ["lung tumor .", "normal tissue image ."]
+            txt = np.asarray(h.post("/encode_text", {"texts": texts})
+                             ["embeddings"])
+            imgs = np.random.default_rng(7).integers(0, 255, (3, 32, 32, 3),
+                                                     dtype=np.uint8)
+            img = np.asarray(h.post("/encode_image", {"images": imgs.tolist()})
+                             ["embeddings"])
+        finally:
+            h.close()
+        ref_txt = ref_core.encode_text(texts)
+        ref_img = ref_core.encode_image(imgs)
+        for got, ref in ((txt, ref_txt), (img, ref_img)):
+            assert got.shape == ref.shape and np.isfinite(got).all()
+            np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0,
+                                       atol=1e-3)
+            cos = (got * ref).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                         * np.linalg.norm(ref, axis=-1))
+            assert cos.min() >= 0.999, cos
+    finally:
+        core.stop()
+        ref_core.stop()
+
+
+@pytest.mark.parametrize("flag", [["--lora", "adapters"], ["--mesh-dp", "2"]])
 def test_build_server_refuses_unported_options(model_dir, flag, capsys):
     with pytest.raises(SystemExit) as e:
         serve.build_server(["--model-dir", str(model_dir), "--device", "cpu",
