@@ -42,6 +42,21 @@ exits non-zero without a result line):
    of its tower.
 7. numbers (int8) — the same throughputs for the int8 server, and a device
    time breakdown of one bucket-128 image dispatch by kernel.
+8. attention_bwd — the backward kernel of ``attention_qkv_slab`` against its
+   plain version at the training shapes at B=32 (ViT-L: S=197, H=16, zero
+   key bias; BERT-base: S=256, H=12, padded key bias), fp32 at atol 2e-4,
+   rtol 1e-4 and bf16 within 1e-2 of the largest plain gradient on unpadded
+   rows, each timed with CUDA events.
+9. train — ``keep_tpu_torch.train.main.main(["--config", <json>])`` on the
+   values of ``configs/keep_train.yml`` (batch 128, 32 captions, lhp-hn,
+   amp_bf16, fused attention, both towers frozen in epoch 0) at full width
+   from a random init, on PNG tiles, groups, a DO graph and a vocab written
+   from a seed: 2 epochs of 4 steps. Every loss finite; no backward launch
+   and towers equal to the seed's initial weights while frozen; in epoch 1
+   every step launches the backward kernel once per block and the forward
+   kernel twice (remat), and the towers move; a checkpoint that
+   ``restore()`` reads back. Prints ms per unfrozen step, samples/s, peak
+   device memory and the device time of the last step by kernel family.
 
 Then one JSON line describing the kernels, and last the result line
 ``{"ok": true, "device": {...}}``.
@@ -65,6 +80,8 @@ import numpy as np
 
 SOURCE = "keep_tpu_torch/kernels/csrc/attention_qkv_slab.cu"
 REPLACES = "keep_tpu/kernels/flash_attention.py:190"
+BWD_SOURCE = "keep_tpu_torch/kernels/csrc/attention_qkv_slab_bwd.cu"
+BWD_REPLACES = "keep_tpu/kernels/flash_attention.py:221"
 CSRC = "keep_tpu_torch/kernels/csrc/"
 # the int8 counterparts of the TPU kernels: the module that composes them
 # and the CUDA sources they run, the TPU kernel each replaces
@@ -346,6 +363,286 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
     return rows, prims
 
 
+def check_bwd_kernel(fa, torch, gen) -> list[dict]:
+    """Phase 8: the backward kernel against its plain version at the
+    training shapes, B=32."""
+    shapes = [("vit_l16", 32, 197, 16, False), ("bert_base", 32, 256, 12, True)]
+    rows = []
+    for name, b, s, h, padded in shapes:
+        qkv32 = torch.randn(b, s, 3 * h * 64, device="cuda", generator=gen)
+        do32 = torch.randn(b, s, h * 64, device="cuda", generator=gen)
+        valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
+        if padded:
+            lens = torch.randint(8, s + 1, (b,), device="cuda", generator=gen)
+            valid = torch.arange(s, device="cuda")[None] < lens[:, None]
+        kb = (1.0 - valid.float()) * -1e9
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, do = qkv32.to(dtype), do32.to(dtype)
+            got = fa.attention_qkv_slab_bwd(qkv, kb, do, h)
+            torch.cuda.synchronize()
+            ref = fa.attention_qkv_slab_bwd_reference(qkv, kb, do, h)
+            g, r = got.float()[valid], ref.float()[valid]
+            err = (g - r).abs().max().item()
+            bound = 1e-2 * r.abs().max().item()
+            if dtype == torch.float32:
+                if not torch.allclose(got, ref, atol=2e-4, rtol=1e-4):
+                    raise AssertionError(f"{name} fp32 backward vs plain: "
+                                         f"max |Δ| {err}")
+            elif not err <= bound:
+                raise AssertionError(f"{name} bf16 backward vs plain: max "
+                                     f"|Δ| {err} > {bound}")
+            ms = cuda_ms(lambda: fa.attention_qkv_slab_bwd(qkv, kb, do, h))
+            plain_ms = cuda_ms(lambda: fa.attention_qkv_slab_bwd_reference(
+                qkv, kb, do, h))
+            row = {"shape": name, "B": b, "S": s, "H": h,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "max_abs_err": err, "max_abs_plain": r.abs().max().item(),
+                   "ms": ms, "plain_ms": plain_ms}
+            phase("attention_bwd", **row)
+            rows.append(row)
+    return rows
+
+
+TRAIN_NODES = {
+    "DOID:14566": {"name": "disease of cellular proliferation", "parent": []},
+    "DOID:162": {"name": "cancer", "parent": ["DOID:14566"]},
+    "DOID:1324": {"name": "lung cancer", "parent": ["DOID:162"]},
+    "DOID:3910": {"name": "lung adenocarcinoma", "parent": ["DOID:1324"]},
+    "DOID:3908": {"name": "lung squamous cell carcinoma",
+                  "parent": ["DOID:1324"]},
+    "DOID:1909": {"name": "melanoma", "parent": ["DOID:162"]},
+    "DOID:4450": {"name": "renal cell carcinoma", "parent": ["DOID:162"]},
+}
+TRAIN_CAPTIONS = ["an h&e image of lung adeno ##carcinoma.",
+                  "squamous cell carcinoma of the lung.",
+                  "melanoma of the skin.", "clear cell renal tumor.",
+                  "normal lung tissue.", "breast invasive carcinoma."]
+
+
+def write_train_data(d: str, n_groups: int, image_size: int,
+                     n_images: int = 32) -> tuple[str, str, str, str]:
+    """PNG tiles larger than the model size (so the random crop moves), a
+    semantic-groups JSON, a DO-graph JSON and a vocab, from a numpy seed.
+    Returns (groups, images dir, graph, vocab) paths."""
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    img_dir = os.path.join(d, "images")
+    os.makedirs(img_dir)
+    names = []
+    for i in range(n_images):
+        names.append(f"tile{i}.png")
+        Image.fromarray(rng.integers(0, 256, (image_size + 32,
+                                              image_size + 32, 3),
+                                     dtype=np.uint8)).save(
+            os.path.join(img_dir, names[-1]))
+    labels = list(TRAIN_NODES)[2:] + [None]
+    groups = {}
+    for g in range(n_groups):
+        lab = labels[g % len(labels)]
+        groups[f"group{g}"] = {
+            "captions": [TRAIN_CAPTIONS[(g + k) % len(TRAIN_CAPTIONS)]
+                         for k in range(2)],
+            "images": [names[(3 * g + k) % n_images] for k in range(3)],
+            "labels": {lab: 1} if lab else {}}
+    paths = tuple(os.path.join(d, n) for n in ("groups.json", "kg.json",
+                                                "vocab.txt"))
+    with open(paths[0], "w") as f:
+        json.dump(groups, f)
+    with open(paths[1], "w") as f:
+        json.dump(TRAIN_NODES, f)
+    words = sorted({w for n in TRAIN_NODES.values() for w in
+                    n["name"].split()} | {w for c in TRAIN_CAPTIONS for w in
+                                          c.replace(".", " .").split()})
+    with open(paths[2], "w") as f:
+        f.write("\n".join(VOCAB + [w for w in words if w not in VOCAB])
+                + "\n")
+    return paths[0], img_dir, paths[1], paths[2]
+
+
+def train_config(d: str, keep: dict | None = None, batch_size: int = 128,
+                 caption_num: int = 32, steps_per_epoch: int = 4) -> dict:
+    """configs/keep_train.yml's values (no pretrained towers), 2 epochs,
+    data written by ``write_train_data``."""
+    keep = keep or {"projection_dim": 768}
+    image_size = keep.get("vision", {}).get("img_size", 224)
+    n_groups = steps_per_epoch * batch_size // (batch_size // caption_num)
+    groups, img_dir, kg, vocab = write_train_data(d, n_groups, image_size)
+    return {
+        "seed": 0,
+        "dataset": {"type": "json", "train_data": groups, "img_dir": img_dir,
+                    "knowledge_file": kg, "label_cap": "both",
+                    "vocab_path": vocab},
+        "dataloader": {"batch_size": batch_size, "caption_num": caption_num,
+                       "text_drop": True},
+        "solver": {"epochs": 2, "lr": 1.0e-5, "weight_decay": 0.2,
+                   "warmup": 200, "lr_scheduler": "cosine",
+                   "grad_clip_norm": 1.0, "freeze_visual_epochs": 1,
+                   "freeze_text_epochs": 1},
+        "model": {"precision": "amp_bf16", "type": "hierarchy_metric",
+                  "loss_subtype": "lhp-hn", "logit_scale": 0.04,
+                  "use_flash": True},
+        "save": {"output_dir": os.path.join(d, "logs"),
+                 "experiment_name": "smoke", "save_frequency": 1},
+        "keep": keep,
+    }
+
+
+def drive_train(torch, fa, d: str, raw: dict, blocks: int,
+                steps_per_epoch: int, device: str = "cuda") -> dict:
+    """Phase 9: the training entry point on ``raw`` (``train_config`` with
+    ``steps_per_epoch``). Each train step is timed between device
+    synchronisations and its kernel launches counted; on the card the last
+    step is traced with torch.profiler (and left out of the timing).
+    ``blocks`` is the towers' block count."""
+    import ast
+
+    from keep_tpu_torch.train import checkpoint as ckpt
+    from keep_tpu_torch.train import main as tmain
+    from keep_tpu_torch.train.config import TrainRunConfig
+
+    path = os.path.join(d, "train.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    steps: list[dict] = []
+    traced: dict[str, float] = {}
+    make_step = tmain.make_train_step
+
+    def timed_make_train_step(*args, static_frozen=None, **kw):
+        inner = make_step(*args, static_frozen=static_frozen, **kw)
+
+        def step(state, batch, frozen=None):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            f0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+            t0 = time.perf_counter()
+            if device == "cuda" and len(steps) == 2 * steps_per_epoch - 1:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    state, metrics = inner(state, batch, frozen)
+                    loss = float(metrics["loss"])
+                traced.update(kernel_ms(torch, prof))
+            else:
+                state, metrics = inner(state, batch, frozen)
+                loss = float(metrics["loss"])  # waits for the step
+            steps.append({"frozen": static_frozen is not None,
+                          "ms": (time.perf_counter() - t0) * 1e3,
+                          "loss": loss, "fwd_launches": fa.LAUNCHES - f0,
+                          "bwd_launches": fa.BWD_LAUNCHES - b0})
+            return state, metrics
+
+        return step
+
+    tmain.make_train_step = timed_make_train_step
+    try:
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        with fa._launch_lock:
+            fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+        t0 = time.perf_counter()
+        # ---- the main path: the training CLI --------------------------------
+        result = tmain.main(["--config", path])
+        fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+        # --------------------------------------------------------------------
+        wall_s = time.perf_counter() - t0
+    finally:
+        tmain.make_train_step = make_step
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+    out_dir = os.path.join(raw["save"]["output_dir"], "smoke")
+    per_epoch = steps_per_epoch
+    if [s["frozen"] for s in steps] != [True] * per_epoch + [False] * per_epoch:
+        raise AssertionError(f"steps: {[s['frozen'] for s in steps]}")
+    for i, s in enumerate(steps):
+        if not np.isfinite(s["loss"]):
+            raise AssertionError(f"step {i}: loss {s['loss']}")
+        want = (blocks, 0) if s["frozen"] else (2 * blocks, blocks)
+        if (s["fwd_launches"], s["bwd_launches"]) != want:
+            raise AssertionError(
+                f"step {i}: forward / backward launches "
+                f"{s['fwd_launches']} / {s['bwd_launches']}, want {want}")
+    if bwd != per_epoch * blocks or fwd != per_epoch * 3 * blocks:
+        raise AssertionError(f"launches {fwd} / {bwd}")
+    with open(os.path.join(out_dir, "checkpoints", "results.jsonl")) as f:
+        losses = [json.loads(ln)["train_loss"] for ln in f]
+    if len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"epoch losses {losses}")
+    with open(os.path.join(out_dir, "out.log")) as f:
+        log = f.read()
+    checks = {}
+    for epoch in (0, 1):
+        line = log.split(f"epoch {epoch} freeze check: ")[1].splitlines()[0]
+        checks[epoch] = ast.literal_eval(line)
+    if (checks[0]["visual"], checks[0]["text"]) != ("frozen", "frozen"):
+        raise AssertionError(f"freeze checks {checks}")
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    restored = ckpt.restore(ckpt_dir)
+    if ckpt.list_epochs(ckpt_dir) != [0, 1] or \
+            restored["step"] != len(steps) or restored["epoch"] != 1 or \
+            result["epoch"] != 1:
+        raise AssertionError(f"checkpoints {ckpt.list_epochs(ckpt_dir)}, "
+                             f"step {restored['step']}")
+    # The norm check above cannot see updates of lr ~1e-7 (warmup), so the
+    # leaves are also compared bit for bit: the seed's initial weights
+    # against epoch 0's checkpoint (towers equal, visual head moved), and
+    # epoch 0's against epoch 1's (most tower leaves moved).
+    init = tmain.build_model(TrainRunConfig.from_dict(
+        json.loads(json.dumps(raw))), device).state_dict()
+    epoch0 = ckpt.restore(ckpt_dir, epoch=0)["params"]
+    moved: dict[str, list[int]] = {}
+    for n, t in init.items():
+        top = n.split(".", 1)[0]
+        counts = moved.setdefault(top, [0, 0, 0])
+        counts[0] += not torch.equal(t.cpu(), epoch0[n])
+        counts[1] += not torch.equal(epoch0[n], restored["params"][n])
+        counts[2] += 1
+    moved_share = {k: {"epoch0": c[0] / c[2], "epoch1": c[1] / c[2]}
+                   for k, c in moved.items()}
+    # (a LayerNorm gain behind a LayerScale of 1e-5 gets gradients far below
+    # Adam's eps, and may not move by one ulp in three steps of warmup)
+    for tower in ("visual", "text"):
+        if moved[tower][0] or moved[tower][1] < moved[tower][2] / 2:
+            raise AssertionError(f"{tower}: leaves moved {moved_share}")
+    if not moved["visual_head"][0]:
+        raise AssertionError(f"the visual head did not train in epoch 0: "
+                             f"{moved_share}")
+    # the first step of a phase carries its one-off setup; the traced step
+    # carries the profiler's
+    open_ms = [s["ms"] for s in steps if not s["frozen"]][1:]
+    if traced:
+        open_ms = open_ms[:-1]
+    frozen_ms = [s["ms"] for s in steps if s["frozen"]][1:]
+    families: dict[str, float] = {}
+    for k, v in traced.items():
+        fam = next((f for f in ("slab_attention_bwd", "slab_attention_kernel",
+                                "gemm", "xmma", "nvjet", "cutlass")
+                    if f in k), "other")
+        fam = "gemm" if fam in ("xmma", "nvjet", "cutlass") else fam
+        families[fam] = families.get(fam, 0.0) + v
+    busy = sum(traced.values())
+    batch = raw["dataloader"]["batch_size"]
+    out = {"card": card() if device == "cuda" else "cpu",
+           "epoch_losses": losses, "step_losses": [s["loss"] for s in steps],
+           "freeze_checks": checks, "leaves_moved_share": moved_share,
+           "fwd_launches": fwd,
+           "bwd_launches": bwd, "checkpoint_step": restored["step"],
+           "ms_per_unfrozen_step": statistics.median(open_ms),
+           "ms_per_frozen_step": statistics.median(frozen_ms),
+           "step_ms": [s["ms"] for s in steps],
+           "samples_per_s_unfrozen": batch / statistics.median(open_ms) * 1e3,
+           "peak_memory_gb": peak / 1e9, "wall_s": wall_s,
+           "traced_unfrozen_step": {
+               "step_ms": steps[-1]["ms"] if traced else "not measured",
+               "device_busy_ms": busy if traced else "not measured",
+               "ms_by_family": families,
+               "top_kernels_ms": sorted(traced.items(),
+                                        key=lambda kv: -kv[1])[:12]}}
+    phase("train", **out)
+    return out
+
+
 def write_model(d: str, torch, cfg, device: str = "cuda",
                 keep_init: bool = False) -> None:
     from keep_tpu_torch.compat.torch_loader import random_keep_state_dict
@@ -565,6 +862,17 @@ def check_int8_server(cfg, feats, bf16_features, launches, img_disp,
     return result
 
 
+def kernel_ms(torch, prof) -> dict[str, float]:
+    """Device ms by kernel name (first 80 characters) of a torch.profiler
+    trace."""
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        by_kernel[ev.key[:80]] = ev.self_device_time_total / 1e3
+    return by_kernel
+
+
 def throughput(torch, core, rng, int8: bool = False) -> dict:
     """Serving throughput at bucket 128 through the server core (queue, H2D,
     dispatch, fetch), two callers at a time so that double buffering works,
@@ -629,11 +937,7 @@ def throughput(torch, core, rng, int8: bool = False) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             model.encode_image(normalize_only(px))
             torch.cuda.synchronize()
-    by_kernel = {}
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        by_kernel[ev.key[:80]] = ev.self_device_time_total / 1e3  # ms
+    by_kernel = kernel_ms(torch, prof)
     total = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     attn = sum(v for k, v in by_kernel.items() if "slab_attention" in k)
@@ -716,6 +1020,16 @@ def main() -> int:
         throughput(torch, core8, np.random.default_rng(1), int8=True)
     finally:
         core8.stop()
+    del core8
+    torch.cuda.empty_cache()
+
+    # 8.–9. the attention backward, then training through the CLI
+    bwd_rows = check_bwd_kernel(fa, torch, gen)
+    with tempfile.TemporaryDirectory() as d_train:
+        trained = drive_train(torch, fa, d_train,
+                              train_config(d_train, steps_per_epoch=4),
+                              blocks=cfg.vision.depth
+                              + cfg.text.num_hidden_layers, steps_per_epoch=4)
 
     vit_bf16 = next(r for r in rows
                     if r["shape"] == "vit_l16" and r["dtype"] == "bfloat16")
@@ -723,9 +1037,19 @@ def main() -> int:
         "name": "attention_qkv_slab", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES, "launches": served["launches"],
         "launches_int8_path": served8["attention_launches"],
+        "launches_train": trained["fwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": vit_bf16["ms"], "plain_ms": vit_bf16["plain_ms"],
         "shapes": rows}]
+    vit_bwd = next(r for r in bwd_rows
+                   if r["shape"] == "vit_l16" and r["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "attention_qkv_slab_bwd", "route": "cuda",
+        "source": BWD_SOURCE, "replaces": BWD_REPLACES,
+        "launches": trained["bwd_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+        "ms": vit_bwd["ms"], "plain_ms": vit_bwd["plain_ms"],
+        "shapes": bwd_rows})
     for kname, (module, cu, replaces) in INT8_KERNELS.items():
         shapes = int8_rows[kname]["shapes"]
         kernels.append({

@@ -71,53 +71,100 @@ def load_keep_state_dict(sd: Mapping, cfg: KEEPConfig) -> dict:
     """Released KEEP state dict → ``KEEPModel`` state dict."""
     sd = normalize_state_dict(sd)
     _reject_quantized(sd)
+    out = _timm_vit(sd, cfg, "visual.")
+    for dst, src in (("visual_head.fc1", "visual_head.0"),
+                     ("visual_head.fc2", "visual_head.2")):
+        out[f"{dst}.weight"] = _tensor(sd[f"{src}.weight"])
+        out[f"{dst}.bias"] = _tensor(sd[f"{src}.bias"])
+    out.update(_hf_bert(sd, cfg, "text."))
+    out["logit_scale"] = _tensor(sd["logit_scale"]).reshape(())
+    return out
 
+
+def load_timm_vit_state_dict(sd: Mapping, cfg: KEEPConfig) -> dict:
+    """A timm ViT checkpoint (``patch_embed.proj.*``, ``blocks.*``, ...; a
+    classifier head is ignored) → the ``visual.*`` entries of a ``KEEPModel``
+    state dict: the pretrained image tower (train config
+    ``model.pretrained_image``)."""
+    sd = normalize_state_dict(sd)
+    _reject_quantized(sd)
+    return _timm_vit(sd, cfg, "")
+
+
+def load_hf_bert_state_dict(sd: Mapping, cfg: KEEPConfig) -> dict:
+    """An HF ``BertModel`` checkpoint → the ``text.*`` entries of a
+    ``KEEPModel`` state dict: the pretrained text tower (train config
+    ``model.pretrained_text``). A knowledge-BERT checkpoint's ``bert_model.``
+    prefix is stripped."""
+    sd = normalize_state_dict(sd)
+    _reject_quantized(sd)
+    if any(k.startswith("bert_model.") for k in sd):
+        sd = {k[len("bert_model."):]: v for k, v in sd.items()
+              if k.startswith("bert_model.")}
+    return _hf_bert(sd, cfg, "")
+
+
+def _timm_vit(sd: Mapping, cfg: KEEPConfig, src: str) -> dict:
+    """timm ViT keys under ``src`` → the port's ``visual.*`` entries. The
+    patch conv becomes a ``[D, P·P·3]`` matmul weight in (ph, pw, c) order."""
     def g(k: str) -> torch.Tensor:
-        return _tensor(sd[k])
+        return _tensor(sd[src + k])
 
     out: dict[str, torch.Tensor] = {}
 
-    def lin(dst: str, src: str) -> None:
-        out[f"{dst}.weight"] = g(f"{src}.weight")
-        out[f"{dst}.bias"] = g(f"{src}.bias")
+    def lin(name: str) -> None:
+        out[f"visual.{name}.weight"] = g(f"{name}.weight")
+        out[f"visual.{name}.bias"] = g(f"{name}.bias")
 
-    conv = g("visual.patch_embed.proj.weight")  # [D, 3, P, P]
+    conv = g("patch_embed.proj.weight")  # [D, 3, P, P]
     out["visual.patch_embed.weight"] = conv.permute(0, 2, 3, 1).reshape(
         conv.shape[0], -1)
-    out["visual.patch_embed.bias"] = g("visual.patch_embed.proj.bias")
-    out["visual.cls_token"] = g("visual.cls_token")
-    out["visual.pos_embed"] = g("visual.pos_embed")
+    out["visual.patch_embed.bias"] = g("patch_embed.proj.bias")
+    out["visual.cls_token"] = g("cls_token")
+    out["visual.pos_embed"] = g("pos_embed")
     for i in range(cfg.vision.depth):
-        p = f"visual.blocks.{i}"
+        p = f"blocks.{i}"
         for n in ("norm1", "attn.qkv", "attn.proj", "norm2", "mlp.fc1",
                   "mlp.fc2"):
-            lin(f"{p}.{n}", f"{p}.{n}")
+            lin(f"{p}.{n}")
         if cfg.vision.layerscale_init is not None:
-            out[f"{p}.ls1"] = g(f"{p}.ls1.gamma")
-            out[f"{p}.ls2"] = g(f"{p}.ls2.gamma")
-    lin("visual.norm", "visual.norm")
-    lin("visual_head.fc1", "visual_head.0")
-    lin("visual_head.fc2", "visual_head.2")
+            out[f"visual.{p}.ls1"] = g(f"{p}.ls1.gamma")
+            out[f"visual.{p}.ls2"] = g(f"{p}.ls2.gamma")
+    lin("norm")
+    return out
 
-    e = "text.embeddings"
-    out[f"{e}.word"] = g(f"{e}.word_embeddings.weight")
-    out[f"{e}.position"] = g(f"{e}.position_embeddings.weight")
-    out[f"{e}.token_type"] = g(f"{e}.token_type_embeddings.weight")
-    lin(f"{e}.norm", f"{e}.LayerNorm")
+
+def _hf_bert(sd: Mapping, cfg: KEEPConfig, src: str) -> dict:
+    """HF BERT keys under ``src`` → the port's ``text.*`` entries, with q/k/v
+    fused into one ``[3D, D]`` projection."""
+    def g(k: str) -> torch.Tensor:
+        return _tensor(sd[src + k])
+
+    out: dict[str, torch.Tensor] = {}
+
+    def lin(dst: str, name: str) -> None:
+        out[f"{dst}.weight"] = g(f"{name}.weight")
+        out[f"{dst}.bias"] = g(f"{name}.bias")
+
+    e = "embeddings"
+    out[f"text.{e}.word"] = g(f"{e}.word_embeddings.weight")
+    out[f"text.{e}.position"] = g(f"{e}.position_embeddings.weight")
+    out[f"text.{e}.token_type"] = g(f"{e}.token_type_embeddings.weight")
+    lin(f"text.{e}.norm", f"{e}.LayerNorm")
     for i in range(cfg.text.num_hidden_layers):
-        src, dst = f"text.encoder.layer.{i}", f"text.blocks.{i}"
-        qkv = [f"{src}.attention.self.{n}" for n in ("query", "key", "value")]
+        layer, dst = f"encoder.layer.{i}", f"text.blocks.{i}"
+        qkv = [f"{layer}.attention.self.{n}" for n in ("query", "key",
+                                                       "value")]
         out[f"{dst}.attn.qkv.weight"] = torch.cat(
             [g(f"{n}.weight") for n in qkv], dim=0)
         out[f"{dst}.attn.qkv.bias"] = torch.cat(
             [g(f"{n}.bias") for n in qkv], dim=0)
-        lin(f"{dst}.attn.out", f"{src}.attention.output.dense")
-        lin(f"{dst}.attn.norm", f"{src}.attention.output.LayerNorm")
-        lin(f"{dst}.mlp.fc1", f"{src}.intermediate.dense")
-        lin(f"{dst}.mlp.fc2", f"{src}.output.dense")
-        lin(f"{dst}.norm", f"{src}.output.LayerNorm")
-    lin("text.pooler", "text.pooler.dense")
-    out["logit_scale"] = g("logit_scale").reshape(())
+        lin(f"{dst}.attn.out", f"{layer}.attention.output.dense")
+        lin(f"{dst}.attn.norm", f"{layer}.attention.output.LayerNorm")
+        lin(f"{dst}.mlp.fc1", f"{layer}.intermediate.dense")
+        lin(f"{dst}.mlp.fc2", f"{layer}.output.dense")
+        lin(f"{dst}.norm", f"{layer}.output.LayerNorm")
+    lin("text.pooler", "pooler.dense")
     return out
 
 
@@ -166,6 +213,48 @@ def from_jax_params(params: Mapping, cfg: KEEPConfig) -> dict:
         out[".".join((*head, last))] = t
 
     walk(params, ())
+    return out
+
+
+def to_jax_params(state_dict: Mapping, cfg: KEEPConfig) -> dict:
+    """``KEEPModel`` state dict (float) → the JAX package's parameter pytree
+    as nested dicts of fp32 numpy arrays, the inverse of ``from_jax_params``:
+    a 2-D ``weight [out, in]`` → ``kernel [in, out]``, a 1-D ``weight`` (a
+    LayerNorm gain) → ``scale``, and ``blocks.{i}.*`` stacked into ``[L, ...]``
+    leaves. Quantized linears are refused."""
+    depths = {"visual": cfg.vision.depth, "text": cfg.text.num_hidden_layers}
+    out: dict = {}
+    stacks: dict[tuple, dict[int, np.ndarray]] = {}
+
+    def put(path, value) -> None:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+
+    for name, t in state_dict.items():
+        *head, last = name.split(".")
+        if last in _QUANTIZED_LEAVES.values() and last != "bias":
+            raise ValueError(f"{name}: quantized linears have no float "
+                             f"kernel to convert")
+        arr = t.detach().cpu().float().numpy()
+        if last == "weight":
+            if arr.ndim == 2:
+                arr, last = np.ascontiguousarray(arr.T), "kernel"
+            elif arr.ndim == 1:
+                last = "scale"
+        if "blocks" in head:
+            k = head.index("blocks")
+            key = (tuple(head[:k + 1]), tuple(head[k + 2:]) + (last,))
+            stacks.setdefault(key, {})[int(head[k + 1])] = arr
+        else:
+            put((*head, last), arr)
+    for (prefix, rest), layers in stacks.items():
+        n = depths[prefix[0]]
+        if sorted(layers) != list(range(n)):
+            raise ValueError(f"{'.'.join(prefix + rest)}: layers "
+                             f"{sorted(layers)}, the config has {n}")
+        put(prefix + rest, np.stack([layers[i] for i in range(n)]))
     return out
 
 

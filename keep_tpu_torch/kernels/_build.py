@@ -36,6 +36,10 @@ _P = ctypes.c_void_p
 SIGNATURES = {
     # qkv, key_bias, out, B, S, H, head_dim, dtype, scale, stream
     "keep_attention_qkv_slab": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # qkv, key_bias, dout, dqkv, stats, B, S, H, head_dim, dtype, scale,
+    # stream
+    "keep_attention_qkv_slab_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _F, _P],
     # x, x_dtype, ln_g, ln_b, eps, pre_scale, q, scale, M, K, stream
     "keep_quant_rows": [_P, _I, _P, _P, _F, _P, _P, _P, _I, _I, _P],
     # x, ln_g, ln_b, eps, out, out_dtype, M, D, stream

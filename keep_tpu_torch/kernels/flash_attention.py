@@ -1,19 +1,22 @@
-"""Fused multi-head attention over the unsplit qkv slab.
+"""Fused multi-head attention over the unsplit qkv slab, and its backward.
 
 Counterpart of ``keep_tpu/kernels/flash_attention.py`` ``attention_qkv_slab``
-(the Pallas kernel at :132-206). For a CUDA tensor the wrapper launches the
-hand-written Hopper kernel in ``csrc/attention_qkv_slab.cu``; for a CPU
-tensor it runs ``attention_qkv_slab_reference``, the same math in plain
-PyTorch, which the tests and ``chip_smoke.py`` also hold the kernel against.
-There is no fallback from one to the other.
+(the Pallas kernel at :132-206, under the ``jax.custom_vjp`` of :169-248).
+For a CUDA tensor the wrappers launch the hand-written Hopper kernels in
+``csrc/attention_qkv_slab.cu`` (forward) and ``csrc/attention_qkv_slab_bwd.cu``
+(the closed-form backward, ``_slab_attn_bwd``); for a CPU tensor they run
+``attention_qkv_slab_reference`` and ``attention_qkv_slab_bwd_reference``,
+the same math in plain PyTorch, which the tests and ``chip_smoke.py`` also
+hold the kernels against. There is no fallback from one to the other.
+
+``attention_qkv_slab`` is differentiable with respect to the slab: under
+autograd it goes through ``SlabAttention``, whose backward is
+``attention_qkv_slab_bwd``. No gradient flows to the key bias (a mask).
 
 ``out_dtype=torch.float32`` on a bf16 slab gives the fp32 sum uncast: the
 attention inside the int8 megakernels (``keep_tpu/kernels/qblock.py``
 ``_sdpa`` and ``_sdpa_masked``), whose fp32 scratch is quantized without a
-bf16 round.
-
-Forward only: the closed-form backward (``_slab_attn_bwd``) comes with
-training.
+bf16 round. That form is inference-only and raises under autograd.
 """
 
 from __future__ import annotations
@@ -24,18 +27,21 @@ import torch
 
 from keep_tpu_torch.ops.nn import mha_attention
 
-MAX_SEQ = 512  # the kernel keeps a whole score row and K/V slice on chip
-HEAD_DIM = 64  # the kernel is written for the KEEP towers' head width
+MAX_SEQ = 512  # the kernels keep a whole score row and K/V slice on chip
+HEAD_DIM = 64  # the kernels are written for the KEEP towers' head width
 
-# Count of kernel launches in this process; a run resets it to check that
-# its main path went through the kernel.
+# Counts of kernel launches in this process (forward, backward); a run
+# resets them to check that its main path went through the kernels.
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
-# (input dtype, output dtype) → the kernel's dtype code
+# (input dtype, output dtype) → the forward kernel's dtype code
 _DTYPE_CODE = {(torch.float32, torch.float32): 0,
                (torch.bfloat16, torch.bfloat16): 1,
                (torch.bfloat16, torch.float32): 2}
+# slab dtype → the backward kernel's dtype code (dout and dqkv share it)
+_BWD_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _head_dim(qkv: torch.Tensor, num_heads: int) -> int:
@@ -47,6 +53,30 @@ def _head_dim(qkv: torch.Tensor, num_heads: int) -> int:
     return three_hd // (3 * num_heads)
 
 
+def _split(qkv: torch.Tensor, num_heads: int):
+    """[B, S, 3·H·Dh] → q, k, v as [B, H, S, Dh] views, and Dh."""
+    b, s, _ = qkv.shape
+    dh = _head_dim(qkv, num_heads)
+    q, k, v = qkv.reshape(b, s, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+    return q, k, v, dh
+
+
+def _check_kernel_slab(qkv: torch.Tensor, dh: int) -> None:
+    """The shape, dtype-independent layout and device checks both kernels
+    share."""
+    b, s, _ = qkv.shape
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no kernel for device {qkv.device}")
+    if dh != HEAD_DIM:
+        raise ValueError(f"the kernel takes head_dim {HEAD_DIM}, got {dh}")
+    if s > MAX_SEQ:
+        raise ValueError(f"the kernel takes S ≤ {MAX_SEQ}, got {s}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("the kernel takes a contiguous, 16-byte aligned slab")
+    if b > 65535:
+        raise ValueError(f"the kernel takes B ≤ 65535, got {b}")
+
+
 def attention_qkv_slab_reference(qkv: torch.Tensor,
                                  key_bias: torch.Tensor | None = None, *,
                                  num_heads: int,
@@ -55,53 +85,25 @@ def attention_qkv_slab_reference(qkv: torch.Tensor,
     """The kernel's math in plain PyTorch: qkv [B, S, 3·H·Dh] (+ fp32 key
     bias [B, S]) → [B, S, H·Dh] in ``out_dtype`` (default: qkv's)."""
     b, s, _ = qkv.shape
-    h = num_heads
-    dh = _head_dim(qkv, h)
-    q, k, v = qkv.reshape(b, s, 3, h, dh).permute(2, 0, 3, 1, 4)
+    q, k, v, dh = _split(qkv, num_heads)
     bias = None if key_bias is None else key_bias.float()[:, None, None, :]
     out = mha_attention(q, k, v, bias=bias, out_dtype=out_dtype)
-    return out.transpose(1, 2).reshape(b, s, h * dh)  # from [B, H, S, Dh]
+    return out.transpose(1, 2).reshape(b, s, num_heads * dh)  # [B, H, S, Dh]
 
 
-def attention_qkv_slab(qkv: torch.Tensor, key_bias: torch.Tensor | None = None,
-                       *, num_heads: int,
-                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """qkv [B, S, 3·H·Dh], the unsplit qkv-projection output, → [B, S, H·Dh]
-    in ``out_dtype`` (default: qkv's dtype).
-
-    ``key_bias``: optional [B, S] additive mask on key positions (0 valid,
-    −1e9 masked), taken in fp32. A CUDA tensor goes through the kernel,
-    which takes fp32 → fp32, bf16 → bf16 or bf16 → fp32, Dh = 64, S ≤ 512
-    and a contiguous slab, and raises on anything else; a CPU tensor goes
-    through the plain version."""
+def _forward(qkv: torch.Tensor, key_bias: torch.Tensor | None, num_heads: int,
+             out_dtype: torch.dtype) -> torch.Tensor:
     global LAUNCHES
     b, s, _ = qkv.shape
     dh = _head_dim(qkv, num_heads)
-    if qkv.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "attention_qkv_slab is forward-only in the PyTorch port; run it "
-            "under torch.no_grad() / torch.inference_mode()")
-    if key_bias is not None and tuple(key_bias.shape) != (b, s):
-        raise ValueError(f"key_bias must be [B, S] = {(b, s)}, got "
-                         f"{tuple(key_bias.shape)}")
-    out_dtype = qkv.dtype if out_dtype is None else out_dtype
     if qkv.device.type == "cpu":
         return attention_qkv_slab_reference(qkv, key_bias, num_heads=num_heads,
                                             out_dtype=out_dtype)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no kernel for device {qkv.device}")
-    if dh != HEAD_DIM:
-        raise ValueError(f"the kernel takes head_dim {HEAD_DIM}, got {dh}")
-    if s > MAX_SEQ:
-        raise ValueError(f"the kernel takes S ≤ {MAX_SEQ}, got {s}")
+    _check_kernel_slab(qkv, dh)
     if (qkv.dtype, out_dtype) not in _DTYPE_CODE:
         raise TypeError(f"the kernel takes float32 or bfloat16 in and "
                         f"float32 or the input's dtype out, got {qkv.dtype} "
                         f"→ {out_dtype}")
-    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
-        raise ValueError("the kernel takes a contiguous, 16-byte aligned slab")
-    if b > 65535:
-        raise ValueError(f"the kernel takes B ≤ 65535, got {b}")
     if key_bias is not None:
         if key_bias.device != qkv.device:
             raise ValueError("key_bias must be on the slab's device")
@@ -120,3 +122,127 @@ def attention_qkv_slab(qkv: torch.Tensor, key_bias: torch.Tensor | None = None,
     with _launch_lock:
         LAUNCHES += 1
     return out
+
+
+class SlabAttention(torch.autograd.Function):
+    """``attention_qkv_slab`` under autograd, the counterpart of the JAX
+    package's ``_slab_attn_vjp``: the forward kernel, then the closed-form
+    backward from the saved slab and fp32 key bias. The bias gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, key_bias, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(qkv, key_bias)
+        return _forward(qkv, key_bias, num_heads, qkv.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, key_bias = ctx.saved_tensors
+        dqkv = attention_qkv_slab_bwd(qkv, key_bias, dout.contiguous(),
+                                      ctx.num_heads)
+        return dqkv, None, None
+
+
+def attention_qkv_slab(qkv: torch.Tensor, key_bias: torch.Tensor | None = None,
+                       *, num_heads: int,
+                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """qkv [B, S, 3·H·Dh], the unsplit qkv-projection output, → [B, S, H·Dh]
+    in ``out_dtype`` (default: qkv's dtype).
+
+    ``key_bias``: optional [B, S] additive mask on key positions (0 valid,
+    −1e9 masked), taken in fp32. A CUDA tensor goes through the kernel,
+    which takes fp32 → fp32, bf16 → bf16 or bf16 → fp32, Dh = 64, S ≤ 512
+    and a contiguous slab, and raises on anything else; a CPU tensor goes
+    through the plain version. When the slab requires grad, the call is
+    differentiable (``SlabAttention``; a ``None`` bias becomes zeros, as in
+    the JAX package), except for the fp32-output form, which raises."""
+    b, s, _ = qkv.shape
+    _head_dim(qkv, num_heads)
+    if key_bias is not None and tuple(key_bias.shape) != (b, s):
+        raise ValueError(f"key_bias must be [B, S] = {(b, s)}, got "
+                         f"{tuple(key_bias.shape)}")
+    out_dtype = qkv.dtype if out_dtype is None else out_dtype
+    if not (qkv.requires_grad and torch.is_grad_enabled()):
+        return _forward(qkv, key_bias, num_heads, out_dtype)
+    if out_dtype != qkv.dtype:
+        raise NotImplementedError(
+            "the fp32-output form of attention_qkv_slab (a bf16 slab with "
+            "out_dtype=float32, the int8 blocks' attention) is inference-"
+            "only; run it under torch.no_grad() / torch.inference_mode()")
+    if key_bias is None:
+        key_bias = torch.zeros(b, s, dtype=torch.float32, device=qkv.device)
+    return SlabAttention.apply(qkv, key_bias.detach().float(), num_heads)
+
+
+def attention_qkv_slab_bwd_reference(qkv: torch.Tensor,
+                                     key_bias: torch.Tensor,
+                                     dout: torch.Tensor,
+                                     num_heads: int) -> torch.Tensor:
+    """The backward kernel's math in plain PyTorch, as the JAX package's
+    ``_slab_attn_bwd``: p recomputed and kept in fp32; dv = pᵀ·do;
+    ds = p∘(dp − rowsum(dp∘p)) with dp = do·vᵀ; dq = ds·k·scale;
+    dk = dsᵀ·q·scale; all in fp32, cast once to the slab dtype, in the slab
+    layout [B, S, 3·H·Dh]."""
+    b, s, three_hd = qkv.shape
+    q, k, v, dh = _split(qkv, num_heads)
+    scale = dh ** -0.5
+    qf, kf, vf = q.float(), k.float(), v.float()
+    do = dout.reshape(b, s, num_heads, dh).transpose(1, 2).float()
+    sc = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    sc = sc + key_bias.float()[:, None, None, :]
+    p = torch.softmax(sc, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dp = torch.matmul(do, vf.transpose(-1, -2))
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dqkv = torch.stack([dq, dk, dv], dim=0)  # [3, B, H, S, Dh]
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(b, s, three_hd).to(qkv.dtype)
+
+
+def attention_qkv_slab_bwd(qkv: torch.Tensor, key_bias: torch.Tensor,
+                           dout: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The gradient of ``attention_qkv_slab`` with respect to the slab:
+    qkv [B, S, 3·H·Dh], fp32 key bias [B, S], dout [B, S, H·Dh] →
+    dqkv [B, S, 3·H·Dh] in the slab's dtype. A CUDA tensor goes through the
+    backward kernel, which takes fp32 or bf16 (dout in the slab's dtype),
+    Dh = 64, S ≤ 512 and contiguous tensors, and raises on anything else; a
+    CPU tensor goes through the plain version."""
+    global BWD_LAUNCHES
+    b, s, _ = qkv.shape
+    dh = _head_dim(qkv, num_heads)
+    if tuple(key_bias.shape) != (b, s):
+        raise ValueError(f"key_bias must be [B, S] = {(b, s)}, got "
+                         f"{tuple(key_bias.shape)}")
+    if tuple(dout.shape) != (b, s, num_heads * dh):
+        raise ValueError(f"dout must be [B, S, H·Dh] = "
+                         f"{(b, s, num_heads * dh)}, got {tuple(dout.shape)}")
+    if qkv.device.type == "cpu":
+        return attention_qkv_slab_bwd_reference(qkv, key_bias, dout, num_heads)
+    _check_kernel_slab(qkv, dh)
+    if qkv.dtype not in _BWD_DTYPE_CODE or dout.dtype != qkv.dtype:
+        raise TypeError(f"the backward kernel takes float32 or bfloat16 slabs "
+                        f"with dout in the slab's dtype, got {qkv.dtype} and "
+                        f"{dout.dtype}")
+    if key_bias.device != qkv.device or dout.device != qkv.device:
+        raise ValueError("key_bias and dout must be on the slab's device")
+    if not dout.is_contiguous() or dout.data_ptr() % 16:
+        raise ValueError("the kernel takes a contiguous, 16-byte aligned dout")
+    key_bias = key_bias.float().contiguous()
+
+    from keep_tpu_torch.kernels._build import library
+
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty(b, num_heads, s, 4, dtype=torch.float32,
+                        device=qkv.device)
+    rc = library().keep_attention_qkv_slab_bwd(
+        qkv.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+        stats.data_ptr(), b, s, num_heads, dh, _BWD_DTYPE_CODE[qkv.dtype],
+        dh ** -0.5, torch.cuda.current_stream(qkv.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_qkv_slab_bwd kernel launch failed: "
+                           f"cudaError {rc}")
+    with _launch_lock:
+        BWD_LAUNCHES += 1
+    return dqkv

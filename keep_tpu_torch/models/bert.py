@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from keep_tpu_torch.configs import BertConfig
 from keep_tpu_torch.kernels.flash_attention import attention_qkv_slab
@@ -107,9 +108,10 @@ class BertModel(nn.Module):
                 attention_mask: torch.Tensor | None = None,
                 token_type_ids: torch.Tensor | None = None, *,
                 dtype: torch.dtype = torch.float32, use_flash: bool = False,
-                gelu_approx: bool = False) -> dict:
+                gelu_approx: bool = False, remat: bool = False) -> dict:
         """[B, S] token ids → {'last_hidden_state': [B, S, D],
-        'pooler_output': [B, D]}."""
+        'pooler_output': [B, D]}. ``remat`` recomputes each block in the
+        backward (``torch.utils.checkpoint``)."""
         b, s = input_ids.shape
         if s > self.cfg.max_position_embeddings:
             raise ValueError(
@@ -126,6 +128,11 @@ class BertModel(nn.Module):
         x = emb.norm(x).to(dtype)
         key_bias = (1.0 - attention_mask.float()) * MASK_VALUE  # [B, S] fp32
         for blk in self.blocks:
-            x = blk(x, key_bias, use_flash=use_flash, gelu_approx=gelu_approx)
+            if remat:
+                x = checkpoint(blk, x, key_bias, use_reentrant=False,
+                               use_flash=use_flash, gelu_approx=gelu_approx)
+            else:
+                x = blk(x, key_bias, use_flash=use_flash,
+                        gelu_approx=gelu_approx)
         return {"last_hidden_state": x,
                 "pooler_output": torch.tanh(self.pooler(x[:, 0]))}

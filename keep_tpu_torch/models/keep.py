@@ -5,6 +5,8 @@
   encode_text(ids, mask, tt) = l2_normalize(bert(...).pooler_output)
 
 with ``visual_head`` = Linear(1024→768) → exact GELU → Linear(768→768).
+Both encoders train (``remat`` for per-block recompute); ``KEEPModel.init``
+draws a random model for training from scratch.
 """
 
 from __future__ import annotations
@@ -69,20 +71,47 @@ class KEEPModel(nn.Module):
             if isinstance(m, Linear):
                 m.weight.data = m.weight.data.to(dtype)
 
-    def encode_image(self, pixels: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 3] normalised pixels → [B, projection_dim] unit fp32."""
+    def encode_image(self, pixels: torch.Tensor,
+                     remat: bool = False) -> torch.Tensor:
+        """[B, H, W, 3] normalised pixels → [B, projection_dim] unit fp32.
+        ``remat`` recomputes each block in the backward."""
         feats = self.visual(pixels, dtype=self.dtype, use_flash=self.use_flash,
-                            gelu_approx=self.gelu_approx)
+                            gelu_approx=self.gelu_approx, remat=remat)
         return self.visual_head(feats)
 
     def encode_text(self, input_ids: torch.Tensor,
                     attention_mask: torch.Tensor | None = None,
-                    token_type_ids: torch.Tensor | None = None) -> torch.Tensor:
+                    token_type_ids: torch.Tensor | None = None,
+                    remat: bool = False) -> torch.Tensor:
         """[B, S] token ids (+ mask) → [B, hidden] unit fp32 features."""
         out = self.text(input_ids, attention_mask, token_type_ids,
                         dtype=self.dtype, use_flash=self.use_flash,
-                        gelu_approx=self.gelu_approx)
+                        gelu_approx=self.gelu_approx, remat=remat)
         return l2_normalize(out["pooler_output"].float())
+
+    @classmethod
+    @torch.no_grad()
+    def init(cls, cfg: KEEPConfig, generator: torch.Generator, *,
+             logit_scale: float | None = None, device=None,
+             **kw) -> "KEEPModel":
+        """A randomly initialised model, drawn from ``generator`` with the
+        statistics of the JAX package's ``keep.init`` (ViT and head weights
+        std fan_in^-0.5, BERT weights and embeddings std .02, zero biases,
+        unit LayerNorms, LayerScale at ``layerscale_init``), with
+        ``logit_scale = log(1 / logit_scale)`` (default: the config's
+        ``logit_scale_init``). ``kw`` go to the constructor; for training
+        pass ``weight_dtype=torch.float32`` to keep fp32 master weights."""
+        from keep_tpu_torch.compat.torch_loader import (load_keep_state_dict,
+                                                        random_keep_state_dict)
+
+        sd = load_keep_state_dict(random_keep_state_dict(
+            cfg, generator, device=device, keep_init=True), cfg)
+        model = cls(cfg, device=device, **kw)
+        model.load_state_dict(sd, strict=True)
+        model.logit_scale.fill_(math.log(
+            1.0 / (cfg.logit_scale_init if logit_scale is None
+                   else logit_scale)))
+        return model
 
     def quantize(self, calib_pixels=None, smooth_alpha: float = 0.5,
                  calib_text=None, moe_w8a16: bool = False) -> "KEEPModel":

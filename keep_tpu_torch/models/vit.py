@@ -9,6 +9,10 @@ Parameter names follow the JAX pytree (``patch_embed``, ``blocks.{i}.attn.qkv``,
 ``ls1``, ...); weights are torch-layout ``[out, in]``. The patch-embed weight
 is ``[D, P·P·3]`` with the (ph, pw, c) flatten order of ``patchify``.
 
+Training: fp32 master weights under a bf16 ``dtype`` (``linear`` casts each
+weight on use), per-block remat with ``remat=True``; the int8 blocks are
+inference-only.
+
 Not ported yet: ``resample_pos_embed`` (image sizes other than the native
 one raise), ``fuse_ln``, patch dropout, ``ln_stats`` and ``act_sharding``.
 """
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from keep_tpu_torch.configs import ViTConfig
 from keep_tpu_torch.kernels.flash_attention import attention_qkv_slab
@@ -131,9 +136,12 @@ class VisionTransformer(nn.Module):
         self.norm = LayerNorm(d, cfg.ln_eps, device=device)
 
     def forward(self, x: torch.Tensor, *, dtype: torch.dtype = torch.float32,
-                use_flash: bool = False,
-                gelu_approx: bool = False) -> torch.Tensor:
-        """[B, H, W, 3] normalised pixels → [B, D] CLS features."""
+                use_flash: bool = False, gelu_approx: bool = False,
+                remat: bool = False) -> torch.Tensor:
+        """[B, H, W, 3] normalised pixels → [B, D] CLS features.
+        ``remat`` recomputes each block's activations in the backward
+        (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``
+        around the block)."""
         b, h, w, _ = x.shape
         cfg = self.cfg
         if (h, w) != (cfg.img_size, cfg.img_size):
@@ -145,7 +153,13 @@ class VisionTransformer(nn.Module):
         cls = self.cls_token.to(dtype).expand(b, 1, cfg.embed_dim)
         tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(dtype)
         for blk in self.blocks:
-            tokens = blk(tokens, use_flash=use_flash, gelu_approx=gelu_approx)
+            if remat:
+                tokens = checkpoint(blk, tokens, use_reentrant=False,
+                                    use_flash=use_flash,
+                                    gelu_approx=gelu_approx)
+            else:
+                tokens = blk(tokens, use_flash=use_flash,
+                             gelu_approx=gelu_approx)
         # LayerNorm is per token, so normalising the pooled CLS row alone
         # equals the JAX package's norm-then-pool
         return self.norm(tokens[:, 0])

@@ -76,8 +76,10 @@ def test_wrapper_checks_before_dispatch():
     x = torch.zeros(2, 8, 3 * 64)
     with pytest.raises(ValueError, match="key_bias"):
         fa.attention_qkv_slab(x, torch.zeros(2, 7), num_heads=1)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        fa.attention_qkv_slab(x.clone().requires_grad_(), num_heads=1)
+    # the fp32-output form (the int8 blocks' attention) stays inference-only
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        fa.attention_qkv_slab(x.bfloat16().requires_grad_(), num_heads=1,
+                              out_dtype=torch.float32)
     # a device with no kernel raises: there is no fallback to the CPU path
     with pytest.raises(ValueError, match="no kernel"):
         fa.attention_qkv_slab(x.to("meta"), num_heads=1)

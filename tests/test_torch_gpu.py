@@ -241,3 +241,120 @@ def test_int8_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="float32 or the input"):
         fa.attention_qkv_slab(torch.zeros(1, 4, 192, device="cuda"),
                               num_heads=1, out_dtype=torch.bfloat16)
+
+
+# ---- the attention backward --------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("s", [33, 197, 256])
+def test_bwd_kernel_matches_plain(cuda, s, padded, dtype):
+    """fp32 at atol 2e-4, rtol 1e-4 (tests/test_flash_attention.py's VJP
+    tolerance); bf16 within 1e-2 of the largest plain gradient on unpadded
+    rows, one bf16 rounding of fp32 sums taken in another order."""
+    b, h = 4, 3
+    qkv = torch.randn(b, s, 3 * h * 64, device="cuda", generator=cuda).to(dtype)
+    do = torch.randn(b, s, h * 64, device="cuda", generator=cuda).to(dtype)
+    valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    if padded:
+        lens = torch.randint(1, s + 1, (b,), device="cuda", generator=cuda)
+        valid = torch.arange(s, device="cuda")[None] < lens[:, None]
+    kb = (1.0 - valid.float()) * -1e9
+    n0 = fa.BWD_LAUNCHES
+    got = fa.attention_qkv_slab_bwd(qkv, kb, do, h)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == n0 + 1
+    assert got.dtype == dtype and got.shape == qkv.shape
+    ref = fa.attention_qkv_slab_bwd_reference(qkv, kb, do, h)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=2e-4, rtol=1e-4)
+    else:
+        g, r = got.float()[valid], ref.float()[valid]
+        assert (g - r).abs().max().item() <= 1e-2 * r.abs().max().item()
+
+
+def test_autograd_launches_both_kernels(cuda):
+    """Under autograd a CUDA slab goes forward through the forward kernel
+    and back through the backward kernel, once each, to the plain
+    gradient."""
+    qkv = torch.randn(2, 50, 3 * 2 * 64, device="cuda", generator=cuda)
+    do = torch.randn(2, 50, 2 * 64, device="cuda", generator=cuda)
+    x = qkv.clone().requires_grad_()
+    n0, nb0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+    fa.attention_qkv_slab(x, num_heads=2).backward(do)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (n0 + 1, nb0 + 1)
+    ref = fa.attention_qkv_slab_bwd_reference(qkv, torch.zeros(2, 50,
+                                                               device="cuda"),
+                                              do, 2)
+    torch.testing.assert_close(x.grad, ref, atol=2e-4, rtol=1e-4)
+
+
+def test_bwd_kernel_refuses_what_it_does_not_take(cuda):
+    kb = torch.zeros(1, 4, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.attention_qkv_slab_bwd(torch.zeros(1, 4, 96, device="cuda"), kb,
+                                  torch.zeros(1, 4, 32, device="cuda"), 1)
+    with pytest.raises(ValueError, match="S ≤"):
+        fa.attention_qkv_slab_bwd(torch.zeros(1, 513, 192, device="cuda"),
+                                  torch.zeros(1, 513, device="cuda"),
+                                  torch.zeros(1, 513, 64, device="cuda"), 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.attention_qkv_slab_bwd(torch.zeros(1, 4, 192, device="cuda"), kb,
+                                  torch.zeros(1, 4, 64, device="cuda",
+                                              dtype=torch.bfloat16), 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.attention_qkv_slab_bwd(
+            torch.zeros(1, 4, 192, device="cuda", dtype=torch.float16), kb,
+            torch.zeros(1, 4, 64, device="cuda", dtype=torch.float16), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.attention_qkv_slab_bwd(
+            torch.zeros(1, 4, 192, device="cuda"), kb,
+            torch.zeros(1, 128, 4, device="cuda").transpose(1, 2)[..., :64],
+            1)
+    with pytest.raises(ValueError, match="device"):
+        fa.attention_qkv_slab_bwd(torch.zeros(1, 4, 192, device="cuda"),
+                                  torch.zeros(1, 4),
+                                  torch.zeros(1, 4, 64, device="cuda"), 1)
+
+
+def test_train_step_on_the_card(cuda):
+    """One bf16 train step of a small KEEP (head width 64) on the card: the
+    attention of every block goes forward through the kernel twice (remat)
+    and back through the backward kernel once; the loss is finite."""
+    from keep_tpu_torch.configs import BertConfig, KEEPConfig, ViTConfig
+    from keep_tpu_torch.models.keep import KEEPModel
+    from keep_tpu_torch.train import optim, trainer
+
+    cfg = KEEPConfig(vision=ViTConfig(img_size=32, patch_size=8,
+                                      embed_dim=128, depth=2, num_heads=2),
+                     text=BertConfig(vocab_size=64, hidden_size=128,
+                                     num_hidden_layers=2,
+                                     num_attention_heads=2,
+                                     intermediate_size=256,
+                                     max_position_embeddings=32),
+                     projection_dim=128)
+    model = KEEPModel.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda", dtype=torch.bfloat16,
+                           weight_dtype=torch.float32, use_flash=True,
+                           gelu_approx=False)
+    tx = optim.AdamW(lambda s: 1e-4, decay_mask=optim.wd_mask(model),
+                     grad_clip_norm=1.0)
+    state = trainer.tree_state(model, tx)
+    step = trainer.make_train_step(model, trainer.LossConfig(caption_num=4),
+                                   tx)
+    batch = {"pixels": torch.randn(8, 32, 32, 3, device="cuda",
+                                   generator=cuda),
+             "input_ids": torch.randint(1, 64, (8, 16), device="cuda",
+                                        generator=cuda),
+             "attention_mask": torch.ones(8, 16, dtype=torch.long,
+                                          device="cuda"),
+             "node_connection": torch.ones(4, 4, device="cuda")}
+    batch["attention_mask"][:, 10:] = 0
+    n0, nb0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(m["loss"])
+    assert fa.BWD_LAUNCHES - nb0 == 4
+    assert fa.LAUNCHES - n0 == 8

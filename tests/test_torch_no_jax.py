@@ -22,6 +22,9 @@ def test_imports_leave_jax_unloaded():
         "keep_tpu_torch.kernels, keep_tpu_torch.ops, keep_tpu_torch.text\n"
         "import keep_tpu_torch.quant, keep_tpu_torch.models.keep\n"
         "from keep_tpu_torch.kernels import _kops, qblock, qmatmul, qmlp\n"
+        "import keep_tpu_torch.train.main, keep_tpu_torch.utils.writers\n"
+        "from keep_tpu_torch.train import (checkpoint, config, data, freeze, "
+        "loss, optim, schedules, trainer)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'keep_tpu'))\n"
         "assert not bad, bad\n"
