@@ -12,15 +12,36 @@ exits non-zero without a result line):
 3. kernel   — ``attention_qkv_slab`` against its plain PyTorch version at the
    serving shapes (ViT-L: B=32, S=197, H=16, no bias; BERT-base: B=32,
    S=256, H=12, padded key bias), in fp32 (atol = rtol = 2e-5) and bf16
-   (max |Δ| < 0.05 on unpadded query rows), each timed with CUDA events.
+   (max |Δ| < 0.05 on unpadded query rows), each timed with CUDA events,
+   beside ``F.scaled_dot_product_attention`` on the same values (a
+   yardstick the port never calls; the backend that ran is recorded).
+   heads — ``flash_attention`` / ``attention_qkv_heads`` (split q, k, v) at
+   the same shapes and tolerances (BERT with a [B, 1, 1, S] mask), bit for
+   bit against ``attention_qkv_slab`` on the same values, timed beside SDPA;
+   then its path, ``ops.nn.mha_attention(use_flash=True)``, with its
+   launches counted.
    int8_kernel — the int8 counterparts of the TPU kernels (the ViT and BERT
-   attention sub-blocks, the MLP pair in both towers' forms, the patch-embed
-   and visual-head matmuls) against their plain versions at the serving
-   shapes, in fp32 at the JAX package's tolerances for each
+   attention sub-blocks, the MLP pair in both towers' forms and flat, the
+   patch-embed and visual-head matmuls) against their plain versions at the
+   serving shapes, in fp32 at the JAX package's tolerances for each
    (``tests/test_quant.py``), with the share of int8 codes that differ from
-   the plain version's; kernel and plain times in bf16. int8_primitive —
-   the three CUDA kernels alone (quant_rows, int8_gemm, ln_rows) against
-   their plain versions (the GEMM's is cuBLAS int8).
+   the plain version's; kernel and plain times in bf16. The flat MLP pair
+   bit for bit against the [B, S, D] form, and its path, ``ops.nn.Mlp`` on
+   an int8 fc1/fc2 pair and a 2-D input, with its launches counted.
+   int8_primitive — the three CUDA kernels alone (quant_rows, int8_gemm,
+   ln_rows) against their plain versions (the GEMM's is cuBLAS int8).
+   ln_matmul — the fused LayerNorm → matmul against its plain version at the
+   ViT-L qkv and fc1 shapes (M = 32·197, K = 1024, N = 3072, 4096), fp32 at
+   2e-5 and bf16 within one bf16 rounding, timed beside the unfused cuBLAS
+   route (``F.layer_norm`` then ``F.linear``). fuse_ln_path — a full-width
+   ViT-L/16 (224², bf16, B = 128, random weights whose blocks all move the
+   stream) under ``use_flash=True, fuse_ln=True`` and its visual head,
+   against ``fuse_ln=False``: cosine ≥ 0.999 per row, 48 ``ln_matmul`` and
+   24 attention launches per forward, every ``ln_matmul`` call of the
+   forward against its plain version on the same inputs (bf16 tolerance as
+   above), two faults planted in the kernel's result that must each fail
+   one of these gates, both forwards' device times and ``ln_matmul``'s
+   share.
 4. server   — a full-width KEEP (ViT-L/16 + BERT-base) with random weights
    written in the released checkpoint layout, loaded by
    ``keep_tpu_torch.serve.build_server`` (bf16, fused attention), warmed up
@@ -47,18 +68,22 @@ exits non-zero without a result line):
    key bias; BERT-base: S=256, H=12, padded key bias), fp32 at atol 2e-4,
    rtol 1e-4 and bf16 within 1e-2 of the largest plain gradient on unpadded
    rows, each timed with CUDA events.
-9. train — ``keep_tpu_torch.train.main.main(["--config", <json>])`` on the
-   values of ``configs/keep_train.yml`` (batch 128, 32 captions, lhp-hn,
-   amp_bf16, fused attention, both towers frozen in epoch 0) at full width
-   from a random init, on PNG tiles, groups, a DO graph and a vocab written
-   from a seed: 2 epochs of 4 steps. Every loss finite; no backward launch
+9. train — ``keep_tpu_torch.train.main.main(["--config", <json>,
+   "--device", "cuda"])`` on the values of ``configs/keep_train.yml``
+   (batch 128, 32 captions, lhp-hn, amp_bf16, fused attention, both towers
+   frozen in epoch 0) at full width from a random init, on PNG tiles,
+   groups, a DO graph and a vocab written from a seed: 2 epochs of 4 steps. Every loss finite; no backward launch
    and towers equal to the seed's initial weights while frozen; in epoch 1
    every step launches the backward kernel once per block and the forward
    kernel twice (remat), and the towers move; a checkpoint that
    ``restore()`` reads back. Prints ms per unfrozen step, samples/s, peak
    device memory and the device time of the last step by kernel family.
 
-Then one JSON line describing the kernels, and last the result line
+Then one JSON line describing the kernels (each TPU kernel's counterpart:
+its launches on the path that runs it, its time, its plain version's, its
+bound — the larger of its operations over the card's peak for their type
+and its bytes over 3.35 TB/s — and the one PyTorch call that computes the
+same function, or null), and last the result line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -82,7 +107,14 @@ SOURCE = "keep_tpu_torch/kernels/csrc/attention_qkv_slab.cu"
 REPLACES = "keep_tpu/kernels/flash_attention.py:190"
 BWD_SOURCE = "keep_tpu_torch/kernels/csrc/attention_qkv_slab_bwd.cu"
 BWD_REPLACES = "keep_tpu/kernels/flash_attention.py:221"
+HEADS_REPLACES = "keep_tpu/kernels/flash_attention.py:115"
+LN_MATMUL_SOURCE = "keep_tpu_torch/kernels/csrc/ln_matmul.cu"
+LN_MATMUL_REPLACES = "keep_tpu/kernels/ln_matmul.py:51"
 CSRC = "keep_tpu_torch/kernels/csrc/"
+# the card's published peaks (H100 SXM, dense) and memory rate, for the
+# least time a kernel's work could take (bound_ms)
+PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 # the int8 counterparts of the TPU kernels: the module that composes them
 # and the CUDA sources they run, the TPU kernel each replaces
 INT8_KERNELS = {
@@ -103,6 +135,9 @@ INT8_KERNELS = {
     "quantized_matmul": (
         "keep_tpu_torch/kernels/qmatmul.py",
         ["quant_rows.cu", "int8_gemm.cu"], "keep_tpu/kernels/qmatmul.py:80"),
+    "quantized_mlp": (
+        "keep_tpu_torch/kernels/qmlp.py",
+        ["quant_rows.cu", "int8_gemm.cu"], "keep_tpu/kernels/qmlp.py:97"),
 }
 VOCAB = ("[PAD] [UNK] [CLS] [SEP] [MASK] an h & e image of breast invasive "
          "carcinoma normal tissue lung adeno ##carcinoma squamous cell "
@@ -142,6 +177,45 @@ def cuda_ms(fn, warmup: int = 3, runs: int = 25) -> float:
     return statistics.median(times)
 
 
+def bound(ops: dict[str, float], nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for work of ``ops``
+    operations by type (``PEAK``'s keys) that must move ``nbytes`` (each
+    input read once, each output written once): the larger of the two
+    times, and which one sets it."""
+    t_ops = sum(n / PEAK[kind] for kind, n in ops.items()) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def attention_bound(b: int, s: int, h: int, dtype_bytes: int,
+                    key_bias: bool, backward: bool = False
+                    ) -> tuple[float, str]:
+    """The bound of one attention call (Dh = 64): the forward's q·kᵀ and p·v
+    (4·S²·Dh per head), the backward's score recompute and four products
+    (10·S²·Dh); q, k, v (and dout) read, the output (dq, dk, dv) written."""
+    dh = 64
+    per_head = (10 if backward else 4) * s * s * dh
+    io = b * s * h * dh * dtype_bytes
+    moved = io * (3 + 1) if not backward else io * (3 + 1 + 3)
+    return bound({"bf16": b * h * per_head}, moved + key_bias * b * s * 4)
+
+
+def sdpa_backend(torch, fn) -> str:
+    """The name of the longest device kernel of one call of ``fn`` (which
+    SDPA backend ran)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_kernel = kernel_ms(torch, prof)
+    return max(by_kernel, key=by_kernel.get) if by_kernel else "not measured"
+
+
 def check_kernel(fa, torch, gen) -> list[dict]:
     shapes = [("vit_l16", 32, 197, 16, False), ("bert_base", 32, 256, 12, True)]
     rows = []
@@ -169,12 +243,296 @@ def check_kernel(fa, torch, gen) -> list[dict]:
             ms = cuda_ms(lambda: fa.attention_qkv_slab(qkv, kb, num_heads=h))
             plain_ms = cuda_ms(lambda: fa.attention_qkv_slab_reference(
                 qkv, kb, num_heads=h))
+            # the library's attention on the slab's [B, H, S, Dh] head views,
+            # a yardstick the port never calls
+            q, k, v = qkv.view(b, s, 3, h, 64).permute(2, 0, 3, 1, 4)
+            mask = None if kb is None else kb[:, None, None, :].to(dtype)
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask)
             row = {"shape": name, "B": b, "S": s, "H": h,
                    "dtype": str(dtype).replace("torch.", ""),
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": cuda_ms(sdpa),
+                   "library_kernel": sdpa_backend(torch, sdpa)}
+            row["bound_ms"], row["bound_by"] = attention_bound(
+                b, s, h, qkv.element_size(), kb is not None)
             phase("kernel", **row)
             rows.append(row)
     return rows
+
+
+def check_heads(fa, torch, gen) -> tuple[list[dict], int]:
+    """Phase 3b. ``flash_attention`` (split q, k, v over ``attention_qkv_heads``)
+    against its plain version at the serving shapes (ViT-L: B=32, S=197,
+    H=16, no bias; BERT-base: B=32, S=256, H=12, a padded [B, 1, 1, S]
+    mask), fp32 at 2e-5 and bf16 at max |Δ| < 0.05 on unpadded query rows;
+    bit for bit against ``attention_qkv_slab`` on the same q, k, v; the
+    kernel's, the plain version's and SDPA's times. Then the main path:
+    ``ops.nn.mha_attention(use_flash=True)`` at both shapes in bf16, its
+    launches counted from zero. Returns (rows, launches)."""
+    from keep_tpu_torch.ops.nn import mha_attention
+
+    F = torch.nn.functional
+    shapes = [("vit_l16", 32, 197, 16, False), ("bert_base", 32, 256, 12, True)]
+    rows, inputs = [], []
+    for name, b, s, h, padded in shapes:
+        q32, k32, v32 = (torch.randn(b, h, s, 64, device="cuda",
+                                     generator=gen) for _ in range(3))
+        valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
+        bias = None
+        if padded:
+            lens = torch.randint(8, s + 1, (b,), device="cuda", generator=gen)
+            valid = torch.arange(s, device="cuda")[None] < lens[:, None]
+            bias = ((1.0 - valid.float()) * -1e9)[:, None, None, :]
+        kb = None if bias is None else bias.reshape(b, s)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            got = fa.flash_attention(q, k, v, bias)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_reference(q, k, v, bias)
+            g = got.transpose(1, 2).float()[valid]
+            r = ref.transpose(1, 2).float()[valid]
+            err = (g - r).abs().max().item()
+            if dtype == torch.float32:
+                if not torch.allclose(g, r, atol=2e-5, rtol=2e-5):
+                    raise AssertionError(
+                        f"{name} fp32 heads kernel vs plain: max |Δ| {err}")
+            elif not err < 0.05:
+                raise AssertionError(f"{name} bf16 heads kernel vs plain: "
+                                     f"max |Δ| {err}")
+            lanes = [t.transpose(1, 2).reshape(b, s, h * 64) for t in
+                     (q, k, v)]
+            heads = fa.attention_qkv_heads(*lanes, kb, num_heads=h)
+            slab = fa.attention_qkv_slab(torch.cat(lanes, -1).contiguous(), kb,
+                                         num_heads=h)
+            if not torch.equal(heads, slab):
+                raise AssertionError(f"{name} {dtype}: heads kernel differs "
+                                     f"from the slab kernel on the same q, "
+                                     f"k, v")
+            mask = None if bias is None else bias.to(dtype)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask)
+            row = {"shape": name, "B": b, "S": s, "H": h,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "max_abs_err": err, "equals_slab_bitwise": True,
+                   "ms": cuda_ms(lambda: fa.attention_qkv_heads(
+                       *lanes, kb, num_heads=h)),
+                   "plain_ms": cuda_ms(lambda: fa.attention_qkv_heads_reference(
+                       *lanes, kb, num_heads=h)),
+                   "flash_attention_ms": cuda_ms(
+                       lambda: fa.flash_attention(q, k, v, bias)),
+                   "library_ms": cuda_ms(sdpa),
+                   "library_kernel": sdpa_backend(torch, sdpa)}
+            row["bound_ms"], row["bound_by"] = attention_bound(
+                b, s, h, q.element_size(), padded)
+            phase("heads", **row)
+            rows.append(row)
+            if dtype == torch.bfloat16:
+                inputs.append((name, q, k, v, bias, valid, ref))
+
+    with fa._launch_lock:
+        fa.HEADS_LAUNCHES = 0
+    # ---- the main path: the generic attention op with the kernel -----------
+    with torch.inference_mode():
+        outs = [mha_attention(q, k, v, bias=bias, use_flash=True)
+                for _, q, k, v, bias, _, _ in inputs]
+    torch.cuda.synchronize()
+    launches = fa.HEADS_LAUNCHES
+    # -------------------------------------------------------------------------
+    if launches != len(inputs):
+        raise AssertionError(f"mha_attention(use_flash=True): {launches} "
+                             f"kernel launches for {len(inputs)} calls")
+    for out, (name, _, _, _, _, valid, ref) in zip(outs, inputs):
+        g = out.transpose(1, 2).float()[valid]
+        if not torch.isfinite(g).all() or \
+                not (g - ref.transpose(1, 2).float()[valid]).abs().max() < 0.05:
+            raise AssertionError(f"{name}: mha_attention(use_flash=True) "
+                                 f"differs from the plain version")
+    phase("heads_path", entry="ops.nn.mha_attention(use_flash=True)",
+          calls=[n for n, *_ in inputs], launches=launches)
+    return rows, launches
+
+
+def check_ln_matmul(lm, torch, gen) -> list[dict]:
+    """Phase 3d. ``ln_matmul`` against its plain version at the ViT-L
+    projections after a LayerNorm (M = 32·197, K = 1024, N = 3072 for qkv,
+    4096 for fc1): fp32 at 2e-5; bf16 within one bf16 rounding (rtol 2⁻⁷,
+    atol 1e-2 for outputs near zero). Times of the kernel, its plain
+    version and the unfused cuBLAS route (``F.layer_norm`` then
+    ``F.linear``, two calls: ``unfused_ms``), all bf16."""
+    F = torch.nn.functional
+    m, k = 32 * 197, 1024
+    x32 = torch.randn(m, k, device="cuda", generator=gen) * 2 + 0.5
+    g = 1 + 0.1 * torch.randn(k, device="cuda", generator=gen)
+    b = 0.05 * torch.randn(k, device="cuda", generator=gen)
+    rows = []
+    for n in (3072, 4096):
+        w32 = torch.randn(n, k, device="cuda", generator=gen) * k ** -0.5
+        bias = 0.02 * torch.randn(n, device="cuda", generator=gen)
+        row = {"shape": f"vit_l16 [{m},{k}]x[{k}->{n}]"}
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = x32.to(dtype), w32.to(dtype)
+            got = lm.ln_matmul(x, g, b, w, bias, 1e-6, dtype)
+            torch.cuda.synchronize()
+            ref = lm.ln_matmul_reference(x, g, b, w, bias, 1e-6, dtype)
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = (dict(atol=2e-5, rtol=2e-5) if dtype == torch.float32
+                   else dict(atol=1e-2, rtol=2 ** -7))
+            if not torch.allclose(got.float(), ref.float(), **tol):
+                raise AssertionError(f"ln_matmul {row['shape']} {dtype} vs "
+                                     f"plain: max |Δ| {err}")
+            tag = "fp32" if dtype == torch.float32 else "bf16"
+            row[f"max_abs_err_{tag}"] = err
+            row[f"ms_{tag}"] = cuda_ms(
+                lambda: lm.ln_matmul(x, g, b, w, bias, 1e-6, dtype))
+            row[f"plain_ms_{tag}"] = cuda_ms(
+                lambda: lm.ln_matmul_reference(x, g, b, w, bias, 1e-6, dtype))
+        g16, b16, bias16 = g.bfloat16(), b.bfloat16(), bias.bfloat16()
+        row["unfused_ms_bf16"] = cuda_ms(lambda: F.linear(
+            F.layer_norm(x, (k,), g16, b16, 1e-6), w, bias16))
+        row["bound_ms_bf16"], row["bound_by"] = bound(
+            {"bf16": 2 * m * k * n}, nbytes(x, g, b, w, bias) + m * n * 2)
+        phase("ln_matmul", **row)
+        rows.append(row)
+    return rows
+
+
+def drive_fuse_ln(torch, fa, lm, cfg) -> dict:
+    """Phase 3e. The ViT under ``fuse_ln`` at full width: ViT-L/16 at 224²,
+    bf16, tanh GELU, B = 128, random weights whose blocks all move the
+    residual stream (LayerScale 0.1–0.5; ``keep.init``'s 1e-5 would scale
+    every ``ln_matmul`` result down to where the features cannot see it).
+    ``model.visual(..., use_flash=True, fuse_ln=True)`` and the visual head
+    against the same call with ``fuse_ln=False``: finite features, cosine ≥
+    0.999 per row, and exactly 2 ``ln_matmul`` and 1 slab-attention launch
+    per block of the forward. Then every ``ln_matmul`` call of a second
+    fused forward is held against its plain version on the same inputs at
+    ``check_ln_matmul``'s bf16 tolerance, and two faults planted in the
+    kernel's result must each fail one of the two gates. Device ms of both
+    forwards (CUDA events) and ``ln_matmul``'s share of the fused one
+    (torch.profiler)."""
+    from keep_tpu_torch.compat.torch_loader import (load_keep_state_dict,
+                                                    random_keep_state_dict)
+    from keep_tpu_torch.models import vit
+    from keep_tpu_torch.models.keep import KEEPModel
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = KEEPModel(cfg, device="cuda", dtype=torch.bfloat16,
+                      gelu_approx=True)
+    model.load_state_dict(load_keep_state_dict(
+        random_keep_state_dict(cfg, gen, device="cuda"), cfg), strict=True)
+    model.eval()
+    size = cfg.vision.img_size
+    px = torch.randn(128, size, size, 3, device="cuda", generator=gen)
+    kw = dict(dtype=torch.bfloat16, use_flash=True, gelu_approx=True)
+
+    def encode(fuse_ln: bool) -> torch.Tensor:
+        return model.visual_head(model.visual(px, fuse_ln=fuse_ln, **kw))
+
+    with torch.inference_mode():
+        with fa._launch_lock:
+            fa.LAUNCHES = 0
+        with lm._launch_lock:
+            lm.LAUNCHES = 0
+        # ---- the main path: the ViT forward under fuse_ln ----------------
+        fused = encode(True)
+        torch.cuda.synchronize()
+        ln_launches, attn_launches = lm.LAUNCHES, fa.LAUNCHES
+        # -----------------------------------------------------------------
+        base = encode(False)
+        depth = cfg.vision.depth
+        if (ln_launches, attn_launches) != (2 * depth, depth):
+            raise AssertionError(f"fuse_ln forward: {ln_launches} ln_matmul "
+                                 f"and {attn_launches} attention launches, "
+                                 f"want {2 * depth} and {depth}")
+        f, r = fused.float(), base.float()
+        if not torch.isfinite(f).all():
+            raise AssertionError("fuse_ln forward: non-finite features")
+        cos = torch.nn.functional.cosine_similarity(f, r, dim=-1)
+        if not (cos >= 0.999).all():
+            raise AssertionError(f"fuse_ln vs unfused: min cos "
+                                 f"{cos.min().item()}")
+
+        def held_forward(fault=None) -> tuple[float, float, int]:
+            """A fused forward with every ``ln_matmul`` call held against
+            its plain version on the same inputs (rtol 2⁻⁷, atol 1e-2);
+            ``fault`` alters each kernel result first. Returns the
+            features' min cosine against ``fuse_ln=False``, the largest
+            per-call |Δ| and the first call out of tolerance (0: none)."""
+            errs, first_bad = [], []
+
+            def held(x, g, b, w, bias, eps=1e-6, out_dtype=torch.bfloat16):
+                got = lm.ln_matmul(x, g, b, w, bias, eps, out_dtype)
+                if fault is not None:
+                    fault(got)
+                ref = lm.ln_matmul_reference(x, g, b, w, bias, eps, out_dtype)
+                errs.append((got.float() - ref.float()).abs().max().item())
+                if not first_bad and not torch.allclose(
+                        got.float(), ref.float(), atol=1e-2, rtol=2 ** -7):
+                    first_bad.append(len(errs))
+                return got
+
+            vit.ln_matmul = held
+            try:
+                feats = encode(True).float()
+            finally:
+                vit.ln_matmul = lm.ln_matmul
+            if len(errs) != 2 * depth:
+                raise AssertionError(f"fuse_ln forward: {len(errs)} "
+                                     f"ln_matmul calls held, want {2 * depth}")
+            c = torch.nn.functional.cosine_similarity(feats, r, dim=-1)
+            return c.min().item(), max(errs), (first_bad or [0])[0]
+
+        _, call_err, bad_call = held_forward()
+        if bad_call:
+            raise AssertionError(f"fuse_ln forward: ln_matmul call {bad_call} "
+                                 f"vs plain: max |Δ| {call_err}")
+        # the gates' self-check: faults planted in the kernel's result must
+        # fail one of them (a zero result fails both; one token off by one
+        # in 8 columns only the per-call check)
+        faults = {"zeros": lambda o: o.zero_(),
+                  "one_token_8_columns_plus_1": lambda o: o[1, :8].add_(1)}
+        planted = {}
+        for name, fault in faults.items():
+            fcos, ferr, fbad = held_forward(fault)
+            caught = [gname for gname, hit in (("cosine", fcos < 0.999),
+                                               ("per_call", fbad)) if hit]
+            if not caught:
+                raise AssertionError(f"fuse_ln gates: the planted fault "
+                                     f"{name} passed both (min cos {fcos}, "
+                                     f"per-call max |Δ| {ferr})")
+            planted[name] = {"min_cos": fcos, "per_call_max_abs_err": ferr,
+                             "first_call_out_of_tolerance": fbad,
+                             "caught_by": caught}
+        fused_ms = cuda_ms(lambda: model.visual(px, fuse_ln=True, **kw),
+                           warmup=2, runs=10)
+        unfused_ms = cuda_ms(lambda: model.visual(px, **kw), warmup=2,
+                             runs=10)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.visual(px, fuse_ln=True, **kw)
+            torch.cuda.synchronize()
+    by_kernel = kernel_ms(torch, prof)
+    total = sum(by_kernel.values())
+    ln_ms = sum(v for kk, v in by_kernel.items()
+                if "ln_matmul" in kk or "ln_stats" in kk)
+    out = {"config": "ViT-L/16 224² bf16 B=128, random weights, LayerScale "
+                     "0.1-0.5",
+           "ln_matmul_launches": ln_launches,
+           "attention_launches": attn_launches,
+           "min_cos_vs_unfused": cos.min().item(),
+           "max_abs_diff_vs_unfused": (f - r).abs().max().item(),
+           "ln_matmul_calls_vs_plain_max_abs_err": call_err,
+           "planted_faults": planted,
+           "fused_forward_ms": fused_ms, "unfused_forward_ms": unfused_ms,
+           "fused_profiled_device_ms": total if total else "not measured",
+           "ln_matmul_share_of_fused": ln_ms / total if total
+           else "not measured"}
+    phase("fuse_ln_path", **out)
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_int8_kernels(torch, gen) -> tuple[dict, list]:
@@ -184,7 +542,7 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
     tensors each one quantizes, and kernel and plain times in bf16. Then
     the three CUDA kernels alone. Returns ({name: row}, primitive rows)."""
     from keep_tpu_torch.kernels import _kops, qblock, qmatmul, qmlp
-    from keep_tpu_torch.ops.nn import LayerNorm, QLinear
+    from keep_tpu_torch.ops.nn import LayerNorm, Mlp, QLinear
     from keep_tpu_torch.quant import quantize_kernel
 
     P = _kops.PLAIN
@@ -299,7 +657,21 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
          qmatmul.quantized_matmul, qmatmul.quantized_matmul_reference,
          lambda x: (x, hd1.weight_q, hd1.weight_scale, hd1.bias), {},
          feats, 1e-4, 1e-4, lambda: [code_share(feats)]),
+        ("quantized_mlp", "vit_l16 flat M=32*197 D=1024 F=4096",
+         qmlp.quantized_mlp, qmlp.quantized_mlp_reference,
+         lambda x: mlp_args(x, vfc1, vfc2), {}, vx2, 2e-4, 1e-4,
+         lambda: [code_share(vx2), code_share(hidden(vx2, vfc1))]),
+        ("quantized_mlp", "bert_base flat M=32*256 D=768 F=3072, pre_scale",
+         qmlp.quantized_mlp, qmlp.quantized_mlp_reference,
+         lambda x: mlp_args(x, tfc1, tfc2), dict(pre_scale1=tfc1.pre_scale),
+         tx2, 2e-4, 1e-4,
+         lambda: [code_share(tx2, pre_scale=tfc1.pre_scale),
+                  code_share(hidden(tx2, tfc1, pre_scale=tfc1.pre_scale))]),
     ]
+    # operations by type of each case (the int8 GEMMs; the attention's
+    # score and p·v products in bf16), for its bound
+    attn_ops = {"quantized_attention_block": 4 * vb * vh * vs * vs * 64,
+                "quantized_attention_block_postln": 4 * tb * th * ts * ts * 64}
     rows: dict[str, dict] = {}
     for name, shape, fn, ref, args, kw, x, atol, rtol, codes in cases:
         out_kw = {} if name.startswith("quantized_a") else {
@@ -318,13 +690,57 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
         out16 = {} if not out_kw else {"out_dtype": torch.bfloat16}
         ms = cuda_ms(lambda: fn(*args(x16), **kw, **out16))
         plain_ms = cuda_ms(lambda: ref(*args(x16), **kw, **out16))
+        weights = [a for a in args(x16)[1:]
+                   if isinstance(a, torch.Tensor) and a.dtype == torch.int8]
+        weights += [m.weight_q for m in args(x16)[1:]
+                    if isinstance(m, QLinear)]
+        int8_ops = sum(2 * x16.numel() // x16.shape[-1] * w.numel()
+                       for w in weights)
+        moved = nbytes(x16, fn(*args(x16), **kw, **out16), *weights)
         row = {"name": name, "shape": shape, "max_abs_err": err,
                "atol": atol, "rtol": rtol,
                "int8_codes_differing": changed, "int8_codes": total,
                "int8_code_diff_share": changed / total,
                "ms_bf16": ms, "plain_ms_bf16": plain_ms}
+        row["bound_ms_bf16"], row["bound_by"] = bound(
+            {"int8": int8_ops, "bf16": attn_ops.get(name, 0)}, moved)
         phase("int8_kernel", **row)
         rows.setdefault(name, {"shapes": []})["shapes"].append(row)
+
+    # ---- the flat pair: bit for bit against the bsd form, then its path ----
+    for x, f1, f2, ps in ((vx2, vfc1, vfc2, None),
+                          (tx2, tfc1, tfc2, tfc1.pre_scale)):
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype)
+            flat = qmlp.quantized_mlp(*mlp_args(xd, f1, f2), out_dtype=dtype,
+                                      pre_scale1=ps)
+            bsd = qmlp.quantized_mlp_bsd(*mlp_args(xd.view(32, -1, x.shape[1]),
+                                                   f1, f2), out_dtype=dtype,
+                                         pre_scale1=ps)
+            if not torch.equal(flat, bsd.view_as(flat)):
+                raise AssertionError(f"flat int8 MLP differs from the bsd "
+                                     f"form on {tuple(x.shape)} {dtype}")
+    mlp = Mlp(vd, vf, device=dev)
+    mlp.fc1, mlp.fc2 = vfc1, vfc2
+    x16 = vx2.bfloat16()
+    with _kops._launch_lock:
+        _kops.LAUNCHES.clear()
+    # ---- the main path: the int8 Mlp on a flat input --------------------------
+    with torch.inference_mode():
+        out = mlp(x16, gelu_approx=True)
+    torch.cuda.synchronize()
+    flat_launches = dict(_kops.LAUNCHES)
+    # ---------------------------------------------------------------------------
+    want = {"quantized_mlp": 1, "quant_rows": 2, "int8_gemm": 2}
+    if flat_launches != want:
+        raise AssertionError(f"Mlp.forward on [M, D]: launches "
+                             f"{flat_launches}, want {want}")
+    if out.shape != x16.shape or not torch.isfinite(out.float()).all():
+        raise AssertionError(f"Mlp.forward on [M, D]: {tuple(out.shape)}")
+    phase("int8_flat_mlp_path", entry="ops.nn.Mlp.forward(x [M, D], "
+          "gelu_approx=True) with int8 fc1, fc2", shape=list(x16.shape),
+          launches=flat_launches, equals_bsd_bitwise=True)
+    rows["quantized_mlp"]["launches"] = flat_launches["quantized_mlp"]
 
     # ---- the three CUDA kernels alone -------------------------------------
     m, k, n = vb * vs, vd, vf
@@ -383,21 +799,37 @@ def check_bwd_kernel(fa, torch, gen) -> list[dict]:
             ref = fa.attention_qkv_slab_bwd_reference(qkv, kb, do, h)
             g, r = got.float()[valid], ref.float()[valid]
             err = (g - r).abs().max().item()
-            bound = 1e-2 * r.abs().max().item()
+            limit = 1e-2 * r.abs().max().item()
             if dtype == torch.float32:
                 if not torch.allclose(got, ref, atol=2e-4, rtol=1e-4):
                     raise AssertionError(f"{name} fp32 backward vs plain: "
                                          f"max |Δ| {err}")
-            elif not err <= bound:
+            elif not err <= limit:
                 raise AssertionError(f"{name} bf16 backward vs plain: max "
-                                     f"|Δ| {err} > {bound}")
+                                     f"|Δ| {err} > {limit}")
             ms = cuda_ms(lambda: fa.attention_qkv_slab_bwd(qkv, kb, do, h))
             plain_ms = cuda_ms(lambda: fa.attention_qkv_slab_bwd_reference(
                 qkv, kb, do, h))
+            # the library's attention backward on the same values: SDPA's
+            # gradient through autograd, the graph kept (retain_graph) so
+            # that only the backward is timed
+            q, k, v = (t.detach().requires_grad_() for t in
+                       qkv.view(b, s, 3, h, 64).permute(2, 0, 3, 1, 4))
+            mask = kb[:, None, None, :].to(dtype) if padded else None
+            out = torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask)
+            do4 = do.view(b, s, h, 64).transpose(1, 2)
+            sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                out, (q, k, v), do4, retain_graph=True)
             row = {"shape": name, "B": b, "S": s, "H": h,
                    "dtype": str(dtype).replace("torch.", ""),
                    "max_abs_err": err, "max_abs_plain": r.abs().max().item(),
-                   "ms": ms, "plain_ms": plain_ms}
+                   "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": cuda_ms(sdpa_bwd),
+                   "library_kernel": sdpa_backend(torch, sdpa_bwd)}
+            row["bound_ms"], row["bound_by"] = attention_bound(
+                b, s, h, qkv.element_size(), True, backward=True)
+            del out
             phase("attention_bwd", **row)
             rows.append(row)
     return rows
@@ -543,7 +975,7 @@ def drive_train(torch, fa, d: str, raw: dict, blocks: int,
             fa.LAUNCHES = fa.BWD_LAUNCHES = 0
         t0 = time.perf_counter()
         # ---- the main path: the training CLI --------------------------------
-        result = tmain.main(["--config", path])
+        result = tmain.main(["--config", path, "--device", device])
         fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
         # --------------------------------------------------------------------
         wall_s = time.perf_counter() - t0
@@ -970,6 +1402,7 @@ def main() -> int:
     from keep_tpu_torch.configs import KEEPConfig
     from keep_tpu_torch.kernels import _build
     from keep_tpu_torch.kernels import flash_attention as fa
+    from keep_tpu_torch.kernels import ln_matmul as lm
 
     # 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -986,13 +1419,16 @@ def main() -> int:
           compiled=_build.BUILD_SECONDS is not None,
           library=_build.library_path().name)
 
-    # 3. kernels vs plain at the serving shapes
+    # 3. kernels vs plain at the serving shapes, and the three opt-in paths
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = check_kernel(fa, torch, gen)
+    heads_rows, heads_launches = check_heads(fa, torch, gen)
     int8_rows, _ = check_int8_kernels(torch, gen)
+    ln_rows = check_ln_matmul(lm, torch, gen)
+    cfg = KEEPConfig()
+    fused = drive_fuse_ln(torch, fa, lm, cfg)
 
     # 4.–7. the bf16 and the int8 server, end to end, and their numbers
-    cfg = KEEPConfig()
     with tempfile.TemporaryDirectory() as d, \
             tempfile.TemporaryDirectory() as d_init:
         write_model(d, torch, cfg)
@@ -1031,41 +1467,84 @@ def main() -> int:
                               blocks=cfg.vision.depth
                               + cfg.text.num_hidden_layers, steps_per_epoch=4)
 
-    vit_bf16 = next(r for r in rows
-                    if r["shape"] == "vit_l16" and r["dtype"] == "bfloat16")
-    kernels = [{
-        "name": "attention_qkv_slab", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": served["launches"],
-        "launches_int8_path": served8["attention_launches"],
-        "launches_train": trained["fwd_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": vit_bf16["ms"], "plain_ms": vit_bf16["plain_ms"],
-        "shapes": rows}]
-    vit_bwd = next(r for r in bwd_rows
-                   if r["shape"] == "vit_l16" and r["dtype"] == "bfloat16")
-    kernels.append({
-        "name": "attention_qkv_slab_bwd", "route": "cuda",
-        "source": BWD_SOURCE, "replaces": BWD_REPLACES,
-        "launches": trained["bwd_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
-        "ms": vit_bwd["ms"], "plain_ms": vit_bwd["plain_ms"],
-        "shapes": bwd_rows})
-    for kname, (module, cu, replaces) in INT8_KERNELS.items():
-        shapes = int8_rows[kname]["shapes"]
-        kernels.append({
-            "name": kname, "route": "cuda", "source": CSRC + "int8_gemm.cu",
-            "sources": [CSRC + f for f in cu] + [CSRC + "kops.cuh", module],
-            "replaces": replaces, "launches": served8["launches"][kname],
-            "max_abs_err": max(r["max_abs_err"] for r in shapes),
-            "ms": shapes[0]["ms_bf16"], "plain_ms": shapes[0]["plain_ms_bf16"],
-            "int8_code_diff_share": max(r["int8_code_diff_share"]
-                                        for r in shapes),
-            "shapes": shapes})
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernel_line(
+        rows, bwd_rows, heads_rows, heads_launches, int8_rows, ln_rows,
+        fused, served, served8, trained)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
+                ln_rows, fused, served, served8, trained) -> list[dict]:
+    """One entry per TPU kernel: its launches on the main path that runs it,
+    and, at ViT-L B=32 in bf16 (the int8 kernels: the first shape of their
+    phase), its time, its plain version's, its bound and the one PyTorch
+    call that computes the same function (null where there is none)."""
+    def pick(rs, shape="vit_l16"):
+        return next(r for r in rs
+                    if r["shape"] == shape and r["dtype"] == "bfloat16")
+
+    def entry(name, source, replaces, launches, r, err, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r.get("library_ms"), **extra}
+
+    vit = pick(rows)
+    kernels = [entry(
+        "attention_qkv_slab", SOURCE, REPLACES, served["launches"], vit,
+        max(r["max_abs_err"] for r in rows),
+        library_call="torch.nn.functional.scaled_dot_product_attention",
+        library_kernel=vit["library_kernel"],
+        launches_int8_path=served8["attention_launches"],
+        launches_train=trained["fwd_launches"], shapes=rows)]
+    vit_bwd = pick(bwd_rows)
+    kernels.append(entry(
+        "attention_qkv_slab_bwd", BWD_SOURCE, BWD_REPLACES,
+        trained["bwd_launches"], vit_bwd,
+        max(r["max_abs_err"] for r in bwd_rows),
+        library_call="scaled_dot_product_attention backward through "
+                     "autograd (retain_graph; the forward not timed)",
+        library_kernel=vit_bwd["library_kernel"], shapes=bwd_rows))
+    vit_heads = pick(heads_rows)
+    kernels.append(entry(
+        "attention_qkv_heads", SOURCE, HEADS_REPLACES, heads_launches,
+        vit_heads, max(r["max_abs_err"] for r in heads_rows),
+        library_call="torch.nn.functional.scaled_dot_product_attention",
+        library_kernel=vit_heads["library_kernel"],
+        flash_attention_ms=vit_heads["flash_attention_ms"],
+        shapes=heads_rows))
+    ln = ln_rows[0]
+    kernels.append({
+        "name": "ln_matmul", "route": "cuda", "source": LN_MATMUL_SOURCE,
+        "replaces": LN_MATMUL_REPLACES,
+        "launches": fused["ln_matmul_launches"],
+        "max_abs_err": max(max(r["max_abs_err_fp32"], r["max_abs_err_bf16"])
+                           for r in ln_rows),
+        "ms": ln["ms_bf16"], "plain_ms": ln["plain_ms_bf16"],
+        "bound_ms": ln["bound_ms_bf16"], "bound_by": ln["bound_by"],
+        "library_ms": None, "unfused_ms": ln["unfused_ms_bf16"],
+        "max_abs_err_on_path": fused["ln_matmul_calls_vs_plain_max_abs_err"],
+        "shapes": ln_rows})
+    for kname, (module, cu, replaces) in INT8_KERNELS.items():
+        shapes = int8_rows[kname]["shapes"]
+        launches = (int8_rows[kname]["launches"] if kname == "quantized_mlp"
+                    else served8["launches"][kname])
+        kernels.append({
+            "name": kname, "route": "cuda", "source": CSRC + "int8_gemm.cu",
+            "sources": [CSRC + f for f in cu] + [CSRC + "kops.cuh", module],
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": shapes[0]["ms_bf16"], "plain_ms": shapes[0]["plain_ms_bf16"],
+            "bound_ms": shapes[0]["bound_ms_bf16"],
+            "bound_by": shapes[0]["bound_by"], "library_ms": None,
+            "int8_code_diff_share": max(r["int8_code_diff_share"]
+                                        for r in shapes),
+            "shapes": shapes})
+    return kernels
 
 
 if __name__ == "__main__":

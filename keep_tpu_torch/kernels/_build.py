@@ -36,6 +36,9 @@ _P = ctypes.c_void_p
 SIGNATURES = {
     # qkv, key_bias, out, B, S, H, head_dim, dtype, scale, stream
     "keep_attention_qkv_slab": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, key_bias, out, B, S, H, head_dim, dtype, scale, stream
+    "keep_attention_qkv_heads": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                 _P],
     # qkv, key_bias, dout, dqkv, stats, B, S, H, head_dim, dtype, scale,
     # stream
     "keep_attention_qkv_slab_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -48,6 +51,9 @@ SIGNATURES = {
     # order, gelu, stream
     "keep_int8_gemm": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                        _P],
+    # x, ln_g, ln_b, eps, w, bias, stats, out, dtype, out_dtype, M, N, K,
+    # stream
+    "keep_ln_matmul": [_P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

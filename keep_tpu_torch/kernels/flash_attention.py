@@ -1,13 +1,16 @@
-"""Fused multi-head attention over the unsplit qkv slab, and its backward.
+"""Fused multi-head attention over the unsplit qkv slab, and its backward;
+the same attention over split q, k and v.
 
-Counterpart of ``keep_tpu/kernels/flash_attention.py`` ``attention_qkv_slab``
-(the Pallas kernel at :132-206, under the ``jax.custom_vjp`` of :169-248).
-For a CUDA tensor the wrappers launch the hand-written Hopper kernels in
-``csrc/attention_qkv_slab.cu`` (forward) and ``csrc/attention_qkv_slab_bwd.cu``
+Counterpart of ``keep_tpu/kernels/flash_attention.py``:
+``attention_qkv_slab`` (the Pallas kernel at :132-206, under the
+``jax.custom_vjp`` of :169-248), ``attention_qkv_heads`` (:80-129) and
+``flash_attention`` (:251-281). For a CUDA tensor the wrappers launch the
+hand-written Hopper kernels in ``csrc/attention_qkv_slab.cu`` (the forward
+of both layouts, one kernel body) and ``csrc/attention_qkv_slab_bwd.cu``
 (the closed-form backward, ``_slab_attn_bwd``); for a CPU tensor they run
-``attention_qkv_slab_reference`` and ``attention_qkv_slab_bwd_reference``,
-the same math in plain PyTorch, which the tests and ``chip_smoke.py`` also
-hold the kernels against. There is no fallback from one to the other.
+the ``*_reference`` versions, the same math in plain PyTorch, which the
+tests and ``chip_smoke.py`` also hold the kernels against. There is no
+fallback from one to the other.
 
 ``attention_qkv_slab`` is differentiable with respect to the slab: under
 autograd it goes through ``SlabAttention``, whose backward is
@@ -17,6 +20,11 @@ autograd it goes through ``SlabAttention``, whose backward is
 attention inside the int8 megakernels (``keep_tpu/kernels/qblock.py``
 ``_sdpa`` and ``_sdpa_masked``), whose fp32 scratch is quantized without a
 bf16 round. That form is inference-only and raises under autograd.
+
+``attention_qkv_heads`` (q, k, v [B, S, H·Dh]) and ``flash_attention`` (the
+[B, H, S, Dh] API that ``ops.nn.mha_attention(use_flash=True)`` calls) are
+inference-only, as in the JAX package, whose kernel has no VJP: they raise
+under autograd.
 """
 
 from __future__ import annotations
@@ -30,18 +38,21 @@ from keep_tpu_torch.ops.nn import mha_attention
 MAX_SEQ = 512  # the kernels keep a whole score row and K/V slice on chip
 HEAD_DIM = 64  # the kernels are written for the KEEP towers' head width
 
-# Counts of kernel launches in this process (forward, backward); a run
-# resets them to check that its main path went through the kernels.
+# Counts of kernel launches in this process (slab forward, slab backward,
+# split-heads forward); a run resets them to check that its main path went
+# through the kernels.
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+HEADS_LAUNCHES = 0
 _launch_lock = threading.Lock()
 
 # (input dtype, output dtype) → the forward kernel's dtype code
 _DTYPE_CODE = {(torch.float32, torch.float32): 0,
                (torch.bfloat16, torch.bfloat16): 1,
                (torch.bfloat16, torch.float32): 2}
-# slab dtype → the backward kernel's dtype code (dout and dqkv share it)
-_BWD_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# one dtype in and out → the dtype code of the backward kernel (slab, dout
+# and dqkv share it) and of the split-heads forward (q, k, v and out)
+_IO_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _head_dim(qkv: torch.Tensor, num_heads: int) -> int:
@@ -221,7 +232,7 @@ def attention_qkv_slab_bwd(qkv: torch.Tensor, key_bias: torch.Tensor,
     if qkv.device.type == "cpu":
         return attention_qkv_slab_bwd_reference(qkv, key_bias, dout, num_heads)
     _check_kernel_slab(qkv, dh)
-    if qkv.dtype not in _BWD_DTYPE_CODE or dout.dtype != qkv.dtype:
+    if qkv.dtype not in _IO_DTYPE_CODE or dout.dtype != qkv.dtype:
         raise TypeError(f"the backward kernel takes float32 or bfloat16 slabs "
                         f"with dout in the slab's dtype, got {qkv.dtype} and "
                         f"{dout.dtype}")
@@ -238,7 +249,7 @@ def attention_qkv_slab_bwd(qkv: torch.Tensor, key_bias: torch.Tensor,
                         device=qkv.device)
     rc = library().keep_attention_qkv_slab_bwd(
         qkv.data_ptr(), key_bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-        stats.data_ptr(), b, s, num_heads, dh, _BWD_DTYPE_CODE[qkv.dtype],
+        stats.data_ptr(), b, s, num_heads, dh, _IO_DTYPE_CODE[qkv.dtype],
         dh ** -0.5, torch.cuda.current_stream(qkv.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"attention_qkv_slab_bwd kernel launch failed: "
@@ -246,3 +257,141 @@ def attention_qkv_slab_bwd(qkv: torch.Tensor, key_bias: torch.Tensor,
     with _launch_lock:
         BWD_LAUNCHES += 1
     return dqkv
+
+
+# ---- split q, k, v: attention_qkv_heads and flash_attention ------------------
+
+
+def _heads_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 key_bias: torch.Tensor | None, num_heads: int) -> int:
+    """The checks of the JAX ``attention_qkv_heads``; returns Dh."""
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k and v must be one [B, S, H·Dh] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, s, hd = q.shape
+    if hd % num_heads:
+        raise ValueError(f"lane dim {hd} is not divisible by "
+                         f"num_heads={num_heads}")
+    if key_bias is not None and tuple(key_bias.shape) != (b, s):
+        raise ValueError(f"key_bias must be [B, S] = {(b, s)}, got "
+                         f"{tuple(key_bias.shape)}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "attention_qkv_heads / flash_attention are inference-only (the "
+            "JAX kernel has no VJP); run them under torch.no_grad() / "
+            "torch.inference_mode(), or train through attention_qkv_slab")
+    return hd // num_heads
+
+
+def attention_qkv_heads_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor,
+                                  key_bias: torch.Tensor | None = None, *,
+                                  num_heads: int, group: int = 8
+                                  ) -> torch.Tensor:
+    """The kernel's math in plain PyTorch: ``mha_attention``'s plain path on
+    the [B, H, S, Dh] views of q, k, v [B, S, H·Dh] (+ fp32 key bias
+    [B, S]) → [B, S, H·Dh] in q's dtype. ``group`` does not change the
+    result."""
+    dh = _heads_check(q, k, v, key_bias, num_heads)
+    b, s, hd = q.shape
+    heads = lambda t: t.reshape(b, s, num_heads, dh).transpose(1, 2)  # noqa: E731
+    bias = None if key_bias is None else key_bias.float()[:, None, None, :]
+    out = mha_attention(heads(q), heads(k), heads(v), bias=bias,
+                        out_dtype=q.dtype)
+    return out.transpose(1, 2).reshape(b, s, hd)
+
+
+def attention_qkv_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        key_bias: torch.Tensor | None = None, *,
+                        num_heads: int, group: int = 8) -> torch.Tensor:
+    """q, k, v [B, S, H·Dh] (head h in lanes [h·Dh, (h+1)·Dh)) → [B, S, H·Dh]
+    in q's dtype. ``key_bias``: optional [B, S] additive mask on key
+    positions (0 valid, −1e9 masked), taken in fp32.
+
+    ``group`` (heads per TPU program) halves until it divides H, as on the
+    TPU, and does not change the result: the kernel runs one block per
+    (query tile, head). A CUDA tensor goes through the kernel, which takes
+    fp32 or bf16 q, k, v of one dtype, Dh = 64, S ≤ 512 and contiguous,
+    16-byte aligned operands, and raises on anything else; a CPU tensor goes
+    through the plain version. Inference-only: raises under autograd."""
+    global HEADS_LAUNCHES
+    dh = _heads_check(q, k, v, key_bias, num_heads)
+    while num_heads % group:
+        group //= 2
+    if q.device.type == "cpu":
+        return attention_qkv_heads_reference(q, k, v, key_bias,
+                                             num_heads=num_heads, group=group)
+    b, s, hd = q.shape
+    for t in (q, k, v):
+        _check_kernel_slab(t, dh)
+    if k.dtype != q.dtype or v.dtype != q.dtype or \
+            q.dtype not in _IO_DTYPE_CODE:
+        raise TypeError(f"the kernel takes float32 or bfloat16 q, k, v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    if key_bias is not None:
+        if key_bias.device != q.device:
+            raise ValueError("key_bias must be on q's device")
+        key_bias = key_bias.float().contiguous()
+
+    from keep_tpu_torch.kernels._build import library
+
+    out = torch.empty(b, s, hd, dtype=q.dtype, device=q.device)
+    rc = library().keep_attention_qkv_heads(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if key_bias is None else key_bias.data_ptr(), out.data_ptr(), b,
+        s, num_heads, dh, _IO_DTYPE_CODE[q.dtype], dh ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_qkv_heads kernel launch failed: "
+                           f"cudaError {rc}")
+    with _launch_lock:
+        HEADS_LAUNCHES += 1
+    return out
+
+
+def _key_bias(bias: torch.Tensor | None, b: int, s: int
+              ) -> torch.Tensor | None:
+    """A [B, 1, 1, S] key mask as [B, S]; raises on any other bias, as the
+    JAX ``flash_attention`` does."""
+    if bias is not None and (bias.dim() != 4 or bias.shape[1] != 1
+                             or bias.shape[2] != 1):
+        raise ValueError(
+            f"flash_attention supports only [B, 1, 1, S] key-mask biases, got "
+            f"{tuple(bias.shape)}; use mha_attention(use_flash=False) for "
+            f"full score-level biases")
+    return None if bias is None else bias.reshape(b, s)
+
+
+def _to_lanes(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, dh = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * dh)
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor,
+                              bias: torch.Tensor | None = None,
+                              group: int = 8) -> torch.Tensor:
+    """The plain version of ``flash_attention``."""
+    b, h, s, dh = q.shape
+    out = attention_qkv_heads_reference(
+        _to_lanes(q), _to_lanes(k), _to_lanes(v), _key_bias(bias, b, s),
+        num_heads=h, group=group)
+    return out.reshape(b, s, h, dh).transpose(1, 2)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor | None = None,
+                    group: int = 8) -> torch.Tensor:
+    """The generic [B, H, S, Dh] API over ``attention_qkv_heads``, the
+    kernel of ``ops.nn.mha_attention(use_flash=True)``. ``bias`` must be a
+    key mask shaped [B, 1, 1, S] (the BERT padding mask) or None; full
+    score-level biases raise, as in the JAX package. The layout shuffles to
+    [B, S, H·Dh] and back are copies, as there. Inference-only."""
+    b, h, s, dh = q.shape
+    out = attention_qkv_heads(
+        _to_lanes(q), _to_lanes(k), _to_lanes(v), _key_bias(bias, b, s),
+        num_heads=h, group=group)
+    return out.reshape(b, s, h, dh).transpose(1, 2)

@@ -1,7 +1,8 @@
-"""The int8 MLP pair over [B, S, D]: fc1 → tanh-GELU → fc2, W8A8 end to end.
+"""The int8 MLP pair: fc1 → tanh-GELU → fc2, W8A8 end to end.
 
 Counterpart of ``keep_tpu/kernels/qmlp.py`` ``quantized_mlp_bsd`` (the
-Pallas kernel at :227) and ``qmlp_fused``:
+Pallas kernel at :227, over [B, S, D]), ``quantized_mlp`` (the Pallas
+kernel at :97, over flat [M, D] rows) and ``qmlp_fused``:
 
   (pre-LN?) (·pre_scale1?) → quantize → int8 fc1 [D, F] → acc·(a·s) + bias
   → tanh-GELU → re-quantize over the full F row → int8 fc2 [F, D]
@@ -22,8 +23,11 @@ and the LN, which rounds once, as on the TPU.
 TPU; every step here is per token over the whole batch, so the result is
 the same for every value.
 
-The flat ``quantized_mlp`` (TPU kernel at :97, reached by 2-D inputs) is
-not ported yet: ``qmlp_fused`` raises on 2-D inputs.
+The flat ``quantized_mlp`` is the same chain with no LayerNorm and no
+residual, over [M, D] rows (the TPU kernel's 256-row tiles): every step is
+per token, so it equals ``quantized_mlp_bsd`` on the same rows bit for bit.
+``qmlp_fused`` takes it for inputs that are not 3-D, as the JAX package
+does, and ``quantized_mlp_bsd`` for [B, S, D].
 """
 
 from __future__ import annotations
@@ -53,8 +57,10 @@ def _check(x, w1_q, w2_q, ln_scale, ln_bias, post_ln, rows):
 
 def _mlp(ops: _kops.Ops, x, w1_q, w1_scale, b1, w2_q, w2_scale, b2, out_dtype,
          ln_scale, ln_bias, eps, residual, post_ln, pre_scale1):
-    b, s, d = x.shape
-    x2 = x.contiguous().view(b * s, d)
+    """The chain over x [..., D] (every step per token); the output has x's
+    shape."""
+    d = x.shape[-1]
+    x2 = x.contiguous().view(-1, d)
     pre_ln = ln_scale is not None and not post_ln
     xq, a1 = ops.quant_rows(x2, ln_scale if pre_ln else None,
                             ln_bias if pre_ln else None, eps,
@@ -73,7 +79,7 @@ def _mlp(ops: _kops.Ops, x, w1_q, w1_scale, b1, w2_q, w2_scale, b2, out_dtype,
                             order=_kops.DEQUANT_PAIRED,
                             residual=x2 if residual else None,
                             out_dtype=out_dtype)
-    return out.view(b, s, d)
+    return out.view(x.shape)
 
 
 def quantized_mlp_bsd_reference(x, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
@@ -119,16 +125,56 @@ def quantized_mlp_bsd(x: torch.Tensor,
     return out
 
 
+def _check_flat(x, w1_q, w2_q):
+    if x.dim() != 2:
+        raise ValueError(f"quantized_mlp takes [M, D], got {tuple(x.shape)}")
+    d = x.shape[1]
+    f = w1_q.shape[0]
+    if tuple(w1_q.shape) != (f, d) or tuple(w2_q.shape) != (d, f):
+        raise ValueError(f"fc1 must be [F, {d}] and fc2 [{d}, F], got "
+                         f"{tuple(w1_q.shape)} and {tuple(w2_q.shape)}")
+
+
+def quantized_mlp_reference(x, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
+                            out_dtype=torch.bfloat16, pre_scale1=None):
+    """The plain version of ``quantized_mlp``."""
+    _check_flat(x, w1_q, w2_q)
+    return _mlp(_kops.PLAIN, x, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
+                out_dtype, None, None, 1e-6, False, False, pre_scale1)
+
+
+def quantized_mlp(x: torch.Tensor,
+                  w1_q: torch.Tensor, w1_scale: torch.Tensor, b1: torch.Tensor,
+                  w2_q: torch.Tensor, w2_scale: torch.Tensor, b2: torch.Tensor,
+                  out_dtype: torch.dtype = torch.bfloat16,
+                  pre_scale1: torch.Tensor | None = None) -> torch.Tensor:
+    """x [M, D] × int8 fc1 ``w1_q`` [F, D] → tanh-GELU → int8 fc2 ``w2_q``
+    [D, F] → [M, D] ``out_dtype``: per-row quantize (× ``pre_scale1`` [D],
+    SmoothQuant 1/s, first), fc1 dequant acc·(a·s) + bias, GELU, re-quantize
+    over the full F row, fc2 dequant + bias. ``w*_scale`` are the
+    per-output-channel scales ([F] and [D]). Equals ``quantized_mlp_bsd`` on
+    the same rows bit for bit. A CUDA tensor goes through the kernels
+    (``_kops``), a CPU tensor through the plain versions."""
+    _check_flat(x, w1_q, w2_q)
+    ops = _kops.ops_for(x)
+    out = _mlp(ops, x, w1_q, w1_scale, b1, w2_q, w2_scale, b2, out_dtype,
+               None, None, 1e-6, False, False, pre_scale1)
+    if ops is _kops.KERNELS:
+        _kops.count("quantized_mlp")
+    return out
+
+
 def qmlp_fused(fc1, fc2, x: torch.Tensor) -> torch.Tensor:
-    """MLP over [B, S, D] inputs through ``quantized_mlp_bsd``. ``fc1`` and
-    ``fc2`` are ``ops.nn.QLinear``s; fc1's SmoothQuant ``pre_scale`` rides
-    into the quantize step. The output has x's dtype."""
-    if x.dim() != 3:
-        raise NotImplementedError(
-            "the flat int8 MLP pair (keep_tpu/kernels/qmlp.py "
-            "quantized_mlp) is not ported yet; the port takes [B, S, D] "
-            "inputs")
-    return quantized_mlp_bsd(
-        x, fc1.weight_q, fc1.weight_scale, fc1.bias,
-        fc2.weight_q, fc2.weight_scale, fc2.bias, out_dtype=x.dtype,
-        pre_scale1=fc1.pre_scale)
+    """MLP over [..., D] inputs through the int8 pair, as the JAX package's
+    ``qmlp_fused``: [B, S, D] through ``quantized_mlp_bsd``, any other rank
+    flattened to [M, D] rows through ``quantized_mlp`` and reshaped back.
+    ``fc1`` and ``fc2`` are ``ops.nn.QLinear``s; fc1's SmoothQuant
+    ``pre_scale`` rides into the quantize step. The output has x's dtype."""
+    args = (fc1.weight_q, fc1.weight_scale, fc1.bias, fc2.weight_q,
+            fc2.weight_scale, fc2.bias)
+    if x.dim() == 3:
+        return quantized_mlp_bsd(x, *args, out_dtype=x.dtype,
+                                 pre_scale1=fc1.pre_scale)
+    out = quantized_mlp(x.reshape(-1, x.shape[-1]), *args, out_dtype=x.dtype,
+                        pre_scale1=fc1.pre_scale)
+    return out.reshape(*x.shape[:-1], out.shape[-1])

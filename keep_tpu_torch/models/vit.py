@@ -10,11 +10,12 @@ Parameter names follow the JAX pytree (``patch_embed``, ``blocks.{i}.attn.qkv``,
 is ``[D, P·P·3]`` with the (ph, pw, c) flatten order of ``patchify``.
 
 Training: fp32 master weights under a bf16 ``dtype`` (``linear`` casts each
-weight on use), per-block remat with ``remat=True``; the int8 blocks are
-inference-only.
+weight on use), per-block remat with ``remat=True``; the int8 blocks and
+``fuse_ln`` (LayerNorm fused into the qkv and fc1 matmuls,
+``kernels.ln_matmul``) are inference-only.
 
 Not ported yet: ``resample_pos_embed`` (image sizes other than the native
-one raise), ``fuse_ln``, patch dropout, ``ln_stats`` and ``act_sharding``.
+one raise), patch dropout, ``ln_stats`` and ``act_sharding``.
 """
 
 from __future__ import annotations
@@ -25,9 +26,11 @@ from torch.utils.checkpoint import checkpoint
 
 from keep_tpu_torch.configs import ViTConfig
 from keep_tpu_torch.kernels.flash_attention import attention_qkv_slab
+from keep_tpu_torch.kernels.ln_matmul import ln_matmul
 from keep_tpu_torch.kernels.qblock import quantized_attention_block
 from keep_tpu_torch.kernels.qmlp import quantized_mlp_bsd
-from keep_tpu_torch.ops.nn import LayerNorm, Linear, Mlp, QLinear, mha_attention
+from keep_tpu_torch.ops.nn import (LayerNorm, Linear, Mlp, QLinear, gelu,
+                                   mha_attention)
 
 
 def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -76,10 +79,25 @@ class Block(nn.Module):
                     self.attn.qkv, self.attn.proj, self.mlp.fc1,
                     self.mlp.fc2)))
 
+    def _ln_matmul(self, x: torch.Tensor, norm: LayerNorm,
+                   lin: Linear) -> torch.Tensor:
+        """``lin(norm(x))`` over x [B, S, D] as one fused ``ln_matmul``,
+        [B·S, out] in x's dtype."""
+        return ln_matmul(x.reshape(-1, x.shape[-1]), norm.weight, norm.bias,
+                         lin.weight.to(x.dtype), lin.bias, eps=self.cfg.ln_eps,
+                         out_dtype=x.dtype)
+
     def forward(self, x: torch.Tensor, *, use_flash: bool,
-                gelu_approx: bool) -> torch.Tensor:
+                gelu_approx: bool, fuse_ln: bool = False) -> torch.Tensor:
+        """The block's branches in the JAX package's order: the int8
+        megakernels; then, under ``fuse_ln`` with ``use_flash`` and a float
+        qkv, LayerNorm fused into the qkv matmul (``ln_matmul``) feeding the
+        slab attention; then the slab attention; then the plain path. The
+        MLP half fuses norm2 into fc1 under ``fuse_ln`` with ``use_flash``
+        and a float fc1."""
         b, s, d = x.shape
         h = self.cfg.num_heads
+        gelu_act = self.cfg.act == "gelu"
         if use_flash and gelu_approx and self.int8_megakernel():
             # the whole attention sub-block (LN → int8 qkv → MHA → int8 proj
             # → + x), then the int8 MLP pair with its LN and residual fused
@@ -92,18 +110,33 @@ class Block(nn.Module):
                 m.fc2.weight_q, m.fc2.weight_scale, m.fc2.bias,
                 out_dtype=x.dtype, ln_scale=self.norm2.weight,
                 ln_bias=self.norm2.bias, eps=self.cfg.ln_eps, residual=True)
-        qkv = self.attn.qkv(self.norm1(x))  # [B, S, 3D]
-        if use_flash:
-            # the kernel slices heads out of the slab: no split, no transpose
-            attn = attention_qkv_slab(qkv, num_heads=h)
+        if (fuse_ln and use_flash and gelu_act
+                and not isinstance(self.attn.qkv, QLinear)):
+            # norm1 computed as the qkv matmul stages x: the normalised
+            # activations never reach device memory
+            slab = self._ln_matmul(x, self.norm1, self.attn.qkv)
+            attn = attention_qkv_slab(slab.view(b, s, 3 * d), num_heads=h)
         else:
-            q, k, v = qkv.reshape(b, s, 3, h, d // h).permute(2, 0, 3, 1, 4)
-            attn = mha_attention(q, k, v).transpose(1, 2).reshape(b, s, d)
+            qkv = self.attn.qkv(self.norm1(x))  # [B, S, 3D]
+            if use_flash:
+                # the kernel slices heads out of the slab: no split, no
+                # transpose
+                attn = attention_qkv_slab(qkv, num_heads=h)
+            else:
+                q, k, v = qkv.reshape(b, s, 3, h, d // h).permute(2, 0, 3, 1,
+                                                                  4)
+                attn = mha_attention(q, k, v).transpose(1, 2).reshape(b, s, d)
         attn = self.attn.proj(attn)
         if self.ls1 is not None:
             attn = attn * self.ls1.to(attn.dtype)
         x = x + attn
-        y = self.mlp(self.norm2(x), gelu_approx=gelu_approx)
+        if (fuse_ln and use_flash and gelu_act
+                and not isinstance(self.mlp.fc1, QLinear)):
+            hdn = gelu(self._ln_matmul(x, self.norm2, self.mlp.fc1),
+                       approximate=gelu_approx)
+            y = self.mlp.fc2(hdn).view(b, s, d)
+        else:
+            y = self.mlp(self.norm2(x), gelu_approx=gelu_approx)
         if self.ls2 is not None:
             y = y * self.ls2.to(y.dtype)
         return x + y
@@ -137,11 +170,13 @@ class VisionTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, *, dtype: torch.dtype = torch.float32,
                 use_flash: bool = False, gelu_approx: bool = False,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, fuse_ln: bool = False) -> torch.Tensor:
         """[B, H, W, 3] normalised pixels → [B, D] CLS features.
         ``remat`` recomputes each block's activations in the backward
         (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``
-        around the block)."""
+        around the block). ``fuse_ln`` with ``use_flash`` fuses norm1 into
+        the qkv matmul and norm2 into fc1 (``kernels.ln_matmul``; float
+        blocks only, inference only), as the JAX package's ``fuse_ln``."""
         b, h, w, _ = x.shape
         cfg = self.cfg
         if (h, w) != (cfg.img_size, cfg.img_size):
@@ -156,10 +191,10 @@ class VisionTransformer(nn.Module):
             if remat:
                 tokens = checkpoint(blk, tokens, use_reentrant=False,
                                     use_flash=use_flash,
-                                    gelu_approx=gelu_approx)
+                                    gelu_approx=gelu_approx, fuse_ln=fuse_ln)
             else:
                 tokens = blk(tokens, use_flash=use_flash,
-                             gelu_approx=gelu_approx)
+                             gelu_approx=gelu_approx, fuse_ln=fuse_ln)
         # LayerNorm is per token, so normalising the pooled CLS row alone
         # equals the JAX package's norm-then-pool
         return self.norm(tokens[:, 0])

@@ -42,13 +42,28 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   bias: torch.Tensor | None = None,
-                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """Multi-head attention over [B, H, S, Dh], the plain (non-kernel) path.
+                  out_dtype: torch.dtype | None = None,
+                  use_flash: bool = False) -> torch.Tensor:
+    """Multi-head attention over [B, H, S, Dh].
 
-    Scores are taken in fp32 from the input values (a bf16·bf16 product is
-    exact in fp32), softmax runs in fp32, p is cast to v's dtype, and p·v is
-    accumulated in fp32 before the cast to ``out_dtype`` (default: v's
-    dtype). ``bias`` is any additive mask broadcastable to [B, H, S, S]."""
+    The plain path: scores are taken in fp32 from the input values (a
+    bf16·bf16 product is exact in fp32), softmax runs in fp32, p is cast to
+    v's dtype, and p·v is accumulated in fp32 before the cast to
+    ``out_dtype`` (default: v's dtype). ``bias`` is any additive mask
+    broadcastable to [B, H, S, S].
+
+    ``use_flash=True`` routes to ``kernels.flash_attention.flash_attention``
+    (the hand-written kernel on a CUDA tensor), as the JAX package routes to
+    its Pallas kernel: it takes only [B, 1, 1, S] key masks, raises on full
+    score-level biases, returns v's dtype and is inference-only."""
+    if use_flash:
+        # imported here: kernels.flash_attention imports this module
+        from keep_tpu_torch.kernels.flash_attention import flash_attention
+
+        if out_dtype is not None and out_dtype != v.dtype:
+            raise ValueError("mha_attention(use_flash=True) returns v's dtype; "
+                             "out_dtype is for the plain path")
+        return flash_attention(q, k, v, bias=bias)
     scale = q.shape[-1] ** -0.5
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:

@@ -8,7 +8,9 @@ check, the epoch loop, results.jsonl and checkpoints every
 ``save_frequency`` epochs. On a CUDA device with ``model.use_flash`` the
 attention of both towers runs the hand-written kernels (forward and
 backward); on the CPU the same calls take their plain versions because the
-tensors are on the CPU. There is no other switch.
+tensors are on the CPU. The device is ``--device`` (``train(device=...)``),
+``cuda`` by default: without a card the run raises unless the caller asks
+for the CPU with ``--device cpu``; it never moves to the CPU by itself.
 
 Not ported yet, and refused with NotImplementedError: more than one process
 or device and the ``solver.tp/pp/sp/ep/fsdp`` layouts (ROADMAP queue 1,
@@ -146,20 +148,31 @@ def _tokenizer(cfg: TrainRunConfig):
     return WordPieceTokenizer.from_pretrained(vocab)
 
 
+def resolve_device(name: str | torch.device) -> torch.device:
+    """The torch device to train on. A CUDA device without a card raises
+    SystemExit naming ``--device cpu``: the run never falls back to the CPU
+    by itself."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to train on the "
+                         "CPU")
+    return device
+
+
 def train(cfg: TrainRunConfig, tokenizer=None, dataset=None,
-          image_loader=None, eval_data=None, params: Optional[dict] = None
-          ) -> dict:
-    """Runs training and returns the last epoch's record. ``dataset``,
-    ``image_loader`` and ``tokenizer`` replace the configured sources;
-    ``params`` (a ``KEEPModel`` state dict) replaces the random initial
-    weights. ``eval_data`` must be empty: the in-training eval is not
-    ported."""
+          image_loader=None, eval_data=None, params: Optional[dict] = None,
+          device: str | torch.device = "cuda") -> dict:
+    """Runs training on ``device`` and returns the last epoch's record.
+    ``dataset``, ``image_loader`` and ``tokenizer`` replace the configured
+    sources; ``params`` (a ``KEEPModel`` state dict) replaces the random
+    initial weights. ``eval_data`` must be empty: the in-training eval is
+    not ported."""
     check_supported(cfg)
     if eval_data:
         raise NotImplementedError(
             "in-training eval is not ported yet (ROADMAP queue 1, item 9: "
             "train/eval.py)")
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(device)
     name = experiment_name(cfg)
     out_dir = os.path.join(cfg.save.output_dir, name)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
@@ -358,13 +371,15 @@ def main(argv: Optional[list[str]] = None):
                         help="override save.resume ('latest' or an epoch)")
     parser.add_argument("--experiment-name",
                         help="override save.experiment_name")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to train on (default: cuda)")
     args = parser.parse_args(argv)
     cfg = TrainRunConfig.from_yaml(args.config)
     if args.resume is not None:
         cfg.save.resume = args.resume
     if args.experiment_name is not None:
         cfg.save.experiment_name = args.experiment_name
-    return train(cfg)
+    return train(cfg, device=args.device)
 
 
 if __name__ == "__main__":

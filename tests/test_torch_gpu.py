@@ -10,6 +10,7 @@ import torch
 
 from keep_tpu_torch.kernels import _kops, qblock, qmatmul, qmlp
 from keep_tpu_torch.kernels import flash_attention as fa
+from keep_tpu_torch.kernels import ln_matmul as lm
 from keep_tpu_torch.ops.nn import LayerNorm, QLinear
 from keep_tpu_torch.quant import quantize_kernel
 
@@ -358,3 +359,214 @@ def test_train_step_on_the_card(cuda):
     assert torch.isfinite(m["loss"])
     assert fa.BWD_LAUNCHES - nb0 == 4
     assert fa.LAUNCHES - n0 == 8
+
+
+# ---- split-heads attention, ln_matmul, the flat int8 MLP ----------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,padded", [(4, 197, 16, False),
+                                          (4, 256, 12, True),
+                                          (2, 512, 2, True), (3, 7, 1, False)])
+def test_heads_kernel_matches_plain_and_slab(cuda, b, s, h, padded, dtype):
+    """attention_qkv_heads against its plain version (fp32 2e-5, bf16 max
+    |Δ| < 0.05 on valid rows), and bit for bit against the slab kernel on
+    the same q, k, v: one kernel body, two addressings."""
+    qkv = torch.randn(b, s, 3 * h * 64, device="cuda", generator=cuda)
+    qkv = qkv.to(dtype)
+    q, k, v = (t.contiguous() for t in qkv.split(h * 64, dim=-1))
+    valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    kb = None
+    if padded:
+        lens = torch.randint(1, s + 1, (b,), device="cuda", generator=cuda)
+        valid = torch.arange(s, device="cuda")[None] < lens[:, None]
+        kb = (1.0 - valid.float()) * -1e9
+    n0 = fa.HEADS_LAUNCHES
+    got = fa.attention_qkv_heads(q, k, v, kb, num_heads=h)
+    torch.cuda.synchronize()
+    assert fa.HEADS_LAUNCHES == n0 + 1
+    assert got.dtype == dtype
+    torch.testing.assert_close(
+        got, fa.attention_qkv_slab(qkv, kb, num_heads=h), rtol=0, atol=0)
+    ref = fa.attention_qkv_heads_reference(q, k, v, kb, num_heads=h)
+    g, r = got.float()[valid], ref.float()[valid]
+    if dtype == torch.float32:
+        torch.testing.assert_close(g, r, atol=2e-5, rtol=2e-5)
+    else:
+        assert (g - r).abs().max().item() < 0.05
+
+
+def test_mha_attention_use_flash_on_the_card(cuda):
+    """mha_attention(use_flash=True) with a [B, 1, 1, S] mask goes through
+    the kernel once, to the plain path's values."""
+    from keep_tpu_torch.ops.nn import mha_attention
+
+    q, k, v = (torch.randn(2, 4, 50, 64, device="cuda", generator=cuda)
+               for _ in range(3))
+    bias = torch.zeros(2, 1, 1, 50, device="cuda")
+    bias[1, ..., 30:] = -1e9
+    n0 = fa.HEADS_LAUNCHES
+    got = mha_attention(q, k, v, bias=bias, use_flash=True)
+    torch.cuda.synchronize()
+    assert fa.HEADS_LAUNCHES == n0 + 1
+    torch.testing.assert_close(got, mha_attention(q, k, v, bias=bias),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 16, 8), (70, 64, 48), (394, 1024, 3072),
+                                   (300, 4096, 200), (129, 48, 136)])
+def test_ln_matmul_matches_plain(cuda, m, k, n, dtype, out_dtype):
+    """The kernel against its plain version: fp32 at 2e-5; bf16 within one
+    bf16 rounding of the output (rtol 2⁻⁷, atol 1e-2 near zero: the sums are
+    taken in another order in fp32 before the one rounding)."""
+    x = (torch.randn(m, k, device="cuda", generator=cuda) * 3 + 1).to(dtype)
+    g = 1 + 0.1 * torch.randn(k, device="cuda", generator=cuda)
+    b = 0.1 * torch.randn(k, device="cuda", generator=cuda)
+    w = (torch.randn(n, k, device="cuda", generator=cuda) * k ** -0.5).to(dtype)
+    bias = 0.02 * torch.randn(n, device="cuda", generator=cuda)
+    n0 = lm.LAUNCHES
+    got = lm.ln_matmul(x, g, b, w, bias, 1e-6, out_dtype)
+    torch.cuda.synchronize()
+    assert lm.LAUNCHES == n0 + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    ref = lm.ln_matmul_reference(x, g, b, w, bias, 1e-6, out_dtype)
+    if dtype == torch.float32 and out_dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                   rtol=2 ** -7)
+
+
+def test_ln_matmul_normalised_rows_are_ln_rows_bits(cuda):
+    """With an identity weight and a zero bias the kernel returns its
+    normalised, rounded rows: bit for bit those of the plain LayerNorm
+    (fp64 statistics rounded once, the same fp32 chain)."""
+    x = torch.randn(130, 256, device="cuda", generator=cuda) * 2 + 0.5
+    g = 1 + 0.1 * torch.randn(256, device="cuda", generator=cuda)
+    b = 0.1 * torch.randn(256, device="cuda", generator=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        eye = torch.eye(256, device="cuda", dtype=dtype)
+        got = lm.ln_matmul(x.to(dtype), g, b, eye, torch.zeros(256,
+                                                               device="cuda"),
+                           1e-6, torch.float32)
+        want = _kops.ln_rows_reference(x.to(dtype).float(), g, b, 1e-6,
+                                       dtype).float()
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m", [1, 70, 394])
+def test_flat_qmlp_matches_bsd_bits_on_the_card(cuda, m):
+    """The flat int8 MLP through the kernels equals quantized_mlp_bsd on the
+    same rows bit for bit, and its plain version at qmlp's tolerance."""
+    d, f = 128, 512
+    x = torch.randn(m, d, device="cuda", generator=cuda) * 0.5
+    fc1, fc2 = _qlin(cuda, d, f), _qlin(cuda, f, d)
+    ps = torch.rand(d, device="cuda", generator=cuda) + 0.5
+    args = (fc1.weight_q, fc1.weight_scale, fc1.bias, fc2.weight_q,
+            fc2.weight_scale, fc2.bias)
+    n0 = _kops.LAUNCHES["quantized_mlp"]
+    got = qmlp.quantized_mlp(x, *args, out_dtype=torch.float32, pre_scale1=ps)
+    torch.cuda.synchronize()
+    assert _kops.LAUNCHES["quantized_mlp"] == n0 + 1
+    bsd = qmlp.quantized_mlp_bsd(x[None], *args, out_dtype=torch.float32,
+                                 pre_scale1=ps)[0]
+    torch.testing.assert_close(got, bsd, rtol=0, atol=0)
+    ref = qmlp.quantized_mlp_reference(x, *args, out_dtype=torch.float32,
+                                       pre_scale1=ps)
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=1e-4)
+
+
+def test_vit_fuse_ln_on_the_card(cuda, monkeypatch):
+    """A small bf16 ViT under use_flash + fuse_ln, on random weights whose
+    blocks all move the stream (LayerScale 0.1–0.5): two ln_matmul and one
+    slab-attention launch per block, features within cos 0.999 of the
+    unfused forward, and every ln_matmul call of the forward within one bf16
+    rounding of its plain version on the same inputs."""
+    from keep_tpu_torch.compat.torch_loader import (load_keep_state_dict,
+                                                    random_keep_state_dict)
+    from keep_tpu_torch.configs import BertConfig, KEEPConfig, ViTConfig
+    from keep_tpu_torch.models import vit
+    from keep_tpu_torch.models.keep import KEEPModel
+
+    cfg = KEEPConfig(vision=ViTConfig(img_size=32, patch_size=8,
+                                      embed_dim=128, depth=2, num_heads=2),
+                     text=BertConfig(vocab_size=64, hidden_size=128,
+                                     num_hidden_layers=1,
+                                     num_attention_heads=2,
+                                     intermediate_size=256,
+                                     max_position_embeddings=32),
+                     projection_dim=128)
+    model = KEEPModel(cfg, device="cuda", dtype=torch.bfloat16)
+    model.load_state_dict(load_keep_state_dict(random_keep_state_dict(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda"),
+        cfg))
+    px = torch.randn(5, 32, 32, 3, device="cuda", generator=cuda)
+    kw = dict(dtype=torch.bfloat16, use_flash=True, gelu_approx=True)
+    held = []
+
+    def ln_matmul_held(x, g, b, w, bias, eps=1e-6, out_dtype=torch.bfloat16):
+        got = lm.ln_matmul(x, g, b, w, bias, eps, out_dtype)
+        ref = lm.ln_matmul_reference(x, g, b, w, bias, eps, out_dtype)
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                   rtol=2 ** -7)
+        held.append(x.shape)
+        return got
+
+    with torch.inference_mode():
+        n0, a0 = lm.LAUNCHES, fa.LAUNCHES
+        fused = model.visual(px, fuse_ln=True, **kw).float()
+        torch.cuda.synchronize()
+        assert (lm.LAUNCHES - n0, fa.LAUNCHES - a0) == (4, 2)
+        base = model.visual(px, **kw).float()
+        monkeypatch.setattr(vit, "ln_matmul", ln_matmul_held)
+        model.visual(px, fuse_ln=True, **kw)
+    assert held == [(5 * 17, 128)] * 4
+    cos = torch.nn.functional.cosine_similarity(fused, base, dim=-1)
+    assert torch.isfinite(fused).all() and cos.min().item() >= 0.999
+
+
+def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 4, 64, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.attention_qkv_heads(*(torch.zeros(1, 4, 64, device="cuda"),) * 3,
+                               num_heads=2)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.attention_qkv_heads(q, q, q.bfloat16(), num_heads=1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.attention_qkv_heads(*(q.half(),) * 3, num_heads=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.attention_qkv_heads(
+            q, q, torch.zeros(1, 64, 4, device="cuda").transpose(1, 2),
+            num_heads=1)
+    with pytest.raises(ValueError, match="S ≤"):
+        fa.attention_qkv_heads(*(torch.zeros(1, 513, 64, device="cuda"),) * 3,
+                               num_heads=1)
+    x = torch.zeros(4, 64, device="cuda")
+    one, zero = torch.ones(64, device="cuda"), torch.zeros(8, device="cuda")
+    w = torch.zeros(8, 64, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        lm.ln_matmul(x[:, :40].contiguous(), one[:40], one[:40],
+                     w[:, :40].contiguous(), zero)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        lm.ln_matmul(x, one, one, w[:6], zero[:6])
+    with pytest.raises(ValueError, match="at most 4096"):
+        big = torch.zeros(2, 4112, device="cuda")
+        lm.ln_matmul(big, big[0], big[0], torch.zeros(8, 4112, device="cuda"),
+                     zero)
+    with pytest.raises(TypeError, match="same dtype"):
+        lm.ln_matmul(x.bfloat16(), one, one, w, zero)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        lm.ln_matmul(x.half(), one, one, w.half(), zero)
+    with pytest.raises(TypeError, match="writes float32 or bfloat16"):
+        lm.ln_matmul(x, one, one, w, zero, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        lm.ln_matmul(torch.zeros(64, 4, device="cuda").t(), one, one, w, zero)
+    # a view that starts one float into its storage: the kernel reads the
+    # LayerNorm vectors four floats at a time
+    shifted = torch.ones(65, device="cuda")[1:]
+    with pytest.raises(ValueError, match="aligned ln_scale"):
+        lm.ln_matmul(x, shifted, one, w, zero)
+    with pytest.raises(ValueError, match="aligned ln_bias"):
+        lm.ln_matmul(x, one, shifted, w, zero)

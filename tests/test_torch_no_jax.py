@@ -21,7 +21,8 @@ def test_imports_leave_jax_unloaded():
         "import keep_tpu_torch.models, keep_tpu_torch.compat, "
         "keep_tpu_torch.kernels, keep_tpu_torch.ops, keep_tpu_torch.text\n"
         "import keep_tpu_torch.quant, keep_tpu_torch.models.keep\n"
-        "from keep_tpu_torch.kernels import _kops, qblock, qmatmul, qmlp\n"
+        "from keep_tpu_torch.kernels import _kops, ln_matmul, qblock, "
+        "qmatmul, qmlp\n"
         "import keep_tpu_torch.train.main, keep_tpu_torch.utils.writers\n"
         "from keep_tpu_torch.train import (checkpoint, config, data, freeze, "
         "loss, optim, schedules, trainer)\n"

@@ -309,7 +309,7 @@ def test_qmlp_matches_jax_kernel(rng, variant):
 
 def test_qmlp_rows_bit_identical():
     """``rows`` is accepted as on the TPU and every divisor of B gives the
-    same bits; a non-divisor raises (twin of test_quant.py:628)."""
+    same bits; a non-divisor raises (twin of test_quant.py:628), and a 2-D input takes the flat pair."""
     rng = np.random.default_rng(11)
     B, S, D, F = 8, 5, 16, 32
     x = _t(rng.standard_normal((B, S, D)).astype(np.float32))
@@ -331,9 +331,99 @@ def test_qmlp_rows_bit_identical():
         qmlp.quantized_mlp_bsd(x, w1q, s1, b1, w2q, s2, b2, rows=3)
     with pytest.raises(ValueError, match="post_ln"):
         qmlp.quantized_mlp_bsd(x, w1q, s1, b1, w2q, s2, b2, post_ln=True)
-    with pytest.raises(NotImplementedError, match="flat"):
-        qmlp.qmlp_fused(QLinear.from_quantized(w1q, s1, b1),
-                        QLinear.from_quantized(w2q, s2, b2), x[0])
+    # a 2-D input takes the flat pair, which gives the bsd bits on the same
+    # rows
+    flat = qmlp.qmlp_fused(QLinear.from_quantized(w1q, s1, b1),
+                           QLinear.from_quantized(w2q, s2, b2), x[0])
+    torch.testing.assert_close(
+        flat, qmlp.quantized_mlp_bsd(x[:1], w1q, s1, b1, w2q, s2, b2,
+                                     out_dtype=torch.float32)[0],
+        rtol=0, atol=0)
+
+
+# ---- kernels: flat qmlp (#7) -----------------------------------------------------
+
+
+@pytest.mark.parametrize("with_ps", [False, True])
+def test_flat_qmlp_matches_jax_kernel(rng, with_ps):
+    """The port's flat ``quantized_mlp`` == the JAX Pallas kernel (interpret
+    mode) at test_quant.py:133's shape and tolerance (2e-4 / 1e-4), with and
+    without the in-kernel SmoothQuant ``pre_scale1``."""
+    d, f = 128, 256
+    x = (rng.standard_normal((70, d)) * 0.5).astype(np.float32)
+    p1, l1 = _jlin(rng, d, f)
+    p2, l2 = _jlin(rng, f, d)
+    ps = np.exp(0.5 * rng.standard_normal(d)).astype(np.float32)
+    ref = np.asarray(jqmlp.quantized_mlp(
+        jnp.asarray(x), p1["kernel_q"], p1["scale"], p1["bias"],
+        p2["kernel_q"], p2["scale"], p2["bias"], out_dtype=jnp.float32,
+        pre_scale1=jnp.asarray(ps) if with_ps else None))
+    got = qmlp.quantized_mlp(
+        _t(x), l1.weight_q, l1.weight_scale, l1.bias, l2.weight_q,
+        l2.weight_scale, l2.bias, out_dtype=torch.float32,
+        pre_scale1=_t(ps) if with_ps else None)
+    assert got.dtype == torch.float32 and got.shape == (70, d)
+    np.testing.assert_allclose(got.numpy(), ref, atol=2e-4, rtol=1e-4)
+    # bf16 is the default output, as in the JAX kernel
+    assert qmlp.quantized_mlp(_t(x), l1.weight_q, l1.weight_scale, l1.bias,
+                              l2.weight_q, l2.weight_scale,
+                              l2.bias).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("with_ps", [False, True])
+def test_flat_qmlp_equals_bsd_bit_for_bit(rng, with_ps):
+    """Every step of the pair is per token: the flat form over [B·S, D]
+    equals ``quantized_mlp_bsd`` over [B, S, D] bit for bit, fp32 and bf16
+    out."""
+    b, s, d, f = 3, 37, 64, 128
+    x = _t((rng.standard_normal((b, s, d)) * 0.5).astype(np.float32))
+    _, l1 = _jlin(rng, d, f)
+    _, l2 = _jlin(rng, f, d)
+    ps = _t(np.exp(0.5 * rng.standard_normal(d)).astype(np.float32)) \
+        if with_ps else None
+    args = (l1.weight_q, l1.weight_scale, l1.bias, l2.weight_q,
+            l2.weight_scale, l2.bias)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        flat = qmlp.quantized_mlp(x.reshape(-1, d), *args,
+                                  out_dtype=out_dtype, pre_scale1=ps)
+        bsd = qmlp.quantized_mlp_bsd(x, *args, out_dtype=out_dtype,
+                                     pre_scale1=ps)
+        torch.testing.assert_close(flat.view(b, s, d), bsd, rtol=0, atol=0)
+    with pytest.raises(ValueError, match=r"\[M, D\]"):
+        qmlp.quantized_mlp(x, *args)
+
+
+@pytest.mark.parametrize("shape", [(70,), (2, 3, 5)])
+def test_int8_mlp_on_flat_input_matches_jax(rng, monkeypatch, shape):
+    """``Mlp.forward`` on an int8 fc1/fc2 pair with a 2-D or 4-D input
+    takes ``qmlp_fused`` → the flat ``quantized_mlp`` and keeps the input's
+    shape and dtype. Against the JAX ``qmlp_fused`` (the flat Pallas kernel
+    in interpret mode, what ``ops.nn.mlp`` runs on the TPU) at 2e-4 / 1e-4;
+    against the JAX ``ops.nn.mlp`` on the same quantized tree, which on the
+    CPU takes the unfused per-linear path (a dividing quantizer, bias and
+    GELU outside the GEMM: a rare code flip), at the int8 linear tolerance
+    of test_torch_models.py (1e-2)."""
+    from keep_tpu.ops import nn as jnn
+    from keep_tpu_torch.ops.nn import Mlp
+
+    d, f = 64, 128
+    x = (rng.standard_normal(shape + (d,)) * 0.5).astype(np.float32)
+    p1, l1 = _jlin(rng, d, f)
+    p2, l2 = _jlin(rng, f, d)
+    mlp = Mlp(d, f)
+    mlp.fc1, mlp.fc2 = l1, l2
+    calls = []
+    real = qmlp.quantized_mlp
+    monkeypatch.setattr(qmlp, "quantized_mlp",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got = mlp(_t(x), gelu_approx=True)
+    assert calls == [1]
+    assert got.shape == x.shape and got.dtype == torch.float32
+    fused = np.asarray(jqmlp.qmlp_fused(p1, p2, jnp.asarray(x)))
+    np.testing.assert_allclose(got.numpy(), fused, atol=2e-4, rtol=1e-4)
+    ref = np.asarray(jnn.mlp({"fc1": p1, "fc2": p2}, jnp.asarray(x),
+                             gelu_approx=True))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-2, rtol=1e-2)
 
 
 # ---- kernels: qblock (#4, #5) ------------------------------------------------------

@@ -480,7 +480,7 @@ def test_train_matches_jax(run_dirs, tmp_path, jax_run):
     check and the checkpoints as the JAX run writes them."""
     want, init = jax_run
     cfg = TrainRunConfig.from_dict(_run_config(run_dirs, tmp_path))
-    result = tmain.train(cfg, params=init)
+    result = tmain.train(cfg, params=init, device="cpu")
     got = _losses(tmp_path)
     assert len(got) == len(want) == 3
     np.testing.assert_allclose(got, want, rtol=1e-5)
@@ -499,12 +499,14 @@ def test_train_resume_equivalence(run_dirs, tmp_path):
     step count and the epoch-keyed data are restored). Twin of the JAX
     package's test_train_resume_equivalence."""
     tmain.train(TrainRunConfig.from_dict(_run_config(run_dirs,
-                                                     tmp_path / "a")))
+                                                     tmp_path / "a")),
+                device="cpu")
     tmain.train(TrainRunConfig.from_dict(_run_config(run_dirs, tmp_path / "b",
-                                                     epochs=1)))
+                                                     epochs=1)),
+                device="cpu")
     cfg = TrainRunConfig.from_dict(_run_config(run_dirs, tmp_path / "b"))
     cfg.save.resume = "latest"
-    assert tmain.train(cfg)["epoch"] == 2
+    assert tmain.train(cfg, device="cpu")["epoch"] == 2
     pa = ckpt.restore(str(tmp_path / "a" / "exp" / "checkpoints"))
     pb = ckpt.restore(str(tmp_path / "b" / "exp" / "checkpoints"))
     assert pa["step"] == pb["step"] == 3
@@ -522,13 +524,30 @@ def test_main_cli_with_json_config(run_dirs, tmp_path):
     path.write_text(json.dumps(raw))
     assert JRunConfig.from_yaml(str(path)).solver.epochs == 1
     out = tmain.main(["--config", str(path), "--experiment-name", "cli",
-                      "--resume", "latest"])
+                      "--resume", "latest", "--device", "cpu"])
     assert out["epoch"] == 0
     assert ckpt.latest_epoch(str(tmp_path / "cli" / "checkpoints")) == 0
     # resuming a finished run trains nothing
     again = tmain.main(["--config", str(path), "--experiment-name", "cli",
-                        "--resume", "latest"])
+                        "--resume", "latest", "--device", "cpu"])
     assert again == {"epoch": 0, "resumed": True}
+
+
+def test_main_without_a_card_raises_unless_cpu_is_asked(run_dirs, tmp_path,
+                                                        monkeypatch):
+    """With no CUDA device, ``main`` (default ``--device cuda``) and
+    ``train()`` raise SystemExit naming ``--device cpu`` before any output:
+    the run never moves to the CPU by itself."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path = tmp_path / "run.json"
+    path.write_text(json.dumps(_run_config(run_dirs, tmp_path, epochs=1)))
+    with pytest.raises(SystemExit, match="--device cpu"):
+        tmain.main(["--config", str(path)])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        tmain.main(["--config", str(path), "--device", "cuda"])
+    with pytest.raises(SystemExit, match="--device cpu"):
+        tmain.train(TrainRunConfig.from_dict(_run_config(run_dirs, tmp_path)))
+    assert not (tmp_path / "exp").exists()
 
 
 def test_config_matches_jax_loader(tmp_path):
