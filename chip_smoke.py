@@ -10,14 +10,16 @@ exits non-zero without a result line):
 2. build    — compiles the CUDA kernels from ``keep_tpu_torch/kernels/csrc``
    (one nvcc per source, in parallel).
 3. kernel   — ``attention_qkv_slab`` against its plain PyTorch version at the
-   serving shapes (ViT-L: B=32, S=197, H=16, no bias; BERT-base: B=32,
-   S=256, H=12, padded key bias), in fp32 (atol = rtol = 2e-5) and bf16
-   (max |Δ| < 0.05 on unpadded query rows), each timed with CUDA events,
+   serving shapes (ViT-L: S=197, H=16, no bias; BERT-base: S=256, H=12,
+   padded key bias; each at B=32 and B=128), in fp32 (atol = rtol = 2e-5)
+   and bf16 (max |Δ| < 0.05 on unpadded query rows), each timed with CUDA
+   events,
    beside ``F.scaled_dot_product_attention`` on the same values (a
    yardstick the port never calls; the backend that ran is recorded).
    heads — ``flash_attention`` / ``attention_qkv_heads`` (split q, k, v) at
    the same shapes and tolerances (BERT with a [B, 1, 1, S] mask), bit for
-   bit against ``attention_qkv_slab`` on the same values, timed beside SDPA;
+   bit against ``attention_qkv_heads`` and ``attention_qkv_slab`` on the
+   same values, timed beside SDPA;
    then its path, ``ops.nn.mha_attention(use_flash=True)``, with its
    launches counted.
    int8_kernel — the int8 counterparts of the TPU kernels (the ViT and BERT
@@ -64,10 +66,10 @@ exits non-zero without a result line):
 7. numbers (int8) — the same throughputs for the int8 server, and a device
    time breakdown of one bucket-128 image dispatch by kernel.
 8. attention_bwd — the backward kernel of ``attention_qkv_slab`` against its
-   plain version at the training shapes at B=32 (ViT-L: S=197, H=16, zero
-   key bias; BERT-base: S=256, H=12, padded key bias), fp32 at atol 2e-4,
-   rtol 1e-4 and bf16 within 1e-2 of the largest plain gradient on unpadded
-   rows, each timed with CUDA events.
+   plain version at the training shapes at B=32 and B=128 (ViT-L: S=197,
+   H=16, zero key bias; BERT-base: S=256, H=12, padded key bias), fp32 at
+   atol 2e-4, rtol 1e-4 and bf16 within 1e-2 of the largest plain gradient
+   on unpadded rows, each timed with CUDA events.
 9. train — ``keep_tpu_torch.train.main.main(["--config", <json>,
    "--device", "cuda"])`` on the values of ``configs/keep_train.yml``
    (batch 128, 32 captions, lhp-hn, amp_bf16, fused attention, both towers
@@ -139,6 +141,13 @@ INT8_KERNELS = {
         "keep_tpu_torch/kernels/qmlp.py",
         ["quant_rows.cu", "int8_gemm.cu"], "keep_tpu/kernels/qmlp.py:97"),
 }
+# the attention phases' shapes (name, B, S, H, padded key bias): the
+# serving shapes at B=32, whose slab fits the 50 MB L2, and at B=128, the
+# serving and training buckets, whose slab (155 MB for ViT-L in bf16) does
+# not
+ATTENTION_SHAPES = [(name, b, s, h, padded) for b in (32, 128)
+                    for name, s, h, padded in (("vit_l16", 197, 16, False),
+                                               ("bert_base", 256, 12, True))]
 VOCAB = ("[PAD] [UNK] [CLS] [SEP] [MASK] an h & e image of breast invasive "
          "carcinoma normal tissue lung adeno ##carcinoma squamous cell "
          "melanoma skin kidney clear renal tumor . , -").split()
@@ -217,7 +226,7 @@ def sdpa_backend(torch, fn) -> str:
 
 
 def check_kernel(fa, torch, gen) -> list[dict]:
-    shapes = [("vit_l16", 32, 197, 16, False), ("bert_base", 32, 256, 12, True)]
+    shapes = ATTENTION_SHAPES
     rows = []
     for name, b, s, h, padded in shapes:
         qkv32 = torch.randn(b, s, 3 * h * 64, device="cuda", generator=gen)
@@ -262,18 +271,19 @@ def check_kernel(fa, torch, gen) -> list[dict]:
 
 
 def check_heads(fa, torch, gen) -> tuple[list[dict], int]:
-    """Phase 3b. ``flash_attention`` (split q, k, v over ``attention_qkv_heads``)
-    against its plain version at the serving shapes (ViT-L: B=32, S=197,
-    H=16, no bias; BERT-base: B=32, S=256, H=12, a padded [B, 1, 1, S]
-    mask), fp32 at 2e-5 and bf16 at max |Δ| < 0.05 on unpadded query rows;
-    bit for bit against ``attention_qkv_slab`` on the same q, k, v; the
-    kernel's, the plain version's and SDPA's times. Then the main path:
-    ``ops.nn.mha_attention(use_flash=True)`` at both shapes in bf16, its
-    launches counted from zero. Returns (rows, launches)."""
+    """Phase 3b. ``flash_attention`` (split q, k, v [B, H, S, Dh], read
+    through their strides by the kernel of ``attention_qkv_heads``) against
+    its plain version at the serving shapes (ViT-L: S=197, H=16, no bias;
+    BERT-base: S=256, H=12, a padded [B, 1, 1, S] mask; B=32 and 128), fp32
+    at 2e-5 and bf16 at max |Δ| < 0.05 on unpadded query rows; bit for bit
+    against ``attention_qkv_heads`` and ``attention_qkv_slab`` on the same
+    q, k, v; the kernel's, the plain version's and SDPA's times. Then the
+    main path: ``ops.nn.mha_attention(use_flash=True)`` at every shape in
+    bf16, its launches counted from zero. Returns (rows, launches)."""
     from keep_tpu_torch.ops.nn import mha_attention
 
     F = torch.nn.functional
-    shapes = [("vit_l16", 32, 197, 16, False), ("bert_base", 32, 256, 12, True)]
+    shapes = ATTENTION_SHAPES
     rows, inputs = [], []
     for name, b, s, h, padded in shapes:
         q32, k32, v32 = (torch.randn(b, h, s, 64, device="cuda",
@@ -305,16 +315,18 @@ def check_heads(fa, torch, gen) -> tuple[list[dict], int]:
             heads = fa.attention_qkv_heads(*lanes, kb, num_heads=h)
             slab = fa.attention_qkv_slab(torch.cat(lanes, -1).contiguous(), kb,
                                          num_heads=h)
-            if not torch.equal(heads, slab):
-                raise AssertionError(f"{name} {dtype}: heads kernel differs "
-                                     f"from the slab kernel on the same q, "
-                                     f"k, v")
+            if not (torch.equal(heads, slab) and torch.equal(
+                    got.transpose(1, 2).reshape(b, s, h * 64), heads)):
+                raise AssertionError(f"{name} B={b} {dtype}: flash_attention, "
+                                     f"the heads kernel and the slab kernel "
+                                     f"differ on the same q, k, v")
             mask = None if bias is None else bias.to(dtype)
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k, v, attn_mask=mask)
             row = {"shape": name, "B": b, "S": s, "H": h,
                    "dtype": str(dtype).replace("torch.", ""),
                    "max_abs_err": err, "equals_slab_bitwise": True,
+                   "flash_attention_equals_heads_bitwise": True,
                    "ms": cuda_ms(lambda: fa.attention_qkv_heads(
                        *lanes, kb, num_heads=h)),
                    "plain_ms": cuda_ms(lambda: fa.attention_qkv_heads_reference(
@@ -781,8 +793,8 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
 
 def check_bwd_kernel(fa, torch, gen) -> list[dict]:
     """Phase 8: the backward kernel against its plain version at the
-    training shapes, B=32."""
-    shapes = [("vit_l16", 32, 197, 16, False), ("bert_base", 32, 256, 12, True)]
+    training shapes, B=32 and B=128."""
+    shapes = ATTENTION_SHAPES
     rows = []
     for name, b, s, h, padded in shapes:
         qkv32 = torch.randn(b, s, 3 * h * 64, device="cuda", generator=gen)
@@ -1048,7 +1060,7 @@ def drive_train(torch, fa, d: str, raw: dict, blocks: int,
     frozen_ms = [s["ms"] for s in steps if s["frozen"]][1:]
     families: dict[str, float] = {}
     for k, v in traced.items():
-        fam = next((f for f in ("slab_attention_bwd", "slab_attention_kernel",
+        fam = next((f for f in ("slab_attention_bwd", "slab_attention",
                                 "gemm", "xmma", "nvjet", "cutlass")
                     if f in k), "other")
         fam = "gemm" if fam in ("xmma", "nvjet", "cutlass") else fam
@@ -1483,8 +1495,8 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
     phase), its time, its plain version's, its bound and the one PyTorch
     call that computes the same function (null where there is none)."""
     def pick(rs, shape="vit_l16"):
-        return next(r for r in rs
-                    if r["shape"] == shape and r["dtype"] == "bfloat16")
+        return next(r for r in rs if r["shape"] == shape and r["B"] == 32
+                    and r["dtype"] == "bfloat16")
 
     def entry(name, source, replaces, launches, r, err, **extra):
         return {"name": name, "route": "cuda", "source": source,

@@ -29,16 +29,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _F = ctypes.c_float
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _P = ctypes.c_void_p
 # argtypes of each C entry point (every one returns its cudaError_t as int);
 # pointers and the stream are c_void_p, so that ctypes never cuts them to 32
 # bits
 SIGNATURES = {
-    # qkv, key_bias, out, B, S, H, head_dim, dtype, scale, stream
-    "keep_attention_qkv_slab": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
-    # q, k, v, key_bias, out, B, S, H, head_dim, dtype, scale, stream
-    "keep_attention_qkv_heads": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                                 _P],
+    # q, k, v, batch_stride, head_stride, row_stride, key_bias, out, B, S,
+    # H, head_dim, dtype, scale, stream
+    "keep_attention": [_P, _P, _P, _L, _L, _L, _P, _P, _I, _I, _I, _I, _I, _F,
+                       _P],
     # qkv, key_bias, dout, dqkv, stats, B, S, H, head_dim, dtype, scale,
     # stream
     "keep_attention_qkv_slab_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

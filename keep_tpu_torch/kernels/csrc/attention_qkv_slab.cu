@@ -1,242 +1,395 @@
-// Fused multi-head attention for Hopper (sm_90a), over the unsplit qkv slab
-// or over split q, k and v.
+// Fused multi-head attention for Hopper (sm_90a), over the unsplit qkv slab,
+// over split q, k and v, or over [B, H, S, Dh] heads.
 //
 // Replaces two TPU kernels of keep_tpu/kernels/flash_attention.py, which
 // share the body `_sdpa` (:43-56):
 //   - `_slab_attn_fwd_kernel` (pallas_call at :190), reached through
 //     `attention_qkv_slab` from both KEEP towers: q, k and v are 64-wide
-//     column slices of one slab qkv[B, S, 3*H*64] (q at h*64, k at
-//     H*64 + h*64, v at 2*H*64 + h*64), row stride 3*H*64;
+//     column slices of one slab qkv[B, S, 3*H*64];
 //   - `attention_qkv_heads` (pallas_call at :115), wrapped by
 //     `flash_attention` (:251) and `ops.nn.mha_attention(use_flash=True)`:
-//     q, k and v are three [B, S, H*64] tensors, head h at columns h*64,
-//     row stride H*64. The TPU kernel takes a group of heads per program;
-//     here every (query tile, head) is a block, so the group changes
-//     nothing.
-// One kernel body serves both: it reads q, k and v through three base
-// pointers, a row stride and a batch stride (keep_attention_qkv_slab passes
-// qkv, qkv + D, qkv + 2D with stride 3D; keep_attention_qkv_heads passes
-// q, k, v with stride D), so the two entry points give the same bits on the
-// same values.
+//     q, k and v are three [B, S, H*64] tensors, or (flash_attention) three
+//     [B, H, S, 64] ones, handed over as they are. The TPU kernel takes a
+//     group of heads per program; here every (query tile, head) is a block,
+//     so the group changes nothing.
+// One kernel body serves all three layouts: it reads q, k and v through
+// three base pointers and one set of element strides (batch, head, row), so
+// the entry points give the same bits on the same values.
 //
 // What it computes, per batch row b and head h:
 //   s = (q . k^T) in fp32 * Dh^-0.5 + key_bias[b, :]        (fp32)
 //   p = exp(s - rowmax(s)) / rowsum(...), then cast to the input dtype
 //   o = p . v accumulated in fp32, cast to the output dtype -> out[B, S, H*64]
 // The cast of p happens after the normalisation, as on the TPU. The output
-// dtype is the input's, or fp32 for a bf16 slab: that instantiation replaces
-// the attention inside the int8 megakernels, keep_tpu/kernels/qblock.py
-// `_sdpa` / `_sdpa_masked` (:36-44, :131-139, in the pallas_calls at :79 and
-// :182), which return the fp32 sum into an fp32 scratch that is quantized
-// without a bf16 round.
+// dtype is the input's, or fp32 for a bf16 input: that instantiation
+// replaces the attention inside the int8 megakernels, keep_tpu/kernels/
+// qblock.py `_sdpa` / `_sdpa_masked` (:36-44, :131-139, in the pallas_calls
+// at :79 and :182), which return the fp32 sum into an fp32 scratch that is
+// quantized without a bf16 round.
 //
-// What bounds it on this card: bytes. q, k and v are read from device memory
-// once per layer (each K/V head slice is re-read by every query tile, from
-// L2), while the S x S scores never leave the SM: they live in registers and
-// the normalised rows in shared memory. At S <= 512 the score work is small
-// next to the projections around it.
+// What bounds it on this card: bytes in principle (q, k and v read once, the
+// output written once: 0.015 ms at ViT-L B=32), but at S <= 512 and Dh = 64
+// the work per byte is low and what a block can keep busy decides: the two
+// products, the exponentials (the MUFU pipe) and the fp32 softmax
+// arithmetic.
 //
-// Design (simple first): one block per (query tile of 32 rows, head, batch
-// row); 8 warps, one warp per query row at a time.
-//   Phase 1: the block stages K for (b, h) in shared memory, each lane
-//            computes the scores of keys lane, lane+32, ... in registers, the
-//            warp reduces max and sum with shuffles, and the rounded p row is
-//            written to shared memory.
-//   Phase 2: V overwrites K in the same buffer; lane l accumulates output
-//            columns 2l and 2l+1 over all keys.
-// Shared rows are padded by one 32-bit word so that lane-per-key reads hit
-// 32 distinct banks. Dynamic shared memory: S*(row words)*4 + 32*S*4 bytes,
-// at most 194 KB (fp32, S = 512), above the 48 KB default, so the launcher
-// raises the limit with cudaFuncSetAttribute.
+// Design of the bf16 -> bf16 body, on the tensor cores: one block of 4
+// warps per (64 query rows, head, batch row), each warp owning 16 query
+// rows.
+//   Staging: Q's 64 rows and the whole K slice in one cp.async group, the
+//   whole V slice in a second group that lands while pass 1 runs (S <= 512:
+//   at most 64 KB each). Shared rows are 128 bytes whose 16-byte chunks are
+//   XOR-swizzled by the row (no padding, so cp.async and ldmatrix keep their
+//   16-byte alignment and a warp's ldmatrix phase hits 32 banks). K and V
+//   rows past S are zero-filled by cp.async (src-size 0), so no 0 * NaN
+//   from stale shared memory reaches p . v; their scores are -inf through
+//   the staged bias row. Q fragments stay in registers.
+//   Pass 1: per 64-key tile, s = q . k^T on mma.sync.m16n8k16 (bf16 in,
+//   fp32 accumulators; K fragments by ldmatrix), scaled and biased, then
+//   the row max and sum with an online rescale.
+//   Pass 2: s again, p = exp(s - m) * (1 / l) in fp32, rounded to bf16 as
+//   the A operand of p . v (V fragments by ldmatrix.trans). This keeps the
+//   reference's cast point (p normalised, then rounded); an online softmax
+//   that normalised at the end would round unnormalised p. The cost is a
+//   second q . k^T and a second exp per score.
+//   Query rows past S are computed from zero rows and never stored.
+// fp32 -> fp32 and bf16 -> fp32 keep an exact CUDA-core body: one block
+// per (32 query rows, head, batch row), 8 warps of 4 rows each; K then V
+// staged in padded shared rows, q rows in shared fp32, a 4 x 8 tile of
+// scores per lane in registers per 256 keys (each K element loaded once
+// for 4 rows), the scores and then p in shared memory (p^T), a 4 x 2 tile
+// of outputs per lane. Every sum runs in the order of the plain version on
+// the card (a chain of fp32 FMAs per output, the warp softmax), so it gives
+// the plain version's bits. The tensor cores have no fp32 path that meets
+// the fp32 gate (2e-5), and the int8 blocks need the bits: on the tensor
+// cores a few p land one bf16 ulp from the plain version's, each moves a
+// head's 64 outputs by up to a quarter of an int8 step, and the codes that
+// the block re-quantizes then take the BERT post-LN block past its JAX
+// tolerance (max |d| 0.021 against atol 5e-3 at BERT-base B=32).
 //
-// What the simple design leaves on the table: the dot products run on the
-// fp32 pipes, not the tensor cores (no mma/wgmma); K and V are staged with
-// plain loads, not TMA or cp.async, so copy and compute do not overlap; each
-// query tile re-stages the whole K/V slice; and the softmax is the exact
-// two-pass one over a full row, not an online softmax over key blocks.
+// What it leaves on the table: wgmma and TMA (the card's full bf16 rate),
+// keeping K and V of a (b, h) in shared memory across its query tiles, and
+// a persistent schedule.
 
 #include "slab_attention.cuh"
 
 namespace {
 
-// q, k, v: the first element of head 0 of batch row 0 of each operand; row
-// j of head h of batch row b starts at b * batch_stride + j * stride + h * 64.
+// ---- fp32: CUDA-core FMAs ------------------------------------------------------
+
+constexpr int kWarpRows = kRowsPerBlock / kWarps;  // query rows a warp owns
+constexpr int kPtStride = kRowsPerBlock + 4;        // floats per row of p^T
+constexpr int kGroupSlots = 8;                      // keys per lane per pass
+constexpr int kGroupKeys = 32 * kGroupSlots;
+static_assert(kWarpRows == 4, "p^T rows are stored as one float4");
+
+// Shared memory of the CUDA-core body: K (then V) in padded rows, rounded
+// up to 16 bytes; p^T [S][36] (16-byte rows, so a quarter warp's float4
+// accesses hit 32 banks); the block's q rows in fp32 [32][64].
+template <typename T>
+size_t cc_smem_words(int S) {
+  return size_t((S * Elem<T>::kRowWords + 3) & ~3) + size_t(S) * kPtStride +
+         kRowsPerBlock * kHeadDim;
+}
+
 template <typename T, typename TOut>
 __global__ void __launch_bounds__(kThreads)
 slab_attention_kernel(const T* __restrict__ q_base,
                       const T* __restrict__ k_base,
-                      const T* __restrict__ v_base, long long stride,
-                      long long batch_stride,
+                      const T* __restrict__ v_base, Strides st,
                       const float* __restrict__ key_bias,
                       TOut* __restrict__ out, int S, int H, float scale) {
-  extern __shared__ uint32_t smem[];
+  extern __shared__ __align__(16) uint32_t smem[];
   constexpr int W = Elem<T>::kRowWords;
-  uint32_t* kv_s = smem;                                  // [S][W]
-  float* p_s = reinterpret_cast<float*>(smem + S * W);    // [32][S]
+  uint32_t* kv_s = smem;                                            // [S][W]
+  float* p_t = reinterpret_cast<float*>(smem + ((S * W + 3) & ~3));  // [S][36]
+  float* q_s = p_t + S * kPtStride;                                 // [32][64]
 
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int row0 = blockIdx.x * kRowsPerBlock;
-  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int r0 = threadIdx.x / 32 * kWarpRows;  // the warp's rows r0..r0+3
   const int D = H * kHeadDim;
-  const long long head = (long long)b * batch_stride + h * kHeadDim;
+  const long long head = b * st.batch + h * st.head;
   const float* bias = key_bias ? key_bias + (long long)b * S : nullptr;
 
-  // Phase 1: K -> shared memory; scores, softmax, rounded p -> shared memory.
-  stage_rows<T>(kv_s, k_base + head, S, stride);
+  // K and the block's q rows (zeros past S) -> shared memory.
+  stage_rows<T>(kv_s, k_base + head, S, st.row);
+  for (int idx = threadIdx.x; idx < kRowsPerBlock * kHeadDim;
+       idx += kThreads) {
+    const int row = row0 + idx / kHeadDim;
+    q_s[idx] = row < S ? Elem<T>::to_float(
+                             q_base[head + row * st.row + idx % kHeadDim])
+                       : 0.f;
+  }
   __syncthreads();
-  for (int r = warp; r < kRowsPerBlock; r += kWarps) {
-    const int row = row0 + r;
-    if (row >= S) break;  // uniform across the warp
-    float q[kHeadDim];
-    load_row<T>(q_base + head + row * stride, q);
 
-    float s[kKeysPerLane];
-    float m = -INFINITY;
+  // Scaled, biased scores of the warp's 4 rows -> p^T, 256 keys at a time:
+  // lane l takes keys l, l + 32, ..., each a chain of FMAs over d in
+  // order, as the plain version's GEMM sums it.
+  for (int g = 0; g < S; g += kGroupKeys) {
+    float acc[kWarpRows][kGroupSlots] = {};
+#pragma unroll 2
+    for (int d = 0; d < kHeadDim / 2; ++d) {
+      float2 q[kWarpRows];
 #pragma unroll
-    for (int i = 0; i < kKeysPerLane; ++i) {
-      const int j = lane + 32 * i;
-      s[i] = -INFINITY;
-      if (j < S) {
-        const uint32_t* krow = kv_s + j * W;
-        float acc = 0.f;
+      for (int r = 0; r < kWarpRows; ++r)
+        q[r] = *reinterpret_cast<const float2*>(q_s + (r0 + r) * kHeadDim +
+                                                2 * d);
 #pragma unroll
-        for (int d = 0; d < kHeadDim / 2; ++d) {
+      for (int t = 0; t < kGroupSlots; ++t) {
+        const int j = g + 32 * t + lane;
+        if (j < S) {
           float a, bb;
-          Elem<T>::pair(krow, d, a, bb);
-          acc = fmaf(q[2 * d], a, acc);
-          acc = fmaf(q[2 * d + 1], bb, acc);
+          Elem<T>::pair(kv_s + j * W, d, a, bb);
+#pragma unroll
+          for (int r = 0; r < kWarpRows; ++r) {
+            acc[r][t] = fmaf(q[r].x, a, acc[r][t]);
+            acc[r][t] = fmaf(q[r].y, bb, acc[r][t]);
+          }
         }
-        float v = acc * scale;
-        if (bias) v += bias[j];
-        s[i] = v;
-        m = fmaxf(m, v);
       }
     }
-    m = warp_max(m);
-    float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < kKeysPerLane; ++i) {
-      if (lane + 32 * i < S) {
-        s[i] = expf(s[i] - m);
-        sum += s[i];
+    for (int t = 0; t < kGroupSlots; ++t) {
+      const int j = g + 32 * t + lane;
+      if (j < S) {
+        float x[kWarpRows];
+#pragma unroll
+        for (int r = 0; r < kWarpRows; ++r) {
+          x[r] = __fmul_rn(acc[r][t], scale);
+          if (bias) x[r] = __fadd_rn(x[r], bias[j]);
+        }
+        *reinterpret_cast<float4*>(p_t + j * kPtStride + r0) =
+            make_float4(x[0], x[1], x[2], x[3]);
       }
     }
-    sum = warp_sum(sum);
-    float* prow = p_s + r * S;
+  }
+
+  // The warp softmax of each row, in the order of the plain version's:
+  // lane partial sums over its keys in order, then a butterfly; p rounded
+  // to the input dtype after the division.
+  float m[kWarpRows], sum[kWarpRows];
 #pragma unroll
-    for (int i = 0; i < kKeysPerLane; ++i) {
-      const int j = lane + 32 * i;
-      if (j < S) prow[j] = Elem<T>::round(s[i] / sum);
-    }
+  for (int r = 0; r < kWarpRows; ++r) m[r] = -INFINITY;
+  for (int j = lane; j < S; j += 32) {
+    const float4 x = *reinterpret_cast<const float4*>(p_t + j * kPtStride +
+                                                      r0);
+    m[0] = fmaxf(m[0], x.x);
+    m[1] = fmaxf(m[1], x.y);
+    m[2] = fmaxf(m[2], x.z);
+    m[3] = fmaxf(m[3], x.w);
+  }
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) {
+    m[r] = warp_max(m[r]);
+    sum[r] = 0.f;
+  }
+  for (int j = lane; j < S; j += 32) {
+    float4* x = reinterpret_cast<float4*>(p_t + j * kPtStride + r0);
+    const float4 e = make_float4(expf(x->x - m[0]), expf(x->y - m[1]),
+                                 expf(x->z - m[2]), expf(x->w - m[3]));
+    *x = e;
+    sum[0] += e.x;
+    sum[1] += e.y;
+    sum[2] += e.z;
+    sum[3] += e.w;
+  }
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) sum[r] = warp_sum(sum[r]);
+  for (int j = lane; j < S; j += 32) {
+    float4* x = reinterpret_cast<float4*>(p_t + j * kPtStride + r0);
+    const float4 e = *x;
+    *x = make_float4(
+        Elem<T>::round(e.x / sum[0]), Elem<T>::round(e.y / sum[1]),
+        Elem<T>::round(e.z / sum[2]), Elem<T>::round(e.w / sum[3]));
   }
   __syncthreads();
 
-  // Phase 2: V -> the same buffer; lane l owns output columns 2l, 2l+1.
-  stage_rows<T>(kv_s, v_base + head, S, stride);
+  // V over K; lane l owns output columns 2l, 2l+1 of the warp's 4 rows,
+  // each a chain of FMAs over the keys in order.
+  stage_rows<T>(kv_s, v_base + head, S, st.row);
   __syncthreads();
-  for (int r = warp; r < kRowsPerBlock; r += kWarps) {
-    const int row = row0 + r;
-    if (row >= S) break;
-    const float* prow = p_s + r * S;
-    float o0 = 0.f, o1 = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const float p = prow[j];
-      float a, bb;
-      Elem<T>::pair(kv_s + j * W, lane, a, bb);
-      o0 = fmaf(p, a, o0);
-      o1 = fmaf(p, bb, o1);
+  float o[kWarpRows][2] = {};
+  for (int j = 0; j < S; ++j) {
+    const float4 p = *reinterpret_cast<const float4*>(p_t + j * kPtStride +
+                                                      r0);
+    const float pr[kWarpRows] = {p.x, p.y, p.z, p.w};
+    float a, bb;
+    Elem<T>::pair(kv_s + j * W, lane, a, bb);
+#pragma unroll
+    for (int r = 0; r < kWarpRows; ++r) {
+      o[r][0] = fmaf(pr[r], a, o[r][0]);
+      o[r][1] = fmaf(pr[r], bb, o[r][1]);
     }
-    Elem<TOut>::store(
-        out + ((long long)b * S + row) * D + h * kHeadDim + 2 * lane, o0, o1);
   }
+#pragma unroll
+  for (int r = 0; r < kWarpRows; ++r) {
+    const int row = row0 + r0 + r;
+    if (row < S)
+      Elem<TOut>::store(out + ((long long)b * S + row) * D + h * kHeadDim +
+                            2 * lane,
+                        o[r][0], o[r][1]);
+  }
+}
+
+// ---- bf16: tensor cores ----------------------------------------------------------
+
+__global__ void __launch_bounds__(kTcThreads)
+slab_attention_tc_kernel(const bf16* __restrict__ q_base,
+                         const bf16* __restrict__ k_base,
+                         const bf16* __restrict__ v_base, Strides st,
+                         const float* __restrict__ key_bias,
+                         bf16* __restrict__ out, int S, int H, float scale) {
+  extern __shared__ __align__(128) uint8_t tc_smem[];
+  const int sp = (S + kTcTile - 1) / kTcTile * kTcTile;
+  const uint32_t q_s = smem_addr(tc_smem);                  // [64][64]
+  const uint32_t k_s = q_s + kTcRows * kRowBytes;        // [sp][64]
+  const uint32_t v_s = k_s + sp * kRowBytes;             // [sp][64]
+  float* bias_s = reinterpret_cast<float*>(
+      tc_smem + (kTcRows + 2 * sp) * kRowBytes);            // [sp]
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int row0 = blockIdx.x * kTcRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long head = b * st.batch + h * st.head;
+
+  stage_async(q_s, q_base + head, st.row, row0, kTcRows, S);
+  stage_async(k_s, k_base + head, st.row, 0, sp, S);
+  cp_async_commit();
+  stage_async(v_s, v_base + head, st.row, 0, sp, S);
+  cp_async_commit();
+  fill_bias(bias_s, key_bias ? key_bias + (long long)b * S : nullptr, S, sp);
+  cp_async_wait<1>();  // Q and K
+  __syncthreads();
+
+  uint32_t qa[4][4];
+  load_a_rows(qa, q_s, 16 * warp, lane);
+
+  // Pass 1: row max m and sum l (this thread's part of rows gid, gid + 8).
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int kb = 0; kb < sp; kb += kTcTile) {
+    float s[8][4], alpha[2];
+    scores(s, qa, k_s, kb, bias_s, scale, lane);
+    raise_max(s, m, alpha);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] *= alpha[i];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        l[e >> 1] += expf(__fsub_rn(s[n][e], m[e >> 1]));
+  }
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) inv[i] = 1.f / quad_sum(l[i]);
+
+  // Pass 2: p = exp(s - m) / l rounded to bf16, o += p . v.
+  cp_async_wait<0>();  // V
+  __syncthreads();
+  float o[8][4] = {};
+  for (int kb = 0; kb < sp; kb += kTcTile) {
+    float s[8][4];
+    scores(s, qa, k_s, kb, bias_s, scale, lane);
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = __fmul_rn(expf(__fsub_rn(s[n][e], m[e >> 1])), inv[e >> 1]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_to_a(pa[c], s[2 * c], s[2 * c + 1]);
+    mma_ax<4>(o, pa, v_s, kb, lane);
+  }
+
+  const int D = H * kHeadDim;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 16 * warp + (lane >> 2) + 8 * half;
+    if (row >= S) continue;
+    bf16* dst = out + ((long long)b * S + row) * D + h * kHeadDim +
+                2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      Elem<bf16>::store(dst + 8 * n, o[n][2 * half], o[n][2 * half + 1]);
+  }
+}
+
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              int(bytes));
 }
 
 template <typename T, typename TOut>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   long long stride, const void* key_bias, void* out, int B,
-                   int S, int H, float scale, cudaStream_t stream) {
-  const size_t smem =
-      size_t(S) * Elem<T>::kRowWords * 4 + size_t(kRowsPerBlock) * S * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        slab_attention_kernel<T, TOut>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
-    if (e != cudaSuccess) return e;
-  }
+cudaError_t launch_cc(const T* q, const T* k, const T* v, Strides st,
+                      const float* key_bias, TOut* out, int B, int S, int H,
+                      float scale, cudaStream_t stream) {
+  const size_t smem = cc_smem_words<T>(S) * 4;
+  const cudaError_t e = allow_smem(
+      reinterpret_cast<const void*>(slab_attention_kernel<T, TOut>), smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
   slab_attention_kernel<T, TOut><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), stride, stride * S,
-      static_cast<const float*>(key_bias), static_cast<TOut*>(out), S, H,
-      scale);
+      q, k, v, st, key_bias, out, S, H, scale);
   return cudaGetLastError();
 }
 
-bool bad_shape(int B, int S, int H, int head_dim) {
-  return head_dim != kHeadDim || S < 1 || S > kMaxSeq || H < 1 || B < 1 ||
-         B > 65535 || H > 65535;
+cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
+                      Strides st, const float* key_bias, bf16* out, int B,
+                      int S, int H, float scale, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(1, S);
+  const cudaError_t e = allow_smem(
+      reinterpret_cast<const void*>(slab_attention_tc_kernel), smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((S + kTcRows - 1) / kTcRows, H, B);
+  slab_attention_tc_kernel<<<grid, kTcThreads, smem, stream>>>(
+      q, k, v, st, key_bias, out, S, H, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes. They return the cudaError_t of
-// the launch. `key_bias` is a contiguous fp32 [B, S] tensor or null, `out` a
-// contiguous [B, S, H*head_dim] tensor.
-//
-// keep_attention_qkv_slab: `qkv` is a contiguous [B, S, 3*H*head_dim]
-// tensor. dtype: 0 = float32 in and out, 1 = bfloat16 in and out,
-// 2 = bfloat16 in and float32 out.
-extern "C" int keep_attention_qkv_slab(const void* qkv, const void* key_bias,
-                                       void* out, int B, int S, int H,
-                                       int head_dim, int dtype, float scale,
-                                       void* stream) {
-  if (bad_shape(B, S, H, head_dim)) return int(cudaErrorInvalidValue);
+// Plain C entry point, loaded with ctypes; returns the cudaError_t of the
+// launch. `q`, `k` and `v` point at element (b=0, h=0, row 0, column 0) of
+// each operand; row j of head h of batch row b starts at b * batch_stride +
+// h * head_stride + j * row_stride elements, each 16-byte aligned, and its
+// head_dim elements are contiguous. The slab passes qkv, qkv + D, qkv + 2D
+// with strides (S*3D, head_dim, 3D); split q, k, v [B, S, D] pass
+// (S*D, head_dim, D); [B, H, S, head_dim] heads pass their own strides.
+// `key_bias` is a contiguous fp32 [B, S] tensor or null, `out` a contiguous
+// [B, S, H*head_dim] tensor. dtype: 0 = float32 in and out, 1 = bfloat16 in
+// and out, 2 = bfloat16 in and float32 out.
+extern "C" int keep_attention(const void* q, const void* k, const void* v,
+                              long long batch_stride, long long head_stride,
+                              long long row_stride, const void* key_bias,
+                              void* out, int B, int S, int H, int head_dim,
+                              int dtype, float scale, void* stream) {
+  if (head_dim != kHeadDim || S < 1 || S > kMaxSeq || H < 1 || B < 1 ||
+      B > 65535 || H > 65535 || (batch_stride | head_stride | row_stride) % 8)
+    return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long D = (long long)H * kHeadDim;
-  switch (dtype) {
-    case 0: {
-      const float* x = static_cast<const float*>(qkv);
-      return int(launch<float, float>(x, x + D, x + 2 * D, 3 * D, key_bias,
-                                      out, B, S, H, scale, st));
-    }
-    case 1: {
-      const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(qkv);
-      return int(launch<__nv_bfloat16, __nv_bfloat16>(
-          x, x + D, x + 2 * D, 3 * D, key_bias, out, B, S, H, scale, st));
-    }
-    case 2: {
-      const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(qkv);
-      return int(launch<__nv_bfloat16, float>(x, x + D, x + 2 * D, 3 * D,
-                                              key_bias, out, B, S, H, scale,
-                                              st));
-    }
-    default:
-      return int(cudaErrorInvalidValue);
-  }
-}
-
-// keep_attention_qkv_heads: `q`, `k` and `v` are contiguous
-// [B, S, H*head_dim] tensors of one dtype. dtype: 0 = float32 in and out,
-// 1 = bfloat16 in and out.
-extern "C" int keep_attention_qkv_heads(const void* q, const void* k,
-                                        const void* v, const void* key_bias,
-                                        void* out, int B, int S, int H,
-                                        int head_dim, int dtype, float scale,
-                                        void* stream) {
-  if (bad_shape(B, S, H, head_dim)) return int(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long D = (long long)H * kHeadDim;
+  const Strides strides{batch_stride, head_stride, row_stride};
+  const float* kb = static_cast<const float*>(key_bias);
+  const bf16* q16 = static_cast<const bf16*>(q);
+  const bf16* k16 = static_cast<const bf16*>(k);
+  const bf16* v16 = static_cast<const bf16*>(v);
   switch (dtype) {
     case 0:
-      return int(launch<float, float>(q, k, v, D, key_bias, out, B, S, H,
-                                      scale, st));
+      return int(launch_cc(static_cast<const float*>(q),
+                           static_cast<const float*>(k),
+                           static_cast<const float*>(v), strides, kb,
+                           static_cast<float*>(out), B, S, H, scale, st));
     case 1:
-      return int(launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, D, key_bias,
-                                                      out, B, S, H, scale,
-                                                      st));
+      return int(launch_tc(q16, k16, v16, strides, kb,
+                           static_cast<bf16*>(out), B, S, H, scale, st));
+    case 2:
+      return int(launch_cc(q16, k16, v16, strides, kb,
+                           static_cast<float*>(out), B, S, H, scale, st));
     default:
       return int(cudaErrorInvalidValue);
   }

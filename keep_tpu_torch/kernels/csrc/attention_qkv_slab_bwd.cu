@@ -13,40 +13,59 @@
 //        backward does not, as in the JAX code)
 //   dv = p^T . do,  dp = do . v^T,  ds = p o (dp - rowsum(dp o p))
 //   dq = (ds . k) * scale,  dk = (ds^T . q) * scale
-// all summed in fp32 and cast once to the slab dtype, written into the slab
+// summed in fp32 and cast once to the slab dtype, written into the slab
 // layout of dqkv[B, S, 3*H*64]: dq lanes, then dk, then dv (the layout
 // `_slab_split` reads). No gradient flows to the key bias.
 //
-// What bounds it on this card: the fp32 pipes. The design runs every product
-// as scalar FMAs from shared memory (5 S^2 Dh FMAs per (b, h), with the score
-// recomputed twice), not on the tensor cores; the bytes moved (the slab,
-// dout and dqkv once, K/V/Q re-read from L2 per tile) are small next to that.
+// Both forms are deterministic: two kernels and no atomics, every output
+// element written by exactly one thread, every sum taken in a fixed order.
+// Kernel A runs per query tile and writes each row's statistics (max, sum,
+// rowsum(dp o p)) to an fp32 [B, H, S] x 4 scratch, and dq; kernel B runs
+// per key tile, rebuilds p and ds from the statistics and writes dk and dv.
 //
-// Design (simple first, deterministic: no atomics, every output element is
-// written by exactly one thread):
-//   Kernel A, one block per (32 query rows, head, batch row), 8 warps, a warp
-//   per query row at a time, as the forward:
-//     phase 1: K -> shared; each lane scores keys lane, lane+32, ...; warp
-//              max and sum; the fp32 p row -> shared;
-//     phase 2: V -> shared (over K); dp for the lane's keys, the warp sums
-//              rowsum(dp o p), ds overwrites p in shared; the row's max, sum
-//              and rowsum go to a small fp32 [B, H, S] x 4 buffer;
-//     phase 3: K -> shared again; lane l sums dq columns 2l, 2l+1.
-//     Dynamic shared memory as the forward's: at most 194 KB (fp32, S=512).
-//   Kernel B, one block per (32 keys, head, batch row): K and V of the tile
-//   in shared fp32; a loop over the query rows in chunks of 32 stages q, do
-//   and the row statistics, rebuilds p and ds for the 32 x 32 tile (thread =
-//   one (row, key) pair, lane = key, stride-65 rows so the warp hits 32
-//   banks), then each thread accumulates 2 keys x 4 dims of dk and dv.
-//   41 KB of static shared memory.
+// What bounds it on this card: bytes in principle (the slab, dout and dqkv
+// once: 0.027 ms at ViT-L B=32), in practice the products. Without atomics
+// the scores are taken three times (twice in A, once in B), and dp twice in
+// A and once in B, so the two kernels run 9 S^2 Dh multiply-adds per
+// (b, h) against the 5 of one fused kernel with atomic dq sums. Kernel A
+// takes them twice because rowsum(dp o p) needs a whole row of p before
+// any ds, and a warp cannot keep its 16 x S scores in registers at S = 512;
+// dq is summed in the second pass, with no third pass over K.
 //
-// What it leaves on the table: tensor cores (mma/wgmma), TMA/cp.async
-// overlap, and the third recompute of the scores (kernel A's phase 3 could
-// keep ds rows of a key tile instead of re-staging K).
+// bf16 form, on the tensor cores (mma.sync.m16n8k16, bf16 operands, fp32
+// accumulators), 4 warps of 16 rows per block. p and ds are rounded to bf16
+// only as operands of their products (dv = p^T . do, dq = ds . k,
+// dk = ds^T . q), a departure from the JAX package's fp32 products that
+// stays inside the bf16 gate (max |d| <= 1e-2 * max |plain|; the CPU model
+// of this rounding is held to the JAX VJP in tests/test_torch_attention_
+// grad.py). rowsum(dp o p) keeps p in fp32.
+//   Kernel A, one block per (64 query rows, head, batch row): Q and dO's
+//   rows and the whole K and V slices go to shared memory by cp.async
+//   (swizzled 128-byte rows, rows past S zero-filled), once.
+//     pass 1: per 64-key tile, s = q . k^T and dp = do . v^T; the row max
+//             m, the sum l and u = sum exp(s - m) * dp with an online
+//             rescale; rowsum(dp o p) = u / l. Statistics -> scratch.
+//     pass 2: s and dp again; p = exp(s - m) / l and ds = p (dp - rowsum)
+//             in fp32; ds rounded to bf16; dq += ds . k (K read by
+//             ldmatrix.trans).
+//   Kernel B, one block per (64 keys, head, batch row): K and V of the tile
+//   are held as A fragments in registers; the query rows stream through two
+//   shared-memory stages by cp.async (Q, dO and their statistics, the next
+//   tile in flight while the current one is multiplied). Per 32 queries:
+//   s^T = k . q^T and dp^T = v . do^T, p^T and ds^T in fp32, then
+//   dv += p^T . do and dk += ds^T . q with p^T and ds^T rounded to bf16.
+// fp32 form: the CUDA-core kernels (scalar FMAs, 32-row tiles, padded
+// shared rows), whose gate is atol 2e-4 / rtol 1e-4.
+//
+// What it leaves on the table: wgmma and TMA; one fused kernel (dq summed
+// by atomics, which would cost the determinism); keeping dS tiles of kernel
+// A for kernel B instead of recomputing the scores.
 
 #include "slab_attention.cuh"
 
 namespace {
+
+// ---- fp32: CUDA-core FMAs ------------------------------------------------------
 
 constexpr int kKeyTile = 32;
 constexpr int kQueryChunk = 32;
@@ -311,31 +330,283 @@ slab_attention_bwd_dkv_kernel(const T* __restrict__ qkv,
   }
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* qkv, const void* key_bias, const void* dout,
-                       void* dqkv, void* stats, int B, int S, int H,
-                       float scale, cudaStream_t stream) {
-  const size_t smem =
-      size_t(S) * Elem<T>::kRowWords * 4 + size_t(kRowsPerBlock) * S * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        slab_attention_bwd_dq_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return e;
+// ---- bf16: tensor cores ----------------------------------------------------------
+
+// Kernel A: statistics and dq of 64 query rows.
+__global__ void __launch_bounds__(kTcThreads)
+slab_attention_bwd_tc_dq_kernel(const bf16* __restrict__ qkv,
+                                const float* __restrict__ key_bias,
+                                const bf16* __restrict__ dout,
+                                bf16* __restrict__ dqkv,
+                                float4* __restrict__ stats, int S, int H,
+                                float scale) {
+  extern __shared__ __align__(128) uint8_t tc_smem[];
+  const int sp = (S + kTcTile - 1) / kTcTile * kTcTile;
+  const uint32_t q_s = smem_addr(tc_smem);                  // [64][64]
+  const uint32_t g_s = q_s + kTcRows * kRowBytes;        // [64][64] dO
+  const uint32_t k_s = g_s + kTcRows * kRowBytes;        // [sp][64]
+  const uint32_t v_s = k_s + sp * kRowBytes;             // [sp][64]
+  float* bias_s = reinterpret_cast<float*>(
+      tc_smem + (2 * kTcRows + 2 * sp) * kRowBytes);        // [sp]
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int row0 = blockIdx.x * kTcRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int D = H * kHeadDim;
+  const long long stride = 3LL * D;
+  const bf16* slab = qkv + (long long)b * S * stride + h * kHeadDim;
+  const bf16* dslab = dout + (long long)b * S * D + h * kHeadDim;
+
+  stage_async(q_s, slab, stride, row0, kTcRows, S);
+  stage_async(g_s, dslab, D, row0, kTcRows, S);
+  stage_async(k_s, slab + D, stride, 0, sp, S);
+  stage_async(v_s, slab + 2 * D, stride, 0, sp, S);
+  cp_async_commit();
+  fill_bias(bias_s, key_bias + (long long)b * S, S, sp);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  uint32_t qa[4][4], ga[4][4];
+  load_a_rows(qa, q_s, 16 * warp, lane);
+  load_a_rows(ga, g_s, 16 * warp, lane);
+
+  // Pass 1: the row max m, sum l and u = sum exp(s - m) dp.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+  for (int kb = 0; kb < sp; kb += kTcTile) {
+    float s[8][4], dp[8][4], alpha[2];
+    scores(s, qa, k_s, kb, bias_s, scale, lane);
+    mma_abt<8>(dp, ga, v_s, kb, lane);
+    raise_max(s, m, alpha);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] *= alpha[i];
+      u[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = expf(__fsub_rn(s[n][e], m[e >> 1]));
+        l[e >> 1] += x;
+        u[e >> 1] = fmaf(x, dp[n][e], u[e >> 1]);
+      }
   }
-  const T* q = static_cast<const T*>(qkv);
-  const float* kb = static_cast<const float*>(key_bias);
-  const T* g = static_cast<const T*>(dout);
-  T* out = static_cast<T*>(dqkv);
-  float4* st = static_cast<float4*>(stats);
+  float inv[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    inv[i] = 1.f / quad_sum(l[i]);
+    delta[i] = quad_sum(u[i]) * inv[i];  // rowsum(dp o p), p in fp32
+  }
+  float4* st = stats + ((long long)b * H + h) * S;
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 16 * warp + (lane >> 2) + 8 * i;
+      if (row < S) st[row] = make_float4(m[i], inv[i], delta[i], 0.f);
+    }
+  }
+
+  // Pass 2: ds = p o (dp - rowsum), rounded to bf16; dq += ds . k.
+  float dq[8][4] = {};
+  for (int kb = 0; kb < sp; kb += kTcTile) {
+    float s[8][4], dp[8][4];
+    scores(s, qa, k_s, kb, bias_s, scale, lane);
+    mma_abt<8>(dp, ga, v_s, kb, lane);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float p = __fmul_rn(expf(__fsub_rn(s[n][e], m[i])), inv[i]);
+        s[n][e] = __fmul_rn(p, __fsub_rn(dp[n][e], delta[i]));
+      }
+    uint32_t da[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_to_a(da[c], s[2 * c], s[2 * c + 1]);
+    mma_ax<4>(dq, da, k_s, kb, lane);
+  }
+
+  bf16* gslab = dqkv + (long long)b * S * stride + h * kHeadDim;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 16 * warp + (lane >> 2) + 8 * i;
+    if (row >= S) continue;
+    bf16* dst = gslab + row * stride + 2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      Elem<bf16>::store(dst + 8 * n, __fmul_rn(dq[n][2 * i], scale),
+                        __fmul_rn(dq[n][2 * i + 1], scale));
+  }
+}
+
+constexpr int kStatsBytes = kTcTile * 16;  // 64 float4
+constexpr int kStageBytes = 2 * kTcTile * kRowBytes + kStatsBytes;
+constexpr size_t kDkvSmem = 2 * kTcRows * kRowBytes + 2 * kStageBytes;
+
+// Starts the copies of query rows [r0, r0 + 64) of Q, dO and their
+// statistics into one stage (rows past S zero-filled: their p and ds are 0).
+__device__ __forceinline__ void stage_queries(uint32_t stage, const bf16* q,
+                                              const bf16* g,
+                                              const float4* st,
+                                              long long stride, int D, int r0,
+                                              int S) {
+  stage_async(stage, q, stride, r0, kTcTile, S);
+  stage_async(stage + kTcTile * kRowBytes, g, D, r0, kTcTile, S);
+  if (threadIdx.x < kTcTile) {
+    const int row = r0 + threadIdx.x;
+    cp_async16(stage + 2 * kTcTile * kRowBytes + threadIdx.x * 16,
+               row < S ? st + row : st, row < S);
+  }
+}
+
+// Kernel B: dk and dv of 64 keys.
+__global__ void __launch_bounds__(kTcThreads)
+slab_attention_bwd_tc_dkv_kernel(const bf16* __restrict__ qkv,
+                                 const float* __restrict__ key_bias,
+                                 const bf16* __restrict__ dout,
+                                 bf16* __restrict__ dqkv,
+                                 const float4* __restrict__ stats, int S,
+                                 int H, float scale) {
+  extern __shared__ __align__(128) uint8_t tc_smem[];
+  const uint32_t k_s = smem_addr(tc_smem);                  // [64][64]
+  const uint32_t v_s = k_s + kTcRows * kRowBytes;        // [64][64]
+  const uint32_t stages = v_s + kTcRows * kRowBytes;     // 2 x (Q, dO, stats)
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int key0 = blockIdx.x * kTcRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int D = H * kHeadDim;
+  const long long stride = 3LL * D;
+  const bf16* slab = qkv + (long long)b * S * stride + h * kHeadDim;
+  const bf16* dslab = dout + (long long)b * S * D + h * kHeadDim;
+  const float4* st = stats + ((long long)b * H + h) * S;
+
+  stage_async(k_s, slab + D, stride, key0, kTcRows, S);
+  stage_async(v_s, slab + 2 * D, stride, key0, kTcRows, S);
+  stage_queries(stages, slab, dslab, st, stride, D, 0, S);
+  cp_async_commit();
+
+  // this thread's keys (rows of s^T): gid and gid + 8 of the warp's 16
+  float kbias[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 16 * warp + (lane >> 2) + 8 * i;
+    kbias[i] = key < S ? key_bias[(long long)b * S + key] : -INFINITY;
+  }
+  uint32_t ka[4][4], va[4][4];
+  float dk[8][4] = {}, dv[8][4] = {};
+  const int tiles = (S + kTcTile - 1) / kTcTile;
+  for (int qt = 0; qt < tiles; ++qt) {
+    if (qt + 1 < tiles) {
+      stage_queries(stages + ((qt + 1) & 1) * kStageBytes, slab, dslab, st,
+                    stride, D, (qt + 1) * kTcTile, S);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (qt == 0) {
+      load_a_rows(ka, k_s, 16 * warp, lane);
+      load_a_rows(va, v_s, 16 * warp, lane);
+    }
+    const uint32_t q_s = stages + (qt & 1) * kStageBytes;
+    const uint32_t g_s = q_s + kTcTile * kRowBytes;
+    const float4* sts = reinterpret_cast<const float4*>(
+        tc_smem + (q_s - smem_addr(tc_smem)) + 2 * kTcTile * kRowBytes);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = 32 * half;  // this step's 32 queries in the tile
+      float s[4][4], dp[4][4];
+      mma_abt<4>(s, ka, q_s, c0, lane);
+      mma_abt<4>(dp, va, g_s, c0, lane);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 sq = sts[c0 + 8 * n + 2 * (lane & 3) + (e & 1)];
+          const float x = __fadd_rn(__fmul_rn(s[n][e], scale), kbias[e >> 1]);
+          const float p = __fmul_rn(expf(__fsub_rn(x, sq.x)), sq.y);
+          s[n][e] = p;
+          dp[n][e] = __fmul_rn(p, __fsub_rn(dp[n][e], sq.z));
+        }
+      uint32_t pa[2][4], da[2][4];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        acc_to_a(pa[c], s[2 * c], s[2 * c + 1]);
+        acc_to_a(da[c], dp[2 * c], dp[2 * c + 1]);
+      }
+      mma_ax<2>(dv, pa, g_s, c0, lane);
+      mma_ax<2>(dk, da, q_s, c0, lane);
+    }
+    __syncthreads();  // this stage is refilled two tiles on
+  }
+
+  bf16* gslab = dqkv + (long long)b * S * stride + h * kHeadDim;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 16 * warp + (lane >> 2) + 8 * i;
+    if (key >= S) continue;
+    bf16* dst = gslab + key * stride + 2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      Elem<bf16>::store(dst + D + 8 * n, __fmul_rn(dk[n][2 * i], scale),
+                        __fmul_rn(dk[n][2 * i + 1], scale));
+      Elem<bf16>::store(dst + 2 * D + 8 * n, dv[n][2 * i], dv[n][2 * i + 1]);
+    }
+  }
+}
+
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              int(bytes));
+}
+
+cudaError_t launch_bwd_f32(const float* qkv, const float* kb,
+                           const float* dout, float* dqkv, float4* stats,
+                           int B, int S, int H, float scale,
+                           cudaStream_t stream) {
+  const size_t smem = size_t(S) * Elem<float>::kRowWords * 4 +
+                      size_t(kRowsPerBlock) * S * 4;
+  cudaError_t e = allow_smem(
+      reinterpret_cast<const void*>(slab_attention_bwd_dq_kernel<float>),
+      smem);
+  if (e != cudaSuccess) return e;
   const dim3 grid_a((S + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
-  slab_attention_bwd_dq_kernel<T><<<grid_a, kThreads, smem, stream>>>(
-      q, kb, g, out, st, S, H, scale);
-  cudaError_t e = cudaGetLastError();
+  slab_attention_bwd_dq_kernel<float><<<grid_a, kThreads, smem, stream>>>(
+      qkv, kb, dout, dqkv, stats, S, H, scale);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const dim3 grid_b((S + kKeyTile - 1) / kKeyTile, H, B);
-  slab_attention_bwd_dkv_kernel<T><<<grid_b, kThreads, 0, stream>>>(
-      q, kb, g, out, st, S, H, scale);
+  slab_attention_bwd_dkv_kernel<float><<<grid_b, kThreads, 0, stream>>>(
+      qkv, kb, dout, dqkv, stats, S, H, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_tc(const bf16* qkv, const float* kb, const bf16* dout,
+                          bf16* dqkv, float4* stats, int B, int S, int H,
+                          float scale, cudaStream_t stream) {
+  const size_t smem_a = tc_smem_bytes(2, S);
+  cudaError_t e = allow_smem(
+      reinterpret_cast<const void*>(slab_attention_bwd_tc_dq_kernel), smem_a);
+  if (e != cudaSuccess) return e;
+  e = allow_smem(
+      reinterpret_cast<const void*>(slab_attention_bwd_tc_dkv_kernel),
+      kDkvSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((S + kTcRows - 1) / kTcRows, H, B);
+  slab_attention_bwd_tc_dq_kernel<<<grid, kTcThreads, smem_a, stream>>>(
+      qkv, kb, dout, dqkv, stats, S, H, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  slab_attention_bwd_tc_dkv_kernel<<<grid, kTcThreads, kDkvSmem, stream>>>(
+      qkv, kb, dout, dqkv, stats, S, H, scale);
   return cudaGetLastError();
 }
 
@@ -358,13 +629,17 @@ extern "C" int keep_attention_qkv_slab_bwd(const void* qkv,
       B > 65535 || H > 65535 || key_bias == nullptr)
     return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* kb = static_cast<const float*>(key_bias);
+  float4* stt = static_cast<float4*>(stats);
   switch (dtype) {
     case 0:
-      return int(launch_bwd<float>(qkv, key_bias, dout, dqkv, stats, B, S, H,
-                                   scale, st));
+      return int(launch_bwd_f32(
+          static_cast<const float*>(qkv), kb, static_cast<const float*>(dout),
+          static_cast<float*>(dqkv), stt, B, S, H, scale, st));
     case 1:
-      return int(launch_bwd<__nv_bfloat16>(qkv, key_bias, dout, dqkv, stats,
-                                           B, S, H, scale, st));
+      return int(launch_bwd_tc(
+          static_cast<const bf16*>(qkv), kb, static_cast<const bf16*>(dout),
+          static_cast<bf16*>(dqkv), stt, B, S, H, scale, st));
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -6,8 +6,11 @@ Counterpart of ``keep_tpu/kernels/flash_attention.py``:
 ``jax.custom_vjp`` of :169-248), ``attention_qkv_heads`` (:80-129) and
 ``flash_attention`` (:251-281). For a CUDA tensor the wrappers launch the
 hand-written Hopper kernels in ``csrc/attention_qkv_slab.cu`` (the forward
-of both layouts, one kernel body) and ``csrc/attention_qkv_slab_bwd.cu``
-(the closed-form backward, ``_slab_attn_bwd``); for a CPU tensor they run
+of every layout: one kernel body that reads q, k and v through base
+pointers and batch, head and row strides) and
+``csrc/attention_qkv_slab_bwd.cu`` (the closed-form backward,
+``_slab_attn_bwd``); bf16 runs on the tensor cores, fp32 on the CUDA
+cores. For a CPU tensor they run
 the ``*_reference`` versions, the same math in plain PyTorch, which the
 tests and ``chip_smoke.py`` also hold the kernels against. There is no
 fallback from one to the other.
@@ -102,34 +105,50 @@ def attention_qkv_slab_reference(qkv: torch.Tensor,
     return out.transpose(1, 2).reshape(b, s, num_heads * dh)  # [B, H, S, Dh]
 
 
+def _launch_forward(name: str, q: int, k: int, v: int,
+                    strides: tuple[int, int, int],
+                    key_bias: torch.Tensor | None, b: int, s: int, h: int,
+                    dtype: torch.dtype, out_dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """Launches the forward kernel on q, k, v given as the addresses of
+    their (batch 0, head 0, row 0) elements and their common (batch, head,
+    row) element strides; returns out [B, S, H·64] in ``out_dtype``."""
+    if (dtype, out_dtype) not in _DTYPE_CODE:
+        raise TypeError(f"the kernel takes float32 or bfloat16 in and "
+                        f"float32 or the input's dtype out, got {dtype} "
+                        f"→ {out_dtype}")
+    if key_bias is not None:
+        if key_bias.device != device:
+            raise ValueError("key_bias must be on the operands' device")
+        key_bias = key_bias.float().contiguous()
+
+    from keep_tpu_torch.kernels._build import library
+
+    out = torch.empty(b, s, h * HEAD_DIM, dtype=out_dtype, device=device)
+    rc = library().keep_attention(
+        q, k, v, *strides, None if key_bias is None else key_bias.data_ptr(),
+        out.data_ptr(), b, s, h, HEAD_DIM, _DTYPE_CODE[dtype, out_dtype],
+        HEAD_DIM ** -0.5, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    return out
+
+
 def _forward(qkv: torch.Tensor, key_bias: torch.Tensor | None, num_heads: int,
              out_dtype: torch.dtype) -> torch.Tensor:
     global LAUNCHES
-    b, s, _ = qkv.shape
+    b, s, three_hd = qkv.shape
     dh = _head_dim(qkv, num_heads)
     if qkv.device.type == "cpu":
         return attention_qkv_slab_reference(qkv, key_bias, num_heads=num_heads,
                                             out_dtype=out_dtype)
     _check_kernel_slab(qkv, dh)
-    if (qkv.dtype, out_dtype) not in _DTYPE_CODE:
-        raise TypeError(f"the kernel takes float32 or bfloat16 in and "
-                        f"float32 or the input's dtype out, got {qkv.dtype} "
-                        f"→ {out_dtype}")
-    if key_bias is not None:
-        if key_bias.device != qkv.device:
-            raise ValueError("key_bias must be on the slab's device")
-        key_bias = key_bias.float().contiguous()
-
-    from keep_tpu_torch.kernels._build import library
-
-    out = torch.empty(b, s, num_heads * dh, dtype=out_dtype, device=qkv.device)
-    rc = library().keep_attention_qkv_slab(
-        qkv.data_ptr(), None if key_bias is None else key_bias.data_ptr(),
-        out.data_ptr(), b, s, num_heads, dh, _DTYPE_CODE[qkv.dtype, out_dtype],
-        dh ** -0.5, torch.cuda.current_stream(qkv.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"attention_qkv_slab kernel launch failed: "
-                           f"cudaError {rc}")
+    # q, k and v are the slab's thirds: head h of each at lanes h·Dh
+    d, ptr, size = three_hd // 3, qkv.data_ptr(), qkv.element_size()
+    out = _launch_forward(
+        "attention_qkv_slab", ptr, ptr + d * size, ptr + 2 * d * size,
+        (s * three_hd, dh, three_hd), key_bias, b, s, num_heads, qkv.dtype,
+        out_dtype, qkv.device)
     with _launch_lock:
         LAUNCHES += 1
     return out
@@ -262,6 +281,14 @@ def attention_qkv_slab_bwd(qkv: torch.Tensor, key_bias: torch.Tensor,
 # ---- split q, k, v: attention_qkv_heads and flash_attention ------------------
 
 
+def _inference_only(*tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "attention_qkv_heads / flash_attention are inference-only (the "
+            "JAX kernel has no VJP); run them under torch.no_grad() / "
+            "torch.inference_mode(), or train through attention_qkv_slab")
+
+
 def _heads_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  key_bias: torch.Tensor | None, num_heads: int) -> int:
     """The checks of the JAX ``attention_qkv_heads``; returns Dh."""
@@ -276,12 +303,30 @@ def _heads_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if key_bias is not None and tuple(key_bias.shape) != (b, s):
         raise ValueError(f"key_bias must be [B, S] = {(b, s)}, got "
                          f"{tuple(key_bias.shape)}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "attention_qkv_heads / flash_attention are inference-only (the "
-            "JAX kernel has no VJP); run them under torch.no_grad() / "
-            "torch.inference_mode(), or train through attention_qkv_slab")
+    _inference_only(q, k, v)
     return hd // num_heads
+
+
+def _heads_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  strides: tuple[int, int, int],
+                  key_bias: torch.Tensor | None, b: int, s: int,
+                  h: int) -> torch.Tensor:
+    """The split-heads launch: q, k, v of one dtype on one CUDA device,
+    sharing the (batch, head, row) element strides; counted in
+    ``HEADS_LAUNCHES``."""
+    global HEADS_LAUNCHES
+    if k.dtype != q.dtype or v.dtype != q.dtype or \
+            q.dtype not in _IO_DTYPE_CODE:
+        raise TypeError(f"the kernel takes float32 or bfloat16 q, k, v of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    out = _launch_forward("attention_qkv_heads", q.data_ptr(), k.data_ptr(),
+                          v.data_ptr(), strides, key_bias, b, s, h, q.dtype,
+                          q.dtype, q.device)
+    with _launch_lock:
+        HEADS_LAUNCHES += 1
+    return out
 
 
 def attention_qkv_heads_reference(q: torch.Tensor, k: torch.Tensor,
@@ -315,7 +360,6 @@ def attention_qkv_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp32 or bf16 q, k, v of one dtype, Dh = 64, S ≤ 512 and contiguous,
     16-byte aligned operands, and raises on anything else; a CPU tensor goes
     through the plain version. Inference-only: raises under autograd."""
-    global HEADS_LAUNCHES
     dh = _heads_check(q, k, v, key_bias, num_heads)
     while num_heads % group:
         group //= 2
@@ -325,31 +369,7 @@ def attention_qkv_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, hd = q.shape
     for t in (q, k, v):
         _check_kernel_slab(t, dh)
-    if k.dtype != q.dtype or v.dtype != q.dtype or \
-            q.dtype not in _IO_DTYPE_CODE:
-        raise TypeError(f"the kernel takes float32 or bfloat16 q, k, v of one "
-                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("q, k and v must be on one device")
-    if key_bias is not None:
-        if key_bias.device != q.device:
-            raise ValueError("key_bias must be on q's device")
-        key_bias = key_bias.float().contiguous()
-
-    from keep_tpu_torch.kernels._build import library
-
-    out = torch.empty(b, s, hd, dtype=q.dtype, device=q.device)
-    rc = library().keep_attention_qkv_heads(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if key_bias is None else key_bias.data_ptr(), out.data_ptr(), b,
-        s, num_heads, dh, _IO_DTYPE_CODE[q.dtype], dh ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"attention_qkv_heads kernel launch failed: "
-                           f"cudaError {rc}")
-    with _launch_lock:
-        HEADS_LAUNCHES += 1
-    return out
+    return _heads_kernel(q, k, v, (s * hd, dh, hd), key_bias, b, s, num_heads)
 
 
 def _key_bias(bias: torch.Tensor | None, b: int, s: int
@@ -388,10 +408,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The generic [B, H, S, Dh] API over ``attention_qkv_heads``, the
     kernel of ``ops.nn.mha_attention(use_flash=True)``. ``bias`` must be a
     key mask shaped [B, 1, 1, S] (the BERT padding mask) or None; full
-    score-level biases raise, as in the JAX package. The layout shuffles to
-    [B, S, H·Dh] and back are copies, as there. Inference-only."""
+    score-level biases raise, as in the JAX package. Returns the
+    [B, H, S, Dh] view of a [B, S, H·Dh] tensor, as there. On the card the
+    kernel reads q, k and v through their strides, without the layout
+    copies of the plain version, when the three share one layout with
+    contiguous rows; otherwise it takes contiguous copies. Inference-only."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, bias, group)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k and v must be one [B, H, S, Dh] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    _inference_only(q, k, v)
     b, h, s, dh = q.shape
-    out = attention_qkv_heads(
-        _to_lanes(q), _to_lanes(k), _to_lanes(v), _key_bias(bias, b, s),
-        num_heads=h, group=group)
-    return out.reshape(b, s, h, dh).transpose(1, 2)
+    key_bias = _key_bias(bias, b, s)
+    if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
+            and all(st % 8 == 0 for st in q.stride()[:3])):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("the kernel takes 16-byte aligned q, k, v")
+    if dh != HEAD_DIM or s > MAX_SEQ or b > 65535:
+        raise ValueError(f"the kernel takes head_dim {HEAD_DIM}, S ≤ "
+                         f"{MAX_SEQ} and B ≤ 65535, got {tuple(q.shape)}")
+    out = _heads_kernel(q, k, v, q.stride()[:3], key_bias, b, s, h)
+    return out.view(b, s, h, dh).transpose(1, 2)

@@ -162,7 +162,11 @@ class KEEPModel(nn.Module):
 
         The JAX package's own int8 artifact (a ``quantized/`` Orbax
         checkpoint, ``keep_tpu.compat.export.save_quantized``) is not read
-        by the port: a model dir that carries one raises."""
+        by the port: a model dir that carries one raises.
+
+        ``device`` defaults to the card (``cuda``); without one the call
+        raises unless the caller asks for the CPU with ``device="cpu"``: it
+        never moves to the CPU by itself."""
         from keep_tpu_torch.compat.torch_loader import (load_keep_state_dict,
                                                         load_state_dict_file)
 
@@ -181,6 +185,10 @@ class KEEPModel(nn.Module):
         else:
             raise FileNotFoundError(
                 f"no pytorch_model.bin or model.safetensors in {model_dir}")
+        device = torch.device("cuda" if device is None else device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError('no CUDA device: pass device="cpu" to load on '
+                               'the CPU')
         sd = load_keep_state_dict(load_state_dict_file(weights), cfg)
         model = cls(cfg, dtype=dtype, use_flash=use_flash, device=device,
                     weight_dtype=torch.float32 if quantize else None)

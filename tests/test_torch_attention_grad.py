@@ -92,6 +92,49 @@ def test_bwd_reference_bf16_matches_jax_vjp(rng):
     assert err <= 1e-2 * np.abs(want).max()
 
 
+def _bwd_bf16_rounding_model(qkv, kb, dout, h):
+    """The bf16 backward kernel's rounding in plain PyTorch: the scores, the
+    fp32 softmax, dp = do·vᵀ and rowsum(dp∘p) as in ``_slab_attn_bwd``, but
+    p and ds rounded to bf16 as the operands of their products (dv = pᵀ·do,
+    dq = ds·k, dk = dsᵀ·q), the sums in fp32, cast once to bf16."""
+    b, s, three_hd = qkv.shape
+    dh = three_hd // (3 * h)
+    q, k, v = qkv.float().reshape(b, s, 3, h, dh).permute(2, 0, 3, 1, 4)
+    do = dout.float().reshape(b, s, h, dh).transpose(1, 2)
+    sc = q @ k.transpose(-1, -2) * dh ** -0.5 + kb.float()[:, None, None, :]
+    p = torch.softmax(sc, dim=-1)
+    dp = do @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    p16, ds16 = p.bfloat16().float(), ds.bfloat16().float()
+    dv = p16.transpose(-1, -2) @ do
+    dq = ds16 @ k * dh ** -0.5
+    dk = ds16.transpose(-1, -2) @ q * dh ** -0.5
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4)
+    return dqkv.reshape(b, s, three_hd).bfloat16()
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_bf16_rounding_of_the_kernel_fits_the_gate(rng, with_bias):
+    """The card's bf16 backward rounds p and ds to bf16 before their
+    products, where the JAX package multiplies them in fp32. That model of
+    its rounding, against ``jax.vjp`` of the JAX ``attention_qkv_slab`` on a
+    bf16 slab (Pallas forward in interpret mode, ``_slab_attn_bwd``), at
+    the towers' head width and ViT-L's length, with a BERT-like padded bias:
+    within the bf16 gate, max |Δ| ≤ 1e-2 · max |JAX gradient|."""
+    b, s, h, dh = 2, 197, 2, 64
+    qkv, dout, kb = _inputs(rng, b, s, h, dh, with_bias)
+    kb = np.zeros((b, s), np.float32) if kb is None else kb
+    q16 = jnp.asarray(qkv).astype(jnp.bfloat16)
+    d16 = jnp.asarray(dout).astype(jnp.bfloat16)
+    _, vjp = jax.vjp(lambda x: jax_slab(x, jnp.asarray(kb), num_heads=h), q16)
+    want = np.asarray(vjp(d16)[0].astype(jnp.float32))
+    got = _bwd_bf16_rounding_model(torch.from_numpy(qkv).bfloat16(),
+                                   torch.from_numpy(kb),
+                                   torch.from_numpy(dout).bfloat16(), h)
+    err = np.abs(got.float().numpy() - want).max()
+    assert 0 < err <= 1e-2 * np.abs(want).max()
+
+
 def test_bwd_reference_equals_autograd_of_plain_forward(rng):
     """In fp32 the closed form is the exact gradient of the plain forward."""
     qkv, dout, kb = _inputs(rng, 2, 21, 2, 32, True)

@@ -187,6 +187,8 @@ def test_inference_only_and_no_fallback():
     assert out.shape == (1, 4, 64)
     with pytest.raises(ValueError, match="no kernel"):
         fa.attention_qkv_heads(*(q.to("meta"),) * 3, num_heads=1)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.flash_attention(*(torch.zeros(1, 1, 4, 64, device="meta"),) * 3)
     with pytest.raises(ValueError, match="key_bias"):
         fa.attention_qkv_heads(q, q, q, torch.zeros(1, 3), num_heads=1)
     with pytest.raises(ValueError, match="one \\[B, S, H·Dh\\] shape"):

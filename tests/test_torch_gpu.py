@@ -25,10 +25,17 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+# sequence lengths around the bf16 body's 64-row tiles and 16-row mma
+# fragments, the two towers' lengths and the kernels' limit
+EDGE_S = [1, 15, 16, 17, 64, 197, 256, 257, 512]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,padded", [(32, 197, 16, False),
                                           (32, 256, 12, True),
-                                          (2, 512, 2, True), (3, 7, 1, False)])
+                                          (2, 512, 2, True), (3, 7, 1, False)]
+                         + [(2, s, 2, padded) for s in EDGE_S
+                            for padded in (False, True)])
 def test_kernel_matches_plain(cuda, b, s, h, padded, dtype):
     qkv = torch.randn(b, s, 3 * h * 64, device="cuda", generator=cuda)
     qkv = qkv.to(dtype)
@@ -157,6 +164,25 @@ def test_attention_fp32_output_matches_plain(cuda):
     torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("s", EDGE_S)
+def test_attention_fp32_output_at_every_edge(cuda, s, padded):
+    """The fp32-out form at the edge lengths, padded and unpadded, at the
+    fp32 gate: it runs the exact CUDA-core body, whose codes the int8
+    blocks re-quantize."""
+    qkv = torch.randn(2, s, 3 * 2 * 64, device="cuda", generator=cuda)
+    qkv = qkv.bfloat16()
+    kb = None
+    if padded:
+        lens = torch.randint(1, s + 1, (2,), device="cuda", generator=cuda)
+        kb = (torch.arange(s, device="cuda")[None] >= lens[:, None]) * -1e9
+    got = fa.attention_qkv_slab(qkv, kb, num_heads=2, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    ref = fa.attention_qkv_slab_reference(qkv, kb, num_heads=2,
+                                          out_dtype=torch.float32)
+    torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
+
+
 @pytest.mark.parametrize("b", [1, 3])
 def test_int8_blocks_match_plain(cuda, b):
     """The counterparts of the TPU kernels #4, #5, #6, #8, #9 through the
@@ -249,7 +275,7 @@ def test_int8_kernels_refuse_what_they_do_not_take(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("padded", [False, True])
-@pytest.mark.parametrize("s", [33, 197, 256])
+@pytest.mark.parametrize("s", [33] + EDGE_S)
 def test_bwd_kernel_matches_plain(cuda, s, padded, dtype):
     """fp32 at atol 2e-4, rtol 1e-4 (tests/test_flash_attention.py's VJP
     tolerance); bf16 within 1e-2 of the largest plain gradient on unpadded
@@ -273,6 +299,20 @@ def test_bwd_kernel_matches_plain(cuda, s, padded, dtype):
     else:
         g, r = got.float()[valid], ref.float()[valid]
         assert (g - r).abs().max().item() <= 1e-2 * r.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_is_deterministic(cuda, dtype):
+    """No atomics: two calls on the same inputs give the same bits."""
+    b, s, h = 4, 197, 3
+    qkv = torch.randn(b, s, 3 * h * 64, device="cuda", generator=cuda).to(dtype)
+    do = torch.randn(b, s, h * 64, device="cuda", generator=cuda).to(dtype)
+    kb = torch.zeros(b, s, device="cuda")
+    kb[1:, 150:] = -1e9
+    first = fa.attention_qkv_slab_bwd(qkv, kb, do, h)
+    second = fa.attention_qkv_slab_bwd(qkv, kb, do, h)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_autograd_launches_both_kernels(cuda):
@@ -394,6 +434,40 @@ def test_heads_kernel_matches_plain_and_slab(cuda, b, s, h, padded, dtype):
         torch.testing.assert_close(g, r, atol=2e-5, rtol=2e-5)
     else:
         assert (g - r).abs().max().item() < 0.05
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd", "mixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [17, 197, 256])
+def test_flash_attention_equals_heads_and_slab(cuda, s, dtype, layout):
+    """flash_attention on [B, H, S, Dh] q, k, v, attention_qkv_heads on
+    their [B, S, H·Dh] lanes and attention_qkv_slab on the slab of those
+    lanes give the same bits: one kernel body, three addressings. The
+    kernel reads contiguous [B, H, S, Dh] tensors ("bhsd") and head views
+    of [B, S, H, Dh] ones ("bshd") through their strides; q, k and v of
+    different layouts ("mixed") are copied first."""
+    b, h = 3, 4
+    x = torch.randn(3, b, s, h, 64, device="cuda", generator=cuda).to(dtype)
+    if layout == "bshd":
+        q, k, v = (t.transpose(1, 2) for t in x)
+    else:
+        q, k, v = (t.transpose(1, 2).contiguous() for t in x)
+        if layout == "mixed":
+            k = x[1].transpose(1, 2)
+    bias = torch.zeros(b, 1, 1, s, device="cuda")
+    bias[0, ..., s // 2 + 1:] = -1e9
+    n0 = fa.HEADS_LAUNCHES
+    got = fa.flash_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert fa.HEADS_LAUNCHES == n0 + 1
+    assert got.shape == (b, h, s, 64) and got.dtype == dtype
+    lanes = [t.reshape(b, s, h * 64) for t in x]
+    kb = bias.reshape(b, s)
+    heads = fa.attention_qkv_heads(*lanes, kb, num_heads=h)
+    slab = fa.attention_qkv_slab(torch.cat(lanes, -1), kb, num_heads=h)
+    torch.testing.assert_close(got.transpose(1, 2).reshape(b, s, h * 64),
+                               heads, rtol=0, atol=0)
+    torch.testing.assert_close(heads, slab, rtol=0, atol=0)
 
 
 def test_mha_attention_use_flash_on_the_card(cuda):

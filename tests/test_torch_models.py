@@ -345,7 +345,8 @@ def test_from_pretrained_matches_jax(tmp_path):
         "vision_config": VISION,
         "text_config": {k: v for k, v in TEXT.items()},
         "projection_dim": 48}))
-    ours = KEEPModel.from_pretrained(str(tmp_path), use_flash=True)
+    ours = KEEPModel.from_pretrained(str(tmp_path), use_flash=True,
+                                     device="cpu")
     theirs = jkeep.KEEPModel.from_pretrained(str(tmp_path), use_flash=True)
     assert ours.cfg.vision.depth == 2 and ours.cfg.text.hidden_size == 48
     px, ids, mask = _inputs()
@@ -361,6 +362,21 @@ def test_from_pretrained_matches_jax(tmp_path):
             atol=2e-5, rtol=2e-5)
     with pytest.raises(FileNotFoundError):
         KEEPModel.from_pretrained(str(tmp_path / "missing"), cfg=CFG)
+
+
+def test_from_pretrained_defaults_to_the_card(tmp_path, monkeypatch):
+    """Without a card ``from_pretrained`` raises and names device="cpu"; it
+    never loads onto the CPU by itself. With device="cpu" it loads there."""
+    sd = random_keep_state_dict(CFG, torch.Generator().manual_seed(4))
+    torch.save(sd, tmp_path / "pytorch_model.bin")
+    (tmp_path / "config.json").write_text(json.dumps({
+        "vision_config": VISION, "text_config": TEXT, "projection_dim": 48}))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            KEEPModel.from_pretrained(str(tmp_path), device=device)
+    model = KEEPModel.from_pretrained(str(tmp_path), device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
 def test_golden_bert_small_replays_on_port():

@@ -1,5 +1,5 @@
-"""The port and chip_smoke.py never import JAX or the JAX package: the
-machine with the GPU has no JAX."""
+"""The port, chip_smoke.py and the port's card scripts never import JAX or
+the JAX package: the machine with the GPU has no JAX."""
 
 import ast
 import os
@@ -11,7 +11,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((REPO / "keep_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "scripts" / "torch_attention_exp_share.py"]
 
 
 def test_imports_leave_jax_unloaded():

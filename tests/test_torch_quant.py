@@ -668,12 +668,12 @@ def test_from_pretrained_quantize(tmp_path):
         "vision_config": VISION, "text_config": TEXT,
         "projection_dim": 48}))
     q = KEEPModel.from_pretrained(str(tmp_path), dtype=torch.bfloat16,
-                                  use_flash=True, quantize=True)
-    f32 = KEEPModel.from_pretrained(str(tmp_path)).quantize()
+                                  use_flash=True, quantize=True, device="cpu")
+    f32 = KEEPModel.from_pretrained(str(tmp_path), device="cpu").quantize()
     assert q.dtype == torch.bfloat16 and q.gelu_approx
     for k, v in f32.state_dict().items():
         if k.endswith(("weight_q", "weight_scale")):
             torch.testing.assert_close(q.state_dict()[k], v, rtol=0, atol=0)
     (tmp_path / "quantized").mkdir()
     with pytest.raises(NotImplementedError, match="quantized artifact"):
-        KEEPModel.from_pretrained(str(tmp_path), quantize=True)
+        KEEPModel.from_pretrained(str(tmp_path), quantize=True, device="cpu")
