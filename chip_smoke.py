@@ -31,7 +31,12 @@ exits non-zero without a result line):
    bit for bit against the [B, S, D] form, and its path, ``ops.nn.Mlp`` on
    an int8 fc1/fc2 pair and a 2-D input, with its launches counted.
    int8_primitive — the three CUDA kernels alone (quant_rows, int8_gemm,
-   ln_rows) against their plain versions (the GEMM's is cuBLAS int8).
+   ln_rows) at the shapes #4 and #6 give them in a ViT-L dispatch at B=32
+   and B=128 (the qkv, proj, fc1 and fc2 GEMMs with their epilogues; the
+   row passes over the stream, the attention output and the MLP hidden;
+   BERT's post-LN rows), bit for bit against their plain versions, each
+   with its device time, its bound and, for the GEMMs, TOP/s beside cuBLAS
+   int8 (``torch._int_mm``) on the same operands.
    ln_matmul — the fused LayerNorm → matmul against its plain version at the
    ViT-L qkv and fc1 shapes (M = 32·197, K = 1024, N = 3072, 4096), fp32 at
    2e-5 and bf16 within one bf16 rounding, timed beside the unfused cuBLAS
@@ -51,8 +56,10 @@ exits non-zero without a result line):
    width 768 that agree (cosine ≥ 0.999) with the same weights run without
    the kernel, and the kernel's launch count must show that every block of
    every dispatch went through it.
-5. numbers  — image and text throughput at bucket 128, and the device-time
-   share of the attention kernel, beside the card's name and power limit.
+5. numbers  — image and text throughput at bucket 128, the device-time
+   share of the attention kernel, and the device time of one image and one
+   text dispatch by kernel family (``scripts/torch_dispatch_profile.py``'s
+   families), beside the card's name and power limit.
 6. int8_drift — the int8 model of phase 4's weights against phase 4's
    features, reported, not gated: on weights whose every block moves the
    stream, W8A8 drifts further than on the JAX package's init statistics.
@@ -63,8 +70,8 @@ exits non-zero without a result line):
    the same weights served in bf16, and launch counts that show every block
    of every dispatch went through the int8 attention sub-block and MLP pair
    of its tower.
-7. numbers (int8) — the same throughputs for the int8 server, and a device
-   time breakdown of one bucket-128 image dispatch by kernel.
+7. numbers (int8) — the same throughputs and breakdowns for the int8
+   server.
 8. attention_bwd — the backward kernel of ``attention_qkv_slab`` against its
    plain version at the training shapes at B=32 and B=128 (ViT-L: S=197,
    H=16, zero key bias; BERT-base: S=256, H=12, padded key bias), fp32 at
@@ -184,6 +191,21 @@ def cuda_ms(fn, warmup: int = 3, runs: int = 25) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, runs: int = 20) -> float:
+    """The device time of one call of ``fn`` (ms): the profiler's kernel
+    time summed over ``runs`` calls, the host's gaps between launches left
+    out."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return sum(kernel_ms(torch, prof).values()) / runs
 
 
 def bound(ops: dict[str, float], nbytes: float) -> tuple[float, str]:
@@ -701,6 +723,7 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
         x16 = x.bfloat16()
         out16 = {} if not out_kw else {"out_dtype": torch.bfloat16}
         ms = cuda_ms(lambda: fn(*args(x16), **kw, **out16))
+        dev_ms = device_ms(torch, lambda: fn(*args(x16), **kw, **out16))
         plain_ms = cuda_ms(lambda: ref(*args(x16), **kw, **out16))
         weights = [a for a in args(x16)[1:]
                    if isinstance(a, torch.Tensor) and a.dtype == torch.int8]
@@ -713,7 +736,8 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
                "atol": atol, "rtol": rtol,
                "int8_codes_differing": changed, "int8_codes": total,
                "int8_code_diff_share": changed / total,
-               "ms_bf16": ms, "plain_ms_bf16": plain_ms}
+               "ms_bf16": ms, "device_ms_bf16": dev_ms,
+               "plain_ms_bf16": plain_ms}
         row["bound_ms_bf16"], row["bound_by"] = bound(
             {"int8": int8_ops, "bf16": attn_ops.get(name, 0)}, moved)
         phase("int8_kernel", **row)
@@ -754,41 +778,91 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
           launches=flat_launches, equals_bsd_bitwise=True)
     rows["quantized_mlp"]["launches"] = flat_launches["quantized_mlp"]
 
-    # ---- the three CUDA kernels alone -------------------------------------
-    m, k, n = vb * vs, vd, vf
-    xq = torch.randint(-127, 128, (m, k), device=dev, generator=gen,
-                       dtype=torch.int8)
-    a = torch.rand(m, device=dev, generator=gen) * 1e-2
-    h32 = randn(m, n)
-    vx16 = vx2.bfloat16()
+    return rows, check_int8_primitives(torch, gen, (vqkv, vproj, vfc1, vfc2),
+                                       vn1, tn1)
+
+
+def check_int8_primitives(torch, gen, vit_linears, vit_norm, bert_norm
+                          ) -> list[dict]:
+    """Phase 3b, second part: the three CUDA kernels alone at the shapes #4
+    and #6 give them in a ViT-L dispatch at B=32 and B=128 (M = B·197):
+    ``int8_gemm`` at the qkv, proj, fc1 and fc2 shapes with their
+    epilogues, beside cuBLAS's int8 GEMM (``torch._int_mm``) on the same
+    operands; ``quant_rows`` on the LN'd bf16 stream, the fp32 attention
+    output and the fp32 MLP hidden; ``ln_rows`` on BERT's post-LN rows.
+    Each must give its plain version's bits. Times: the profiler's kernel
+    time a call (``device_ms``, host gaps left out) and CUDA events around
+    one call (``ms``, the wrapper's host time included where it is the
+    longer), each beside its bound."""
+    from keep_tpu_torch.kernels import _kops
+
+    P = _kops.PLAIN
+    dev = "cuda"
+    qkv, proj, fc1, fc2 = vit_linears
+    gemms = (("qkv", qkv, dict(out_dtype=torch.bfloat16), False),
+             ("proj", proj, dict(out_dtype=torch.bfloat16), True),
+             ("fc1", fc1, dict(gelu=True, out_dtype=torch.float32), False),
+             ("fc2", fc2, dict(out_dtype=torch.bfloat16), True))
     prims = []
-    for pname, fn, ref, flops in (
-            ("int8_gemm fc1+GELU [6304,1024]x[1024->4096] fp32 out",
-             lambda: _kops.int8_gemm(xq, a, vfc1.weight_q, vfc1.weight_scale,
-                                     vfc1.bias, order=1, gelu=True),
-             lambda: P.int8_gemm(xq, a, vfc1.weight_q, vfc1.weight_scale,
-                                 vfc1.bias, order=1, gelu=True),
-             2 * m * k * n),
-            ("cuBLAS int8 GEMM alone (torch._int_mm), same shape",
-             lambda: torch._int_mm(xq, vfc1.weight_q.t()),
-             lambda: torch._int_mm(xq, vfc1.weight_q.t()), 2 * m * k * n),
-            ("quant_rows LN [6304,1024] bf16",
-             lambda: _kops.quant_rows(vx16, vn1.weight, vn1.bias),
-             lambda: P.quant_rows(vx16, vn1.weight, vn1.bias), 0),
-            ("quant_rows [6304,4096] fp32 hidden",
-             lambda: _kops.quant_rows(h32), lambda: P.quant_rows(h32), 0),
-            ("ln_rows [8192,768] fp32 -> bf16",
-             lambda: _kops.ln_rows(tx2, tn1.weight, tn1.bias, 1e-12,
-                                   torch.bfloat16),
-             lambda: P.ln_rows(tx2, tn1.weight, tn1.bias, 1e-12,
-                               torch.bfloat16), 0)):
-        t, tp = cuda_ms(fn), cuda_ms(ref)
-        row = {"kernel": pname, "ms": t, "plain_ms": tp}
-        if flops:
-            row["tops"] = flops / t / 1e9
+
+    def report(kind, name, got, want, fn, ref, ops, moved, **extra):
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        if not same:
+            raise AssertionError(f"{kind} {name}: not the plain version's "
+                                 f"bits")
+        row = {"kernel": kind, "shape": name, "bitwise_equal": same,
+               "device_ms": device_ms(torch, fn), "ms": cuda_ms(fn),
+               "plain_ms": cuda_ms(ref), "bytes": moved, **extra}
+        row["bound_ms"], row["bound_by"] = bound(ops, moved)
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
+        if ops:
+            row["tops"] = ops["int8"] / row["device_ms"] / 1e9
         phase("int8_primitive", **row)
         prims.append(row)
-    return rows, prims
+
+    for b in (32, 128):
+        m = b * 197
+        for gname, lin, kw, with_res in gemms:
+            n, k = lin.weight_q.shape
+            xq = torch.randint(-127, 128, (m, k), device=dev, generator=gen,
+                               dtype=torch.int8)
+            a = torch.rand(m, device=dev, generator=gen) * 1e-2
+            res = (torch.randn(m, n, device=dev, generator=gen).bfloat16()
+                   if with_res else None)
+            args = (xq, a, lin.weight_q, lin.weight_scale, lin.bias)
+            fn = lambda: _kops.int8_gemm(*args, order=1, residual=res, **kw)
+            ref = lambda: P.int8_gemm(*args, order=1, residual=res, **kw)
+            out = fn()
+            torch.cuda.synchronize()
+            lib = device_ms(torch, lambda: torch._int_mm(xq,
+                                                         lin.weight_q.t()))
+            ops = 2 * m * k * n
+            report("int8_gemm", f"{gname} [{m},{k}]x[{k}->{n}] {kw}, "
+                   f"residual {with_res}", [out], [ref()], fn, ref,
+                   {"int8": ops}, nbytes(xq, a, lin.weight_q, out, res)
+                   + 8 * n, int_mm_device_ms=lib,
+                   int_mm_tops=ops / lib / 1e9)
+        xs = (torch.randn(m, 1024, device=dev, generator=gen) * 3)
+        for rname, x, ln in (("LN'd bf16 stream", xs.bfloat16(), True),
+                             ("fp32 attention output", xs, False),
+                             ("fp32 MLP hidden",
+                              torch.randn(m, 4096, device=dev, generator=gen),
+                              False)):
+            lnw = (vit_norm.weight, vit_norm.bias) if ln else (None, None)
+            fn = lambda: _kops.quant_rows(x, *lnw)
+            ref = lambda: P.quant_rows(x, *lnw)
+            q, s = fn()
+            report("quant_rows", f"{rname} [{m},{x.shape[1]}]", [q, s],
+                   list(ref()), fn, ref, {}, nbytes(x, q, s))
+        t2 = torch.randn(b * 256, 768, device=dev, generator=gen) * 4 + 1
+        fn = lambda: _kops.ln_rows(t2, bert_norm.weight, bert_norm.bias,
+                                   1e-12, torch.bfloat16)
+        ref = lambda: P.ln_rows(t2, bert_norm.weight, bert_norm.bias, 1e-12,
+                                torch.bfloat16)
+        out = fn()
+        report("ln_rows", f"BERT post-LN [{b * 256},768] fp32 -> bf16",
+               [out], [ref()], fn, ref, {}, nbytes(t2, out))
+    return prims
 
 
 def check_bwd_kernel(fa, torch, gen) -> list[dict]:
@@ -1058,12 +1132,12 @@ def drive_train(torch, fa, d: str, raw: dict, blocks: int,
     if traced:
         open_ms = open_ms[:-1]
     frozen_ms = [s["ms"] for s in steps if s["frozen"]][1:]
+    from scripts.torch_dispatch_profile import family
+
     families: dict[str, float] = {}
     for k, v in traced.items():
-        fam = next((f for f in ("slab_attention_bwd", "slab_attention",
-                                "gemm", "xmma", "nvjet", "cutlass")
-                    if f in k), "other")
-        fam = "gemm" if fam in ("xmma", "nvjet", "cutlass") else fam
+        fam = next((f for f in ("slab_attention_bwd", "slab_attention")
+                    if f in k), family(k))
         families[fam] = families.get(fam, 0.0) + v
     busy = sum(traced.values())
     batch = raw["dataloader"]["batch_size"]
@@ -1313,7 +1387,9 @@ def kernel_ms(torch, prof) -> dict[str, float]:
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
-        by_kernel[ev.key[:80]] = ev.self_device_time_total / 1e3
+        key = ev.key[:80]  # names that share 80 characters add up
+        by_kernel[key] = (by_kernel.get(key, 0.0)
+                          + ev.self_device_time_total / 1e3)
     return by_kernel
 
 
@@ -1381,24 +1457,26 @@ def throughput(torch, core, rng, int8: bool = False) -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             model.encode_image(normalize_only(px))
             torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as text_prof:
+            model.encode_text(ids, mask)
+            torch.cuda.synchronize()
+    from scripts.torch_dispatch_profile import by_family
+
     by_kernel = kernel_ms(torch, prof)
     total = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     attn = sum(v for k, v in by_kernel.items() if "slab_attention" in k)
+    text_kernels = kernel_ms(torch, text_prof)
     out = {"card": card(), "image_tiles_per_s_bucket128": img_rate,
            "text_prompts_per_s_bucket128x256": txt_rate,
            "device_ms": dev_ms,
            "image_b128_profiled_device_ms": total if total else "not measured",
            "attention_kernel_share_image_b128":
                attn / total if total else "not measured",
-           "image_b128_top_kernels_ms": top}
-    if int8:
-        families = {}
-        for k, v in by_kernel.items():
-            fam = next((f for f in ("int8_gemm", "quant_rows", "ln_rows",
-                                    "slab_attention") if f in k), "other")
-            families[fam] = families.get(fam, 0.0) + v
-        out["image_b128_ms_by_family"] = families
+           "image_b128_top_kernels_ms": top,
+           "image_b128_ms_by_family": by_family(by_kernel),
+           "text_b128x256_profiled_device_ms": sum(text_kernels.values()),
+           "text_b128x256_ms_by_family": by_family(text_kernels)}
     phase("numbers_int8" if int8 else "numbers", **out)
     return out
 

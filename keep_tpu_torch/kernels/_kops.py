@@ -160,6 +160,25 @@ def _vector(name: str, v: torch.Tensor, n: int, device) -> torch.Tensor:
     return v.float().contiguous()
 
 
+def _row_vector(name: str, v: torch.Tensor | None, n: int, device
+                ) -> torch.Tensor | None:
+    """A per-channel vector of the row kernels, which read it 16 bytes at a
+    time: fp32 [n], 16-byte aligned once in fp32."""
+    if v is None:
+        return None
+    v = _vector(name, v, n, device)
+    _check_contiguous(name, v, 16)
+    return v
+
+
+def _check_row_width(k: int) -> None:
+    if k > MAX_ROW:
+        raise ValueError(f"the kernel takes rows of at most {MAX_ROW}, got {k}")
+    if k % 16:
+        raise ValueError(f"the kernel takes rows of a multiple of 16 values, "
+                         f"got {k}")
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -176,7 +195,8 @@ def quant_rows(x: torch.Tensor, ln_scale: torch.Tensor | None = None,
     """x [M, K] (bf16 or fp32) → (int8 codes [M, K], fp32 scales [M]), with
     an optional row LayerNorm (``ln_scale``/``ln_bias`` [K], ``eps``) and
     per-channel ``pre_scale`` [K] in front. A CUDA tensor goes through the
-    kernel (contiguous, K ≤ 4096); a CPU tensor through the plain version."""
+    kernel (contiguous and 16-byte aligned, K a multiple of 16 and at most
+    4096); a CPU tensor through the plain version."""
     if x.dim() != 2:
         raise ValueError(f"quant_rows takes [M, K], got {tuple(x.shape)}")
     if (ln_scale is None) != (ln_bias is None):
@@ -186,13 +206,12 @@ def quant_rows(x: torch.Tensor, ln_scale: torch.Tensor | None = None,
     m, k = x.shape
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {x.dtype}")
-    if k > MAX_ROW:
-        raise ValueError(f"the kernel takes rows of at most {MAX_ROW}, got {k}")
-    _check_contiguous("x", x)
+    _check_row_width(k)
+    _check_contiguous("x", x, 16)
     dev = x.device
-    g = None if ln_scale is None else _vector("ln_scale", ln_scale, k, dev)
-    b = None if ln_bias is None else _vector("ln_bias", ln_bias, k, dev)
-    ps = None if pre_scale is None else _vector("pre_scale", pre_scale, k, dev)
+    g = _row_vector("ln_scale", ln_scale, k, dev)
+    b = _row_vector("ln_bias", ln_bias, k, dev)
+    ps = _row_vector("pre_scale", pre_scale, k, dev)
     q = torch.empty(m, k, dtype=torch.int8, device=dev)
     scale = torch.empty(m, dtype=torch.float32, device=dev)
 
@@ -214,8 +233,8 @@ def int8_gemm(xq: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
     scales ``w_scale`` [N]) → [M, N] ``out_dtype``: dequant in ``order``
     (``DEQUANT_LEFT`` or ``DEQUANT_PAIRED``), + ``bias`` [N], optional
     tanh-GELU, optional ``residual`` [M, N] added in fp32. A CUDA tensor goes
-    through the kernel (contiguous 16-byte aligned operands, K a multiple of
-    16, N of 8); a CPU tensor through the plain version."""
+    through the kernel (contiguous 16-byte aligned operands and residual, K
+    a multiple of 16, N of 8); a CPU tensor through the plain version."""
     if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[1]:
         raise ValueError(f"int8_gemm takes [M, K] × [N, K], got "
                          f"{tuple(xq.shape)} × {tuple(wq.shape)}")
@@ -239,8 +258,6 @@ def int8_gemm(xq: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
     if k % 16 or n % 8:
         raise ValueError(f"the kernel takes K a multiple of 16 and N of 8, got "
                          f"K={k}, N={n}")
-    if (m + 127) // 128 > 65535:
-        raise ValueError(f"the kernel takes M ≤ {65535 * 128}, got {m}")
     dev = xq.device
     if wq.device != dev:
         raise ValueError(f"wq must be on {dev}, got {wq.device}")
@@ -256,7 +273,7 @@ def int8_gemm(xq: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
                             f"residual, got {residual.dtype}")
         if residual.device != dev:
             raise ValueError(f"residual must be on {dev}")
-        _check_contiguous("residual", residual)
+        _check_contiguous("residual", residual, 16)
         res_code = _DTYPE_CODE[residual.dtype]
     out = torch.empty(m, n, dtype=out_dtype, device=dev)
 
@@ -274,8 +291,9 @@ def int8_gemm(xq: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
 def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float,
             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """fp32 x [M, D] → LayerNorm (``g``/``b`` [D]) → ``out_dtype``. A CUDA
-    tensor goes through the kernel (contiguous, D ≤ 4096); a CPU tensor
-    through the plain version."""
+    tensor goes through the kernel (contiguous and 16-byte aligned, D a
+    multiple of 16 and at most 4096); a CPU tensor through the plain
+    version."""
     if x.dim() != 2:
         raise ValueError(f"ln_rows takes [M, D], got {tuple(x.shape)}")
     if not _device_path(x):
@@ -286,11 +304,10 @@ def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float,
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"the kernel writes float32 or bfloat16, got "
                         f"{out_dtype}")
-    if d > MAX_ROW:
-        raise ValueError(f"the kernel takes rows of at most {MAX_ROW}, got {d}")
-    _check_contiguous("x", x)
-    gg = _vector("g", g, d, x.device)
-    bb = _vector("b", b, d, x.device)
+    _check_row_width(d)
+    _check_contiguous("x", x, 16)
+    gg = _row_vector("g", g, d, x.device)
+    bb = _row_vector("b", b, d, x.device)
     out = torch.empty(m, d, dtype=out_dtype, device=x.device)
 
     from keep_tpu_torch.kernels._build import library

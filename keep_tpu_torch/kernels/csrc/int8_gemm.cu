@@ -1,5 +1,5 @@
 // int8 × int8 → int32 GEMM with the fused dequant epilogue of the TPU int8
-// kernels, for Hopper (sm_90a).
+// kernels, for Hopper (sm_90a): wgmma fed by TMA.
 //
 // Replaces the MXU dot and epilogue of:
 //   - keep_tpu/kernels/qmatmul.py `_qmm_kernel` / `_qmm_bsd_kernel`
@@ -20,245 +20,493 @@
 //   v = v + bias[n];  v = gelu_tanh(v) if asked;  v = res[m, n] + v if given
 //   out[m, n] = v in the output dtype (bf16 or fp32); res is bf16 or fp32.
 // The two dequant orders are kept apart because fp32 multiplication is not
-// associative and each TPU kernel has its own.
+// associative and each TPU kernel has its own. The int32 sums are exact in
+// any order, so the result equals the plain version's bit for bit.
 //
 // What bounds it on this card: at the KEEP shapes (M = B·197 or B·256 rows,
-// K and N of 768 to 4096) the int8 tensor-core rate; operands are reused
-// from shared memory 128 times per load. Design (simple first): one block of
-// 8 warps per 128 × 128 output tile; K walks in steps of 64 bytes through a
-// two-stage cp.async ring of A and B tiles in shared memory (rows padded by
-// 16 bytes so the fragment loads of a warp hit 32 distinct banks); each warp
-// owns a 64 × 32 sub-tile and issues
-// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 on fragments it loads
-// with 32-bit shared-memory reads. Rows past M and K columns past K are
-// zero-filled by cp.async, so M is arbitrary and K need only be a multiple
-// of 16; N must be a multiple of 8.
-//
-// What it leaves on the table: wgmma and TMA (the H100's full int8 rate),
-// ldmatrix, a deeper pipeline, and a persistent schedule; the epilogue
-// stores two elements at a time straight from the mma fragments.
+// K and N of 768 to 4096) the int8 tensor-core rate, except where the fp32
+// output (the MLP hidden, [M, 4096]) makes the bytes as long. Design:
+//   - one persistent block per SM walks the 128 × 128 output tiles in row
+//     order, so the blocks running together share a few A panels and all
+//     of B (at most 4 MB) in the L2;
+//   - one producer thread keeps a ring of 4 stages full: each stage is a
+//     128-byte K slab of A's 128 rows and B's 128 rows, brought in by TMA
+//     (cp.async.bulk.tensor) with the 128-byte swizzle, completion counted
+//     on an mbarrier; rows past M or N and bytes past K arrive as zeros;
+//   - two consumer warpgroups take the block's tiles in turn (ping-pong):
+//     each runs wgmma.mma_async m64n128k32 s8 on its tile's two 64-row
+//     halves of A against the B slab, K-major on both sides (the layout
+//     the activations and the torch-layout weight already have), keeps one
+//     group of products in flight and hands the slab before it back on a
+//     second mbarrier;
+//   - the epilogue stages a warpgroup's int32 tile, half by half, through
+//     shared memory and writes 8 outputs a thread with 16-byte stores
+//     (residual read the same way), while the other warpgroup's products
+//     run on the tensor cores.
+// So M is arbitrary, K need only be a multiple of 16 (TMA's stride rule)
+// and N a multiple of 8 (the 16-byte stores).
+
+#include <cuda.h>
 
 #include "kops.cuh"
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 64;            // bytes of K per stage
-constexpr int kRow = BK + 16;     // padded shared-memory row, bytes
-constexpr int kThreads = 256;     // 8 warps: 2 along M × 4 along N
-constexpr int kWarpM = 64;
-constexpr int kWarpN = 32;
-constexpr int kMi = kWarpM / 16;  // m16 tiles per warp
-constexpr int kNi = kWarpN / 8;   // n8 tiles per warp
-constexpr int kStageBytes = (BM + BN) * kRow;
+constexpr int BM = 128;                 // a tile: two 64-row wgmma halves
+constexpr int BN = 128;                 // wgmma m64n128k32
+constexpr int BK = 128;                 // bytes of K a stage: one swizzle row
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;           // warpgroups that run wgmma
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kStageBytes = (BM + BN) * BK;
+constexpr int kPitch = BN + 8;          // int32 words of a staged output row
+constexpr int kEpiWords = 64 * kPitch;  // one warpgroup's staged tile
+constexpr int kSmemBytes = 1024 + kStages * kStageBytes
+                           + kConsumers * kEpiWords * 4
+                           + (2 * kStages + kConsumers) * 8;
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)), "r"(bytes) : "memory");
 }
 
-// Copies rows [row0, row0 + 128) × bytes [k0, k0 + 64) of a [rows, K] int8
-// matrix into a padded shared tile, 16 bytes per cp.async.
-__device__ __forceinline__ void load_tile(uint8_t* dst, const int8_t* src,
-                                          int rows, int K, int row0, int k0) {
-#pragma unroll
-  for (int it = 0; it < (128 * BK / 16) / kThreads; ++it) {
-    const int idx = threadIdx.x + it * kThreads;
-    const int r = idx / (BK / 16);
-    const int c = (idx % (BK / 16)) * 16;
-    const int gr = row0 + r;
-    const int gk = k0 + c;
-    const bool ok = gr < rows && gk < K;
-    const int8_t* g = ok ? src + (long long)gr * K + gk : src;
-    cp_async16(dst + r * kRow + c, g, ok);
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
   }
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
+// One TMA load of a box of the 2-D map at (c0 = byte of K, c1 = row) into
+// shared memory, its bytes counted on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1) : "memory");
 }
 
-template <typename T>
-__device__ __forceinline__ void store_pair(T* dst, float a, float b);
-template <>
-__device__ __forceinline__ void store_pair<float>(float* dst, float a,
-                                                  float b) {
-  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+// wgmma operand descriptor of a K-major tile with the 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart (the stride byte
+// offset); the leading byte offset is unused in this layout. The tile must
+// start 1024-byte aligned; a step of 32 bytes along K adds 2 to it.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(1) << 16)
+         | (static_cast<uint64_t>(1024 >> 4) << 32)
+         | (static_cast<uint64_t>(1) << 62);
 }
-template <>
-__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* dst,
-                                                          float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Hands a stage back to the producer: one arrival from each warp, after
+// the warp's own wait for the products that read it.
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+// Keeps the compiler from moving accesses of the accumulators across the
+// asynchronous wgmma.
+__device__ __forceinline__ void acc_fence(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[64 rows × 128 cols of this warpgroup] (+)= A[64 × 32] · B[128 × 32]ᵀ,
+// both from shared memory. Element i of d is row 16·warp + lane/4 +
+// 8·((i/2) % 2), column 8·(i/4) + 2·(lane % 4) + i % 2.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// 8 consecutive values of a residual row as fp32, with 16-byte loads.
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p,
+                                      float (&v)[8]) {
+  const uint4 a = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// 8 consecutive outputs with 16-byte stores.
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p,
+                                       const float (&v)[8]) {
+  uint4 o;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = o;
 }
 
 template <typename TOut, typename TRes>
-__global__ void __launch_bounds__(kThreads)
-int8_gemm_kernel(const int8_t* __restrict__ A, const float* __restrict__ a_scale,
-                 const int8_t* __restrict__ B, const float* __restrict__ b_scale,
+__global__ void __launch_bounds__(kThreads, 1)
+int8_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_b,
+                 const float* __restrict__ a_scale,
+                 const float* __restrict__ b_scale,
                  const float* __restrict__ bias, const TRes* __restrict__ res,
                  TOut* __restrict__ out, int M, int N, int K, int order,
                  int gelu) {
-  __shared__ __align__(16) uint8_t smem[2 * kStageBytes];
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int wm = (warp / (BN / kWarpN)) * kWarpM;  // warp's row offset
-  const int wn = (warp % (BN / kWarpN)) * kWarpN;  // warp's column offset
-  const int g = lane / 4;                          // mma groupID
-  const int t = lane % 4;                          // mma threadID_in_group
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzled tiles start 1024-byte aligned
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = smem;
+  int* staged = reinterpret_cast<int*>(smem + kStages * kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(staged + kConsumers * kEpiWords);
+  uint64_t* empty = full + kStages;
+  uint64_t* turn = empty + kStages;  // a consumer's turn on the ring
 
-  int acc[kMi][kNi][4];
-#pragma unroll
-  for (int i = 0; i < kMi; ++i)
-#pragma unroll
-    for (int j = 0; j < kNi; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
+  const int wg = threadIdx.x / 128;
+  const int n_tiles = (N + BN - 1) / BN;
+  const int tiles = ((M + BM - 1) / BM) * n_tiles;
   const int kt_count = (K + BK - 1) / BK;
-  load_tile(smem, A, M, K, m0, 0);
-  load_tile(smem + BM * kRow, B, N, K, n0, 0);
-  cp_async_commit();
 
-  for (int kt = 0; kt < kt_count; ++kt) {
-    uint8_t* stage = smem + (kt & 1) * kStageBytes;
-    if (kt + 1 < kt_count) {
-      uint8_t* next = smem + ((kt + 1) & 1) * kStageBytes;
-      load_tile(next, A, M, K, m0, (kt + 1) * BK);
-      load_tile(next + BM * kRow, B, N, K, n0, (kt + 1) * BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrival
+      mbar_init(&empty[s], 4);  // each warp of the warpgroup that read it
     }
-    __syncthreads();
-    const uint8_t* As = stage;
-    const uint8_t* Bs = stage + BM * kRow;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      uint32_t af[kMi][4];
-#pragma unroll
-      for (int i = 0; i < kMi; ++i) {
-        const uint8_t* p = As + (wm + i * 16 + g) * kRow + ks + t * 4;
-        af[i][0] = *reinterpret_cast<const uint32_t*>(p);
-        af[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * kRow);
-        af[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-        af[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * kRow + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < kNi; ++j) {
-        const uint8_t* p = Bs + (wn + j * 8 + g) * kRow + ks + t * 4;
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(p);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(p + 16);
-#pragma unroll
-        for (int i = 0; i < kMi; ++i) mma_s8(acc[i][j], af[i], b0, b1);
+    for (int w = 0; w < kConsumers; ++w) mbar_init(&turn[w], 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the ring full ------------------------
+    // (its warpgroup gives registers to the consumers)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / n_tiles) * BM;
+        const int n0 = (tile % n_tiles) * BN;
+        for (int kt = 0; kt < kt_count; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);   // the first round passes
+          uint8_t* st = ring + stage * kStageBytes;
+          mbar_expect_tx(&full[stage], kStageBytes);
+          tma_load(st, &map_a, &full[stage], kt * BK, m0);
+          tma_load(st + BM * BK, &map_b, &full[stage], kt * BK, n0);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
       }
     }
-    __syncthreads();  // the stage is overwritten by the load two steps on
+    return;
   }
 
-  // Epilogue: fragment element e of tile (i, j) is row g (+8 for e ≥ 2),
-  // column 2t + (e & 1).
+  // ---- consumers: each warpgroup takes every other tile of the block, so
+  // that one's epilogue runs while the other's products do ---------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int t = threadIdx.x % 128;
+  int* tile_out = staged + wg * kEpiWords;
+  int acc[2][64];  // the tile's two 64-row halves
 #pragma unroll
-  for (int i = 0; i < kMi; ++i) {
+  for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0;
+  for (int local = wg, i = 0;; local += kConsumers, ++i) {
+    const long long tile =
+        blockIdx.x + static_cast<long long>(local) * gridDim.x;
+    if (tile >= tiles) break;
+    // the two warpgroups take turns on the ring, tile by tile, so that a
+    // wait on a stage's barrier never runs a lap ahead of the producer:
+    // warpgroup 1's i-th turn follows warpgroup 0's i-th, and warpgroup
+    // 0's i-th follows warpgroup 1's (i − 1)-th
+    if (wg == 1) mbar_wait(&turn[1], i & 1);
+    else if (i > 0) mbar_wait(&turn[0], (i - 1) & 1);
+    const int m0 = static_cast<int>(tile / n_tiles) * BM;
+    const int n0 = static_cast<int>(tile % n_tiles) * BN;
+    // the ring position of this tile's first slab: the producer loads the
+    // block's tiles in order, kt_count slabs each
+    long long pos = static_cast<long long>(local) * kt_count;
+    for (int kt = 0; kt < kt_count; ++kt, ++pos) {
+      const int stage = static_cast<int>(pos % kStages);
+      mbar_wait(&full[stage], static_cast<uint32_t>(pos / kStages) & 1);
+      const uint8_t* st = ring + stage * kStageBytes;
+      const uint64_t da0 = smem_desc(st);
+      const uint64_t da1 = smem_desc(st + 64 * BK);
+      const uint64_t db = smem_desc(st + BM * BK);
+      acc_fence(acc[0]);
+      acc_fence(acc[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk) {
+        wgmma_s8(acc[0], da0 + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
+        wgmma_s8(acc[1], da1 + 2 * kk, db + 2 * kk, kt > 0 || kk > 0);
+      }
+      wgmma_commit();
+      acc_fence(acc[0]);
+      acc_fence(acc[1]);
+      // the previous slab's products are done: its stage goes back
+      wgmma_wait<1>();
+      if (kt > 0) release(&empty[(pos - 1) % kStages], lane);
+    }
+    release(&turn[1 - wg], lane);  // done waiting on the ring
+    wgmma_wait<0>();
+    acc_fence(acc[0]);
+    acc_fence(acc[1]);
+    release(&empty[(pos - 1) % kStages], lane);
+
+    const int col = 8 * (t % 16);
+    const int n = n0 + col;
+    float sn[8], bn[8];
+    if (n < N) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sn[e] = b_scale[n + e];
+        bn[e] = bias[n + e];
+      }
+    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + i * 16 + g + half * 8;
-      if (m >= M) continue;
-      const float am = a_scale[m];
+      // the half's accumulators into shared memory, row-major with a padded
+      // pitch (the 8-byte stores of a half-warp then hit 32 distinct banks)
+      bar_sync(1 + wg);  // every thread is done reading the previous half
+      {
+        const int r = warp * 16 + lane / 4;
+        const int c = 2 * (lane % 4);
 #pragma unroll
-      for (int j = 0; j < kNi; ++j) {
-        const int n = n0 + wn + j * 8 + t * 2;
-        if (n >= N) continue;
-        float v[2];
+        for (int j = 0; j < BN / 8; ++j) {
+          *reinterpret_cast<int2*>(&tile_out[r * kPitch + 8 * j + c]) =
+              make_int2(acc[half][4 * j], acc[half][4 * j + 1]);
+          *reinterpret_cast<int2*>(&tile_out[(r + 8) * kPitch + 8 * j + c]) =
+              make_int2(acc[half][4 * j + 2], acc[half][4 * j + 3]);
+        }
+      }
+      bar_sync(1 + wg);
+      if (n >= N) continue;
+      // 8 columns a thread, 8 rows a pass: kops.cuh's math in the plain
+      // version's order, then 16-byte stores
+#pragma unroll 2
+      for (int p = 0; p < 8; ++p) {
+        const int r = t / 16 + 8 * p;
+        const int m = m0 + half * 64 + r;
+        if (m >= M) break;
+        const int4 lo = *reinterpret_cast<const int4*>(&tile_out[r * kPitch + col]);
+        const int4 hi =
+            *reinterpret_cast<const int4*>(&tile_out[r * kPitch + col + 4]);
+        const int a8[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        const float am = a_scale[m];
+        const long long off = static_cast<long long>(m) * N + n;
+        float rv[8];
+        if (res != nullptr) load8(res + off, rv);
+        float v[8];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float accf = __int2float_rn(acc[i][j][half * 2 + e]);
-          const float sn = b_scale[n + e];
-          float x = order == 0 ? __fmul_rn(__fmul_rn(accf, am), sn)
-                               : __fmul_rn(accf, __fmul_rn(am, sn));
-          x = __fadd_rn(x, bias[n + e]);
+        for (int e = 0; e < 8; ++e) {
+          const float accf = __int2float_rn(a8[e]);
+          float x = order == 0 ? __fmul_rn(__fmul_rn(accf, am), sn[e])
+                               : __fmul_rn(accf, __fmul_rn(am, sn[e]));
+          x = __fadd_rn(x, bn[e]);
           if (gelu) x = kops::gelu_tanh(x);
-          if (res != nullptr)
-            x = __fadd_rn(kops::to_float(res[(long long)m * N + n + e]), x);
+          if (res != nullptr) x = __fadd_rn(rv[e], x);
           v[e] = x;
         }
-        store_pair<TOut>(out + (long long)m * N + n, v[0], v[1]);
+        store8(out + off, v);
       }
     }
   }
 }
 
+// cuTensorMapEncodeTiled lives in libcuda; it is taken through the
+// runtime's entry-point query, so that the library needs no link to it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The TMA map of an int8 [rows, K] row-major matrix in boxes of 128 rows ×
+// 128 bytes with the 128-byte swizzle; reads past the edges give zeros.
+bool int8_map(CUtensorMap* map, const void* ptr, int rows, int K) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[2] = {BK, 128};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count > 0 ? count : 1;
+  }();
+  return n;
+}
+
 template <typename TOut, typename TRes>
-cudaError_t launch(const void* A, const void* a_scale, const void* B,
-                   const void* b_scale, const void* bias, const void* res,
-                   void* out, int M, int N, int K, int order, int gelu,
-                   cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int8_gemm_kernel<TOut, TRes><<<grid, kThreads, 0, stream>>>(
-      static_cast<const int8_t*>(A), static_cast<const float*>(a_scale),
-      static_cast<const int8_t*>(B), static_cast<const float*>(b_scale),
-      static_cast<const float*>(bias), static_cast<const TRes*>(res),
-      static_cast<TOut*>(out), M, N, K, order, gelu);
+cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                   const void* a_scale, const void* b_scale, const void* bias,
+                   const void* res, void* out, int M, int N, int K, int order,
+                   int gelu, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      int8_gemm_kernel<TOut, TRes>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (attr != cudaSuccess) return attr;
+  const long long tiles =
+      static_cast<long long>((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const int grid = static_cast<int>(tiles < sm_count() ? tiles : sm_count());
+  int8_gemm_kernel<TOut, TRes><<<grid, kThreads, kSmemBytes, stream>>>(
+      map_a, map_b, static_cast<const float*>(a_scale),
+      static_cast<const float*>(b_scale), static_cast<const float*>(bias),
+      static_cast<const TRes*>(res), static_cast<TOut*>(out), M, N, K, order,
+      gelu);
   return cudaGetLastError();
 }
 
 template <typename TOut>
-cudaError_t launch_out(int res_dtype, const void* A, const void* a_scale,
-                       const void* B, const void* b_scale, const void* bias,
-                       const void* res, void* out, int M, int N, int K,
-                       int order, int gelu, cudaStream_t stream) {
+cudaError_t launch_out(int res_dtype, const CUtensorMap& map_a,
+                       const CUtensorMap& map_b, const void* a_scale,
+                       const void* b_scale, const void* bias, const void* res,
+                       void* out, int M, int N, int K, int order, int gelu,
+                       cudaStream_t stream) {
   if (res_dtype == 1)
-    return launch<TOut, __nv_bfloat16>(A, a_scale, B, b_scale, bias, res, out,
-                                       M, N, K, order, gelu, stream);
-  return launch<TOut, float>(A, a_scale, B, b_scale, bias, res, out, M, N, K,
-                             order, gelu, stream);
+    return launch<TOut, __nv_bfloat16>(map_a, map_b, a_scale, b_scale, bias,
+                                       res, out, M, N, K, order, gelu, stream);
+  return launch<TOut, float>(map_a, map_b, a_scale, b_scale, bias, res, out,
+                             M, N, K, order, gelu, stream);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. A int8 [M, K], a_scale fp32 [M],
 // B int8 [N, K], b_scale fp32 [N], bias fp32 [N], res [M, N] (res_dtype) or
-// null, out [M, N] (out_dtype); all contiguous, A and B 16-byte aligned.
-// dtype codes: 0 = float32, 1 = bfloat16. order: 0 = (acc·a)·s, 1 = acc·(a·s).
-// Returns the cudaError_t of the launch.
+// null, out [M, N] (out_dtype); all contiguous; A, B, res and out 16-byte
+// aligned; K a multiple of 16, N of 8. dtype codes: 0 = float32,
+// 1 = bfloat16. order: 0 = (acc·a)·s, 1 = acc·(a·s). Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for arguments it does
+// not take, cudaErrorNotSupported when libcuda has no TMA encoder).
 extern "C" int keep_int8_gemm(const void* A, const void* a_scale,
                               const void* B, const void* b_scale,
                               const void* bias, const void* res, int res_dtype,
                               void* out, int out_dtype, int M, int N, int K,
                               int order, int gelu, void* stream) {
   if (M < 1 || N < 1 || K < 1 || N % 8 || K % 16 || (order != 0 && order != 1)
-      || (res_dtype != 0 && res_dtype != 1) || (M + BM - 1) / BM > 65535)
+      || (res_dtype != 0 && res_dtype != 1) || (out_dtype != 0 && out_dtype != 1)
+      || !aligned16(A) || !aligned16(B) || !aligned16(out)
+      || (res != nullptr && !aligned16(res)))
     return int(cudaErrorInvalidValue);
+  CUtensorMap map_a, map_b;
+  if (!int8_map(&map_a, A, M, K) || !int8_map(&map_b, B, N, K))
+    return int(cudaErrorNotSupported);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (out_dtype) {
-    case 0:
-      return int(launch_out<float>(res_dtype, A, a_scale, B, b_scale, bias,
-                                   res, out, M, N, K, order, gelu, st));
-    case 1:
-      return int(launch_out<__nv_bfloat16>(res_dtype, A, a_scale, B, b_scale,
-                                           bias, res, out, M, N, K, order,
-                                           gelu, st));
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  if (out_dtype == 0)
+    return int(launch_out<float>(res_dtype, map_a, map_b, a_scale, b_scale,
+                                 bias, res, out, M, N, K, order, gelu, st));
+  return int(launch_out<__nv_bfloat16>(res_dtype, map_a, map_b, a_scale,
+                                       b_scale, bias, res, out, M, N, K,
+                                       order, gelu, st));
 }

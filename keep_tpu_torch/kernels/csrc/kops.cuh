@@ -68,71 +68,4 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// Block-wide sum / max for a block of kThreads (a multiple of 32, at most
-// 1024). `scratch` holds 32 values of shared memory; every thread gets the
-// result. The scratch is reusable right after the call returns.
-template <int kThreads, typename T>
-__device__ T block_sum(T x, T* scratch) {
-  constexpr int kWarps = kThreads / 32;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  if (lane == 0) scratch[warp] = x;
-  __syncthreads();
-  T t = lane < kWarps ? scratch[lane] : T(0);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-  __syncthreads();
-  return t;
-}
-
-template <int kThreads>
-__device__ float block_max(float x, float* scratch) {
-  constexpr int kWarps = kThreads / 32;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  x = warp_max(x);
-  if (lane == 0) scratch[warp] = x;
-  __syncthreads();
-  float t = lane < kWarps ? scratch[lane] : 0.f;
-  t = warp_max(t);
-  __syncthreads();
-  return t;
-}
-
-// Mean and 1/sqrt(var + eps) of the `n` values a block holds, `vals[j]`
-// being element threadIdx.x + j·kThreads (absent elements ignored): the
-// mean first, then the mean of (x − mean)², as _kops.ln_rows does. Both
-// sums run in fp64 and are rounded once to fp32, so that the statistics do
-// not depend on the order of summation: the plain version
-// (keep_tpu_torch/kernels/_kops.py ln_rows_reference) gets the same fp32
-// values, where two fp32 sums in different orders would move an int8 code
-// now and then. 1/sqrt is an IEEE square root and an IEEE division.
-template <int kThreads, int kPer>
-__device__ void row_moments(const float (&vals)[kPer], int n, float eps,
-                            double* scratch, float& mu, float& rstd) {
-  double s = 0.0;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j)
-    if (threadIdx.x + j * kThreads < n) s += double(vals[j]);
-  // a mean is the sum times 1/n, as torch's mean reduction computes it
-  const double inv_n = 1.0 / double(n);
-  mu = float(block_sum<kThreads>(s, scratch) * inv_n);
-  double v = 0.0;
-#pragma unroll
-  for (int j = 0; j < kPer; ++j)
-    if (threadIdx.x + j * kThreads < n) {
-      const double d = double(__fsub_rn(vals[j], mu));
-      v += d * d;
-    }
-  const float var = float(block_sum<kThreads>(v, scratch) * inv_n);
-  rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
-}
-
 }  // namespace kops

@@ -8,8 +8,8 @@
 // What it computes, for x [M, K] (fp32 or bf16), the LayerNorm's g, b fp32
 // [K], the weight W [N, K] (the torch layout, the transpose of the JAX
 // kernel's w [K, N]) and bias fp32 [N]:
-//   mu, rstd = the row's mean and 1/sqrt(var + eps), taken as kops.cuh's
-//              row_moments takes them: fp64 sums rounded once to fp32
+//   mu, rstd = the row's mean and 1/sqrt(var + eps), taken as quant_rows.cu
+//              takes them: fp64 sums rounded once to fp32
 //   y[m, k]  = ((x - mu)·rstd)·g + b in fp32 (kops::ln_apply), rounded to
 //              W's dtype                  -- equal, bit for bit, to
 //              keep_tpu_torch/kernels/_kops.py ln_rows_reference
@@ -38,8 +38,7 @@
 //      past M and K, so that the padding adds nothing). Rows are padded by 16
 //      bytes so that the fragment loads of a warp hit 32 distinct banks. Each
 //      warp owns a 64 × 32 sub-tile and issues
-//      mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, whose fragments
-//      have the byte layout of int8_gemm.cu's m16n8k32 s8 ones. The epilogue
+//      mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32. The epilogue
 //      adds the bias and stores two elements at a time.
 //   The fp32 form is a plain 64 × 64 tiled FMA loop with the same
 //   normalisation as it stages x.
@@ -64,7 +63,7 @@ __device__ __forceinline__ double warp_sum_d(double x) {
 
 // stats[2m] = mean, stats[2m + 1] = 1/sqrt(var + eps) of row m: the mean
 // first, then the mean of (x − mean)², both summed in fp64 and rounded once,
-// as kops::row_moments and _kops.ln_rows_reference take them.
+// as quant_rows.cu and _kops.ln_rows_reference take them.
 template <typename T>
 __global__ void __launch_bounds__(kStatWarps * 32)
 ln_stats_kernel(const T* __restrict__ x, float* __restrict__ stats, int M,

@@ -11,6 +11,7 @@ draws a random model for training from scratch.
 
 from __future__ import annotations
 
+import copy
 import math
 import os
 
@@ -42,8 +43,8 @@ class KEEPModel(nn.Module):
     ``weight_dtype``, by default the same (``load_state_dict`` rounds fp32
     values into them; the JAX package casts its fp32 kernels to the same
     values on every call), while LayerNorm, biases and embedding tables stay
-    fp32. ``weight_dtype=torch.float32`` under a bf16 ``dtype`` keeps the
-    checkpoint's values for ``quantize()``. ``use_flash`` routes attention
+    fp32; a narrower weight keeps the fp32 values it was loaded from on the
+    host, for ``quantize()``. ``use_flash`` routes attention
     through the fused kernel. ``gelu_approx=None`` means the tanh GELU under
     bf16 and the erf GELU otherwise, as in the JAX package. Parameters are
     created empty: load a state dict (``from_pretrained`` does)."""
@@ -116,37 +117,53 @@ class KEEPModel(nn.Module):
     def quantize(self, calib_pixels=None, smooth_alpha: float = 0.5,
                  calib_text=None, moe_w8a16: bool = False) -> "KEEPModel":
         """The W8A8 int8 inference variant (see ``keep_tpu_torch.quant``),
-        made in place; returns ``self``. LayerScale is folded into proj and
-        fc2 first (exact), then every targeted linear of both towers and the
-        visual head is quantized from its stored weight, and the linears
-        that stay float (the text pooler) are cast to the compute dtype.
-        ``use_flash`` and ``gelu_approx`` are kept: with both on, the blocks
-        run the int8 megakernels.
+        as a new model; ``self`` stays float and unchanged, as in the JAX
+        package, so that the two can be held against each other. In the
+        copy, LayerScale is folded into proj and fc2 first (exact), then
+        every targeted linear of both towers and the visual head is
+        quantized, and the linears that stay float (the text pooler) are
+        cast to the compute dtype. ``use_flash`` and ``gelu_approx`` are
+        kept: with both on, the blocks run the int8 megakernels.
 
-        The int8 codes equal the JAX package's ``KEEPModel.quantize()`` bit
-        for bit when the stored weights hold the checkpoint's fp32 values
-        (``weight_dtype=torch.float32``, or ``from_pretrained(...,
-        quantize=True)``); a model that stores bf16 weights quantizes the
-        bf16-rounded values. SmoothQuant calibration (``calib_pixels``,
-        ``calib_text``) and the MoE ``moe_w8a16`` option are not ported
-        yet and raise."""
-        from keep_tpu_torch.models.vit import fold_layerscale
-        from keep_tpu_torch.quant import is_quantized, quantize_linear_weights
-
+        Each weight is quantized from the fp32 values it was loaded from
+        (``ops.nn.Linear.quantize_source``), whatever dtype stores it, so
+        the int8 codes equal the JAX package's ``KEEPModel.quantize()`` bit
+        for bit; a weight changed since it was loaded is quantized as
+        stored. SmoothQuant calibration (``calib_pixels``, ``calib_text``)
+        and the MoE ``moe_w8a16`` option are not ported yet and raise."""
         if calib_pixels is not None or calib_text is not None or moe_w8a16:
             raise NotImplementedError(
                 "SmoothQuant calibration (calib_pixels / calib_text) and "
                 "moe_w8a16 are not ported yet; quantize "
                 "plainly, or calibrate with keep_tpu and load the tree with "
                 "compat.torch_loader.from_jax_params")
+        from keep_tpu_torch.quant import is_quantized
+
         if is_quantized(self):
             raise ValueError(
                 "the model is already quantized (QLinear present): "
                 "double-quantizing int8 weights would corrupt them")
+        # the host copies of the fp32 weights are read, never written:
+        # the copy shares them
+        memo = {id(m.fp32_weight): m.fp32_weight for m in self.modules()
+                if isinstance(m, Linear) and m.fp32_weight is not None}
+        model = copy.deepcopy(self, memo)
+        model._quantize_in_place()
+        return model
+
+    @torch.no_grad()
+    def _quantize_in_place(self) -> None:
+        """``quantize()``'s work on this float model itself."""
+        from keep_tpu_torch.models.vit import fold_layerscale
+        from keep_tpu_torch.quant import quantize_linear_weights
+
+        for m in self.modules():
+            if isinstance(m, Linear):
+                m.weight.data = m.quantize_source()
+                m.fp32_weight = None
         fold_layerscale(self.visual)
         quantize_linear_weights(self)
         self._cast_linear_weights(self.dtype)
-        return self
 
     @classmethod
     def from_pretrained(cls, model_dir: str,
@@ -194,5 +211,6 @@ class KEEPModel(nn.Module):
                     weight_dtype=torch.float32 if quantize else None)
         model.load_state_dict(sd, strict=True)
         if quantize:
-            model.quantize()
+            # the fresh model is quantized itself: no second copy on the card
+            model._quantize_in_place()
         return model.eval()

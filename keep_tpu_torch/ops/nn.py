@@ -24,13 +24,55 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
+class _LinearRoundOnce(torch.autograd.Function):
+    """x @ wᵀ + b for a bf16 (or other narrow) x, rounded once: the product
+    of the narrow operands stays in fp32, the fp32 bias is added, and only
+    the sum is cast to x's dtype, as ``keep_tpu.ops.nn.linear`` does with
+    ``preferred_element_type=float32``: the product in fp32 (on the card
+    cuBLAS's ``mm`` with ``out_dtype=float32``; on the CPU an fp32 product
+    of the narrow values, each product exact in fp32), then one pass that
+    adds the bias in fp32 and writes x's dtype. The backward is the one
+    ``F.linear`` autograd gives for the narrow product: dx = dy·w and
+    dw = dyᵀ·x in x's dtype (dw then cast to w's dtype), and db = dy summed
+    in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        w = weight.to(x.dtype)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.is_cuda:
+            acc = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        else:
+            acc = F.linear(x2.float(), w.float())
+        out = torch.empty(acc.shape, dtype=x.dtype, device=x.device)
+        torch.add(acc, bias.float(), out=out)  # fp32 sum, one rounding
+        ctx.save_for_backward(x, w)
+        ctx.weight_dtype, ctx.bias_shape = weight.dtype, bias.shape
+        return out.view(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = dy.matmul(w)
+        if ctx.needs_input_grad[1]:
+            dw = (dy.reshape(-1, dy.shape[-1]).t()
+                  .matmul(x.reshape(-1, x.shape[-1]))).to(ctx.weight_dtype)
+        if ctx.needs_input_grad[2]:
+            db = dy.float().sum_to_size(ctx.bias_shape)
+        return dx, dw, db
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: torch.Tensor | None) -> torch.Tensor:
-    """x @ weightᵀ in x's dtype (fp32 accumulation), + fp32 bias, cast back."""
-    out = F.linear(x, weight.to(x.dtype))
+    """x @ weightᵀ in x's dtype with fp32 accumulation, + the fp32 bias,
+    rounded once to x's dtype (``_LinearRoundOnce`` for a narrow x)."""
     if bias is None:
-        return out
-    return (out.float() + bias.float()).to(x.dtype)
+        return F.linear(x, weight.to(x.dtype))
+    if x.dtype != torch.float32:
+        return _LinearRoundOnce.apply(x, weight, bias)
+    return F.linear(x, weight.to(x.dtype)) + bias.float()
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -89,6 +131,30 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features, device=device))
         self.bias = nn.Parameter(torch.empty(out_features, device=device))
+        # the fp32 values a state dict brought into a narrower weight, kept
+        # on the host for ``quantize_source``
+        self.fp32_weight: torch.Tensor | None = None
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        w = state_dict.get(prefix + "weight")
+        self.fp32_weight = (
+            w.detach().to("cpu").contiguous()
+            if isinstance(w, torch.Tensor) and w.dtype == torch.float32
+            and self.weight.dtype != torch.float32 else None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def quantize_source(self) -> torch.Tensor:
+        """The values to quantize this weight from, on its device: the fp32
+        values it was loaded from when it stores them rounded to a narrower
+        dtype and still holds exactly that rounding (the JAX package keeps
+        fp32 parameters under any compute dtype and quantizes those), else
+        the stored weight."""
+        w = self.weight.detach()
+        if self.fp32_weight is not None:
+            w32 = self.fp32_weight.to(w.device)
+            if torch.equal(w32.to(w.dtype), w):
+                return w32
+        return w
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(x, self.weight, self.bias)

@@ -92,7 +92,9 @@ def _norm(gen, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ln,ps", [(False, False), (True, False),
                                    (False, True), (True, True)])
-@pytest.mark.parametrize("m,k", [(394, 1024), (5, 4096), (1, 48), (3, 3072)])
+@pytest.mark.parametrize("m,k", [(394, 1024), (5, 4096), (1, 48), (3, 3072),
+                                 (197, 768), (6304, 1024), (65, 4096),
+                                 (63, 2048), (1, 16)])
 def test_quant_rows_matches_plain(cuda, m, k, ln, ps, dtype):
     x = (torch.randn(m, k, device="cuda", generator=cuda) * 3).to(dtype)
     g = 1 + 0.1 * torch.randn(k, device="cuda", generator=cuda) if ln else None
@@ -141,7 +143,8 @@ def test_int8_gemm_matches_plain(cuda, m, k, n, order, gelu, res, out_dtype):
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,d", [(394, 768), (1, 4096), (7, 48)])
+@pytest.mark.parametrize("m,d", [(394, 768), (1, 4096), (7, 48), (8192, 768),
+                                 (65, 1024), (63, 3072)])
 def test_ln_rows_matches_plain(cuda, m, d, out_dtype):
     x = torch.randn(m, d, device="cuda", generator=cuda) * 4 + 1
     g = 1 + 0.1 * torch.randn(d, device="cuda", generator=cuda)
@@ -150,6 +153,60 @@ def test_ln_rows_matches_plain(cuda, m, d, out_dtype):
     torch.cuda.synchronize()
     ref = _kops.ln_rows_reference(x, g, b, 1e-12, out_dtype)
     torch.testing.assert_close(got, ref, atol=0, rtol=0)
+
+
+# the (K, N) of every int8 GEMM on the serving path: ViT-L qkv, proj, fc1,
+# fc2, patch embed, head fc1, head fc2; BERT-base qkv, out, fc1, fc2
+KEEP_GEMMS = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024),
+              (768, 1024), (1024, 768), (768, 768), (768, 2304), (3072, 768)]
+
+
+@pytest.mark.parametrize("m", [1, 32, 63, 65, 197, 6304])
+@pytest.mark.parametrize("k,n", KEEP_GEMMS)
+def test_int8_gemm_equals_plain_at_the_keep_shapes(cuda, m, k, n):
+    """The wgmma kernel against its plain version (cuBLAS int8 and the same
+    fp32 epilogue in PyTorch), bit for bit, in both dequant orders, with
+    and without the GELU, with an fp32 and a bf16 residual, writing fp32 and
+    bf16."""
+    xq = torch.randint(-127, 128, (m, k), device="cuda", generator=cuda,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k), device="cuda", generator=cuda,
+                       dtype=torch.int8)
+    a = torch.rand(m, device="cuda", generator=cuda) * 1e-2
+    s = torch.rand(n, device="cuda", generator=cuda) * 1e-3
+    bias = torch.randn(n, device="cuda", generator=cuda)
+    res = torch.randn(m, n, device="cuda", generator=cuda)
+    for order, gelu, r in ((0, False, None), (0, True, None),
+                           (1, True, None), (1, False, res),
+                           (1, False, res.bfloat16())):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            kw = dict(order=order, gelu=gelu, residual=r, out_dtype=out_dtype)
+            got = _kops.int8_gemm(xq, a, wq, s, bias, **kw)
+            torch.cuda.synchronize()
+            ref = _kops.int8_gemm_reference(xq, a, wq, s, bias, **kw)
+            assert torch.equal(got, ref), (order, gelu, out_dtype, (
+                got.float() - ref.float()).abs().max().item())
+
+
+def test_int8_kernels_give_the_same_bits_twice(cuda):
+    x = torch.randn(6304, 1024, device="cuda", generator=cuda).bfloat16()
+    h = torch.randn(6304, 4096, device="cuda", generator=cuda)
+    g = 1 + 0.1 * torch.randn(1024, device="cuda", generator=cuda)
+    b = 0.1 * torch.randn(1024, device="cuda", generator=cuda)
+    wq = torch.randint(-127, 128, (4096, 1024), device="cuda", generator=cuda,
+                       dtype=torch.int8)
+    ws = torch.rand(4096, device="cuda", generator=cuda) * 1e-3
+    bias = torch.randn(4096, device="cuda", generator=cuda)
+    runs = []
+    for _ in range(2):
+        q, a = _kops.quant_rows(x, g, b)
+        hq, ha = _kops.quant_rows(h)
+        y = _kops.int8_gemm(q, a, wq, ws, bias, order=1, gelu=True)
+        z = _kops.ln_rows(h[:, :1024].contiguous(), g, b, 1e-6)
+        runs.append((q, a, hq, ha, y, z))
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 def test_attention_fp32_output_matches_plain(cuda):
@@ -265,6 +322,34 @@ def test_int8_kernels_refuse_what_they_do_not_take(cuda):
         _kops.ln_rows(torch.zeros(2, 8, device="cuda", dtype=torch.bfloat16),
                       torch.ones(8, device="cuda"),
                       torch.zeros(8, device="cuda"), 1e-6)
+    # rows of the row kernels: a multiple of 16 values, 16-byte aligned
+    with pytest.raises(ValueError, match="multiple of 16 values"):
+        _kops.quant_rows(torch.zeros(2, 40, device="cuda"))
+    with pytest.raises(ValueError, match="multiple of 16 values"):
+        _kops.ln_rows(torch.zeros(2, 40, device="cuda"),
+                      torch.ones(40, device="cuda"),
+                      torch.zeros(40, device="cuda"), 1e-6)
+    shifted = torch.zeros(2 * 64 + 1, device="cuda")[1:].view(2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _kops.quant_rows(shifted)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _kops.ln_rows(shifted, torch.ones(64, device="cuda"),
+                      torch.zeros(64, device="cuda"), 1e-6)
+    with pytest.raises(ValueError, match="aligned ln_scale"):
+        _kops.quant_rows(torch.zeros(2, 64, device="cuda"), shifted[0],
+                         torch.zeros(64, device="cuda"))
+    # the GEMM's operands and residual: 16-byte aligned
+    q64 = torch.zeros(4 * 64 + 1, dtype=torch.int8, device="cuda")[1:]
+    w8 = torch.zeros(8, 64, dtype=torch.int8, device="cuda")
+    one8 = torch.ones(8, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _kops.int8_gemm(q64.view(4, 64), one, w8, one8, one8, order=1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _kops.int8_gemm(q8, one, w8, one8, one8, order=1,
+                        residual=torch.zeros(33, device="cuda")[1:].view(4, 8))
+    with pytest.raises(ValueError, match="N of 8"):
+        _kops.int8_gemm(q8, one, q8[:3].contiguous(), one[:3], one[:3],
+                        order=1)
     with pytest.raises(TypeError, match="float32 or the input"):
         fa.attention_qkv_slab(torch.zeros(1, 4, 192, device="cuda"),
                               num_heads=1, out_dtype=torch.bfloat16)

@@ -11,13 +11,15 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((REPO / "keep_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "scripts" / "torch_attention_exp_share.py"]
+    REPO / "chip_smoke.py", REPO / "scripts" / "torch_attention_exp_share.py",
+    REPO / "scripts" / "torch_dispatch_profile.py"]
 
 
 def test_imports_leave_jax_unloaded():
     code = (
         "import sys\n"
         "import keep_tpu_torch, keep_tpu_torch.serve, chip_smoke\n"
+        "import scripts.torch_dispatch_profile\n"
         "import keep_tpu_torch.models, keep_tpu_torch.compat, "
         "keep_tpu_torch.kernels, keep_tpu_torch.ops, keep_tpu_torch.text\n"
         "import keep_tpu_torch.quant, keep_tpu_torch.models.keep\n"

@@ -153,6 +153,52 @@ def test_quantize_linear_weights_matches_jax(jparams):
     same path-aware targets: both towers' block linears, the patch embed
     and the visual head, not the text pooler."""
     port = _port_model(jparams, dtype=torch.bfloat16).quantize()
+    _assert_jax_codes(port, jparams)
+    with pytest.raises(ValueError, match="already quantized"):
+        port.quantize()
+
+
+def test_quantize_bf16_weights_matches_jax(jparams):
+    """A model that stores its weights in bf16 (``KEEPModel(dtype=bf16)``,
+    the default) still quantizes the fp32 values it was loaded from, as the
+    JAX package's ``KEEPModel(dtype=bfloat16).quantize()`` does: the same
+    codes and scales, bit for bit."""
+    m = KEEPModel(CFG, dtype=torch.bfloat16)
+    m.load_state_dict(from_jax_params(jax.tree.map(np.asarray, jparams), CFG))
+    assert m.visual.blocks[0].mlp.fc1.weight.dtype == torch.bfloat16
+    _assert_jax_codes(m.quantize(), jparams)
+
+
+def test_quantize_returns_a_new_model(jparams):
+    """``quantize()`` leaves the float model as it was, as in the JAX
+    package: ``q`` is another model, ``m`` holds no QLinear and keeps its
+    LayerScale, and ``m``'s features are the same bits as before."""
+    px, ids, mask = _inputs()
+    m = KEEPModel(CFG, dtype=torch.bfloat16, use_flash=True)
+    m.load_state_dict(from_jax_params(jax.tree.map(np.asarray, jparams), CFG))
+    m.eval()
+    with torch.no_grad():
+        before = (m.encode_image(_t(px)), m.encode_text(_t(ids), _t(mask)))
+    q = m.quantize()
+    assert q is not m and quant.is_quantized(q)
+    assert not quant.is_quantized(m)
+    assert m.visual.blocks[0].ls1 is not None
+    assert m.visual.blocks[0].attn.qkv.weight.dtype == torch.bfloat16
+    with torch.no_grad():
+        after = (m.encode_image(_t(px)), m.encode_text(_t(ids), _t(mask)))
+    for b, a in zip(before, after):
+        assert torch.equal(a, b)
+    # a weight changed since it was loaded is quantized as it is stored
+    with torch.no_grad():
+        m.visual.blocks[0].mlp.fc1.weight.mul_(2)
+    q2 = m.quantize()
+    want, _ = quant.quantize_kernel(m.visual.blocks[0].mlp.fc1.weight)
+    assert torch.equal(q2.visual.blocks[0].mlp.fc1.weight_q, want)
+
+
+def _assert_jax_codes(port: KEEPModel, jparams) -> None:
+    """``port``'s int8 codes and scales equal the JAX package's
+    quantize_linear_weights(fold_layerscale(·)) of ``jparams``."""
     jq = jquant.quantize_linear_weights(
         dict(jparams, visual=jvit.fold_layerscale(jparams["visual"])))
     want = from_jax_params(jax.tree.map(np.asarray, jq), CFG)
@@ -169,8 +215,6 @@ def test_quantize_linear_weights_matches_jax(jparams):
     assert port.text.pooler.weight.dtype == torch.bfloat16
     assert port.visual.blocks[0].ls1 is None
     assert quant.is_quantized(port)
-    with pytest.raises(ValueError, match="already quantized"):
-        port.quantize()
 
 
 def test_quantize_is_path_aware():
