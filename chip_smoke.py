@@ -16,6 +16,13 @@ exits non-zero without a result line):
    events,
    beside ``F.scaled_dot_product_attention`` on the same values (a
    yardstick the port never calls; the backend that ran is recorded).
+   Then the bf16 → fp32 form the int8 blocks run (its own ``wgmma`` body)
+   at the same shapes: max |Δ| < 0.05 on unpadded query rows, with the
+   mean |Δ| and the share of the int8 codes re-quantized from it that move
+   against those from the plain version (none by more than one), timed
+   beside its bound and SDPA's bf16 time (a reading, not a yardstick: no
+   one call computes the fp32-out function); and at every edge length of
+   ``tests/test_torch_gpu.py`` (S = 1 … 512), padded and unpadded.
    heads — ``flash_attention`` / ``attention_qkv_heads`` (split q, k, v) at
    the same shapes and tolerances (BERT with a [B, 1, 1, S] mask), bit for
    bit against ``attention_qkv_heads`` and ``attention_qkv_slab`` on the
@@ -26,8 +33,13 @@ exits non-zero without a result line):
    attention sub-blocks, the MLP pair in both towers' forms and flat, the
    patch-embed and visual-head matmuls) against their plain versions at the
    serving shapes, in fp32 at the JAX package's tolerances for each
-   (``tests/test_quant.py``), with the share of int8 codes that differ from
-   the plain version's; kernel and plain times in bf16. The flat MLP pair
+   (``tests/test_quant.py``; the attention sub-blocks, whose attention
+   runs on the tensor cores in another order, at its tolerance between two
+   routes: atol = rtol = 2e-2 and cosine ≥ 0.9999 per row), with the share
+   of int8 codes that differ from the plain version's (for the attention
+   sub-blocks also the codes re-quantized from the kernel's attention
+   against the plain attention's on the same slab, none moving by more
+   than one); kernel and plain times in bf16. The flat MLP pair
    bit for bit against the [B, S, D] form, and its path, ``ops.nn.Mlp`` on
    an int8 fc1/fc2 pair and a 2-D input, with its launches counted.
    int8_primitive — the three CUDA kernels alone (quant_rows, int8_gemm,
@@ -67,11 +79,14 @@ exits non-zero without a result line):
    ``keep.init`` (on which its int8 gate, ``bench.py`` ``_int8_gate``, is
    measured) served by ``build_server([..., "--int8"])`` and driven over
    HTTP as in phase 4: finite unit features, cosine ≥ 0.999 per row against
-   the same weights served in bf16, and launch counts that show every block
-   of every dispatch went through the int8 attention sub-block and MLP pair
-   of its tower.
+   the same weights served in bf16, against the same int8 model with its
+   blocks' plain versions at the JAX package's gate between two int8 routes
+   (mean cosine of the image rows and cosine of the text features taken
+   whole > 0.9999; the per-row cosines reported), and launch counts that
+   show every block of every dispatch went through the int8 attention
+   sub-block and MLP pair of its tower.
 7. numbers (int8) — the same throughputs and breakdowns for the int8
-   server.
+   server, whose attention must show as the ``wgmma`` body's kernel.
 8. attention_bwd — the backward kernel of ``attention_qkv_slab`` against its
    plain version at the training shapes at B=32 and B=128 (ViT-L: S=197,
    H=16, zero key bias; BERT-base: S=256, H=12, padded key bias), fp32 at
@@ -129,11 +144,11 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_KERNELS = {
     "quantized_attention_block": (
         "keep_tpu_torch/kernels/qblock.py",
-        ["quant_rows.cu", "int8_gemm.cu", "attention_qkv_slab.cu"],
+        ["quant_rows.cu", "int8_gemm.cu", "attention_qkv_slab_f32.cu"],
         "keep_tpu/kernels/qblock.py:79"),
     "quantized_attention_block_postln": (
         "keep_tpu_torch/kernels/qblock.py",
-        ["quant_rows.cu", "int8_gemm.cu", "attention_qkv_slab.cu"],
+        ["quant_rows.cu", "int8_gemm.cu", "attention_qkv_slab_f32.cu"],
         "keep_tpu/kernels/qblock.py:182"),
     "quantized_mlp_bsd": (
         "keep_tpu_torch/kernels/qmlp.py",
@@ -155,6 +170,9 @@ INT8_KERNELS = {
 ATTENTION_SHAPES = [(name, b, s, h, padded) for b in (32, 128)
                     for name, s, h, padded in (("vit_l16", 197, 16, False),
                                                ("bert_base", 256, 12, True))]
+# sequence lengths around the attention bodies' tiles and pieces, the two
+# towers' lengths and the kernels' limit (tests/test_torch_gpu.py EDGE_S)
+EDGE_S = [1, 15, 16, 17, 64, 197, 256, 257, 512]
 VOCAB = ("[PAD] [UNK] [CLS] [SEP] [MASK] an h & e image of breast invasive "
          "carcinoma normal tissue lung adeno ##carcinoma squamous cell "
          "melanoma skin kidney clear renal tumor . , -").split()
@@ -223,15 +241,17 @@ def nbytes(*tensors) -> int:
 
 
 def attention_bound(b: int, s: int, h: int, dtype_bytes: int,
-                    key_bias: bool, backward: bool = False
-                    ) -> tuple[float, str]:
+                    key_bias: bool, backward: bool = False,
+                    out_bytes: int | None = None) -> tuple[float, str]:
     """The bound of one attention call (Dh = 64): the forward's q·kᵀ and p·v
     (4·S²·Dh per head), the backward's score recompute and four products
-    (10·S²·Dh); q, k, v (and dout) read, the output (dq, dk, dv) written."""
+    (10·S²·Dh); q, k, v (and dout) read, the output (dq, dk, dv) written,
+    the forward's output in ``out_bytes`` a value (default: the input's)."""
     dh = 64
     per_head = (10 if backward else 4) * s * s * dh
-    io = b * s * h * dh * dtype_bytes
-    moved = io * (3 + 1) if not backward else io * (3 + 1 + 3)
+    io = b * s * h * dh
+    moved = (io * dtype_bytes * 3 + io * (out_bytes or dtype_bytes)
+             if not backward else io * dtype_bytes * (3 + 1 + 3))
     return bound({"bf16": b * h * per_head}, moved + key_bias * b * s * 4)
 
 
@@ -247,9 +267,13 @@ def sdpa_backend(torch, fn) -> str:
     return max(by_kernel, key=by_kernel.get) if by_kernel else "not measured"
 
 
-def check_kernel(fa, torch, gen) -> list[dict]:
+def check_kernel(fa, torch, gen) -> tuple[list[dict], list[dict]]:
+    """Phase 3: the slab attention against its plain version in fp32 and
+    bf16, then its bf16 → fp32 form (``check_f32_form``), at each of
+    ``ATTENTION_SHAPES``, then the fp32-out form at the edge lengths.
+    Returns (fp32 and bf16 rows, bf16 → fp32 rows)."""
     shapes = ATTENTION_SHAPES
-    rows = []
+    rows, f32_rows = [], []
     for name, b, s, h, padded in shapes:
         qkv32 = torch.randn(b, s, 3 * h * 64, device="cuda", generator=gen)
         kb, valid = None, torch.ones(b, s, dtype=torch.bool, device="cuda")
@@ -289,7 +313,90 @@ def check_kernel(fa, torch, gen) -> list[dict]:
                 b, s, h, qkv.element_size(), kb is not None)
             phase("kernel", **row)
             rows.append(row)
-    return rows
+        f32_rows.append(check_f32_form(fa, torch, name, qkv32.bfloat16(), kb,
+                                       valid, h, rows[-1]["library_ms"]))
+    check_f32_edges(fa, torch, gen)
+    return rows, f32_rows
+
+
+def code_moves(torch, got, ref) -> float:
+    """The int8 codes an int8 block re-quantizes from an fp32 attention
+    output [B, S, D] (``quant_rows`` over full D rows): the kernel's output
+    through the kernel against the plain output through the plain version.
+    Raises if a code moves by more than one; returns the share that
+    moves."""
+    from keep_tpu_torch.kernels import _kops
+
+    d = got.shape[-1]
+    q, _ = _kops.quant_rows(got.reshape(-1, d))
+    rq, _ = _kops.PLAIN.quant_rows(ref.reshape(-1, d))
+    diff = (q.int() - rq.int()).abs()
+    if diff.max().item() > 1:
+        raise AssertionError(f"int8 codes from the fp32-out attention off by "
+                             f"{diff.max().item()}")
+    return diff.count_nonzero().item() / diff.numel()
+
+
+def check_f32_form(fa, torch, name, qkv, kb, valid, h, sdpa_ms) -> dict:
+    """The bf16 → fp32 form of ``attention_qkv_slab`` (the int8 blocks'
+    attention, its ``wgmma`` body) against its plain version on a bf16
+    slab: finite, max |Δ| < 0.05 on unpadded query rows (the bf16 attention
+    gate; the tensor cores sum in another order), the re-quantized codes
+    within one of the plain version's (``code_moves``); its time (CUDA
+    events; the profiler's device time beside), the plain version's, its
+    bound (the bf16 slab read, the fp32 output written) and SDPA's bf16
+    time on the same values (``sdpa_ms``, a reading)."""
+    b, s, _ = qkv.shape
+    kw = dict(num_heads=h, out_dtype=torch.float32)
+    got = fa.attention_qkv_slab(qkv, kb, **kw)
+    torch.cuda.synchronize()
+    ref = fa.attention_qkv_slab_reference(qkv, kb, **kw)
+    diff = (got - ref).abs()[valid]
+    err = diff.max().item()
+    if not (torch.isfinite(got).all() and err < 0.05):
+        raise AssertionError(f"{name} B={b} bf16 -> fp32 kernel vs plain: "
+                             f"max |Δ| {err}")
+    row = {"shape": name, "B": b, "S": s, "H": h,
+           "dtype": "bfloat16->float32", "max_abs_err": err,
+           "mean_abs_err": diff.mean().item(),
+           "int8_codes_moved_share": code_moves(torch, got, ref),
+           "ms": cuda_ms(lambda: fa.attention_qkv_slab(qkv, kb, **kw)),
+           "device_ms": device_ms(
+               torch, lambda: fa.attention_qkv_slab(qkv, kb, **kw)),
+           "plain_ms": cuda_ms(lambda: fa.attention_qkv_slab_reference(
+               qkv, kb, **kw)),
+           "sdpa_bf16_ms_reading": sdpa_ms}
+    row["bound_ms"], row["bound_by"] = attention_bound(
+        b, s, h, 2, kb is not None, out_bytes=4)
+    phase("kernel_f32", **row)
+    return row
+
+
+def check_f32_edges(fa, torch, gen) -> None:
+    """The bf16 → fp32 form at every length of ``EDGE_S`` (B=2, H=2),
+    padded and unpadded: finite, max |Δ| < 0.05 on unpadded query rows."""
+    errs = {}
+    for s in EDGE_S:
+        for padded in (False, True):
+            qkv = torch.randn(2, s, 3 * 2 * 64, device="cuda",
+                              generator=gen).bfloat16()
+            kb, valid = None, torch.ones(2, s, dtype=torch.bool,
+                                         device="cuda")
+            if padded:
+                lens = torch.randint(1, s + 1, (2,), device="cuda",
+                                     generator=gen)
+                valid = torch.arange(s, device="cuda")[None] < lens[:, None]
+                kb = (1.0 - valid.float()) * -1e9
+            kw = dict(num_heads=2, out_dtype=torch.float32)
+            got = fa.attention_qkv_slab(qkv, kb, **kw)
+            torch.cuda.synchronize()
+            ref = fa.attention_qkv_slab_reference(qkv, kb, **kw)
+            err = (got - ref).abs()[valid].max().item()
+            if not (torch.isfinite(got).all() and err < 0.05):
+                raise AssertionError(f"bf16 -> fp32 kernel at S={s}, padded "
+                                     f"{padded}: max |Δ| {err}")
+            errs[f"S={s}{' padded' if padded else ''}"] = err
+    phase("kernel_f32_edges", max_abs_err=errs)
 
 
 def check_heads(fa, torch, gen) -> tuple[list[dict], int]:
@@ -571,10 +678,15 @@ def drive_fuse_ln(torch, fa, lm, cfg) -> dict:
 
 def check_int8_kernels(torch, gen) -> tuple[dict, list]:
     """Phase 3b. Each int8 counterpart of a TPU kernel through the kernels
-    against its plain version (fp32 stream, the JAX tests' tolerance), the
-    share of int8 codes that differ from the plain quantizer's on the
-    tensors each one quantizes, and kernel and plain times in bf16. Then
-    the three CUDA kernels alone. Returns ({name: row}, primitive rows)."""
+    against its plain version (fp32 stream, the JAX tests' tolerance; the
+    attention sub-blocks, whose attention the tensor cores sum in another
+    order, at the JAX package's tolerance between two routes through the
+    same int8 weights, tests/test_quant.py:297-300, 324-327: atol = rtol =
+    2e-2, cosine ≥ 0.9999 per row), the share of int8 codes that differ
+    from the plain quantizer's on the tensors each one quantizes (for the
+    attention sub-blocks also ``code_moves`` of their attention on the same
+    slab), and kernel and plain times in bf16. Then the three CUDA kernels
+    alone. Returns ({name: row}, primitive rows)."""
     from keep_tpu_torch.kernels import _kops, qblock, qmatmul, qmlp
     from keep_tpu_torch.ops.nn import LayerNorm, Mlp, QLinear
     from keep_tpu_torch.quant import quantize_kernel
@@ -636,15 +748,27 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
         return P.int8_gemm(xq, a, f1.weight_q, f1.weight_scale, f1.bias,
                            order=_kops.DEQUANT_PAIRED, gelu=True)
 
+    def slab_of(x2, b, s, d, qkv, **kw):
+        """The plain bf16 qkv slab the block's attention reads."""
+        xq, a = P.quant_rows(x2, **kw)
+        return P.int8_gemm(xq, a, qkv.weight_q, qkv.weight_scale, qkv.bias,
+                           order=_kops.DEQUANT_PAIRED,
+                           out_dtype=torch.bfloat16).view(b, s, 3 * d)
+
     def attn_out(x2, b, s, d, h, qkv, key_bias, **kw):
         """The plain fp32 attention output, the tensor the block
         re-quantizes."""
-        xq, a = P.quant_rows(x2, **kw)
-        slab = P.int8_gemm(xq, a, qkv.weight_q, qkv.weight_scale, qkv.bias,
-                           order=_kops.DEQUANT_PAIRED,
-                           out_dtype=torch.bfloat16)
-        return P.attention(slab.view(b, s, 3 * d), key_bias, num_heads=h,
-                           out_dtype=torch.float32).view(b * s, d)
+        return P.attention(slab_of(x2, b, s, d, qkv, **kw), key_bias,
+                           num_heads=h, out_dtype=torch.float32
+                           ).view(b * s, d)
+
+    def attn_moves(x2, b, s, d, h, qkv, key_bias, **kw):
+        """``code_moves`` of the block's attention on its plain slab: the
+        kernel's fp32 output against the plain version's."""
+        slab = slab_of(x2, b, s, d, qkv, **kw)
+        akw = dict(num_heads=h, out_dtype=torch.float32)
+        got = _kops.KERNELS.attention(slab, key_bias, **akw)
+        return code_moves(torch, got, P.attention(slab, key_bias, **akw))
 
     vx2, tx2 = vx.view(-1, vd), tx.view(-1, td)
     cases = [
@@ -652,7 +776,7 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
          qblock.quantized_attention_block,
          qblock.quantized_attention_block_reference,
          lambda x: (x, vn1, vqkv, vproj), dict(num_heads=vh, eps=1e-6),
-         vx, 5e-3, 1e-3,
+         vx, 2e-2, 2e-2,
          lambda: [code_share(vx2, vn1.weight, vn1.bias, 1e-6),
                   code_share(attn_out(vx2, vb, vs, vd, vh, vqkv, None,
                                       ln_scale=vn1.weight,
@@ -671,7 +795,7 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
          qblock.quantized_attention_block_postln,
          qblock.quantized_attention_block_postln_reference,
          lambda x: (x, kb, tn1, tqkv, tout), dict(num_heads=th, eps=1e-12),
-         tx, 5e-3, 1e-3,
+         tx, 2e-2, 2e-2,
          lambda: [code_share(tx2, pre_scale=tqkv.pre_scale),
                   code_share(attn_out(tx2, tb, ts, td, th, tqkv, kb,
                                       pre_scale=tqkv.pre_scale))]),
@@ -706,6 +830,12 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
     # score and p·v products in bf16), for its bound
     attn_ops = {"quantized_attention_block": 4 * vb * vh * vs * vs * 64,
                 "quantized_attention_block_postln": 4 * tb * th * ts * ts * 64}
+    attn_codes = {
+        "quantized_attention_block": lambda: attn_moves(
+            vx2, vb, vs, vd, vh, vqkv, None, ln_scale=vn1.weight,
+            ln_bias=vn1.bias, eps=1e-6),
+        "quantized_attention_block_postln": lambda: attn_moves(
+            tx2, tb, ts, td, th, tqkv, kb, pre_scale=tqkv.pre_scale)}
     rows: dict[str, dict] = {}
     for name, shape, fn, ref, args, kw, x, atol, rtol, codes in cases:
         out_kw = {} if name.startswith("quantized_a") else {
@@ -719,6 +849,16 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
         if not torch.allclose(got, want, atol=atol, rtol=rtol):
             raise AssertionError(f"{name} ({shape}) vs plain: max |Δ| {err} "
                                  f"beyond atol {atol} / rtol {rtol}")
+        extra = {}
+        if name in attn_codes:
+            cos = torch.nn.functional.cosine_similarity(
+                got.view(-1, got.shape[-1]), want.view(-1, got.shape[-1]),
+                dim=-1).min().item()
+            if not cos >= 0.9999:
+                raise AssertionError(f"{name} ({shape}) vs plain: min row "
+                                     f"cosine {cos}")
+            extra = {"min_row_cos": cos,
+                     "attention_int8_codes_moved_share": attn_codes[name]()}
         changed, total = map(sum, zip(*codes()))
         x16 = x.bfloat16()
         out16 = {} if not out_kw else {"out_dtype": torch.bfloat16}
@@ -737,7 +877,7 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
                "int8_codes_differing": changed, "int8_codes": total,
                "int8_code_diff_share": changed / total,
                "ms_bf16": ms, "device_ms_bf16": dev_ms,
-               "plain_ms_bf16": plain_ms}
+               "plain_ms_bf16": plain_ms, **extra}
         row["bound_ms_bf16"], row["bound_by"] = bound(
             {"int8": int8_ops, "bf16": attn_ops.get(name, 0)}, moved)
         phase("int8_kernel", **row)
@@ -1199,10 +1339,13 @@ def smoke_images(cfg) -> tuple[np.ndarray, np.ndarray]:
 
 
 def served_features(torch, serve, cfg, d: str, quantize: bool,
-                    device: str = "cuda") -> dict:
+                    device: str = "cuda", plain_blocks: bool = False) -> dict:
     """The features a server built as ``build_server`` builds it (bf16,
     fused attention; ``quantize`` as ``--int8``) gives for the server
-    phases' inputs, through its core in this process, without HTTP."""
+    phases' inputs, through its core in this process, without HTTP. With
+    ``plain_blocks`` the int8 blocks run their plain versions on the
+    card."""
+    from keep_tpu_torch.kernels import _kops
     from keep_tpu_torch.models.keep import KEEPModel
     from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
 
@@ -1214,11 +1357,15 @@ def served_features(torch, serve, cfg, d: str, quantize: bool,
                        cfg.text.max_position_embeddings),
         image_size=cfg.vision.img_size)
     tiles, odd = smoke_images(cfg)
+    kernels = _kops.KERNELS
+    if plain_blocks:
+        _kops.KERNELS = _kops.PLAIN  # what ops_for hands a CUDA tensor
     try:
         return {"text": core.encode_text(PROMPTS),
                 "image": core.encode_image(tiles),
                 "image_260x300": core.encode_image(odd)}
     finally:
+        _kops.KERNELS = kernels
         core.stop()
 
 
@@ -1247,10 +1394,13 @@ def cosine_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 def drive_server(torch, fa, serve, cfg, d: str, device: str = "cuda",
-                 bf16_features: dict | None = None):
+                 bf16_features: dict | None = None,
+                 plain_int8_features: dict | None = None):
     """Phase 4, or with ``bf16_features`` (phase 4's served features) phase
-    6: the int8 server, held to those. Returns the phase's result, the
-    running server core (the caller stops it) and the served features."""
+    6: the int8 server, held to those and to ``plain_int8_features`` (the
+    same int8 model with its blocks' plain versions). Returns the phase's
+    result, the running server core (the caller stops it) and the served
+    features."""
     from keep_tpu_torch.kernels import _kops
     from keep_tpu_torch.models.keep import KEEPModel
 
@@ -1310,8 +1460,9 @@ def drive_server(torch, fa, serve, cfg, d: str, device: str = "cuda",
             raise AssertionError(f"similarity vs features: {sim_err}")
         if int8:
             return (check_int8_server(cfg, feats, bf16_features,
-                                      int8_launches, img_disp, txt_disp,
-                                      launches, setup_s, sim_err),
+                                      plain_int8_features, int8_launches,
+                                      img_disp, txt_disp, launches, setup_s,
+                                      sim_err),
                     core, feats)
 
         # the same weights without the kernel (plain attention), same bf16
@@ -1349,14 +1500,35 @@ def drive_server(torch, fa, serve, cfg, d: str, device: str = "cuda",
         thread.join(timeout=10)
 
 
-def check_int8_server(cfg, feats, bf16_features, launches, img_disp,
-                      txt_disp, attention_launches, setup_s, sim_err) -> dict:
-    """Phase 6's checks: the int8 features against the bf16 server's, and
-    every block of every dispatch through its tower's int8 kernels."""
+def check_int8_server(cfg, feats, bf16_features, plain_features, launches,
+                      img_disp, txt_disp, attention_launches, setup_s,
+                      sim_err) -> dict:
+    """Phase 6's checks: the int8 features against the bf16 server's
+    (cosine ≥ 0.999 per row) and against the same int8 model with its
+    blocks' plain versions at the JAX package's gate between two int8
+    routes, in its form: > 0.9999 for the image rows' mean cosine
+    (tests/test_quant.py:300) and for the cosine of the text features taken
+    whole (:327); and every block of every dispatch through its tower's
+    int8 kernels. The per-row cosines are reported: at full width two int8
+    routes through the same weights differ by up to ~2e-4 per row on the
+    text tower (the JAX package's own int8 BERT-base against the port's
+    plain one, tests/test_torch_quant.py
+    ``test_int8_bert_base_routes_at_full_width``), so a per-row gate there
+    would fail the reference itself."""
     cos = {k: cosine_rows(v, bf16_features[k]) for k, v in feats.items()}
     for k, c in cos.items():
         if not (c >= 0.999).all():
             raise AssertionError(f"{k}: int8 cosine vs the bf16 server {c}")
+    cos_plain = {k: cosine_rows(v, plain_features[k])
+                 for k, v in feats.items()}
+    text, ref_text = feats["text"].ravel(), plain_features["text"].ravel()
+    route_gate = {"image_mean": float(np.concatenate(
+                      [cos_plain["image"], cos_plain["image_260x300"]]).mean()),
+                  "text_whole": float(text @ ref_text / np.linalg.norm(text)
+                                      / np.linalg.norm(ref_text))}
+    if not all(v > 0.9999 for v in route_gate.values()):
+        raise AssertionError(f"int8 features vs the int8 model's plain "
+                             f"blocks: {route_gate}")
     vit_l, bert_l = cfg.vision.depth, cfg.text.num_hidden_layers
     want = {"quantized_attention_block": img_disp * vit_l,
             "quantized_attention_block_postln": txt_disp * bert_l,
@@ -1375,6 +1547,9 @@ def check_int8_server(cfg, feats, bf16_features, launches, img_disp,
               "image_dispatches": img_disp, "text_dispatches": txt_disp,
               "min_cos_vs_bf16_server": {k: float(c.min())
                                          for k, c in cos.items()},
+              "cos_vs_int8_plain_blocks": route_gate,
+              "min_row_cos_vs_int8_plain_blocks": {
+                  k: float(c.min()) for k, c in cos_plain.items()},
               "similarity_max_err": sim_err}
     phase("server_int8", **result)
     return result
@@ -1467,6 +1642,15 @@ def throughput(torch, core, rng, int8: bool = False) -> dict:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
     attn = sum(v for k, v in by_kernel.items() if "slab_attention" in k)
     text_kernels = kernel_ms(torch, text_prof)
+    # the int8 blocks' attention runs the wgmma body, and no other
+    profiles = (("image", by_kernel), ("text", text_kernels))
+    wgmma = {tag: sum(v for k, v in kms.items()
+                      if "slab_attention_wgmma" in k) for tag, kms in profiles}
+    others = [k for _, kms in profiles for k in kms
+              if "slab_attention" in k and "slab_attention_wgmma" not in k]
+    if int8 and total and (others or not all(wgmma.values())):
+        raise AssertionError(f"int8 dispatches: the wgmma body {wgmma} ms, "
+                             f"other attention kernels {others}")
     out = {"card": card(), "image_tiles_per_s_bucket128": img_rate,
            "text_prompts_per_s_bucket128x256": txt_rate,
            "device_ms": dev_ms,
@@ -1476,7 +1660,8 @@ def throughput(torch, core, rng, int8: bool = False) -> dict:
            "image_b128_top_kernels_ms": top,
            "image_b128_ms_by_family": by_family(by_kernel),
            "text_b128x256_profiled_device_ms": sum(text_kernels.values()),
-           "text_b128x256_ms_by_family": by_family(text_kernels)}
+           "text_b128x256_ms_by_family": by_family(text_kernels),
+           "attention_wgmma_body_ms": wgmma}
     phase("numbers_int8" if int8 else "numbers", **out)
     return out
 
@@ -1511,7 +1696,7 @@ def main() -> int:
 
     # 3. kernels vs plain at the serving shapes, and the three opt-in paths
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = check_kernel(fa, torch, gen)
+    rows, f32_rows = check_kernel(fa, torch, gen)
     heads_rows, heads_launches = check_heads(fa, torch, gen)
     int8_rows, _ = check_int8_kernels(torch, gen)
     ln_rows = check_ln_matmul(lm, torch, gen)
@@ -1540,8 +1725,11 @@ def main() -> int:
         # statistics the repo's gate is measured on (keep.init)
         write_model(d_init, torch, cfg, keep_init=True)
         ref = served_features(torch, serve, cfg, d_init, quantize=False)
+        ref8 = served_features(torch, serve, cfg, d_init, quantize=True,
+                               plain_blocks=True)
         served8, core8, _ = drive_server(torch, fa, serve, cfg, d_init,
-                                         bf16_features=ref)
+                                         bf16_features=ref,
+                                         plain_int8_features=ref8)
     try:
         throughput(torch, core8, np.random.default_rng(1), int8=True)
     finally:
@@ -1559,7 +1747,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": kernel_line(
         rows, bwd_rows, heads_rows, heads_launches, int8_rows, ln_rows,
-        fused, served, served8, trained)}), flush=True)
+        fused, served, served8, trained, f32_rows)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1567,11 +1755,14 @@ def main() -> int:
 
 
 def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
-                ln_rows, fused, served, served8, trained) -> list[dict]:
+                ln_rows, fused, served, served8, trained,
+                f32_rows) -> list[dict]:
     """One entry per TPU kernel: its launches on the main path that runs it,
     and, at ViT-L B=32 in bf16 (the int8 kernels: the first shape of their
     phase), its time, its plain version's, its bound and the one PyTorch
-    call that computes the same function (null where there is none)."""
+    call that computes the same function (null where there is none). The
+    attention sub-blocks also carry their attention's rows (``f32_rows``,
+    the bf16 → fp32 form at their tower's shapes)."""
     def pick(rs, shape="vit_l16"):
         return next(r for r in rs if r["shape"] == shape and r["B"] == 32
                     and r["dtype"] == "bfloat16")
@@ -1619,6 +1810,8 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
         "library_ms": None, "unfused_ms": ln["unfused_ms_bf16"],
         "max_abs_err_on_path": fused["ln_matmul_calls_vs_plain_max_abs_err"],
         "shapes": ln_rows})
+    tower_of = {"quantized_attention_block": "vit_l16",
+                "quantized_attention_block_postln": "bert_base"}
     for kname, (module, cu, replaces) in INT8_KERNELS.items():
         shapes = int8_rows[kname]["shapes"]
         launches = (int8_rows[kname]["launches"] if kname == "quantized_mlp"
@@ -1634,6 +1827,9 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
             "int8_code_diff_share": max(r["int8_code_diff_share"]
                                         for r in shapes),
             "shapes": shapes})
+        if kname in tower_of:
+            kernels[-1]["attention_bf16_to_fp32"] = [
+                r for r in f32_rows if r["shape"] == tower_of[kname]]
     return kernels
 
 

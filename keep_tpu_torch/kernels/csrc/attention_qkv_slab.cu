@@ -21,11 +21,12 @@
 //   p = exp(s - rowmax(s)) / rowsum(...), then cast to the input dtype
 //   o = p . v accumulated in fp32, cast to the output dtype -> out[B, S, H*64]
 // The cast of p happens after the normalisation, as on the TPU. The output
-// dtype is the input's, or fp32 for a bf16 input: that instantiation
-// replaces the attention inside the int8 megakernels, keep_tpu/kernels/
-// qblock.py `_sdpa` / `_sdpa_masked` (:36-44, :131-139, in the pallas_calls
-// at :79 and :182), which return the fp32 sum into an fp32 scratch that is
-// quantized without a bf16 round.
+// dtype is the input's, or fp32 for a bf16 input: that form replaces the
+// attention inside the int8 megakernels, keep_tpu/kernels/qblock.py `_sdpa`
+// / `_sdpa_masked` (:36-44, :131-139, in the pallas_calls at :79 and
+// :182), which return the fp32 sum into an fp32 scratch that is quantized
+// without a bf16 round; the entry point below sends it to its own body,
+// single-pass wgmma fed by TMA (attention_qkv_slab_f32.cu).
 //
 // What bounds it on this card: bytes in principle (q, k and v read once, the
 // output written once: 0.015 ms at ViT-L B=32), but at S <= 512 and Dh = 64
@@ -53,25 +54,31 @@
 //   that normalised at the end would round unnormalised p. The cost is a
 //   second q . k^T and a second exp per score.
 //   Query rows past S are computed from zero rows and never stored.
-// fp32 -> fp32 and bf16 -> fp32 keep an exact CUDA-core body: one block
-// per (32 query rows, head, batch row), 8 warps of 4 rows each; K then V
-// staged in padded shared rows, q rows in shared fp32, a 4 x 8 tile of
-// scores per lane in registers per 256 keys (each K element loaded once
-// for 4 rows), the scores and then p in shared memory (p^T), a 4 x 2 tile
-// of outputs per lane. Every sum runs in the order of the plain version on
-// the card (a chain of fp32 FMAs per output, the warp softmax), so it gives
-// the plain version's bits. The tensor cores have no fp32 path that meets
-// the fp32 gate (2e-5), and the int8 blocks need the bits: on the tensor
-// cores a few p land one bf16 ulp from the plain version's, each moves a
-// head's 64 outputs by up to a quarter of an int8 step, and the codes that
-// the block re-quantizes then take the BERT post-LN block past its JAX
-// tolerance (max |d| 0.021 against atol 5e-3 at BERT-base B=32).
+// fp32 -> fp32 keeps an exact CUDA-core body: one block per (32 query
+// rows, head, batch row), 8 warps of 4 rows each; K then V staged in
+// padded shared rows, q rows in shared fp32, a 4 x 8 tile of scores per
+// lane in registers per 256 keys (each K element loaded once for 4 rows),
+// the scores and then p in shared memory (p^T), a 4 x 2 tile of outputs
+// per lane. Every sum runs in the order of the plain version on the card
+// (a chain of fp32 FMAs per output, the warp softmax), so it gives the
+// plain version's bits: the tensor cores have no fp32 path that meets the
+// fp32 gate (2e-5). The body is a template over the element types; only
+// its fp32 instantiation is launched.
 //
 // What it leaves on the table: wgmma and TMA (the card's full bf16 rate),
 // keeping K and V of a (b, h) in shared memory across its query tiles, and
 // a persistent schedule.
 
 #include "slab_attention.cuh"
+
+// The bf16 -> fp32 body (attention_qkv_slab_f32.cu).
+cudaError_t keep_attention_bf16_f32(const void* q, const void* k,
+                                    const void* v, long long batch_stride,
+                                    long long head_stride,
+                                    long long row_stride,
+                                    const float* key_bias, float* out, int B,
+                                    int S, int H, float scale,
+                                    cudaStream_t stream);
 
 namespace {
 
@@ -363,7 +370,7 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
 // (S*D, head_dim, D); [B, H, S, head_dim] heads pass their own strides.
 // `key_bias` is a contiguous fp32 [B, S] tensor or null, `out` a contiguous
 // [B, S, H*head_dim] tensor. dtype: 0 = float32 in and out, 1 = bfloat16 in
-// and out, 2 = bfloat16 in and float32 out.
+// and out, 2 = bfloat16 in and float32 out (q, k and v 16-byte aligned).
 extern "C" int keep_attention(const void* q, const void* k, const void* v,
                               long long batch_stride, long long head_stride,
                               long long row_stride, const void* key_bias,
@@ -388,8 +395,10 @@ extern "C" int keep_attention(const void* q, const void* k, const void* v,
       return int(launch_tc(q16, k16, v16, strides, kb,
                            static_cast<bf16*>(out), B, S, H, scale, st));
     case 2:
-      return int(launch_cc(q16, k16, v16, strides, kb,
-                           static_cast<float*>(out), B, S, H, scale, st));
+      return int(keep_attention_bf16_f32(q, k, v, batch_stride, head_stride,
+                                         row_stride, kb,
+                                         static_cast<float*>(out), B, S, H,
+                                         scale, st));
     default:
       return int(cudaErrorInvalidValue);
   }

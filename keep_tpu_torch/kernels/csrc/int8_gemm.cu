@@ -46,8 +46,7 @@
 // So M is arbitrary, K need only be a multiple of 16 (TMA's stride rule)
 // and N a multiple of 8 (the 16-byte stores).
 
-#include <cuda.h>
-
+#include "hopper.cuh"
 #include "kops.cuh"
 
 namespace {
@@ -64,76 +63,6 @@ constexpr int kEpiWords = 64 * kPitch;  // one warpgroup's staged tile
 constexpr int kSmemBytes = 1024 + kStages * kStageBytes
                            + kConsumers * kEpiWords * 4
                            + (2 * kStages + kConsumers) * 8;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar)) : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  }
-}
-
-// One TMA load of a box of the 2-D map at (c0 = byte of K, c1 = row) into
-// shared memory, its bytes counted on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1) : "memory");
-}
-
-// wgmma operand descriptor of a K-major tile with the 128-byte swizzle:
-// rows of 128 bytes, 8-row groups 1024 bytes apart (the stride byte
-// offset); the leading byte offset is unused in this layout. The tile must
-// start 1024-byte aligned; a step of 32 bytes along K adds 2 to it.
-__device__ __forceinline__ uint64_t smem_desc(const void* p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4)
-         | (static_cast<uint64_t>(1) << 16)
-         | (static_cast<uint64_t>(1024 >> 4) << 32)
-         | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed groups of this warpgroup are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 
 // Hands a stage back to the producer: one arrival from each warp, after
 // the warp's own wait for the products that read it.
@@ -248,7 +177,7 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       mbar_init(&empty[s], 4);  // each warp of the warpgroup that read it
     }
     for (int w = 0; w < kConsumers; ++w) mbar_init(&turn[w], 4);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -266,8 +195,8 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
           mbar_wait(&empty[stage], phase ^ 1);   // the first round passes
           uint8_t* st = ring + stage * kStageBytes;
           mbar_expect_tx(&full[stage], kStageBytes);
-          tma_load(st, &map_a, &full[stage], kt * BK, m0);
-          tma_load(st + BM * BK, &map_b, &full[stage], kt * BK, n0);
+          tma_load_2d(st, &map_a, &full[stage], kt * BK, m0);
+          tma_load_2d(st + BM * BK, &map_b, &full[stage], kt * BK, n0);
           if (++stage == kStages) {
             stage = 0;
             phase ^= 1;
@@ -389,32 +318,6 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled lives in libcuda; it is taken through the
-// runtime's entry-point query, so that the library needs no link to it.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 // The TMA map of an int8 [rows, K] row-major matrix in boxes of 128 rows ×

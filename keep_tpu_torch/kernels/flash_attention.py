@@ -10,7 +10,9 @@ of every layout: one kernel body that reads q, k and v through base
 pointers and batch, head and row strides) and
 ``csrc/attention_qkv_slab_bwd.cu`` (the closed-form backward,
 ``_slab_attn_bwd``); bf16 runs on the tensor cores, fp32 on the CUDA
-cores. For a CPU tensor they run
+cores, and the bf16 → fp32 form below on its own tensor-core body
+(``csrc/attention_qkv_slab_f32.cu``: ``wgmma`` fed by TMA, one pass with
+the scores in registers). For a CPU tensor they run
 the ``*_reference`` versions, the same math in plain PyTorch, which the
 tests and ``chip_smoke.py`` also hold the kernels against. There is no
 fallback from one to the other.
@@ -22,7 +24,9 @@ autograd it goes through ``SlabAttention``, whose backward is
 ``out_dtype=torch.float32`` on a bf16 slab gives the fp32 sum uncast: the
 attention inside the int8 megakernels (``keep_tpu/kernels/qblock.py``
 ``_sdpa`` and ``_sdpa_masked``), whose fp32 scratch is quantized without a
-bf16 round. That form is inference-only and raises under autograd.
+bf16 round. The tensor cores sum its products in their own order, so it is
+held to the plain version within the bf16 gate, not bit for bit. That
+form is inference-only and raises under autograd.
 
 ``attention_qkv_heads`` (q, k, v [B, S, H·Dh]) and ``flash_attention`` (the
 [B, H, S, Dh] API that ``ops.nn.mha_attention(use_flash=True)`` calls) are

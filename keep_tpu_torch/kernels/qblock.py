@@ -12,7 +12,10 @@ The TPU kernel keeps one batch row's [S, D] stream, its [S, 3D] slab and an
 fp32 [S, D] attention scratch in VMEM. Here the same math runs as five
 kernels over the whole batch (``_kops``): ``quant_rows`` (with the LN or
 ``pre_scale`` in front) → ``int8_gemm`` writing the **bf16** slab →
-``attention_qkv_slab`` with **fp32** output (the TPU scratch) →
+``attention_qkv_slab`` with **fp32** output (the TPU scratch; on the card
+its own ``wgmma`` body, whose sums the tensor cores take in another order
+than the plain version, so the block is held to it at the JAX package's
+tolerance between two routes through the same int8 weights) →
 ``quant_rows`` over full D rows → ``int8_gemm`` adding the raw residual x in
 fp32; the post-LN form writes that sum in fp32 and ``ln_rows`` normalises
 it, so the result is rounded once. The residual and the exit LN use the raw

@@ -210,41 +210,72 @@ def test_int8_kernels_give_the_same_bits_twice(cuda):
 
 
 def test_attention_fp32_output_matches_plain(cuda):
-    """The bf16-in, fp32-out instantiation the int8 blocks use."""
+    """The bf16-in, fp32-out form the int8 blocks use, on its wgmma body:
+    within the bf16 attention gate (max |Δ| < 0.05) of the plain version.
+    The tensor cores sum in their own order, so the bits differ."""
     qkv = torch.randn(3, 197, 3 * 4 * 64, device="cuda", generator=cuda)
     qkv = qkv.bfloat16()
+    n0 = fa.LAUNCHES
     got = fa.attention_qkv_slab(qkv, num_heads=4, out_dtype=torch.float32)
     torch.cuda.synchronize()
+    assert fa.LAUNCHES == n0 + 1
     assert got.dtype == torch.float32
     ref = fa.attention_qkv_slab_reference(qkv, num_heads=4,
                                           out_dtype=torch.float32)
-    torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max().item() < 0.05
 
 
 @pytest.mark.parametrize("padded", [False, True])
 @pytest.mark.parametrize("s", EDGE_S)
 def test_attention_fp32_output_at_every_edge(cuda, s, padded):
-    """The fp32-out form at the edge lengths, padded and unpadded, at the
-    fp32 gate: it runs the exact CUDA-core body, whose codes the int8
-    blocks re-quantize."""
+    """The fp32-out form at the edge lengths, padded and unpadded, within
+    the bf16 attention gate on unpadded query rows: S ≤ 256 in one pass of
+    16-key pieces, 256 < S ≤ 512 in two chunks of 256 keys."""
     qkv = torch.randn(2, s, 3 * 2 * 64, device="cuda", generator=cuda)
     qkv = qkv.bfloat16()
     kb = None
+    valid = torch.ones(2, s, dtype=torch.bool, device="cuda")
     if padded:
         lens = torch.randint(1, s + 1, (2,), device="cuda", generator=cuda)
-        kb = (torch.arange(s, device="cuda")[None] >= lens[:, None]) * -1e9
+        valid = torch.arange(s, device="cuda")[None] < lens[:, None]
+        kb = (1.0 - valid.float()) * -1e9
     got = fa.attention_qkv_slab(qkv, kb, num_heads=2, out_dtype=torch.float32)
     torch.cuda.synchronize()
     ref = fa.attention_qkv_slab_reference(qkv, kb, num_heads=2,
                                           out_dtype=torch.float32)
-    torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
+    assert torch.isfinite(got).all()
+    assert (got[valid] - ref[valid]).abs().max().item() < 0.05
+
+
+@pytest.mark.parametrize("b,s,h,padded", [(4, 197, 16, False),
+                                          (4, 256, 12, True)])
+def test_attention_fp32_output_moves_block_codes_by_one(cuda, b, s, h,
+                                                        padded):
+    """What the int8 blocks re-quantize: quant_rows of the kernel's fp32
+    attention output against quant_rows of the plain attention output on
+    the same slab. No code moves by more than one."""
+    qkv = torch.randn(b, s, 3 * h * 64, device="cuda", generator=cuda)
+    qkv = qkv.bfloat16()
+    kb = None
+    if padded:
+        lens = torch.randint(8, s + 1, (b,), device="cuda", generator=cuda)
+        kb = (torch.arange(s, device="cuda")[None] >= lens[:, None]) * -1e9
+    got = fa.attention_qkv_slab(qkv, kb, num_heads=h, out_dtype=torch.float32)
+    ref = fa.attention_qkv_slab_reference(qkv, kb, num_heads=h,
+                                          out_dtype=torch.float32)
+    q, _ = _kops.quant_rows(got.view(b * s, h * 64))
+    rq, _ = _kops.quant_rows_reference(ref.view(b * s, h * 64))
+    diff = (q.int() - rq.int()).abs()
+    assert diff.max().item() <= 1
 
 
 @pytest.mark.parametrize("b", [1, 3])
 def test_int8_blocks_match_plain(cuda, b):
     """The counterparts of the TPU kernels #4, #5, #6, #8, #9 through the
     kernels, against their plain versions, at the JAX package's tolerances
-    for each (tests/test_quant.py)."""
+    for each (tests/test_quant.py); #4 and #5 at its tolerance between two
+    routes."""
     s, d, h = 37, 128, 2
     x = torch.randn(b, s, d, device="cuda", generator=cuda) * 0.5
     n1, n2 = _norm(cuda, d), _norm(cuda, d)
@@ -280,14 +311,22 @@ def test_int8_blocks_match_plain(cuda, b):
                     ln_bias=n2.bias, eps=1e-12, post_ln=True,
                     pre_scale1=qkv.pre_scale)
     torch.testing.assert_close(got, ref, atol=2e-3, rtol=2e-3)
-    got, ref = both(qblock.quantized_attention_block,
-                    qblock.quantized_attention_block_reference, x, n1, qkv,
-                    proj, num_heads=h, eps=1e-6)
-    torch.testing.assert_close(got, ref, atol=5e-3, rtol=1e-3)
-    got, ref = both(qblock.quantized_attention_block_postln,
-                    qblock.quantized_attention_block_postln_reference, x, kb,
-                    n1, qkv, proj, num_heads=h, eps=1e-12)
-    torch.testing.assert_close(got, ref, atol=2e-3, rtol=2e-3)
+    # #4 and #5 run their attention on the tensor cores, in another order
+    # than the plain version: the JAX package's tolerance between two
+    # routes through the same int8 weights (tests/test_quant.py:297-300,
+    # 324-327)
+    for fn, ref_fn, args, eps in (
+            (qblock.quantized_attention_block,
+             qblock.quantized_attention_block_reference, (x, n1, qkv, proj),
+             1e-6),
+            (qblock.quantized_attention_block_postln,
+             qblock.quantized_attention_block_postln_reference,
+             (x, kb, n1, qkv, proj), 1e-12)):
+        got, ref = both(fn, ref_fn, *args, num_heads=h, eps=eps)
+        torch.testing.assert_close(got, ref, atol=2e-2, rtol=2e-2)
+        cos = torch.nn.functional.cosine_similarity(got.view(-1, d),
+                                                    ref.view(-1, d), dim=-1)
+        assert cos.min().item() >= 0.9999
     for name in ("quantized_matmul", "quantized_matmul_bsd",
                  "quantized_attention_block",
                  "quantized_attention_block_postln"):

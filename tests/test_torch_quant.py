@@ -1,5 +1,6 @@
 """The port's int8 W8A8 path against the JAX package on the same weights and
-inputs (CPU, tiny widths). The JAX side runs its Pallas kernels in interpret
+inputs (CPU, tiny widths; the attention sub-blocks and the int8 BERT-base
+tower also at full width). The JAX side runs its Pallas kernels in interpret
 mode, as ``tests/test_quant.py`` does; the port's wrappers take their plain
 versions on CPU tensors, which compute the kernels' math in plain PyTorch
 (an exact int32 dot, the kernels' rounding points).
@@ -8,9 +9,13 @@ Tolerances are those of the JAX package's own tests for the same component
 (``tests/test_quant.py``): qmatmul 1e-4 (:123), the GELU epilogue 1e-4 abs /
 1e-3 rel (:130), qmlp 2e-4 abs / 1e-4 rel (:172), qblock 5e-3 abs / 1e-3 rel
 (:258), post-LN 2e-3 (:378), the whole int8 tower cos > 0.9999 and 2e-2
-(:297). The int8 codes and scales of the weight quantizer are compared
-exactly."""
+(:297). The attention sub-blocks at the towers' widths are held at the
+JAX package's tolerance between two routes through the same int8 weights
+(2e-2 and cosine ≥ 0.9999 per row, :297-300, 324-327), which the card's
+tensor-core attention is held to. The int8 codes and scales of the weight
+quantizer are compared exactly."""
 
+import functools
 import json
 
 import jax
@@ -519,6 +524,136 @@ def test_qblock_postln_matches_jax_kernel(rng):
                                rtol=2e-3)
 
 
+# the towers' widths at B=32 (name: B, S, D, H, LN eps, BERT's padded key
+# bias and pre_scale), drawn as chip_smoke.py draws them
+TOWER_BLOCKS = {"vit_l16": (32, 197, 1024, 16, 1e-6, False),
+                "bert_base": (32, 256, 768, 12, 1e-12, True)}
+
+
+@functools.lru_cache(maxsize=None)
+def _tower_block(name):
+    """One int8 attention sub-block at a tower's width from a numpy seed:
+    the JAX Pallas megakernel's output (interpret mode) and the port's
+    arguments (x, key bias or None, norm, qkv, proj)."""
+    b, s, d, h, eps, post_ln = TOWER_BLOCKS[name]
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((b, s, d)).astype(np.float32)
+    jn, tn = _ln(rng, d)
+    pq, _ = _jlin(rng, d, 3 * d, w_std=d ** -0.5, b_std=0.02)
+    pp, lp = _jlin(rng, d, d, w_std=d ** -0.5, b_std=0.02)
+    if not post_ln:
+        ref = jqblock.quantized_attention_block(jnp.asarray(x), jn, pq, pp,
+                                                num_heads=h, eps=eps)
+        return np.asarray(ref), (_t(x), None, tn, _qlin(pq), lp)
+    lens = rng.integers(8, s + 1, b)
+    kb = ((np.arange(s)[None, :] >= lens[:, None]) * -1e9).astype(np.float32)
+    pq["pre_scale"] = jnp.asarray(np.exp(0.5 * rng.standard_normal(d))
+                                  .astype(np.float32))
+    ref = jqblock.quantized_attention_block_postln(
+        jnp.asarray(x), jnp.asarray(kb), jn, pq, pp, num_heads=h, eps=eps)
+    return np.asarray(ref), (_t(x), _t(kb), tn, _qlin(pq), lp)
+
+
+def _wgmma_order_attention(qkv, key_bias=None, *, num_heads, out_dtype=None):
+    """A plain model of the card's bf16 → fp32 attention body
+    (``csrc/attention_qkv_slab_f32.cu``) in the order it takes its sums:
+    q·kᵀ as four 16-wide partial products added in fp32 (its wgmma k16
+    steps), scaled, then biased; the exact row max, e = exp(s − m), p =
+    e / l by division, rounded to bf16; p·v as partial products over 16
+    keys at a time added in fp32. Within a 16-wide step the sum is
+    PyTorch's, where the tensor cores take their own."""
+    b, s, _ = qkv.shape
+    q, k, v = (t.float() for t in qkv.reshape(b, s, 3, num_heads, 64)
+               .permute(2, 0, 3, 1, 4))
+    sc = q[..., :16] @ k[..., :16].transpose(-1, -2)
+    for c in range(16, 64, 16):
+        sc = sc + q[..., c:c + 16] @ k[..., c:c + 16].transpose(-1, -2)
+    sc = sc * 64 ** -0.5
+    if key_bias is not None:
+        sc = sc + key_bias.float()[:, None, None, :]
+    e = torch.exp(sc - sc.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).bfloat16().float()
+    o = p[..., :16] @ v[..., :16, :]
+    for c in range(16, s, 16):
+        o = o + p[..., c:c + 16] @ v[..., c:c + 16, :]
+    return o.transpose(1, 2).reshape(b, s, num_heads * 64).to(out_dtype)
+
+
+@pytest.mark.parametrize("route", ["plain", "wgmma_order"])
+@pytest.mark.parametrize("tower", list(TOWER_BLOCKS))
+def test_qblock_at_tower_width_within_route_tolerance(tower, route):
+    """#4 (ViT-L) and #5 (BERT-base, padded key bias, pre_scale) at the
+    towers' widths, B=32, against the JAX Pallas megakernel at the JAX
+    package's tolerance between two routes through the same int8 weights
+    (atol 2e-2, rtol 2e-2, cosine ≥ 0.9999 per row: tests/test_quant.py:
+    297-300, 324-327): the port's plain block, and the plain block with its
+    attention taken in the card's tensor-core order. The JAX kernel itself
+    is 0.009 from the plain block at BERT-base (beyond the 5e-3 taken at
+    d = 64), so the gate that holds the card's attention is this one, and
+    it covers a change of summation order."""
+    b, s, d, h, eps, post_ln = TOWER_BLOCKS[tower]
+    ref, (x, kb, norm, qkv, proj) = _tower_block(tower)
+    ops = _kops.PLAIN if route == "plain" else _kops.PLAIN._replace(
+        attention=_wgmma_order_attention)
+    got = qblock._block(ops, x, norm, qkv, proj, kb, num_heads=h, eps=eps,
+                        post_ln=post_ln).numpy()
+    assert got.shape == ref.shape == (b, s, d)
+    cos = _cos(got.reshape(-1, d), ref.reshape(-1, d))
+    print(tower, route, "max |Δ| vs JAX", np.abs(got - ref).max(),
+          "min row cosine", cos.min())
+    np.testing.assert_allclose(got, ref, atol=2e-2, rtol=2e-2)
+    assert cos.min() >= 0.9999
+
+
+def test_softmax_quotient_is_ieee_division():
+    """The card's fp32-out attention takes p = e / l as q = RN(e·y) with y =
+    RN(1/l), corrected once by an FMA: RN(q + RN(e − l·q)·y)
+    (``div_rn`` in ``csrc/attention_qkv_slab_f32.cu``), in place of div.rn.
+    For the softmax's e in (0, 1] and l in [1, 512] that is the IEEE
+    quotient, checked here in exact rational arithmetic."""
+    from fractions import Fraction
+
+    def rn(x: Fraction) -> np.float32:
+        """x rounded to the nearest float32, ties to even."""
+        c = np.float32(float(x))
+        near = [np.nextafter(c, np.float32(-np.inf)), c,
+                np.nextafter(c, np.float32(np.inf))]
+        return min(near, key=lambda f: (abs(Fraction(float(f)) - x),
+                                        int(f.view(np.uint32)) & 1))
+
+    rng = np.random.default_rng(0)
+    ls = np.concatenate([rng.uniform(1, 512, 150),
+                         [1, 2, 3, 255.99998, 511.99997, 1.9999999]])
+    es = np.concatenate([rng.uniform(0, 1, 40),
+                         np.exp(rng.uniform(-69, 0, 30)), [1.0]])
+    for l in ls.astype(np.float32):
+        lf = Fraction(float(l))
+        y = Fraction(float(rn(1 / lf)))
+        for e in es.astype(np.float32):
+            ef = Fraction(float(e))
+            q = Fraction(float(rn(ef * y)))
+            r = Fraction(float(rn(ef - lf * q)))  # the FMA: exact here
+            assert rn(q + r * y) == rn(ef / lf), (e, l)
+
+
+def test_wgmma_order_attention_is_another_order():
+    """The model of the card's order differs from the plain attention on
+    the same slab (so the test above holds a real change of order), by far
+    less than the bf16 attention gate (0.05)."""
+    rng = np.random.default_rng(3)
+    qkv = _t(rng.standard_normal((2, 197, 3 * 4 * 64)).astype(np.float32)
+             ).bfloat16()
+    kb = _t(((np.arange(197)[None] >= np.array([[197], [90]])) * -1e9)
+            .astype(np.float32))
+    for bias in (None, kb):
+        got = _wgmma_order_attention(qkv, bias, num_heads=4,
+                                     out_dtype=torch.float32)
+        want = _kops.PLAIN.attention(qkv, bias, num_heads=4,
+                                     out_dtype=torch.float32)
+        diff = (got - want).abs().max().item()
+        assert 0 < diff < 0.05
+
+
 # ---- towers -----------------------------------------------------------------------
 
 
@@ -598,6 +733,42 @@ def test_bert_megakernel_path_matches_unfused_and_jax():
         b = other["last_hidden_state"].numpy()[valid]
         np.testing.assert_allclose(a, b, atol=2e-2, rtol=2e-2)
         assert _cos(a, b).mean() > 0.9999
+
+
+def test_int8_bert_base_routes_at_full_width():
+    """The int8 BERT-base tower at full width and depth, the JAX package's
+    megakernel path (interpret mode) against the port's plain one on the
+    same quantized weights, ten prompts of 10–14 tokens padded to 256: at
+    the repo's int8 gate per row (cosine ≥ 0.999, bench.py ``_int8_gate``).
+    Two int8 routes that differ only in the order of their fp32 sums drift
+    apart with width and depth here: per-row cosines 0.99977–0.99993 and
+    0.99985 taken whole (printed with ``-s``), short of the 0.9999 that
+    test_quant.py:327 holds at hidden 64 and 2 layers, which is why the
+    card's int8 server is held to its blocks' plain versions only in that
+    test's own form (chip_smoke.py ``check_int8_server``)."""
+    jcfg = jcfgs.BertConfig()
+    jq = jquant.quantize_linear_weights(jbert.init(jax.random.PRNGKey(0),
+                                                   jcfg))
+    rng = np.random.default_rng(0)
+    lens = np.array([12, 12, 13, 10, 12, 12, 14, 11, 11, 14])
+    mask = (np.arange(256)[None] < lens[:, None]).astype(np.int64)
+    ids = rng.integers(5, 1000, (10, 256)) * mask
+    ref = np.asarray(jbert.forward(jq, jnp.asarray(ids), jnp.asarray(mask),
+                                   cfg=jcfg, use_flash=True,
+                                   gelu_approx=True)["pooler_output"])
+    cfg = configs.KEEPConfig()
+    tower = bert.BertModel(cfg.text)
+    quant.quantize_linear_weights(tower)
+    sd = from_jax_params({"text": jax.tree.map(np.asarray, jq)}, cfg)
+    tower.load_state_dict({k[len("text."):]: v for k, v in sd.items()})
+    with torch.no_grad():
+        got = tower.eval()(_t(ids), _t(mask), use_flash=True,
+                           gelu_approx=True)["pooler_output"].numpy()
+    rows = _cos(got, ref)
+    whole = got.ravel() @ ref.ravel() / (np.linalg.norm(got)
+                                         * np.linalg.norm(ref))
+    print("per-row cosine", rows, "whole", whole)
+    assert rows.min() >= 0.999
 
 
 def test_bert_megakernel_mask_changes_padded_rows(rng):
