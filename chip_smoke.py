@@ -50,9 +50,11 @@ exits non-zero without a result line):
    with its device time, its bound and, for the GEMMs, TOP/s beside cuBLAS
    int8 (``torch._int_mm``) on the same operands.
    ln_matmul — the fused LayerNorm → matmul against its plain version at the
-   ViT-L qkv and fc1 shapes (M = 32·197, K = 1024, N = 3072, 4096), fp32 at
-   2e-5 and bf16 within one bf16 rounding, timed beside the unfused cuBLAS
-   route (``F.layer_norm`` then ``F.linear``). fuse_ln_path — a full-width
+   ViT-L qkv and fc1 shapes (M = 197·B for B = 32 and 128, K = 1024, N =
+   3072, 4096), fp32 at 2e-5 and bf16 within one bf16 rounding, timed
+   beside the unfused cuBLAS route (``F.layer_norm`` then ``F.linear``)
+   and the product alone in cuBLAS, with its statistics pass's device time
+   and its share of the bound. fuse_ln_path — a full-width
    ViT-L/16 (224², bf16, B = 128, random weights whose blocks all move the
    stream) under ``use_flash=True, fuse_ln=True`` and its visual head,
    against ``fuse_ln=False``: cosine ≥ 0.999 per row, 48 ``ln_matmul`` and
@@ -134,6 +136,10 @@ BWD_REPLACES = "keep_tpu/kernels/flash_attention.py:221"
 HEADS_REPLACES = "keep_tpu/kernels/flash_attention.py:115"
 LN_MATMUL_SOURCE = "keep_tpu_torch/kernels/csrc/ln_matmul.cu"
 LN_MATMUL_REPLACES = "keep_tpu/kernels/ln_matmul.py:51"
+LN_MATMUL_BODY = ("ln_stats_kernel (one read of x) + ln_matmul_wgmma_kernel: "
+                  "persistent 128x256 tiles, wgmma m64n256k16 fed by TMA, "
+                  "x normalised in the register-A fragments, TMA-store "
+                  "epilogue")
 CSRC = "keep_tpu_torch/kernels/csrc/"
 # the card's published peaks (H100 SXM, dense) and memory rate, for the
 # least time a kernel's work could take (bound_ms)
@@ -496,45 +502,55 @@ def check_heads(fa, torch, gen) -> tuple[list[dict], int]:
 
 def check_ln_matmul(lm, torch, gen) -> list[dict]:
     """Phase 3d. ``ln_matmul`` against its plain version at the ViT-L
-    projections after a LayerNorm (M = 32·197, K = 1024, N = 3072 for qkv,
-    4096 for fc1): fp32 at 2e-5; bf16 within one bf16 rounding (rtol 2⁻⁷,
-    atol 1e-2 for outputs near zero). Times of the kernel, its plain
-    version and the unfused cuBLAS route (``F.layer_norm`` then
-    ``F.linear``, two calls: ``unfused_ms``), all bf16."""
-    F = torch.nn.functional
-    m, k = 32 * 197, 1024
-    x32 = torch.randn(m, k, device="cuda", generator=gen) * 2 + 0.5
-    g = 1 + 0.1 * torch.randn(k, device="cuda", generator=gen)
-    b = 0.05 * torch.randn(k, device="cuda", generator=gen)
+    projections after a LayerNorm (K = 1024, N = 3072 for qkv, 4096 for
+    fc1) at B=32 and B=128 (M = 197·B): fp32 at 2e-5; bf16 within one bf16
+    rounding (rtol 2⁻⁷, atol 1e-2 for outputs near zero). Times of the
+    kernel and its plain version in both types; in bf16 also
+    ``scripts/torch_ln_matmul_bench.py``'s ``measure``: the kernel's
+    device ms split into the statistics pass (``stats_ms``) and the GEMM,
+    the unfused cuBLAS route (``F.layer_norm`` then ``F.linear``, two calls:
+    ``unfused_ms``), the product alone in cuBLAS on the normalised rows
+    (``gemm_library_ms``), the bound and the kernel's share of it."""
+    from scripts.torch_ln_matmul_bench import measure
+
+    k = 1024
     rows = []
-    for n in (3072, 4096):
-        w32 = torch.randn(n, k, device="cuda", generator=gen) * k ** -0.5
-        bias = 0.02 * torch.randn(n, device="cuda", generator=gen)
-        row = {"shape": f"vit_l16 [{m},{k}]x[{k}->{n}]"}
-        for dtype in (torch.float32, torch.bfloat16):
-            x, w = x32.to(dtype), w32.to(dtype)
-            got = lm.ln_matmul(x, g, b, w, bias, 1e-6, dtype)
-            torch.cuda.synchronize()
-            ref = lm.ln_matmul_reference(x, g, b, w, bias, 1e-6, dtype)
-            err = (got.float() - ref.float()).abs().max().item()
-            tol = (dict(atol=2e-5, rtol=2e-5) if dtype == torch.float32
-                   else dict(atol=1e-2, rtol=2 ** -7))
-            if not torch.allclose(got.float(), ref.float(), **tol):
-                raise AssertionError(f"ln_matmul {row['shape']} {dtype} vs "
-                                     f"plain: max |Δ| {err}")
-            tag = "fp32" if dtype == torch.float32 else "bf16"
-            row[f"max_abs_err_{tag}"] = err
-            row[f"ms_{tag}"] = cuda_ms(
-                lambda: lm.ln_matmul(x, g, b, w, bias, 1e-6, dtype))
-            row[f"plain_ms_{tag}"] = cuda_ms(
-                lambda: lm.ln_matmul_reference(x, g, b, w, bias, 1e-6, dtype))
-        g16, b16, bias16 = g.bfloat16(), b.bfloat16(), bias.bfloat16()
-        row["unfused_ms_bf16"] = cuda_ms(lambda: F.linear(
-            F.layer_norm(x, (k,), g16, b16, 1e-6), w, bias16))
-        row["bound_ms_bf16"], row["bound_by"] = bound(
-            {"bf16": 2 * m * k * n}, nbytes(x, g, b, w, bias) + m * n * 2)
-        phase("ln_matmul", **row)
-        rows.append(row)
+    for batch in (32, 128):
+        m = 197 * batch
+        x32 = torch.randn(m, k, device="cuda", generator=gen) * 2 + 0.5
+        g = 1 + 0.1 * torch.randn(k, device="cuda", generator=gen)
+        b = 0.05 * torch.randn(k, device="cuda", generator=gen)
+        for n in (3072, 4096):
+            w32 = torch.randn(n, k, device="cuda", generator=gen) * k ** -0.5
+            bias = 0.02 * torch.randn(n, device="cuda", generator=gen)
+            row = {"shape": f"vit_l16 [{m},{k}]x[{k}->{n}]", "B": batch}
+            for dtype in (torch.float32, torch.bfloat16):
+                x, w = x32.to(dtype), w32.to(dtype)
+                got = lm.ln_matmul(x, g, b, w, bias, 1e-6, dtype)
+                torch.cuda.synchronize()
+                ref = lm.ln_matmul_reference(x, g, b, w, bias, 1e-6, dtype)
+                err = (got.float() - ref.float()).abs().max().item()
+                tol = (dict(atol=2e-5, rtol=2e-5) if dtype == torch.float32
+                       else dict(atol=1e-2, rtol=2 ** -7))
+                if not torch.allclose(got.float(), ref.float(), **tol):
+                    raise AssertionError(f"ln_matmul {row['shape']} {dtype} "
+                                         f"vs plain: max |Δ| {err}")
+                tag = "fp32" if dtype == torch.float32 else "bf16"
+                row[f"max_abs_err_{tag}"] = err
+                if dtype == torch.float32:
+                    row["ms_fp32"] = cuda_ms(
+                        lambda: lm.ln_matmul(x, g, b, w, bias, 1e-6, dtype))
+                row[f"plain_ms_{tag}"] = cuda_ms(lambda: lm.ln_matmul_reference(
+                    x, g, b, w, bias, 1e-6, dtype))
+                del got, ref
+            t = measure(lm, x, g, b, w, bias)
+            row.update({key: v for key, v in t.items()
+                        if key not in ("B", "M", "K", "N")})
+            phase("ln_matmul", **row)
+            rows.append(row)
+            del x, w, w32
+        del x32
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1801,13 +1817,14 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
     ln = ln_rows[0]
     kernels.append({
         "name": "ln_matmul", "route": "cuda", "source": LN_MATMUL_SOURCE,
-        "replaces": LN_MATMUL_REPLACES,
+        "body": LN_MATMUL_BODY, "replaces": LN_MATMUL_REPLACES,
         "launches": fused["ln_matmul_launches"],
         "max_abs_err": max(max(r["max_abs_err_fp32"], r["max_abs_err_bf16"])
                            for r in ln_rows),
-        "ms": ln["ms_bf16"], "plain_ms": ln["plain_ms_bf16"],
-        "bound_ms": ln["bound_ms_bf16"], "bound_by": ln["bound_by"],
-        "library_ms": None, "unfused_ms": ln["unfused_ms_bf16"],
+        "ms": ln["ms"], "plain_ms": ln["plain_ms_bf16"],
+        "bound_ms": ln["bound_ms"], "bound_by": ln["bound_by"],
+        "library_ms": None, "unfused_ms": ln["unfused_ms"],
+        "gemm_library_ms": ln["gemm_library_ms"],
         "max_abs_err_on_path": fused["ln_matmul_calls_vs_plain_max_abs_err"],
         "shapes": ln_rows})
     tower_of = {"quantized_attention_block": "vit_l16",

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) pieces shared by the kernels that run wgmma fed by TMA
-// (int8_gemm.cu, attention_qkv_slab_f32.cu): mbarriers, TMA loads into
-// shared memory, wgmma operand descriptors of 128-byte-swizzled tiles and
-// wgmma's fence / commit / wait, and libcuda's TMA map encoder.
+// (int8_gemm.cu, attention_qkv_slab_f32.cu, ln_matmul.cu): mbarriers, TMA
+// loads into shared memory, wgmma operand descriptors of 128-byte-swizzled
+// tiles and wgmma's fence / commit / wait, libcuda's TMA map encoder, and
+// the host's SM count and alignment check.
 #pragma once
 
 #include <cuda.h>
@@ -79,6 +80,28 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
+// One TMA store of a box of a 2-D map at (c0, c1) from shared memory, in
+// this thread's bulk group; the parts of the box past the map's edges are
+// not written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups (the newest) have
+// still to read their shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // wgmma operand descriptor of a K-major tile with the 128-byte swizzle, as
 // TMA lays it out: rows of 128 bytes, 8-row groups 1024 bytes apart (the
 // stride byte offset); the leading byte offset is unused in this layout.
@@ -139,6 +162,22 @@ EncodeTiled encode_tiled() {
     return reinterpret_cast<EncodeTiled>(p);
   }();
   return fn;
+}
+
+// The card's SM count, for the persistent kernels' grids.
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count > 0 ? count : 1;
+  }();
+  return n;
+}
+
+// TMA reads global memory from 16-byte aligned addresses only.
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace

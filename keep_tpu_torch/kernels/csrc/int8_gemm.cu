@@ -336,16 +336,6 @@ bool int8_map(CUtensorMap* map, const void* ptr, int rows, int K) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, count = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    return count > 0 ? count : 1;
-  }();
-  return n;
-}
-
 template <typename TOut, typename TRes>
 cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b,
                    const void* a_scale, const void* b_scale, const void* bias,
@@ -377,10 +367,6 @@ cudaError_t launch_out(int res_dtype, const CUtensorMap& map_a,
                                        res, out, M, N, K, order, gelu, stream);
   return launch<TOut, float>(map_a, map_b, a_scale, b_scale, bias, res, out,
                              M, N, K, order, gelu, stream);
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace

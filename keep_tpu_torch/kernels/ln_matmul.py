@@ -3,12 +3,16 @@
 Counterpart of ``keep_tpu/kernels/ln_matmul.py`` ``ln_matmul`` (the Pallas
 kernel at :51), which the ViT runs under ``fuse_ln=True`` for the qkv and
 fc1 projections. For a CUDA tensor ``ln_matmul`` launches the hand-written
-Hopper kernel in ``csrc/ln_matmul.cu`` (row statistics, then a tiled GEMM
-that normalises each chunk of x as it stages it, so the normalised [M, K]
-never reaches device memory); for a CPU tensor it runs
+Hopper kernels in ``csrc/ln_matmul.cu``: a row-statistics pass that reads x
+once, then, in bf16, a persistent GEMM on ``wgmma`` fed by TMA whose
+consumer warps normalise each stage of x in the registers that feed the
+tensor cores, so the normalised [M, K] never reaches device memory (fp32
+keeps a CUDA-core FMA loop). For a CPU tensor it runs
 ``ln_matmul_reference``, the same math in plain PyTorch, which the tests and
 ``chip_smoke.py`` also hold the kernel against. There is no fallback from
-one to the other.
+one to the other. Left open on the card: the epilogue does not overlap the
+next tile's products, and with the normalised stages after it costs about
+40% of the GEMM's time; the statistics pass is a launch of its own.
 
 The weight is in the torch layout, ``weight [N, K]``: the transpose of the
 JAX kernel's ``w [K, N]``.
@@ -104,7 +108,7 @@ def ln_matmul(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
     _kops._check_contiguous("weight", weight, 16)
     g = _kops._vector("ln_scale", ln_scale, k, dev)
     b = _kops._vector("ln_bias", ln_bias, k, dev)
-    # the kernel reads the LayerNorm vectors four floats at a time
+    # the kernel reads the LayerNorm vectors with aligned vector loads
     _kops._check_contiguous("ln_scale", g, 16)
     _kops._check_contiguous("ln_bias", b, 16)
     bias = _kops._vector("w_bias", w_bias, n, dev)

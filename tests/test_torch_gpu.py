@@ -614,11 +614,17 @@ def test_mha_attention_use_flash_on_the_card(cuda):
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(1, 16, 8), (70, 64, 48), (394, 1024, 3072),
-                                   (300, 4096, 200), (129, 48, 136)])
+                                   (300, 4096, 200), (129, 48, 136),
+                                   (132 * 128 + 1, 80, 264),
+                                   (128 * 197, 1024, 4096)])
 def test_ln_matmul_matches_plain(cuda, m, k, n, dtype, out_dtype):
     """The kernel against its plain version: fp32 at 2e-5; bf16 within one
     bf16 rounding of the output (rtol 2⁻⁷, atol 1e-2 near zero: the sums are
-    taken in another order in fp32 before the one rounding)."""
+    taken in another order in fp32 before the one rounding). The shapes
+    take the bf16 body's edges: one tile and less, K in part of a 64-wide
+    stage (80), N a full 256-column tile and part of another (264), more
+    128-row tiles than one persistent wave of 132 blocks takes, and ViT-L
+    fc1 at B=128."""
     x = (torch.randn(m, k, device="cuda", generator=cuda) * 3 + 1).to(dtype)
     g = 1 + 0.1 * torch.randn(k, device="cuda", generator=cuda)
     b = 0.1 * torch.randn(k, device="cuda", generator=cuda)
@@ -640,18 +646,60 @@ def test_ln_matmul_matches_plain(cuda, m, k, n, dtype, out_dtype):
 def test_ln_matmul_normalised_rows_are_ln_rows_bits(cuda):
     """With an identity weight and a zero bias the kernel returns its
     normalised, rounded rows: bit for bit those of the plain LayerNorm
-    (fp64 statistics rounded once, the same fp32 chain)."""
-    x = torch.randn(130, 256, device="cuda", generator=cuda) * 2 + 0.5
-    g = 1 + 0.1 * torch.randn(256, device="cuda", generator=cuda)
-    b = 0.1 * torch.randn(256, device="cuda", generator=cuda)
-    for dtype in (torch.float32, torch.bfloat16):
-        eye = torch.eye(256, device="cuda", dtype=dtype)
-        got = lm.ln_matmul(x.to(dtype), g, b, eye, torch.zeros(256,
-                                                               device="cuda"),
-                           1e-6, torch.float32)
-        want = _kops.ln_rows_reference(x.to(dtype).float(), g, b, 1e-6,
-                                       dtype).float()
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    (fp64 statistics rounded once, the same fp32 chain). An identity weight
+    sums one y per output, whatever the order of the sums; K = 256 and the
+    ViT-L width 1024 take the statistics pass with 2 to 8 chunks a lane."""
+    for m, k in ((130, 256), (394, 1024)):
+        x = torch.randn(m, k, device="cuda", generator=cuda) * 2 + 0.5
+        g = 1 + 0.1 * torch.randn(k, device="cuda", generator=cuda)
+        b = 0.1 * torch.randn(k, device="cuda", generator=cuda)
+        for dtype in (torch.float32, torch.bfloat16):
+            eye = torch.eye(k, device="cuda", dtype=dtype)
+            got = lm.ln_matmul(x.to(dtype), g, b, eye,
+                               torch.zeros(k, device="cuda"), 1e-6,
+                               torch.float32)
+            want = _kops.ln_rows_reference(x.to(dtype).float(), g, b, 1e-6,
+                                           dtype).float()
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_matmul_reads_nothing_past_its_operands(cuda, dtype):
+    """x, the LayerNorm vectors and the weight are views at the start of
+    NaN-filled buffers: NaN in the rows after M of x, past K in g and b and
+    in the rows after N of the weight. The tiles reach past all three (M,
+    N and K are none of them a multiple of the tile), so a read past an
+    operand, or a zero fill that ln_apply turns into b − mu·rstd·g, shows
+    as a non-finite or wrong output."""
+    m, k, n = 200, 80, 264
+    nan = float("nan")
+
+    def view(shape, fill_rows, scale=1.0, shift=0.0):
+        buf = torch.full((shape[0] + fill_rows, *shape[1:]), nan,
+                         device="cuda", dtype=torch.float32)
+        v = buf[:shape[0]]
+        v.copy_(torch.randn(*shape, device="cuda", generator=cuda) * scale
+                + shift)
+        return buf, v
+
+    x_buf, x = view((m, k), 7, 3.0, 1.0)
+    w_buf, w = view((n, k), 9, k ** -0.5)
+    g_buf, g = view((k,), 16, 0.1, 1.0)
+    b_buf, b = view((k,), 16, 0.1)
+    if dtype == torch.bfloat16:
+        x_buf, w_buf = x_buf.bfloat16(), w_buf.bfloat16()
+        x, w = x_buf[:m], w_buf[:n]
+    bias = 0.02 * torch.randn(n, device="cuda", generator=cuda)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = lm.ln_matmul(x, g, b, w, bias, 1e-6, out_dtype)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        ref = lm.ln_matmul_reference(x, g, b, w, bias, 1e-6, out_dtype)
+        if dtype == torch.float32 and out_dtype == torch.float32:
+            torch.testing.assert_close(got, ref, atol=2e-5, rtol=2e-5)
+        else:
+            torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                       rtol=2 ** -7)
 
 
 @pytest.mark.parametrize("m", [1, 70, 394])

@@ -81,6 +81,23 @@ def test_ln_matmul_bf16_matches_jax(rng):
                                rtol=2 ** -7)
 
 
+@pytest.mark.parametrize("n", [3072, 4096])
+def test_ln_matmul_bf16_matches_jax_at_vit_l_width(rng, n):
+    """The bf16 case above at the width the card kernel is held at: ViT-L's
+    qkv (N = 3072) and fc1 (N = 4096) after a LayerNorm of width K = 1024,
+    on the 394 token rows of two 224² images, at the same tolerance (one
+    bf16 rounding of each output: rtol 2⁻⁷, atol 1e-2)."""
+    x, g, b, w, wb = _operands(rng, m=394, k=1024, n=n)
+    w = w * (1024 ** -0.5 / 0.05)  # outputs of order one
+    jx = [jnp.asarray(a) for a in (x, g, b, w, wb)]
+    jx[0], jx[3] = jx[0].astype(jnp.bfloat16), jx[3].astype(jnp.bfloat16)
+    ref = np.asarray(j_ln_matmul(*jx, eps=1e-6)).astype(np.float32)
+    got = lm.ln_matmul(*_port_args(x, g, b, w, wb, torch.bfloat16), eps=1e-6)
+    assert got.dtype == torch.bfloat16 and got.shape == (394, n)
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=1e-2,
+                               rtol=2 ** -7)
+
+
 def test_ln_matmul_reference_is_ln_rows_then_product(rng):
     """The plain version is ``_kops.ln_rows_reference`` rounded to the
     weight's dtype, then the fp32 product and bias: with an identity weight
