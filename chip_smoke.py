@@ -105,6 +105,46 @@ exits non-zero without a result line):
    ``restore()`` reads back. Prints ms per unfrozen step, samples/s, peak
    device memory and the device time of the last step by kernel family.
 
+The zero-shot WSI sweep runs between phases 7 and 8, on phase 6's weights
+(``keep.init`` statistics), through ``keep_tpu_torch.wsi.run.load_model``,
+once in bf16 and once with ``--int8`` (calibration 0). Every fp32 product
+of the sweep is checked to give the same bits with TF32 on, against a
+control: with the guard (``ops.nn.ieee_fp32``) taken out, TF32 must move
+the bicubic's pixels, the probabilities and the screening's scores. The
+kernels are held against their plain versions at the shapes this path
+gives them (batch 256; text widths as dispatched).
+
+10. wsi_extract — a flat 16,384² synthetic slide from a seed →
+    ``io.tiles.cut_tiles`` (~3,300 tissue tiles of 256²) →
+    ``wsi.extract.extract_features(resize=True, batch_size=256)``: the
+    bicubic 256 → 224 and the ViT-L on the card. Gates: the card's bicubic
+    against the CPU's on 64 tiles (≤ 1/255); the features against plain
+    attention on the first batch (cosine ≥ 0.999); ``pipeline_depth`` 1
+    against 3 (the same bits); the padded tail batch against its rows
+    alone (cosine ≥ 0.9999); int8 against bf16 (cosine ≥ 0.999) and, on
+    the first batch, against the same int8 model with plain blocks (mean
+    row cosine > 0.9999, tests/test_quant.py:300); one attention (int8:
+    sub-block and MLP pair) launch per block and batch.
+    Prints tiles/s from uint8 tiles to fetched features, bf16 and int8, the
+    bicubic's ms per batch and the idle share of a profiled run.
+11. wsi_classifier — ``zeroshot.build_classifiers_batched`` over 1,386
+    two-class prompts (texts of 5–40 tokens from ``VOCAB``) with
+    ``length_buckets="auto"`` and then flat: columns at cosine ≥ 0.9999,
+    the plan and its tier, prompts/s of each, 12 attention launches a text
+    dispatch; one batch of each width dispatched against the same BERT
+    with plain attention (cosine ≥ 0.999 per row); the flat build with the
+    int8 text tower (cosine ≥ 0.999), its batches against the same int8
+    model with plain blocks (> 0.9999 taken whole, tests/test_quant.py:327).
+12. wsi_pipelines — 100,000 patches on a 317 × 317 grid (D = 768, a
+    tumour disc): ``prompt_select`` (top 50 of 1,386), ``random_ensemble``,
+    detection (overlap off and on), segmentation (a level-0 mask at 32
+    pixels a patch), subtyping (3 classes + Normal) and the tumour heatmap
+    on the card, each held against the same functions on the CPU:
+    probabilities and the merged classifier at 1e-5, the same top-50 set,
+    decisions, AUROC, Dice and heatmap bytes equal (patches within 1e-5 of
+    a threshold counted; only they may move a value, by at most what they
+    can move it). Prints the ms of each step.
+
 Then one JSON line describing the kernels (each TPU kernel's counterpart:
 its launches on the path that runs it, its time, its plain version's, its
 bound — the larger of its operations over the card's peak for their type
@@ -115,6 +155,7 @@ same function, or null), and last the result line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import json
@@ -1361,7 +1402,6 @@ def served_features(torch, serve, cfg, d: str, quantize: bool,
     phases' inputs, through its core in this process, without HTTP. With
     ``plain_blocks`` the int8 blocks run their plain versions on the
     card."""
-    from keep_tpu_torch.kernels import _kops
     from keep_tpu_torch.models.keep import KEEPModel
     from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
 
@@ -1373,16 +1413,40 @@ def served_features(torch, serve, cfg, d: str, quantize: bool,
                        cfg.text.max_position_embeddings),
         image_size=cfg.vision.img_size)
     tiles, odd = smoke_images(cfg)
-    kernels = _kops.KERNELS
-    if plain_blocks:
-        _kops.KERNELS = _kops.PLAIN  # what ops_for hands a CUDA tensor
     try:
-        return {"text": core.encode_text(PROMPTS),
-                "image": core.encode_image(tiles),
-                "image_260x300": core.encode_image(odd)}
+        with (plain_int8_blocks() if plain_blocks
+              else contextlib.nullcontext()):
+            return {"text": core.encode_text(PROMPTS),
+                    "image": core.encode_image(tiles),
+                    "image_260x300": core.encode_image(odd)}
+    finally:
+        core.stop()
+
+
+@contextlib.contextmanager
+def plain_int8_blocks():
+    """The int8 blocks' plain versions on the card: what ``_kops.ops_for``
+    hands a CUDA tensor for the duration."""
+    from keep_tpu_torch.kernels import _kops
+
+    kernels = _kops.KERNELS
+    _kops.KERNELS = _kops.PLAIN
+    try:
+        yield
     finally:
         _kops.KERNELS = kernels
-        core.stop()
+
+
+def int8_route(feats: np.ndarray, ref: np.ndarray) -> dict:
+    """Two int8 routes through the same weights (the kernels against their
+    plain versions) in the JAX package's gate's forms: the mean of the
+    per-row cosines (image rows, tests/test_quant.py:300) and the cosine of
+    the features taken whole (text, :327), with the per-row minimum."""
+    rows = cosine_rows(feats, ref)
+    a, b = feats.ravel(), ref.ravel()
+    return {"mean_row_cos": float(rows.mean()),
+            "whole_cos": float(a @ b / np.linalg.norm(a) / np.linalg.norm(b)),
+            "min_row_cos": float(rows.min()), "rows": int(len(rows))}
 
 
 def http(port: int, path: str, body: bytes | None = None,
@@ -1571,6 +1635,713 @@ def check_int8_server(cfg, feats, bf16_features, plain_features, launches,
     return result
 
 
+# ---- 10.–12. the zero-shot WSI sweep ----------------------------------------
+
+# The WSI phases' sizes: a flat 16,384² slide (~3,300 tissue tiles of 256²;
+# cut_tiles holds an int16 copy and an int64 integral image of it on the
+# host, ~1.6 and 2.1 GB), the reference's screened prompt pool (1,386
+# prompts, keep_tpu/zeroshot/classifier.py:414, 461) and a slide's long
+# patch axis (100,000 patches on a 317 × 317 grid).
+WSI_SLIDE_PX = 16384
+WSI_BATCH = 256
+WSI_PROMPTS = 1386
+WSI_PATCHES = 100_000
+WSI_GRID = 317
+WSI_TOPN = 50
+# segmentation's level-0 mask is drawn at 32 pixels a patch instead of 256
+# (10,144² instead of 81,152²: the integral image of the full-size mask
+# would take 53 GB of host memory); the patches' grid is the same
+WSI_SEG_PATCH = 32
+# a score this close to a decision threshold may land on either side of it
+# under another summation order: such patches are counted and reported
+NEAR = 1e-5
+
+
+def wsi_slide(px: int, seed: int = 0) -> np.ndarray:
+    """A flat synthetic H&E slide [px, px, 3] uint8 from ``seed``: a tissue
+    disc (pink-purple and saturated, its colour shifted per 64-pixel block,
+    with per-pixel noise) on a bright unsaturated background that
+    ``io.tiles.tissue_mask`` rejects. One 1,024-row band of noise serves
+    every band."""
+    rng = np.random.default_rng(seed)
+    nb = -(-px // 64)
+    shade = rng.integers(-30, 31, (nb, nb, 3)).astype(np.int16)
+    tissue = np.array([160, 80, 140], np.int16)
+    band = min(px, 1024)
+    noise = rng.integers(0, 48, (band, px, 3), dtype=np.uint8)
+    c, r2 = (px - 1) / 2, (0.5 * px) ** 2
+    xs = np.arange(px)
+    img = np.empty((px, px, 3), np.uint8)
+    for y0 in range(0, px, band):
+        ys = np.arange(y0, min(px, y0 + band))
+        nz = noise[: len(ys)]
+        inside = (ys[:, None] - c) ** 2 + (xs[None] - c) ** 2 <= r2
+        color = tissue + shade[ys // 64][:, xs // 64] + nz
+        img[ys[0]: ys[-1] + 1] = np.where(inside[..., None], color,
+                                          236 + nz // 16)
+    return img
+
+
+# VOCAB's words by the class whose names they make: shared, then Normal's
+# and Tumor's own
+WSI_WORDS = {"shared": "an h & e image of breast lung skin kidney cell . , -",
+             "Normal": "normal tissue",
+             "Tumor": "invasive carcinoma adeno squamous melanoma clear "
+                      "renal tumor"}
+
+
+def wsi_prompts(n: int, seed: int = 0) -> dict:
+    """``n`` two-class prompt dicts in the reference's JSON shape, their
+    class names drawn with ``seed`` from ``VOCAB``'s words, half the draws
+    from the words of the class's own (``WSI_WORDS``): 3–38 words, so 5–40
+    tokens with [CLS] and [SEP] (mean ~15) in a 256-token contract."""
+    rng = np.random.default_rng(seed)
+    shared = WSI_WORDS["shared"].split()
+
+    def name(cls: str) -> str:
+        own = WSI_WORDS[cls].split()
+        k = int(np.clip(round(rng.normal(13, 6)), 3, 38))
+        p = [0.5 / len(shared)] * len(shared) + [0.5 / len(own)] * len(own)
+        return " ".join(rng.choice(shared + own, k, p=p))
+
+    return {str(i): {"classnames": {c: name(c) for c in ("Normal", "Tumor")},
+                     "templates": "CLASSNAME"} for i in range(n)}
+
+
+def wsi_patches(stack: np.ndarray, n: int, grid: int, seed: int = 0):
+    """Seeded features [n, D] and (x, y) coords of a slide's patches on a
+    ``grid`` × ``grid`` lattice (holes, and 100 duplicated coordinates that
+    the first-seen rule drops): inside a tumour disc the features lean
+    towards the direction that tells the stack's Tumor columns from its
+    Normal ones, outside away from it, at spread lengths with noise, so
+    that most probabilities lie away from 0.5 and the 2×2 refinement moves
+    them. Returns (features, coords, inside the disc)."""
+    rng = np.random.default_rng(seed)
+    dup = 100
+    cells = rng.permutation(grid * grid)[: n - dup]
+    cells = np.concatenate([cells, cells[:dup]])
+    r, c = cells // grid, cells % grid
+    coords = np.stack([c * 256, r * 256], 1).astype(np.int64)
+    u = (stack[:, :, 1] - stack[:, :, 0]).mean(0)
+    u = u / np.linalg.norm(u)
+    mid, radius = (grid - 1) / 2, 0.3 * grid
+    inside = (r - mid) ** 2 + (c - mid) ** 2 <= radius ** 2
+    sign = np.where(inside, 1.0, -1.0)[:, None]
+    feats = (sign * rng.uniform(0.5, 1.5, (n, 1)) * u
+             + 0.02 * rng.standard_normal((n, u.size))).astype(np.float32)
+    return feats, coords, inside
+
+
+def seg_mask(grid: int, ps: int) -> np.ndarray:
+    """The level-0 mask of ``wsi_patches``'s tumour disc at ``ps`` pixels a
+    patch."""
+    mid, radius = (grid - 1) / 2, 0.3 * grid
+    px = (np.arange(grid * ps) + 0.5) / ps - 0.5
+    return (((px[:, None] - mid) ** 2 + (px[None] - mid) ** 2
+             <= radius ** 2) * 255).astype(np.uint8)
+
+
+def synced_ms(torch, fn):
+    """(result, wall ms) of one call of ``fn``, the card synchronised
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def tf32_on(torch):
+    """cuBLAS's fp32 matmuls with TF32 on; the run's setting restored."""
+    from keep_tpu_torch.ops.nn import restore_tf32, tf32_state
+
+    saved = tf32_state()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        restore_tf32(saved)
+
+
+@contextlib.contextmanager
+def unguarded_fp32():
+    """The sweep's fp32 products without ``ops.nn.ieee_fp32``: the control
+    that shows the guard, not the card's choice of kernel, keeps TF32 out
+    of them (under TF32 they must then change)."""
+    from keep_tpu_torch.ops import preprocess
+    from keep_tpu_torch.wsi import pipelines
+    from keep_tpu_torch.zeroshot import classifier
+
+    mods = (preprocess, pipelines, classifier)
+    saved = [m.ieee_fp32 for m in mods]
+    for m in mods:
+        m.ieee_fp32 = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        for m, guard in zip(mods, saved):
+            m.ieee_fp32 = guard
+
+
+def reset_launches(fa) -> None:
+    from keep_tpu_torch.kernels import _kops
+
+    with fa._launch_lock:
+        fa.LAUNCHES = 0
+    with _kops._launch_lock:
+        _kops.LAUNCHES.clear()
+
+
+def read_launches(fa) -> tuple[int, dict]:
+    from keep_tpu_torch.kernels import _kops
+
+    return fa.LAUNCHES, dict(_kops.LAUNCHES)
+
+
+def pixels_255(torch, x, cfg) -> "torch.Tensor":
+    """Normalised pixels back on the 0..255 scale."""
+    mean = torch.tensor(cfg.mean, device=x.device)
+    std = torch.tensor(cfg.std, device=x.device)
+    return (x * std + mean) * 255.0
+
+
+def drive_wsi_extract(torch, fa, d: str, device: str = "cuda",
+                      slide_px: int = WSI_SLIDE_PX,
+                      batch_size: int = WSI_BATCH) -> dict:
+    """Phase 10: a flat slide → ``cut_tiles`` → ``extract_features(resize=
+    True)`` with the model ``wsi.run.load_model`` loads (bf16, the fused
+    attention), then with ``--int8``'s (calibration 0). Gates: the card's
+    bicubic against the port's CPU ``preprocess`` on 64 tiles (≤ 1/255
+    before normalisation, and the same bits with TF32 on); the features
+    against the same model with plain attention on the first batch (cosine
+    ≥ 0.999 per row); ``pipeline_depth`` 1 against 3 (the same bits); the
+    tail-padded last batch against its rows encoded alone (cosine ≥
+    0.9999); the int8 features against bf16 (cosine ≥ 0.999 per row) and,
+    on the first batch, against the same int8 model with plain blocks
+    (mean row cosine > 0.9999); one attention launch per block of every
+    batch. The TF32 gate has a control: without the guard TF32 must move
+    pixels. Returns the phase's result and what the next phases use."""
+    import argparse
+
+    from keep_tpu_torch.configs import PreprocessConfig
+    from keep_tpu_torch.io.tiles import cut_tiles
+    from keep_tpu_torch.models.keep import KEEPModel
+    from keep_tpu_torch.ops.preprocess import preprocess
+    from keep_tpu_torch.wsi import run as wsi_run
+    from keep_tpu_torch.wsi.extract import extract_features
+
+    cfg = PreprocessConfig()
+    t0 = time.perf_counter()
+    slide = wsi_slide(slide_px)
+    slide_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tiles, coords = cut_tiles(slide, patch_size=256, tissue_fraction=0.25)
+    cut_s = time.perf_counter() - t0
+    del slide
+    n = len(tiles)
+    if n < 2 * batch_size:
+        raise AssertionError(f"{n} tissue tiles")
+    args = argparse.Namespace(model=d, device=device, int8=False)
+    model, tokenizer = wsi_run.load_model(args)
+    depth = model.cfg.vision.depth
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def extract(m, t, **kw):
+        return extract_features(m, t, batch_size=kw.pop("bs", batch_size),
+                                resize=True, **kw)
+
+    extract(model, tiles[:batch_size])  # the first call pays the setup
+    sync()
+    reset_launches(fa)
+    # ---- the main path --------------------------------------------------
+    t0 = time.perf_counter()
+    feats = extract(model, tiles)
+    wall = time.perf_counter() - t0
+    launches, _ = read_launches(fa)
+    # ----------------------------------------------------------------------
+    batches = -(-n // batch_size)
+    if device == "cuda" and launches != batches * depth:
+        raise AssertionError(f"extract: {launches} attention launches, want "
+                             f"{batches * depth}")
+    check_features("extract", feats, n, model.cfg.projection_dim)
+
+    # the card's bicubic against the port's CPU preprocess, TF32 off and on
+    few = torch.from_numpy(tiles[:64])
+    on_card = preprocess(few.to(device), cfg)
+    cpu = preprocess(few, cfg)
+    diff = (pixels_255(torch, on_card.cpu(), cfg)
+            - pixels_255(torch, cpu, cfg)).abs()
+    if not diff.max().item() <= 1.0 + 1e-3:
+        raise AssertionError(f"bicubic card vs CPU: {diff.max().item()}/255")
+    with tf32_on(torch):
+        tf32_same = bool(torch.equal(preprocess(few.to(device), cfg),
+                                     on_card))
+        with unguarded_fp32():
+            loose = preprocess(few.to(device), cfg)
+    tf32_moved = (loose != on_card).float().mean().item()
+    del loose
+    if not tf32_same:
+        raise AssertionError("bicubic: TF32 on changed the pixels")
+    if device == "cuda" and tf32_moved == 0.0:
+        raise AssertionError("bicubic control: TF32 on without the guard "
+                             "moved no pixel, so the gate cannot see it")
+
+    # the same model with plain attention on the first batch
+    plain = KEEPModel(model.cfg, dtype=model.dtype, use_flash=False,
+                      device=device)
+    plain.load_state_dict(model.state_dict())
+    ref = extract(plain, tiles[:batch_size])
+    del plain
+    cos_plain = cosine_rows(feats[:batch_size], ref)
+    if not (cos_plain >= 0.999).all():
+        raise AssertionError(f"extract vs plain attention: {cos_plain.min()}")
+    # pipeline depth 1 against 3 on four batches and a tail
+    part = tiles[: 4 * batch_size + batch_size // 3]
+    d1 = extract(model, part, pipeline_depth=1)
+    d3 = extract(model, part, pipeline_depth=3)
+    if not np.array_equal(d1, d3):
+        raise AssertionError("pipeline_depth 1 and 3 differ")
+    # the tail-padded last batch against its rows encoded alone
+    tail = n % batch_size or batch_size
+    alone = extract(model, tiles[n - tail:], bs=tail)
+    cos_tail = cosine_rows(feats[n - tail:], alone)
+    if not (cos_tail >= 0.9999).all():
+        raise AssertionError(f"tail rows alone: {cos_tail.min()}")
+
+    # the bicubic alone, one batch on the card; and where the time goes
+    x = torch.from_numpy(tiles[:batch_size]).to(device)
+    out = {"slide_px": slide_px, "slide_s": slide_s, "cut_tiles_s": cut_s,
+           "tiles": n, "batches": batches, "batch_size": batch_size,
+           "tiles_per_s_bf16": n / wall, "wall_s_bf16": wall,
+           "attention_launches": launches,
+           "attention_launches_per_batch": launches / batches,
+           "bicubic_max_abs_err_255": diff.max().item(),
+           "bicubic_share_differing": (diff > 0.5).float().mean().item(),
+           "bicubic_same_bits_tf32_on": tf32_same,
+           "bicubic_tf32_unguarded_share_moved": tf32_moved,
+           "min_cos_vs_plain_attention": float(cos_plain.min()),
+           "depth_1_3_same_bits": True, "tail_rows": tail,
+           "min_cos_tail_alone": float(cos_tail.min())}
+    if device == "cuda":
+        out["bicubic_ms_per_batch"] = cuda_ms(lambda: preprocess(x, cfg))
+        out["bicubic_device_ms_per_batch"] = device_ms(
+            torch, lambda: preprocess(x, cfg))
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            extract(model, tiles)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        busy = sum(kernel_ms(torch, prof).values()) / 1e3
+        out["profiled_wall_s"] = prof_wall
+        out["profiled_kernel_s"] = busy
+        out["idle_share"] = 1.0 - busy / prof_wall if busy else "not measured"
+    del x
+
+    # the --int8 towers (calibration 0) on the same tiles
+    model8, _ = wsi_run.load_model(argparse.Namespace(model=d, device=device,
+                                                      int8=True))
+    extract(model8, tiles[:batch_size])
+    sync()
+    reset_launches(fa)
+    # ---- the main path, int8 ---------------------------------------------
+    t0 = time.perf_counter()
+    feats8 = extract(model8, tiles)
+    wall8 = time.perf_counter() - t0
+    attn8, launches8 = read_launches(fa)
+    # ----------------------------------------------------------------------
+    want8 = {"quantized_attention_block": batches * depth,
+             "quantized_mlp_bsd": batches * depth,
+             "quantized_matmul_bsd": batches, "quantized_matmul": 2 * batches}
+    if device == "cuda":
+        for k, v in want8.items():
+            if launches8.get(k, 0) != v:
+                raise AssertionError(f"int8 extract: {k} {launches8.get(k)} "
+                                     f"launches, want {v}")
+    cos8 = cosine_rows(feats8, feats)
+    if not (cos8 >= 0.999).all():
+        raise AssertionError(f"int8 extract vs bf16: {cos8.min()}")
+    # the int8 kernels at this path's shapes (M = batch · 197) against
+    # their plain versions on the first batch, at the gate between two
+    # int8 routes (image rows: the mean of the per-row cosines)
+    with plain_int8_blocks():
+        ref8 = extract(model8, tiles[:batch_size])
+    route8 = int8_route(feats8[:batch_size], ref8)
+    if not route8["mean_row_cos"] > 0.9999:
+        raise AssertionError(f"int8 extract vs its plain blocks: {route8}")
+    out.update(tiles_per_s_int8=n / wall8, wall_s_int8=wall8,
+               int8_launches=launches8, int8_attention_launches=attn8,
+               min_cos_int8_vs_bf16=float(cos8.min()),
+               int8_vs_plain_blocks=route8)
+    if device == "cuda":
+        out["card"] = card()
+    phase("wsi_extract", **out)
+    return {"result": out, "model": model, "model8": model8,
+            "tokenizer": tokenizer, "features": feats, "coords": coords}
+
+
+def drive_wsi_classifier(torch, fa, model, model8, tokenizer,
+                         device: str = "cuda", n_prompts: int = WSI_PROMPTS,
+                         batch_size: int = 256, max_length: int = 256
+                         ) -> dict:
+    """Phase 11: ``build_classifiers_batched`` over ``n_prompts`` two-class
+    prompts with ``length_buckets="auto"`` and then ``None`` (flat), through
+    ``wsi.run``'s text encoder; the two stacks' columns at cosine ≥ 0.9999;
+    12 attention launches per text dispatch; the first batch of each width
+    dispatched against the same BERT with plain attention (cosine ≥ 0.999
+    per row); then the flat build with the int8 towers, whose columns hold
+    cosine ≥ 0.999 against bf16, and whose batches hold > 0.9999 (taken
+    whole) against the same int8 model with plain blocks."""
+    from keep_tpu_torch.models.keep import KEEPModel
+    from keep_tpu_torch.wsi import run as wsi_run
+    from keep_tpu_torch.zeroshot import build_classifiers_batched
+
+    prompts = wsi_prompts(n_prompts)
+    label_map = {"Normal": 0, "Tumor": 1}
+    layers = model.cfg.text.num_hidden_layers
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def build(m, buckets, info=None):
+        enc = wsi_run._encoder(m, torch.device(device))
+        calls, firsts = [], {}
+
+        def counted(ids, mask):
+            calls.append(ids.shape)
+            # the first batch of each width, for the checks against plain
+            firsts.setdefault(ids.shape[1], (np.array(ids), np.array(mask)))
+            return enc(ids, mask)
+
+        sync()
+        reset_launches(fa)
+        t0 = time.perf_counter()
+        stack = build_classifiers_batched(
+            counted, tokenizer, prompts, label_map, max_length=max_length,
+            batch_size=batch_size, length_buckets=buckets, device=device,
+            info=info)
+        sync()
+        wall = time.perf_counter() - t0
+        launches, by_name = read_launches(fa)
+        if device == "cuda" and launches != len(calls) * layers:
+            raise AssertionError(f"classifier: {launches} attention launches "
+                                 f"for {len(calls)} dispatches")
+        return stack, wall, calls, launches, by_name, firsts
+
+    def encoded(m, batches) -> dict:
+        enc = wsi_run._encoder(m, torch.device(device))
+        return {w: enc(ids, mask).float().cpu().numpy()
+                for w, (ids, mask) in sorted(batches.items())}
+
+    info: dict = {}
+    # ---- the main path: the bucketed ("auto") build, then the flat one --
+    auto, auto_s, auto_calls, auto_launches, _, auto_firsts = build(
+        model, "auto", info)
+    flat, flat_s, flat_calls, flat_launches, _, flat_firsts = build(
+        model, None)
+    # ----------------------------------------------------------------------
+    # the kernel at each width the builds dispatched, one batch each,
+    # against the same BERT with plain attention (the repo's bf16 gate)
+    batches = {**flat_firsts, **auto_firsts}
+    got = encoded(model, batches)
+    plain = KEEPModel(model.cfg, dtype=model.dtype, use_flash=False,
+                      device=device)
+    plain.load_state_dict(model.state_dict())
+    want = encoded(plain, batches)
+    del plain
+    cos_plain = {w: float(cosine_rows(got[w], want[w]).min()) for w in got}
+    if not all(c >= 0.999 for c in cos_plain.values()):
+        raise AssertionError(f"text tower vs plain attention by width: "
+                             f"{cos_plain}")
+    a, f = auto.cpu().numpy(), flat.cpu().numpy()
+    cos = (a * f).sum(1) / (np.linalg.norm(a, axis=1)
+                            * np.linalg.norm(f, axis=1))  # [P, C]
+    if not (cos >= 0.9999).all():
+        raise AssertionError(f"bucketed vs flat columns: {cos.min()}")
+    texts = 2 * n_prompts
+    lengths = np.asarray(tokenizer(
+        [p["classnames"][k] for p in prompts.values()
+         for k in ("Normal", "Tumor")],
+        max_length=max_length)["attention_mask"]).sum(1)
+    out = {"prompts": n_prompts, "texts": texts,
+           "tokens_min_mean_max": [int(lengths.min()), float(lengths.mean()),
+                                   int(lengths.max())],
+           "plan": info.get("plan"), "method": info.get("method"),
+           "chooser": {k: v for k, v in info.items()
+                       if k not in ("plan", "method")},
+           "prompts_per_s_auto": n_prompts / auto_s,
+           "prompts_per_s_flat": n_prompts / flat_s,
+           "dispatches_auto": len(auto_calls),
+           "widths_auto": sorted({s[1] for s in auto_calls}),
+           "dispatches_flat": len(flat_calls),
+           "attention_launches_auto": auto_launches,
+           "attention_launches_flat": flat_launches,
+           "attention_launches_per_text_dispatch":
+               flat_launches / len(flat_calls),
+           "min_column_cos_auto_vs_flat": float(cos.min()),
+           "max_abs_diff_auto_vs_flat": float(np.abs(a - f).max()),
+           "min_row_cos_vs_plain_attention_by_width": cos_plain,
+           "rows_vs_plain_by_width": {w: len(v) for w, v in got.items()}}
+    # the text tower's cost a token position at full width, the figure the
+    # bucket planner's cost model keys by device type (SEC_PER_TOKEN)
+    if device == "cuda":
+        ids = np.ones((batch_size, max_length), np.int64)
+        enc = wsi_run._encoder(model, torch.device(device))
+        ms = cuda_ms(lambda: enc(ids, ids), runs=5)
+        out["full_width_dispatch_ms"] = ms
+        out["sec_per_token_measured"] = ms / 1e3 / (batch_size * max_length)
+
+    # ---- the int8 text tower, flat ----------------------------------------
+    stack8, s8, calls8, attn8, by_name8, firsts8 = build(model8, None)
+    a8 = stack8.cpu().numpy()
+    cos8 = (a8 * f).sum(1) / (np.linalg.norm(a8, axis=1)
+                              * np.linalg.norm(f, axis=1))
+    if not (cos8 >= 0.999).all():
+        raise AssertionError(f"int8 classifier vs bf16: {cos8.min()}")
+    # the int8 kernels at each width dispatched against their plain
+    # versions, at the gate between two int8 routes (text taken whole)
+    got8 = encoded(model8, firsts8)
+    with plain_int8_blocks():
+        want8 = encoded(model8, firsts8)
+    route8 = {w: int8_route(got8[w], want8[w]) for w in got8}
+    if not all(r["whole_cos"] > 0.9999 for r in route8.values()):
+        raise AssertionError(f"int8 text tower vs its plain blocks: {route8}")
+    if device == "cuda":
+        for k in ("quantized_attention_block_postln", "quantized_mlp_bsd"):
+            if by_name8.get(k, 0) != len(calls8) * layers:
+                raise AssertionError(f"int8 classifier: {k} {by_name8}")
+    out.update(prompts_per_s_int8_flat=n_prompts / s8,
+               int8_launches=by_name8, int8_attention_launches=attn8,
+               dispatches_int8=len(calls8),
+               min_column_cos_int8_vs_bf16=float(cos8.min()),
+               int8_vs_plain_blocks_by_width=route8)
+    phase("wsi_classifier", **out)
+    return {"result": out, "stack": flat}
+
+
+def _decision(name: str, card_value, cpu_value, near: int, bound: float,
+              gates: dict) -> None:
+    """A decision of the card against the CPU's on the same inputs: equal,
+    or (only where ``near`` patches lie within ``NEAR`` of a threshold)
+    apart by no more than those patches can move it (``bound``)."""
+    a, b = np.asarray(card_value, np.float64), np.asarray(cpu_value,
+                                                          np.float64)
+    equal = bool(np.array_equal(a, b))
+    diff = float(np.abs(a - b).max()) if a.size else 0.0
+    gates[name] = {"equal": equal, "near_threshold": int(near),
+                   "abs_diff": diff}
+    if not equal and not (near and diff <= bound):
+        raise AssertionError(f"{name}: card {card_value} vs CPU {cpu_value}, "
+                             f"{near} patches near a threshold")
+
+
+def _close_pairs(p: np.ndarray, labels: np.ndarray) -> int:
+    """Pairs of one positive and one negative patch whose probabilities lie
+    within ``NEAR`` of each other: the pairs whose order two summation
+    orders may swap, each moving AUROC by 1 / (n_pos · n_neg)."""
+    pos = np.sort(p[labels == 1])
+    neg = p[labels == 0]
+    return int((np.searchsorted(pos, neg + NEAR, "right")
+                - np.searchsorted(pos, neg - NEAR, "left")).sum())
+
+
+def drive_wsi_pipelines(torch, stack, device: str = "cuda",
+                        n: int = WSI_PATCHES, grid: int = WSI_GRID) -> dict:
+    """Phase 12: the screening and the three pipelines on the card at a
+    slide's long axis, each held against the same port functions on the
+    CPU with the same inputs (probabilities at 1e-5, the same top-50 set,
+    the merged classifier at 1e-5, decisions and heatmap bytes equal with
+    near-threshold patches counted), and the card's results the same with
+    TF32 on, where without the guard TF32 moves the probabilities and the
+    screening's scores (the control)."""
+    from keep_tpu_torch.metrics.classification import roc_best_threshold
+    from keep_tpu_torch.wsi import pipelines as wp
+    from keep_tpu_torch.wsi.grid import CoordGrid
+    from keep_tpu_torch.zeroshot import classifier as zc
+
+    stack_cpu = stack.cpu()
+    feats, coords, _ = wsi_patches(stack_cpu.numpy(), n, grid)
+    seg_coords = coords // (256 // WSI_SEG_PATCH)
+    mask = seg_mask(grid, WSI_SEG_PATCH)
+    cls4 = torch.stack([stack_cpu[1, :, 1], stack_cpu[2, :, 1],
+                        stack_cpu[3, :, 1], stack_cpu[0, :, 0]], 1)
+
+    def run(dev: str, timed: bool) -> tuple[dict, dict]:
+        f = torch.from_numpy(feats).to(dev)
+        s, c4 = stack_cpu.to(dev), cls4.to(dev)
+        out, ms = {}, {}
+
+        def step(name, fn):
+            if timed:
+                out[name], ms[name] = synced_ms(torch, fn)
+            else:
+                out[name] = fn()
+
+        step("prompt_select", lambda: zc._prompt_select_jit(s, f, WSI_TOPN))
+        merged = out["prompt_select"][0]
+        step("random_ensemble", lambda: zc.random_ensemble(s, WSI_TOPN))
+        step("score_tiles", lambda: wp.score_tiles(merged, f))
+        step("detection", lambda: wp.zero_shot_detection(
+            merged, f, coords, patch_size=256, overlap=False))
+        step("detection_overlap", lambda: wp.zero_shot_detection(
+            merged, f, coords, patch_size=256, overlap=True))
+        step("segmentation", lambda: wp.zero_shot_segment(
+            merged, f, seg_coords, mask=mask, patch_size=WSI_SEG_PATCH))
+        step("subtyping", lambda: wp.zero_shot_subtyping(
+            c4, f, coords, patch_size=256))
+        step("tumor_heatmap", lambda: wp.tumor_heatmap(
+            merged, f, coords, patch_size=256))
+        return out, ms
+
+    if device == "cuda":
+        run(device, timed=False)  # the first calls pay cuBLAS's setup
+    card_out, ms = run(device, timed=device == "cuda")
+    cpu_out, _ = run("cpu", timed=False)
+    gates: dict = {}
+
+    # the screening: scores, the same top-50 set, the merged classifier
+    m_card, s_card, o_card = (t.cpu() for t in card_out["prompt_select"])
+    m_cpu, s_cpu, o_cpu = cpu_out["prompt_select"]
+    top_same = set(o_card.tolist()) == set(o_cpu.tolist())
+    gates["top50_same_set"] = top_same
+    gates["top50_same_order"] = bool(torch.equal(o_card, o_cpu))
+    gates["scores_max_abs_diff"] = (s_card - s_cpu).abs().max().item()
+    gates["merged_max_abs_diff"] = (m_card - m_cpu).abs().max().item()
+    gates["random_ensemble_max_abs_diff"] = (
+        card_out["random_ensemble"].cpu()
+        - cpu_out["random_ensemble"]).abs().max().item()
+    if not (top_same and gates["merged_max_abs_diff"] <= 1e-5
+            and gates["random_ensemble_max_abs_diff"] <= 1e-5):
+        raise AssertionError(f"screening card vs CPU: {gates}")
+    probs = card_out["score_tiles"].cpu()
+    p_cpu = cpu_out["score_tiles"]
+    gates["probs_max_abs_diff"] = (probs - p_cpu).abs().max().item()
+    if not gates["probs_max_abs_diff"] <= 1e-5:
+        raise AssertionError(f"probabilities card vs CPU: {gates}")
+    p1 = p_cpu[:, 1].numpy()
+    gates["probs_within_0.05_of_half"] = float((np.abs(p1 - 0.5)
+                                                <= 0.05).mean())
+
+    # the decisions, with the patches near their thresholds
+    g256 = CoordGrid.from_coords(coords, 256)
+    for name, overlap in (("detection", False), ("detection_overlap", True)):
+        kept = wp.refined_tumor_probs(m_cpu, torch.from_numpy(feats), g256,
+                                      overlap).numpy()
+        near = int((np.abs(kept - 0.5) <= NEAR).sum())
+        _decision(name, card_out[name], cpu_out[name], near,
+                  near / len(kept) + 1e-7, gates)
+    gseg = CoordGrid.from_coords(seg_coords, WSI_SEG_PATCH)
+    p_seg = wp.refined_tumor_probs(m_cpu, torch.from_numpy(feats), gseg,
+                                   True).numpy()
+    labels = wp.patch_labels_from_mask(mask, gseg.kept_coords(seg_coords),
+                                       WSI_SEG_PATCH)
+    _, thd = roc_best_threshold(labels, p_seg)
+    pairs = _close_pairs(p_seg, labels)
+    n_pairs = float((labels == 1).sum()) * float((labels == 0).sum())
+    near_thd = int((np.abs(p_seg - thd) <= NEAR).sum())
+    _decision("segmentation_auroc", card_out["segmentation"][0],
+              cpu_out["segmentation"][0], pairs, pairs / n_pairs + 1e-12,
+              gates)
+    # a patch that crosses the threshold repaints k low-resolution pixels
+    k = (WSI_SEG_PATCH / 16) ** 2
+    painted = (np.count_nonzero(mask[::16, ::16])
+               + float((p_seg > thd).sum()) * k)
+    _decision("segmentation_dice", card_out["segmentation"][1],
+              cpu_out["segmentation"][1], near_thd + pairs,
+              4 * k * (near_thd + pairs) / painted, gates)
+    from keep_tpu_torch.wsi.grid import refine_grid
+
+    g4, occ = g256.scatter(wp.score_tiles(cls4, torch.from_numpy(feats)))
+    refined4 = g256.gather(refine_grid(g4, occ))
+    top2 = torch.topk(refined4, 2, -1).values
+    near_sub = int(((top2[:, 0] - top2[:, 1]) <= NEAR).sum())
+    frac = np.sort(cpu_out["subtyping"][1][:-1])
+    label_near = near_sub if frac[-1] - frac[-2] <= 2 * near_sub / len(
+        refined4) else 0
+    _decision("subtype_label", card_out["subtyping"][0],
+              cpu_out["subtyping"][0], label_near, 3.0, gates)
+    _decision("subtype_fractions", card_out["subtyping"][1],
+              cpu_out["subtyping"][1], near_sub,
+              near_sub / len(refined4) + 1e-7, gates)
+    hm_card, hm_cpu = card_out["tumor_heatmap"], cpu_out["tumor_heatmap"]
+    heat, hocc = wp.probability_heatmap(m_cpu, torch.from_numpy(feats),
+                                        coords, patch_size=256)
+    v = np.clip(heat[hocc > 0], 0.0, 1.0) * 255.0
+    near_hm = int((np.abs(v - np.floor(v) - 0.5) <= 255 * NEAR).sum())
+    differing = int((hm_card != hm_cpu).sum())
+    gates["heatmap"] = {"shape": list(hm_card.shape),
+                        "equal": bool(np.array_equal(hm_card, hm_cpu)),
+                        "near_rounding": near_hm,
+                        "differing_pixels": differing}
+    cell = 256 // 16  # pixels a side of one patch's cell
+    if differing > near_hm * cell * cell:
+        raise AssertionError(f"heatmap card vs CPU: {gates['heatmap']}")
+
+    # TF32 on: the card gives the same results; the control: without the
+    # guard TF32 moves the probabilities and the screening's scores
+    f_dev, s_dev = torch.from_numpy(feats).to(device), stack_cpu.to(device)
+    with tf32_on(torch):
+        tf32_out, _ = run(device, timed=False)
+        with unguarded_fp32():
+            loose = {"score_tiles": wp.score_tiles(m_card.to(device), f_dev),
+                     "screening_scores": zc._prompt_select_jit(
+                         s_dev, f_dev, WSI_TOPN)[1]}
+    control = {"score_tiles": (loose["score_tiles"]
+                               != card_out["score_tiles"]).float().mean().item(),
+               "screening_scores": (loose["screening_scores"]
+                                    != card_out["prompt_select"][1]
+                                    ).float().mean().item()}
+    del f_dev, s_dev, loose
+    if device == "cuda" and not all(v > 0 for v in control.values()):
+        raise AssertionError(f"TF32 control: without the guard TF32 moved "
+                             f"nothing, so the gate cannot see it: {control}")
+    same = {}
+    for k, v in card_out.items():
+        w = tf32_out[k]
+        if isinstance(v, tuple) and isinstance(v[0], torch.Tensor):
+            same[k] = all(torch.equal(a, b) for a, b in zip(v, w))
+        elif isinstance(v, torch.Tensor):
+            same[k] = bool(torch.equal(v, w))
+        elif isinstance(v, tuple):
+            same[k] = all(np.array_equal(a, b) for a, b in zip(v, w))
+        else:
+            same[k] = bool(np.array_equal(v, w))
+    if not all(same.values()):
+        raise AssertionError(f"TF32 on changed: {same}")
+    out = {"patches": n, "grid": [grid, grid], "topn": WSI_TOPN,
+           "seg_patch_px": WSI_SEG_PATCH, "seg_mask_px": int(mask.shape[0]),
+           "tumor_prob": card_out["detection"],
+           "tumor_prob_overlap": card_out["detection_overlap"],
+           "auroc_dice": list(card_out["segmentation"]),
+           "subtype": [card_out["subtyping"][0],
+                       card_out["subtyping"][1].tolist()],
+           "gates": gates, "same_with_tf32_on": same,
+           "tf32_unguarded_share_moved": control, "ms": ms}
+    if device == "cuda":
+        out["ms_total"] = sum(ms.values())
+        out["card"] = card()
+    phase("wsi_pipelines", **out)
+    return out
+
+
+def drive_wsi(torch, fa, d: str, device: str = "cuda", **sizes) -> dict:
+    """Phases 10–12 on the model in ``d``. ``sizes`` shrink them for a
+    rehearsal on the CPU (``slide_px``, ``batch_size``, ``n_prompts``,
+    ``n``, ``grid``)."""
+    ext = drive_wsi_extract(torch, fa, d, device, **{
+        k: sizes[k] for k in ("slide_px", "batch_size") if k in sizes})
+    cls = drive_wsi_classifier(
+        torch, fa, ext["model"], ext["model8"], ext["tokenizer"], device,
+        **{k: sizes[k] for k in ("n_prompts",) if k in sizes})
+    del ext["model"], ext["model8"]
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    pipes = drive_wsi_pipelines(torch, cls["stack"], device, **{
+        k: sizes[k] for k in ("n", "grid") if k in sizes})
+    return {"extract": ext["result"], "classifier": cls["result"],
+            "pipelines": pipes}
+
+
 def kernel_ms(torch, prof) -> dict[str, float]:
     """Device ms by kernel name (first 80 characters) of a torch.profiler
     trace."""
@@ -1746,12 +2517,15 @@ def main() -> int:
         served8, core8, _ = drive_server(torch, fa, serve, cfg, d_init,
                                          bf16_features=ref,
                                          plain_int8_features=ref8)
-    try:
-        throughput(torch, core8, np.random.default_rng(1), int8=True)
-    finally:
-        core8.stop()
-    del core8
-    torch.cuda.empty_cache()
+        try:
+            throughput(torch, core8, np.random.default_rng(1), int8=True)
+        finally:
+            core8.stop()
+        del core8
+        torch.cuda.empty_cache()
+        # 10.–12. the zero-shot WSI sweep on the same weights
+        wsi = drive_wsi(torch, fa, d_init)
+        torch.cuda.empty_cache()
 
     # 8.–9. the attention backward, then training through the CLI
     bwd_rows = check_bwd_kernel(fa, torch, gen)
@@ -1763,7 +2537,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": kernel_line(
         rows, bwd_rows, heads_rows, heads_launches, int8_rows, ln_rows,
-        fused, served, served8, trained, f32_rows)}), flush=True)
+        fused, served, served8, trained, f32_rows, wsi)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1772,13 +2546,14 @@ def main() -> int:
 
 def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                 ln_rows, fused, served, served8, trained,
-                f32_rows) -> list[dict]:
+                f32_rows, wsi) -> list[dict]:
     """One entry per TPU kernel: its launches on the main path that runs it,
     and, at ViT-L B=32 in bf16 (the int8 kernels: the first shape of their
     phase), its time, its plain version's, its bound and the one PyTorch
     call that computes the same function (null where there is none). The
     attention sub-blocks also carry their attention's rows (``f32_rows``,
-    the bf16 → fp32 form at their tower's shapes)."""
+    the bf16 → fp32 form at their tower's shapes). The kernels of the WSI
+    sweep carry their launches on it (phases 10–11, bf16 and int8)."""
     def pick(rs, shape="vit_l16"):
         return next(r for r in rs if r["shape"] == shape and r["B"] == 32
                     and r["dtype"] == "bfloat16")
@@ -1797,7 +2572,12 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
         library_call="torch.nn.functional.scaled_dot_product_attention",
         library_kernel=vit["library_kernel"],
         launches_int8_path=served8["attention_launches"],
-        launches_train=trained["fwd_launches"], shapes=rows)]
+        launches_train=trained["fwd_launches"],
+        launches_wsi_path={
+            "extract": wsi["extract"]["attention_launches"],
+            "classifier_auto": wsi["classifier"]["attention_launches_auto"],
+            "classifier_flat": wsi["classifier"]["attention_launches_flat"]},
+        shapes=rows)]
     vit_bwd = pick(bwd_rows)
     kernels.append(entry(
         "attention_qkv_slab_bwd", BWD_SOURCE, BWD_REPLACES,
@@ -1844,6 +2624,10 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
             "int8_code_diff_share": max(r["int8_code_diff_share"]
                                         for r in shapes),
             "shapes": shapes})
+        wsi_int8 = {"extract": wsi["extract"]["int8_launches"],
+                    "classifier": wsi["classifier"]["int8_launches"]}
+        kernels[-1]["launches_wsi_int8_path"] = {
+            k: v.get(kname, 0) for k, v in wsi_int8.items()}
         if kname in tower_of:
             kernels[-1]["attention_bf16_to_fp32"] = [
                 r for r in f32_rows if r["shape"] == tower_of[kname]]

@@ -1,4 +1,4 @@
-"""keep_tpu_torch — the KEEP serving path in PyTorch, for an NVIDIA H100.
+"""keep_tpu_torch — KEEP in PyTorch, for an NVIDIA H100.
 
 A port of ``keep_tpu`` (JAX on a TPU), which stays beside it as the
 reference. Module paths mirror the JAX package: ``keep_tpu_torch.models.vit``
@@ -8,7 +8,7 @@ compiled the first time a wrapper launches one.
 
 - ``configs``            — ViT / BERT / KEEP / preprocess dataclasses.
 - ``ops``                — linear, fp32 LayerNorm, GELU, attention, L2 norm;
-  tile normalisation and the resize window arithmetic.
+  the bicubic resize and tile normalisation on the device.
 - ``kernels``            — hand-written Hopper kernels and their plain
   PyTorch versions: ``attention_qkv_slab``, and the int8 W8A8 kernels
   (``quant_rows``, ``int8_gemm``, ``ln_rows``) that the int8 linear, MLP
@@ -19,6 +19,11 @@ compiled the first time a wrapper launches one.
 - ``text``               — WordPiece tokenizer.
 - ``serve``              — batching HTTP inference server
   (``python -m keep_tpu_torch.serve``).
+- ``io``, ``wsi``, ``zeroshot``, ``metrics`` — the zero-shot WSI sweep:
+  tissue tiles, features, prompt-ensemble classifiers, detection /
+  segmentation / subtyping (``python -m keep_tpu_torch.wsi.run``).
+- ``train``              — the training CLI (``python -m
+  keep_tpu_torch.train.main``).
 """
 
 __version__ = "0.1.0"

@@ -14,6 +14,9 @@ Conventions, as in the JAX package:
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -119,6 +122,58 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
                  eps: float = 1e-12) -> torch.Tensor:
     """``F.normalize`` semantics, x / max(||x||, eps), computed in fp32."""
     return F.normalize(x.float(), dim=dim, eps=eps).to(x.dtype)
+
+
+def tf32_state() -> tuple:
+    """cuBLAS's fp32-matmul precision as PyTorch's two APIs hold it: (the
+    legacy ``allow_tf32``, or None where reading it raises because only
+    ``fp32_precision`` was set, and ``fp32_precision``)."""
+    matmul = torch.backends.cuda.matmul
+    try:
+        legacy = matmul.allow_tf32
+    except RuntimeError:
+        legacy = None
+    return legacy, matmul.fp32_precision
+
+
+def restore_tf32(state: tuple) -> None:
+    """Put back a ``tf32_state()``, in the API(s) it was set through."""
+    legacy, precision = state
+    if legacy is not None:
+        torch.backends.cuda.matmul.allow_tf32 = legacy
+    torch.backends.cuda.matmul.fp32_precision = precision
+
+
+_ieee_lock = threading.Lock()
+_ieee_depth = 0
+_ieee_saved: tuple = ()
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """fp32 products at full fp32 precision, whatever the caller's TF32
+    setting: the WSI sweep's fp32 einsums (scores, screening, the bicubic
+    passes) feed strict thresholds and roundings, which TF32's 10-bit
+    mantissa would move.
+
+    The setting is process-global, so for the duration every thread's fp32
+    products run at full precision. Nested and concurrent uses share one
+    depth count: the first to enter saves the caller's setting and the
+    last to leave restores it."""
+    global _ieee_depth, _ieee_saved
+    with _ieee_lock:
+        if _ieee_depth == 0:
+            _ieee_saved = tf32_state()
+            # the legacy setter sets both APIs' state consistently
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _ieee_depth += 1
+    try:
+        yield
+    finally:
+        with _ieee_lock:
+            _ieee_depth -= 1
+            if _ieee_depth == 0:
+                restore_tf32(_ieee_saved)
 
 
 class Linear(nn.Module):

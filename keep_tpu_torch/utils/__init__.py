@@ -1,2 +1,2 @@
-"""Host helpers of the training entry point: logging, metric writers and
-batch prefetch (counterparts of ``keep_tpu/utils``)."""
+"""Host helpers: logging, metric writers, batch prefetch, and the card's
+round trip and copy rate (counterparts of ``keep_tpu/utils``)."""

@@ -5,13 +5,16 @@ also runs on a machine without it:
     python -m pytest tests/test_torch_gpu.py -m gpu -q
 """
 
+import contextlib
+
 import pytest
 import torch
 
 from keep_tpu_torch.kernels import _kops, qblock, qmatmul, qmlp
 from keep_tpu_torch.kernels import flash_attention as fa
 from keep_tpu_torch.kernels import ln_matmul as lm
-from keep_tpu_torch.ops.nn import LayerNorm, QLinear
+from keep_tpu_torch.ops.nn import (LayerNorm, QLinear, restore_tf32,
+                                   tf32_state)
 from keep_tpu_torch.quant import quantize_kernel
 
 pytestmark = pytest.mark.gpu
@@ -21,8 +24,20 @@ pytestmark = pytest.mark.gpu
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.Generator(device="cuda").manual_seed(0)
+    with _tf32(False):
+        yield torch.Generator(device="cuda").manual_seed(0)
+
+
+@contextlib.contextmanager
+def _tf32(on: bool):
+    """cuBLAS's fp32 matmuls with TF32 ``on``; the caller's setting
+    restored on exit."""
+    saved = tf32_state()
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        restore_tf32(saved)
 
 
 # sequence lengths around the bf16 body's 64-row tiles and 16-row mma
@@ -816,3 +831,128 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
         lm.ln_matmul(x, shifted, one, w, zero)
     with pytest.raises(ValueError, match="aligned ln_bias"):
         lm.ln_matmul(x, one, shifted, w, zero)
+
+
+# ---- the zero-shot WSI sweep on the card ------------------------------------
+
+
+@contextlib.contextmanager
+def _unguarded():
+    """The sweep's fp32 products without ``ieee_fp32``: the control that
+    shows the guard is what keeps TF32 out."""
+    from keep_tpu_torch.ops import preprocess
+    from keep_tpu_torch.wsi import pipelines
+    from keep_tpu_torch.zeroshot import classifier
+
+    mods = (preprocess, pipelines, classifier)
+    saved = [m.ieee_fp32 for m in mods]
+    for m in mods:
+        m.ieee_fp32 = contextlib.nullcontext
+    try:
+        yield
+    finally:
+        for m, g in zip(mods, saved):
+            m.ieee_fp32 = g
+
+
+def _pixels_255(x):
+    from keep_tpu_torch.configs import PreprocessConfig
+
+    cfg = PreprocessConfig()
+    mean = torch.tensor(cfg.mean, device=x.device)
+    std = torch.tensor(cfg.std, device=x.device)
+    return (x * std + mean) * 255.0
+
+
+@pytest.mark.parametrize("shape", [(32, 256, 256), (4, 448, 300)])
+def test_bicubic_on_the_card_matches_the_cpu(cuda, shape):
+    """The card's two fp32 einsums against the CPU's: ≤ 1/255 per pixel
+    before normalisation (a sum within float noise of a .5 may round the
+    other way between the passes), and the same bits with TF32 on."""
+    from keep_tpu_torch.ops.preprocess import preprocess
+
+    g = torch.Generator().manual_seed(0)
+    tiles = torch.randint(0, 256, (*shape, 3), dtype=torch.uint8, generator=g)
+    got = preprocess(tiles.cuda())
+    ref = preprocess(tiles)
+    diff = (_pixels_255(got.cpu()) - _pixels_255(ref)).abs()
+    assert diff.max().item() <= 1.0 + 1e-3
+    assert (diff > 0.5).float().mean().item() <= 0.01
+    with _tf32(True):
+        assert torch.equal(preprocess(tiles.cuda()), got)
+        # the control: without the guard TF32 moves the pixels
+        with _unguarded():
+            assert not torch.equal(preprocess(tiles.cuda()), got)
+
+
+def test_scores_and_screening_on_the_card(cuda):
+    """score_tiles and the prompt screening on the card against the CPU
+    (probabilities and the merged classifier at 1e-5, the same top-n set),
+    and the same bits with TF32 on."""
+    from keep_tpu_torch.wsi.pipelines import score_tiles
+    from keep_tpu_torch.zeroshot.classifier import _prompt_select_jit
+
+    g = torch.Generator().manual_seed(0)
+    feats = torch.randn(5000, 768, generator=g)
+    stack = torch.nn.functional.normalize(torch.randn(300, 768, 2,
+                                                      generator=g), dim=1)
+    got = score_tiles(stack[0], feats.cuda())
+    torch.testing.assert_close(got.cpu(), score_tiles(stack[0], feats),
+                               atol=1e-5, rtol=0)
+    merged, scores, order = _prompt_select_jit(stack.cuda(), feats.cuda(), 50)
+    m_cpu, s_cpu, o_cpu = _prompt_select_jit(stack, feats, 50)
+    assert set(order.tolist()) == set(o_cpu.tolist())
+    torch.testing.assert_close(merged.cpu(), m_cpu, atol=1e-5, rtol=0)
+    with _tf32(True):
+        assert torch.equal(score_tiles(stack[0], feats.cuda()), got)
+        again = _prompt_select_jit(stack.cuda(), feats.cuda(), 50)
+        assert all(torch.equal(a, b) for a, b in zip(again,
+                                                     (merged, scores, order)))
+        # the control: without the guard TF32 moves the probabilities and
+        # the screening's scores
+        with _unguarded():
+            assert not torch.equal(score_tiles(stack[0], feats.cuda()), got)
+            assert not torch.equal(
+                _prompt_select_jit(stack.cuda(), feats.cuda(), 50)[1], scores)
+
+
+def test_extract_features_on_the_card(cuda):
+    """A small bf16 KEEP with the fused attention: one attention launch per
+    block and batch, pipeline depths 1, 2 and 3 give the same bits, and the
+    features hold cosine ≥ 0.999 against plain attention."""
+    from keep_tpu_torch.compat.torch_loader import (load_keep_state_dict,
+                                                    random_keep_state_dict)
+    from keep_tpu_torch.configs import BertConfig, KEEPConfig, ViTConfig
+    from keep_tpu_torch.models.keep import KEEPModel
+    from keep_tpu_torch.wsi.extract import extract_features
+
+    cfg = KEEPConfig(vision=ViTConfig(img_size=32, patch_size=8,
+                                      embed_dim=128, depth=2, num_heads=2),
+                     text=BertConfig(vocab_size=64, hidden_size=128,
+                                     num_hidden_layers=1,
+                                     num_attention_heads=2,
+                                     intermediate_size=256,
+                                     max_position_embeddings=32),
+                     projection_dim=128)
+    sd = load_keep_state_dict(random_keep_state_dict(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda"),
+        cfg)
+    model = KEEPModel(cfg, device="cuda", dtype=torch.bfloat16,
+                      use_flash=True)
+    model.load_state_dict(sd)
+    plain = KEEPModel(cfg, device="cuda", dtype=torch.bfloat16)
+    plain.load_state_dict(sd)
+    g = torch.Generator().manual_seed(0)
+    tiles = torch.randint(0, 256, (37, 32, 32, 3), dtype=torch.uint8,
+                          generator=g).numpy()
+    n0 = fa.LAUNCHES
+    feats = extract_features(model, tiles, batch_size=8)
+    assert fa.LAUNCHES - n0 == 5 * cfg.vision.depth
+    assert feats.shape == (37, 128)
+    for depth in (1, 3):
+        assert (extract_features(model, tiles, batch_size=8,
+                                 pipeline_depth=depth) == feats).all()
+    ref = extract_features(plain, tiles, batch_size=8)
+    cos = (feats * ref).sum(1) / ((feats ** 2).sum(1) * (ref ** 2).sum(1)
+                                  ) ** 0.5
+    assert cos.min() >= 0.999

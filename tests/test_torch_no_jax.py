@@ -12,7 +12,8 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((REPO / "keep_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "scripts" / "torch_attention_exp_share.py",
-    REPO / "scripts" / "torch_dispatch_profile.py"]
+    REPO / "scripts" / "torch_dispatch_profile.py",
+    REPO / "scripts" / "torch_screening_bench.py"]
 
 
 def test_imports_leave_jax_unloaded():
@@ -28,6 +29,12 @@ def test_imports_leave_jax_unloaded():
         "import keep_tpu_torch.train.main, keep_tpu_torch.utils.writers\n"
         "from keep_tpu_torch.train import (checkpoint, config, data, freeze, "
         "loss, optim, schedules, trainer)\n"
+        "import keep_tpu_torch.wsi.run, keep_tpu_torch.wsi.extract, "
+        "keep_tpu_torch.wsi.cohort, keep_tpu_torch.wsi.pipelines\n"
+        "import keep_tpu_torch.zeroshot, keep_tpu_torch.zeroshot.prompts, "
+        "keep_tpu_torch.metrics, keep_tpu_torch.io.tiles, "
+        "keep_tpu_torch.io.h5, keep_tpu_torch.utils.rtt\n"
+        "from keep_tpu_torch.ops.preprocess import preprocess\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'keep_tpu'))\n"
         "assert not bad, bad\n"
