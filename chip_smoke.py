@@ -145,6 +145,37 @@ gives them (batch 256; text widths as dispatched).
     a threshold counted; only they may move a value, by at most what they
     can move it). Prints the ms of each step.
 
+After phase 9:
+
+13. lora_train — ``keep_tpu_torch.train.main.main([..., "--device",
+    "cuda"])`` on phase 9's values and data with ``solver.lora_rank`` 8
+    (α 16, the default targets), the eval every epoch on eval sets written
+    from a seed (256 PNG tiles in 4 classes with a 50-round prompt JSON,
+    256 retrieval pairs, 256 validation pairs), checkpoints every epoch
+    written asynchronously and a remote sync to a local directory: 2
+    epochs of 4 steps, both towers frozen in epoch 0. Gates: every loss
+    finite; after every step every base parameter bit-equal to its value
+    at step 0, which is the seed's draw; at step 0 the merged model's
+    features bit-equal to the base's (b = 0); in epoch 0 the towers'
+    adapters unmoved and the visual head's moved; the steps' launches as
+    phase 9's; each eval's first image and text batch at cosine ≥ 0.999
+    per row of the same merged weights with plain attention, and one
+    attention launch per block of each of its encodes; every eval metric
+    finite, in [0, 1] or a rank ≥ 1; epoch 0's checkpoint, written while
+    epoch 1 ran, bit-equal to the adapters at epoch 0's end; the synced
+    copy byte for byte, without a ``.tmp``. Prints ms per unfrozen LoRA
+    step, samples/s, peak device memory, the last step's device ms by
+    kernel family, the eval's seconds, and the async saves' blocking ms
+    beside a synchronous save's.
+14. lora_serve — ``serve.build_server(["--lora", <phase 13's
+    checkpoints>, ...])`` over the run's base (the seed's draw in the
+    released layout), the scale from the run's params.txt, in bf16 and
+    with ``--int8``: every targeted weight's fp32 values bit-equal to
+    ``merge_lora`` of the restored adapters (the stored bf16 weight their
+    one rounding); bf16 features finite unit rows at cosine ≥ 0.999 per
+    row of the trained model's own merged encode; int8 at ≥ 0.999 of the
+    bf16 server's; the int8 sub-block and MLP launches cover every block.
+
 Then one JSON line describing the kernels (each TPU kernel's counterpart:
 its launches on the path that runs it, its time, its plain version's, its
 bound — the larger of its operations over the card's peak for their type
@@ -157,6 +188,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import filecmp
 import io
 import json
 import os
@@ -1203,6 +1235,123 @@ def train_config(d: str, keep: dict | None = None, batch_size: int = 128,
     }
 
 
+@contextlib.contextmanager
+def uncounted(fa):
+    """Kernel launches inside the block (checks beside the main path) left
+    out of the launch counts."""
+    from keep_tpu_torch.kernels import _kops
+
+    with fa._launch_lock:
+        saved = fa.LAUNCHES, fa.BWD_LAUNCHES
+    with _kops._launch_lock:
+        saved_int8 = dict(_kops.LAUNCHES)
+    try:
+        yield
+    finally:
+        with fa._launch_lock:
+            fa.LAUNCHES, fa.BWD_LAUNCHES = saved
+        with _kops._launch_lock:
+            _kops.LAUNCHES.clear()
+            _kops.LAUNCHES.update(saved_int8)
+
+
+@contextlib.contextmanager
+def counted_steps(torch, fa, tmain, steps: list, traced: dict, trace_at: int,
+                  device: str, before=None, after=None):
+    """``tmain.make_train_step`` wrapped for the span of the block: each
+    step timed between device synchronisations and its attention launches
+    counted (forward, backward) into ``steps``; on the card step
+    ``trace_at`` is traced with torch.profiler (its device ms by kernel
+    into ``traced``). ``before`` / ``after(i, state, batch, model, kw)``
+    run around step i, outside its timing and the launch counts."""
+    make_step = tmain.make_train_step
+
+    def timed_make_train_step(model, *args, static_frozen=None, **kw):
+        inner = make_step(model, *args, static_frozen=static_frozen, **kw)
+
+        def step(state, batch, frozen=None):
+            i = len(steps)
+            if before is not None:
+                with uncounted(fa):
+                    before(i, state, batch, model, kw)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            f0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+            t0 = time.perf_counter()
+            if device == "cuda" and i == trace_at:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    state, metrics = inner(state, batch, frozen)
+                    loss = float(metrics["loss"])
+                traced.update(kernel_ms(torch, prof))
+            else:
+                state, metrics = inner(state, batch, frozen)
+                loss = float(metrics["loss"])  # waits for the step
+            steps.append({"frozen": static_frozen is not None,
+                          "ms": (time.perf_counter() - t0) * 1e3,
+                          "loss": loss, "fwd_launches": fa.LAUNCHES - f0,
+                          "bwd_launches": fa.BWD_LAUNCHES - b0})
+            if after is not None:
+                with uncounted(fa):
+                    after(i, state, batch, model, kw)
+            return state, metrics
+
+        return step
+
+    tmain.make_train_step = timed_make_train_step
+    try:
+        yield
+    finally:
+        tmain.make_train_step = make_step
+
+
+def check_steps(steps: list, blocks: int, steps_per_epoch: int) -> None:
+    """Epoch 0 frozen, epoch 1 open; every loss finite; a frozen step
+    launches the forward kernel once per block and no backward, an open
+    one the forward twice per block (remat) and the backward once."""
+    want_phases = [True] * steps_per_epoch + [False] * steps_per_epoch
+    if [s["frozen"] for s in steps] != want_phases:
+        raise AssertionError(f"steps: {[s['frozen'] for s in steps]}")
+    for i, s in enumerate(steps):
+        if not np.isfinite(s["loss"]):
+            raise AssertionError(f"step {i}: loss {s['loss']}")
+        want = (blocks, 0) if s["frozen"] else (2 * blocks, blocks)
+        if (s["fwd_launches"], s["bwd_launches"]) != want:
+            raise AssertionError(
+                f"step {i}: forward / backward launches "
+                f"{s['fwd_launches']} / {s['bwd_launches']}, want {want}")
+
+
+def step_numbers(torch, steps: list, traced: dict, batch: int) -> dict:
+    """ms per open and frozen step (each phase's first step, which carries
+    its one-off setup, and the traced step left out), samples/s, and the
+    traced step's device ms by kernel family."""
+    open_ms = [s["ms"] for s in steps if not s["frozen"]][1:]
+    if traced:
+        open_ms = open_ms[:-1]
+    frozen_ms = [s["ms"] for s in steps if s["frozen"]][1:]
+    from scripts.torch_dispatch_profile import family
+
+    families: dict[str, float] = {}
+    for k, v in traced.items():
+        fam = next((f for f in ("slab_attention_bwd", "slab_attention")
+                    if f in k), family(k))
+        families[fam] = families.get(fam, 0.0) + v
+    busy = sum(traced.values())
+    return {"ms_per_unfrozen_step": statistics.median(open_ms),
+            "ms_per_frozen_step": statistics.median(frozen_ms),
+            "step_ms": [s["ms"] for s in steps],
+            "samples_per_s_unfrozen":
+                batch / statistics.median(open_ms) * 1e3,
+            "traced_unfrozen_step": {
+                "step_ms": steps[-1]["ms"] if traced else "not measured",
+                "device_busy_ms": busy if traced else "not measured",
+                "ms_by_family": families,
+                "top_kernels_ms": sorted(traced.items(),
+                                         key=lambda kv: -kv[1])[:12]}}
+
+
 def drive_train(torch, fa, d: str, raw: dict, blocks: int,
                 steps_per_epoch: int, device: str = "cuda") -> dict:
     """Phase 9: the training entry point on ``raw`` (``train_config`` with
@@ -1221,39 +1370,11 @@ def drive_train(torch, fa, d: str, raw: dict, blocks: int,
         json.dump(raw, f)
     steps: list[dict] = []
     traced: dict[str, float] = {}
-    make_step = tmain.make_train_step
-
-    def timed_make_train_step(*args, static_frozen=None, **kw):
-        inner = make_step(*args, static_frozen=static_frozen, **kw)
-
-        def step(state, batch, frozen=None):
-            if device == "cuda":
-                torch.cuda.synchronize()
-            f0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
-            t0 = time.perf_counter()
-            if device == "cuda" and len(steps) == 2 * steps_per_epoch - 1:
-                from torch.profiler import ProfilerActivity, profile
-
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    state, metrics = inner(state, batch, frozen)
-                    loss = float(metrics["loss"])
-                traced.update(kernel_ms(torch, prof))
-            else:
-                state, metrics = inner(state, batch, frozen)
-                loss = float(metrics["loss"])  # waits for the step
-            steps.append({"frozen": static_frozen is not None,
-                          "ms": (time.perf_counter() - t0) * 1e3,
-                          "loss": loss, "fwd_launches": fa.LAUNCHES - f0,
-                          "bwd_launches": fa.BWD_LAUNCHES - b0})
-            return state, metrics
-
-        return step
-
-    tmain.make_train_step = timed_make_train_step
-    try:
-        if device == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    with counted_steps(torch, fa, tmain, steps, traced,
+                       2 * steps_per_epoch - 1, device):
         with fa._launch_lock:
             fa.LAUNCHES = fa.BWD_LAUNCHES = 0
         t0 = time.perf_counter()
@@ -1262,22 +1383,11 @@ def drive_train(torch, fa, d: str, raw: dict, blocks: int,
         fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
         # --------------------------------------------------------------------
         wall_s = time.perf_counter() - t0
-    finally:
-        tmain.make_train_step = make_step
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
 
     out_dir = os.path.join(raw["save"]["output_dir"], "smoke")
     per_epoch = steps_per_epoch
-    if [s["frozen"] for s in steps] != [True] * per_epoch + [False] * per_epoch:
-        raise AssertionError(f"steps: {[s['frozen'] for s in steps]}")
-    for i, s in enumerate(steps):
-        if not np.isfinite(s["loss"]):
-            raise AssertionError(f"step {i}: loss {s['loss']}")
-        want = (blocks, 0) if s["frozen"] else (2 * blocks, blocks)
-        if (s["fwd_launches"], s["bwd_launches"]) != want:
-            raise AssertionError(
-                f"step {i}: forward / backward launches "
-                f"{s['fwd_launches']} / {s['bwd_launches']}, want {want}")
+    check_steps(steps, blocks, steps_per_epoch)
     if bwd != per_epoch * blocks or fwd != per_epoch * 3 * blocks:
         raise AssertionError(f"launches {fwd} / {bwd}")
     with open(os.path.join(out_dir, "checkpoints", "results.jsonl")) as f:
@@ -1323,38 +1433,447 @@ def drive_train(torch, fa, d: str, raw: dict, blocks: int,
     if not moved["visual_head"][0]:
         raise AssertionError(f"the visual head did not train in epoch 0: "
                              f"{moved_share}")
-    # the first step of a phase carries its one-off setup; the traced step
-    # carries the profiler's
-    open_ms = [s["ms"] for s in steps if not s["frozen"]][1:]
-    if traced:
-        open_ms = open_ms[:-1]
-    frozen_ms = [s["ms"] for s in steps if s["frozen"]][1:]
-    from scripts.torch_dispatch_profile import family
-
-    families: dict[str, float] = {}
-    for k, v in traced.items():
-        fam = next((f for f in ("slab_attention_bwd", "slab_attention")
-                    if f in k), family(k))
-        families[fam] = families.get(fam, 0.0) + v
-    busy = sum(traced.values())
-    batch = raw["dataloader"]["batch_size"]
     out = {"card": card() if device == "cuda" else "cpu",
            "epoch_losses": losses, "step_losses": [s["loss"] for s in steps],
            "freeze_checks": checks, "leaves_moved_share": moved_share,
            "fwd_launches": fwd,
            "bwd_launches": bwd, "checkpoint_step": restored["step"],
-           "ms_per_unfrozen_step": statistics.median(open_ms),
-           "ms_per_frozen_step": statistics.median(frozen_ms),
-           "step_ms": [s["ms"] for s in steps],
-           "samples_per_s_unfrozen": batch / statistics.median(open_ms) * 1e3,
-           "peak_memory_gb": peak / 1e9, "wall_s": wall_s,
-           "traced_unfrozen_step": {
-               "step_ms": steps[-1]["ms"] if traced else "not measured",
-               "device_busy_ms": busy if traced else "not measured",
-               "ms_by_family": families,
-               "top_kernels_ms": sorted(traced.items(),
-                                        key=lambda kv: -kv[1])[:12]}}
+           **step_numbers(torch, steps, traced,
+                          raw["dataloader"]["batch_size"]),
+           "peak_memory_gb": peak / 1e9, "wall_s": wall_s}
     phase("train", **out)
+    return out
+
+
+# ---- 13.–14. LoRA fine-tuning with the in-training eval, then serve --lora --
+
+# the zero-shot classes of the LoRA phase's eval set, and the prompt
+# templates its 50 rounds cycle through
+LORA_CLASSES = {"luad": "lung adenocarcinoma",
+                "lusc": "lung squamous cell carcinoma",
+                "mel": "melanoma", "rcc": "renal cell carcinoma"}
+LORA_TEMPLATES = ["an h&e image of CLASSNAME.", "CLASSNAME.",
+                  "an image of CLASSNAME tissue.", "this is CLASSNAME."]
+
+
+def write_eval_sets(d: str, img_dir: str, n: int = 256,
+                    size: int = 240) -> dict:
+    """The eval sets from a numpy seed: ``n`` PNG tiles in the 4 classes
+    (cls.csv) with a 50-round prompt JSON, ``n`` retrieval pairs (ret.csv)
+    and ``n`` validation pairs (val.csv, its tiles in the training image
+    dir ``img_dir``). Returns the dataset section's entries."""
+    from PIL import Image
+
+    rng = np.random.default_rng(1)
+    ev_dir = os.path.join(d, "eval_images")
+    os.makedirs(ev_dir)
+
+    def tiles(folder: str, prefix: str) -> list[str]:
+        names = [f"{prefix}{i}.png" for i in range(n)]
+        for name in names:
+            Image.fromarray(rng.integers(0, 256, (size, size, 3),
+                                         dtype=np.uint8)).save(
+                os.path.join(folder, name))
+        return names
+
+    def csv(name: str, header: str, rows) -> str:
+        path = os.path.join(d, name)
+        with open(path, "w") as f:
+            f.write(header + "\n" + "\n".join(f"{a},{b}" for a, b in rows))
+        return path
+
+    classes = list(LORA_CLASSES)
+    cls_rows = [(t, classes[i % 4])
+                for i, t in enumerate(tiles(ev_dir, "cls"))]
+    caption = lambda i: TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]  # noqa
+    ret_rows = [(t, caption(i)) for i, t in enumerate(tiles(ev_dir, "ret"))]
+    val_rows = [(t, caption(i + 1))
+                for i, t in enumerate(tiles(img_dir, "val"))]
+    prompts = {str(r): {"classnames": LORA_CLASSES,
+                        "templates": LORA_TEMPLATES[r % len(LORA_TEMPLATES)]}
+               for r in range(50)}
+    prompts_path = os.path.join(d, "prompts.json")
+    with open(prompts_path, "w") as f:
+        json.dump(prompts, f)
+    return {"zeroshot_cls": csv("cls.csv", "image_name,label", cls_rows),
+            "zeroshot_cls_imdir": ev_dir,
+            "zeroshot_cls_prompts": prompts_path,
+            "zeroshot_ret": csv("ret.csv", "image_name,caption", ret_rows),
+            "zeroshot_ret_imdir": ev_dir,
+            "val_data": csv("val.csv", "image_name,caption", val_rows)}
+
+
+def lora_train_config(d: str, keep: dict | None = None, n_eval: int = 256,
+                      **kw) -> dict:
+    """``train_config`` (phase 9's values and data) with LoRA r 8, α 16 on
+    the default targets, the eval every epoch on ``write_eval_sets``,
+    checkpoints every epoch written asynchronously, and a remote sync to a
+    local directory."""
+    raw = train_config(d, keep=keep, **kw)
+    size = raw["keep"].get("vision", {}).get("img_size", 224)
+    raw["dataset"].update(write_eval_sets(d, raw["dataset"]["img_dir"],
+                                          n=n_eval, size=size + 16))
+    raw["solver"].update(lora_rank=8, lora_alpha=16.0, zeroshot_frequency=1)
+    raw["save"].update(experiment_name="lora", async_checkpointing=True,
+                       remote_sync=os.path.join(d, "remote"))
+    return raw
+
+
+def drive_lora_train(torch, fa, d: str, raw: dict, blocks: int,
+                     steps_per_epoch: int, device: str = "cuda") -> dict:
+    """Phase 13: the training entry point on ``raw``
+    (``lora_train_config``), its steps timed and counted as in phase 9,
+    the eval timed and its encodes counted, the async saves' blocking time
+    measured. Returns the phase's result; ``result["ckpt_dir"]`` holds the
+    adapters phase 14 serves."""
+    from keep_tpu_torch.train import checkpoint as ckpt
+    from keep_tpu_torch.train import lora
+    from keep_tpu_torch.train import main as tmain
+    from keep_tpu_torch.train.config import TrainRunConfig
+
+    cfg = TrainRunConfig.from_dict(json.loads(json.dumps(raw)))
+    path = os.path.join(d, "lora.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    steps: list[dict] = []
+    traced: dict[str, float] = {}
+    snap: dict = {}
+    gates: dict = {}
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def before(i, state, batch, model, kw):
+        if i == 0:  # on the host: a copy on the card would count in the peak
+            snap["base"] = {n: t.cpu() for n, t in kw["base"].items()}
+            snap["adapters"] = {n: t.detach().clone()
+                                for n, t in state.params.items()}
+            # b = 0: the merged model is the base, bit for bit
+            px = batch["pixels"][:8]
+            ids, mask = batch["input_ids"][:8], batch["attention_mask"][:8]
+            merged = lora.apply_lora(kw["base"], state.params,
+                                     kw["lora_scale"])
+            with torch.inference_mode():
+                feats = [(model.encode_image(px),
+                          model.encode_text(ids, mask))]
+                with lora.swapped(model, merged):
+                    feats.append((model.encode_image(px),
+                                  model.encode_text(ids, mask)))
+            gates["step0_merged_equals_base"] = all(
+                torch.equal(a, b) for a, b in zip(*feats))
+        if i == steps_per_epoch:  # epoch 0's end, epoch 1 not started
+            snap["epoch0_end"] = {n: t.detach().clone()
+                                  for n, t in state.params.items()}
+
+    def after(i, state, batch, model, kw):
+        bad = [n for n, t in kw["base"].items()
+               if not torch.equal(t.cpu(), snap["base"][n])]
+        if bad:
+            raise AssertionError(f"step {i}: base parameters moved: "
+                                 f"{bad[:5]}")
+
+    evals: list[dict] = []
+    real_evaluate, real_encoders = tmain.evaluate, tmain.eval_encoders
+
+    def timed_evaluate(*args, **kw):
+        rec = {"image_calls": 0, "text_calls": 0}
+        evals.append(rec)
+        sync()
+        f0, t0 = fa.LAUNCHES, time.perf_counter()
+        out = real_evaluate(*args, **kw)
+        sync()
+        rec.update(seconds=time.perf_counter() - t0,
+                   launches=fa.LAUNCHES - f0)
+        return out
+
+    def recording_encoders(model, weights, dev):
+        enc_img, enc_txt = real_encoders(model, weights, dev)
+        rec = evals[-1]
+
+        def held(fn, key, *args):
+            """The first call's features against the same merged weights
+            with plain attention."""
+            out = fn(*args)
+            if key not in rec:
+                with uncounted(fa):
+                    model.use_flash = False
+                    try:
+                        ref = fn(*args)
+                    finally:
+                        model.use_flash = True
+                rec[key] = float(cosine_rows(out.float().cpu().numpy(),
+                                             ref.float().cpu().numpy()).min())
+            return out
+
+        def image(px):
+            rec["image_calls"] += 1
+            return held(enc_img, "image_cos_vs_plain", px)
+
+        def text(ids, mask):
+            rec["text_calls"] += 1
+            return held(enc_txt, "text_cos_vs_plain", ids, mask)
+
+        return image, text
+
+    save_ms: list[float] = []
+    real_save = ckpt.CheckpointWriter.save
+
+    def timed_save(self, *args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        real_save(self, *args, **kw)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    tmain.evaluate, tmain.eval_encoders = timed_evaluate, recording_encoders
+    ckpt.CheckpointWriter.save = timed_save
+    try:
+        with counted_steps(torch, fa, tmain, steps, traced,
+                           2 * steps_per_epoch - 1, device, before, after):
+            with fa._launch_lock:
+                fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+            t0 = time.perf_counter()
+            # ---- the main path: the training CLI with LoRA --------------------
+            result = tmain.main(["--config", path, "--device", device])
+            fwd, bwd = fa.LAUNCHES, fa.BWD_LAUNCHES
+            # ------------------------------------------------------------------
+            wall_s = time.perf_counter() - t0
+    finally:
+        tmain.evaluate, tmain.eval_encoders = real_evaluate, real_encoders
+        ckpt.CheckpointWriter.save = real_save
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+    out_dir = os.path.join(raw["save"]["output_dir"], "lora")
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+    check_steps(steps, blocks, steps_per_epoch)
+    if not gates.get("step0_merged_equals_base"):
+        raise AssertionError("step 0: the merged model's features differ "
+                             "from the base's")
+    vit_l, bert_l = cfg.keep.vision.depth, cfg.keep.text.num_hidden_layers
+    if len(evals) != 2:
+        raise AssertionError(f"{len(evals)} evals, want one an epoch")
+    for rec in evals:
+        want = rec["image_calls"] * vit_l + rec["text_calls"] * bert_l
+        if rec["launches"] != want or not rec["image_calls"]:
+            raise AssertionError(f"eval launches {rec}, want {want}")
+        for key in ("image_cos_vs_plain", "text_cos_vs_plain"):
+            if not rec[key] >= 0.999:
+                raise AssertionError(f"eval {key}: {rec[key]}")
+    eval_launches = sum(r["launches"] for r in evals)
+    if bwd != steps_per_epoch * blocks or \
+            fwd != steps_per_epoch * 3 * blocks + eval_launches:
+        raise AssertionError(f"launches {fwd} / {bwd}")
+    # the base: the seed's draw, unchanged by every step (checked after
+    # each); the snapshot taken at step 0 is that draw
+    init = tmain.build_model(cfg, device).state_dict()
+    if not all(torch.equal(init[n].cpu(), t)
+               for n, t in snap["base"].items()):
+        raise AssertionError("the base at step 0 is not the seed's draw")
+    del init
+    # epoch 0 froze both towers: their adapters stand as drawn, the visual
+    # head's moved; its checkpoint, written while epoch 1 ran, holds the
+    # adapters as they stood at its end
+    epoch0 = ckpt.restore(ckpt_dir, epoch=0)["params"]
+    end0 = {n: t.cpu() for n, t in snap["epoch0_end"].items()}
+    if epoch0.keys() != end0.keys() or not all(
+            torch.equal(epoch0[n], end0[n]) for n in end0):
+        raise AssertionError("epoch 0's async checkpoint differs from the "
+                             "adapters at its end")
+    start = {n: t.cpu() for n, t in snap["adapters"].items()}
+    towers_moved = [n for n in start if n.startswith(("visual.", "text."))
+                    and not torch.equal(start[n], end0[n])]
+    head_moved = [n for n in start if n.startswith("visual_head.")
+                  and not torch.equal(start[n], end0[n])]
+    if towers_moved or not head_moved:
+        raise AssertionError(f"epoch 0: tower adapters moved "
+                             f"{towers_moved[:3]}, head {head_moved}")
+    last = ckpt.restore(ckpt_dir)
+    open_moved = sum(not torch.equal(end0[n], last["params"][n])
+                     for n in end0 if n.startswith(("visual.", "text.")))
+    if open_moved < len(start) // 2:
+        raise AssertionError(f"epoch 1: {open_moved} tower adapters moved")
+    # the eval's metrics, every epoch
+    with open(os.path.join(ckpt_dir, "results.jsonl")) as f:
+        records = [json.loads(ln) for ln in f]
+    metrics = {}
+    for rec in records:
+        for k, v in rec.items():
+            if k in ("epoch", "train_loss"):
+                ok = np.isfinite(v)
+            elif "rank" in k:
+                ok = np.isfinite(v) and v >= 1
+            elif k == "val_contrastive_loss":
+                ok = np.isfinite(v) and v >= 0
+            else:
+                ok = 0 <= v <= 1
+            if not ok:
+                raise AssertionError(f"epoch {rec['epoch']}: {k} = {v}")
+        metrics[rec["epoch"]] = rec
+    if sorted(metrics) != [0, 1] or "zeroshot-cls-WF1-median" not in \
+            metrics[1] or "image_to_text_R@1" not in metrics[1]:
+        raise AssertionError(f"results {records}")
+    # the synced copy: the same files byte for byte, no temporary file
+    remote = raw["save"]["remote_sync"]
+    local_files = sorted(os.listdir(ckpt_dir))
+    remote_files = sorted(os.listdir(remote))
+    _, mismatch, errors = filecmp.cmpfiles(ckpt_dir, remote, local_files,
+                                           shallow=False)
+    if remote_files != local_files or mismatch or errors or any(
+            f.endswith(".tmp") for f in remote_files):
+        raise AssertionError(f"synced {remote_files} against {local_files}: "
+                             f"differ {mismatch}, {errors}")
+    # the same payload saved synchronously, for the blocking time
+    on_device = {k: v.to(device) for k, v in last["params"].items()}
+    opt = {"count": last["opt_state"]["count"],
+           **{m: {k: v.to(device) for k, v in last["opt_state"][m].items()}
+              for m in ("mu", "nu")}}
+    sync_ms = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            ckpt.save(tmp, 0, on_device, opt, step=last["step"])
+            sync_ms.append((time.perf_counter() - t0) * 1e3)
+    with open(os.path.join(out_dir, "out.log")) as f:
+        lora_line = next(ln for ln in f if "LoRA r=" in ln).split("| ")[-1]
+    n_ad, n_ab = lora.lora_param_count(last["params"])
+    out = {"card": card() if device == "cuda" else "cpu",
+           "lora": lora_line.strip(), "adapter_values": n_ad,
+           "ab_values": n_ab,
+           "step_losses": [s["loss"] for s in steps],
+           "fwd_launches": fwd, "bwd_launches": bwd,
+           "train_fwd_launches": fwd - eval_launches,
+           "eval_launches": eval_launches,
+           **step_numbers(torch, steps, traced,
+                          raw["dataloader"]["batch_size"]),
+           "peak_memory_gb": peak / 1e9, "wall_s": wall_s,
+           "eval": evals, "eval_seconds": [r["seconds"] for r in evals],
+           "metrics_epoch1": {k: v for k, v in metrics[1].items()
+                              if k != "epoch"},
+           "async_save_blocking_ms": save_ms,
+           "sync_save_ms": sync_ms, "synced_files": remote_files,
+           "result_epoch": result["epoch"], "ckpt_dir": ckpt_dir}
+    phase("lora_train", **{k: v for k, v in out.items() if k != "ckpt_dir"})
+    return out
+
+
+def drive_lora_serve(torch, serve, raw: dict, ckpt_dir: str, d: str,
+                     device: str = "cuda") -> dict:
+    """Phase 14: ``build_server(["--lora", ckpt_dir, ...])`` over the base
+    the run trained (the seed's draw, written in the released layout with
+    the run's vocab), the scale from the run's params.txt, once in bf16 and
+    once with ``--int8``, each driven through its core's batching path on
+    the server phases' tiles and prompts."""
+    import shutil
+
+    from keep_tpu_torch.kernels import flash_attention as fa
+    from keep_tpu_torch.train import checkpoint as ckpt
+    from keep_tpu_torch.train import lora
+    from keep_tpu_torch.train import main as tmain
+    from keep_tpu_torch.train.config import TrainRunConfig
+
+    cfg = TrainRunConfig.from_dict(json.loads(json.dumps(raw)))
+    write_model(d, torch, cfg.keep, device=device, keep_init=True)
+    shutil.copy(raw["dataset"]["vocab_path"], os.path.join(d, "vocab.txt"))
+    restored = ckpt.restore(ckpt_dir)["params"]
+    scale = cfg.solver.lora_alpha / cfg.solver.lora_rank
+    # the trained model's own merged encode: the run's base, the adapters
+    model = tmain.build_model(cfg, device)
+    base = {n: p.detach() for n, p in model.named_parameters()}
+    weights = lora.merge_lora(base, {k: v.to(device)
+                                     for k, v in restored.items()}, scale)
+    tiles, odd = smoke_images(cfg.keep)
+    out: dict = {"card": card() if device == "cuda" else "cpu",
+                 "scale": scale}
+    feats: dict = {}
+    for int8 in (False, True):
+        t0 = time.perf_counter()
+        core, httpd = serve.build_server(
+            ["--model-dir", d, "--lora", ckpt_dir, "--port", "0",
+             "--device", device] + (["--int8"] if int8 else []))
+        httpd.server_close()
+        tag = "int8" if int8 else "bf16"
+        try:
+            setup_s = time.perf_counter() - t0
+            if not int8:
+                # every targeted weight the server holds, in fp32: the merge
+                # of the restored adapters over the run's base, bit for bit,
+                # and the stored bf16 weight its one rounding
+                bad = []
+                for m in lora.adapted_modules(restored):
+                    lin = core.model.get_submodule(m)
+                    w32 = weights[f"{m}.weight"].cpu()
+                    if not (torch.equal(lin.fp32_weight, w32) and torch.equal(
+                            lin.weight.cpu(), w32.to(lin.weight.dtype))):
+                        bad.append(m)
+                if bad:
+                    raise AssertionError(f"merged weights differ: {bad[:5]}")
+                out["merged_weights_checked"] = len(
+                    lora.adapted_modules(restored))
+            stats0 = core.stats()
+            reset_launches(fa)
+            # ---- the main path: serving the merged adapters ---------------
+            got = {"text": core.encode_text(PROMPTS),
+                   "image": core.encode_image(tiles),
+                   "image_260x300": core.encode_image(odd)}
+            launches, int8_launches = read_launches(fa)
+            # ----------------------------------------------------------------
+            stats = core.stats()
+            enc = core.tokenizer(PROMPTS, max_length=core.max_length)
+        finally:
+            core.stop()
+            del core
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        img_disp = stats["image"]["dispatches"] - stats0["image"]["dispatches"]
+        txt_disp = stats["text"]["dispatches"] - stats0["text"]["dispatches"]
+        check_features("text", got["text"], 3, cfg.keep.text.hidden_size)
+        for k in ("image", "image_260x300"):
+            check_features(k, got[k], len(got[k]), cfg.keep.projection_dim)
+        vit_l = cfg.keep.vision.depth
+        bert_l = cfg.keep.text.num_hidden_layers
+        if not int8 and launches < img_disp * vit_l + txt_disp * bert_l:
+            raise AssertionError(f"attention launches {launches}")
+        row = {"setup_s": setup_s, "attention_launches": launches,
+               "image_dispatches": img_disp, "text_dispatches": txt_disp}
+        if int8:
+            want = {"quantized_attention_block": img_disp * vit_l,
+                    "quantized_attention_block_postln": txt_disp * bert_l,
+                    "quantized_mlp_bsd": img_disp * vit_l + txt_disp * bert_l,
+                    "quantized_matmul_bsd": img_disp,
+                    "quantized_matmul": 2 * img_disp}
+            for name, n in want.items():
+                if int8_launches.get(name, 0) != n:
+                    raise AssertionError(f"{name}: "
+                                         f"{int8_launches.get(name, 0)} "
+                                         f"launches, want {n}")
+            cos = {k: cosine_rows(v, feats["bf16"][k]) for k, v in got.items()}
+            row.update(launches=int8_launches,
+                       min_cos_vs_bf16={k: float(c.min())
+                                        for k, c in cos.items()})
+        else:
+            from keep_tpu_torch.ops.preprocess import normalize_only
+
+            ids, mask = (torch.as_tensor(enc[k]).long().to(device)
+                         for k in ("input_ids", "attention_mask"))
+            with torch.inference_mode(), lora.swapped(model, weights):
+                ref = {"text": model.encode_text(ids, mask),
+                       "image": model.encode_image(normalize_only(
+                           torch.from_numpy(tiles).to(device)))}
+            cos = {k: cosine_rows(got[k], v.float().cpu().numpy())
+                   for k, v in ref.items()}
+            row["min_cos_vs_trained_merged"] = {k: float(c.min())
+                                                for k, c in cos.items()}
+        for k, c in cos.items():
+            if not (c >= 0.999).all():
+                raise AssertionError(f"{tag} {k}: cosine {c}")
+        feats[tag] = got
+        out[tag] = row
+    del model, weights, base
+    phase("lora_serve", **out)
     return out
 
 
@@ -2529,15 +3048,28 @@ def main() -> int:
 
     # 8.–9. the attention backward, then training through the CLI
     bwd_rows = check_bwd_kernel(fa, torch, gen)
+    blocks = cfg.vision.depth + cfg.text.num_hidden_layers
     with tempfile.TemporaryDirectory() as d_train:
         trained = drive_train(torch, fa, d_train,
                               train_config(d_train, steps_per_epoch=4),
-                              blocks=cfg.vision.depth
-                              + cfg.text.num_hidden_layers, steps_per_epoch=4)
+                              blocks=blocks, steps_per_epoch=4)
+    torch.cuda.empty_cache()
+
+    # 13.–14. LoRA fine-tuning with the eval, then serving its adapters
+    with tempfile.TemporaryDirectory() as d_lora:
+        lora_raw = lora_train_config(d_lora, steps_per_epoch=4)
+        lora_trained = drive_lora_train(torch, fa, d_lora, lora_raw,
+                                        blocks=blocks, steps_per_epoch=4)
+        torch.cuda.empty_cache()
+        model_dir = os.path.join(d_lora, "model")
+        os.makedirs(model_dir)
+        lora_served = drive_lora_serve(torch, serve, lora_raw,
+                                       lora_trained["ckpt_dir"], model_dir)
 
     print(json.dumps({"kernels": kernel_line(
         rows, bwd_rows, heads_rows, heads_launches, int8_rows, ln_rows,
-        fused, served, served8, trained, f32_rows, wsi)}), flush=True)
+        fused, served, served8, trained, f32_rows, wsi, lora_trained,
+        lora_served)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -2546,14 +3078,16 @@ def main() -> int:
 
 def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                 ln_rows, fused, served, served8, trained,
-                f32_rows, wsi) -> list[dict]:
+                f32_rows, wsi, lora_trained, lora_served) -> list[dict]:
     """One entry per TPU kernel: its launches on the main path that runs it,
     and, at ViT-L B=32 in bf16 (the int8 kernels: the first shape of their
     phase), its time, its plain version's, its bound and the one PyTorch
     call that computes the same function (null where there is none). The
     attention sub-blocks also carry their attention's rows (``f32_rows``,
     the bf16 → fp32 form at their tower's shapes). The kernels of the WSI
-    sweep carry their launches on it (phases 10–11, bf16 and int8)."""
+    sweep carry their launches on it (phases 10–11, bf16 and int8), and
+    those of the LoRA phases theirs (13: the steps and the eval; 14: the
+    bf16 and the int8 server)."""
     def pick(rs, shape="vit_l16"):
         return next(r for r in rs if r["shape"] == shape and r["B"] == 32
                     and r["dtype"] == "bfloat16")
@@ -2573,6 +3107,9 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
         library_kernel=vit["library_kernel"],
         launches_int8_path=served8["attention_launches"],
         launches_train=trained["fwd_launches"],
+        launches_lora_train=lora_trained["train_fwd_launches"],
+        launches_lora_eval=lora_trained["eval_launches"],
+        launches_lora_serve=lora_served["bf16"]["attention_launches"],
         launches_wsi_path={
             "extract": wsi["extract"]["attention_launches"],
             "classifier_auto": wsi["classifier"]["attention_launches_auto"],
@@ -2583,6 +3120,7 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
         "attention_qkv_slab_bwd", BWD_SOURCE, BWD_REPLACES,
         trained["bwd_launches"], vit_bwd,
         max(r["max_abs_err"] for r in bwd_rows),
+        launches_lora_train=lora_trained["bwd_launches"],
         library_call="scaled_dot_product_attention backward through "
                      "autograd (retain_graph; the forward not timed)",
         library_kernel=vit_bwd["library_kernel"], shapes=bwd_rows))
@@ -2628,6 +3166,8 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                     "classifier": wsi["classifier"]["int8_launches"]}
         kernels[-1]["launches_wsi_int8_path"] = {
             k: v.get(kname, 0) for k, v in wsi_int8.items()}
+        kernels[-1]["launches_lora_serve_int8"] = (
+            lora_served["int8"]["launches"].get(kname, 0))
         if kname in tower_of:
             kernels[-1]["attention_bf16_to_fp32"] = [
                 r for r in f32_rows if r["shape"] == tower_of[kname]]

@@ -15,6 +15,8 @@
   ``kernel_q [in, out]`` → ``weight_q [out, in]``, its per-column ``scale``
   → ``weight_scale`` (not ``weight``: it is a dequant scale, not a LayerNorm
   gain), ``bias`` and a SmoothQuant ``pre_scale`` as they are.
+- ``from_jax_lora``: the JAX package's LoRA adapter tree → the port's
+  adapter dict (``<module>.lora_a`` / ``.lora_b`` per layer).
 - ``random_keep_state_dict``: random weights in the released layout, drawn
   from a ``torch.Generator``, for tests and smoke runs.
 """
@@ -213,6 +215,19 @@ def from_jax_params(params: Mapping, cfg: KEEPConfig) -> dict:
         out[".".join((*head, last))] = t
 
     walk(params, ())
+    return out
+
+
+def from_jax_lora(adapters: Mapping, cfg: KEEPConfig) -> dict:
+    """The JAX package's LoRA adapter tree (``keep_tpu.train.lora``: stacked
+    ``[L, D, r]`` / ``[L, r, N]`` factors ``a`` / ``b`` under ``blocks``,
+    and ``logit_scale``) → the port's adapter dict
+    (``keep_tpu_torch.train.lora``): ``<module>.lora_a [D, r]`` and
+    ``<module>.lora_b [r, N]`` per layer, the factors as they are."""
+    out = {}
+    for name, t in from_jax_params(adapters, cfg).items():
+        head, _, last = name.rpartition(".")
+        out[f"{head}.lora_{last}" if last in ("a", "b") else name] = t
     return out
 
 

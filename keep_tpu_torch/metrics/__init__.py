@@ -1,5 +1,5 @@
-"""Slide-level and patch-level classification metrics (counterpart of
-``keep_tpu/metrics``; ``retrieval`` is not ported yet)."""
+"""Slide-level and patch-level classification metrics and retrieval metrics
+(counterpart of ``keep_tpu/metrics``)."""
 
 from keep_tpu_torch.metrics.classification import (  # noqa: F401
     auroc,
@@ -13,4 +13,8 @@ from keep_tpu_torch.metrics.classification import (  # noqa: F401
     roc_curve,
     sensitivity_specificity,
     weighted_f1,
+)
+from keep_tpu_torch.metrics.retrieval import (  # noqa: F401
+    clip_retrieval_metrics,
+    retrieval_precision,
 )

@@ -24,8 +24,11 @@ CLI: ``python -m keep_tpu_torch.serve --model-dir <released checkpoint>
 card, or with ``--int8`` the W8A8 model (``KEEPModel.quantize``) through the
 int8 megakernels of both towers. ``--precision-policy {auto,all-int8}`` is
 accepted; co-located with the card, both serve int8 at every bucket, which
-is the JAX server's co-located branch. The JAX server's ``--lora`` and
-``--mesh-dp`` are not ported yet and are refused.
+is the JAX server's co-located branch. ``--lora <checkpoints dir>``
+merges the adapters a LoRA fine-tune wrote (``train/lora.py``) into the
+model at startup, with the scale ``--lora-scale`` or, by default, the run's
+``params.txt``; with ``--int8`` the merged fp32 values are quantized. The
+JAX server's ``--mesh-dp`` is not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import os
 import queue
 import threading
 import time
@@ -379,7 +383,31 @@ def make_http_server(core: InferenceServer, port: int = 0,
     return ThreadingHTTPServer((host, port), Handler)
 
 
-_NOT_PORTED = {"lora": "--lora", "mesh_dp": "--mesh-dp"}
+_NOT_PORTED = {"mesh_dp": "--mesh-dp"}
+
+
+def lora_scale_for(lora_dir: str, scale: float | None) -> float:
+    """The LoRA scale α / r: ``scale`` when given, else from the training
+    run's ``params.txt`` (``solver.lora_alpha / lora_rank``) in
+    ``lora_dir`` or beside it; exits naming ``--lora-scale`` when there is
+    neither, so that a wrong scale is never served."""
+    if scale is not None:
+        return scale
+    for cand in (os.path.join(lora_dir, "params.txt"),
+                 os.path.join(os.path.dirname(lora_dir.rstrip("/")),
+                              "params.txt")):
+        if os.path.exists(cand):
+            with open(cand) as f:
+                solver = json.load(f).get("solver", {})
+            rank = int(solver.get("lora_rank") or 0)
+            if rank > 0:
+                scale = float(solver.get("lora_alpha", 16.0)) / rank
+                print(f"LoRA scale {scale} from {cand}", flush=True)
+                return scale
+            break
+    raise SystemExit(
+        f"--lora: no params.txt with solver.lora_rank found near "
+        f"{lora_dir}; pass --lora-scale (alpha / rank)")
 
 
 def build_server(argv=None):
@@ -400,7 +428,14 @@ def build_server(argv=None):
                     default="auto",
                     help="with --int8: co-located with the card, 'auto' "
                          "serves int8 at every bucket, as 'all-int8' does")
-    ap.add_argument("--lora", default="", help="not ported yet")
+    ap.add_argument("--lora", default="",
+                    help="LoRA adapter checkpoint dir (the training CLI's "
+                         "checkpoints/ with solver.lora_rank > 0), merged "
+                         "into the base weights at startup")
+    ap.add_argument("--lora-scale", type=float, default=None,
+                    help="alpha / rank used in training; default: read "
+                         "solver.lora_alpha / lora_rank from the run's "
+                         "params.txt beside the checkpoint dir")
     ap.add_argument("--mesh-dp", type=int, default=0, help="not ported yet")
     args = ap.parse_args(argv)
     for dest, flag in _NOT_PORTED.items():
@@ -419,7 +454,20 @@ def build_server(argv=None):
     # kernel; --int8 quantizes from the checkpoint's fp32 values
     model = KEEPModel.from_pretrained(args.model_dir, dtype=torch.bfloat16,
                                       use_flash=True, device=device,
-                                      quantize=args.int8)
+                                      quantize=args.int8 and not args.lora)
+    if args.lora:
+        # merged into the fp32 values, rounded once into the stored
+        # weights; --int8 then quantizes the merged fp32 values
+        from keep_tpu_torch.train import checkpoint as ckpt
+        from keep_tpu_torch.train import lora
+
+        scale = lora_scale_for(args.lora, args.lora_scale)
+        restored = ckpt.restore(args.lora)
+        lora.merge_into_model(model, restored["params"], scale)
+        print(f"merged LoRA adapters from {args.lora} (epoch "
+              f"{restored['epoch']}, scale {scale})", flush=True)
+        if args.int8:
+            model = model.quantize()
     if args.int8 and args.precision_policy == "auto":
         # the JAX server measures a relay's round trip here; with the card
         # in the same host there is no relay, and its co-located branch

@@ -6,6 +6,9 @@ optimizer state (moments and step count), the step and the epoch, written
 with ``torch.save`` to a temporary file in the same directory and moved into
 place with ``os.replace``, so a reader never sees half a checkpoint.
 ``restore(epoch=None)`` loads the newest one (resume 'latest').
+``CheckpointWriter(async_save=True)`` writes in a background thread while
+training goes on; its ``save`` returns once it holds a host copy of the
+tensors, which the next step may then update in place.
 
 Reading the JAX package's Orbax checkpoints is out of scope: convert a JAX
 parameter tree with ``compat.torch_loader.from_jax_params`` instead.
@@ -16,6 +19,7 @@ from __future__ import annotations
 import os
 import re
 import tempfile
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Optional
 
 import torch
@@ -30,31 +34,79 @@ def path(ckpt_dir: str, epoch: int) -> str:
 def save(ckpt_dir: str, epoch: int, params: dict, opt_state: Any = None,
          step: int = 0, keep_previous: bool = True) -> str:
     """Writes checkpoint ``epoch`` atomically; with ``keep_previous=False``
-    the older epochs are deleted after it is in place. Returns its path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    payload = {"params": {k: v.detach().cpu() for k, v in params.items()},
-               "opt_state": _to_cpu(opt_state), "step": int(step),
-               "epoch": int(epoch)}
-    fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
+    the older epochs are deleted after it is in place. Returns its path.
+    One-shot wrapper over ``CheckpointWriter``."""
+    w = CheckpointWriter(ckpt_dir, keep_previous=keep_previous)
     try:
-        with os.fdopen(fd, "wb") as f:
-            torch.save(payload, f)
-        os.replace(tmp, path(ckpt_dir, epoch))
-    except BaseException:
-        os.unlink(tmp)
-        raise
-    if not keep_previous:
-        for e in list_epochs(ckpt_dir):
-            if e != epoch:
-                os.remove(path(ckpt_dir, e))
+        w.save(epoch, params, opt_state, step=step)
+    finally:
+        w.close()
     return path(ckpt_dir, epoch)
 
 
-def _to_cpu(tree):
+class CheckpointWriter:
+    """Per-epoch saves into ``ckpt_dir``. ``save`` copies the tensors to the
+    host and waits for the copy (the train step updates the parameters in
+    place), then writes, in the caller's thread or, with
+    ``async_save=True``, in one background thread while training goes on;
+    saves are written in order. ``wait`` blocks until every save is on disk
+    and re-raises a failed one; ``close`` waits and stops the thread."""
+
+    def __init__(self, ckpt_dir: str, async_save: bool = False,
+                 keep_previous: bool = True):
+        self.ckpt_dir = ckpt_dir
+        self.keep_previous = keep_previous
+        self._pool = (ThreadPoolExecutor(max_workers=1,
+                                         thread_name_prefix="checkpoint")
+                      if async_save else None)
+        self._pending: list[Future] = []
+        os.makedirs(ckpt_dir, exist_ok=True)
+
+    def save(self, epoch: int, params: dict, opt_state: Any = None,
+             step: int = 0) -> None:
+        payload = {"params": _to_host(params), "opt_state": _to_host(opt_state),
+                   "step": int(step), "epoch": int(epoch)}
+        if self._pool is None:
+            self._write(epoch, payload)
+        else:
+            self._pending.append(self._pool.submit(self._write, epoch,
+                                                   payload))
+
+    def _write(self, epoch: int, payload: dict) -> None:
+        fd, tmp = tempfile.mkstemp(dir=self.ckpt_dir, suffix=".tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                torch.save(payload, f)
+            os.replace(tmp, path(self.ckpt_dir, epoch))
+        except BaseException:
+            os.unlink(tmp)
+            raise
+        if not self.keep_previous:
+            for e in list_epochs(self.ckpt_dir):
+                if e != epoch:
+                    os.remove(path(self.ckpt_dir, e))
+
+    def wait(self) -> None:
+        pending, self._pending = self._pending, []
+        for fut in pending:
+            fut.result()
+
+    def close(self) -> None:
+        try:
+            self.wait()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
+
+
+def _to_host(tree):
+    """A host copy of every tensor of ``tree``, made before this returns:
+    ``Tensor.to(copy=True)`` copies a CPU tensor too, where ``.cpu()``
+    would hand back its storage."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
+        return tree.detach().to("cpu", copy=True)
     if isinstance(tree, dict):
-        return {k: _to_cpu(v) for k, v in tree.items()}
+        return {k: _to_host(v) for k, v in tree.items()}
     return tree
 
 

@@ -65,11 +65,11 @@ class SolverConfig:
     freeze_visual_epochs: int = 1
     freeze_text_epochs: int = 1
     freeze_knowledge_epochs: int = 0
-    # not ported yet (train.main raises when they ask for more than one
-    # process or device, or for LoRA)
-    lora_rank: int = 0
+    lora_rank: int = 0  # > 0: LoRA fine-tuning (train/lora.py)
     lora_alpha: float = 16.0
     lora_targets: tuple = ("qkv", "proj", "out", "fc1", "fc2")
+    # not ported yet: train.main raises when they ask for more than one
+    # process or device
     fsdp: bool = False
     fsdp_min_size: int = 1 << 16
     tp: int = 1
@@ -95,9 +95,9 @@ class SaveConfig:
     experiment_name: str = ""
     save_frequency: int = 1
     delete_previous_checkpoint: bool = False
-    async_checkpointing: bool = False  # not ported: raises
+    async_checkpointing: bool = False  # write checkpoints in a thread
     resume: str = ""  # '' | 'latest' | an epoch number
-    remote_sync: str = ""  # not ported: raises
+    remote_sync: str = ""  # a directory or fsspec URL (train/sync.py)
     remote_sync_frequency: int = 300
     copy_codebase: bool = False
     wandb_project: str = ""

@@ -217,6 +217,41 @@ class GroupDataset:
         return GroupSample(image, text, cap_label)
 
 
+class CsvTextImageDataset:
+    """A CSV of image / caption pairs: the eval sets' format. ``sep='both'``
+    reads comma-separated and falls back to tab-separated when that gives
+    the wrong columns; ``text_drop`` applies word dropout."""
+
+    def __init__(self, path: str, img_key: str = "image_name",
+                 caption_key: str = "caption", sep: str = "|",
+                 text_drop: bool = False, seed: int = 0):
+        import pandas as pd
+
+        if sep == "both":
+            try:
+                df = pd.read_csv(path)
+                df[img_key]
+            except (KeyError, pd.errors.ParserError):
+                # the comma parse gave the wrong columns; anything else (IO,
+                # encoding) propagates
+                df = pd.read_csv(path, sep="\t", engine="python")
+        else:
+            df = pd.read_csv(path, sep=sep, engine="python")
+        self.images = [str(x) for x in df[img_key].tolist()]
+        self.captions = [str(x) for x in df[caption_key].tolist()]
+        self.text_drop = text_drop
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def __getitem__(self, idx: int) -> GroupSample:
+        text = self.captions[idx]
+        if self.text_drop:
+            text = word_dropout(text, self.rng)
+        return GroupSample(self.images[idx], text, "unknown")
+
+
 def resolve_image_path(img_dir: str, name: str) -> str:
     """Flat path, or the nested ``<prefix>/<name>`` layout when the flat
     file is absent."""
@@ -234,18 +269,29 @@ def load_image(img_dir: str, name: str) -> np.ndarray:
         return np.asarray(im.convert("RGB"))
 
 
-def preload_images(dataset: GroupDataset, img_dir: str,
+def dataset_image_names(dataset) -> list[str]:
+    """Every image file name a dataset can draw (unique, first-seen
+    order)."""
+    if isinstance(dataset, GroupDataset):
+        names: list[str] = []
+        for group in dataset.groups:
+            imgs = dataset.data[group]["images"]
+            if isinstance(imgs, dict):
+                imgs = imgs["images"]
+            names.extend(str(i) for i in imgs)
+    elif isinstance(dataset, CsvTextImageDataset):
+        names = list(dataset.images)
+    else:
+        raise TypeError(f"unsupported dataset type {type(dataset).__name__}")
+    return list(dict.fromkeys(names))
+
+
+def preload_images(dataset, img_dir: str,
                    workers: int = 8) -> dict[str, np.ndarray]:
     """Every image the dataset can draw, decoded once: name → uint8 HWC."""
     from concurrent.futures import ThreadPoolExecutor
 
-    names: list[str] = []
-    for group in dataset.groups:
-        imgs = dataset.data[group]["images"]
-        if isinstance(imgs, dict):
-            imgs = imgs["images"]
-        names.extend(str(i) for i in imgs)
-    names = list(dict.fromkeys(names))
+    names = dataset_image_names(dataset)
     with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
         arrays = list(pool.map(lambda n: load_image(img_dir, n), names))
     return dict(zip(names, arrays))

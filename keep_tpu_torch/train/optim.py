@@ -51,6 +51,13 @@ def wd_mask(model: nn.Module) -> dict[str, bool]:
     return {n: n in decayed for n, _ in model.named_parameters()}
 
 
+def lora_wd_mask(adapters: dict[str, torch.Tensor]) -> dict[str, bool]:
+    """``wd_mask`` of a LoRA adapter dict (``train/lora.py``): the ``a`` and
+    ``b`` factors are decayed (the JAX package's rule for a matrix leaf it
+    does not name), ``logit_scale`` is not."""
+    return {n: n.endswith((".lora_a", ".lora_b")) for n in adapters}
+
+
 def bn_stats_mask(names) -> dict[str, bool]:
     """True for BatchNorm running-statistic leaves (``mean``/``var``), which
     the optimizer must never move."""

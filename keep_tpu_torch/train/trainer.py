@@ -11,10 +11,16 @@ The JAX package jits one step per freeze phase; here ``static_frozen`` sets
 ``requires_grad_(False)`` on the frozen parameters at each step, so autograd
 builds no graph through a frozen tower and runs no backward there. The
 parameters are the model's own and are updated in place.
+
+LoRA fine-tuning (``make_train_step(lora_scale=, base=)``): the state holds
+the adapter dict only (``train/lora.py``), so that the optimizer keeps no
+moments for the frozen base; the step swaps the merged weights into the
+model for its forward and backward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Optional
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from keep_tpu_torch.models.keep import KEEPModel
+from keep_tpu_torch.train import lora
 from keep_tpu_torch.train.loss import clip_loss, hy_metric_loss
 from keep_tpu_torch.train.optim import AdamW, global_norm
 
@@ -31,13 +38,17 @@ LOGIT_SCALE_MAX = math.log(100.0)
 
 @dataclasses.dataclass
 class TrainState:
-    params: dict[str, torch.nn.Parameter]  # the model's, updated in place
+    # the model's parameters, or LoRA adapters; updated in place
+    params: dict[str, torch.Tensor]
     opt_state: dict
     step: int
 
 
-def tree_state(model: KEEPModel, tx: AdamW) -> TrainState:
-    params = dict(model.named_parameters())
+def tree_state(model: KEEPModel | dict, tx: AdamW) -> TrainState:
+    """The state over a model's parameters, or over a dict of trainable
+    tensors (LoRA adapters)."""
+    params = (dict(model) if isinstance(model, dict)
+              else dict(model.named_parameters()))
     return TrainState(params=params,
                       opt_state=tx.init({n: p.detach()
                                          for n, p in params.items()}),
@@ -136,17 +147,31 @@ def _set_static_frozen(params: dict, static_frozen: Optional[dict]) -> None:
 
 def make_train_step(model: KEEPModel, loss_cfg: LossConfig, tx: AdamW, *,
                     remat: bool = True,
-                    static_frozen: Optional[dict] = None) -> Callable:
+                    static_frozen: Optional[dict] = None,
+                    lora_scale: Optional[float] = None,
+                    base: Optional[dict] = None) -> Callable:
     """One optimizer step: ``step(state, batch, frozen=None) → (state,
     metrics)``. ``batch`` holds device tensors (``to_device``); ``frozen`` is
     an ``optim.freeze_mask`` dict of 0/1. ``static_frozen`` ({name: bool})
     also takes the frozen parameters out of autograd for the step; grads
-    and updates are then the same as under the dynamic mask alone."""
+    and updates are then the same as under the dynamic mask alone.
+
+    ``lora_scale`` switches the step to LoRA fine-tuning: ``state.params``
+    is the adapter dict, ``base`` every parameter of the model as a tensor
+    that takes no gradient (``{n: p.detach()}``), and the forward and the
+    backward run on ``lora.apply_lora(base, adapters, lora_scale)`` swapped
+    into the model; gradients reach only the adapters."""
+    if lora_scale is not None and base is None:
+        raise ValueError("a LoRA step needs the base parameters (base=)")
 
     def step(state: TrainState, batch: dict, frozen: Optional[dict] = None):
         _set_static_frozen(state.params, static_frozen)
-        loss = compute_loss(model, batch, loss_cfg, remat=remat)
-        grads = _grads(loss, state.params)
+        weights = (contextlib.nullcontext() if lora_scale is None else
+                   lora.swapped(model, lora.apply_lora(base, state.params,
+                                                       lora_scale)))
+        with weights:
+            loss = compute_loss(model, batch, loss_cfg, remat=remat)
+            grads = _grads(loss, state.params)
         return _optimizer_apply(state, grads, tx, frozen, loss.detach())
 
     return step

@@ -27,8 +27,8 @@ def test_imports_leave_jax_unloaded():
         "from keep_tpu_torch.kernels import _kops, ln_matmul, qblock, "
         "qmatmul, qmlp\n"
         "import keep_tpu_torch.train.main, keep_tpu_torch.utils.writers\n"
-        "from keep_tpu_torch.train import (checkpoint, config, data, freeze, "
-        "loss, optim, schedules, trainer)\n"
+        "from keep_tpu_torch.train import (checkpoint, config, data, eval, "
+        "freeze, lora, loss, optim, schedules, sync, trainer)\n"
         "import keep_tpu_torch.wsi.run, keep_tpu_torch.wsi.extract, "
         "keep_tpu_torch.wsi.cohort, keep_tpu_torch.wsi.pipelines\n"
         "import keep_tpu_torch.zeroshot, keep_tpu_torch.zeroshot.prompts, "

@@ -315,7 +315,7 @@ def test_build_server_int8(int8_model_dir, policy, capsys):
         ref_core.stop()
 
 
-@pytest.mark.parametrize("flag", [["--lora", "adapters"], ["--mesh-dp", "2"]])
+@pytest.mark.parametrize("flag", [["--mesh-dp", "2"]])
 def test_build_server_refuses_unported_options(model_dir, flag, capsys):
     with pytest.raises(SystemExit) as e:
         serve.build_server(["--model-dir", str(model_dir), "--device", "cpu",
