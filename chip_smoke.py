@@ -145,6 +145,36 @@ gives them (batch 256; text widths as dispatched).
     a threshold counted; only they may move a value, by at most what they
     can move it). Prints the ms of each step.
 
+Then:
+
+15. int8_calibrated — on phase 4's weights (the random draw, whose
+    blocks all move the stream): ``KEEPModel.quantize(calib_pixels,
+    calib_text)`` (SmoothQuant) with 4 outlier channels injected per
+    LayerNorm, on 32 seeded tiles and 64 seeded prompts, timed; one batch
+    of 224 tiles and 256 prompts through the calibrated int8 towers.
+    Gates: launches per block and batch (#1's inside the sub-blocks too);
+    the calibrated features at cosine ≥ 0.999 per row against the same
+    model in bf16, and the plain W8A8 ViT's below 0.999 (the BERT's is
+    printed); against the calibrated model with plain blocks, image rows
+    ≥ 0.999 and text taken whole > 0.9999; #4 (sum and update), #5 (with
+    ``pre_scale``), #6 (ViT; BERT
+    with ``pre_scale1``), #8 and #9 against their plain versions at the
+    smoothed weights, on the inputs the path gave them (2e-2 and cosine ≥
+    0.9999 per row for #4 / #5, bit for bit for the others).
+
+Then, on phase 6's weights again:
+
+16. wsi_pyramid — phase 10's slide as a PIL-written multi-page TIFF
+    (16,384² and its 4× and 16× levels) → ``io.wsi.open_slide`` →
+    ``io.tiles.iter_wsi_tiles`` → ``extract_features``, bf16 and ``--int8``
+    at ``--int8-calib 32`` (cosine ≥ 0.999 per row), tiles/s and the host's
+    read time; ``wsi.cascade.cascade_detect`` at margin 0.5 (the plain
+    sweep's decisions) and 0.15 with a classifier that spreads the coarse
+    calls (some tiles refined, the rest at their parent's call; coarse and
+    fine encodes, ms). The reader's backend is printed and must be the one
+    ``scripts/torch_native_probe.sh`` allows (native libtiff, else PIL), as
+    is the route ``wsi.run`` takes.
+
 After phase 9:
 
 13. lora_train — ``keep_tpu_torch.train.main.main([..., "--device",
@@ -189,6 +219,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import filecmp
+import functools
 import io
 import json
 import os
@@ -2176,8 +2207,10 @@ WSI_SEG_PATCH = 32
 NEAR = 1e-5
 
 
+@functools.lru_cache(maxsize=1)
 def wsi_slide(px: int, seed: int = 0) -> np.ndarray:
-    """A flat synthetic H&E slide [px, px, 3] uint8 from ``seed``: a tissue
+    """A flat synthetic H&E slide [px, px, 3] uint8 from ``seed`` (the last
+    one made is kept: callers read it, never write it): a tissue
     disc (pink-purple and saturated, its colour shifted per 64-pixel block,
     with per-pixel noise) on a bright unsaturated background that
     ``io.tiles.tissue_mask`` rejects. One 1,024-row band of noise serves
@@ -2861,6 +2894,665 @@ def drive_wsi(torch, fa, d: str, device: str = "cuda", **sizes) -> dict:
             "pipelines": pipes}
 
 
+CALIB_TILES = 32     # wsi.run's default --int8-calib
+CALIB_PROMPTS = 64
+CALIB_EVAL_PROMPTS = 256
+OUTLIERS = 4         # channels, as tests/test_quant.py's _outlier_params
+OUTLIER_GAIN = 80.0  # the ViT's, as there
+TEXT_OUTLIER_GAIN = 6.0   # scripts/torch_calibration_sweep.py
+PYRAMID_DOWNSAMPLES = (4, 16)
+CASCADE_MARGIN = 0.15
+
+
+def inject_outliers(torch, model, n: int = OUTLIERS,
+                    gain: float = OUTLIER_GAIN,
+                    text_gain: float = TEXT_OUTLIER_GAIN) -> None:
+    """``n`` outlier channels (0 … n−1) on every LayerNorm whose output a
+    quantized qkv or fc1 reads, as tests/test_quant.py's
+    ``_outlier_params`` / ``_outlier_bert`` build them: the gain on the
+    LayerNorm's scale (and, in the ViT, its bias), the reading weight's
+    input columns divided by it. In the pre-LN ViT this is an identity; in
+    the post-LN BERT the LayerNorm's output is the stream itself, so it
+    makes another model, whose own bf16 forward is the reference, and whose
+    features the outlier channels come to dominate as the gain grows: on
+    the random draw no BERT gain from 4 to 24 brings the plain W8A8 text
+    below 0.999 with the calibrated one above it, and from 8 up neither
+    reaches 0.999 (``scripts/torch_calibration_sweep.py``), hence the
+    BERT's smaller gain. The weights change in their fp32 sources
+    (``ops.nn.Linear.set_source``)."""
+    ch = slice(0, n)
+
+    def shrink(lin, g):
+        w = lin.quantize_source().float().clone()
+        w[:, ch] /= g
+        lin.set_source(w)
+
+    with torch.no_grad():
+        for blk in model.visual.blocks:
+            for norm, lin in ((blk.norm1, blk.attn.qkv),
+                              (blk.norm2, blk.mlp.fc1)):
+                norm.weight[ch] *= gain
+                norm.bias[ch] *= gain
+                shrink(lin, gain)
+        model.text.embeddings.norm.weight[ch] *= text_gain
+        for blk in model.text.blocks:
+            blk.attn.norm.weight[ch] *= text_gain
+            blk.norm.weight[ch] *= text_gain
+            shrink(blk.attn.qkv, text_gain)
+            shrink(blk.mlp.fc1, text_gain)
+
+
+def capture_inputs(torch, modules: dict, fn) -> dict:
+    """The tensor arguments each of ``modules`` ({key: module}) was first
+    called with while ``fn`` ran."""
+    seen: dict = {}
+
+    def grab(key):
+        def hook(_mod, args):
+            seen.setdefault(key, tuple(a.detach() for a in args
+                                       if isinstance(a, torch.Tensor)))
+        return hook
+
+    handles = [m.register_forward_pre_hook(grab(k))
+               for k, m in modules.items()]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def hold_int8(torch, name: str, shape: str, fn, ref, args, kw,
+              atol: float | None = None, rtol: float | None = None,
+              residual=None) -> dict:
+    """One int8 kernel of a path against its plain version on the same
+    inputs: bit for bit where ``atol`` is None (the GEMMs and row passes
+    compose bit-exact kernels), else at atol / rtol with cosine ≥ 0.9999
+    per row (the attention sub-blocks). With ``residual`` (the block's
+    input x) the update, output − x, is also held at cosine ≥ 0.9999 per
+    row: a sum whose stream outweighs its update hides a wrong one."""
+    got = fn(*args, **kw)
+    want = ref(*args, **kw)
+    if residual is not None:
+        x = residual.float().reshape(-1, got.shape[-1])
+        upd = torch.nn.functional.cosine_similarity(
+            got.float().reshape(-1, got.shape[-1]) - x,
+            want.float().reshape(-1, got.shape[-1]) - x, dim=-1).min().item()
+        if not upd >= 0.9999:
+            raise AssertionError(f"{name} ({shape}) vs plain: the update's "
+                                 f"min row cosine {upd}")
+    err = (got.float() - want.float()).abs().max().item()
+    row = {"name": name, "shape": shape, "max_abs_err": err,
+           "bit_equal": bool(torch.equal(got, want))}
+    if atol is None:
+        if not row["bit_equal"]:
+            raise AssertionError(f"{name} ({shape}) vs plain: not bit for "
+                                 f"bit, max |Δ| {err}")
+        return row
+    g, w = got.float().reshape(-1, got.shape[-1]), want.float().reshape(
+        -1, got.shape[-1])
+    cos = torch.nn.functional.cosine_similarity(g, w, dim=-1).min().item()
+    row.update(atol=atol, rtol=rtol, min_row_cos=cos)
+    if residual is not None:
+        row["min_row_cos_update"] = upd
+    if not (torch.allclose(g, w, atol=atol, rtol=rtol) and cos >= 0.9999):
+        raise AssertionError(f"{name} ({shape}) vs plain: max |Δ| {err}, "
+                             f"min row cosine {cos}")
+    return row
+
+
+def drive_int8_calibrated(torch, fa, d: str, device: str = "cuda",
+                          slide_px: int = WSI_SLIDE_PX, crop_px: int = 4096,
+                          batch_size: int = WSI_BATCH,
+                          max_length: int = 256,
+                          text_gain: float = TEXT_OUTLIER_GAIN,
+                          route_control: int = 0) -> dict:
+    """Phase 15: ``KEEPModel.quantize(calib_pixels, calib_text)`` on the
+    model in ``d`` (the seeded random draw, whose blocks all move the
+    stream) with ``OUTLIERS`` outlier channels per LayerNorm
+    (``inject_outliers``), calibrated on ``CALIB_TILES`` seeded tiles of the
+    middle ``crop_px``² of phase 10's slide (the bicubic 256 → 224, as
+    ``wsi.run`` calibrates) and ``CALIB_PROMPTS`` seeded prompts. The main
+    path: one batch of tiles through ``extract_features`` and
+    ``CALIB_EVAL_PROMPTS`` prompts through the text tower, both int8.
+    Gates: the launches per block and batch (#1's inside the sub-blocks
+    too); the calibrated features at cosine ≥ 0.999 per row against the
+    same model in bf16, and the plain W8A8 ViT's below 0.999 (its outliers
+    are an identity that costs it accuracy; the BERT's plain W8A8 is
+    printed); against the same calibrated model with plain blocks, image
+    rows at cosine ≥ 0.999 and text taken whole > 0.9999
+    (tests/test_quant.py:327's form); and, on the inputs the
+    path gave them (captured from its first and last blocks), #4 (its sum
+    and its update) and #5 (with the smoothed qkv's ``pre_scale``) at atol
+    = rtol = 2e-2 and cosine ≥ 0.9999 per row, #6 (ViT; BERT with
+    ``pre_scale1``), #8 and #9 bit for bit, against their plain versions
+    at the smoothed weights. ``route_control`` > 0 also runs that many
+    tiles through the calibrated model's plain blocks on the host."""
+    import argparse
+    import copy
+
+    from keep_tpu_torch.io.tiles import cut_tiles
+    from keep_tpu_torch.kernels import qblock, qmatmul, qmlp
+    from keep_tpu_torch.ops.preprocess import preprocess
+    from keep_tpu_torch.wsi import run as wsi_run
+    from keep_tpu_torch.wsi.extract import extract_features
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    c, r = slide_px // 2, min(crop_px, slide_px) // 2
+    tiles, _ = cut_tiles(wsi_slide(slide_px)[c - r: c + r, c - r: c + r],
+                         patch_size=256)
+    rng = np.random.default_rng(15)
+    tiles = tiles[rng.permutation(len(tiles))]
+    calib_tiles, tiles = tiles[:CALIB_TILES], tiles[CALIB_TILES:]
+    tiles = tiles[:batch_size]
+    model, tokenizer = wsi_run.load_model(argparse.Namespace(
+        model=d, device=device, int8=False))
+    inject_outliers(torch, model, text_gain=text_gain)
+    enc = wsi_run._encoder
+    texts = [p["classnames"][c] for p in wsi_prompts(
+        (CALIB_PROMPTS + CALIB_EVAL_PROMPTS) // 2, seed=15).values()
+        for c in ("Normal", "Tumor")]
+    tok = tokenizer(texts, max_length=max_length)
+    ids, mask = tok["input_ids"], tok["attention_mask"]
+    calib_px = preprocess(torch.from_numpy(calib_tiles).to(device))
+    calib_text = (torch.from_numpy(ids[:CALIB_PROMPTS]).long().to(device),
+                  torch.from_numpy(mask[:CALIB_PROMPTS]).long().to(device))
+    ids, mask = ids[CALIB_PROMPTS:], mask[CALIB_PROMPTS:]
+
+    sync()
+    t0 = time.perf_counter()
+    model8 = model.quantize(calib_pixels=calib_px, calib_text=calib_text)
+    sync()
+    calib_s = time.perf_counter() - t0
+    plain8 = model.quantize()
+    for blk in model8.text.blocks:
+        if blk.attn.qkv.pre_scale is None or blk.mlp.fc1.pre_scale is None:
+            raise AssertionError("calibrated BERT without a pre_scale")
+
+    def image(m):
+        return extract_features(m, tiles, batch_size=batch_size, resize=True)
+
+    def text(m):
+        return enc(m, torch.device(device))(ids, mask).float().cpu().numpy()
+
+    image(model8)  # the first call pays the setup
+    sync()
+    reset_launches(fa)
+    # ---- the main path, image ----------------------------------------------
+    feats8 = image(model8)
+    img_attn, img_launches = read_launches(fa)
+    # ------------------------------------------------------------------------
+    sync()
+    reset_launches(fa)
+    # ---- the main path, text -------------------------------------------------
+    text8 = text(model8)
+    txt_attn, txt_launches = read_launches(fa)
+    # ------------------------------------------------------------------------
+    depth = model.cfg.vision.depth
+    layers = model.cfg.text.num_hidden_layers
+    batches = -(-len(tiles) // batch_size)
+    # the int8 sub-blocks run their attention through #1's wrapper, which
+    # counts it in ``fa.LAUNCHES``
+    want = ({"attention_qkv_slab": batches * depth,
+             "quantized_attention_block": batches * depth,
+             "quantized_mlp_bsd": batches * depth,
+             "quantized_matmul_bsd": batches,
+             "quantized_matmul": 2 * batches},
+            {"attention_qkv_slab": layers,
+             "quantized_attention_block_postln": layers,
+             "quantized_mlp_bsd": layers})
+    if device == "cuda":
+        for got, w in zip(({**img_launches, "attention_qkv_slab": img_attn},
+                           {**txt_launches, "attention_qkv_slab": txt_attn}),
+                          want):
+            for k, v in w.items():
+                if got.get(k, 0) != v:
+                    raise AssertionError(f"calibrated path: {k} {got.get(k)} "
+                                         f"launches, want {v}")
+    launches = {k: img_launches.get(k, 0) + txt_launches.get(k, 0)
+                for k in set(img_launches) | set(txt_launches)}
+
+    feats, txt = image(model), text(model)
+    featsp, txtp = image(plain8), text(plain8)
+    cos = {"image_calibrated": cosine_rows(feats8, feats),
+           "text_calibrated": cosine_rows(text8, txt),
+           "image_plain_w8a8": cosine_rows(featsp, feats),
+           "text_plain_w8a8": cosine_rows(txtp, txt)}
+    # the ViT's outliers are an identity, so its plain W8A8 must lose
+    # accuracy and the calibrated model win it back; the BERT's sit in the
+    # stream they come to dominate, and its plain W8A8 is printed beside
+    cal = {k: float(cos[f"{k}_calibrated"].min()) for k in ("image", "text")}
+    plain_img = float(cos["image_plain_w8a8"].min())
+    if not (plain_img < 0.999 <= cal["image"] and cal["text"] >= 0.999):
+        raise AssertionError(
+            f"int8 vs bf16: calibrated {cal}, plain W8A8 image {plain_img}; "
+            f"want plain < 0.999 <= calibrated; (min, mean) row cosines "
+            f"{ {n: (float(v.min()), float(v.mean())) for n, v in cos.items()} }")
+    with plain_int8_blocks():
+        route = {"image": int8_route(feats8, image(model8)),
+                 "text": int8_route(text8, text(model8))}
+    # through 24 blocks that all move the stream, the ViT's int8 route
+    # carries a rounding difference from block to block (a code moved by
+    # one in the next quantize): its rows are held at the repo's int8 gate,
+    # each block's kernels against their plain versions below
+    if not (route["image"]["min_row_cos"] >= 0.999
+            and route["text"]["whole_cos"] > 0.9999):
+        raise AssertionError(f"calibrated int8 vs its plain blocks: {route}")
+    if route_control:
+        # the same plain route on the host: how far rounding alone moves it
+        px = preprocess(torch.from_numpy(tiles[:route_control]).to(device))
+        with torch.inference_mode():
+            with plain_int8_blocks():
+                on_card = model8.encode_image(px).float().cpu().numpy()
+            host = copy.deepcopy(model8).to("cpu")
+            on_host = host.encode_image(px.cpu()).float().numpy()
+        del host
+        route["image_plain_card_vs_host"] = int8_route(on_card, on_host)
+        route["image_kernels_vs_host_plain"] = int8_route(
+            feats8[:route_control], on_host)
+
+    # the kernels against their plain versions at the smoothed weights, on
+    # the inputs the path gave them (comparison launches, not counted)
+    vit, bert, vcfg, tcfg = (model8.visual, model8.text, model8.cfg.vision,
+                             model8.cfg.text)
+    with torch.inference_mode():
+        seen = capture_inputs(torch, {
+            "vit0": vit.blocks[0], "vit_last": vit.blocks[-1],
+            "patch_embed": vit.patch_embed,
+            "head_fc1": model8.visual_head.fc1},
+            lambda: image(model8))
+        seen.update(capture_inputs(torch, {
+            "bert0": bert.blocks[0], "bert_last": bert.blocks[-1]},
+            lambda: text(model8)))
+        held = []
+        for key, blk in (("vit0", vit.blocks[0]), ("vit_last", vit.blocks[-1])):
+            (x,) = seen[key]
+            shape = f"{key} {tuple(x.shape)}"
+            akw = dict(num_heads=vcfg.num_heads, eps=vcfg.ln_eps)
+            args = (x, blk.norm1, blk.attn.qkv, blk.attn.proj)
+            held.append(hold_int8(
+                torch, "quantized_attention_block", shape,
+                qblock.quantized_attention_block,
+                qblock.quantized_attention_block_reference, args, akw,
+                2e-2, 2e-2, residual=x))
+            mid = qblock.quantized_attention_block_reference(*args, **akw)
+            m = blk.mlp
+            held.append(hold_int8(
+                torch, "quantized_mlp_bsd", shape + " LN + residual",
+                qmlp.quantized_mlp_bsd, qmlp.quantized_mlp_bsd_reference,
+                (mid, m.fc1.weight_q, m.fc1.weight_scale, m.fc1.bias,
+                 m.fc2.weight_q, m.fc2.weight_scale, m.fc2.bias),
+                dict(out_dtype=mid.dtype, ln_scale=blk.norm2.weight,
+                     ln_bias=blk.norm2.bias, eps=vcfg.ln_eps,
+                     residual=True)))
+        for key, blk in (("bert0", bert.blocks[0]),
+                         ("bert_last", bert.blocks[-1])):
+            x, kb = seen[key]
+            shape = f"{key} {tuple(x.shape)}"
+            akw = dict(num_heads=tcfg.num_attention_heads, eps=tcfg.ln_eps)
+            args = (x, kb, blk.attn.norm, blk.attn.qkv, blk.attn.out)
+            held.append(hold_int8(
+                torch, "quantized_attention_block_postln",
+                shape + " pre_scale",
+                qblock.quantized_attention_block_postln,
+                qblock.quantized_attention_block_postln_reference, args, akw,
+                2e-2, 2e-2))
+            mid = qblock.quantized_attention_block_postln_reference(*args,
+                                                                    **akw)
+            m = blk.mlp
+            held.append(hold_int8(
+                torch, "quantized_mlp_bsd", shape + " post-LN + pre_scale1",
+                qmlp.quantized_mlp_bsd, qmlp.quantized_mlp_bsd_reference,
+                (mid, m.fc1.weight_q, m.fc1.weight_scale, m.fc1.bias,
+                 m.fc2.weight_q, m.fc2.weight_scale, m.fc2.bias),
+                dict(out_dtype=mid.dtype, ln_scale=blk.norm.weight,
+                     ln_bias=blk.norm.bias, eps=tcfg.ln_eps, post_ln=True,
+                     pre_scale1=m.fc1.pre_scale)))
+        pe, fc1 = vit.patch_embed, model8.visual_head.fc1
+        (x,) = seen["patch_embed"]
+        held.append(hold_int8(
+            torch, "quantized_matmul_bsd", f"patch embed {tuple(x.shape)}",
+            qmatmul.quantized_matmul_bsd,
+            qmatmul.quantized_matmul_bsd_reference,
+            (x, pe.weight_q, pe.weight_scale, pe.bias),
+            dict(out_dtype=x.dtype)))
+        (x,) = seen["head_fc1"]
+        held.append(hold_int8(
+            torch, "quantized_matmul", f"visual head fc1 {tuple(x.shape)}",
+            qmatmul.quantized_matmul, qmatmul.quantized_matmul_reference,
+            (x, fc1.weight_q, fc1.weight_scale, fc1.bias),
+            dict(out_dtype=x.dtype)))
+
+    out = {"calibration_s": calib_s, "calib_tiles": len(calib_tiles),
+           "calib_prompts": CALIB_PROMPTS, "weights": "random draw",
+           "outlier_channels": OUTLIERS, "outlier_gain": OUTLIER_GAIN,
+           "text_outlier_gain": text_gain,
+           "eval_tiles": len(tiles), "eval_prompts": len(ids),
+           "launches": launches, "image_launches": img_launches,
+           "text_launches": txt_launches,
+           "attention_launches": {"image": img_attn, "text": txt_attn},
+           "min_cos_vs_bf16": {k: float(v.min()) for k, v in cos.items()},
+           "mean_cos_vs_bf16": {k: float(v.mean()) for k, v in cos.items()},
+           "vs_plain_blocks": route, "held_vs_plain": held}
+    if device == "cuda":
+        out["card"] = card()
+    phase("int8_calibrated", **out)
+    return out
+
+
+def spread_classifier(base: np.ndarray, coarse: np.ndarray,
+                      margin: float) -> np.ndarray:
+    """``base`` [D, 2] (Normal, Tumor) with a term added to its Tumor column
+    along the first principal direction of the coarse tiles' features
+    ``coarse`` [n, D] (orthogonal to their mean), scaled and centred so
+    that about half the coarse tiles' tumour probabilities (softmax·10)
+    fall within ``margin`` of 0.5 and the rest outside, on either side:
+    keep.init's near-constant features would otherwise put every tile
+    within any margin. float32."""
+    f = coarse.astype(np.float64)
+    f /= np.linalg.norm(f, axis=1, keepdims=True)
+    mean = f.mean(0)
+    m = mean / np.linalg.norm(mean)
+    u = np.linalg.svd(f - mean, full_matrices=False)[2][0]
+    u -= (u @ m) * m
+    u /= np.linalg.norm(u)
+    t = f @ u
+    # logit(p) = 10·f·(Tumor − Normal); |p − 0.5| <= margin at |logit| <= l
+    half = np.log((0.5 + margin) / (0.5 - margin)) / 10.0
+    a = half / np.median(np.abs(t - np.median(t)))
+    z = f @ (base[:, 1] - base[:, 0]).astype(np.float64) + a * t
+    w = a * u - np.median(z) / (f @ m).mean() * m
+    out = base.astype(np.float64)
+    out[:, 1] += w
+    return out.astype(np.float32)
+
+
+def write_pil_pyramid(path: str, level0: np.ndarray,
+                      downsamples=PYRAMID_DOWNSAMPLES) -> list:
+    """``level0`` and its box-filtered ``downsamples`` as a multi-page
+    stripped TIFF written by PIL (a pyramid both ``io.wsi`` backends read).
+    Returns the levels' (width, height)."""
+    from PIL import Image
+
+    base = Image.fromarray(level0)
+    h, w = level0.shape[:2]
+    levels = [base.resize((w // ds, h // ds), Image.Resampling.BOX)
+              for ds in downsamples]
+    base.save(path, save_all=True, append_images=levels)
+    return [(w, h)] + [im.size for im in levels]
+
+
+def native_probe() -> dict:
+    """``scripts/torch_native_probe.sh``'s answer on this host: whether the
+    compiler finds each header the native reader is built with, and
+    whether its trial build of the library succeeded."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "scripts", "torch_native_probe.sh")
+    lines = subprocess.run(["bash", script], capture_output=True, text=True,
+                           timeout=600).stdout.splitlines()
+    return {"headers": {ln.split()[1]: ln.startswith("HEADER_OK")
+                        for ln in lines
+                        if ln.startswith(("HEADER_OK", "HEADER_MISSING"))},
+            "build_ok": "BUILD_RC=0" in lines}
+
+
+def drive_wsi_pyramid(torch, fa, d: str, device: str = "cuda",
+                      slide_px: int = WSI_SLIDE_PX,
+                      batch_size: int = WSI_BATCH) -> dict:
+    """Phase 16: phase 10's synthetic slide as a pyramid (level 0 and its
+    4× and 16× levels, a multi-page TIFF written by PIL) → ``io.wsi.
+    open_slide`` → ``io.tiles.iter_wsi_tiles`` → ``extract_features(resize=
+    True)``, bf16 and then ``--int8`` at ``--int8-calib 32`` (calibrated on
+    the pyramid's first 32 tiles, as ``wsi.run`` calibrates on one); then
+    ``wsi.cascade.cascade_detect`` at margin 0.5 (its decisions equal to
+    the plain sweep's on the same features, tiles within ``NEAR`` of the
+    threshold counted) and at ``CASCADE_MARGIN``, with the prompts'
+    classifier spread along the coarse tiles' variation
+    (``spread_classifier``). The reader's backend must be the one
+    ``scripts/torch_native_probe.sh`` allows (native where its trial build
+    of the library succeeds, else PIL, as ``open_slide`` routes); the route
+    ``wsi.run`` takes for the file is printed. Gates: the levels as
+    written, the launches per block and batch (#1's inside the int8
+    sub-blocks too), the int8 features at cosine ≥ 0.999 per row against
+    bf16 on the same tiles; at ``CASCADE_MARGIN`` some but not all tiles
+    refined, the refined ones at the margin-0.5 run's probabilities and
+    the others at their parent's coarse call (1e-6 each). Prints tiles/s
+    and the host's read time (thumbnail and regions) of each pass."""
+    import argparse
+
+    from keep_tpu_torch.io import wsi as wsi_io
+    from keep_tpu_torch.io.tiles import iter_wsi_tiles
+    from keep_tpu_torch.io.wsi import open_slide
+    from keep_tpu_torch.ops.preprocess import preprocess
+    from keep_tpu_torch.wsi import run as wsi_run
+    from keep_tpu_torch.wsi.cascade import cascade_detect
+    from keep_tpu_torch.wsi.extract import extract_features
+    from keep_tpu_torch.wsi.pipelines import score_tiles
+    from keep_tpu_torch.zeroshot import build_classifiers_batched
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    probe = native_probe()
+    want_backend = "native" if probe["build_ok"] else "pil"
+    out = {"native_probe": probe}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "slide.tif")
+        t0 = time.perf_counter()
+        dims = write_pil_pyramid(path, wsi_slide(slide_px))
+        out["write_s"] = time.perf_counter() - t0
+        route = wsi_run._try_open_pyramid(path)
+        out["wsi_run_route"] = ("native pyramid" if route is not None
+                                else "flat image (PIL)")
+        if route is not None:
+            route.close()
+        args = argparse.Namespace(model=d, device=device, int8=False)
+        model, tokenizer = wsi_run.load_model(args)
+        depth = model.cfg.vision.depth
+        with open_slide(path) as reader:
+            backend = getattr(reader, "backend", type(reader).__name__)
+            # why the native library did not load, in the compiler's words
+            lines = wsi_io._lib_error.strip().splitlines()
+            out["native_library"] = (
+                "loaded" if wsi_io._lib is not None else next(
+                    (ln for ln in lines if "error" in ln),
+                    lines[-1] if lines else "not tried")[:200])
+            if backend != want_backend:
+                raise AssertionError(f"pyramid read by {backend}, the "
+                                     f"host's probe {probe} says "
+                                     f"{want_backend}")
+            if reader.level_dimensions != dims:
+                raise AssertionError(f"levels {reader.level_dimensions}, "
+                                     f"written {dims}")
+            read_s = 0.0
+
+            def chunks(level=0, chunk=batch_size):
+                nonlocal read_s
+                it = iter_wsi_tiles(reader, patch_size=256,
+                                    tissue_fraction=0.25, chunk=chunk,
+                                    level=level)
+                while True:
+                    t = time.perf_counter()
+                    nxt = next(it, None)
+                    read_s += time.perf_counter() - t
+                    if nxt is None:
+                        return
+                    yield nxt
+
+            coords = []
+
+            def tiles_of():
+                for t, c in chunks():
+                    coords.append(c)
+                    yield t
+
+            extract_features(model, next(chunks())[0][:batch_size],
+                             batch_size=batch_size, resize=True)
+            sync()
+            read_s = 0.0
+            reset_launches(fa)
+            # ---- the main path: bf16 extraction off the pyramid ------------
+            t0 = time.perf_counter()
+            feats = extract_features(model, tiles_of(), batch_size=batch_size,
+                                     resize=True)
+            wall = time.perf_counter() - t0
+            launches, _ = read_launches(fa)
+            # ----------------------------------------------------------------
+            coords0 = np.concatenate(coords)
+            n = len(coords0)
+            batches = -(-n // batch_size)
+            if device == "cuda" and launches != batches * depth:
+                raise AssertionError(f"pyramid extract: {launches} attention "
+                                     f"launches, want {batches * depth}")
+            check_features("pyramid extract", feats, n,
+                           model.cfg.projection_dim)
+            out.update(backend=backend, levels=dims, tiles=n,
+                       tiles_per_s_bf16=n / wall, wall_s_bf16=wall,
+                       host_read_s_bf16=read_s, attention_launches=launches)
+
+            # --int8 at --int8-calib 32: the pyramid's first 32 tiles
+            first = next(chunks(chunk=CALIB_TILES))[0]
+            t0 = time.perf_counter()
+            model8, _ = wsi_run.load_model(
+                argparse.Namespace(model=d, device=device, int8=True),
+                calib_pixels=preprocess(torch.from_numpy(first).to(device)))
+            sync()
+            out["int8_load_and_calibration_s"] = time.perf_counter() - t0
+            extract_features(model8, first, batch_size=batch_size, resize=True)
+            sync()
+            read_s = 0.0
+            coords = []
+            reset_launches(fa)
+            # ---- the main path: calibrated int8 extraction -----------------
+            t0 = time.perf_counter()
+            feats8 = extract_features(model8, tiles_of(),
+                                      batch_size=batch_size, resize=True)
+            wall8 = time.perf_counter() - t0
+            attn8, launches8 = read_launches(fa)
+            # ----------------------------------------------------------------
+            want8 = {"attention_qkv_slab": batches * depth,
+                     "quantized_attention_block": batches * depth,
+                     "quantized_mlp_bsd": batches * depth,
+                     "quantized_matmul_bsd": batches,
+                     "quantized_matmul": 2 * batches}
+            if device == "cuda":
+                got8 = {**launches8, "attention_qkv_slab": attn8}
+                for k, v in want8.items():
+                    if got8.get(k, 0) != v:
+                        raise AssertionError(f"pyramid int8: {k} "
+                                             f"{got8.get(k)}, want {v}")
+            if not np.array_equal(np.concatenate(coords), coords0):
+                raise AssertionError("pyramid int8: other tiles than bf16's")
+            cos8 = cosine_rows(feats8, feats)
+            if not (cos8 >= 0.999).all():
+                raise AssertionError(f"pyramid int8 vs bf16: {cos8.min()}")
+            out.update(tiles_per_s_int8=n / wall8, wall_s_int8=wall8,
+                       host_read_s_int8=read_s, int8_launches=launches8,
+                       int8_attention_launches=attn8,
+                       min_cos_int8_vs_bf16=float(cos8.min()))
+            del model8
+
+            # the cascade: a classifier from a few seeded prompts, spread
+            # along the coarse tiles' own variation (``spread_classifier``)
+            stack = build_classifiers_batched(
+                wsi_run._encoder(model, torch.device(device)), tokenizer,
+                wsi_prompts(16, seed=16), {"Normal": 0, "Tumor": 1},
+                max_length=64, batch_size=16, device=device)
+            base = stack.mean(0)
+            base = base / base.norm(dim=0, keepdim=True)
+            level = reader.best_level_for_downsample(4)
+            span = int(round(reader.level_downsamples[level])) * 256
+            parents, inverse = np.unique(coords0 // span, axis=0,
+                                         return_inverse=True)
+            parents = parents * span
+            coarse = extract_features(model, (
+                reader.read_regions(parents[i:i + batch_size], level,
+                                    (256, 256))
+                for i in range(0, len(parents), batch_size)),
+                batch_size=batch_size, resize=True)
+            classifier = torch.from_numpy(spread_classifier(
+                base.cpu().numpy(), coarse, CASCADE_MARGIN)).to(device)
+            probs = score_tiles(classifier, torch.from_numpy(feats).to(
+                device)).cpu().numpy()
+            coarse_probs = score_tiles(classifier, torch.from_numpy(
+                coarse).to(device)).cpu().numpy()
+            casc, results = {}, {}
+            for margin in (0.5, CASCADE_MARGIN):
+                sync()
+                reset_launches(fa)
+                # ---- the main path: the cascade ---------------------------
+                t0 = time.perf_counter()
+                res = cascade_detect(
+                    model, reader, classifier, patch_size=256,
+                    coarse_downsample=4, margin=margin,
+                    batch_size=batch_size, resize=True)
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                c_launches, _ = read_launches(fa)
+                # ------------------------------------------------------------
+                enc_batches = (-(-res.n_coarse // batch_size)
+                               + -(-res.n_fine_encoded // batch_size))
+                if device == "cuda" and c_launches != enc_batches * depth:
+                    raise AssertionError(f"cascade {margin}: {c_launches} "
+                                         f"attention launches")
+                casc[str(margin)] = {
+                    "ms": ms, "n_coarse": res.n_coarse,
+                    "n_fine_encoded": res.n_fine_encoded,
+                    "n_fine_total": res.n_fine_total,
+                    "encode_fraction": res.encode_fraction,
+                    "coarse_level": res.coarse_level,
+                    "downsample": res.downsample,
+                    "tumor_prob": res.tumor_prob,
+                    "attention_launches": c_launches}
+                if margin >= 0.5:
+                    if not (np.array_equal(res.coords, coords0)
+                            and res.refined.all()):
+                        raise AssertionError("cascade 0.5: not the plain "
+                                             "sweep's grid")
+                    near = np.abs(probs[:, 1] - 0.5) <= NEAR
+                    moved = ((res.probs[:, 1] > 0.5)
+                             != (probs[:, 1] > 0.5)) & ~near
+                    if moved.any():
+                        raise AssertionError(f"cascade 0.5: {moved.sum()} "
+                                             f"decisions differ from the "
+                                             f"plain sweep's")
+                    casc[str(margin)].update(
+                        near_threshold=int(near.sum()),
+                        max_abs_err_vs_plain_sweep=float(
+                            np.abs(res.probs - probs).max()),
+                        plain_sweep_tumor_prob=float(
+                            (probs[:, 1] > 0.5).mean()))
+                results[margin] = res
+            # the partial path: some parents refine, the others keep their
+            # coarse call; a refined tile's probability is the full sweep's
+            full, part = results[0.5], results[CASCADE_MARGIN]
+            r = part.refined
+            if not 0 < part.n_fine_encoded < part.n_fine_total:
+                raise AssertionError(f"cascade {CASCADE_MARGIN}: "
+                                     f"{part.n_fine_encoded} of "
+                                     f"{part.n_fine_total} tiles refined")
+            if not np.array_equal(part.coords, full.coords):
+                raise AssertionError("cascade: the margins' grids differ")
+            fine_err = float(np.abs(part.probs[r] - full.probs[r]).max())
+            kept_err = float(np.abs(part.probs[~r]
+                                    - coarse_probs[inverse][~r]).max())
+            if not (fine_err <= 1e-6 and kept_err <= 1e-6):
+                raise AssertionError(f"cascade {CASCADE_MARGIN}: refined "
+                                     f"tiles {fine_err} from the full "
+                                     f"sweep's, kept ones {kept_err} from "
+                                     f"their parent's coarse call")
+            casc[str(CASCADE_MARGIN)].update(
+                max_abs_err_refined_vs_margin_0_5=fine_err,
+                max_abs_err_kept_vs_coarse_call=kept_err,
+                coarse_refined=int((np.abs(coarse_probs[:, 1] - 0.5)
+                                    <= CASCADE_MARGIN).sum()))
+            out["cascade"] = casc
+    if device == "cuda":
+        out["card"] = card()
+    phase("wsi_pyramid", **out)
+    return out
+
+
 def kernel_ms(torch, prof) -> dict[str, float]:
     """Device ms by kernel name (first 80 characters) of a torch.profiler
     trace."""
@@ -3045,6 +3737,13 @@ def main() -> int:
         # 10.–12. the zero-shot WSI sweep on the same weights
         wsi = drive_wsi(torch, fa, d_init)
         torch.cuda.empty_cache()
+        # 15.–16. SmoothQuant calibration (on the random draw, whose
+        # blocks all move the stream), then the sweep off a pyramid
+        calibrated = drive_int8_calibrated(torch, fa, d)
+        torch.cuda.empty_cache()
+        pyramid = drive_wsi_pyramid(torch, fa, d_init)
+        wsi_slide.cache_clear()
+        torch.cuda.empty_cache()
 
     # 8.–9. the attention backward, then training through the CLI
     bwd_rows = check_bwd_kernel(fa, torch, gen)
@@ -3069,7 +3768,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_line(
         rows, bwd_rows, heads_rows, heads_launches, int8_rows, ln_rows,
         fused, served, served8, trained, f32_rows, wsi, lora_trained,
-        lora_served)}), flush=True)
+        lora_served, calibrated, pyramid)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -3078,16 +3777,18 @@ def main() -> int:
 
 def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                 ln_rows, fused, served, served8, trained,
-                f32_rows, wsi, lora_trained, lora_served) -> list[dict]:
+                f32_rows, wsi, lora_trained, lora_served, calibrated,
+                pyramid) -> list[dict]:
     """One entry per TPU kernel: its launches on the main path that runs it,
     and, at ViT-L B=32 in bf16 (the int8 kernels: the first shape of their
     phase), its time, its plain version's, its bound and the one PyTorch
     call that computes the same function (null where there is none). The
     attention sub-blocks also carry their attention's rows (``f32_rows``,
     the bf16 → fp32 form at their tower's shapes). The kernels of the WSI
-    sweep carry their launches on it (phases 10–11, bf16 and int8), and
-    those of the LoRA phases theirs (13: the steps and the eval; 14: the
-    bf16 and the int8 server)."""
+    sweep carry their launches on it (phases 10–11, bf16 and int8), those
+    of the LoRA phases theirs (13: the steps and the eval; 14: the bf16 and
+    the int8 server), and those of the calibrated int8 path (15) and the
+    pyramid's (16: extraction, bf16 and int8, and the cascade) theirs."""
     def pick(rs, shape="vit_l16"):
         return next(r for r in rs if r["shape"] == shape and r["B"] == 32
                     and r["dtype"] == "bfloat16")
@@ -3114,6 +3815,12 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
             "extract": wsi["extract"]["attention_launches"],
             "classifier_auto": wsi["classifier"]["attention_launches_auto"],
             "classifier_flat": wsi["classifier"]["attention_launches_flat"]},
+        launches_calibrated_path=calibrated["attention_launches"],
+        launches_pyramid_path={
+            "extract": pyramid["attention_launches"],
+            "extract_int8": pyramid["int8_attention_launches"],
+            "cascade": {m: c["attention_launches"]
+                        for m, c in pyramid["cascade"].items()}},
         shapes=rows)]
     vit_bwd = pick(bwd_rows)
     kernels.append(entry(
@@ -3168,6 +3875,10 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
             k: v.get(kname, 0) for k, v in wsi_int8.items()}
         kernels[-1]["launches_lora_serve_int8"] = (
             lora_served["int8"]["launches"].get(kname, 0))
+        kernels[-1]["launches_calibrated_path"] = (
+            calibrated["launches"].get(kname, 0))
+        kernels[-1]["launches_pyramid_path"] = (
+            pyramid["int8_launches"].get(kname, 0))
         if kname in tower_of:
             kernels[-1]["attention_bf16_to_fp32"] = [
                 r for r in f32_rows if r["shape"] == tower_of[kname]]

@@ -14,7 +14,10 @@
   ``keep_tpu.quant.quantize_linear_weights``) maps to an ``ops.nn.QLinear``:
   ``kernel_q [in, out]`` → ``weight_q [out, in]``, its per-column ``scale``
   → ``weight_scale`` (not ``weight``: it is a dequant scale, not a LayerNorm
-  gain), ``bias`` and a SmoothQuant ``pre_scale`` as they are.
+  gain), ``bias`` and a SmoothQuant ``pre_scale`` as they are. A
+  ``pre_scale`` beside a float ``kernel`` (``keep_tpu.quant.smooth_bert``
+  without quantization) loads into the float ``ops.nn.Linear``, which
+  applies it as the JAX package's ``linear`` does.
 - ``from_jax_lora``: the JAX package's LoRA adapter tree → the port's
   adapter dict (``<module>.lora_a`` / ``.lora_b`` per layer).
 - ``random_keep_state_dict``: random weights in the released layout, drawn
@@ -188,11 +191,6 @@ def from_jax_params(params: Mapping, cfg: KEEPConfig) -> dict:
                 out[".".join((*path, _QUANTIZED_LEAVES[key]))] = t
             return
         if isinstance(node, Mapping):
-            if "pre_scale" in node:
-                raise NotImplementedError(
-                    f"{'.'.join(path)}: a smoothed linear that is not "
-                    f"quantized (a pre_scale beside an fp kernel) is not "
-                    f"ported; quantize the tree first")
             for key, child in node.items():
                 if key == "blocks":
                     leaves = [np.asarray(x) for x in _leaves(child)]
@@ -249,7 +247,7 @@ def to_jax_params(state_dict: Mapping, cfg: KEEPConfig) -> dict:
 
     for name, t in state_dict.items():
         *head, last = name.split(".")
-        if last in _QUANTIZED_LEAVES.values() and last != "bias":
+        if last in ("weight_q", "weight_scale"):
             raise ValueError(f"{name}: quantized linears have no float "
                              f"kernel to convert")
         arr = t.detach().cpu().float().numpy()

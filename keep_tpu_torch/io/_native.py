@@ -1,0 +1,68 @@
+"""Builds the repo's native C++ library (``native/*.cpp``: the libtiff
+pyramid reader, the JPEG / PNG decoder and the tokenizers) at first use
+(counterpart of ``keep_tpu.text.fast_tokenizer.build_native``).
+
+The sources are compiled with ``native/Makefile``'s flags
+(``-O3 -std=c++17 -fPIC -Wall``, linked with ``-ljpeg -lpng -ltiff``) into
+``keep_tpu_torch/io/build/`` (ignored by git), under a name that carries a
+hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one loaded as it is. Nothing is written under ``native/``. The
+library is built under a temporary name and renamed into place, so that a
+concurrent process never loads a half-written one. A failed build raises
+with the compiler's output, which names the header or library that is
+missing.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall")
+LIBS = ("-ljpeg", "-lpng", "-ltiff")
+
+_lock = threading.Lock()
+
+
+def _sources() -> list[Path]:
+    return sorted(NATIVE_DIR.glob("*.cpp"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(CXXFLAGS + LIBS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libkeep_native_{h.hexdigest()[:16]}.so"
+
+
+def build_native() -> str:
+    """The library's path, compiled first if its sources changed."""
+    with _lock:
+        target = library_path()
+        if target.exists():
+            return str(target)
+        cxx = os.environ.get("CXX") or shutil.which("g++") or "c++"
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+            tmp = Path(work, target.name)
+            cmd = [cxx, *CXXFLAGS, "-shared", "-o", str(tmp),
+                   *map(str, _sources()), *LIBS]
+            try:
+                p = subprocess.run(cmd, capture_output=True, text=True)
+            except OSError as e:
+                raise RuntimeError(f"cannot run the C++ compiler {cxx!r} "
+                                   f"to build {target.name}: {e}") from e
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"building the native library failed ({p.returncode}): "
+                    f"{' '.join(cmd)}\n{p.stderr}")
+            os.replace(tmp, target)
+        return str(target)

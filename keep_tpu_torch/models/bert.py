@@ -9,6 +9,11 @@ kernel reads the unsplit slab.
 Parameter names follow the JAX pytree (``embeddings.word``,
 ``blocks.{i}.attn.qkv``, ``blocks.{i}.attn.out``, ``pooler``, ...). The
 embedding tables stay fp32 whatever the compute dtype, as in the JAX package.
+
+Calibration: ``forward(..., ln_stats=True)`` also returns the per-layer
+per-channel abs-max of the qkv input (the block's input stream) and the fc1
+input (the attention sub-block's exit LayerNorm), pad positions masked out
+(``quant.smooth_bert``).
 """
 
 from __future__ import annotations
@@ -65,9 +70,15 @@ class Block(nn.Module):
             self.attn.qkv, self.attn.out, self.mlp.fc1, self.mlp.fc2))
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor, *,
-                use_flash: bool, gelu_approx: bool) -> torch.Tensor:
+                use_flash: bool, gelu_approx: bool,
+                collect_ln_stats: bool = False):
+        """``collect_ln_stats`` (calibration) also returns the fp32 abs-max
+        over the unpadded positions of the qkv and fc1 inputs, {"qkv": [D],
+        "fc1": [D]}; it needs float linears."""
         b, s, d = x.shape
         h = self.cfg.num_attention_heads
+        if collect_ln_stats and isinstance(self.attn.qkv, QLinear):
+            raise ValueError("LN-stats calibration needs unquantized params")
         if use_flash and gelu_approx and self.int8_megakernel():
             # the post-LN attention sub-block (int8 qkv → masked MHA → int8
             # out → LN(x + ·)), then the int8 MLP pair with the exit LN; the
@@ -84,6 +95,11 @@ class Block(nn.Module):
                 out_dtype=x.dtype, ln_scale=self.norm.weight,
                 ln_bias=self.norm.bias, eps=eps, post_ln=True,
                 pre_scale1=m.fc1.pre_scale)
+        if collect_ln_stats:
+            # pad positions carry embedding noise that no output reads
+            # ([CLS] pooling, masked keys): they are left out of the max
+            valid = (key_bias == 0).float()[..., None]
+            stat_qkv = (x.float().abs() * valid).amax(dim=(0, 1))
         qkv = self.attn.qkv(x)
         if use_flash:
             attn = attention_qkv_slab(qkv, key_bias=key_bias, num_heads=h)
@@ -92,7 +108,11 @@ class Block(nn.Module):
             attn = mha_attention(q, k, v, bias=key_bias[:, None, None, :])
             attn = attn.transpose(1, 2).reshape(b, s, d)
         x = self.attn.norm(x + self.attn.out(attn))
-        return self.norm(x + self.mlp(x, gelu_approx=gelu_approx))
+        out = self.norm(x + self.mlp(x, gelu_approx=gelu_approx))
+        if collect_ln_stats:
+            return out, {"qkv": stat_qkv,
+                         "fc1": (x.float().abs() * valid).amax(dim=(0, 1))}
+        return out
 
 
 class BertModel(nn.Module):
@@ -108,10 +128,13 @@ class BertModel(nn.Module):
                 attention_mask: torch.Tensor | None = None,
                 token_type_ids: torch.Tensor | None = None, *,
                 dtype: torch.dtype = torch.float32, use_flash: bool = False,
-                gelu_approx: bool = False, remat: bool = False) -> dict:
+                gelu_approx: bool = False, remat: bool = False,
+                ln_stats: bool = False):
         """[B, S] token ids → {'last_hidden_state': [B, S, D],
         'pooler_output': [B, D]}. ``remat`` recomputes each block in the
-        backward (``torch.utils.checkpoint``)."""
+        backward (``torch.utils.checkpoint``). ``ln_stats=True`` returns
+        ``(outputs, {"qkv": [L, D], "fc1": [L, D]})``, the calibration pass
+        of ``quant.smooth_bert``."""
         b, s = input_ids.shape
         if s > self.cfg.max_position_embeddings:
             raise ValueError(
@@ -127,12 +150,20 @@ class BertModel(nn.Module):
              + emb.token_type[token_type_ids])
         x = emb.norm(x).to(dtype)
         key_bias = (1.0 - attention_mask.float()) * MASK_VALUE  # [B, S] fp32
+        stats = []
         for blk in self.blocks:
+            kw = dict(use_flash=use_flash, gelu_approx=gelu_approx,
+                      collect_ln_stats=ln_stats)
             if remat:
-                x = checkpoint(blk, x, key_bias, use_reentrant=False,
-                               use_flash=use_flash, gelu_approx=gelu_approx)
+                x = checkpoint(blk, x, key_bias, use_reentrant=False, **kw)
             else:
-                x = blk(x, key_bias, use_flash=use_flash,
-                        gelu_approx=gelu_approx)
-        return {"last_hidden_state": x,
-                "pooler_output": torch.tanh(self.pooler(x[:, 0]))}
+                x = blk(x, key_bias, **kw)
+            if ln_stats:
+                x, st = x
+                stats.append(st)
+        out = {"last_hidden_state": x,
+               "pooler_output": torch.tanh(self.pooler(x[:, 0]))}
+        if ln_stats:
+            return out, {k: torch.stack([st[k] for st in stats])
+                         for k in ("qkv", "fc1")}
+        return out

@@ -129,14 +129,21 @@ class KEEPModel(nn.Module):
         (``ops.nn.Linear.quantize_source``), whatever dtype stores it, so
         the int8 codes equal the JAX package's ``KEEPModel.quantize()`` bit
         for bit; a weight changed since it was loaded is quantized as
-        stored. SmoothQuant calibration (``calib_pixels``, ``calib_text``)
-        and the MoE ``moe_w8a16`` option are not ported yet and raise."""
-        if calib_pixels is not None or calib_text is not None or moe_w8a16:
+        stored.
+
+        SmoothQuant calibration, as the JAX package's: ``calib_text``
+        (``input_ids`` [N, S], or ``(input_ids, attention_mask)``) smooths
+        the BERT tower in the ``pre_scale`` form (``quant.smooth_bert``);
+        ``calib_pixels`` ([N, H, W, 3] normalised images) smooths the ViT's
+        LayerNorm → qkv / fc1 edges (``quant.smooth_vit``) after the
+        LayerScale fold. The statistics come from fp32 forwards with plain
+        attention over the fp32 weights. ``moe_w8a16`` (weight-only int8 MoE
+        experts) raises: the MoE trunk is ROADMAP queue 1, item 11."""
+        if moe_w8a16:
             raise NotImplementedError(
-                "SmoothQuant calibration (calib_pixels / calib_text) and "
-                "moe_w8a16 are not ported yet; quantize "
-                "plainly, or calibrate with keep_tpu and load the tree with "
-                "compat.torch_loader.from_jax_params")
+                "moe_w8a16 (weight-only int8 MoE experts) needs the MoE "
+                "visual trunk, which is not ported yet (ROADMAP queue 1, "
+                "item 11)")
         from keep_tpu_torch.quant import is_quantized
 
         if is_quantized(self):
@@ -148,21 +155,32 @@ class KEEPModel(nn.Module):
         memo = {id(m.fp32_weight): m.fp32_weight for m in self.modules()
                 if isinstance(m, Linear) and m.fp32_weight is not None}
         model = copy.deepcopy(self, memo)
-        model._quantize_in_place()
+        model._quantize_in_place(calib_pixels, smooth_alpha, calib_text)
         return model
 
     @torch.no_grad()
-    def _quantize_in_place(self) -> None:
+    def _quantize_in_place(self, calib_pixels=None, smooth_alpha: float = 0.5,
+                           calib_text=None) -> None:
         """``quantize()``'s work on this float model itself."""
+        from keep_tpu_torch import quant
         from keep_tpu_torch.models.vit import fold_layerscale
-        from keep_tpu_torch.quant import quantize_linear_weights
 
         for m in self.modules():
             if isinstance(m, Linear):
                 m.weight.data = m.quantize_source()
                 m.fp32_weight = None
+        if calib_text is not None:
+            ids, mask = (calib_text if isinstance(calib_text, (tuple, list))
+                         else (calib_text, None))
+            quant.smooth_bert(self.text, quant.bert_ln_stats(self.text, ids,
+                                                             mask),
+                              smooth_alpha)
         fold_layerscale(self.visual)
-        quantize_linear_weights(self)
+        if calib_pixels is not None:
+            quant.smooth_vit(self.visual,
+                             quant.vit_ln_stats(self.visual, calib_pixels),
+                             smooth_alpha)
+        quant.quantize_linear_weights(self)
         self._cast_linear_weights(self.dtype)
 
     @classmethod

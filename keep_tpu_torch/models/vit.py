@@ -14,8 +14,12 @@ weight on use), per-block remat with ``remat=True``; the int8 blocks and
 ``fuse_ln`` (LayerNorm fused into the qkv and fc1 matmuls,
 ``kernels.ln_matmul``) are inference-only.
 
+Calibration: ``forward(..., ln_stats=True)`` also returns the per-layer
+per-channel abs-max of the two LayerNorm outputs that feed qkv and fc1,
+the inputs the int8 path quantizes per token (``quant.smooth_vit``).
+
 Not ported yet: ``resample_pos_embed`` (image sizes other than the native
-one raise), patch dropout, ``ln_stats`` and ``act_sharding``.
+one raise), patch dropout and ``act_sharding``.
 """
 
 from __future__ import annotations
@@ -88,16 +92,24 @@ class Block(nn.Module):
                          out_dtype=x.dtype)
 
     def forward(self, x: torch.Tensor, *, use_flash: bool,
-                gelu_approx: bool, fuse_ln: bool = False) -> torch.Tensor:
+                gelu_approx: bool, fuse_ln: bool = False,
+                collect_ln_stats: bool = False):
         """The block's branches in the JAX package's order: the int8
         megakernels; then, under ``fuse_ln`` with ``use_flash`` and a float
         qkv, LayerNorm fused into the qkv matmul (``ln_matmul``) feeding the
         slab attention; then the slab attention; then the plain path. The
         MLP half fuses norm2 into fc1 under ``fuse_ln`` with ``use_flash``
-        and a float fc1."""
+        and a float fc1.
+
+        ``collect_ln_stats`` (calibration) also returns the fp32 abs-max
+        over batch and tokens of norm1's and norm2's outputs, {"qkv": [D],
+        "fc1": [D]}; it needs float linears and no ``fuse_ln``."""
         b, s, d = x.shape
         h = self.cfg.num_heads
         gelu_act = self.cfg.act == "gelu"
+        if collect_ln_stats and (fuse_ln
+                                 or isinstance(self.attn.qkv, QLinear)):
+            raise ValueError("LN-stats calibration needs the unfused fp path")
         if use_flash and gelu_approx and self.int8_megakernel():
             # the whole attention sub-block (LN → int8 qkv → MHA → int8 proj
             # → + x), then the int8 MLP pair with its LN and residual fused
@@ -117,7 +129,8 @@ class Block(nn.Module):
             slab = self._ln_matmul(x, self.norm1, self.attn.qkv)
             attn = attention_qkv_slab(slab.view(b, s, 3 * d), num_heads=h)
         else:
-            qkv = self.attn.qkv(self.norm1(x))  # [B, S, 3D]
+            ln1 = self.norm1(x)
+            qkv = self.attn.qkv(ln1)  # [B, S, 3D]
             if use_flash:
                 # the kernel slices heads out of the slab: no split, no
                 # transpose
@@ -136,9 +149,13 @@ class Block(nn.Module):
                        approximate=gelu_approx)
             y = self.mlp.fc2(hdn).view(b, s, d)
         else:
-            y = self.mlp(self.norm2(x), gelu_approx=gelu_approx)
+            ln2 = self.norm2(x)
+            y = self.mlp(ln2, gelu_approx=gelu_approx)
         if self.ls2 is not None:
             y = y * self.ls2.to(y.dtype)
+        if collect_ln_stats:
+            return x + y, {"qkv": ln1.float().abs().amax(dim=(0, 1)),
+                           "fc1": ln2.float().abs().amax(dim=(0, 1))}
         return x + y
 
 
@@ -170,13 +187,17 @@ class VisionTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, *, dtype: torch.dtype = torch.float32,
                 use_flash: bool = False, gelu_approx: bool = False,
-                remat: bool = False, fuse_ln: bool = False) -> torch.Tensor:
+                remat: bool = False, fuse_ln: bool = False,
+                ln_stats: bool = False):
         """[B, H, W, 3] normalised pixels → [B, D] CLS features.
         ``remat`` recomputes each block's activations in the backward
         (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``
         around the block). ``fuse_ln`` with ``use_flash`` fuses norm1 into
         the qkv matmul and norm2 into fc1 (``kernels.ln_matmul``; float
-        blocks only, inference only), as the JAX package's ``fuse_ln``."""
+        blocks only, inference only), as the JAX package's ``fuse_ln``.
+        ``ln_stats=True`` returns ``(features, {"qkv": [L, D], "fc1": [L,
+        D]})``, each block's LayerNorm-output abs-max (the calibration pass
+        of ``quant.smooth_vit``)."""
         b, h, w, _ = x.shape
         cfg = self.cfg
         if (h, w) != (cfg.img_size, cfg.img_size):
@@ -187,17 +208,24 @@ class VisionTransformer(nn.Module):
         tokens = self.patch_embed(patchify(x, cfg.patch_size))
         cls = self.cls_token.to(dtype).expand(b, 1, cfg.embed_dim)
         tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(dtype)
+        stats = []
         for blk in self.blocks:
+            kw = dict(use_flash=use_flash, gelu_approx=gelu_approx,
+                      fuse_ln=fuse_ln, collect_ln_stats=ln_stats)
             if remat:
-                tokens = checkpoint(blk, tokens, use_reentrant=False,
-                                    use_flash=use_flash,
-                                    gelu_approx=gelu_approx, fuse_ln=fuse_ln)
+                tokens = checkpoint(blk, tokens, use_reentrant=False, **kw)
             else:
-                tokens = blk(tokens, use_flash=use_flash,
-                             gelu_approx=gelu_approx, fuse_ln=fuse_ln)
+                tokens = blk(tokens, **kw)
+            if ln_stats:
+                tokens, st = tokens
+                stats.append(st)
         # LayerNorm is per token, so normalising the pooled CLS row alone
         # equals the JAX package's norm-then-pool
-        return self.norm(tokens[:, 0])
+        pooled = self.norm(tokens[:, 0])
+        if ln_stats:
+            return pooled, {k: torch.stack([st[k] for st in stats])
+                            for k in ("qkv", "fc1")}
+        return pooled
 
 
 @torch.no_grad()

@@ -176,9 +176,24 @@ def ieee_fp32():
                 restore_tf32(_ieee_saved)
 
 
+def _load_pre_scale(module: nn.Module, state_dict, prefix: str) -> None:
+    """Creates ``module``'s optional ``pre_scale`` buffer when a state dict
+    brings one, so that the load fills it."""
+    key = prefix + "pre_scale"
+    if key in state_dict and module.pre_scale is None:
+        module.pre_scale = torch.empty(state_dict[key].shape,
+                                       device=module.bias.device)
+
+
 class Linear(nn.Module):
     """A linear layer over ``linear``. Its parameters are created empty and
-    filled from a state dict (``compat.torch_loader``)."""
+    filled from a state dict (``compat.torch_loader``).
+
+    An optional fp32 ``pre_scale`` [in] (SmoothQuant's form for a linear
+    with no affine op before it, ``quant.smooth_bert``) multiplies the input
+    in fp32 before the product, the result cast back to the input's dtype,
+    as ``keep_tpu.ops.nn.linear`` applies the leaf; the weight's input
+    columns carry its inverse."""
 
     def __init__(self, in_features: int, out_features: int, *,
                  device=None):
@@ -186,6 +201,7 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features, device=device))
         self.bias = nn.Parameter(torch.empty(out_features, device=device))
+        self.register_buffer("pre_scale", None)
         # the fp32 values a state dict brought into a narrower weight, kept
         # on the host for ``quantize_source``
         self.fp32_weight: torch.Tensor | None = None
@@ -196,7 +212,17 @@ class Linear(nn.Module):
             w.detach().to("cpu").contiguous()
             if isinstance(w, torch.Tensor) and w.dtype == torch.float32
             and self.weight.dtype != torch.float32 else None)
+        _load_pre_scale(self, state_dict, prefix)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    @torch.no_grad()
+    def set_source(self, w32: torch.Tensor) -> None:
+        """Stores new fp32 values ``w32`` in this weight's dtype and, where
+        that dtype is narrower, keeps them on the host for
+        ``quantize_source``, as a load from fp32 values does."""
+        self.weight.data = w32.to(self.weight.device, self.weight.dtype)
+        self.fp32_weight = (w32.detach().to("cpu").contiguous()
+                            if self.weight.dtype != torch.float32 else None)
 
     def quantize_source(self) -> torch.Tensor:
         """The values to quantize this weight from, on its device: the fp32
@@ -212,6 +238,8 @@ class Linear(nn.Module):
         return w
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pre_scale is not None:
+            x = (x.float() * self.pre_scale).to(x.dtype)
         return linear(x, self.weight, self.bias)
 
 
@@ -247,11 +275,7 @@ class QLinear(nn.Module):
         return m
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
-        # the optional pre_scale buffer exists once a state dict brings one
-        key = prefix + "pre_scale"
-        if key in state_dict and self.pre_scale is None:
-            self.pre_scale = torch.empty(state_dict[key].shape,
-                                         device=self.weight_scale.device)
+        _load_pre_scale(self, state_dict, prefix)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

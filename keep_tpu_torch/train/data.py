@@ -262,11 +262,19 @@ def resolve_image_path(img_dir: str, name: str) -> str:
 
 
 def load_image(img_dir: str, name: str) -> np.ndarray:
-    """uint8 HWC RGB through PIL."""
-    from PIL import Image
+    """uint8 HWC RGB: the native JPEG / PNG decoder (``io.fast_decode``,
+    PIL's bits), PIL for anything it declines or where it cannot be
+    built."""
+    path = resolve_image_path(img_dir, name)
+    try:
+        from keep_tpu_torch.io.fast_decode import decode_image
 
-    with Image.open(resolve_image_path(img_dir, name)) as im:
-        return np.asarray(im.convert("RGB"))
+        return decode_image(path)
+    except Exception:
+        from PIL import Image
+
+        with Image.open(path) as im:
+            return np.asarray(im.convert("RGB"))
 
 
 def dataset_image_names(dataset) -> list[str]:
@@ -288,12 +296,14 @@ def dataset_image_names(dataset) -> list[str]:
 
 def preload_images(dataset, img_dir: str,
                    workers: int = 8) -> dict[str, np.ndarray]:
-    """Every image the dataset can draw, decoded once: name → uint8 HWC."""
-    from concurrent.futures import ThreadPoolExecutor
+    """Every image the dataset can draw, decoded once: name → uint8 HWC, in
+    one batched native decode (C++ threads, PIL inside for what it
+    declines)."""
+    from keep_tpu_torch.io.fast_decode import decode_files
 
     names = dataset_image_names(dataset)
-    with ThreadPoolExecutor(max_workers=max(1, workers)) as pool:
-        arrays = list(pool.map(lambda n: load_image(img_dir, n), names))
+    arrays = decode_files([resolve_image_path(img_dir, n) for n in names],
+                          workers=workers)
     return dict(zip(names, arrays))
 
 

@@ -11,8 +11,9 @@ and a CUDA event per batch says when they have landed, so the fetch of
 batch k overlaps the compute of batch k+1 while the host fills the next
 batch's buffer.
 
-The mesh-sharded form (``mesh=``) and ``extract_wsi_to_h5`` (pyramidal
-slides through the native reader) are not ported yet.
+``extract_wsi_to_h5`` streams a pyramidal slide's tissue tiles
+(``io.tiles.iter_wsi_tiles``) through the same pipeline into an h5 file.
+The mesh-sharded form (``mesh=``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -149,6 +150,38 @@ def extract_features(
     if not outs:  # a slide with no tissue tiles keeps the feature width
         return np.zeros((0, dim), np.float32)
     return np.concatenate(outs, axis=0)
+
+
+def extract_wsi_to_h5(model, slide_path: str, out_path: str,
+                      patch_size: int = 256, tissue_fraction: float = 0.25,
+                      level: int = 0, batch_size: int = 256, **kw) -> int:
+    """Pyramidal slide (.svs / .tif) → CLAM-style h5, streaming: the tissue
+    tiles are read chunk by chunk at ``level`` (``io.tiles.iter_wsi_tiles``)
+    and encoded at one batch shape, never holding the slide in memory.
+    Returns the tile count. Coords are (x, y) at ``level`` (level 0: the
+    CLAM convention)."""
+    import h5py
+
+    from keep_tpu_torch.io.tiles import iter_wsi_tiles
+
+    coords_acc: list[np.ndarray] = []
+
+    def tile_chunks():
+        for tiles, coords in iter_wsi_tiles(
+                slide_path, patch_size=patch_size,
+                tissue_fraction=tissue_fraction, chunk=batch_size,
+                level=level):
+            coords_acc.append(coords)
+            yield tiles
+
+    features = extract_features(model, tile_chunks(), batch_size=batch_size,
+                                **kw)
+    coords = (np.concatenate(coords_acc) if coords_acc
+              else np.zeros((0, 2), np.int64))
+    with h5py.File(out_path, "w") as f:
+        f.create_dataset("features", data=features)
+        f.create_dataset("coords", data=coords)
+    return len(coords)
 
 
 def extract_to_h5(model, tiles: np.ndarray, coords: np.ndarray, out_path: str,

@@ -27,11 +27,6 @@ from keep_tpu_torch.metrics.classification import (dice_from_counts,
 from keep_tpu_torch.ops.nn import ieee_fp32, l2_normalize
 from keep_tpu_torch.wsi.grid import CoordGrid, heatmap_image, refine_grid
 
-# what a slide-file mask (``mask_path``) needs when OpenSlide is absent
-NATIVE_READER_ITEM = ("ROADMAP queue 1, item 13 (the native pyramid reader, "
-                      "keep_tpu/io/wsi.py)")
-
-
 def score_tiles(classifier, features, scale: float = 10.0) -> torch.Tensor:
     """[N, D] tile features × [D, C] classifier → [N, C] softmax(sim·scale)
     (detection_utils.py:90-93), on the features' device."""
@@ -186,8 +181,8 @@ def zero_shot_segment(
     """(AUROC, Dice) for one slide (segment_utils.py:44-60).
 
     Ground truth from an in-memory level-0 ``mask`` array, or from
-    ``mask_path`` through OpenSlide; without OpenSlide a ``mask_path``
-    raises (the JAX package's native reader is not ported yet).
+    ``mask_path``: through OpenSlide when it can be imported, else through
+    ``io.wsi.WSIReader``.
     """
     grid = CoordGrid.from_coords(tile_coords, patch_size)
     probs = refined_tumor_probs(classifier, tile_features, grid,
@@ -200,7 +195,7 @@ def zero_shot_segment(
         mag = 16
         lowres = np.asarray(mask)[::mag, ::mag]
     elif mask_path is not None:
-        gt, lowres, mag = _openslide_gt(mask_path, kept, patch_size)
+        gt, lowres, mag = _mask_path_gt(mask_path, kept, patch_size)
     else:
         raise ValueError("provide mask or mask_path")
 
@@ -209,18 +204,49 @@ def zero_shot_segment(
     return auc, dice
 
 
+def _mask_path_gt(mask_path: str, coords: np.ndarray, patch_size: int):
+    """Slide-file ground truth: OpenSlide when importable (the reference's
+    reader, segment_utils.py:91-127), else ``io.wsi.WSIReader``; the same
+    decision rules either way."""
+    try:
+        return _openslide_gt(mask_path, coords, patch_size)
+    except ImportError:
+        return _tiffwsi_gt(mask_path, coords, patch_size)
+
+
+def _to_gray(rgb: np.ndarray) -> np.ndarray:
+    """PIL ``convert("L")``'s fixed-point ITU-R 601 luma, rounded, so that
+    edge pixels binarise as on the OpenSlide route."""
+    r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).astype(
+        np.uint8)
+
+
+def _tiffwsi_gt(mask_path: str, coords: np.ndarray, patch_size: int):
+    from keep_tpu_torch.io.wsi import WSIReader
+
+    with WSIReader(mask_path) as slide:
+        gt = np.zeros(len(coords), np.int64)
+        for i, (x, y) in enumerate(np.asarray(coords, np.int64)):
+            region = _to_gray(slide.read_region(
+                (int(x), int(y)), 0, (patch_size, patch_size)))
+            gt[i] = int(np.count_nonzero(region) > patch_size * patch_size / 2)
+        idx = slide.best_level_for_downsample(16)
+        lowres = _to_gray(
+            slide.read_region((0, 0), idx, slide.level_dimensions[idx]))
+        # truncated as the OpenSlide route's int(level_downsamples[idx])
+        return gt, lowres, int(slide.level_downsamples[idx])
+
+
 def _openslide_gt(mask_path: str, coords: np.ndarray, patch_size: int):
-    """Slide-file ground truth through OpenSlide (segment_utils.py:91-127).
-    The JAX package reads the file with its native pyramid reader when
-    OpenSlide is absent; that reader is not ported, so this raises."""
+    """Slide-file ground truth through OpenSlide (segment_utils.py:91-127);
+    raises ImportError without it."""
     try:
         import openslide
     except ImportError as e:
-        raise NotImplementedError(
-            f"segmentation ground truth from a slide file ({mask_path}) "
-            f"needs OpenSlide, which is not installed; the native pyramid "
-            f"reader that replaces it is {NATIVE_READER_ITEM}, not ported "
-            f"yet. Pass a level-0 .npy mask instead") from e
+        raise ImportError(
+            "OpenSlide is required for mask_path-based segmentation GT; "
+            "pass an in-memory `mask` array instead") from e
     slide = openslide.open_slide(mask_path)
     gt = np.zeros(len(coords), np.int64)
     for i, (x, y) in enumerate(np.asarray(coords, np.int64)):

@@ -5,17 +5,18 @@ The reference's driver scripts (WSI_evaluation/zeroshot_detection_WSI.py,
 zeroshot_segmentation_WSI.py, zeroshot_subtyping_WSI.py): load the model
 and the prompts, build the prompt-ensemble classifier (screened or seeded
 random), sweep one slide or a cohort CSV, print the metrics. ``extract``
-cuts tissue tiles from flat slide images (PIL-readable) and writes
-CLAM-style h5 features. The flags and defaults are the JAX CLI's, plus
+writes CLAM-style h5 features from a slide: a pyramidal ``.svs`` / ``.tif``
+streams through the native libtiff reader (``io.wsi``), any other image (or
+a pyramid the native reader cannot open) is cut whole through PIL.
+``extract --int8`` calibrates the visual tower on the slide's first
+``--int8-calib`` tiles (SmoothQuant; 0 for plain W8A8). ``detection
+--image`` runs the coarse-to-fine cascade straight off a pyramid
+(``wsi.cascade``). The flags and defaults are the JAX CLI's, plus
 ``--device`` (default ``cuda``; without a card the CLI raises unless
 ``--device cpu`` is passed).
 
-Not ported yet, and refused with the ROADMAP item that brings them:
-pyramidal ``.svs`` / ``.tif`` slides and ``extract_wsi_to_h5`` (the native
-pyramid reader) and the coarse-to-fine cascade that reads them
-(``detection --image``, ``--cascade-margin``), both item 13; ``--mesh-dp``
-(item 10) and SmoothQuant calibration (``extract --int8`` with
-``--int8-calib`` > 0; item 7).
+Not ported yet, and refused with the ROADMAP item that brings it:
+``--mesh-dp`` (item 10).
 """
 
 from __future__ import annotations
@@ -27,12 +28,7 @@ import logging
 import numpy as np
 import torch
 
-from keep_tpu_torch.wsi.pipelines import NATIVE_READER_ITEM as NATIVE_READER
-
-CASCADE = ("ROADMAP queue 1, item 13: the cascade sweep "
-           "(keep_tpu/wsi/cascade.py), which reads pyramids")
 MESH = "ROADMAP queue 1, item 10: distributed"
-CALIBRATION = "ROADMAP queue 1, item 7: SmoothQuant calibration"
 
 
 def _encoder(model, device):
@@ -65,39 +61,54 @@ def build_ensemble(model, tokenizer, prompts, label_map, features, args):
     return random_ensemble(stack, topn=args.topn)
 
 
-def load_model(args):
+def load_model(args, calib_pixels=None):
     """The bf16 model with the fused attention kernels on ``args.device``
-    (the int8 W8A8 model with ``--int8``), and its tokenizer."""
+    (with ``--int8`` the W8A8 model, SmoothQuant-calibrated on
+    ``calib_pixels`` when they are given), and its tokenizer."""
     from keep_tpu_torch.models.keep import KEEPModel
     from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
 
+    int8 = getattr(args, "int8", False)
     # the JAX CLI turns its flash kernels on only on a TPU; the port's
-    # kernels are the card's (on the CPU their plain versions run)
+    # kernels are the card's (on the CPU their plain versions run). A
+    # plain --int8 load quantizes the fresh model itself; a calibrated one
+    # quantizes a copy of the float model
     model = KEEPModel.from_pretrained(
         args.model, dtype=torch.bfloat16, use_flash=True,
-        device=args.device, quantize=getattr(args, "int8", False))
+        device=args.device, quantize=int8 and calib_pixels is None)
+    if int8 and calib_pixels is not None:
+        model = model.quantize(calib_pixels=calib_pixels)
     return model, WordPieceTokenizer.from_pretrained(args.model)
 
 
-def _is_pyramid(path: str) -> bool:
-    """An .svs, or a .tif / .tiff with more than one page (a pyramid's
-    levels); a single-page TIFF is a flat image."""
-    low = str(path).lower()
-    if low.endswith(".svs"):
-        return True
-    if not low.endswith((".tif", ".tiff")):
-        return False
-    from PIL import Image
-
+def _try_open_pyramid(path: str):
+    """The native reader when the file is a multi-level pyramid (or an
+    .svs); None routes the file to the whole-image PIL path, as in the JAX
+    package (also when the native reader cannot open it)."""
+    if not str(path).lower().endswith((".tif", ".tiff", ".svs")):
+        return None
     try:
-        with Image.open(path) as im:
-            return getattr(im, "n_frames", 1) > 1
-    except Exception:  # not a TIFF PIL reads: leave it to the native reader
-        return True
+        from keep_tpu_torch.io.wsi import WSIReader
+
+        reader = WSIReader(path, backend="native")
+    except Exception:
+        return None
+    if reader.level_count > 1 or str(path).lower().endswith(".svs"):
+        return reader
+    reader.close()
+    return None
+
+
+_flat_cache: dict = {}  # one entry: the --int8 calibration reads the flat
+# image that the extraction reads next; it is cut once
 
 
 def _flat_tiles(args, image_path):
-    """Whole-image (PIL) tile cut of a flat slide image."""
+    """Whole-image (PIL) tile cut of a flat slide image, memoised for the
+    calibration-then-extraction pair of reads."""
+    key = (image_path, args.patch_size, args.tissue_fraction)
+    if _flat_cache.get("key") == key:
+        return _flat_cache["value"]
     from PIL import Image
 
     from keep_tpu_torch.io.tiles import cut_tiles
@@ -108,11 +119,66 @@ def _flat_tiles(args, image_path):
                               tissue_fraction=args.tissue_fraction)
     logging.info("cut %d tissue tiles (%dpx) from %s", len(tiles),
                  args.patch_size, image_path)
+    _flat_cache.clear()
+    _flat_cache.update(key=key, value=(tiles, coords))
     return tiles, coords
 
 
+def _check_wsi_level(args, pyramid, image_path):
+    if not 0 <= args.wsi_level < pyramid.level_count:
+        pyramid.close()
+        raise SystemExit(
+            f"error: --wsi-level {args.wsi_level} out of range — "
+            f"{image_path} has {pyramid.level_count} level(s)")
+
+
+def _slide_calib(args, image_path):
+    """SmoothQuant calibration pixels from the slide's own first tiles,
+    preprocessed as the extraction preprocesses them, on ``args.device``;
+    or None."""
+    if not (getattr(args, "int8", False) and args.int8_calib):
+        return None
+    from keep_tpu_torch.ops.preprocess import preprocess
+
+    pyramid = _try_open_pyramid(image_path)
+    if pyramid is not None:
+        _check_wsi_level(args, pyramid, image_path)
+        from keep_tpu_torch.io.tiles import iter_wsi_tiles
+
+        first = next(iter_wsi_tiles(
+            pyramid, patch_size=args.patch_size,
+            tissue_fraction=args.tissue_fraction,
+            chunk=args.int8_calib, level=args.wsi_level), None)
+        pyramid.close()
+        tiles = first[0] if first is not None else None
+    else:
+        tiles, _ = _flat_tiles(args, image_path)
+        tiles = tiles[: args.int8_calib] if len(tiles) else None
+    if tiles is None or not len(tiles):
+        return None
+    logging.info("int8 calibration on %d tiles", len(tiles))
+    return preprocess(torch.from_numpy(np.ascontiguousarray(tiles)).to(
+        args.device))
+
+
 def _extract_one(model, args, image_path, out_path) -> int:
-    """One flat slide image → one h5. Returns the tile count."""
+    """One slide → one h5: the streaming native-pyramid path when the file
+    is a pyramid, the whole-image PIL path otherwise. Returns the tile
+    count."""
+    pyramid = _try_open_pyramid(image_path)
+    if pyramid is not None:
+        _check_wsi_level(args, pyramid, image_path)
+        from keep_tpu_torch.wsi.extract import extract_wsi_to_h5
+
+        logging.info("pyramidal slide %s: %d levels, level %d is %s",
+                     image_path, pyramid.level_count, args.wsi_level,
+                     pyramid.level_dimensions[args.wsi_level])
+        pyramid.close()
+        return extract_wsi_to_h5(
+            model, image_path, out_path, patch_size=args.patch_size,
+            tissue_fraction=args.tissue_fraction, level=args.wsi_level,
+            batch_size=args.batch_size, resize=True)
+
     from keep_tpu_torch.wsi.extract import extract_to_h5
 
     tiles, coords = _flat_tiles(args, image_path)
@@ -121,27 +187,36 @@ def _extract_one(model, args, image_path, out_path) -> int:
     return len(tiles)
 
 
-def _refuse(parser, args) -> None:
-    """Refuses, before any work, what the port does not run yet."""
-    if args.mesh_dp:
-        parser.error(f"--mesh-dp is not ported yet ({MESH})")
-    if args.cascade_margin is not None:
-        parser.error(f"--cascade-margin runs the cascade sweep, which is not "
-                     f"ported yet ({CASCADE})")
-    if args.task == "detection" and args.image and not args.h5:
-        parser.error(f"detection --image runs the cascade sweep, which is not "
-                     f"ported yet ({CASCADE}); extract features first (task "
-                     f"'extract') and pass --h5")
-    if args.task == "extract" and args.int8 and args.int8_calib:
-        parser.error(f"extract --int8 calibrates the visual tower on the "
-                     f"slide's first {args.int8_calib} tiles, and SmoothQuant "
-                     f"calibration is not ported yet ({CALIBRATION}); pass "
-                     f"--int8-calib 0 for plain W8A8")
-    if args.task == "extract":
-        if args.image and _is_pyramid(args.image):
-            parser.error(f"{args.image} is a pyramidal slide, which needs "
-                         f"{NATIVE_READER}, not ported yet; pass a flat "
-                         f"(single-level) image")
+def _cascade(model, tokenizer, prompts, label_map, args) -> None:
+    """``detection --image``: the coarse-to-fine cascade straight off the
+    pyramid, no h5 needed; the prompts are screened on the coarse level's
+    features (the cascade encodes them again inside)."""
+    from keep_tpu_torch.io.tiles import iter_wsi_tiles
+    from keep_tpu_torch.io.wsi import open_slide
+    from keep_tpu_torch.wsi.cascade import cascade_detect
+    from keep_tpu_torch.wsi.extract import extract_features
+
+    with open_slide(args.image) as reader:
+        level = reader.best_level_for_downsample(args.coarse_downsample)
+        coarse = np.concatenate([t for t, _ in iter_wsi_tiles(
+            reader, patch_size=args.patch_size,
+            tissue_fraction=args.tissue_fraction,
+            chunk=args.batch_size, level=level)])
+    screen_feats = extract_features(model, coarse, resize=True,
+                                    batch_size=args.batch_size)
+    classifier = build_ensemble(model, tokenizer, prompts, label_map,
+                                screen_feats, args)
+    res = cascade_detect(
+        model, args.image, classifier, patch_size=args.patch_size,
+        coarse_downsample=args.coarse_downsample,
+        margin=args.cascade_margin, threshold=args.threshold,
+        tissue_fraction=args.tissue_fraction,
+        batch_size=args.batch_size, resize=True)
+    print(f"Tumor probability: {res.tumor_prob:.4f}")
+    print(f"cascade: {res.n_coarse} coarse + {res.n_fine_encoded} fine "
+          f"encodes for {res.n_fine_total} tiles "
+          f"(encode fraction {res.encode_fraction:.3f}, "
+          f"downsample {res.downsample}, margin {args.cascade_margin})")
 
 
 def main(argv=None):
@@ -174,17 +249,20 @@ def main(argv=None):
     parser.add_argument("--int8", action="store_true",
                         help="W8A8 quantized inference (keep_tpu_torch.quant)")
     parser.add_argument("--int8-calib", type=int, default=32, metavar="N",
-                        help="extract+--int8: SmoothQuant calibration on the "
-                             "slide's first N tiles; not ported yet, pass 0")
+                        help="extract+--int8: SmoothQuant-calibrate the "
+                             "visual tower on the slide's first N tiles "
+                             "(0 disables; quant.smooth_vit)")
     parser.add_argument("--image", help="extract: level-0 RGB image "
-                        "(PIL-readable, flat; pyramidal slides are not "
-                        "ported yet)")
+                        "(PIL-readable), or a pyramidal .tif/.svs slide — "
+                        "pyramids stream through the native libtiff reader "
+                        "(keep_tpu_torch.io.wsi, no OpenSlide); detection: "
+                        "a pyramid for the cascade sweep")
     parser.add_argument("--wsi-level", type=int, default=0,
                         help="extract from a pyramid: pyramid level to read "
-                             "tiles at (pyramids are not ported yet)")
-    parser.add_argument("--slide-dir", help="extract: directory of slide "
-                        "images (.png/.jpg/.tif/...) — cohort mode, one h5 "
-                        "per slide under --out-dir/h5_files/")
+                             "tiles at (0 = full resolution)")
+    parser.add_argument("--slide-dir", help="extract: directory of slides "
+                        "(.svs/.tif/.png/...) — cohort mode, one h5 per "
+                        "slide under --out-dir/h5_files/")
     parser.add_argument("--out-dir", help="extract --slide-dir: output root "
                         "(h5 tree ready for --data-source cohort eval)")
     parser.add_argument("--out", help="extract: output h5 path (features+coords)")
@@ -192,11 +270,13 @@ def main(argv=None):
     parser.add_argument("--batch-size", type=int, default=256)
     parser.add_argument("--cascade-margin", type=float, default=None,
                         metavar="M",
-                        help="detection --image: the coarse-to-fine cascade "
-                             "(not ported yet)")
+                        help="detection --image: coarse-to-fine cascade — "
+                             "refine only coarse tiles within M of the "
+                             "decision threshold (0.5 = exact full sweep, "
+                             "0 = trust the coarse pass; wsi/cascade.py)")
     parser.add_argument("--coarse-downsample", type=int, default=4,
                         help="cascade: target pyramid downsample for the "
-                             "coarse pass (not ported yet)")
+                             "coarse pass (d^2 fewer tiles)")
     parser.add_argument("--mesh-dp", action="store_true",
                         help="extract: shard the tile axis over a device "
                              "mesh (not ported yet)")
@@ -206,7 +286,8 @@ def main(argv=None):
     args.add_normal = args.task == "subtyping"
     if args.patch_size is None:
         args.patch_size = 224 if args.task == "segmentation" else 256
-    _refuse(parser, args)
+    if args.mesh_dp:
+        parser.error(f"--mesh-dp is not ported yet ({MESH})")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
@@ -236,25 +317,30 @@ def main(argv=None):
                 if p.lower().endswith(exts))
             if not slides:
                 parser.error(f"no slides ({'/'.join(exts)}) in {args.slide_dir}")
-            pyramids = [p for p in slides if _is_pyramid(p)]
-            if pyramids:
-                parser.error(f"{pyramids[0]} is a pyramidal slide, which "
-                             f"needs {NATIVE_READER}, not ported yet")
             h5_dir = os.path.join(args.out_dir, "h5_files")
             os.makedirs(h5_dir, exist_ok=True)
-            model, _ = load_model(args)
+            # the model loads once (--int8 calibrates on the first slide)
+            model = None
             total = 0
             for path in slides:
+                if model is None:
+                    model, _ = load_model(
+                        args, calib_pixels=_slide_calib(args, path))
                 stem = os.path.splitext(os.path.basename(path))[0]
                 out = os.path.join(h5_dir, stem + ".h5")
                 n = _extract_one(model, args, path, out)
+                # the cache serves only the first slide's calibration and
+                # extraction: holding a slide's tiles while the next one is
+                # cut would double the host's peak memory
+                _flat_cache.clear()
                 logging.info("%s: %d tiles -> %s", stem, n, out)
                 total += n
             print(f"wrote {total} features across {len(slides)} slides "
                   f"to {h5_dir}")
             return
 
-        model, _ = load_model(args)
+        model, _ = load_model(args,
+                              calib_pixels=_slide_calib(args, args.image))
         n = _extract_one(model, args, args.image, args.out)
         print(f"wrote {n} features to {args.out}")
         return
@@ -269,6 +355,16 @@ def main(argv=None):
     label_map = json.loads(args.label_map)
     with open(args.prompts) as f:
         prompts = json.load(f)
+
+    if args.task == "detection" and args.image and not args.h5:
+        if args.cascade_margin is None:
+            parser.error("detection --image runs the cascade sweep; pass "
+                         "--cascade-margin (0.5 = exact full sweep) or "
+                         "extract features first (task 'extract') and use "
+                         "--h5")
+        model, tokenizer = load_model(args)
+        _cascade(model, tokenizer, prompts, label_map, args)
+        return
 
     if args.h5:
         if args.task == "segmentation" and not args.mask:

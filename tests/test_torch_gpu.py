@@ -956,3 +956,94 @@ def test_extract_features_on_the_card(cuda):
     cos = (feats * ref).sum(1) / ((feats ** 2).sum(1) * (ref ** 2).sum(1)
                                   ) ** 0.5
     assert cos.min() >= 0.999
+
+
+def test_calibrated_int8_matches_plain_blocks_at_full_width(cuda):
+    """``KEEPModel.quantize(calib_pixels, calib_text)`` at full width (ViT-L
+    and BERT-base, ``keep.init`` statistics): the calibrated towers' blocks
+    through the kernels against the same model with their plain versions,
+    at the JAX package's gate between two int8 routes (image rows' mean,
+    text taken whole > 0.9999), every text block carrying its qkv and fc1
+    ``pre_scale``, one sub-block and MLP launch per block."""
+    from keep_tpu_torch.configs import KEEPConfig
+    from keep_tpu_torch.models.keep import KEEPModel
+
+    cfg = KEEPConfig()
+    model = KEEPModel.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda", dtype=torch.bfloat16,
+                           use_flash=True)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    px = torch.randn(8, 224, 224, 3, device="cuda", generator=g)
+    ids = torch.randint(5, cfg.text.vocab_size, (8, 64), device="cuda",
+                        generator=g)
+    mask = (torch.arange(64, device="cuda")[None]
+            < torch.randint(8, 65, (8, 1), device="cuda", generator=g)).long()
+    q = model.quantize(calib_pixels=px[:4], calib_text=(ids[:4], mask[:4]))
+    assert all(b.attn.qkv.pre_scale is not None
+               and b.mlp.fc1.pre_scale is not None for b in q.text.blocks)
+    with torch.inference_mode():
+        with _kops._launch_lock:
+            _kops.LAUNCHES.clear()
+        img, txt = q.encode_image(px), q.encode_text(ids * mask, mask)
+        torch.cuda.synchronize()
+        launches = dict(_kops.LAUNCHES)
+        kernels = _kops.KERNELS
+        _kops.KERNELS = _kops.PLAIN
+        try:
+            rimg, rtxt = q.encode_image(px), q.encode_text(ids * mask, mask)
+        finally:
+            _kops.KERNELS = kernels
+    assert launches["quantized_attention_block"] == cfg.vision.depth
+    assert launches["quantized_attention_block_postln"] == (
+        cfg.text.num_hidden_layers)
+    cos = torch.nn.functional.cosine_similarity(img, rimg, dim=-1)
+    assert cos.mean().item() > 0.9999
+    whole = torch.nn.functional.cosine_similarity(txt.reshape(1, -1),
+                                                  rtxt.reshape(1, -1))
+    assert whole.item() > 0.9999
+
+
+def test_extract_features_on_pyramid_chunks(cuda, tmp_path):
+    """``extract_features`` on ``iter_wsi_tiles``' chunks of a pyramid
+    (PIL-written multi-page TIFF, which every backend reads): the same bits
+    as on the tiles stacked whole, one attention launch per block and
+    batch."""
+    import numpy as np
+    from PIL import Image
+
+    from keep_tpu_torch.compat.torch_loader import (load_keep_state_dict,
+                                                    random_keep_state_dict)
+    from keep_tpu_torch.configs import BertConfig, KEEPConfig, ViTConfig
+    from keep_tpu_torch.io.tiles import iter_wsi_tiles
+    from keep_tpu_torch.io.wsi import open_slide
+    from keep_tpu_torch.models.keep import KEEPModel
+    from keep_tpu_torch.wsi.extract import extract_features
+
+    cfg = KEEPConfig(vision=ViTConfig(img_size=32, patch_size=8,
+                                      embed_dim=128, depth=2, num_heads=2),
+                     text=BertConfig(vocab_size=64, hidden_size=128,
+                                     num_hidden_layers=1,
+                                     num_attention_heads=2,
+                                     intermediate_size=256,
+                                     max_position_embeddings=32),
+                     projection_dim=128)
+    model = KEEPModel(cfg, device="cuda", dtype=torch.bfloat16,
+                      use_flash=True)
+    model.load_state_dict(load_keep_state_dict(random_keep_state_dict(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda"),
+        cfg))
+    rng = np.random.default_rng(0)
+    img = np.full((512, 512, 3), 245, np.uint8)
+    img[64:448, 64:448] = rng.integers(60, 200, (384, 384, 3))
+    base = Image.fromarray(img)
+    path = tmp_path / "pyr.tif"
+    base.save(path, save_all=True,
+              append_images=[base.resize((128, 128), Image.Resampling.BOX)])
+    with open_slide(str(path)) as reader:
+        # chunks of two batches: the same batches as the tiles stacked
+        chunks = list(iter_wsi_tiles(reader, patch_size=32, chunk=32))
+    tiles = np.concatenate([t for t, _ in chunks])
+    n0 = fa.LAUNCHES
+    feats = extract_features(model, (t for t, _ in chunks), batch_size=16)
+    assert fa.LAUNCHES - n0 == -(-len(tiles) // 16) * cfg.vision.depth
+    assert (extract_features(model, tiles, batch_size=16) == feats).all()

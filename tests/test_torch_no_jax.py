@@ -13,7 +13,8 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((REPO / "keep_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "scripts" / "torch_attention_exp_share.py",
     REPO / "scripts" / "torch_dispatch_profile.py",
-    REPO / "scripts" / "torch_screening_bench.py"]
+    REPO / "scripts" / "torch_screening_bench.py",
+    REPO / "scripts" / "torch_calibration_sweep.py"]
 
 
 def test_imports_leave_jax_unloaded():
@@ -34,6 +35,8 @@ def test_imports_leave_jax_unloaded():
         "import keep_tpu_torch.zeroshot, keep_tpu_torch.zeroshot.prompts, "
         "keep_tpu_torch.metrics, keep_tpu_torch.io.tiles, "
         "keep_tpu_torch.io.h5, keep_tpu_torch.utils.rtt\n"
+        "import keep_tpu_torch.io.wsi, keep_tpu_torch.io._native, "
+        "keep_tpu_torch.io.fast_decode, keep_tpu_torch.wsi.cascade\n"
         "from keep_tpu_torch.ops.preprocess import preprocess\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'keep_tpu'))\n"
@@ -60,6 +63,88 @@ def test_source_imports_no_jax(path):
         for n in names:
             assert n.split(".")[0] not in ("jax", "jaxlib", "keep_tpu"), (
                 f"{path.name}:{node.lineno} imports {n}")
+
+
+def test_reader_and_calibration_run_with_jax_blocked(tmp_path):
+    """The pyramid reader, the decoder, the cascade and the calibration
+    import and run in a process where importing ``jax`` or ``keep_tpu``
+    fails, as on the card's machine: the native library is built, a
+    pyramid written, read and tiled, an image decoded, a tiny model
+    calibrated."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'keep_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import numpy as np, torch\n"
+        "from keep_tpu_torch.io import _native, fast_decode, wsi\n"
+        "from keep_tpu_torch.io.tiles import iter_wsi_tiles\n"
+        "from keep_tpu_torch.wsi import cascade, extract, run\n"
+        "from keep_tpu_torch import configs, quant\n"
+        "from keep_tpu_torch.models.keep import KEEPModel\n"
+        "_native.build_native()\n"
+        "img = np.full((256, 256, 3), 250, np.uint8)\n"
+        "img[32:224, 32:224] = (170, 70, 130)\n"
+        f"p = {str(tmp_path / 'p.tif')!r}\n"
+        "wsi.write_pyramid(p, img, tile=64, min_size=64)\n"
+        "with wsi.open_slide(p) as s:\n"
+        "    assert s.backend == 'native' and s.level_count == 3\n"
+        "    tiles = np.concatenate([t for t, _ in iter_wsi_tiles(\n"
+        "        s, patch_size=32, chunk=16)])\n"
+        "assert len(tiles) == 36\n"
+        "from PIL import Image\n"
+        f"q = {str(tmp_path / 'q.png')!r}\n"
+        "Image.fromarray(img).save(q)\n"
+        "assert (fast_decode.decode_image(q) == img).all()\n"
+        "cfg = configs.KEEPConfig(vision=configs.ViTConfig(img_size=32, "
+        "patch_size=16, embed_dim=32, depth=1, num_heads=2), "
+        "text=configs.BertConfig(vocab_size=32, hidden_size=32, "
+        "num_hidden_layers=1, num_attention_heads=2, intermediate_size=64, "
+        "max_position_embeddings=32), projection_dim=32)\n"
+        "m = KEEPModel.init(cfg, torch.Generator().manual_seed(0))\n"
+        "q8 = m.quantize(calib_pixels=torch.randn(2, 32, 32, 3), "
+        "calib_text=torch.randint(1, 32, (2, 8)))\n"
+        "assert quant.is_quantized(q8)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'keep_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _listing(d: pathlib.Path) -> list:
+    return sorted((p.name, p.stat().st_size, p.stat().st_mtime_ns)
+                  for p in d.iterdir())
+
+
+def test_native_build_writes_nothing_under_native(tmp_path, monkeypatch):
+    """The port compiles ``native/*.cpp`` into its own build directory: a
+    fresh build leaves ``native/`` as it was, file for file."""
+    from keep_tpu_torch.io import _native
+
+    before = _listing(_native.NATIVE_DIR)
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "build")
+    lib = pathlib.Path(_native.build_native())
+    assert lib.parent == tmp_path / "build" and lib.exists()
+    assert [p.name for p in lib.parent.iterdir()] == [lib.name]
+    assert _listing(_native.NATIVE_DIR) == before
+
+
+def test_native_build_failure_names_what_is_missing(tmp_path, monkeypatch):
+    """A failed build raises with the compiler's output."""
+    from keep_tpu_torch.io import _native
+
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_native, "LIBS", ("-lkeep_no_such_library",))
+    with pytest.raises(RuntimeError, match="keep_no_such_library"):
+        _native.build_native()
+    assert not list((tmp_path / "build").glob("*.so"))
 
 
 def test_chip_smoke_without_gpu_exits_nonzero_and_prints_no_result():

@@ -864,15 +864,6 @@ def test_quantized_keep_matches_jax(jparams, dtype):
         np.testing.assert_allclose(got, ref, atol=2e-2)
 
 
-def test_quantize_refuses_calibration(jparams):
-    m = _port_model(jparams)
-    with pytest.raises(NotImplementedError, match="calibration"):
-        m.quantize(calib_text=np.zeros((1, 4), np.int64))
-    with pytest.raises(NotImplementedError, match="calibration"):
-        m.quantize(moe_w8a16=True)
-    assert not quant.is_quantized(m)
-
-
 def test_from_pretrained_quantize(tmp_path):
     """from_pretrained(quantize=True) quantizes from the checkpoint's fp32
     values: the same codes as quantizing an fp32 model, with bf16 compute;

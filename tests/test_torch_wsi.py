@@ -234,25 +234,6 @@ def test_probability_heatmap(rng):
     assert (heat[occ == 1] >= 0).all() and (heat[occ == 1] <= 1).all()
 
 
-def test_mask_path_without_openslide_names_the_item(rng, monkeypatch):
-    """A slide-file mask needs OpenSlide; without it the port raises and
-    names the ROADMAP item of the native reader, and reads nothing else."""
-    import builtins
-
-    real = builtins.__import__
-
-    def no_openslide(name, *a, **kw):
-        if name == "openslide":
-            raise ImportError("no openslide")
-        return real(name, *a, **kw)
-
-    monkeypatch.setattr(builtins, "__import__", no_openslide)
-    coords, feats, cls, _ = _segmentation_slide(rng)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        zero_shot_segment(_t(cls), _t(feats), coords,
-                          mask_path="slide_mask.tif", patch_size=224)
-
-
 def test_cut_tiles_empty_slide():
     blank = np.full((256, 256, 3), 255, np.uint8)
     tiles, coords = ttiles.cut_tiles(blank, patch_size=64)

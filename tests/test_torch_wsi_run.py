@@ -7,8 +7,11 @@ load to the fp32 tolerance, most cases replace both ``load_model``s with
 the same loader in fp32: then the h5 features agree at 2e-5 and every
 printed line (tumour probability, AUROC / Dice, subtype, cohort JSON,
 heatmap) is the same. The bf16 and int8 loads themselves are held at the
-repo's gates (cosine ≥ 0.999 per row against the JAX CLI's features).
-Each flag the port refuses names its ROADMAP item."""
+repo's gates (cosine ≥ 0.999 per row against the JAX CLI's features),
+``--int8`` at its default SmoothQuant calibration (``--int8-calib 32``)
+included. Pyramidal slides (``.tif`` / ``.svs``, written by the repo's
+writer) stream through both CLIs' native readers; ``detection --image``
+runs the cascade. Each flag the port refuses names its ROADMAP item."""
 
 import json
 import shutil
@@ -98,10 +101,11 @@ def _jax_fp32(args, calib_pixels=None):
     return model, get_tokenizer("bert", args.model)
 
 
-def _port_fp32(args):
+def _port_fp32(args, calib_pixels=None):
     model = KEEPModel.from_pretrained(args.model, dtype=torch.float32,
-                                      use_flash=True, device=args.device,
-                                      quantize=getattr(args, "int8", False))
+                                      use_flash=True, device=args.device)
+    if getattr(args, "int8", False):
+        model = model.quantize(calib_pixels=calib_pixels)
     return model, WordPieceTokenizer.from_pretrained(args.model)
 
 
@@ -295,46 +299,6 @@ def test_refuses_mesh_dp(fixtures, capsys, tmp_path):
                       "--mesh-dp"], "item 10")
 
 
-def test_refuses_cascade_margin(fixtures, capsys):
-    d = fixtures
-    _refused(capsys, ["detection", "--model", str(d / "model"), "--prompts",
-                      str(d / "prompts.json"), "--h5", str(d / "slide.h5"),
-                      "--cascade-margin", "0.1"], "item 13")
-
-
-def test_refuses_detection_on_an_image(fixtures, capsys):
-    d = fixtures
-    _refused(capsys, ["detection", "--model", str(d / "model"), "--prompts",
-                      str(d / "prompts.json"), "--image",
-                      str(d / "slide.png")], "item 13")
-
-
-def test_refuses_int8_calibration(fixtures, capsys, tmp_path):
-    d = fixtures
-    argv = ["extract", "--model", str(d / "model"), "--image",
-            str(d / "slide.png"), "--out", str(tmp_path / "x.h5"), "--int8"]
-    _refused(capsys, argv, "item 7")
-    _refused(capsys, argv + ["--int8-calib", "8"], "--int8-calib 0")
-
-
-@pytest.mark.parametrize("suffix", [".tif", ".svs"])
-def test_refuses_pyramidal_slides(fixtures, capsys, tmp_path, suffix):
-    d = fixtures
-    img = Image.open(d / "slide.png")
-    path = tmp_path / f"slide{suffix}"
-    # two pages: a level-0 image and its 2× downsample, as a pyramid has
-    img.save(path, format="TIFF", save_all=True,
-             append_images=[img.resize((320, 320))])
-    _refused(capsys, ["extract", "--model", str(d / "model"), "--image",
-                      str(path), "--out", str(tmp_path / "x.h5")], "item 13")
-    slides = tmp_path / "dir"
-    slides.mkdir()
-    shutil.copy(path, slides / path.name)
-    _refused(capsys, ["extract", "--model", str(d / "model"), "--slide-dir",
-                      str(slides), "--out-dir", str(tmp_path / "o")],
-             "item 13")
-
-
 def test_flat_tiff_is_read_as_an_image(fixtures, fp32, capsys, tmp_path):
     d = fixtures
     Image.open(d / "slide.png").save(tmp_path / "flat.tif")
@@ -361,3 +325,181 @@ def test_usage_errors_match_jax(fixtures):
                   str(d / "prompts.json"), "--h5", str(d / "slide.h5")]):
         with pytest.raises(SystemExit):
             trun.main(argv + ["--device", "cpu"])
+
+
+# ---- pyramids, calibration, the cascade ---------------------------------------
+
+
+@pytest.fixture(scope="module")
+def pyramid(fixtures):
+    """The PNG slide as a tiled pyramid (levels 1, 2, 4, ...) by the repo's
+    writer, under .tif and .svs names."""
+    from keep_tpu_torch.io.wsi import write_pyramid
+
+    img = np.asarray(Image.open(fixtures / "slide.png").convert("RGB"))
+    path = fixtures / "pyr.tif"
+    write_pyramid(str(path), img, tile=64, min_size=64)
+    shutil.copy(path, fixtures / "pyr.svs")
+    return path
+
+
+def _extract_image(capsys, main, d, image, out, extra=()):
+    main(["extract", "--model", str(d / "model"), "--image", str(image),
+          "--out", str(out), "--batch-size", "4"] + list(extra))
+    printed = capsys.readouterr().out
+    with h5py.File(out) as f:
+        return f["features"][:], f["coords"][:], printed
+
+
+@pytest.mark.parametrize("suffix", [".tif", ".svs"])
+def test_extract_pyramid_writes_the_jax_clis_h5(fixtures, pyramid, fp32,
+                                                capsys, tmp_path, suffix):
+    """A pyramid streams through both CLIs' readers: the same printed line
+    and coords, the fp32 features at 2e-5."""
+    d = fixtures
+    image = pyramid.with_suffix(suffix)
+    jf, jc, jout = _extract_image(capsys, jrun.main, d, image,
+                                  tmp_path / "j.h5")
+    tf, tc, tout = _extract_image(capsys, trun.main, d, image,
+                                  tmp_path / "t.h5", ["--device", "cpu"])
+    assert tout.replace("t.h5", "j.h5") == jout and len(tc) > 0
+    np.testing.assert_array_equal(tc, jc)
+    np.testing.assert_allclose(tf, jf, atol=2e-5, rtol=2e-5)
+
+
+def test_extract_pyramid_at_a_level(fixtures, pyramid, fp32, capsys,
+                                    tmp_path):
+    """``--wsi-level 1``: the same coords and features as the JAX CLI's;
+    a level past the pyramid exits with the JAX CLI's message."""
+    d = fixtures
+    flags = ["--wsi-level", "1", "--patch-size", "64"]
+    jf, jc, _ = _extract_image(capsys, jrun.main, d, pyramid,
+                               tmp_path / "j.h5", flags)
+    tf, tc, _ = _extract_image(capsys, trun.main, d, pyramid,
+                               tmp_path / "t.h5", flags + ["--device", "cpu"])
+    np.testing.assert_array_equal(tc, jc)
+    np.testing.assert_allclose(tf, jf, atol=2e-5, rtol=2e-5)
+    argv = ["extract", "--model", str(d / "model"), "--image", str(pyramid),
+            "--out", str(tmp_path / "x.h5"), "--wsi-level", "9"]
+    with pytest.raises(SystemExit) as jerr:
+        jrun.main(argv)
+    with pytest.raises(SystemExit) as terr:
+        trun.main(argv + ["--device", "cpu"])
+    assert str(terr.value) == str(jerr.value) and "out of range" in str(
+        terr.value)
+
+
+def test_extract_slide_dir_with_pyramids(fixtures, pyramid, fp32, capsys,
+                                         tmp_path):
+    """Cohort mode over a pyramid and a flat image: the JAX CLI's line and
+    h5 files."""
+    d = fixtures
+    slides = tmp_path / "slides"
+    slides.mkdir()
+    shutil.copy(pyramid, slides / "a.tif")
+    shutil.copy(d / "slide.png", slides / "b.png")
+    outs = {}
+    for name, main, extra in (("j", jrun.main, []),
+                              ("t", trun.main, ["--device", "cpu"])):
+        main(["extract", "--model", str(d / "model"), "--slide-dir",
+              str(slides), "--out-dir", str(tmp_path / name),
+              "--batch-size", "4"] + extra)
+        outs[name] = capsys.readouterr().out
+    assert outs["t"].replace(str(tmp_path / "t"),
+                             str(tmp_path / "j")) == outs["j"]
+    assert "wrote 8 features across 2 slides" in outs["t"]
+    for stem in ("a", "b"):
+        with h5py.File(tmp_path / "j" / "h5_files" / f"{stem}.h5") as f, \
+                h5py.File(tmp_path / "t" / "h5_files" / f"{stem}.h5") as g:
+            np.testing.assert_array_equal(g["coords"][:], f["coords"][:])
+            np.testing.assert_allclose(g["features"][:], f["features"][:],
+                                       atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("image", ["pyr.tif", "slide.png"])
+def test_int8_extract_at_the_default_calibration(fixtures, pyramid, capsys,
+                                                 tmp_path, image):
+    """``extract --int8`` with its default ``--int8-calib 32``: both CLIs
+    calibrate the visual tower on the slide's first tiles; the port's int8
+    features against the JAX CLI's, and against the port's bf16 ones, at
+    cosine ≥ 0.999 per row."""
+    d = fixtures
+    path = d / image
+    jf, jc, _ = _extract_image(capsys, jrun.main, d, path, tmp_path / "j.h5",
+                               ["--int8"])
+    tf, tc, _ = _extract_image(capsys, trun.main, d, path, tmp_path / "t.h5",
+                               ["--int8", "--device", "cpu"])
+    bf, _, _ = _extract_image(capsys, trun.main, d, path, tmp_path / "b.h5",
+                              ["--device", "cpu"])
+    np.testing.assert_array_equal(tc, jc)
+    assert _cos(tf, jf).min() >= 0.999
+    assert _cos(tf, bf).min() >= 0.999
+
+
+def test_slide_calib_is_the_extraction_preprocess(fixtures, pyramid,
+                                                  monkeypatch):
+    """The calibration pixels are the slide's first ``--int8-calib`` tiles
+    through the extraction's bicubic, as the JAX CLI takes them, and the
+    calibrated load passes them to ``quantize``; ``--int8-calib 0`` and a
+    float load calibrate nothing."""
+    import argparse
+
+    from keep_tpu.io.tiles import iter_wsi_tiles
+    from keep_tpu_torch.configs import PreprocessConfig
+    from keep_tpu_torch.ops.preprocess import preprocess
+
+    args = argparse.Namespace(int8=True, int8_calib=5, patch_size=256,
+                              tissue_fraction=0.25, wsi_level=0,
+                              device="cpu", model=str(fixtures / "model"))
+    px = trun._slide_calib(args, str(pyramid))
+    tiles = next(iter_wsi_tiles(str(pyramid), patch_size=256,
+                                tissue_fraction=0.25, chunk=5))[0]
+    assert px.shape == (len(tiles), 224, 224, 3)
+    assert torch.equal(px, preprocess(torch.from_numpy(tiles)))
+    # the JAX CLI's pixels within one 8-bit step (the two bicubics' gate,
+    # tests/test_torch_preprocess.py::test_matches_jax)
+    cfg = PreprocessConfig()
+    jpx = np.asarray(jrun._slide_calib(args, str(pyramid)))
+    step = np.abs(px.numpy() - jpx) * np.asarray(cfg.std) * 255
+    assert step.max() <= 1.0 + 1e-3
+    seen = []
+    real = KEEPModel.quantize
+    monkeypatch.setattr(KEEPModel, "quantize", lambda self, **kw: (
+        seen.append(kw["calib_pixels"]), real(self, **kw))[1])
+    model, _ = trun.load_model(args, calib_pixels=px)
+    assert seen and seen[0] is px and model.visual.blocks[0].ls1 is None
+    args.int8_calib = 0
+    assert trun._slide_calib(args, str(pyramid)) is None
+    args.int8, args.int8_calib = False, 5
+    assert trun._slide_calib(args, str(pyramid)) is None
+
+
+def test_cascade_detection_prints_what_jax_prints(fixtures, pyramid, fp32,
+                                                  capsys):
+    """``detection --image <pyramid> --cascade-margin m``: every printed
+    line equal to the JAX CLI's (margin 0.5 is the exact full sweep)."""
+    d = fixtures
+    # 64-pixel tiles, so that the 4x level (160²) holds whole tiles
+    for margin in ("0.5", "0.1"):
+        argv = ["detection", "--model", str(d / "model"), "--prompts",
+                str(d / "prompts.json"), "--image", str(pyramid),
+                "--cascade-margin", margin, "--topn", "2",
+                "--patch-size", "64", "--batch-size", "8"] + TEXT
+        got, ref = _both(capsys, argv)
+        assert got == ref
+        assert got.startswith("Tumor probability: ") and "cascade: " in got
+
+
+def test_detection_on_an_image_needs_a_margin(fixtures, pyramid, capsys):
+    """Without ``--cascade-margin`` both CLIs stop with the JAX CLI's
+    message, word for word."""
+    d = fixtures
+    argv = ["detection", "--model", str(d / "model"), "--prompts",
+            str(d / "prompts.json"), "--image", str(pyramid)]
+    errs = []
+    for main, extra in ((jrun.main, []), (trun.main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit):
+            main(argv + extra)
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errs[0].split("error: ")[1] == errs[1].split("error: ")[1]
+    assert "--cascade-margin (0.5 = exact full sweep)" in errs[1]
