@@ -63,6 +63,29 @@ exits non-zero without a result line):
    above), two faults planted in the kernel's result that must each fail
    one of these gates, both forwards' device times and ``ln_matmul``'s
    share.
+   attention_shapes — #1 (the slab) and #2 (split q, k, v and [B, H, S,
+   Dh] heads) at the OpenCLIP zoo's shapes: Dh = 80, 88, 104, 112 at S =
+   257 (ViT-H-14, ViT-g-14 / EVA01-g-14, ViT-bigG-14, ViT-e-14) and Dh =
+   64 at S = 577, 785 (ViT-L-14-336, KEEP at 448²), padded and unpadded,
+   fp32 bit for bit against the plain version (its bits: PyTorch's warp
+   softmax serves these rows), bf16 at max |Δ| < 0.05, the three layouts
+   the same bits, each call's launch counted; then every ``EDGE_S`` length
+   at Dh = 64 and 80 (B = 2, H = 2). Each shape's bf16 time beside its
+   bound, the plain version's and SDPA's.
+   zoo_serve — ``factory.create_model("ViT-H-14")`` from a seed in bf16
+   (vision 32 × 1280, Dh = 80; text 24 × 1024, context 77): uint8 images
+   through ``ops.preprocess`` at the preset's ``preprocess_config`` into
+   ``encode_image(use_flash=True)`` at B = 64, 32 attention launches a
+   batch, unit rows at cosine ≥ 0.999 per row of ``use_flash=False`` on the
+   same weights, tiles/s; then the text tower: ``text.bpe`` on a merges
+   file the script writes, ``build_zero_shot_classifier`` over the 1,000
+   ImageNet classes × the 7 simple templates (prompts/s, the build's ms)
+   and ``zero_shot_eval_imagenet`` on the image batch (printed; random
+   weights, so the accuracies mean nothing).
+   long_seq — ``ViT-L-14-336`` (S = 577) and the KEEP ViT-L/16 at 384² and
+   448² (S = 577, 785; the pos embed resampled), B = 32, bf16, fused
+   attention against the plain route: cosine ≥ 0.999 per row, 24 launches
+   each.
 4. server   — a full-width KEEP (ViT-L/16 + BERT-base) with random weights
    written in the released checkpoint layout, loaded by
    ``keep_tpu_torch.serve.build_server`` (bf16, fused attention), warmed up
@@ -281,8 +304,33 @@ ATTENTION_SHAPES = [(name, b, s, h, padded) for b in (32, 128)
                     for name, s, h, padded in (("vit_l16", 197, 16, False),
                                                ("bert_base", 256, 12, True))]
 # sequence lengths around the attention bodies' tiles and pieces, the two
-# towers' lengths and the kernels' limit (tests/test_torch_gpu.py EDGE_S)
-EDGE_S = [1, 15, 16, 17, 64, 197, 256, 257, 512]
+# towers' lengths, the narrow bodies' limit (512) and, past it, the
+# streamed body's 64-key tiles, ViT-L-14-336's 577, KEEP at 448²'s 785 and
+# one past the longest row PyTorch's warp softmax serves
+EDGE_S = [1, 15, 16, 17, 64, 197, 256, 257, 512, 513, 575, 576, 577, 640,
+          641, 785, 1025]
+# the zoo's attention shapes (name, B, S, H, Dh): every head width of the
+# OpenCLIP presets past 64 at their S = 257 (224², patch 14), and Dh = 64
+# past 512: ViT-L-14-336 (577) and KEEP's ViT-L/16 at 448² (785)
+ZOO_ATTENTION_SHAPES = [("vit_h14", 64, 257, 16, 80),
+                        ("vit_g14", 64, 257, 16, 88),
+                        ("vit_bigg14", 32, 257, 16, 104),
+                        ("vit_e14", 32, 257, 16, 112),
+                        ("vit_l14_336", 32, 577, 16, 64),
+                        ("keep_448", 32, 785, 16, 64)]
+ZOO_PRESET = "ViT-H-14"
+# its vision depth, width and head width; text depth, width and context
+ZOO_SHAPE = (32, 1280, 80, 24, 1024, 77)
+ZOO_BATCH = 64
+LONG_SEQ_BATCH = 32
+# a merges file for the zoo's BPE: its words' pairs (the CLIP vocabulary is
+# not in the repository)
+ZOO_MERGES = ["a </w>", "o f</w>", "t h", "th e</w>", "p h", "ph o", "pho t",
+              "phot o</w>", "i t", "it a", "ita p</w>", "b a", "ba d</w>",
+              "l a", "la r", "lar g", "larg e</w>", "s m", "sm a", "sma l",
+              "smal l</w>", "a r", "ar t</w>", "g a", "ga m", "gam e</w>",
+              "v i", "vi d", "vid e", "vide o</w>", "o r", "or i", "ori g",
+              "orig a", "origa m", "origam i</w>"]
 VOCAB = ("[PAD] [UNK] [CLS] [SEP] [MASK] an h & e image of breast invasive "
          "carcinoma normal tissue lung adeno ##carcinoma squamous cell "
          "melanoma skin kidney clear renal tumor . , -").split()
@@ -352,12 +400,12 @@ def nbytes(*tensors) -> int:
 
 def attention_bound(b: int, s: int, h: int, dtype_bytes: int,
                     key_bias: bool, backward: bool = False,
-                    out_bytes: int | None = None) -> tuple[float, str]:
-    """The bound of one attention call (Dh = 64): the forward's q·kᵀ and p·v
+                    out_bytes: int | None = None,
+                    dh: int = 64) -> tuple[float, str]:
+    """The bound of one attention call: the forward's q·kᵀ and p·v
     (4·S²·Dh per head), the backward's score recompute and four products
     (10·S²·Dh); q, k, v (and dout) read, the output (dq, dk, dv) written,
     the forward's output in ``out_bytes`` a value (default: the input's)."""
-    dh = 64
     per_head = (10 if backward else 4) * s * s * dh
     io = b * s * h * dh
     moved = (io * dtype_bytes * 3 + io * (out_bytes or dtype_bytes)
@@ -483,10 +531,11 @@ def check_f32_form(fa, torch, name, qkv, kb, valid, h, sdpa_ms) -> dict:
 
 
 def check_f32_edges(fa, torch, gen) -> None:
-    """The bf16 → fp32 form at every length of ``EDGE_S`` (B=2, H=2),
-    padded and unpadded: finite, max |Δ| < 0.05 on unpadded query rows."""
+    """The bf16 → fp32 form at every length of ``EDGE_S`` it takes (S ≤
+    512; B=2, H=2), padded and unpadded: finite, max |Δ| < 0.05 on
+    unpadded query rows."""
     errs = {}
-    for s in EDGE_S:
+    for s in [s for s in EDGE_S if s <= fa.NARROW_MAX_SEQ]:
         for padded in (False, True):
             qkv = torch.randn(2, s, 3 * 2 * 64, device="cuda",
                               generator=gen).bfloat16()
@@ -602,6 +651,266 @@ def check_heads(fa, torch, gen) -> tuple[list[dict], int]:
     phase("heads_path", entry="ops.nn.mha_attention(use_flash=True)",
           calls=[n for n, *_ in inputs], launches=launches)
     return rows, launches
+
+
+def zoo_inputs(torch, gen, b: int, s: int, h: int, dh: int, padded: bool):
+    """A random fp32 slab [B, S, 3·H·Dh], its key bias (or None) and the
+    valid rows: the padded form masks a random tail of every row but the
+    first."""
+    qkv = torch.randn(b, s, 3 * h * dh, device="cuda", generator=gen)
+    valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    kb = None
+    if padded:
+        lens = torch.randint(1, s + 1, (b,), device="cuda", generator=gen)
+        lens[0] = s
+        valid = torch.arange(s, device="cuda")[None] < lens[:, None]
+        kb = (1.0 - valid.float()) * -1e9
+    return qkv, kb, valid
+
+
+def check_zoo_call(fa, torch, qkv, kb, valid, h: int, dh: int) -> float:
+    """One slab at one dtype through #1 and #2 (split q, k, v and [B, H, S,
+    Dh] heads), each launch counted: the three the same bits, fp32 bit for
+    bit against the plain version where PyTorch's warp softmax serves the
+    row (S ≤ 1024; within 2e-5 past it), bf16 at max |Δ| < 0.05 on valid
+    rows. Returns the max |Δ|."""
+    b, s, _ = qkv.shape
+    n0, h0 = fa.LAUNCHES, fa.HEADS_LAUNCHES
+    got = fa.attention_qkv_slab(qkv, kb, num_heads=h)
+    q, k, v = (t.contiguous() for t in qkv.split(h * dh, dim=-1))
+    heads = fa.attention_qkv_heads(q, k, v, kb, num_heads=h)
+    bhsd = [t.view(b, s, h, dh).transpose(1, 2) for t in (q, k, v)]
+    flash = fa.flash_attention(*bhsd, None if kb is None
+                               else kb[:, None, None, :])
+    torch.cuda.synchronize()
+    if (fa.LAUNCHES - n0, fa.HEADS_LAUNCHES - h0) != (1, 2):
+        raise AssertionError(f"Dh={dh} S={s}: launches {fa.LAUNCHES - n0}, "
+                             f"{fa.HEADS_LAUNCHES - h0}, not 1 and 2")
+    if not (torch.equal(heads, got) and torch.equal(
+            flash.transpose(1, 2).reshape(b, s, h * dh), got)):
+        raise AssertionError(f"Dh={dh} S={s} {qkv.dtype}: the slab, split "
+                             f"heads and [B, H, S, Dh] layouts differ")
+    ref = fa.attention_qkv_slab_reference(qkv, kb, num_heads=h)
+    g, r = got.float()[valid], ref.float()[valid]
+    err = (g - r).abs().max().item()
+    ok = (torch.equal(g, r) if qkv.dtype == torch.float32 and s <= 1024
+          else torch.allclose(g, r, atol=2e-5, rtol=2e-5)
+          if qkv.dtype == torch.float32 else err < 0.05)
+    if not (ok and torch.isfinite(got).all()):
+        raise AssertionError(f"Dh={dh} S={s} {qkv.dtype} padded "
+                             f"{kb is not None}: kernel vs plain, max |Δ| "
+                             f"{err}")
+    return err
+
+
+def check_attention_shapes(fa, torch, gen) -> tuple[list[dict], list[dict]]:
+    """Phase 3e. #1 and #2 at ``ZOO_ATTENTION_SHAPES``, padded and
+    unpadded, fp32 and bf16 (``check_zoo_call``); each shape's bf16 times
+    (the slab, split heads and ``flash_attention`` kernels, the plain
+    version, SDPA on the slab's head views) beside its bound; then every
+    ``EDGE_S`` length at Dh = 64 and 80. Returns (slab rows, heads rows)."""
+    F = torch.nn.functional
+    rows, heads_rows = [], []
+    for name, b, s, h, dh in ZOO_ATTENTION_SHAPES:
+        errs = {}
+        for padded in (False, True):
+            qkv32, kb, valid = zoo_inputs(torch, gen, b, s, h, dh, padded)
+            for dtype in (torch.float32, torch.bfloat16):
+                errs[f"{str(dtype)[6:]}{' padded' if padded else ''}"] = \
+                    check_zoo_call(fa, torch, qkv32.to(dtype), kb, valid, h,
+                                   dh)
+        qkv = qkv32.bfloat16()
+        q, k, v = qkv.view(b, s, 3, h, dh).permute(2, 0, 3, 1, 4)
+        lanes = [t.contiguous() for t in qkv.split(h * dh, dim=-1)]
+        bhsd = [t.view(b, s, h, dh).transpose(1, 2) for t in lanes]
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        bound_ms, bound_by = attention_bound(b, s, h, 2, False, dh=dh)
+        row = {"shape": name, "B": b, "S": s, "H": h, "Dh": dh,
+               "dtype": "bfloat16", "max_abs_err": errs,
+               "fp32_bits_equal_plain": True,
+               "ms": cuda_ms(lambda: fa.attention_qkv_slab(qkv, num_heads=h)),
+               "plain_ms": cuda_ms(lambda: fa.attention_qkv_slab_reference(
+                   qkv, num_heads=h)),
+               "library_ms": cuda_ms(sdpa), "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        heads_row = dict(row, ms=cuda_ms(lambda: fa.attention_qkv_heads(
+            *lanes, num_heads=h)), flash_attention_ms=cuda_ms(
+            lambda: fa.flash_attention(*bhsd)), plain_ms=cuda_ms(
+            lambda: fa.attention_qkv_heads_reference(*lanes, num_heads=h)))
+        phase("attention_shape", **row, heads_ms=heads_row["ms"],
+              flash_attention_ms=heads_row["flash_attention_ms"])
+        rows.append(row)
+        heads_rows.append(heads_row)
+    edges = {}
+    for dh in (64, 80):
+        for s in EDGE_S:
+            for padded in (False, True):
+                qkv32, kb, valid = zoo_inputs(torch, gen, 2, s, 2, dh, padded)
+                for dtype in (torch.float32, torch.bfloat16):
+                    edges[f"Dh={dh} S={s}{' padded' if padded else ''} "
+                          f"{str(dtype)[6:]}"] = check_zoo_call(
+                        fa, torch, qkv32.to(dtype), kb, valid, 2, dh)
+    phase("attention_shapes", shapes=[r["shape"] for r in rows],
+          edges_max_abs_err=max(edges.values()), edges=len(edges))
+    return rows, heads_rows
+
+
+def write_zoo_merges(d: str) -> str:
+    path = os.path.join(d, "merges.txt")
+    with open(path, "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(ZOO_MERGES) + "\n")
+    return path
+
+
+def cos_min(torch, a, b) -> float:
+    """The least cosine between matching rows of a and b."""
+    a, b = a.float(), b.float()
+    return ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min().item()
+
+
+def counted_encode(torch, fa, encode) -> tuple:
+    """(features, attention launches) of one ``encode()`` call, the count
+    set to 0 just before it and read just after."""
+    with fa._launch_lock:
+        fa.LAUNCHES = 0
+    out = encode()
+    torch.cuda.synchronize()
+    return out, fa.LAUNCHES
+
+
+def drive_zoo_serve(torch, fa, d: str, device: str = "cuda",
+                    batch: int = ZOO_BATCH) -> dict:
+    """Phase 3f: ViT-H-14 from the factory in bf16, images and zero-shot
+    ImageNet text through it (see the module docstring)."""
+    from keep_tpu_torch import factory, presets
+    from keep_tpu_torch.ops.preprocess import preprocess
+    from keep_tpu_torch.text.bpe import BPETokenizer
+    from keep_tpu_torch.zeroshot import openclip
+    from keep_tpu_torch.zeroshot.imagenet_metadata import (
+        IMAGENET_CLASSNAMES, SIMPLE_IMAGENET_TEMPLATES)
+
+    model, build_ms = synced_ms(torch, lambda: factory.create_model(
+        ZOO_PRESET, seed=0, dtype=torch.bfloat16, device=device))
+    v, t = model.config.vision_cfg, model.config.text_cfg
+    if (v.depth, v.embed_dim, v.head_dim, t.layers, t.width,
+            t.context_length) != ZOO_SHAPE:
+        raise AssertionError(f"{ZOO_PRESET} resolved to {v}, {t}")
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (batch, 256, 256, 3), dtype=np.uint8)).to(device)
+    pcfg = presets.preprocess_config(ZOO_PRESET)
+    encode = lambda x: model.encode_image(x, use_flash=True)  # noqa: E731
+    out = {"preset": ZOO_PRESET, "batch": batch, "build_ms": build_ms,
+           "params": sum(p.numel() for p in model.parameters())}
+    with torch.inference_mode():
+        pixels = preprocess(images, pcfg)
+        encode(pixels)  # warm-up
+        feats, launches = counted_encode(torch, fa, lambda: model.encode_image(
+            pixels, normalize=True, use_flash=True))
+        plain = model.encode_image(pixels, normalize=True, use_flash=False)
+        out["attention_launches"] = launches
+        out["cos_vs_plain_min"] = cos_min(torch, feats, plain)
+        norms = feats.norm(dim=-1)
+        if launches != v.depth:
+            raise AssertionError(f"{ZOO_PRESET}: {launches} attention "
+                                 f"launches for one batch of {v.depth} blocks")
+        if not (torch.isfinite(feats).all()
+                and (norms - 1).abs().max().item() < 1e-3
+                and out["cos_vs_plain_min"] >= 0.999):
+            raise AssertionError(f"{ZOO_PRESET} features: {out}")
+        n = 5
+        _, ms = synced_ms(torch, lambda: [encode(preprocess(images, pcfg))
+                                          for _ in range(n)])
+        out["tiles_per_s"] = n * batch / (ms / 1e3)
+        tok = BPETokenizer(write_zoo_merges(d), context_length=77)
+
+        def tokenizer(texts, max_length):
+            ids = tok(texts, context_length=max_length)
+            return {"input_ids": ids, "attention_mask": (ids != 0).astype(
+                np.int32)}
+
+        def encode_text(ids, mask):
+            return model.encode_text(torch.from_numpy(ids).to(device))
+
+        encode_text(tokenizer(["a photo of a goldfish."], 77)["input_ids"],
+                    None)  # warm-up
+        classifier, cls_ms = synced_ms(
+            torch, lambda: openclip.build_zero_shot_classifier(
+                encode_text, tokenizer, IMAGENET_CLASSNAMES,
+                SIMPLE_IMAGENET_TEMPLATES, num_classes_per_batch=50))
+        cols = classifier.norm(dim=0)
+        if classifier.shape != (t.output_dim, 1000) or not (
+                torch.isfinite(classifier).all()
+                and (cols - 1).abs().max().item() < 1e-4):
+            raise AssertionError(f"zero-shot classifier {classifier.shape}")
+        labels = rng.integers(0, 1000, batch)
+        acc = openclip.zero_shot_eval_imagenet(encode, classifier,
+                                               [(pixels, labels)])
+    prompts = len(IMAGENET_CLASSNAMES) * len(SIMPLE_IMAGENET_TEMPLATES)
+    out.update(prompts=prompts, classifier_build_ms=cls_ms,
+               prompts_per_s=prompts / (cls_ms / 1e3),
+               accuracy_random_weights=acc)
+    phase("zoo_serve", **out)
+    return out
+
+
+def drive_long_seq(torch, fa, device: str = "cuda",
+                   batch: int = LONG_SEQ_BATCH, keep_cfg=None) -> dict:
+    """Phase 3g: ViT-L-14-336 and the KEEP ViT-L/16 at 384² and 448², fused
+    attention against the plain route (see the module docstring)."""
+    from keep_tpu_torch import factory
+    from keep_tpu_torch.compat.torch_loader import (load_keep_state_dict,
+                                                    random_keep_state_dict)
+    from keep_tpu_torch.configs import KEEPConfig
+    from keep_tpu_torch.models.keep import KEEPModel
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    out = {}
+
+    def held(name, size, patch, encode_flash, encode_plain, blocks):
+        x = torch.randn(batch, size, size, 3, device=device, generator=gen)
+        with torch.inference_mode():
+            encode_flash(x)  # warm-up
+            feats, launches = counted_encode(torch, fa,
+                                             lambda: encode_flash(x))
+            _, ms = synced_ms(torch, lambda: encode_flash(x))
+            cos = cos_min(torch, feats, encode_plain(x))
+        row = {"image": size, "S": (size // patch) ** 2 + 1,
+               "attention_launches": launches, "cos_vs_plain_min": cos,
+               "forward_ms": ms}
+        if launches != blocks or not cos >= 0.999 or \
+                not torch.isfinite(feats).all():
+            raise AssertionError(f"{name}: {row}")
+        out[name] = row
+
+    m = factory.create_model("ViT-L-14-336", seed=0, dtype=torch.bfloat16,
+                             device=device)
+    held("ViT-L-14-336", m.config.vision_cfg.img_size, 14,
+         lambda x: m.encode_image(x, normalize=True, use_flash=True),
+         lambda x: m.encode_image(x, normalize=True, use_flash=False),
+         m.config.vision_cfg.depth)
+    del m
+    cfg = keep_cfg or KEEPConfig()
+    keep = KEEPModel(cfg, dtype=torch.bfloat16, use_flash=True, device=device)
+    keep.load_state_dict(load_keep_state_dict(random_keep_state_dict(
+        cfg, gen, device=device), cfg))
+    keep.eval()
+
+    def plain(x):
+        keep.use_flash = False
+        try:
+            return keep.encode_image(x)
+        finally:
+            keep.use_flash = True
+
+    native, patch = cfg.vision.img_size, cfg.vision.patch_size
+    for size in (native * 12 // 7, native * 2):  # 384² and 448² from 224²
+        size = size // patch * patch
+        held(f"KEEP ViT-L/16 {size}", size, patch, keep.encode_image, plain,
+             cfg.vision.depth)
+    del keep
+    phase("long_seq", **out)
+    return out
 
 
 def check_ln_matmul(lm, torch, gen) -> list[dict]:
@@ -3696,10 +4005,16 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, f32_rows = check_kernel(fa, torch, gen)
     heads_rows, heads_launches = check_heads(fa, torch, gen)
+    zoo_rows, zoo_heads_rows = check_attention_shapes(fa, torch, gen)
     int8_rows, _ = check_int8_kernels(torch, gen)
     ln_rows = check_ln_matmul(lm, torch, gen)
     cfg = KEEPConfig()
     fused = drive_fuse_ln(torch, fa, lm, cfg)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d_zoo:
+        zoo = drive_zoo_serve(torch, fa, d_zoo)
+    torch.cuda.empty_cache()
+    long_seq = drive_long_seq(torch, fa)
 
     # 4.–7. the bf16 and the int8 server, end to end, and their numbers
     with tempfile.TemporaryDirectory() as d, \
@@ -3768,7 +4083,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernel_line(
         rows, bwd_rows, heads_rows, heads_launches, int8_rows, ln_rows,
         fused, served, served8, trained, f32_rows, wsi, lora_trained,
-        lora_served, calibrated, pyramid)}), flush=True)
+        lora_served, calibrated, pyramid, zoo_rows, zoo_heads_rows, zoo,
+        long_seq)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -3778,7 +4094,8 @@ def main() -> int:
 def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                 ln_rows, fused, served, served8, trained,
                 f32_rows, wsi, lora_trained, lora_served, calibrated,
-                pyramid) -> list[dict]:
+                pyramid, zoo_rows, zoo_heads_rows, zoo,
+                long_seq) -> list[dict]:
     """One entry per TPU kernel: its launches on the main path that runs it,
     and, at ViT-L B=32 in bf16 (the int8 kernels: the first shape of their
     phase), its time, its plain version's, its bound and the one PyTorch
@@ -3788,7 +4105,9 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
     sweep carry their launches on it (phases 10–11, bf16 and int8), those
     of the LoRA phases theirs (13: the steps and the eval; 14: the bf16 and
     the int8 server), and those of the calibrated int8 path (15) and the
-    pyramid's (16: extraction, bf16 and int8, and the cascade) theirs."""
+    pyramid's (16: extraction, bf16 and int8, and the cascade) theirs.
+    #1 and #2 also carry their rows at the zoo's shapes (phase 3e), and
+    #1 its launches on the zoo's paths (3f: one ViT-H-14 batch; 3g)."""
     def pick(rs, shape="vit_l16"):
         return next(r for r in rs if r["shape"] == shape and r["B"] == 32
                     and r["dtype"] == "bfloat16")
@@ -3821,7 +4140,10 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
             "extract_int8": pyramid["int8_attention_launches"],
             "cascade": {m: c["attention_launches"]
                         for m, c in pyramid["cascade"].items()}},
-        shapes=rows)]
+        launches_zoo_path={
+            f"{zoo['preset']} B={zoo['batch']}": zoo["attention_launches"],
+            **{k: r["attention_launches"] for k, r in long_seq.items()}},
+        shapes=rows, zoo_shapes=zoo_rows)]
     vit_bwd = pick(bwd_rows)
     kernels.append(entry(
         "attention_qkv_slab_bwd", BWD_SOURCE, BWD_REPLACES,
@@ -3838,7 +4160,7 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
         library_call="torch.nn.functional.scaled_dot_product_attention",
         library_kernel=vit_heads["library_kernel"],
         flash_attention_ms=vit_heads["flash_attention_ms"],
-        shapes=heads_rows))
+        shapes=heads_rows, zoo_shapes=zoo_heads_rows))
     ln = ln_rows[0]
     kernels.append({
         "name": "ln_matmul", "route": "cuda", "source": LN_MATMUL_SOURCE,

@@ -1,4 +1,5 @@
-"""keep_tpu_torch — KEEP in PyTorch, for an NVIDIA H100.
+"""keep_tpu_torch — KEEP and the OpenCLIP ViT zoo in PyTorch, for an NVIDIA
+H100.
 
 A port of ``keep_tpu`` (JAX on a TPU), which stays beside it as the
 reference. Module paths mirror the JAX package: ``keep_tpu_torch.models.vit``
@@ -10,18 +11,26 @@ compiled the first time a wrapper launches one.
 - ``ops``                — linear, fp32 LayerNorm, GELU, attention, L2 norm;
   the bicubic resize and tile normalisation on the device.
 - ``kernels``            — hand-written Hopper kernels and their plain
-  PyTorch versions: ``attention_qkv_slab``, and the int8 W8A8 kernels
+  PyTorch versions: ``attention_qkv_slab`` (any head width from 64 to
+  128, any length), and the int8 W8A8 kernels
   (``quant_rows``, ``int8_gemm``, ``ln_rows``) that the int8 linear, MLP
   pair and attention sub-blocks (``qmatmul``, ``qmlp``, ``qblock``) run.
 - ``quant``              — int8 weight quantization (``QLinear`` swap).
-- ``models``             — ViT-L/16, BERT and the ``KEEPModel`` facade.
-- ``compat.torch_loader`` — released checkpoint and JAX pytree → state dict.
-- ``text``               — WordPiece tokenizer.
+- ``models``             — the ViT (any image size, the OpenCLIP
+  variants), BERT, the ``KEEPModel`` facade, the CLIP text tower and
+  ``CLIP``.
+- ``presets``, ``factory`` — the 62 OpenCLIP presets (27 built: the plain
+  ViTs, the gap ViT and EVA01-g with the CLIP text tower) and
+  ``create_model``.
+- ``compat``             — released KEEP checkpoints, JAX pytrees and
+  OpenAI CLIP checkpoints → state dicts.
+- ``text``               — WordPiece and CLIP BPE tokenizers.
 - ``serve``              — batching HTTP inference server
   (``python -m keep_tpu_torch.serve``).
 - ``io``, ``wsi``, ``zeroshot``, ``metrics`` — the zero-shot WSI sweep:
   tissue tiles, features, prompt-ensemble classifiers, detection /
-  segmentation / subtyping (``python -m keep_tpu_torch.wsi.run``).
+  segmentation / subtyping (``python -m keep_tpu_torch.wsi.run``); the
+  OpenCLIP zero-shot ImageNet classifier (``zeroshot.openclip``).
 - ``train``              — the training CLI (``python -m
   keep_tpu_torch.train.main``).
 """

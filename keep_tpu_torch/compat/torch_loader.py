@@ -18,6 +18,8 @@
   ``pre_scale`` beside a float ``kernel`` (``keep_tpu.quant.smooth_bert``
   without quantization) loads into the float ``ops.nn.Linear``, which
   applies it as the JAX package's ``linear`` does.
+- ``from_jax_clip_params``: the same for a JAX CLIP or OpenCLIP-preset
+  pytree (``models.clip.CLIP``, ``presets.PresetModel``).
 - ``from_jax_lora``: the JAX package's LoRA adapter tree → the port's
   adapter dict (``<module>.lora_a`` / ``.lora_b`` per layer).
 - ``random_keep_state_dict``: random weights in the released layout, drawn
@@ -176,7 +178,28 @@ def _hf_bert(sd: Mapping, cfg: KEEPConfig, src: str) -> dict:
 def from_jax_params(params: Mapping, cfg: KEEPConfig) -> dict:
     """JAX KEEP parameter pytree (numpy or jax leaves) → ``KEEPModel``
     state dict."""
-    depths = {"visual": cfg.vision.depth, "text": cfg.text.num_hidden_layers}
+    return _from_jax_tree(params, {"visual": cfg.vision.depth,
+                                   "text": cfg.text.num_hidden_layers})
+
+
+def from_jax_clip_params(params: Mapping, vision_depth: int,
+                         text_depth: int) -> dict:
+    """A JAX CLIP or OpenCLIP-preset parameter pytree (``keep_tpu.models.
+    clip.init``, ``compat.openai.load_openai_clip``,
+    ``presets.create_preset``: ``visual`` with ``ln_pre`` and ``proj``,
+    ``visual_head``, ``text`` with the custom blocks' extras,
+    ``logit_scale``) → the state dict of the port's ``models.clip.CLIP``
+    or ``presets.PresetModel``. Linear kernels and LayerNorm scales map as
+    in ``from_jax_params``; every other leaf (the embeddings, ``proj``,
+    ``text_projection``, the head's matrices, ``logit_scale``,
+    ``head_scale``) keeps its JAX layout and name."""
+    return _from_jax_tree(params, {"visual": vision_depth,
+                                   "text": text_depth})
+
+
+def _from_jax_tree(params: Mapping, depths: dict[str, int]) -> dict:
+    """The walk of ``from_jax_params``, with the stacked layer count of
+    each tower that holds ``blocks``."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(node, path: tuple) -> None:

@@ -1,0 +1,199 @@
+"""Model factory: a name → a model (counterpart of ``keep_tpu/factory.py``).
+
+``create_model(name)`` builds a registry entry (``keep``, the released
+ViT-L/16 + BERT model; ``clip-vit-b-16``, ``clip-vit-l-14``) or, for any
+other name, an OpenCLIP preset (``presets``). It returns an ``nn.Module``
+whose ``encode_image`` / ``encode_text`` / ``forward`` are the surface of
+the JAX package's ``ModelSpec`` closures and which carries ``family`` and
+``config``. Weights are drawn on ``device`` (default: the card) from a
+generator seeded with ``seed``, or loaded from a local released
+checkpoint (``pretrained=``, ``keep`` only).
+
+Not ported yet, and raising with ROADMAP queue 1, item 11: the registry
+entries ``kep``, ``rn50-clip``, ``coca`` and ``pmc-clip``; ``pretrained=``
+as a registry name or URL (``compat/registry.py``, ``compat/hub.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Callable
+
+import torch
+from torch import nn
+
+from keep_tpu_torch import presets
+from keep_tpu_torch.configs import KEEPConfig, ViTConfig
+from keep_tpu_torch.presets import ITEM_11, card_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    family: str  # 'keep' | 'clip'
+    config: Any
+    # (config, generator, dtype, device) → the model with drawn weights
+    build: Callable[..., nn.Module]
+
+
+_REGISTRY: dict[str, Callable[[], ModelSpec]] = {}
+
+
+def register_model(name: str):
+    def wrap(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return wrap
+
+
+def list_models() -> list[str]:
+    """The registry's names and the 62 presets', sorted."""
+    return sorted(set(_REGISTRY) | set(presets.PRESETS))
+
+
+def create_model(name: str, seed: int = 0, dtype: torch.dtype | None = None,
+                 pretrained: str | None = None, device=None,
+                 **overrides) -> nn.Module:
+    """The model ``name``, in ``dtype`` (default fp32; the compute dtype,
+    in which the linear weights are stored), on ``device`` (default: the
+    card; raises without one unless ``device="cpu"``). ``overrides``
+    replace top-level config fields of a registry entry.
+
+    ``pretrained`` (``keep`` only): a local released checkpoint, a
+    directory (``config.json``, which ``overrides`` then amend, and
+    ``pytorch_model.bin`` or ``model.safetensors``) or a weights file read
+    with the default config. A registry name or URL raises (ROADMAP queue
+    1, item 11). Names outside the registry resolve through the OpenCLIP
+    preset inventory (``presets.create_preset``), which takes no
+    overrides."""
+    if pretrained is not None and name != "keep":
+        raise NotImplementedError(
+            "pretrained= loading is wired for the released 'keep' model; "
+            "other families load tower checkpoints through "
+            "keep_tpu_torch.compat converters")
+    dtype = dtype or torch.float32
+    if name not in _REGISTRY:
+        if name in presets.PRESETS:
+            if overrides:
+                raise ValueError(
+                    "config overrides are not supported for OpenCLIP "
+                    "presets; use presets.resolve() and "
+                    "presets.build_preset()")
+            return presets.create_preset(name, seed=seed, dtype=dtype,
+                                         device=device)
+        raise KeyError(f"unknown model {name!r}; have {list_models()}")
+    spec = _REGISTRY[name]()
+    cfg = (dataclasses.replace(spec.config, **overrides) if overrides
+           else spec.config)
+    device = card_device(device)
+    if pretrained is not None:
+        return _load_keep(pretrained, cfg, overrides, dtype, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return spec.build(cfg, gen, dtype=dtype, device=device).eval()
+
+
+def _load_keep(path: str, cfg: KEEPConfig, overrides: dict,
+               dtype: torch.dtype, device: torch.device) -> nn.Module:
+    from keep_tpu_torch.compat.torch_loader import (load_keep_state_dict,
+                                                    load_state_dict_file)
+    from keep_tpu_torch.models.keep import KEEPModel
+
+    if not os.path.exists(path):
+        raise NotImplementedError(
+            f"pretrained={path!r} is not a local file or directory; "
+            f"registry names and URLs (keep_tpu/compat/registry.py, "
+            f"hub.py) are not ported yet ({ITEM_11})")
+    weights = path
+    if os.path.isdir(path):
+        cfg_json = os.path.join(path, "config.json")
+        if os.path.exists(cfg_json):
+            # the checkpoint's config first, the caller's overrides on top
+            cfg = KEEPConfig.from_hf_json(cfg_json)
+            if overrides:
+                cfg = dataclasses.replace(cfg, **overrides)
+        for fname in ("pytorch_model.bin", "model.safetensors"):
+            weights = os.path.join(path, fname)
+            if os.path.exists(weights):
+                break
+        else:
+            raise FileNotFoundError(f"no weights file in {path}")
+    model = KEEPModel(cfg, dtype=dtype, device=device)
+    model.load_state_dict(load_keep_state_dict(load_state_dict_file(weights),
+                                               cfg), strict=True)
+    return model.eval()
+
+
+# --------------------------------------------------------------------------
+
+
+@register_model("keep")  # the released ViT-L/16 + BERT model
+def _keep() -> ModelSpec:
+    from keep_tpu_torch.models.keep import KEEPModel
+
+    return ModelSpec(
+        family="keep", config=KEEPConfig(),
+        build=lambda cfg, gen, dtype, device: KEEPModel.init(
+            cfg, gen, dtype=dtype, device=device))
+
+
+def _clip_spec(cfg) -> ModelSpec:
+    from keep_tpu_torch.models.clip import CLIP
+
+    return ModelSpec(family="clip", config=cfg, build=CLIP.init)
+
+
+@register_model("clip-vit-b-16")
+def _clip_b16() -> ModelSpec:
+    from keep_tpu_torch.models.clip import CLIPConfig
+
+    return _clip_spec(CLIPConfig(
+        embed_dim=512,
+        vision=ViTConfig(patch_size=16, embed_dim=768, depth=12, num_heads=12,
+                         layerscale_init=None, ln_eps=1e-5)))
+
+
+@register_model("clip-vit-l-14")
+def _clip_l14() -> ModelSpec:
+    from keep_tpu_torch.models.clip import CLIPConfig
+    from keep_tpu_torch.models.text_transformer import TextTransformerConfig
+
+    return _clip_spec(CLIPConfig(
+        embed_dim=768,
+        vision=ViTConfig(patch_size=14, img_size=224, embed_dim=1024, depth=24,
+                         num_heads=16, layerscale_init=None, ln_eps=1e-5),
+        text=TextTransformerConfig(width=768, heads=12, layers=12,
+                                   output_dim=768)))
+
+
+def _not_ported(name: str, module: str) -> Callable[[], ModelSpec]:
+    def spec() -> ModelSpec:
+        raise NotImplementedError(
+            f"{name}: needs keep_tpu/{module}, which is not ported to "
+            f"keep_tpu_torch yet ({ITEM_11})")
+
+    return spec
+
+
+for _name, _module in (("kep", "models/kep.py"),
+                       ("rn50-clip", "models/resnet.py"),
+                       ("coca", "models/coca.py"),
+                       ("pmc-clip", "models/pmc_clip.py")):
+    register_model(_name)(_not_ported(_name, _module))
+
+
+def get_tokenizer(kind: str, path: str, **kw):
+    """'bert' → WordPiece (a ``vocab.txt`` or a model directory), 'clip' →
+    byte-level BPE (a merges file); both pure Python (the JAX package's
+    native fast path, ``text/fast_tokenizer.py``, is not ported)."""
+    if kind == "bert":
+        from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
+
+        if path.endswith(".txt"):
+            return WordPieceTokenizer(path, **kw)
+        return WordPieceTokenizer.from_pretrained(path, **kw)
+    if kind == "clip":
+        from keep_tpu_torch.text.bpe import BPETokenizer
+
+        return BPETokenizer(path, **kw)
+    raise ValueError(f"unknown tokenizer kind {kind!r} (want 'bert' or 'clip')")

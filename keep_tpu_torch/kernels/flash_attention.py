@@ -42,8 +42,14 @@ import torch
 
 from keep_tpu_torch.ops.nn import mha_attention
 
-MAX_SEQ = 512  # the kernels keep a whole score row and K/V slice on chip
-HEAD_DIM = 64  # the kernels are written for the KEEP towers' head width
+# What each CUDA body takes; the wrappers raise on anything else. The
+# bf16 → bf16 and fp32 → fp32 forward bodies take every head width in
+# HEAD_DIMS (the OpenCLIP zoo's 64, 80, 88, 104 and 112 among them) and any
+# S. The bf16 → fp32 body (the int8 blocks' attention) and the backward
+# keep the KEEP towers' shape: Dh = NARROW_HEAD_DIM and S ≤ NARROW_MAX_SEQ.
+HEAD_DIMS = tuple(range(64, 129, 8))
+NARROW_HEAD_DIM = 64
+NARROW_MAX_SEQ = 512
 
 # Counts of kernel launches in this process (slab forward, slab backward,
 # split-heads forward); a run resets them to check that its main path went
@@ -79,20 +85,28 @@ def _split(qkv: torch.Tensor, num_heads: int):
     return q, k, v, dh
 
 
-def _check_kernel_slab(qkv: torch.Tensor, dh: int) -> None:
-    """The shape, dtype-independent layout and device checks both kernels
-    share."""
-    b, s, _ = qkv.shape
+def _check_kernel_slab(qkv: torch.Tensor) -> None:
+    """The layout and device checks every kernel shares."""
+    b = qkv.shape[0]
     if qkv.device.type != "cuda":
         raise ValueError(f"no kernel for device {qkv.device}")
-    if dh != HEAD_DIM:
-        raise ValueError(f"the kernel takes head_dim {HEAD_DIM}, got {dh}")
-    if s > MAX_SEQ:
-        raise ValueError(f"the kernel takes S ≤ {MAX_SEQ}, got {s}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("the kernel takes a contiguous, 16-byte aligned slab")
     if b > 65535:
         raise ValueError(f"the kernel takes B ≤ 65535, got {b}")
+
+
+def _check_shape(dh: int, s: int, narrow: str | None = None) -> None:
+    """The head width and length a body takes: every Dh in ``HEAD_DIMS`` at
+    any S, or, for the body named by ``narrow`` (the bf16 → fp32 form, the
+    backward), Dh = 64 and S ≤ 512."""
+    if narrow is None:
+        if dh not in HEAD_DIMS:
+            raise ValueError(f"the kernel takes head_dim a multiple of 8 from "
+                             f"{HEAD_DIMS[0]} to {HEAD_DIMS[-1]}, got {dh}")
+    elif dh != NARROW_HEAD_DIM or s > NARROW_MAX_SEQ:
+        raise ValueError(f"{narrow} takes head_dim {NARROW_HEAD_DIM} and "
+                         f"S ≤ {NARROW_MAX_SEQ}, got head_dim {dh} and S {s}")
 
 
 def attention_qkv_slab_reference(qkv: torch.Tensor,
@@ -112,15 +126,17 @@ def attention_qkv_slab_reference(qkv: torch.Tensor,
 def _launch_forward(name: str, q: int, k: int, v: int,
                     strides: tuple[int, int, int],
                     key_bias: torch.Tensor | None, b: int, s: int, h: int,
-                    dtype: torch.dtype, out_dtype: torch.dtype,
+                    dh: int, dtype: torch.dtype, out_dtype: torch.dtype,
                     device: torch.device) -> torch.Tensor:
     """Launches the forward kernel on q, k, v given as the addresses of
     their (batch 0, head 0, row 0) elements and their common (batch, head,
-    row) element strides; returns out [B, S, H·64] in ``out_dtype``."""
+    row) element strides; returns out [B, S, H·Dh] in ``out_dtype``."""
     if (dtype, out_dtype) not in _DTYPE_CODE:
         raise TypeError(f"the kernel takes float32 or bfloat16 in and "
                         f"float32 or the input's dtype out, got {dtype} "
                         f"→ {out_dtype}")
+    _check_shape(dh, s, "the bf16 → fp32 kernel" if dtype != out_dtype
+                 else None)
     if key_bias is not None:
         if key_bias.device != device:
             raise ValueError("key_bias must be on the operands' device")
@@ -128,11 +144,11 @@ def _launch_forward(name: str, q: int, k: int, v: int,
 
     from keep_tpu_torch.kernels._build import library
 
-    out = torch.empty(b, s, h * HEAD_DIM, dtype=out_dtype, device=device)
+    out = torch.empty(b, s, h * dh, dtype=out_dtype, device=device)
     rc = library().keep_attention(
         q, k, v, *strides, None if key_bias is None else key_bias.data_ptr(),
-        out.data_ptr(), b, s, h, HEAD_DIM, _DTYPE_CODE[dtype, out_dtype],
-        HEAD_DIM ** -0.5, torch.cuda.current_stream(device).cuda_stream)
+        out.data_ptr(), b, s, h, dh, _DTYPE_CODE[dtype, out_dtype],
+        dh ** -0.5, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     return out
@@ -146,13 +162,13 @@ def _forward(qkv: torch.Tensor, key_bias: torch.Tensor | None, num_heads: int,
     if qkv.device.type == "cpu":
         return attention_qkv_slab_reference(qkv, key_bias, num_heads=num_heads,
                                             out_dtype=out_dtype)
-    _check_kernel_slab(qkv, dh)
+    _check_kernel_slab(qkv)
     # q, k and v are the slab's thirds: head h of each at lanes h·Dh
     d, ptr, size = three_hd // 3, qkv.data_ptr(), qkv.element_size()
     out = _launch_forward(
         "attention_qkv_slab", ptr, ptr + d * size, ptr + 2 * d * size,
-        (s * three_hd, dh, three_hd), key_bias, b, s, num_heads, qkv.dtype,
-        out_dtype, qkv.device)
+        (s * three_hd, dh, three_hd), key_bias, b, s, num_heads, dh,
+        qkv.dtype, out_dtype, qkv.device)
     with _launch_lock:
         LAUNCHES += 1
     return out
@@ -186,11 +202,12 @@ def attention_qkv_slab(qkv: torch.Tensor, key_bias: torch.Tensor | None = None,
 
     ``key_bias``: optional [B, S] additive mask on key positions (0 valid,
     −1e9 masked), taken in fp32. A CUDA tensor goes through the kernel,
-    which takes fp32 → fp32, bf16 → bf16 or bf16 → fp32, Dh = 64, S ≤ 512
-    and a contiguous slab, and raises on anything else; a CPU tensor goes
-    through the plain version. When the slab requires grad, the call is
-    differentiable (``SlabAttention``; a ``None`` bias becomes zeros, as in
-    the JAX package), except for the fp32-output form, which raises."""
+    which takes a contiguous slab, fp32 → fp32 or bf16 → bf16 at every Dh
+    in ``HEAD_DIMS`` and any S, bf16 → fp32 at Dh = 64 and S ≤ 512, and
+    raises on anything else; a CPU tensor goes through the plain version.
+    When the slab requires grad, the call is differentiable
+    (``SlabAttention``; a ``None`` bias becomes zeros, as in the JAX
+    package), except for the fp32-output form, which raises."""
     b, s, _ = qkv.shape
     _head_dim(qkv, num_heads)
     if key_bias is not None and tuple(key_bias.shape) != (b, s):
@@ -241,8 +258,9 @@ def attention_qkv_slab_bwd(qkv: torch.Tensor, key_bias: torch.Tensor,
     qkv [B, S, 3·H·Dh], fp32 key bias [B, S], dout [B, S, H·Dh] →
     dqkv [B, S, 3·H·Dh] in the slab's dtype. A CUDA tensor goes through the
     backward kernel, which takes fp32 or bf16 (dout in the slab's dtype),
-    Dh = 64, S ≤ 512 and contiguous tensors, and raises on anything else; a
-    CPU tensor goes through the plain version."""
+    Dh = 64, S ≤ 512 (the KEEP towers' training shapes) and contiguous
+    tensors, and raises on anything else; a CPU tensor goes through the
+    plain version."""
     global BWD_LAUNCHES
     b, s, _ = qkv.shape
     dh = _head_dim(qkv, num_heads)
@@ -254,7 +272,8 @@ def attention_qkv_slab_bwd(qkv: torch.Tensor, key_bias: torch.Tensor,
                          f"{(b, s, num_heads * dh)}, got {tuple(dout.shape)}")
     if qkv.device.type == "cpu":
         return attention_qkv_slab_bwd_reference(qkv, key_bias, dout, num_heads)
-    _check_kernel_slab(qkv, dh)
+    _check_kernel_slab(qkv)
+    _check_shape(dh, s, "the backward kernel")
     if qkv.dtype not in _IO_DTYPE_CODE or dout.dtype != qkv.dtype:
         raise TypeError(f"the backward kernel takes float32 or bfloat16 slabs "
                         f"with dout in the slab's dtype, got {qkv.dtype} and "
@@ -313,8 +332,8 @@ def _heads_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _heads_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   strides: tuple[int, int, int],
-                  key_bias: torch.Tensor | None, b: int, s: int,
-                  h: int) -> torch.Tensor:
+                  key_bias: torch.Tensor | None, b: int, s: int, h: int,
+                  dh: int) -> torch.Tensor:
     """The split-heads launch: q, k, v of one dtype on one CUDA device,
     sharing the (batch, head, row) element strides; counted in
     ``HEADS_LAUNCHES``."""
@@ -326,8 +345,8 @@ def _heads_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
     out = _launch_forward("attention_qkv_heads", q.data_ptr(), k.data_ptr(),
-                          v.data_ptr(), strides, key_bias, b, s, h, q.dtype,
-                          q.dtype, q.device)
+                          v.data_ptr(), strides, key_bias, b, s, h, dh,
+                          q.dtype, q.dtype, q.device)
     with _launch_lock:
         HEADS_LAUNCHES += 1
     return out
@@ -361,9 +380,10 @@ def attention_qkv_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``group`` (heads per TPU program) halves until it divides H, as on the
     TPU, and does not change the result: the kernel runs one block per
     (query tile, head). A CUDA tensor goes through the kernel, which takes
-    fp32 or bf16 q, k, v of one dtype, Dh = 64, S ≤ 512 and contiguous,
-    16-byte aligned operands, and raises on anything else; a CPU tensor goes
-    through the plain version. Inference-only: raises under autograd."""
+    fp32 or bf16 q, k, v of one dtype, every Dh in ``HEAD_DIMS``, any S and
+    contiguous, 16-byte aligned operands, and raises on anything else; a CPU
+    tensor goes through the plain version. Inference-only: raises under
+    autograd."""
     dh = _heads_check(q, k, v, key_bias, num_heads)
     while num_heads % group:
         group //= 2
@@ -372,8 +392,9 @@ def attention_qkv_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                              num_heads=num_heads, group=group)
     b, s, hd = q.shape
     for t in (q, k, v):
-        _check_kernel_slab(t, dh)
-    return _heads_kernel(q, k, v, (s * hd, dh, hd), key_bias, b, s, num_heads)
+        _check_kernel_slab(t)
+    return _heads_kernel(q, k, v, (s * hd, dh, hd), key_bias, b, s, num_heads,
+                         dh)
 
 
 def _key_bias(bias: torch.Tensor | None, b: int, s: int
@@ -434,8 +455,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t in (q, k, v):
         if t.data_ptr() % 16:
             raise ValueError("the kernel takes 16-byte aligned q, k, v")
-    if dh != HEAD_DIM or s > MAX_SEQ or b > 65535:
-        raise ValueError(f"the kernel takes head_dim {HEAD_DIM}, S ≤ "
-                         f"{MAX_SEQ} and B ≤ 65535, got {tuple(q.shape)}")
-    out = _heads_kernel(q, k, v, q.stride()[:3], key_bias, b, s, h)
+    if b > 65535:
+        raise ValueError(f"the kernel takes B ≤ 65535, got {tuple(q.shape)}")
+    out = _heads_kernel(q, k, v, q.stride()[:3], key_bias, b, s, h, dh)
     return out.view(b, s, h, dh).transpose(1, 2)

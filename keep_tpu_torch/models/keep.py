@@ -21,7 +21,8 @@ from torch import nn
 from keep_tpu_torch.configs import KEEPConfig
 from keep_tpu_torch.models.bert import BertModel
 from keep_tpu_torch.models.vit import VisionTransformer
-from keep_tpu_torch.ops.nn import Linear, gelu, l2_normalize
+from keep_tpu_torch.ops.nn import (Linear, cast_linear_weights, gelu,
+                                   l2_normalize)
 
 
 class VisualHead(nn.Module):
@@ -49,6 +50,8 @@ class KEEPModel(nn.Module):
     bf16 and the erf GELU otherwise, as in the JAX package. Parameters are
     created empty: load a state dict (``from_pretrained`` does)."""
 
+    family = "keep"
+
     def __init__(self, cfg: KEEPConfig, *, dtype: torch.dtype = torch.float32,
                  use_flash: bool = False, gelu_approx: bool | None = None,
                  device=None, weight_dtype: torch.dtype | None = None):
@@ -64,13 +67,7 @@ class KEEPModel(nn.Module):
         self.text = BertModel(cfg.text, device=device)
         self.logit_scale = nn.Parameter(torch.tensor(
             math.log(1.0 / cfg.logit_scale_init), device=device))
-        self._cast_linear_weights(weight_dtype or dtype)
-
-    @torch.no_grad()
-    def _cast_linear_weights(self, dtype: torch.dtype) -> None:
-        for m in self.modules():
-            if isinstance(m, Linear):
-                m.weight.data = m.weight.data.to(dtype)
+        cast_linear_weights(self, weight_dtype or dtype)
 
     def encode_image(self, pixels: torch.Tensor,
                      remat: bool = False) -> torch.Tensor:
@@ -89,6 +86,17 @@ class KEEPModel(nn.Module):
                         dtype=self.dtype, use_flash=self.use_flash,
                         gelu_approx=self.gelu_approx, remat=remat)
         return l2_normalize(out["pooler_output"].float())
+
+    @property
+    def config(self) -> KEEPConfig:
+        return self.cfg
+
+    def forward(self, pixels: torch.Tensor, input_ids: torch.Tensor,
+                attention_mask: torch.Tensor | None = None) -> dict:
+        """Both towers' unit features, the JAX package's ``keep.forward``
+        contract (the factory's uniform ``forward``)."""
+        return {"image_features": self.encode_image(pixels),
+                "text_features": self.encode_text(input_ids, attention_mask)}
 
     @classmethod
     @torch.no_grad()
@@ -181,7 +189,7 @@ class KEEPModel(nn.Module):
                              quant.vit_ln_stats(self.visual, calib_pixels),
                              smooth_alpha)
         quant.quantize_linear_weights(self)
-        self._cast_linear_weights(self.dtype)
+        cast_linear_weights(self, self.dtype)
 
     @classmethod
     def from_pretrained(cls, model_dir: str,

@@ -1,9 +1,17 @@
-"""ViT-L/16 image encoder (counterpart of ``keep_tpu/models/vit.py``).
+"""ViT image encoder (counterpart of ``keep_tpu/models/vit.py``).
 
-timm ``vit_large_patch16_224`` semantics as the released KEEP model uses it:
-patch embed as a reshape plus one matmul, CLS token, learned pos embed,
-pre-LN blocks with LayerScale, final LayerNorm, CLS pooling. Pixels come in
-NHWC, [B, H, W, 3], as in the JAX package.
+timm ``vit_large_patch16_224`` semantics as the released KEEP model uses it
+(``dynamic_img_size=True``): patch embed as a reshape plus one matmul, CLS
+token, learned pos embed (resampled bicubically for any other image size,
+``resample_pos_embed``), pre-LN blocks with LayerScale, final LayerNorm,
+CLS pooling. Pixels come in NHWC, [B, H, W, 3], as in the JAX package.
+
+The OpenCLIP zoo's variants, as there: the OpenAI-CLIP ``ln_pre`` after the
+pos embed (``ln_pre=True``); no CLS token (``num_prefix_tokens=0``); average
+pooling (``pool="avg"``) or none (``pool="none"``: all tokens); timm's
+gap-ViT ``fc_norm`` (the final LayerNorm after pooling); QuickGELU blocks
+(``act="quick_gelu"``); any ``mlp_ratio``. Training-time patch dropout
+keeps a random subset of patch tokens (``patch_dropout``).
 
 Parameter names follow the JAX pytree (``patch_embed``, ``blocks.{i}.attn.qkv``,
 ``ls1``, ...); weights are torch-layout ``[out, in]``. The patch-embed weight
@@ -18,8 +26,8 @@ Calibration: ``forward(..., ln_stats=True)`` also returns the per-layer
 per-channel abs-max of the two LayerNorm outputs that feed qkv and fc1,
 the inputs the int8 path quantizes per token (``quant.smooth_vit``).
 
-Not ported yet: ``resample_pos_embed`` (image sizes other than the native
-one raise), patch dropout and ``act_sharding``.
+Not ported: ``act_sharding`` (sequence parallelism, ROADMAP queue 1,
+item 10) and the MoE trunk (item 11) raise.
 """
 
 from __future__ import annotations
@@ -34,7 +42,8 @@ from keep_tpu_torch.kernels.ln_matmul import ln_matmul
 from keep_tpu_torch.kernels.qblock import quantized_attention_block
 from keep_tpu_torch.kernels.qmlp import quantized_mlp_bsd
 from keep_tpu_torch.ops.nn import (LayerNorm, Linear, Mlp, QLinear, gelu,
-                                   mha_attention)
+                                   ieee_fp32, mha_attention)
+from keep_tpu_torch.ops.preprocess import torch_resize_weights
 
 
 def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -46,6 +55,53 @@ def patchify(x: torch.Tensor, patch_size: int) -> torch.Tensor:
     x = x.reshape(b, gh, patch_size, gw, patch_size, c)
     x = x.permute(0, 1, 3, 2, 4, 5)  # [B, gh, gw, ph, pw, c]
     return x.reshape(b, gh * gw, patch_size * patch_size * c)
+
+
+def resample_pos_embed(pos_embed: torch.Tensor, grid_hw: tuple[int, int],
+                       num_prefix: int) -> torch.Tensor:
+    """Bicubic pos-embed resample for another image size (timm
+    ``resample_abs_pos_embed``; the reference's ``F.interpolate(mode=
+    'bicubic', antialias=True, align_corners=False)``): the square grid of
+    [1, prefix + N, D] to ``grid_hw``, as two separable fp32 weight
+    products with PyTorch's antialiased bicubic kernel
+    (``torch_resize_weights``), the prefix tokens kept. Returns
+    ``pos_embed`` itself at its own grid."""
+    n = pos_embed.shape[1] - num_prefix
+    old = int(round(float(n) ** 0.5))
+    gh, gw = grid_hw
+    if (old, old) == (gh, gw):
+        return pos_embed
+    prefix = pos_embed[:, :num_prefix]
+    grid = pos_embed[0, num_prefix:].reshape(old, old, -1).float()
+    wh, ww = (torch.from_numpy(torch_resize_weights(old, g)).to(grid.device)
+              for g in (gh, gw))
+    with ieee_fp32():
+        grid = torch.tensordot(wh, grid, dims=([1], [0]))  # [gh, old, D]
+        grid = torch.einsum("co,hod->hcd", ww, grid)       # [gh, gw, D]
+    grid = grid.reshape(1, gh * gw, -1).to(pos_embed.dtype)
+    return torch.cat([prefix, grid], dim=1)
+
+
+def patch_dropout_noise(batch: int, num_patches: int,
+                        generator: torch.Generator,
+                        device=None) -> torch.Tensor:
+    """The uniform [B, N] noise whose ordering picks the kept patches."""
+    return torch.rand(batch, num_patches, generator=generator, device=device)
+
+
+def patch_dropout(tokens: torch.Tensor, noise: torch.Tensor,
+                  keep_rate: float, num_prefix: int = 1) -> torch.Tensor:
+    """Training-time patch dropout (the reference's PatchDropout,
+    transformer.py:47-84): per sample, the prefix tokens and the
+    max(1, floor(keep_rate·N)) patches of lowest ``noise`` [B, N], in that
+    order. Returns [B, num_prefix + kept, D]."""
+    if keep_rate >= 1.0:
+        return tokens
+    b, s, d = tokens.shape
+    num_keep = max(1, int((s - num_prefix) * keep_rate))
+    keep = torch.argsort(noise, dim=-1, stable=True)[:, :num_keep] + num_prefix
+    kept = torch.gather(tokens, 1, keep[..., None].expand(-1, -1, d))
+    return torch.cat([tokens[:, :num_prefix], kept], dim=1)
 
 
 class Attention(nn.Module):
@@ -66,7 +122,7 @@ class Block(nn.Module):
         self.norm1 = LayerNorm(d, cfg.ln_eps, device=device)
         self.attn = Attention(d, device=device)
         self.norm2 = LayerNorm(d, cfg.ln_eps, device=device)
-        self.mlp = Mlp(d, cfg.mlp_dim, device=device)
+        self.mlp = Mlp(d, cfg.mlp_dim, act=cfg.act, device=device)
         if cfg.layerscale_init is not None:
             self.ls1 = nn.Parameter(torch.full((d,), cfg.layerscale_init,
                                                device=device))
@@ -160,27 +216,26 @@ class Block(nn.Module):
 
 
 class VisionTransformer(nn.Module):
-    def __init__(self, cfg: ViTConfig, *, device=None):
+    """The image tower; ``ln_pre=True`` adds the OpenAI-CLIP LayerNorm after
+    the pos embed (the JAX pytree's ``ln_pre`` leaf)."""
+
+    def __init__(self, cfg: ViTConfig, *, ln_pre: bool = False,
+                 device=None):
         super().__init__()
-        unsupported = {
-            "num_prefix_tokens": cfg.num_prefix_tokens != 1,
-            "pool": cfg.pool != "token",
-            "act": cfg.act != "gelu",
-            "fc_norm": cfg.fc_norm,
-            "moe_experts": cfg.moe_experts != 0,
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
+        if cfg.moe_experts != 0:
             raise NotImplementedError(
-                f"ViTConfig fields {bad} are outside the ported KEEP ViT "
-                f"(CLS token, token pooling, GELU, dense trunk)")
+                "the MoE trunk (ViTConfig.moe_experts) is not ported yet "
+                "(ROADMAP queue 1, item 11)")
         d = cfg.embed_dim
         self.cfg = cfg
         self.patch_embed = Linear(cfg.patch_size * cfg.patch_size * 3, d,
                                   device=device)
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, d, device=device))
-        self.pos_embed = nn.Parameter(
-            torch.zeros(1, 1 + cfg.num_patches, d, device=device))
+        self.cls_token = (nn.Parameter(torch.zeros(1, 1, d, device=device))
+                          if cfg.num_prefix_tokens >= 1 else None)
+        self.pos_embed = nn.Parameter(torch.zeros(
+            1, cfg.num_prefix_tokens + cfg.num_patches, d, device=device))
+        self.ln_pre = (LayerNorm(d, cfg.ln_eps, device=device) if ln_pre
+                       else None)
         self.blocks = nn.ModuleList(
             Block(cfg, device=device) for _ in range(cfg.depth))
         self.norm = LayerNorm(d, cfg.ln_eps, device=device)
@@ -188,26 +243,54 @@ class VisionTransformer(nn.Module):
     def forward(self, x: torch.Tensor, *, dtype: torch.dtype = torch.float32,
                 use_flash: bool = False, gelu_approx: bool = False,
                 remat: bool = False, fuse_ln: bool = False,
-                ln_stats: bool = False):
-        """[B, H, W, 3] normalised pixels → [B, D] CLS features.
+                patch_dropout_rate: float = 0.0,
+                dropout_generator: torch.Generator | None = None,
+                ln_stats: bool = False, act_sharding=None):
+        """[B, H, W, 3] normalised pixels, any multiple of the patch size
+        (the pos embed resampled to its grid) → [B, D] pooled features, or
+        [B, S, D] tokens under ``pool="none"``.
         ``remat`` recomputes each block's activations in the backward
         (``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint``
         around the block). ``fuse_ln`` with ``use_flash`` fuses norm1 into
         the qkv matmul and norm2 into fc1 (``kernels.ln_matmul``; float
-        blocks only, inference only), as the JAX package's ``fuse_ln``.
+        GELU blocks only, inference only), as the JAX package's ``fuse_ln``.
+        ``patch_dropout_rate > 0`` with a ``dropout_generator`` keeps a
+        random 1 − rate of the patch tokens (``patch_dropout``); without a
+        generator it is eval mode and keeps them all, as in the JAX package.
         ``ln_stats=True`` returns ``(features, {"qkv": [L, D], "fc1": [L,
         D]})``, each block's LayerNorm-output abs-max (the calibration pass
-        of ``quant.smooth_vit``)."""
+        of ``quant.smooth_vit``). ``act_sharding`` raises: sequence
+        parallelism is ROADMAP queue 1, item 10."""
         b, h, w, _ = x.shape
         cfg = self.cfg
-        if (h, w) != (cfg.img_size, cfg.img_size):
+        ps = cfg.patch_size
+        if act_sharding is not None:
+            raise NotImplementedError(
+                "act_sharding (sequence parallelism over a mesh) is not "
+                "ported yet (ROADMAP queue 1, item 10)")
+        if h % ps or w % ps:
+            raise ValueError(f"image size {(h, w)} not a multiple of "
+                             f"patch_size {ps}")
+        if cfg.num_prefix_tokens > 1:
             raise ValueError(
-                f"image size {(h, w)} differs from the native "
-                f"{cfg.img_size}; pos-embed resampling is not ported yet")
+                f"num_prefix_tokens={cfg.num_prefix_tokens} unsupported (0 = "
+                f"gap ViT, 1 = CLS); register tokens are not implemented")
         x = x.to(dtype)
-        tokens = self.patch_embed(patchify(x, cfg.patch_size))
-        cls = self.cls_token.to(dtype).expand(b, 1, cfg.embed_dim)
-        tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(dtype)
+        tokens = self.patch_embed(patchify(x, ps))
+        if self.cls_token is not None:
+            cls = self.cls_token.to(dtype).expand(b, 1, cfg.embed_dim)
+            tokens = torch.cat([cls, tokens], dim=1)
+        pos = resample_pos_embed(self.pos_embed, (h // ps, w // ps),
+                                 cfg.num_prefix_tokens)
+        tokens = tokens + pos.to(dtype)
+        if self.ln_pre is not None:
+            tokens = self.ln_pre(tokens)
+        if patch_dropout_rate > 0.0 and dropout_generator is not None:
+            noise = patch_dropout_noise(
+                b, tokens.shape[1] - cfg.num_prefix_tokens,
+                dropout_generator, tokens.device)
+            tokens = patch_dropout(tokens, noise, 1.0 - patch_dropout_rate,
+                                   cfg.num_prefix_tokens)
         stats = []
         for blk in self.blocks:
             kw = dict(use_flash=use_flash, gelu_approx=gelu_approx,
@@ -219,13 +302,53 @@ class VisionTransformer(nn.Module):
             if ln_stats:
                 tokens, st = tokens
                 stats.append(st)
-        # LayerNorm is per token, so normalising the pooled CLS row alone
-        # equals the JAX package's norm-then-pool
-        pooled = self.norm(tokens[:, 0])
+        if cfg.pool == "token" and not cfg.fc_norm:
+            # LayerNorm is per token, so normalising the pooled CLS row
+            # alone equals the JAX package's norm-then-pool
+            pooled = self.norm(tokens[:, 0])
+        else:
+            if not cfg.fc_norm:
+                tokens = self.norm(tokens)
+            if cfg.pool == "token":
+                pooled = tokens[:, 0]
+            elif cfg.pool == "avg":
+                pooled = tokens[:, cfg.num_prefix_tokens:].mean(dim=1)
+            else:
+                pooled = tokens
+            if cfg.fc_norm and cfg.pool in ("token", "avg"):
+                # timm's gap-ViT order: pool first, then the LayerNorm
+                pooled = self.norm(pooled)
         if ln_stats:
             return pooled, {k: torch.stack([st[k] for st in stats])
                             for k in ("qkv", "fc1")}
         return pooled
+
+
+@torch.no_grad()
+def init_vit_weights(vit: VisionTransformer,
+                     generator: torch.Generator) -> VisionTransformer:
+    """Draws ``vit``'s weights in place from ``generator`` with the JAX
+    package's ``vit.init`` statistics: linear weights normal with std
+    fan_in^-0.5, zero biases, pos embed and CLS token truncated normal
+    (±2σ, σ = .02), unit LayerNorms (``ln_pre`` too), LayerScale at
+    ``layerscale_init``. Returns ``vit``."""
+    for m in vit.modules():
+        if isinstance(m, Linear):
+            m.weight.normal_(0.0, m.weight.shape[1] ** -0.5,
+                             generator=generator)
+            m.bias.zero_()
+        elif isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    for t in (vit.pos_embed, vit.cls_token):
+        if t is not None:
+            nn.init.trunc_normal_(t, 0.0, 0.02, -0.04, 0.04,
+                                  generator=generator)
+    for blk in vit.blocks:
+        for gamma in (blk.ls1, blk.ls2):
+            if gamma is not None:
+                gamma.fill_(vit.cfg.layerscale_init)
+    return vit
 
 
 @torch.no_grad()

@@ -27,6 +27,12 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """OpenCLIP ``QuickGELU``, x·sigmoid(1.702x): the original OpenAI CLIP
+    checkpoints' activation (the ``-quickgelu`` presets)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
 class _LinearRoundOnce(torch.autograd.Function):
     """x @ wᵀ + b for a bf16 (or other narrow) x, rounded once: the product
     of the narrow operands stays in fp32, the fp32 bias is added, and only
@@ -122,6 +128,32 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
                  eps: float = 1e-12) -> torch.Tensor:
     """``F.normalize`` semantics, x / max(||x||, eps), computed in fp32."""
     return F.normalize(x.float(), dim=dim, eps=eps).to(x.dtype)
+
+
+def cosine_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     logit_scale: torch.Tensor, *,
+                     bias: torch.Tensor | None = None,
+                     logit_scale_max: float = 4.6051702,
+                     head_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Scaled-cosine multi-head attention over [B, H, S, Dh] (the
+    reference's custom ``Attention``, OpenCLIP transformer.py:87-160): the
+    scores are cosines of L2-normalised q and k, times a learned per-head
+    temperature exp(min(logit_scale, logit_scale_max)) (``logit_scale`` in
+    log space, [H] or [H, 1, 1]) in place of Dh^-0.5; softmax in fp32, p
+    cast to v's dtype, p·v summed in fp32. ``head_scale`` [H] multiplies
+    each head's output (``scale_heads``)."""
+    scale = torch.exp(torch.clamp(logit_scale.reshape(-1).float(),
+                                  max=logit_scale_max))
+    scores = torch.matmul(l2_normalize(q.float()),
+                          l2_normalize(k.float()).transpose(-1, -2))
+    scores = scores * scale[None, :, None, None]
+    if bias is not None:
+        scores = scores + bias.float()
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.matmul(probs.float(), v.float())
+    if head_scale is not None:
+        out = out * head_scale.reshape(1, -1, 1, 1).float()
+    return out.to(v.dtype)
 
 
 def tf32_state() -> tuple:
@@ -243,6 +275,16 @@ class Linear(nn.Module):
         return linear(x, self.weight, self.bias)
 
 
+@torch.no_grad()
+def cast_linear_weights(model: nn.Module, dtype: torch.dtype) -> None:
+    """Stores every ``Linear`` weight of ``model`` in ``dtype`` (the compute
+    dtype: ``linear`` casts a weight to the activations' dtype anyway);
+    LayerNorms, biases and other parameters keep theirs."""
+    for m in model.modules():
+        if isinstance(m, Linear):
+            m.weight.data = m.weight.data.to(dtype)
+
+
 class QLinear(nn.Module):
     """W8A8 linear: int8 ``weight_q`` [out, in] with per-output-channel fp32
     ``weight_scale`` [out], fp32 ``bias`` [out], and an optional SmoothQuant
@@ -296,18 +338,27 @@ class LayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 → GELU → fc2 (timm ``Mlp`` / BERT intermediate + output).
+    """fc1 → act → fc2 (timm ``Mlp`` / BERT intermediate + output).
+    ``act``: 'gelu' (erf, or tanh with ``gelu_approx``) or 'quick_gelu'
+    (the OpenAI CLIP form, with no int8 epilogue); any other raises.
 
     With the tanh GELU and a quantized fc1, the int8 kernels take over: the
     fused pair (``kernels.qmlp``) when fc2 is quantized too, else fc1 with
     the GELU in its epilogue (``kernels.qmatmul``)."""
 
-    def __init__(self, dim: int, hidden: int, *, device=None):
+    def __init__(self, dim: int, hidden: int, *, act: str = "gelu",
+                 device=None):
         super().__init__()
+        if act not in ("gelu", "quick_gelu"):
+            raise ValueError(f"unknown mlp act {act!r}; expected 'gelu' or "
+                             f"'quick_gelu'")
+        self.act = act
         self.fc1 = Linear(dim, hidden, device=device)
         self.fc2 = Linear(hidden, dim, device=device)
 
     def forward(self, x: torch.Tensor, gelu_approx: bool = False) -> torch.Tensor:
+        if self.act == "quick_gelu":
+            return self.fc2(quick_gelu(self.fc1(x)))
         if gelu_approx and isinstance(self.fc1, QLinear):
             if isinstance(self.fc2, QLinear):
                 from keep_tpu_torch.kernels.qmlp import qmlp_fused

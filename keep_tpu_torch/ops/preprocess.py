@@ -55,6 +55,15 @@ def resize_weights(in_size: int, out_size: int, support: float = 2.0,
     return w.astype(np.float32)
 
 
+def torch_resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] matrix of ``F.interpolate(mode='bicubic', antialias=True,
+    align_corners=False)``, the reference's pos-embed resample: PyTorch's
+    antialiased resampler is Pillow's windowed, normalised construction
+    (cubic a = −0.5 at up- and downscale alike), so this is
+    ``resize_weights``."""
+    return resize_weights(in_size, out_size)
+
+
 def resized_output_size(h: int, w: int, size: int) -> tuple[int, int]:
     """torchvision ``Resize(int)``: shortest side → size, the other side
     scaled and truncated to int."""

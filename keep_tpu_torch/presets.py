@@ -1,0 +1,401 @@
+"""OpenCLIP architecture presets (counterpart of ``keep_tpu/presets.py``):
+the reference's ``model_configs/*.json`` inventory, 62 entries
+(training/path_open_clip/factory.py:41-62), re-declared as data, and the
+builders of the entries whose towers this package has.
+
+``resolve(name)`` maps an entry onto the port's towers:
+
+- plain ViT + CLIP text (``vit``) → ``models.vit`` with the OpenCLIP
+  ``ln_pre`` and a projection matrix (``visual_head.proj``) +
+  ``models.text_transformer``;
+- ``vit_medium_gap`` (``vit_gap``) → ``models.vit`` with no CLS token,
+  average pooling and ``fc_norm``, and a linear head;
+- ``eva_giant`` (``eva01_g``, EVA01) → ``models.vit`` (a plain pre-LN
+  trunk) with timm's classifier head as the projection (a biased linear).
+
+These are 27 of the 62 entries. The others need towers or text kinds that
+are not ported yet (ModifiedResNet, ConvNeXt, Swin, EVA02, relpos ViT, the
+path-BERT, HF and mT5 text towers, CoCa): ``resolve`` raises
+``UnsupportedPresetError`` (a ``NotImplementedError``) naming the JAX
+module each needs and ROADMAP queue 1, item 11.
+
+``create_preset(name)`` is ``build_preset(resolve(name))``: a
+``PresetModel`` (an ``nn.Module``) with ``encode_image``, ``encode_text``
+and ``forward``, the surface of the JAX package's ``PresetModel``
+closures, its weights drawn from a seed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+from torch import nn
+
+from keep_tpu_torch.configs import PreprocessConfig, ViTConfig
+from keep_tpu_torch.models.text_transformer import (TextTransformer,
+                                                    TextTransformerConfig)
+from keep_tpu_torch.models.vit import VisionTransformer, init_vit_weights
+from keep_tpu_torch.ops.nn import cast_linear_weights, gelu, l2_normalize
+
+# ---------------------------------------------------------------------------
+# data: the reference's training/path_open_clip/model_configs, as in the JAX
+# package's presets.py
+# ---------------------------------------------------------------------------
+
+_VIT = "vit"  # plain OpenCLIP VisionTransformer
+
+_T = {"context_length": 77, "vocab_size": 49408}  # the common CLIP text base
+
+
+def _vt(w, h, l):  # text_cfg shorthand
+    return dict(_T, width=w, heads=h, layers=l)
+
+
+PRESETS: dict[str, dict] = {
+    # --- plain ViT + CLIP text -------------------------------------------
+    "ViT-S-32": {"embed_dim": 384, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 384, "patch_size": 32}, "text": _vt(384, 6, 12)},
+    "ViT-S-32-alt": {"embed_dim": 256, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 384, "patch_size": 32}, "text": _vt(256, 4, 10)},
+    "ViT-S-16": {"embed_dim": 384, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 384, "patch_size": 16}, "text": _vt(384, 6, 12)},
+    "ViT-S-16-alt": {"embed_dim": 256, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 384, "patch_size": 16}, "text": _vt(256, 4, 10)},
+    "ViT-M-32": {"embed_dim": 512, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 512, "patch_size": 32}, "text": _vt(512, 8, 12)},
+    "ViT-M-32-alt": {"embed_dim": 384, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 512, "patch_size": 32}, "text": _vt(384, 6, 12)},
+    "ViT-M-16": {"embed_dim": 512, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 512, "patch_size": 16}, "text": _vt(512, 8, 12)},
+    "ViT-M-16-alt": {"embed_dim": 384, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 512, "patch_size": 16, "ls_init_value": 1e-4}, "text": _vt(384, 6, 12)},
+    "ViT-B-32": {"embed_dim": 512, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 768, "patch_size": 32}, "text": _vt(512, 8, 12)},
+    "ViT-B-32-quickgelu": {"embed_dim": 512, "quick_gelu": True, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 768, "patch_size": 32}, "text": _vt(512, 8, 12)},
+    "ViT-B-32-plus-256": {"embed_dim": 640, "vision": {"kind": _VIT, "image_size": 256, "layers": 12, "width": 896, "patch_size": 32}, "text": _vt(640, 10, 12)},
+    "ViT-B-16": {"embed_dim": 512, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 768, "patch_size": 16}, "text": _vt(512, 8, 12)},
+    "ViT-B-16-plus": {"embed_dim": 640, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 896, "patch_size": 16}, "text": _vt(640, 10, 12)},
+    "ViT-B-16-plus-240": {"embed_dim": 640, "vision": {"kind": _VIT, "image_size": 240, "layers": 12, "width": 896, "patch_size": 16}, "text": _vt(640, 10, 12)},
+    "ViT-L-14": {"embed_dim": 768, "vision": {"kind": _VIT, "image_size": 224, "layers": 24, "width": 1024, "patch_size": 14}, "text": _vt(768, 12, 12)},
+    "ViT-L-14-280": {"embed_dim": 768, "vision": {"kind": _VIT, "image_size": 280, "layers": 24, "width": 1024, "patch_size": 14}, "text": _vt(768, 12, 12)},
+    "ViT-L-14-336": {"embed_dim": 768, "vision": {"kind": _VIT, "image_size": 336, "layers": 24, "width": 1024, "patch_size": 14}, "text": _vt(768, 12, 12)},
+    "ViT-L-16": {"embed_dim": 768, "vision": {"kind": _VIT, "image_size": 224, "layers": 24, "width": 1024, "patch_size": 16}, "text": _vt(768, 12, 12)},
+    "ViT-L-16-320": {"embed_dim": 768, "vision": {"kind": _VIT, "image_size": 320, "layers": 24, "width": 1024, "patch_size": 16}, "text": _vt(768, 12, 12)},
+    "ViT-H-14": {"embed_dim": 1024, "vision": {"kind": _VIT, "image_size": 224, "layers": 32, "width": 1280, "head_width": 80, "patch_size": 14}, "text": _vt(1024, 16, 24)},
+    "ViT-H-16": {"embed_dim": 1024, "vision": {"kind": _VIT, "image_size": 224, "layers": 32, "width": 1280, "head_width": 80, "patch_size": 16}, "text": _vt(1024, 16, 24)},
+    "ViT-g-14": {"embed_dim": 1024, "vision": {"kind": _VIT, "image_size": 224, "layers": 40, "width": 1408, "head_width": 88, "mlp_ratio": 4.3637, "patch_size": 14}, "text": _vt(1024, 16, 24)},
+    "ViT-bigG-14": {"embed_dim": 1280, "vision": {"kind": _VIT, "image_size": 224, "layers": 48, "width": 1664, "head_width": 104, "mlp_ratio": 4.9231, "patch_size": 14}, "text": _vt(1280, 20, 32)},
+    "ViT-e-14": {"embed_dim": 1280, "vision": {"kind": _VIT, "image_size": 224, "layers": 56, "width": 1792, "head_width": 112, "mlp_ratio": 8.5715, "patch_size": 14}, "text": _vt(1280, 20, 36)},
+    # --- ModifiedResNet ---------------------------------------------------
+    "RN50": {"embed_dim": 1024, "vision": {"kind": "rn", "image_size": 224, "layers": (3, 4, 6, 3), "width": 64}, "text": _vt(512, 8, 12)},
+    "RN50-quickgelu": {"embed_dim": 1024, "quick_gelu": True, "vision": {"kind": "rn", "image_size": 224, "layers": (3, 4, 6, 3), "width": 64}, "text": _vt(512, 8, 12)},
+    "RN101": {"embed_dim": 512, "vision": {"kind": "rn", "image_size": 224, "layers": (3, 4, 23, 3), "width": 64}, "text": _vt(512, 8, 12)},
+    "RN101-quickgelu": {"embed_dim": 512, "quick_gelu": True, "vision": {"kind": "rn", "image_size": 224, "layers": (3, 4, 23, 3), "width": 64}, "text": _vt(512, 8, 12)},
+    "RN50x4": {"embed_dim": 640, "vision": {"kind": "rn", "image_size": 288, "layers": (4, 6, 10, 6), "width": 80}, "text": _vt(640, 10, 12)},
+    "RN50x16": {"embed_dim": 768, "vision": {"kind": "rn", "image_size": 384, "layers": (6, 8, 18, 8), "width": 96}, "text": _vt(768, 12, 12)},
+    "RN50x64": {"embed_dim": 1024, "vision": {"kind": "rn", "image_size": 448, "layers": (3, 15, 36, 10), "width": 128}, "text": _vt(1024, 16, 12)},
+    # --- timm-delegated towers, implemented natively ----------------------
+    "convnext_tiny": {"embed_dim": 1024, "vision": {"kind": "convnext", "image_size": 224, "depths": (3, 3, 9, 3), "dims": (96, 192, 384, 768), "proj": "linear"}, "text": _vt(512, 8, 12)},
+    "convnext_small": {"embed_dim": 512, "vision": {"kind": "convnext", "image_size": 224, "depths": (3, 3, 27, 3), "dims": (96, 192, 384, 768), "proj": "linear"}, "text": _vt(512, 8, 12)},
+    "convnext_base": {"embed_dim": 512, "vision": {"kind": "convnext", "image_size": 224, "depths": (3, 3, 27, 3), "dims": (128, 256, 512, 1024), "proj": "linear"}, "text": _vt(512, 8, 12)},
+    "convnext_base_w": {"embed_dim": 640, "vision": {"kind": "convnext", "image_size": 256, "depths": (3, 3, 27, 3), "dims": (128, 256, 512, 1024), "proj": "linear"}, "text": _vt(640, 10, 12)},
+    "convnext_base_w_320": {"embed_dim": 640, "vision": {"kind": "convnext", "image_size": 320, "depths": (3, 3, 27, 3), "dims": (128, 256, 512, 1024), "proj": "linear"}, "text": _vt(640, 10, 12)},
+    "convnext_large": {"embed_dim": 768, "vision": {"kind": "convnext", "image_size": 224, "depths": (3, 3, 27, 3), "dims": (192, 384, 768, 1536), "proj": "linear"}, "text": _vt(768, 12, 12)},
+    "convnext_large_d": {"embed_dim": 768, "vision": {"kind": "convnext", "image_size": 256, "depths": (3, 3, 27, 3), "dims": (192, 384, 768, 1536), "proj": "mlp"}, "text": _vt(768, 12, 16)},
+    "convnext_large_d_320": {"embed_dim": 768, "vision": {"kind": "convnext", "image_size": 320, "depths": (3, 3, 27, 3), "dims": (192, 384, 768, 1536), "proj": "mlp"}, "text": _vt(768, 12, 16)},
+    "convnext_xlarge": {"embed_dim": 1024, "vision": {"kind": "convnext", "image_size": 256, "depths": (3, 3, 27, 3), "dims": (256, 512, 1024, 2048), "proj": "linear"}, "text": _vt(1024, 16, 20)},
+    "convnext_xxlarge": {"embed_dim": 1024, "vision": {"kind": "convnext", "image_size": 256, "depths": (3, 4, 30, 3), "dims": (384, 768, 1536, 3072), "proj": "linear"}, "text": _vt(1024, 16, 24)},
+    "convnext_xxlarge_320": {"embed_dim": 1024, "vision": {"kind": "convnext", "image_size": 320, "depths": (3, 4, 30, 3), "dims": (384, 768, 1536, 3072), "proj": "linear"}, "text": _vt(1024, 16, 24)},
+    "swin_base_patch4_window7_224": {"embed_dim": 640, "vision": {"kind": "swin", "image_size": 224, "proj": "linear"}, "text": _vt(640, 10, 12)},
+    "vit_medium_patch16_gap_256": {"embed_dim": 512, "vision": {"kind": "vit_gap", "image_size": 256, "layers": 12, "width": 512, "patch_size": 16, "proj": "linear"}, "text": _vt(512, 8, 12)},
+    "EVA01-g-14": {"embed_dim": 1024, "vision": {"kind": "eva01_g", "image_size": 224, "proj": "linear_bias"}, "text": _vt(768, 12, 12)},
+    "EVA01-g-14-plus": {"embed_dim": 1024, "vision": {"kind": "eva01_g", "image_size": 224, "proj": "linear_bias"}, "text": _vt(1024, 16, 24)},
+    # EVA02 trunks (models/eva.py, shapes from EVA02-*.json; timm_proj null →
+    # the trunk's own head projects to embed_dim)
+    "EVA02-B-16": {"embed_dim": 512, "vision": {"kind": "eva02", "proj": "none"}, "text": _vt(512, 8, 12)},
+    "EVA02-L-14": {"embed_dim": 768, "vision": {"kind": "eva02", "proj": "none"}, "text": _vt(768, 12, 12)},
+    "EVA02-L-14-336": {"embed_dim": 768, "vision": {"kind": "eva02", "proj": "none"}, "text": _vt(768, 12, 12)},
+    "EVA02-E-14": {"embed_dim": 1024, "vision": {"kind": "eva02", "proj": "none"}, "text": _vt(1024, 16, 24)},
+    "EVA02-E-14-plus": {"embed_dim": 1024, "vision": {"kind": "eva02", "proj": "none"}, "text": _vt(1280, 20, 32)},
+    "vit_relpos_medium_patch16_cls_224": {"embed_dim": 512, "vision": {"kind": "vit_relpos", "image_size": 224, "proj": "linear"}, "text": _vt(512, 8, 12)},
+    # --- HF text towers ----------------------------------------------------
+    "ViT-B-32-bert": {"embed_dim": 768, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 768, "patch_size": 32}, "text": {"kind": "path_bert", "context_length": 256, "vocab_size": 30522, "width": 768, "heads": 12, "layers": 12}},
+    "roberta-ViT-B-32": {"embed_dim": 512, "quick_gelu": True, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 768, "patch_size": 32}, "text": {"kind": "roberta", "vocab_size": 50265, "width": 768, "heads": 12, "layers": 12, "proj": "mlp"}},
+    "xlm-roberta-base-ViT-B-32": {"embed_dim": 512, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 768, "patch_size": 32}, "text": {"kind": "xlm-roberta", "vocab_size": 250002, "width": 768, "heads": 12, "layers": 12, "proj": "mlp"}},
+    "xlm-roberta-large-ViT-H-14": {"embed_dim": 1024, "vision": {"kind": _VIT, "image_size": 224, "layers": 32, "width": 1280, "head_width": 80, "patch_size": 14}, "text": {"kind": "xlm-roberta", "vocab_size": 250002, "width": 1024, "heads": 16, "layers": 24, "proj": "mlp"}},
+    # mt5 trunk shapes from the HF google/mt5-{base,xl} configs (data contract)
+    "mt5-base-ViT-B-32": {"embed_dim": 512, "vision": {"kind": _VIT, "image_size": 224, "layers": 12, "width": 768, "patch_size": 32}, "text": {"kind": "mt5", "vocab_size": 250112, "width": 768, "heads": 12, "layers": 12, "d_ff": 2048, "proj": "mlp"}},
+    "mt5-xl-ViT-H-14": {"embed_dim": 1024, "vision": {"kind": _VIT, "image_size": 224, "layers": 32, "width": 1280, "head_width": 80, "patch_size": 14}, "text": {"kind": "mt5", "vocab_size": 250112, "width": 2048, "heads": 32, "layers": 24, "d_ff": 5120, "proj": "mlp"}},
+    # --- CoCa --------------------------------------------------------------
+    "coca_ViT-B-32": {"embed_dim": 512, "family": "coca", "vision": {"image_size": 224, "layers": 12, "width": 768, "patch_size": 32, "attentional_pool": True, "attn_pooler_heads": 8}, "text": {"width": 512, "heads": 8, "layers": 12, "vocab_size": 49408}, "multimodal": {"layers": 12, "heads": 8}},
+    "coca_ViT-L-14": {"embed_dim": 768, "family": "coca", "vision": {"image_size": 224, "layers": 24, "width": 1024, "patch_size": 14, "attentional_pool": True, "attn_pooler_heads": 8}, "text": {"width": 768, "heads": 12, "layers": 12, "vocab_size": 49408}, "multimodal": {"layers": 12, "heads": 12}},
+    "coca_base": {"embed_dim": 512, "family": "coca", "vision": {"image_size": 288, "layers": 12, "width": 768, "patch_size": 18}, "text": {"width": 768, "heads": 12, "layers": 12, "vocab_size": 64000}, "multimodal": {"layers": 12, "heads": 12, "n_queries": 256}},
+    # CoCa with a RoBERTa token tower: no attentional pooler (decoder
+    # cross-attends raw ViT patch tokens at trunk width 768 == multimodal
+    # width), roberta hidden states feed the decoder
+    # (coca_roberta-ViT-B-32.json)
+    "coca_roberta-ViT-B-32": {"embed_dim": 512, "family": "coca", "vision": {"image_size": 224, "layers": 12, "width": 768, "patch_size": 32}, "text": {"kind": "roberta", "vocab_size": 50265, "width": 768, "heads": 12, "layers": 12, "proj": "linear"}, "multimodal": {"layers": 12, "heads": 8, "context_length": 76}},
+}
+
+# per-encoder normalization stats (reference factory.py:246-258 +
+# constants.py): OpenCLIP presets default to the OpenAI CLIP stats; the
+# pathology encoders (uni/ctp/prov) use ImageNet; res_ssl uses lunit's.
+OPENAI_DATASET_MEAN = (0.48145466, 0.4578275, 0.40821073)
+OPENAI_DATASET_STD = (0.26862954, 0.26130258, 0.27577711)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+RES_SSL_MEAN = (0.70322989, 0.53606487, 0.66096631)
+RES_SSL_STD = (0.21716536, 0.26081574, 0.20723464)
+
+ENCODER_STATS = {
+    "uni": (IMAGENET_MEAN, IMAGENET_STD),
+    "ctp": (IMAGENET_MEAN, IMAGENET_STD),
+    "prov": (IMAGENET_MEAN, IMAGENET_STD),
+    "res_ssl": (RES_SSL_MEAN, RES_SSL_STD),
+}
+
+
+ITEM_11 = "ROADMAP queue 1, item 11"
+# the JAX modules the unported vision and text kinds need
+_MISSING_VISION = {"rn": "models/resnet.py (ModifiedResNet)",
+                   "convnext": "models/convnext.py",
+                   "swin": "models/swin.py", "eva02": "models/eva.py",
+                   "vit_relpos": "models/vit_relpos.py"}
+_MISSING_TEXT = {"path_bert": "models/kep.py (path_bert_encode)",
+                 "roberta": "models/hf_text.py",
+                 "xlm-roberta": "models/hf_text.py",
+                 "mt5": "models/hf_text.py and models/t5.py"}
+
+
+class UnsupportedPresetError(NotImplementedError):
+    pass
+
+
+def _not_ported(name: str, module: str):
+    raise UnsupportedPresetError(
+        f"{name}: needs keep_tpu/{module}, which is not ported to "
+        f"keep_tpu_torch yet ({ITEM_11})")
+
+
+def tokenizer_kind(name: str) -> str:
+    """The tokenizer family a preset's text tower expects: 'clip'
+    (byte-level BPE, ``text.bpe``) for every preset this package builds;
+    the others raise from ``resolve``."""
+    return {"clip": "clip"}[resolve(name).text_kind]
+
+
+def preprocess_config(name: str) -> PreprocessConfig:
+    """The preset's eval transform: its image size and the OpenAI CLIP
+    mean / std (the reference's ``image_transform(model.visual.image_size,
+    mean, std)``, factory.py:323-337)."""
+    return PreprocessConfig(size=resolve(name).vision_cfg.img_size,
+                            mean=OPENAI_DATASET_MEAN, std=OPENAI_DATASET_STD)
+
+
+def preset_names() -> list[str]:
+    """All 62 preset names, sorted."""
+    return sorted(PRESETS)
+
+
+# ---------------------------------------------------------------------------
+# resolution
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ResolvedPreset:
+    name: str
+    family: str  # 'clip'
+    embed_dim: int
+    vision_kind: str  # 'vit' | 'vit_gap' | 'eva01_g'
+    vision_cfg: Any
+    vision_proj: str  # 'matrix' | 'linear' | 'linear_bias' | 'mlp' | 'none'
+    text_kind: str  # 'clip'
+    text_cfg: Any
+    quick_gelu: bool = False
+
+
+def resolve(name: str) -> ResolvedPreset:
+    """A preset's resolved configs, field for field as the JAX package's
+    ``resolve``; raises ``UnsupportedPresetError`` for the kinds not ported
+    yet and ``KeyError`` for an unknown name."""
+    if name not in PRESETS:
+        raise KeyError(f"unknown preset {name!r}; have {preset_names()}")
+    raw = PRESETS[name]
+    e = raw["embed_dim"]
+    qg = raw.get("quick_gelu", False)
+    act = "quick_gelu" if qg else "gelu"
+    v = raw["vision"]
+    if raw.get("family") == "coca":
+        _not_ported(name, "models/coca.py (CoCa)")
+    kind = v["kind"]
+    if kind == "vit":
+        vcfg = ViTConfig(
+            img_size=v["image_size"], patch_size=v["patch_size"],
+            embed_dim=v["width"], depth=v["layers"],
+            num_heads=v["width"] // v.get("head_width", 64),
+            mlp_ratio=v.get("mlp_ratio", 4.0),
+            layerscale_init=v.get("ls_init_value"), ln_eps=1e-5, act=act)
+        vproj = "matrix"
+    elif kind == "vit_gap":
+        vcfg = ViTConfig(
+            img_size=v["image_size"], patch_size=v["patch_size"],
+            embed_dim=v["width"], depth=v["layers"],
+            num_heads=v["width"] // 64, layerscale_init=None, ln_eps=1e-6,
+            num_prefix_tokens=0, pool="avg", fc_norm=True)
+        vproj = v["proj"]
+    elif kind == "eva01_g":
+        # timm eva_giant_patch14_224: plain pre-LN ViT, width 1408, depth
+        # 40, 16 heads, MLP 6144 (ratio 6144 / 1408), no LayerScale, CLS
+        vcfg = ViTConfig(
+            img_size=v["image_size"], patch_size=14, embed_dim=1408,
+            depth=40, num_heads=16, mlp_ratio=6144 / 1408,
+            layerscale_init=None, ln_eps=1e-6)
+        vproj = v["proj"]
+    elif kind in _MISSING_VISION:
+        _not_ported(name, _MISSING_VISION[kind])
+    else:
+        raise ValueError(f"bad vision kind {kind!r}")
+    t = raw["text"]
+    tkind = t.get("kind", "clip")
+    if tkind in _MISSING_TEXT:
+        _not_ported(name, _MISSING_TEXT[tkind])
+    if tkind != "clip":
+        raise ValueError(f"bad text kind {tkind!r}")
+    tcfg = TextTransformerConfig(
+        vocab_size=t["vocab_size"], context_length=t["context_length"],
+        width=t["width"], heads=t["heads"], layers=t["layers"],
+        output_dim=e, act=act)
+    return ResolvedPreset(name, "clip", e, kind, vcfg, vproj, tkind, tcfg, qg)
+
+
+# ---------------------------------------------------------------------------
+# builders
+# ---------------------------------------------------------------------------
+
+
+class PresetHead(nn.Module):
+    """The image tower's projection to ``embed_dim`` (the JAX package's
+    ``_head_init`` / ``_head_apply``), its matrices [in, out] as there:
+    ``matrix`` (``proj``), ``linear`` (``w``), ``linear_bias`` (``w``,
+    ``b``), ``mlp`` (TimmModel's head: ``fc1`` [in, 2·out] with bias
+    ``fc1_b``, exact GELU, unbiased ``fc2``)."""
+
+    def __init__(self, kind: str, fin: int, fout: int, *, device=None):
+        super().__init__()
+        self.kind = kind
+        z = lambda *shape: nn.Parameter(torch.zeros(*shape, device=device))  # noqa: E731
+        if kind == "matrix":
+            self.proj = z(fin, fout)
+        elif kind in ("linear", "linear_bias"):
+            self.w = z(fin, fout)
+            if kind == "linear_bias":
+                self.b = z(fout)
+        elif kind == "mlp":
+            self.fc1, self.fc1_b, self.fc2 = z(fin, 2 * fout), z(2 * fout), \
+                z(2 * fout, fout)
+        else:
+            raise ValueError(f"bad head kind {kind!r}")
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Matrices normal with std fan_in^-0.5, biases zero."""
+        for p in self.parameters():
+            if p.dim() == 2:
+                p.normal_(0.0, p.shape[0] ** -0.5, generator=generator)
+            else:
+                p.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dot = lambda a, w: torch.matmul(a, w.to(a.dtype))  # noqa: E731
+        if self.kind == "matrix":
+            return dot(x, self.proj)
+        if self.kind == "linear":
+            return dot(x, self.w)
+        if self.kind == "linear_bias":
+            return dot(x, self.w) + self.b.to(x.dtype)
+        return dot(gelu(dot(x, self.fc1) + self.fc1_b.to(x.dtype)), self.fc2)
+
+
+class PresetModel(nn.Module):
+    """A resolved preset as one module: ``visual`` (with ``ln_pre`` under a
+    ``matrix`` head), ``visual_head``, ``text`` and ``logit_scale``, named
+    as the JAX package's parameter pytree. ``dtype`` is the compute dtype;
+    the linear weights are stored in it."""
+
+    family = "clip"
+
+    def __init__(self, preset: ResolvedPreset, *,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        r = preset
+        self.preset = r
+        self.dtype = dtype
+        self.visual = VisionTransformer(r.vision_cfg,
+                                        ln_pre=r.vision_proj == "matrix",
+                                        device=device)
+        self.visual_head = PresetHead(r.vision_proj, r.vision_cfg.embed_dim,
+                                      r.embed_dim, device=device)
+        self.text = TextTransformer(r.text_cfg, device=device)
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07),
+                                                     device=device))
+        cast_linear_weights(self, dtype)
+
+    @property
+    def config(self) -> ResolvedPreset:
+        return self.preset
+
+    def encode_image(self, pixels: torch.Tensor, *, normalize: bool = False,
+                     dtype: torch.dtype | None = None, **kw) -> torch.Tensor:
+        """[B, H, W, 3] normalised pixels → [B, embed_dim] in ``dtype``
+        (default: the model's); ``kw`` go to the ViT (``use_flash``,
+        ``fuse_ln``, ``gelu_approx``, ...); unit fp32 rows with
+        ``normalize``."""
+        f = self.visual_head(self.visual(pixels.to(self.logit_scale.device),
+                                         dtype=dtype or self.dtype, **kw))
+        return l2_normalize(f.float()) if normalize else f
+
+    def encode_text(self, input_ids: torch.Tensor, *, normalize: bool = False,
+                    dtype: torch.dtype | None = None) -> torch.Tensor:
+        f = self.text(input_ids, dtype=dtype or self.dtype)
+        return l2_normalize(f.float()) if normalize else f
+
+    def forward(self, pixels: torch.Tensor, input_ids: torch.Tensor,
+                **kw) -> dict:
+        return {"image_features": self.encode_image(pixels, normalize=True,
+                                                    **kw),
+                "text_features": self.encode_text(input_ids, normalize=True),
+                "logit_scale": self.logit_scale.exp()}
+
+
+def card_device(device=None) -> torch.device:
+    """``device``, by default the card; raises when the card is asked for
+    and there is none (nothing moves to the CPU by itself)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: pass device="cpu" to build on the '
+                           'CPU')
+    return device
+
+
+@torch.no_grad()
+def build_preset(preset: ResolvedPreset, seed: int = 0,
+                 dtype: torch.dtype = torch.float32,
+                 device=None) -> PresetModel:
+    """A ``PresetModel`` of ``preset`` (any resolved preset, a shrunk one
+    too), its weights drawn on ``device`` (default: the card) from a
+    generator seeded with ``seed``, with the JAX package's init
+    statistics: the towers' inits, the head's matrices std fan_in^-0.5,
+    ``logit_scale = log(1 / 0.07)``."""
+    device = card_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = PresetModel(preset, device=device)
+    init_vit_weights(model.visual, gen)
+    model.visual_head.init_weights(gen)
+    model.text.init_weights(gen)
+    cast_linear_weights(model, dtype)
+    model.dtype = dtype
+    return model.eval()
+
+
+def create_preset(name: str, seed: int = 0,
+                  dtype: torch.dtype = torch.float32,
+                  device=None) -> PresetModel:
+    """``build_preset(resolve(name), ...)``; raises
+    ``UnsupportedPresetError`` for the presets whose towers are not ported
+    yet."""
+    return build_preset(resolve(name), seed=seed, dtype=dtype, device=device)

@@ -1,5 +1,6 @@
 """Zero-shot classifiers from prompt ensembles (counterpart of
-``keep_tpu/zeroshot``; the OpenCLIP ImageNet metadata is not ported)."""
+``keep_tpu/zeroshot``); the OpenCLIP ImageNet classifier and its metadata
+are ``zeroshot.openclip`` and ``zeroshot.imagenet_metadata``."""
 
 from keep_tpu_torch.zeroshot.classifier import (  # noqa: F401
     build_classifier,

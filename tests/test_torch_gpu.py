@@ -76,9 +76,13 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         fa.attention_qkv_slab(torch.zeros(1, 4, 3 * 32, device="cuda"),
                               num_heads=1)
-    with pytest.raises(ValueError, match="S ≤"):
-        fa.attention_qkv_slab(torch.zeros(1, 513, 192, device="cuda"),
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.attention_qkv_slab(torch.zeros(1, 4, 3 * 136, device="cuda"),
                               num_heads=1)
+    with pytest.raises(ValueError, match="S ≤"):
+        fa.attention_qkv_slab(torch.zeros(1, 513, 192, device="cuda",
+                                          dtype=torch.bfloat16),
+                              num_heads=1, out_dtype=torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         fa.attention_qkv_slab(
             torch.zeros(1, 192, 4, device="cuda").transpose(1, 2),
@@ -86,6 +90,106 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.attention_qkv_slab(torch.zeros(1, 4, 192, device="cuda",
                                           dtype=torch.float16), num_heads=1)
+
+
+# the zoo's shapes: every head width of the OpenCLIP presets and a few
+# around them at lengths around the streamed body's 64-key tiles, and
+# Dh = 64 past the old 512 limit (ViT-L-14-336: 577; KEEP at 448²: 785;
+# 1024, the longest row PyTorch's warp softmax serves, and one past it)
+ZOO_SHAPES = ([(dh, s) for dh in (72, 80, 88, 104, 112, 128)
+               for s in (1, 63, 65, 257)]
+              + [(64, s) for s in (513, 577, 785, 1024, 1025)])
+
+
+def _zoo_inputs(gen, b, s, h, dh, padded, dtype):
+    qkv = torch.randn(b, s, 3 * h * dh, device="cuda", generator=gen)
+    valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
+    kb = None
+    if padded:
+        lens = torch.randint(1, s + 1, (b,), device="cuda", generator=gen)
+        valid = torch.arange(s, device="cuda")[None] < lens[:, None]
+        kb = (1.0 - valid.float()) * -1e9
+    return qkv.to(dtype), kb, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("dh,s", ZOO_SHAPES)
+def test_kernel_matches_plain_at_zoo_shapes(cuda, dh, s, padded, dtype):
+    """The slab kernel at the zoo's head widths and lengths: fp32 with the
+    plain version's bits where PyTorch's warp softmax serves the row
+    (S ≤ 1024), within 2e-5 past it; bf16 max |Δ| < 0.05 on valid rows. The
+    split-heads and [B, H, S, Dh] entry points give the slab's bits."""
+    b, h = 2, 2
+    qkv, kb, valid = _zoo_inputs(cuda, b, s, h, dh, padded, dtype)
+    n0, h0 = fa.LAUNCHES, fa.HEADS_LAUNCHES
+    got = fa.attention_qkv_slab(qkv, kb, num_heads=h)
+    q, k, v = (t.contiguous() for t in qkv.split(h * dh, dim=-1))
+    heads = fa.attention_qkv_heads(q, k, v, kb, num_heads=h)
+    bhsd = [t.view(b, s, h, dh).transpose(1, 2) for t in (q, k, v)]
+    flash = fa.flash_attention(*bhsd, None if kb is None
+                               else kb[:, None, None, :])
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == n0 + 1 and fa.HEADS_LAUNCHES == h0 + 2
+    assert got.shape == (b, s, h * dh) and got.dtype == dtype
+    torch.testing.assert_close(heads, got, rtol=0, atol=0)
+    torch.testing.assert_close(
+        flash.transpose(1, 2).reshape(b, s, h * dh), got, rtol=0, atol=0)
+    ref = fa.attention_qkv_slab_reference(qkv, kb, num_heads=h)
+    g, r = got.float()[valid], ref.float()[valid]
+    if dtype == torch.float32 and s <= 1024:
+        assert torch.equal(g, r), (g - r).abs().max().item()
+    elif dtype == torch.float32:
+        torch.testing.assert_close(g, r, atol=2e-5, rtol=2e-5)
+    else:
+        assert (g - r).abs().max().item() < 0.05
+
+
+def test_narrow_bodies_refuse_zoo_shapes(cuda):
+    """The bf16 → fp32 body (the int8 blocks' attention) and the backward
+    keep Dh = 64 and S ≤ 512: at Dh = 80 and at S = 577 they raise, and
+    nothing runs the plain version in their place."""
+    n0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+    for s, dh in ((197, 80), (577, 64)):
+        qkv = torch.randn(1, s, 3 * 2 * dh, device="cuda",
+                          generator=cuda).bfloat16()
+        with pytest.raises(ValueError, match="head_dim 64 and S ≤ 512"):
+            fa.attention_qkv_slab(qkv, num_heads=2, out_dtype=torch.float32)
+        with pytest.raises(ValueError, match="head_dim 64 and S ≤ 512"):
+            fa.attention_qkv_slab_bwd(
+                qkv, torch.zeros(1, s, device="cuda"),
+                torch.zeros(1, s, 2 * dh, device="cuda",
+                            dtype=torch.bfloat16), 2)
+        with pytest.raises(ValueError, match="head_dim 64 and S ≤ 512"):
+            fa.attention_qkv_slab(qkv.requires_grad_(), num_heads=2).sum(
+            ).backward()
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (n0 + 2, b0)
+
+
+def test_zoo_preset_on_the_card(cuda):
+    """A shrunk ViT-H-14 (Dh = 80) from build_preset in bf16, through the
+    kernel at 224² (S = 257) and 336² (S = 577, the pos embed resampled):
+    one launch per block, unit rows at cosine ≥ 0.999 per row of the plain
+    route on the same weights."""
+    import dataclasses
+
+    from keep_tpu_torch import presets
+
+    r = presets.resolve("ViT-H-14")
+    r = dataclasses.replace(r, vision_cfg=dataclasses.replace(
+        r.vision_cfg, depth=2), text_cfg=dataclasses.replace(r.text_cfg,
+                                                             layers=1))
+    m = presets.build_preset(r, dtype=torch.bfloat16, device="cuda")
+    for size in (224, 336):
+        x = torch.randn(4, size, size, 3, device="cuda", generator=cuda)
+        with torch.inference_mode():
+            n0 = fa.LAUNCHES
+            got = m.encode_image(x, normalize=True, use_flash=True)
+            torch.cuda.synchronize()
+            assert fa.LAUNCHES == n0 + 2
+            ref = m.encode_image(x, normalize=True)
+        assert torch.isfinite(got).all()
+        assert ((got * ref).sum(-1) >= 0.999).all()
 
 
 # ---- the int8 kernels -----------------------------------------------------------
@@ -801,8 +905,8 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
         fa.attention_qkv_heads(
             q, q, torch.zeros(1, 64, 4, device="cuda").transpose(1, 2),
             num_heads=1)
-    with pytest.raises(ValueError, match="S ≤"):
-        fa.attention_qkv_heads(*(torch.zeros(1, 513, 64, device="cuda"),) * 3,
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.attention_qkv_heads(*(torch.zeros(1, 4, 136, device="cuda"),) * 3,
                                num_heads=1)
     x = torch.zeros(4, 64, device="cuda")
     one, zero = torch.ones(64, device="cuda"), torch.zeros(8, device="cuda")

@@ -312,9 +312,18 @@ def test_fold_layerscale_matches_jax(jparams, port):
     np.testing.assert_allclose(got, ref, atol=2e-5, rtol=2e-5)
 
 
-def test_non_native_image_size_raises(port):
-    with pytest.raises(ValueError, match="native"):
-        port.encode_image(torch.zeros(1, 48, 48, 3))
+def test_non_native_image_size_raises(jparams, port):
+    """An image off the patch grid raises, as in the JAX package; another
+    multiple of the patch size than the native one runs with the pos embed
+    resampled, to the JAX package's features."""
+    with pytest.raises(ValueError, match="multiple of patch_size"):
+        port.encode_image(torch.zeros(1, 44, 48, 3))
+    x = np.random.default_rng(0).standard_normal((2, 48, 40, 3)).astype(
+        np.float32)
+    ref = np.asarray(jkeep.encode_image(jparams, jnp.asarray(x), JCFG))
+    with torch.no_grad():
+        got = port.encode_image(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=2e-5)
 
 
 def test_patchify_matches_jax(rng):

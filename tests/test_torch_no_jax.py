@@ -14,7 +14,8 @@ SOURCES = sorted((REPO / "keep_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "scripts" / "torch_attention_exp_share.py",
     REPO / "scripts" / "torch_dispatch_profile.py",
     REPO / "scripts" / "torch_screening_bench.py",
-    REPO / "scripts" / "torch_calibration_sweep.py"]
+    REPO / "scripts" / "torch_calibration_sweep.py",
+    REPO / "scripts" / "torch_attention_shapes_bench.py"]
 
 
 def test_imports_leave_jax_unloaded():
@@ -38,6 +39,11 @@ def test_imports_leave_jax_unloaded():
         "import keep_tpu_torch.io.wsi, keep_tpu_torch.io._native, "
         "keep_tpu_torch.io.fast_decode, keep_tpu_torch.wsi.cascade\n"
         "from keep_tpu_torch.ops.preprocess import preprocess\n"
+        "import keep_tpu_torch.factory, keep_tpu_torch.presets, "
+        "keep_tpu_torch.compat.openai, keep_tpu_torch.models.clip, "
+        "keep_tpu_torch.models.text_transformer, keep_tpu_torch.text.bpe, "
+        "keep_tpu_torch.zeroshot.openclip, "
+        "keep_tpu_torch.zeroshot.imagenet_metadata\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'keep_tpu'))\n"
         "assert not bad, bad\n"
@@ -107,6 +113,17 @@ def test_reader_and_calibration_run_with_jax_blocked(tmp_path):
         "q8 = m.quantize(calib_pixels=torch.randn(2, 32, 32, 3), "
         "calib_text=torch.randint(1, 32, (2, 8)))\n"
         "assert quant.is_quantized(q8)\n"
+        "from keep_tpu_torch import factory\n"
+        "from keep_tpu_torch.models.text_transformer import "
+        "TextTransformerConfig\n"
+        "clip = factory.create_model('clip-vit-b-16', device='cpu', "
+        "vision=configs.ViTConfig(img_size=32, patch_size=16, embed_dim=32, "
+        "depth=1, num_heads=2, layerscale_init=None), "
+        "text=TextTransformerConfig(vocab_size=32, context_length=8, "
+        "width=32, heads=2, layers=1, output_dim=16), embed_dim=16)\n"
+        "out = clip(torch.zeros(1, 48, 48, 3), torch.ones(1, 8, "
+        "dtype=torch.long))\n"
+        "assert out['image_features'].shape == (1, 16)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'keep_tpu'))\n"
         "assert not bad, bad\n"
