@@ -86,6 +86,28 @@ exits non-zero without a result line):
    448² (S = 577, 785; the pos embed resampled), B = 32, bf16, fused
    attention against the plain route: cosine ≥ 0.999 per row, 24 launches
    each.
+   zoo_towers — the zoo's other towers from ``factory.create_model`` at
+   their published width and depth, bf16, random weights from seed 0 with
+   the JAX init's statistics, each freed before the next (cuDNN's TF32 is
+   off, phase 1, so the fp32 convolutions run in fp32): the image presets
+   RN50x64 (448²), convnext_xxlarge_320, swin_base_patch4_window7_224,
+   EVA02-L-14-336 (rope at S = 577), EVA02-E-14-plus (64 × 1792,
+   post-norm) and vit_relpos_medium_patch16_cls_224 at B = 32, uint8
+   images through ``preprocess_config``; the text presets ViT-B-32-bert
+   (path-BERT, 256 tokens), xlm-roberta-large-ViT-H-14 (S = 512),
+   roberta-ViT-B-32 (77) and mt5-xl-ViT-H-14 (24 × 2048, 256) at B = 64,
+   random ids with padded rows; then the registry's ``kep`` (image, text
+   and knowledge towers) and ``rn50-clip``. Per preset: parameters, build
+   ms, forward ms, tiles/s or prompts/s, the least cosine of bf16 against
+   fp32 on the same weights (1 for RN and Swin, which compute in fp32
+   whatever dtype is asked, as in the JAX package), finite unit features;
+   the BERT-family towers through #1: one launch a layer, cosine ≥ 0.999
+   per row against plain attention. Then the card against the port on the
+   CPU: one preset per tower kind at full width, every stack cut to 2
+   blocks, B = 2, fp32, at the tolerance of that component's CPU test.
+   Then ROADMAP queue 3's check: BERT-base width, 2 layers, bf16, #1
+   against plain attention on ``bert_check_inputs``'s seeded weights (the
+   CPU test takes the JAX package's distance on the same values).
 4. server   — a full-width KEEP (ViT-L/16 + BERT-base) with random weights
    written in the released checkpoint layout, loaded by
    ``keep_tpu_torch.serve.build_server`` (bf16, fused attention), warmed up
@@ -651,6 +673,48 @@ def check_heads(fa, torch, gen) -> tuple[list[dict], int]:
     phase("heads_path", entry="ops.nn.mha_attention(use_flash=True)",
           calls=[n for n, *_ in inputs], launches=launches)
     return rows, launches
+
+
+# ROADMAP queue 3's check: BERT-base width at 2 layers in bf16, the fused
+# attention against the plain route, on weights and ids drawn with numpy
+# from a seed, so that tests/test_torch_hf_text.py takes the JAX package's
+# distance on the same values
+BERT_CHECK = dict(layers=2, batch=8, seq=128, seed=0)
+
+
+def bert_check_inputs(cfg, batch: int = BERT_CHECK["batch"],
+                      seq: int = BERT_CHECK["seq"],
+                      seed: int = BERT_CHECK["seed"]):
+    """(a JAX-layout parameter tree of numpy arrays for the BERT ``cfg``,
+    with the JAX package's ``bert.init`` statistics, ids [batch, seq],
+    mask): weights and embeddings normal(.02), zero biases, unit
+    LayerNorms; each row's length drawn in [seq / 4, seq]."""
+    rng = np.random.default_rng(seed)
+    d, f, n = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+
+    def w(*shape):
+        return (rng.standard_normal(shape) * 0.02).astype(np.float32)
+
+    def lin(fi, fo):
+        return {"kernel": w(n, fi, fo), "bias": np.zeros((n, fo), np.float32)}
+
+    def ln(*shape):
+        return {"scale": np.ones(shape, np.float32),
+                "bias": np.zeros(shape, np.float32)}
+
+    tree = {"embeddings": {"word": w(cfg.vocab_size, d),
+                           "position": w(cfg.max_position_embeddings, d),
+                           "token_type": w(cfg.type_vocab_size, d),
+                           "norm": ln(d)},
+            "blocks": {"attn": {"qkv": lin(d, 3 * d), "out": lin(d, d),
+                                "norm": ln(n, d)},
+                       "mlp": {"fc1": lin(d, f), "fc2": lin(f, d)},
+                       "norm": ln(n, d)},
+            "pooler": {"kernel": w(d, d), "bias": np.zeros(d, np.float32)}}
+    lens = rng.integers(seq // 4, seq + 1, batch)
+    ids = rng.integers(1000, cfg.vocab_size, (batch, seq))
+    mask = (np.arange(seq)[None] < lens[:, None]).astype(np.int64)
+    return tree, ids * mask, mask
 
 
 def zoo_inputs(torch, gen, b: int, s: int, h: int, dh: int, padded: bool):
@@ -3973,6 +4037,357 @@ def throughput(torch, core, rng, int8: bool = False) -> dict:
     return out
 
 
+# ---- 3h. zoo_towers: the zoo's other towers at published width and depth --
+
+# image presets (B = ZOO_TOWER_BATCH[0]) and text presets with their
+# sequence lengths (B = ZOO_TOWER_BATCH[1])
+ZOO_IMAGE_TOWERS = ("RN50x64", "convnext_xxlarge_320",
+                    "swin_base_patch4_window7_224", "EVA02-L-14-336",
+                    "EVA02-E-14-plus", "vit_relpos_medium_patch16_cls_224")
+ZOO_TEXT_TOWERS = (("ViT-B-32-bert", 256), ("xlm-roberta-large-ViT-H-14", 512),
+                   ("roberta-ViT-B-32", 77), ("mt5-xl-ViT-H-14", 256))
+ZOO_TOWER_BATCH = (32, 64)
+# the card against the port on the CPU: one preset per tower kind (both
+# EVA02 block variants), every stack cut to 2 blocks, at B = 2 in fp32
+# with TF32 off, at the tolerance of that component's CPU test
+ZOO_CARD_VS_CPU = (("rn", "RN50x64", 5e-5, 5e-5),
+                   ("convnext", "convnext_xxlarge_320", 1e-4, 1e-3),
+                   ("swin", "swin_base_patch4_window7_224", 2e-5, 2e-5),
+                   ("eva02 TrV", "EVA02-L-14-336", 2e-5, 2e-5),
+                   ("eva02 E", "EVA02-E-14-plus", 2e-5, 2e-5),
+                   ("vit_relpos", "vit_relpos_medium_patch16_cls_224", 2e-5,
+                    2e-5),
+                   ("path_bert", "ViT-B-32-bert", 2e-5, 2e-5),
+                   ("hf", "xlm-roberta-large-ViT-H-14", 3e-5, 3e-5),
+                   ("mt5", "mt5-xl-ViT-H-14", 5e-5, 5e-5))
+
+
+def shrink_blocks(r, n: int = 2):
+    """The resolved preset ``r`` with every block stack of both towers cut
+    to ``n`` (per stage for the staged towers); widths unchanged."""
+    v, t = r.vision_cfg, r.text_cfg
+    if r.vision_kind == "rn":
+        v = dataclasses.replace(v, layers=(n,) * len(v.layers))
+    elif r.vision_kind in ("convnext", "swin"):
+        v = dataclasses.replace(v, depths=(n,) * len(v.depths))
+    else:
+        v = dataclasses.replace(v, depth=n)
+    if r.text_kind == "clip":
+        t = dataclasses.replace(t, layers=n)
+    elif r.text_kind == "path_bert":
+        t = dataclasses.replace(t, num_hidden_layers=n)
+    else:
+        key = "num_layers" if t.arch == "mt5" else "num_hidden_layers"
+        t = dataclasses.replace(t, trunk=dataclasses.replace(t.trunk,
+                                                             **{key: n}))
+    return dataclasses.replace(r, vision_cfg=v, text_cfg=t)
+
+
+def padded_ids(vocab: int, pad: int, batch: int, seq: int,
+               rng) -> np.ndarray:
+    """[batch, seq] random ids with padded rows: each row's length drawn in
+    [seq / 4, seq], pads at ``pad``; the first three ids and the last left
+    out of the draw."""
+    ids = rng.integers(3, vocab - 1, (batch, seq))
+    lens = rng.integers(seq // 4, seq + 1, batch)
+    return np.where(np.arange(seq)[None] < lens[:, None], ids, pad)
+
+
+def text_ids(r, batch: int, seq: int, rng) -> np.ndarray:
+    """``padded_ids`` for the resolved preset's text tower."""
+    t = r.text_cfg
+    vocab, pad = ((t.vocab_size, 0) if r.text_kind == "path_bert" else
+                  (t.trunk.vocab_size, t.trunk.pad_token_id))
+    return padded_ids(vocab, pad, batch, seq, rng)
+
+
+def bert_layers(r) -> int:
+    """#1's launches one encode of the preset's text tower makes."""
+    if r.text_kind == "path_bert":
+        return r.text_cfg.num_hidden_layers
+    if r.text_kind == "hf" and r.text_cfg.arch != "mt5":
+        return r.text_cfg.trunk.num_hidden_layers
+    return 0
+
+
+def held_unit(name: str, torch, feats, width: int) -> None:
+    """Finite features of unit norm and the expected width, or raise."""
+    if feats.shape[-1] != width or not torch.isfinite(feats).all() or (
+            feats.float().norm(dim=-1) - 1).abs().max().item() > 1e-3:
+        raise AssertionError(f"{name}: features {tuple(feats.shape)} not "
+                             f"finite unit rows of width {width}")
+
+
+def drive_zoo_image(torch, fa, name: str, make, batch: int,
+                    device: str) -> dict:
+    """One image preset: build, uint8 images through its
+    ``preprocess_config``, a timed bf16 ``encode_image``, the fp32 forward
+    on the same weights; no attention kernel launches (the towers' own
+    attention is plain, as in the JAX package)."""
+    from keep_tpu_torch import presets
+    from keep_tpu_torch.ops.preprocess import preprocess
+
+    model, build_ms = synced_ms(torch, lambda: make(name, torch.bfloat16))
+    r = model.config
+    v = r.vision_cfg
+    # the preset's transform at the built tower's size (a rehearsal's is cut)
+    pcfg = dataclasses.replace(presets.preprocess_config(name), size=getattr(
+        v, "img_size", None) or v.image_size)
+    rng = np.random.default_rng(0)
+    side = pcfg.size * 8 // 7
+    images = torch.from_numpy(rng.integers(
+        0, 256, (batch, side, side, 3), dtype=np.uint8)).to(device)
+    out = {"preset": name, "kind": r.vision_kind, "batch": batch,
+           "image": pcfg.size, "build_ms": build_ms,
+           "params": sum(p.numel() for p in model.parameters()),
+           "fp32_tower": r.vision_kind in presets.FP32_VISION}
+    with torch.inference_mode():
+        pixels = preprocess(images, pcfg)
+        model.encode_image(pixels)  # warm-up
+        feats, launches = counted_encode(torch, fa, lambda: model.encode_image(
+            pixels, normalize=True))
+        _, ms = synced_ms(torch, lambda: model.encode_image(preprocess(
+            images, pcfg), normalize=True))
+        fp32 = model.encode_image(pixels, normalize=True, dtype=torch.float32)
+    out.update(forward_ms=ms, tiles_per_s=batch / (ms / 1e3),
+               attention_launches=launches,
+               cos_bf16_vs_fp32_min=cos_min(torch, feats, fp32))
+    held_unit(name, torch, feats, r.embed_dim)
+    if launches != 0:
+        raise AssertionError(f"{name}: {out}")
+    phase("zoo_tower", **out)
+    return out
+
+
+def drive_zoo_text(torch, fa, name: str, seq: int, make, batch: int,
+                   device: str) -> dict:
+    """One text preset: random ids with padded rows, a timed bf16
+    ``encode_text`` (through #1 for the BERT-family towers: one launch a
+    layer, cosine ≥ 0.999 per row against plain attention), the fp32
+    forward on the same weights."""
+    model, build_ms = synced_ms(torch, lambda: make(name, torch.bfloat16))
+    r = model.config
+    layers = bert_layers(r)
+    kw = {"use_flash": True} if layers else {}
+    ids = torch.from_numpy(text_ids(r, batch, seq, np.random.default_rng(
+        1))).to(device)
+    out = {"preset": name, "kind": r.text_kind if r.text_kind != "hf"
+           else r.text_cfg.arch, "batch": batch, "seq": seq,
+           "build_ms": build_ms,
+           "params": sum(p.numel() for p in model.parameters())}
+    with torch.inference_mode():
+        model.encode_text(ids, **kw)  # warm-up
+        feats, launches = counted_encode(torch, fa, lambda: model.encode_text(
+            ids, normalize=True, **kw))
+        _, ms = synced_ms(torch, lambda: model.encode_text(
+            ids, normalize=True, **kw))
+        fp32 = model.encode_text(ids, normalize=True, dtype=torch.float32)
+        if layers:
+            plain = model.encode_text(ids, normalize=True)
+            out["cos_vs_plain_min"] = cos_min(torch, feats, plain)
+    out.update(forward_ms=ms, prompts_per_s=batch / (ms / 1e3),
+               attention_launches=launches, layers=layers,
+               cos_bf16_vs_fp32_min=cos_min(torch, feats, fp32))
+    held_unit(name, torch, feats, r.embed_dim)
+    if launches != layers or not out.get("cos_vs_plain_min", 1.0) >= 0.999:
+        raise AssertionError(f"{name}: {out}")
+    phase("zoo_tower", **out)
+    return out
+
+
+def drive_zoo_registry(torch, fa, device: str, batch: tuple,
+                       kep_cfg=None, rn_cfg=None) -> dict:
+    """The registry's ``kep`` (image, text and knowledge towers, each
+    through #1: one launch a layer, cosine ≥ 0.999 per row against plain
+    attention) and ``rn50-clip`` (fp32 by default, then bf16 on the same
+    weights), from ``factory.create_model``."""
+    from keep_tpu_torch import factory
+
+    def fields(cfg) -> dict:  # a rehearsal's shrunk config, as overrides
+        return {} if cfg is None else {f.name: getattr(cfg, f.name)
+                                       for f in dataclasses.fields(cfg)}
+
+    out = {}
+    kep, build_ms = synced_ms(torch, lambda: factory.create_model(
+        "kep", seed=0, dtype=torch.bfloat16, device=device,
+        **fields(kep_cfg)))
+    cfg = kep.config
+    rng = np.random.default_rng(2)
+    size = cfg.vision.img_size
+    pixels = torch.from_numpy(rng.standard_normal(
+        (batch[0], size, size, 3), dtype=np.float32)).to(device)
+    seq = min(256, cfg.text.max_position_embeddings)
+    ids = torch.from_numpy(padded_ids(cfg.text.vocab_size, 0, batch[1], seq,
+                                      rng)).to(device)
+    mask = (ids != 0).long()
+    row = {"build_ms": build_ms,
+           "params": sum(p.numel() for p in kep.parameters())}
+    encoders = {
+        "image": (lambda **kw: kep.encode_image(pixels, normalize=True, **kw),
+                  cfg.vision.depth),
+        "text": (lambda **kw: kep.encode_text(ids, mask, normalize=True, **kw),
+                 cfg.text.num_hidden_layers),
+        "knowledge": (lambda **kw: kep.encode_knowledge(ids, mask,
+                                                        normalize=True, **kw),
+                      cfg.text.num_hidden_layers)}
+    with torch.inference_mode():
+        for tower, (enc, layers) in encoders.items():
+            enc(use_flash=True)  # warm-up
+            feats, launches = counted_encode(torch, fa,
+                                             lambda: enc(use_flash=True))
+            _, ms = synced_ms(torch, lambda: enc(use_flash=True))
+            t = {"attention_launches": launches, "layers": layers,
+                 "forward_ms": ms,
+                 "cos_vs_plain_min": cos_min(torch, feats, enc()),
+                 "cos_bf16_vs_fp32_min": cos_min(torch, feats, enc(
+                     dtype=torch.float32))}
+            held_unit(f"kep {tower}", torch, feats, cfg.embed_dim)
+            if launches != layers or not t["cos_vs_plain_min"] >= 0.999:
+                raise AssertionError(f"kep {tower}: {t}")
+            row[tower] = t
+    out["kep"] = row
+    phase("zoo_tower", preset="kep", **row)
+    del kep
+    rn, build_ms = synced_ms(torch, lambda: factory.create_model(
+        "rn50-clip", seed=0, device=device, **fields(rn_cfg)))
+    size = rn.config.image_size
+    pixels = torch.from_numpy(rng.standard_normal(
+        (batch[0], size, size, 3), dtype=np.float32)).to(device)
+    with torch.inference_mode():
+        rn.encode_image(pixels)  # warm-up
+        feats, ms = synced_ms(torch, lambda: rn.encode_image(pixels,
+                                                             normalize=True))
+        half = rn.encode_image(pixels, normalize=True, dtype=torch.bfloat16)
+    row = {"build_ms": build_ms, "forward_ms": ms,
+           "tiles_per_s": batch[0] / (ms / 1e3),
+           "params": sum(p.numel() for p in rn.parameters()),
+           "cos_bf16_vs_fp32_min": cos_min(torch, half, feats)}
+    held_unit("rn50-clip", torch, feats, rn.config.output_dim)
+    out["rn50-clip"] = row
+    phase("zoo_tower", preset="rn50-clip", **row)
+    return out
+
+
+def check_card_vs_cpu(torch, kind: str, name: str, atol: float,
+                      rtol: float, device: str, shrink=None) -> dict:
+    """``name`` at full width with 2 blocks a stack, drawn on the card in
+    fp32 and copied into a CPU model: the card's features (B = 2, TF32 off;
+    the BERT-family text towers through #1) against the CPU's at
+    ``atol`` / ``rtol``."""
+    from keep_tpu_torch import presets
+
+    r = (shrink or shrink_blocks)(presets.resolve(name))
+    card_model = presets.build_preset(r, seed=0, device=device)
+    cpu_model = presets.PresetModel(r, device="cpu")
+    cpu_model.load_state_dict(card_model.state_dict())
+    cpu_model.eval()
+    rng = np.random.default_rng(3)
+    image = kind not in ("path_bert", "hf", "mt5")
+    with torch.inference_mode():
+        if image:
+            v = r.vision_cfg
+            size = getattr(v, "img_size", None) or v.image_size
+            x = torch.from_numpy(rng.standard_normal((2, size, size, 3),
+                                                     dtype=np.float32))
+            got = card_model.encode_image(x.to(device))
+            ref = cpu_model.encode_image(x)
+        else:
+            t = r.text_cfg
+            seq = min(64, t.max_position_embeddings
+                      if r.text_kind == "path_bert"
+                      else t.context_length or 64)
+            ids = torch.from_numpy(text_ids(r, 2, seq, rng))
+            kw = {"use_flash": True} if bert_layers(r) else {}
+            got = card_model.encode_text(ids.to(device), **kw)
+            ref = cpu_model.encode_text(ids, **kw)
+    got = got.float().cpu().numpy()
+    ref = ref.float().numpy()
+    err = float(np.abs(got - ref).max())
+    row = {"kind": kind, "preset": name, "max_abs_err": err,
+           "atol": atol, "rtol": rtol,
+           "max_abs_ref": float(np.abs(ref).max())}
+    if not np.allclose(got, ref, atol=atol, rtol=rtol):
+        raise AssertionError(f"card against CPU: {row}")
+    return row
+
+
+def check_bert_flash_bf16(torch, device: str = "cuda") -> dict:
+    """ROADMAP queue 3's check: BERT-base width at 2 layers in bf16, the
+    fused attention against the plain route on ``bert_check_inputs``'s
+    weights and ids (``tests/test_torch_hf_text.py`` takes the JAX
+    package's distance on the same values): 1 − the least cosine of the
+    pooler outputs and of the unpadded hidden rows."""
+    from keep_tpu_torch.compat.torch_loader import from_jax_tree
+    from keep_tpu_torch.configs import BertConfig
+    from keep_tpu_torch.models.bert import BertModel
+
+    cfg = BertConfig(num_hidden_layers=BERT_CHECK["layers"])
+    tree, ids, mask = bert_check_inputs(cfg)
+    m = BertModel(cfg, device=device)
+    m.load_state_dict(from_jax_tree(tree, lambda p: cfg.num_hidden_layers))
+    ids_t, mask_t = (torch.from_numpy(a).to(device) for a in (ids, mask))
+    with torch.inference_mode():
+        outs = {flash: m.eval()(ids_t, mask_t, dtype=torch.bfloat16,
+                                use_flash=flash) for flash in (True, False)}
+    valid = mask_t.bool()
+    out = {"batch": BERT_CHECK["batch"], "seq": BERT_CHECK["seq"],
+           "layers": cfg.num_hidden_layers,
+           "pooler_1_minus_cos": 1 - cos_min(
+               torch, outs[True]["pooler_output"],
+               outs[False]["pooler_output"]),
+           "hidden_1_minus_cos": 1 - cos_min(
+               torch, outs[True]["last_hidden_state"][valid],
+               outs[False]["last_hidden_state"][valid])}
+    phase("bert_flash_bf16", **out)
+    return out
+
+
+def drive_zoo_towers(torch, fa, device: str = "cuda",
+                     batch: tuple = ZOO_TOWER_BATCH, shrink=None,
+                     kep_cfg=None, rn_cfg=None) -> dict:
+    """Phase 3h: each listed image and text preset from
+    ``factory.create_model`` at its published width and depth in bf16
+    (``shrink``, for a rehearsal on the CPU, cuts them and builds through
+    ``presets.build_preset``), each freed before the next; the registry's
+    ``kep`` and ``rn50-clip``; the card against the CPU per tower kind;
+    the BERT bf16 check. ``torch.backends.cudnn.allow_tf32`` is off (phase
+    1), so the fp32 convolutions run in full fp32."""
+    from keep_tpu_torch import factory, presets
+
+    def make(name, dtype):
+        if shrink is None:
+            return factory.create_model(name, seed=0, dtype=dtype,
+                                        device=device)
+        return presets.build_preset(shrink(presets.resolve(name)), seed=0,
+                                    dtype=dtype, device=device)
+
+    out = {"cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+           "image": {}, "text": {}}
+    for name in ZOO_IMAGE_TOWERS:
+        out["image"][name] = drive_zoo_image(torch, fa, name, make, batch[0],
+                                             device)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    for name, seq in ZOO_TEXT_TOWERS:
+        out["text"][name] = drive_zoo_text(torch, fa, name, seq, make,
+                                           batch[1], device)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    out["registry"] = drive_zoo_registry(torch, fa, device, batch, kep_cfg,
+                                         rn_cfg)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["card_vs_cpu"] = [check_card_vs_cpu(torch, *row, device=device,
+                                            shrink=shrink)
+                          for row in ZOO_CARD_VS_CPU]
+    out["bert_flash_bf16"] = check_bert_flash_bf16(torch, device)
+    phase("zoo_towers", cudnn_allow_tf32=out["cudnn_allow_tf32"],
+          card_vs_cpu=out["card_vs_cpu"],
+          attention_launches={k: v["attention_launches"]
+                              for k, v in out["text"].items()})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4015,6 +4430,12 @@ def main() -> int:
         zoo = drive_zoo_serve(torch, fa, d_zoo)
     torch.cuda.empty_cache()
     long_seq = drive_long_seq(torch, fa)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    towers = drive_zoo_towers(torch, fa)
+    towers["seconds"] = time.perf_counter() - t0
+    phase("zoo_towers_time", seconds=towers["seconds"])
+    torch.cuda.empty_cache()
 
     # 4.–7. the bf16 and the int8 server, end to end, and their numbers
     with tempfile.TemporaryDirectory() as d, \
@@ -4084,7 +4505,7 @@ def main() -> int:
         rows, bwd_rows, heads_rows, heads_launches, int8_rows, ln_rows,
         fused, served, served8, trained, f32_rows, wsi, lora_trained,
         lora_served, calibrated, pyramid, zoo_rows, zoo_heads_rows, zoo,
-        long_seq)}), flush=True)
+        long_seq, towers)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -4095,7 +4516,7 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                 ln_rows, fused, served, served8, trained,
                 f32_rows, wsi, lora_trained, lora_served, calibrated,
                 pyramid, zoo_rows, zoo_heads_rows, zoo,
-                long_seq) -> list[dict]:
+                long_seq, towers) -> list[dict]:
     """One entry per TPU kernel: its launches on the main path that runs it,
     and, at ViT-L B=32 in bf16 (the int8 kernels: the first shape of their
     phase), its time, its plain version's, its bound and the one PyTorch
@@ -4107,7 +4528,9 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
     the int8 server), and those of the calibrated int8 path (15) and the
     pyramid's (16: extraction, bf16 and int8, and the cascade) theirs.
     #1 and #2 also carry their rows at the zoo's shapes (phase 3e), and
-    #1 its launches on the zoo's paths (3f: one ViT-H-14 batch; 3g)."""
+    #1 its launches on the zoo's paths (3f: one ViT-H-14 batch; 3g) and
+    on the other towers' (3h: one encode of each BERT-family text preset
+    and of each of ``kep``'s towers)."""
     def pick(rs, shape="vit_l16"):
         return next(r for r in rs if r["shape"] == shape and r["B"] == 32
                     and r["dtype"] == "bfloat16")
@@ -4143,6 +4566,11 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
         launches_zoo_path={
             f"{zoo['preset']} B={zoo['batch']}": zoo["attention_launches"],
             **{k: r["attention_launches"] for k, r in long_seq.items()}},
+        launches_zoo_towers={
+            **{f"{k} B={r['batch']} S={r['seq']}": r["attention_launches"]
+               for k, r in towers["text"].items()},
+            **{f"kep {t}": towers["registry"]["kep"][t]["attention_launches"]
+               for t in ("image", "text", "knowledge")}},
         shapes=rows, zoo_shapes=zoo_rows)]
     vit_bwd = pick(bwd_rows)
     kernels.append(entry(

@@ -1,5 +1,5 @@
-"""keep_tpu_torch — KEEP and the OpenCLIP ViT zoo in PyTorch, for an NVIDIA
-H100.
+"""keep_tpu_torch — KEEP and the OpenCLIP model zoo in PyTorch, for an
+NVIDIA H100.
 
 A port of ``keep_tpu`` (JAX on a TPU), which stays beside it as the
 reference. Module paths mirror the JAX package: ``keep_tpu_torch.models.vit``
@@ -18,10 +18,11 @@ compiled the first time a wrapper launches one.
 - ``quant``              — int8 weight quantization (``QLinear`` swap).
 - ``models``             — the ViT (any image size, the OpenCLIP
   variants), BERT, the ``KEEPModel`` facade, the CLIP text tower and
-  ``CLIP``.
-- ``presets``, ``factory`` — the 62 OpenCLIP presets (27 built: the plain
-  ViTs, the gap ViT and EVA01-g with the CLIP text tower) and
-  ``create_model``.
+  ``CLIP``; the zoo's other towers (ModifiedResNet, ConvNeXt, Swin,
+  EVA02, the relpos ViT; the RoBERTa / XLM-R / mT5 text towers) and KEP.
+- ``presets``, ``factory`` — the 62 OpenCLIP presets (58 built: all but
+  CoCa's) and ``create_model`` (with the registry's ``kep`` and
+  ``rn50-clip``).
 - ``compat``             — released KEEP checkpoints, JAX pytrees and
   OpenAI CLIP checkpoints → state dicts.
 - ``text``               — WordPiece and CLIP BPE tokenizers.

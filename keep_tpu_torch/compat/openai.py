@@ -8,7 +8,8 @@ or, failing that, a TorchScript archive (every original OpenAI CLIP
 release) through ``torch.jit.load``, infers the architecture from the
 shapes when no config is given, and returns the port's state dict with the
 config: build ``CLIP(cfg, ln_pre=True)`` and load it. ModifiedResNet towers
-(RN50, ...) are refused, as in the JAX package.
+(RN50, ...) are refused, as in the JAX package, naming their converter
+(``models.resnet.convert_openai_resnet``).
 """
 
 from __future__ import annotations
@@ -112,11 +113,12 @@ def load_openai_clip(path_or_sd, cfg: CLIPConfig | None = None
             sd = torch.jit.load(path_or_sd, map_location="cpu").state_dict()
         sd = normalize_state_dict(sd)
     if "visual.class_embedding" not in sd and cfg is None:
+        # a ModifiedResNet tower (RN50, RN50x4, ...): the reference tells ViT
+        # from RN by key presence (model.py build_model)
         raise ValueError(
-            "RN-tower OpenAI checkpoint: the ModifiedResNet image tower "
-            "(keep_tpu/models/resnet.py convert_openai_resnet) is not ported "
-            "to keep_tpu_torch yet (ROADMAP queue 1, item 11); this loader "
-            "infers the ViT towers")
+            "RN-tower OpenAI checkpoint: pass an explicit CLIPConfig and "
+            "convert the visual tower via models.resnet.convert_openai_resnet "
+            "(this loader's auto-infer covers the ViT towers)")
     cfg = cfg or infer_clip_config(sd)
     out = convert_openai_clip_visual(sd, cfg.vision)
     out.update(convert_openclip_text(sd, cfg.text))

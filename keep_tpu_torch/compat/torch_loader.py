@@ -19,7 +19,17 @@
   without quantization) loads into the float ``ops.nn.Linear``, which
   applies it as the JAX package's ``linear`` does.
 - ``from_jax_clip_params``: the same for a JAX CLIP or OpenCLIP-preset
-  pytree (``models.clip.CLIP``, ``presets.PresetModel``).
+  pytree of the ViT family (``models.clip.CLIP``, ``presets.PresetModel``).
+- ``from_jax_tree``: the walk under all of these, for any tower's pytree:
+  conv kernels (HWIO, depthwise too) → [O, I, kh, kw], BatchNorm nodes →
+  ``running_mean`` / ``running_var``, stacked ``blocks`` and lists of
+  block dicts unstacked, each stack's count checked against the caller's.
+- ``from_jax_preset_params`` / ``from_jax_kep_params``: any of the 58
+  built presets' pytrees (``presets.create_preset``) and the KEP model's
+  (``kep.init``), each stack counted by its own config.
+- ``convert_timm_eva`` / ``convert_timm_vit_relpos``: timm EVA02 and relpos
+  ViT checkpoints → the state dicts of ``models.eva.Eva`` and
+  ``models.vit_relpos.ViTRelPos``.
 - ``from_jax_lora``: the JAX package's LoRA adapter tree → the port's
   adapter dict (``<module>.lora_a`` / ``.lora_b`` per layer).
 - ``random_keep_state_dict``: random weights in the released layout, drawn
@@ -29,12 +39,12 @@
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
 
-from keep_tpu_torch.configs import KEEPConfig
+from keep_tpu_torch.configs import BertConfig, KEEPConfig
 
 
 def _tensor(v) -> torch.Tensor:
@@ -83,7 +93,7 @@ def load_keep_state_dict(sd: Mapping, cfg: KEEPConfig) -> dict:
                      ("visual_head.fc2", "visual_head.2")):
         out[f"{dst}.weight"] = _tensor(sd[f"{src}.weight"])
         out[f"{dst}.bias"] = _tensor(sd[f"{src}.bias"])
-    out.update(_hf_bert(sd, cfg, "text."))
+    out.update(_hf_bert(sd, cfg.text, "text."))
     out["logit_scale"] = _tensor(sd["logit_scale"]).reshape(())
     return out
 
@@ -108,7 +118,7 @@ def load_hf_bert_state_dict(sd: Mapping, cfg: KEEPConfig) -> dict:
     if any(k.startswith("bert_model.") for k in sd):
         sd = {k[len("bert_model."):]: v for k, v in sd.items()
               if k.startswith("bert_model.")}
-    return _hf_bert(sd, cfg, "")
+    return _hf_bert(sd, cfg.text, "")
 
 
 def _timm_vit(sd: Mapping, cfg: KEEPConfig, src: str) -> dict:
@@ -141,9 +151,10 @@ def _timm_vit(sd: Mapping, cfg: KEEPConfig, src: str) -> dict:
     return out
 
 
-def _hf_bert(sd: Mapping, cfg: KEEPConfig, src: str) -> dict:
-    """HF BERT keys under ``src`` → the port's ``text.*`` entries, with q/k/v
-    fused into one ``[3D, D]`` projection."""
+def _hf_bert(sd: Mapping, cfg: BertConfig, src: str,
+             dst_prefix: str = "text.") -> dict:
+    """HF BERT keys under ``src`` → the port's ``BertModel`` entries under
+    ``dst_prefix``, with q/k/v fused into one ``[3D, D]`` projection."""
     def g(k: str) -> torch.Tensor:
         return _tensor(sd[src + k])
 
@@ -153,13 +164,13 @@ def _hf_bert(sd: Mapping, cfg: KEEPConfig, src: str) -> dict:
         out[f"{dst}.weight"] = g(f"{name}.weight")
         out[f"{dst}.bias"] = g(f"{name}.bias")
 
-    e = "embeddings"
-    out[f"text.{e}.word"] = g(f"{e}.word_embeddings.weight")
-    out[f"text.{e}.position"] = g(f"{e}.position_embeddings.weight")
-    out[f"text.{e}.token_type"] = g(f"{e}.token_type_embeddings.weight")
-    lin(f"text.{e}.norm", f"{e}.LayerNorm")
-    for i in range(cfg.text.num_hidden_layers):
-        layer, dst = f"encoder.layer.{i}", f"text.blocks.{i}"
+    e, t = "embeddings", dst_prefix
+    out[f"{t}{e}.word"] = g(f"{e}.word_embeddings.weight")
+    out[f"{t}{e}.position"] = g(f"{e}.position_embeddings.weight")
+    out[f"{t}{e}.token_type"] = g(f"{e}.token_type_embeddings.weight")
+    lin(f"{t}{e}.norm", f"{e}.LayerNorm")
+    for i in range(cfg.num_hidden_layers):
+        layer, dst = f"encoder.layer.{i}", f"{t}blocks.{i}"
         qkv = [f"{layer}.attention.self.{n}" for n in ("query", "key",
                                                        "value")]
         out[f"{dst}.attn.qkv.weight"] = torch.cat(
@@ -171,15 +182,95 @@ def _hf_bert(sd: Mapping, cfg: KEEPConfig, src: str) -> dict:
         lin(f"{dst}.mlp.fc1", f"{layer}.intermediate.dense")
         lin(f"{dst}.mlp.fc2", f"{layer}.output.dense")
         lin(f"{dst}.norm", f"{layer}.output.LayerNorm")
-    lin("text.pooler", "pooler.dense")
+    lin(f"{t}pooler", "pooler.dense")
+    return out
+
+
+def _patch_conv(sd: Mapping) -> dict:
+    """A timm patch conv [D, 3, P, P] → ``patch_embed`` [D, P·P·3] in
+    (ph, pw, c) order, with its bias."""
+    conv = _tensor(sd["patch_embed.proj.weight"])
+    return {"patch_embed.weight": conv.permute(0, 2, 3, 1).reshape(
+                conv.shape[0], -1).contiguous(),
+            "patch_embed.bias": _tensor(sd["patch_embed.proj.bias"])}
+
+
+def convert_timm_eva(sd: Mapping, cfg) -> dict:
+    """timm ``Eva`` state dict → the state dict of the port's
+    ``models.eva.Eva(cfg)``. The TrV layout: split ``q_proj`` / ``k_proj``
+    (no bias) / ``v_proj``, SwiGLU ``fc1_g`` / ``fc1_x`` with the hidden
+    norm, the attention's inner norm. The E layout: fused ``qkv`` with
+    ``q_bias`` / ``v_bias`` parameters (k's bias zero) or a ``qkv.bias``,
+    plain ``fc1`` / ``fc2``. A ``head`` is kept when the checkpoint has
+    one."""
+    g = lambda k: _tensor(sd[k])  # noqa: E731
+    d = cfg.embed_dim
+    out = _patch_conv(sd)
+    out.update({"cls_token": g("cls_token"), "pos_embed": g("pos_embed"),
+                "norm.weight": g("norm.weight"), "norm.bias": g("norm.bias")})
+    if "head.weight" in sd:
+        out["head.weight"], out["head.bias"] = g("head.weight"), g("head.bias")
+    for i in range(cfg.depth):
+        src = f"blocks.{i}."
+
+        def lin(dst: str, name: str, bias: bool = True) -> None:
+            out[src + dst + ".weight"] = g(src + name + ".weight")
+            if bias:
+                out[src + dst + ".bias"] = g(src + name + ".bias")
+
+        lin("norm1", "norm1")
+        lin("norm2", "norm2")
+        lin("attn.proj", "attn.proj")
+        if cfg.qkv_fused:
+            lin("attn.qkv", "attn.qkv", bias=False)
+            out[src + "attn.qkv.bias"] = (
+                g(src + "attn.qkv.bias") if src + "attn.qkv.bias" in sd
+                else torch.cat([g(src + "attn.q_bias"), torch.zeros(d),
+                                g(src + "attn.v_bias")]))
+        else:
+            lin("attn.q", "attn.q_proj")
+            lin("attn.k", "attn.k_proj", bias=False)
+            lin("attn.v", "attn.v_proj")
+        if cfg.scale_attn_inner:
+            lin("attn.norm", "attn.norm")
+        names = (("fc1_g", "fc1_x", "fc2") if cfg.swiglu else ("fc1", "fc2"))
+        if cfg.swiglu and cfg.scale_mlp:
+            names += ("norm",)
+        for n in names:
+            lin(f"mlp.{n}", f"mlp.{n}")
+    return out
+
+
+def convert_timm_vit_relpos(sd: Mapping, cfg) -> dict:
+    """timm ``VisionTransformerRelPos`` ('cls' variant) state dict → the
+    state dict of the port's ``models.vit_relpos.ViTRelPos(cfg)``: each
+    block's RelPosMlp at ``attn.rel_pos.mlp.fc{1,2}``, no absolute pos
+    embed; a linear the checkpoint has without a bias (the presets'
+    ``qkv_bias=False``) gets a zero one."""
+    g = lambda k: _tensor(sd[k])  # noqa: E731
+    out = _patch_conv(sd)
+    out.update({"cls_token": g("cls_token"), "norm.weight": g("norm.weight"),
+                "norm.bias": g("norm.bias")})
+    for i in range(cfg.depth):
+        src = f"blocks.{i}."
+        for dst, name in (("norm1", "norm1"), ("norm2", "norm2"),
+                          ("attn.qkv", "attn.qkv"), ("attn.proj", "attn.proj"),
+                          ("attn.rel_pos.fc1", "attn.rel_pos.mlp.fc1"),
+                          ("attn.rel_pos.fc2", "attn.rel_pos.mlp.fc2"),
+                          ("mlp.fc1", "mlp.fc1"), ("mlp.fc2", "mlp.fc2")):
+            w = g(src + name + ".weight")
+            out[src + dst + ".weight"] = w
+            out[src + dst + ".bias"] = (g(src + name + ".bias")
+                                        if src + name + ".bias" in sd
+                                        else torch.zeros(w.shape[0]))
     return out
 
 
 def from_jax_params(params: Mapping, cfg: KEEPConfig) -> dict:
     """JAX KEEP parameter pytree (numpy or jax leaves) → ``KEEPModel``
     state dict."""
-    return _from_jax_tree(params, {"visual": cfg.vision.depth,
-                                   "text": cfg.text.num_hidden_layers})
+    depths = {"visual": cfg.vision.depth, "text": cfg.text.num_hidden_layers}
+    return from_jax_tree(params, lambda path: depths[path[0]])
 
 
 def from_jax_clip_params(params: Mapping, vision_depth: int,
@@ -193,14 +284,37 @@ def from_jax_clip_params(params: Mapping, vision_depth: int,
     in ``from_jax_params``; every other leaf (the embeddings, ``proj``,
     ``text_projection``, the head's matrices, ``logit_scale``,
     ``head_scale``) keeps its JAX layout and name."""
-    return _from_jax_tree(params, {"visual": vision_depth,
-                                   "text": text_depth})
+    depths = {"visual": vision_depth, "text": text_depth}
+    return from_jax_tree(params, lambda path: depths[path[0]])
 
 
-def _from_jax_tree(params: Mapping, depths: dict[str, int]) -> dict:
-    """The walk of ``from_jax_params``, with the stacked layer count of
-    each tower that holds ``blocks``."""
+# a BatchNorm node of the JAX pytree and its leaves' names in the port
+_BATCH_NORM = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+               "var": "running_var"}
+
+
+def from_jax_tree(params: Mapping, count: Callable[[tuple], int | None]
+                  ) -> dict:
+    """A JAX parameter pytree (numpy or jax leaves) → the port's state dict.
+
+    - a ``kernel`` [in, out] → ``weight`` [out, in]; a 4-D conv kernel
+      (HWIO, depthwise [kh, kw, 1, C] too) → ``weight`` [O, I, kh, kw];
+    - a LayerNorm / RMSNorm ``scale`` → ``weight``; a BatchNorm node
+      (``scale``, ``bias``, ``mean``, ``var``) → ``weight``, ``bias``,
+      ``running_mean``, ``running_var``;
+    - a quantized linear (``kernel_q``) → an ``ops.nn.QLinear``'s leaves;
+    - ``blocks`` stacked on a leading layer axis → ``blocks.{i}``, and a
+      list of block dicts (ResNet stages, Swin blocks, ConvNeXt stages) →
+      ``{i}``; ``count(path)`` gives the number each stack or list must
+      hold (None: whatever it holds);
+    - every other leaf keeps its name and layout."""
     out: dict[str, torch.Tensor] = {}
+
+    def check(path: tuple, n: int) -> None:
+        want = count(path)
+        if want is not None and n != want:
+            raise ValueError(f"{'.'.join(path)} has {n} stacked layers, the "
+                             f"config {want}")
 
     def walk(node, path: tuple) -> None:
         if isinstance(node, Mapping) and "kernel_q" in node:
@@ -213,30 +327,99 @@ def _from_jax_tree(params: Mapping, depths: dict[str, int]) -> dict:
                     t = t.transpose(-1, -2).contiguous()
                 out[".".join((*path, _QUANTIZED_LEAVES[key]))] = t
             return
+        if isinstance(node, Mapping) and set(node) == set(_BATCH_NORM):
+            for key, child in node.items():
+                out[".".join((*path, _BATCH_NORM[key]))] = _tensor(child)
+            return
         if isinstance(node, Mapping):
             for key, child in node.items():
-                if key == "blocks":
-                    leaves = [np.asarray(x) for x in _leaves(child)]
-                    n = leaves[0].shape[0]
-                    if n != depths[path[0]]:
-                        raise ValueError(
-                            f"{path[0]} has {n} stacked layers, the config "
-                            f"{depths[path[0]]}")
+                if key == "blocks" and isinstance(child, Mapping):
+                    n = np.asarray(next(_leaves(child))).shape[0]
+                    check(path + (key,), n)
                     for i in range(n):
                         walk(_index(child, i), path + ("blocks", str(i)))
                 else:
                     walk(child, path + (key,))
             return
+        if isinstance(node, (list, tuple)):
+            check(path, len(node))
+            for i, child in enumerate(node):
+                walk(child, path + (str(i),))
+            return
         t = _tensor(node)
         *head, last = path
         if last == "kernel":
-            t, last = t.transpose(-1, -2).contiguous(), "weight"
+            t = (t.permute(3, 2, 0, 1) if t.dim() == 4
+                 else t.transpose(-1, -2)).contiguous()
+            last = "weight"
         elif last == "scale":
             last = "weight"
         out[".".join((*head, last))] = t
 
     walk(params, ())
     return out
+
+
+def _vision_stacks(kind: str, v) -> dict[tuple, int]:
+    """The stacks of an image tower's pytree under ``visual``."""
+    if kind == "rn":
+        return {("visual", f"layer{li}"): n
+                for li, n in enumerate(v.layers, start=1)}
+    if kind == "convnext":
+        out = {("visual", "stages"): len(v.depths)}
+        out.update({("visual", "stages", str(s), "blocks"): n
+                    for s, n in enumerate(v.depths)})
+        return out
+    if kind == "swin":
+        return {("visual", f"stage{s}", "blocks"): n
+                for s, n in enumerate(v.depths)}
+    return {("visual", "blocks"): v.depth}
+
+
+def _stack_count(stacks: dict[tuple, int | None]):
+    def count(path: tuple) -> int | None:
+        if path not in stacks:
+            raise ValueError(f"{'.'.join(path)}: a stack the config does not "
+                             f"have")
+        return stacks[path]
+
+    return count
+
+
+def from_jax_preset_params(params: Mapping, resolved) -> dict:
+    """A JAX ``presets.create_preset`` pytree → the state dict of the
+    port's ``presets.PresetModel`` for the same resolved preset (any of the
+    58 built, shrunk ones too). Each stack's count comes from the
+    resolution's config of that stack (per ConvNeXt stage, per ResNet /
+    Swin stage), the leaves map as in ``from_jax_tree``."""
+    r = resolved
+    stacks = _vision_stacks(r.vision_kind, r.vision_cfg)
+    t = r.text_cfg
+    if r.text_kind == "clip":
+        stacks[("text", "blocks")] = t.layers
+    elif r.text_kind == "path_bert":
+        stacks[("text", "bert", "blocks")] = t.num_hidden_layers
+    else:
+        stacks[("text", "trunk", "blocks")] = (
+            t.trunk.num_layers if t.arch == "mt5"
+            else t.trunk.num_hidden_layers)
+    return from_jax_tree(params, _stack_count(stacks))
+
+
+def from_jax_kep_params(params: Mapping, cfg) -> dict:
+    """A JAX ``kep.init`` pytree (``res_ssl`` with its trunk installed, or
+    the empty placeholder) → the state dict of the port's
+    ``models.kep.KEPModel``. The trunk's stage depths are its lists'."""
+    kind = cfg.image_encoder
+    if kind == "res_ssl":
+        stacks = {("visual", f"layer{li}"): None for li in range(1, 5)}
+    else:
+        stacks = _vision_stacks("rn" if kind == "rn_clip" else "vit",
+                                cfg.rn_config if kind == "rn_clip"
+                                else cfg.vision)
+    for tower in ("text", "knowledge"):
+        stacks[(tower, "bert", "blocks")] = cfg.text.num_hidden_layers
+    return from_jax_tree(params, _stack_count(stacks))
 
 
 def from_jax_lora(adapters: Mapping, cfg: KEEPConfig) -> dict:

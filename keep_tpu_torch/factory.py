@@ -1,8 +1,9 @@
 """Model factory: a name → a model (counterpart of ``keep_tpu/factory.py``).
 
 ``create_model(name)`` builds a registry entry (``keep``, the released
-ViT-L/16 + BERT model; ``clip-vit-b-16``, ``clip-vit-l-14``) or, for any
-other name, an OpenCLIP preset (``presets``). It returns an ``nn.Module``
+ViT-L/16 + BERT model; ``kep``, the knowledge-enhanced training model;
+``clip-vit-b-16``, ``clip-vit-l-14``; ``rn50-clip``, the RN50 image tower
+alone) or, for any other name, an OpenCLIP preset (``presets``). It returns an ``nn.Module``
 whose ``encode_image`` / ``encode_text`` / ``forward`` are the surface of
 the JAX package's ``ModelSpec`` closures and which carries ``family`` and
 ``config``. Weights are drawn on ``device`` (default: the card) from a
@@ -10,8 +11,8 @@ generator seeded with ``seed``, or loaded from a local released
 checkpoint (``pretrained=``, ``keep`` only).
 
 Not ported yet, and raising with ROADMAP queue 1, item 11: the registry
-entries ``kep``, ``rn50-clip``, ``coca`` and ``pmc-clip``; ``pretrained=``
-as a registry name or URL (``compat/registry.py``, ``compat/hub.py``).
+entries ``coca`` and ``pmc-clip``; ``pretrained=`` as a registry name or
+URL (``compat/registry.py``, ``compat/hub.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from keep_tpu_torch.presets import ITEM_11, card_device
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    family: str  # 'keep' | 'clip'
+    family: str  # 'keep' | 'kep' | 'clip'
     config: Any
     # (config, generator, dtype, device) → the model with drawn weights
     build: Callable[..., nn.Module]
@@ -137,6 +138,13 @@ def _keep() -> ModelSpec:
             cfg, gen, dtype=dtype, device=device))
 
 
+@register_model("kep")  # the training-time knowledge-enhanced model
+def _kep() -> ModelSpec:
+    from keep_tpu_torch.models.kep import KEPConfig, KEPModel
+
+    return ModelSpec(family="kep", config=KEPConfig(), build=KEPModel.init)
+
+
 def _clip_spec(cfg) -> ModelSpec:
     from keep_tpu_torch.models.clip import CLIP
 
@@ -166,6 +174,15 @@ def _clip_l14() -> ModelSpec:
                                    output_dim=768)))
 
 
+@register_model("rn50-clip")  # the RN50 image tower alone
+def _rn50() -> ModelSpec:
+    from keep_tpu_torch.models.resnet import (ModifiedResNet,
+                                              ModifiedResNetConfig)
+
+    return ModelSpec(family="clip", config=ModifiedResNetConfig(),
+                     build=ModifiedResNet.init)
+
+
 def _not_ported(name: str, module: str) -> Callable[[], ModelSpec]:
     def spec() -> ModelSpec:
         raise NotImplementedError(
@@ -175,9 +192,7 @@ def _not_ported(name: str, module: str) -> Callable[[], ModelSpec]:
     return spec
 
 
-for _name, _module in (("kep", "models/kep.py"),
-                       ("rn50-clip", "models/resnet.py"),
-                       ("coca", "models/coca.py"),
+for _name, _module in (("coca", "models/coca.py"),
                        ("pmc-clip", "models/pmc_clip.py")):
     register_model(_name)(_not_ported(_name, _module))
 

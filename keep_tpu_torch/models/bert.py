@@ -129,12 +129,15 @@ class BertModel(nn.Module):
                 token_type_ids: torch.Tensor | None = None, *,
                 dtype: torch.dtype = torch.float32, use_flash: bool = False,
                 gelu_approx: bool = False, remat: bool = False,
-                ln_stats: bool = False):
+                ln_stats: bool = False,
+                position_ids: torch.Tensor | None = None):
         """[B, S] token ids → {'last_hidden_state': [B, S, D],
-        'pooler_output': [B, D]}. ``remat`` recomputes each block in the
-        backward (``torch.utils.checkpoint``). ``ln_stats=True`` returns
-        ``(outputs, {"qkv": [L, D], "fc1": [L, D]})``, the calibration pass
-        of ``quant.smooth_bert``."""
+        'pooler_output': [B, D]}. ``position_ids`` [B, S] replace the
+        default positions 0..S−1 (the RoBERTa-family towers derive them
+        from the padding, ``models.hf_text``). ``remat`` recomputes each
+        block in the backward (``torch.utils.checkpoint``).
+        ``ln_stats=True`` returns ``(outputs, {"qkv": [L, D], "fc1": [L,
+        D]})``, the calibration pass of ``quant.smooth_bert``."""
         b, s = input_ids.shape
         if s > self.cfg.max_position_embeddings:
             raise ValueError(
@@ -146,8 +149,9 @@ class BertModel(nn.Module):
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         emb = self.embeddings
-        x = (emb.word[input_ids] + emb.position[:s][None]
-             + emb.token_type[token_type_ids])
+        pos = (emb.position[:s][None] if position_ids is None
+               else emb.position[position_ids])
+        x = emb.word[input_ids] + pos + emb.token_type[token_type_ids]
         x = emb.norm(x).to(dtype)
         key_bias = (1.0 - attention_mask.float()) * MASK_VALUE  # [B, S] fp32
         stats = []
@@ -167,3 +171,20 @@ class BertModel(nn.Module):
             return out, {k: torch.stack([st[k] for st in stats])
                          for k in ("qkv", "fc1")}
         return out
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> "BertModel":
+        """Draws the weights in place with the JAX package's ``bert.init``
+        statistics: linear weights and the embedding tables normal with std
+        .02, zero biases, unit LayerNorms. Returns the module."""
+        for m in self.modules():
+            if isinstance(m, Linear):
+                m.weight.normal_(0.0, 0.02, generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+        emb = self.embeddings
+        for t in (emb.word, emb.position, emb.token_type):
+            t.normal_(0.0, 0.02, generator=generator)
+        return self

@@ -225,14 +225,19 @@ class Linear(nn.Module):
     with no affine op before it, ``quant.smooth_bert``) multiplies the input
     in fp32 before the product, the result cast back to the input's dtype,
     as ``keep_tpu.ops.nn.linear`` applies the leaf; the weight's input
-    columns carry its inverse."""
+    columns carry its inverse.
+
+    ``bias=False`` leaves the bias out (EVA02's k projection): the product
+    is then accumulated in fp32 and rounded once to the input's dtype, as
+    the JAX package's ``jnp.dot(..., preferred_element_type=float32)``."""
 
     def __init__(self, in_features: int, out_features: int, *,
-                 device=None):
+                 bias: bool = True, device=None):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features, device=device))
-        self.bias = nn.Parameter(torch.empty(out_features, device=device))
+        self.bias = (nn.Parameter(torch.empty(out_features, device=device))
+                     if bias else None)
         self.register_buffer("pre_scale", None)
         # the fp32 values a state dict brought into a narrower weight, kept
         # on the host for ``quantize_source``
@@ -277,12 +282,54 @@ class Linear(nn.Module):
 
 @torch.no_grad()
 def cast_linear_weights(model: nn.Module, dtype: torch.dtype) -> None:
-    """Stores every ``Linear`` weight of ``model`` in ``dtype`` (the compute
-    dtype: ``linear`` casts a weight to the activations' dtype anyway);
-    LayerNorms, biases and other parameters keep theirs."""
+    """Stores every ``Linear`` and ``Conv2d`` weight of ``model`` in
+    ``dtype`` (the compute dtype: ``linear`` and ``Conv2d`` cast a weight
+    to the activations' dtype anyway); LayerNorms, biases and other
+    parameters keep theirs."""
     for m in model.modules():
-        if isinstance(m, Linear):
+        if isinstance(m, (Linear, Conv2d)):
             m.weight.data = m.weight.data.to(dtype)
+
+
+def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+           *, stride: int = 1, padding: int = 0,
+           groups: int = 1) -> torch.Tensor:
+    """Convolution of NHWC activations x [B, H, W, C] with a torch-layout
+    ``weight`` [O, C / groups, kh, kw] (the JAX package's HWIO kernel
+    permuted (3, 2, 0, 1)), in x's dtype: the products accumulated in fp32
+    and rounded once to x's dtype (on the CPU through an fp32 convolution of
+    the narrow values, each product exact), then ``bias`` added in x's
+    dtype, as the JAX package's ``conv`` / ``_conv`` add it. Returns NHWC.
+    fp32 convolutions on the card follow ``torch.backends.cudnn.allow_tf32``
+    (on by default)."""
+    xc = x.permute(0, 3, 1, 2)  # NCHW view of the channels-last data
+    w = weight.to(x.dtype)
+    if x.dtype != torch.float32 and not x.is_cuda:
+        y = F.conv2d(xc.float(), w.float(), None, stride, padding, 1,
+                     groups).to(x.dtype)
+    else:
+        y = F.conv2d(xc, w, None, stride, padding, 1, groups)
+    y = y.permute(0, 2, 3, 1)
+    return y if bias is None else y + bias.to(y.dtype)
+
+
+class Conv2d(nn.Module):
+    """``conv2d`` as a module: ``weight`` [O, C / groups, k, k] and an
+    optional ``bias`` [O]; NHWC in and out."""
+
+    def __init__(self, cin: int, cout: int, k: int, *, stride: int = 1,
+                 padding: int = 0, groups: int = 1, bias: bool = True,
+                 device=None):
+        super().__init__()
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, k, k,
+                                               device=device))
+        self.bias = (nn.Parameter(torch.zeros(cout, device=device)) if bias
+                     else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.weight, self.bias, stride=self.stride,
+                      padding=self.padding, groups=self.groups)
 
 
 class QLinear(nn.Module):

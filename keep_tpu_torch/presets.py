@@ -3,7 +3,8 @@ the reference's ``model_configs/*.json`` inventory, 62 entries
 (training/path_open_clip/factory.py:41-62), re-declared as data, and the
 builders of the entries whose towers this package has.
 
-``resolve(name)`` maps an entry onto the port's towers:
+``resolve(name)`` maps an entry onto the port's towers, field for field as
+the JAX package's ``resolve``:
 
 - plain ViT + CLIP text (``vit``) → ``models.vit`` with the OpenCLIP
   ``ln_pre`` and a projection matrix (``visual_head.proj``) +
@@ -11,18 +12,30 @@ builders of the entries whose towers this package has.
 - ``vit_medium_gap`` (``vit_gap``) → ``models.vit`` with no CLS token,
   average pooling and ``fc_norm``, and a linear head;
 - ``eva_giant`` (``eva01_g``, EVA01) → ``models.vit`` (a plain pre-LN
-  trunk) with timm's classifier head as the projection (a biased linear).
+  trunk) with timm's classifier head as the projection (a biased linear);
+- ``RN*`` (``rn``) → ``models.resnet.ModifiedResNet`` (its attention pool
+  projects; no head);
+- ``convnext_*`` → ``models.convnext`` + a linear or MLP head (TimmModel's
+  head, timm_model.py:95-106);
+- ``swin_base_*`` → ``models.swin`` + a linear head;
+- ``EVA02-*`` → ``models.eva`` (its own head projects; no head);
+- ``vit_relpos_*`` → ``models.vit_relpos`` + a linear head;
+- ``*-bert`` (``path_bert``) → BERT + tanh pooler + ``mlp_embed``
+  (``models.kep.path_bert_encode``);
+- ``roberta`` / ``xlm-roberta`` / ``mt5`` (``hf``) → ``models.hf_text``
+  (mean pooler + MLP projection; ``models.t5`` for mT5).
 
-These are 27 of the 62 entries. The others need towers or text kinds that
-are not ported yet (ModifiedResNet, ConvNeXt, Swin, EVA02, relpos ViT, the
-path-BERT, HF and mT5 text towers, CoCa): ``resolve`` raises
-``UnsupportedPresetError`` (a ``NotImplementedError``) naming the JAX
-module each needs and ROADMAP queue 1, item 11.
+These are 58 of the 62 entries. The four ``coca*`` presets need
+``models/coca.py``, not ported yet: ``resolve`` raises
+``UnsupportedPresetError`` (a ``NotImplementedError``) naming it and
+ROADMAP queue 1, item 11.
 
 ``create_preset(name)`` is ``build_preset(resolve(name))``: a
 ``PresetModel`` (an ``nn.Module``) with ``encode_image``, ``encode_text``
 and ``forward``, the surface of the JAX package's ``PresetModel``
-closures, its weights drawn from a seed.
+closures, its weights drawn from a seed. As there, the RN and Swin image
+towers compute in fp32 whatever ``dtype`` is asked (the JAX closures drop
+their keyword arguments), over weights stored in the preset's dtype.
 """
 
 from __future__ import annotations
@@ -34,7 +47,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from keep_tpu_torch.configs import PreprocessConfig, ViTConfig
+from keep_tpu_torch.configs import BertConfig, PreprocessConfig, ViTConfig
 from keep_tpu_torch.models.text_transformer import (TextTransformer,
                                                     TextTransformerConfig)
 from keep_tpu_torch.models.vit import VisionTransformer, init_vit_weights
@@ -150,15 +163,8 @@ ENCODER_STATS = {
 
 
 ITEM_11 = "ROADMAP queue 1, item 11"
-# the JAX modules the unported vision and text kinds need
-_MISSING_VISION = {"rn": "models/resnet.py (ModifiedResNet)",
-                   "convnext": "models/convnext.py",
-                   "swin": "models/swin.py", "eva02": "models/eva.py",
-                   "vit_relpos": "models/vit_relpos.py"}
-_MISSING_TEXT = {"path_bert": "models/kep.py (path_bert_encode)",
-                 "roberta": "models/hf_text.py",
-                 "xlm-roberta": "models/hf_text.py",
-                 "mt5": "models/hf_text.py and models/t5.py"}
+# the JAX modules the unported preset families need
+_MISSING_FAMILY = {"coca": "models/coca.py (CoCa)"}
 
 
 class UnsupportedPresetError(NotImplementedError):
@@ -172,17 +178,32 @@ def _not_ported(name: str, module: str):
 
 
 def tokenizer_kind(name: str) -> str:
-    """The tokenizer family a preset's text tower expects: 'clip'
-    (byte-level BPE, ``text.bpe``) for every preset this package builds;
-    the others raise from ``resolve``."""
-    return {"clip": "clip"}[resolve(name).text_kind]
+    """The tokenizer family a preset's text tower expects (the reference's
+    ``factory.get_tokenizer``, factory.py:85-98): 'clip' (byte-level BPE,
+    ``text.bpe``) or 'bert' (WordPiece, ``text.tokenizer``). The RoBERTa,
+    XLM-R and mT5 towers need their upstream HF tokenizers (vocabularies
+    that ship with those checkpoints): they raise, as in the JAX
+    package."""
+    r = resolve(name)
+    if r.text_kind == "clip":
+        return "clip"
+    if r.text_kind == "path_bert":
+        return "bert"
+    arch = r.text_cfg.arch
+    raise UnsupportedPresetError(
+        f"{name}: the {arch} text tower uses its upstream HF tokenizer "
+        f"({'SentencePiece' if arch in ('xlm-roberta', 'mt5') else 'byte-BPE'}"
+        f" vocabulary shipped with the checkpoint); load it via "
+        f"transformers.AutoTokenizer from a local checkout")
 
 
 def preprocess_config(name: str) -> PreprocessConfig:
     """The preset's eval transform: its image size and the OpenAI CLIP
     mean / std (the reference's ``image_transform(model.visual.image_size,
     mean, std)``, factory.py:323-337)."""
-    return PreprocessConfig(size=resolve(name).vision_cfg.img_size,
+    v = resolve(name).vision_cfg
+    return PreprocessConfig(size=getattr(v, "img_size", None)
+                            or v.image_size,
                             mean=OPENAI_DATASET_MEAN, std=OPENAI_DATASET_STD)
 
 
@@ -201,10 +222,11 @@ class ResolvedPreset:
     name: str
     family: str  # 'clip'
     embed_dim: int
-    vision_kind: str  # 'vit' | 'vit_gap' | 'eva01_g'
+    vision_kind: str  # 'vit' | 'vit_gap' | 'eva01_g' | 'rn' | 'convnext'
+    #                   | 'swin' | 'eva02' | 'vit_relpos'
     vision_cfg: Any
     vision_proj: str  # 'matrix' | 'linear' | 'linear_bias' | 'mlp' | 'none'
-    text_kind: str  # 'clip'
+    text_kind: str  # 'clip' | 'path_bert' | 'hf'
     text_cfg: Any
     quick_gelu: bool = False
 
@@ -220,47 +242,102 @@ def resolve(name: str) -> ResolvedPreset:
     qg = raw.get("quick_gelu", False)
     act = "quick_gelu" if qg else "gelu"
     v = raw["vision"]
-    if raw.get("family") == "coca":
-        _not_ported(name, "models/coca.py (CoCa)")
+    if raw.get("family") in _MISSING_FAMILY:
+        _not_ported(name, _MISSING_FAMILY[raw["family"]])
     kind = v["kind"]
+    vcfg, vproj = _resolve_vision(name, kind, v, e, act)
+    tcfg, tkind = _resolve_text(raw["text"].get("kind", "clip"), raw["text"],
+                                e, act)
+    return ResolvedPreset(name, "clip", e, kind, vcfg, vproj, tkind, tcfg, qg)
+
+
+def _resolve_vision(name: str, kind: str, v: dict, e: int, act: str):
+    """(config, head kind) of an image tower, as the JAX ``resolve``."""
     if kind == "vit":
-        vcfg = ViTConfig(
+        return ViTConfig(
             img_size=v["image_size"], patch_size=v["patch_size"],
             embed_dim=v["width"], depth=v["layers"],
             num_heads=v["width"] // v.get("head_width", 64),
             mlp_ratio=v.get("mlp_ratio", 4.0),
-            layerscale_init=v.get("ls_init_value"), ln_eps=1e-5, act=act)
-        vproj = "matrix"
-    elif kind == "vit_gap":
-        vcfg = ViTConfig(
+            layerscale_init=v.get("ls_init_value"), ln_eps=1e-5,
+            act=act), "matrix"
+    if kind == "vit_gap":
+        return ViTConfig(
             img_size=v["image_size"], patch_size=v["patch_size"],
             embed_dim=v["width"], depth=v["layers"],
             num_heads=v["width"] // 64, layerscale_init=None, ln_eps=1e-6,
-            num_prefix_tokens=0, pool="avg", fc_norm=True)
-        vproj = v["proj"]
-    elif kind == "eva01_g":
+            num_prefix_tokens=0, pool="avg", fc_norm=True), v["proj"]
+    if kind == "eva01_g":
         # timm eva_giant_patch14_224: plain pre-LN ViT, width 1408, depth
         # 40, 16 heads, MLP 6144 (ratio 6144 / 1408), no LayerScale, CLS
-        vcfg = ViTConfig(
+        return ViTConfig(
             img_size=v["image_size"], patch_size=14, embed_dim=1408,
             depth=40, num_heads=16, mlp_ratio=6144 / 1408,
-            layerscale_init=None, ln_eps=1e-6)
-        vproj = v["proj"]
-    elif kind in _MISSING_VISION:
-        _not_ported(name, _MISSING_VISION[kind])
+            layerscale_init=None, ln_eps=1e-6), v["proj"]
+    if kind == "rn":
+        from keep_tpu_torch.models.resnet import ModifiedResNetConfig
+
+        return ModifiedResNetConfig(
+            layers=tuple(v["layers"]), width=v["width"],
+            image_size=v["image_size"], heads=v["width"] * 32 // 64,
+            output_dim=e), "none"
+    if kind == "convnext":
+        from keep_tpu_torch.models.convnext import ConvNeXtConfig
+
+        return ConvNeXtConfig(img_size=v["image_size"],
+                              depths=tuple(v["depths"]),
+                              dims=tuple(v["dims"])), v["proj"]
+    if kind == "swin":
+        from keep_tpu_torch.models.swin import SwinConfig
+
+        return SwinConfig(img_size=v["image_size"], embed_dim=128,
+                          depths=(2, 2, 18, 2), heads=(4, 8, 16, 32),
+                          conv_stem=False), v["proj"]
+    if kind == "eva02":
+        from keep_tpu_torch.models.eva import EVA02_CONFIGS
+
+        return EVA02_CONFIGS[name], "none"  # its head projects
+    if kind == "vit_relpos":
+        from keep_tpu_torch.models.vit_relpos import ViTRelPosConfig
+
+        # timm vit_relpos_medium_patch16_cls_224: width 512, depth 12,
+        # 8 heads, rel_pos_dim 256
+        return ViTRelPosConfig(img_size=v["image_size"], patch_size=16,
+                               embed_dim=512, depth=12, num_heads=8,
+                               rel_pos_hidden=256), v["proj"]
+    raise ValueError(f"bad vision kind {kind!r}")
+
+
+def _resolve_text(tkind: str, t: dict, e: int, act: str):
+    """(config, text kind) of a text tower, as the JAX ``resolve``."""
+    if tkind == "clip":
+        return TextTransformerConfig(
+            vocab_size=t["vocab_size"], context_length=t["context_length"],
+            width=t["width"], heads=t["heads"], layers=t["layers"],
+            output_dim=e, act=act), "clip"
+    if tkind == "path_bert":
+        return BertConfig(vocab_size=t["vocab_size"], hidden_size=t["width"],
+                          num_hidden_layers=t["layers"],
+                          num_attention_heads=t["heads"],
+                          intermediate_size=4 * t["width"]), "path_bert"
+    from keep_tpu_torch.models.hf_text import HFTextConfig
+
+    if tkind == "mt5":
+        from keep_tpu_torch.models.t5 import T5EncoderConfig
+
+        trunk = T5EncoderConfig(vocab_size=t["vocab_size"],
+                                d_model=t["width"], num_heads=t["heads"],
+                                num_layers=t["layers"], d_ff=t["d_ff"])
+    elif tkind in ("roberta", "xlm-roberta"):
+        trunk = BertConfig(
+            vocab_size=t["vocab_size"], hidden_size=t["width"],
+            num_hidden_layers=t["layers"], num_attention_heads=t["heads"],
+            intermediate_size=4 * t["width"], max_position_embeddings=514,
+            type_vocab_size=1, ln_eps=1e-5, pad_token_id=1)
     else:
-        raise ValueError(f"bad vision kind {kind!r}")
-    t = raw["text"]
-    tkind = t.get("kind", "clip")
-    if tkind in _MISSING_TEXT:
-        _not_ported(name, _MISSING_TEXT[tkind])
-    if tkind != "clip":
         raise ValueError(f"bad text kind {tkind!r}")
-    tcfg = TextTransformerConfig(
-        vocab_size=t["vocab_size"], context_length=t["context_length"],
-        width=t["width"], heads=t["heads"], layers=t["layers"],
-        output_dim=e, act=act)
-    return ResolvedPreset(name, "clip", e, kind, vcfg, vproj, tkind, tcfg, qg)
+    return HFTextConfig(arch=tkind, trunk=trunk, output_dim=e, pooler="mean",
+                        proj=t["proj"]), "hf"
 
 
 # ---------------------------------------------------------------------------
@@ -311,11 +388,58 @@ class PresetHead(nn.Module):
         return dot(gelu(dot(x, self.fc1) + self.fc1_b.to(x.dtype)), self.fc2)
 
 
+# the image towers that compute in fp32 whatever dtype is asked: the JAX
+# package's create_preset closures for them drop their keyword arguments
+FP32_VISION = ("rn", "swin")
+# the image towers of models.vit
+_VIT_KINDS = ("vit", "vit_gap", "eva01_g")
+
+
+def _vision_tower(r: ResolvedPreset, device) -> tuple[nn.Module, int]:
+    """The image tower of ``r`` and the width its head takes."""
+    v = r.vision_cfg
+    if r.vision_kind in _VIT_KINDS:
+        return VisionTransformer(v, ln_pre=r.vision_proj == "matrix",
+                                 device=device), v.embed_dim
+    if r.vision_kind == "rn":
+        from keep_tpu_torch.models.resnet import ModifiedResNet
+
+        return ModifiedResNet(v, device=device), r.embed_dim
+    if r.vision_kind == "convnext":
+        from keep_tpu_torch.models.convnext import ConvNeXt
+
+        return ConvNeXt(v, device=device), v.num_features
+    if r.vision_kind == "swin":
+        from keep_tpu_torch.models.swin import Swin
+
+        return Swin(v, device=device), v.num_features
+    if r.vision_kind == "eva02":
+        from keep_tpu_torch.models.eva import Eva
+
+        return Eva(v, device=device), v.out_dim
+    from keep_tpu_torch.models.vit_relpos import ViTRelPos
+
+    return ViTRelPos(v, device=device), v.embed_dim
+
+
+def _text_tower(r: ResolvedPreset, device) -> nn.Module:
+    if r.text_kind == "clip":
+        return TextTransformer(r.text_cfg, device=device)
+    if r.text_kind == "path_bert":
+        from keep_tpu_torch.models.kep import PathBert
+
+        return PathBert(r.text_cfg, r.embed_dim, device=device)
+    from keep_tpu_torch.models.hf_text import HFText
+
+    return HFText(r.text_cfg, device=device)
+
+
 class PresetModel(nn.Module):
     """A resolved preset as one module: ``visual`` (with ``ln_pre`` under a
-    ``matrix`` head), ``visual_head``, ``text`` and ``logit_scale``, named
-    as the JAX package's parameter pytree. ``dtype`` is the compute dtype;
-    the linear weights are stored in it."""
+    ``matrix`` head), ``visual_head`` (none where the tower projects),
+    ``text`` and ``logit_scale``, named as the JAX package's parameter
+    pytree. ``dtype`` is the compute dtype; the linear and conv weights
+    are stored in it."""
 
     family = "clip"
 
@@ -325,12 +449,11 @@ class PresetModel(nn.Module):
         r = preset
         self.preset = r
         self.dtype = dtype
-        self.visual = VisionTransformer(r.vision_cfg,
-                                        ln_pre=r.vision_proj == "matrix",
-                                        device=device)
-        self.visual_head = PresetHead(r.vision_proj, r.vision_cfg.embed_dim,
-                                      r.embed_dim, device=device)
-        self.text = TextTransformer(r.text_cfg, device=device)
+        self.visual, fin = _vision_tower(r, device)
+        self.visual_head = (None if r.vision_proj == "none" else
+                            PresetHead(r.vision_proj, fin, r.embed_dim,
+                                       device=device))
+        self.text = _text_tower(r, device)
         self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07),
                                                      device=device))
         cast_linear_weights(self, dtype)
@@ -342,16 +465,31 @@ class PresetModel(nn.Module):
     def encode_image(self, pixels: torch.Tensor, *, normalize: bool = False,
                      dtype: torch.dtype | None = None, **kw) -> torch.Tensor:
         """[B, H, W, 3] normalised pixels → [B, embed_dim] in ``dtype``
-        (default: the model's); ``kw`` go to the ViT (``use_flash``,
-        ``fuse_ln``, ``gelu_approx``, ...); unit fp32 rows with
-        ``normalize``."""
-        f = self.visual_head(self.visual(pixels.to(self.logit_scale.device),
-                                         dtype=dtype or self.dtype, **kw))
+        (default: the model's); ``kw`` go to the tower (the ViT's
+        ``use_flash``, ``fuse_ln``, ``gelu_approx``, ...; ConvNeXt's
+        ``pool``); unit fp32 rows with ``normalize``. The RN and Swin towers
+        run in fp32 and take no keywords (``FP32_VISION``), as in the JAX
+        package."""
+        x = pixels.to(self.logit_scale.device)
+        if self.preset.vision_kind in FP32_VISION:
+            f = self.visual(x)
+        else:
+            f = self.visual(x, dtype=dtype or self.dtype, **kw)
+        if self.visual_head is not None:
+            f = self.visual_head(f)
         return l2_normalize(f.float()) if normalize else f
 
     def encode_text(self, input_ids: torch.Tensor, *, normalize: bool = False,
-                    dtype: torch.dtype | None = None) -> torch.Tensor:
-        f = self.text(input_ids, dtype=dtype or self.dtype)
+                    dtype: torch.dtype | None = None, **kw) -> torch.Tensor:
+        """[B, S] ids → [B, embed_dim]; ``kw`` go to the BERT-family towers
+        (``use_flash``, which runs them through the fused attention #1).
+        The path-BERT's mask is ``ids != 0``, as in the JAX package."""
+        ids = input_ids.to(self.logit_scale.device)
+        dtype = dtype or self.dtype
+        if self.preset.text_kind == "path_bert":
+            f = self.text(ids, (ids != 0).long(), dtype=dtype, **kw)
+        else:
+            f = self.text(ids, dtype=dtype, **kw)
         return l2_normalize(f.float()) if normalize else f
 
     def forward(self, pixels: torch.Tensor, input_ids: torch.Tensor,
@@ -379,14 +517,23 @@ def build_preset(preset: ResolvedPreset, seed: int = 0,
     """A ``PresetModel`` of ``preset`` (any resolved preset, a shrunk one
     too), its weights drawn on ``device`` (default: the card) from a
     generator seeded with ``seed``, with the JAX package's init
-    statistics: the towers' inits, the head's matrices std fan_in^-0.5,
-    ``logit_scale = log(1 / 0.07)``."""
+    statistics: each tower's init, the head's matrices std fan_in^-0.5,
+    the path-BERT's ``mlp_embed`` std embed_dim^-0.5, ``logit_scale =
+    log(1 / 0.07)``."""
     device = card_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     model = PresetModel(preset, device=device)
-    init_vit_weights(model.visual, gen)
-    model.visual_head.init_weights(gen)
-    model.text.init_weights(gen)
+    if preset.vision_kind in _VIT_KINDS:
+        init_vit_weights(model.visual, gen)
+    else:
+        model.visual.init_weights(gen)
+    if model.visual_head is not None:
+        model.visual_head.init_weights(gen)
+    if preset.text_kind == "path_bert":
+        model.text.bert.init_weights(gen)
+        model.text.mlp_embed.init_weights(gen, preset.embed_dim ** -0.5)
+    else:
+        model.text.init_weights(gen)
     cast_linear_weights(model, dtype)
     model.dtype = dtype
     return model.eval()
@@ -396,6 +543,5 @@ def create_preset(name: str, seed: int = 0,
                   dtype: torch.dtype = torch.float32,
                   device=None) -> PresetModel:
     """``build_preset(resolve(name), ...)``; raises
-    ``UnsupportedPresetError`` for the presets whose towers are not ported
-    yet."""
+    ``UnsupportedPresetError`` for the CoCa presets (not ported yet)."""
     return build_preset(resolve(name), seed=seed, dtype=dtype, device=device)

@@ -1151,3 +1151,96 @@ def test_extract_features_on_pyramid_chunks(cuda, tmp_path):
     feats = extract_features(model, (t for t, _ in chunks), batch_size=16)
     assert fa.LAUNCHES - n0 == -(-len(tiles) // 16) * cfg.vision.depth
     assert (extract_features(model, tiles, batch_size=16) == feats).all()
+
+
+# ---- the zoo's other towers on the card --------------------------------------
+
+def _narrow(r):
+    """A resolved preset at narrow widths (its own head width where it has
+    one), 2 blocks a stack, small images: the card tests' size."""
+    import dataclasses
+
+    v, t, k = r.vision_cfg, r.text_cfg, r.vision_kind
+    if k == "rn":
+        v = dataclasses.replace(v, layers=(2, 2, 2, 2), width=16,
+                                image_size=64, heads=8, output_dim=32)
+    elif k == "convnext":
+        v = dataclasses.replace(v, depths=(2, 2, 2, 2), dims=(16, 32, 48, 64),
+                                img_size=64)
+    elif k == "swin":
+        v = dataclasses.replace(v, img_size=112, embed_dim=64,
+                                depths=(2, 2, 2), heads=(2, 4, 8),
+                                num_features_mult=4)
+    elif k == "eva02":
+        v = dataclasses.replace(v, depth=2, num_heads=2,
+                                embed_dim=2 * v.head_dim, mlp_hidden=96,
+                                img_size=4 * v.patch_size, out_dim=32)
+    elif k == "vit_relpos":
+        v = dataclasses.replace(v, depth=2, num_heads=2,
+                                embed_dim=2 * v.head_dim, rel_pos_hidden=32,
+                                img_size=4 * v.patch_size)
+    else:
+        v = dataclasses.replace(v, depth=2, num_heads=2,
+                                embed_dim=2 * v.head_dim,
+                                img_size=4 * v.patch_size)
+    if r.text_kind == "clip":
+        t = dataclasses.replace(t, layers=2, vocab_size=100, output_dim=32)
+    elif r.text_kind == "path_bert":
+        t = dataclasses.replace(t, num_hidden_layers=2, vocab_size=100,
+                                max_position_embeddings=64)
+    elif t.arch == "mt5":
+        t = dataclasses.replace(t, output_dim=32, trunk=dataclasses.replace(
+            t.trunk, vocab_size=100, d_model=64, num_heads=4, d_kv=16,
+            d_ff=128, num_layers=2))
+    else:
+        t = dataclasses.replace(t, output_dim=32, trunk=dataclasses.replace(
+            t.trunk, vocab_size=100, num_hidden_layers=2,
+            max_position_embeddings=80))
+    return dataclasses.replace(r, vision_cfg=v, text_cfg=t, embed_dim=32)
+
+
+@pytest.mark.parametrize("kind,name,atol,rtol", [
+    ("rn", "RN50", 5e-5, 5e-5), ("convnext", "convnext_base", 1e-4, 1e-3),
+    ("swin", "swin_base_patch4_window7_224", 2e-5, 2e-5),
+    ("eva02 TrV", "EVA02-B-16", 2e-5, 2e-5),
+    ("eva02 E", "EVA02-E-14", 2e-5, 2e-5),
+    ("vit_relpos", "vit_relpos_medium_patch16_cls_224", 2e-5, 2e-5),
+    ("path_bert", "ViT-B-32-bert", 2e-5, 2e-5),
+    ("hf", "roberta-ViT-B-32", 3e-5, 3e-5),
+    ("mt5", "mt5-base-ViT-B-32", 5e-5, 5e-5)])
+def test_zoo_tower_card_matches_cpu(cuda, kind, name, atol, rtol):
+    """Each tower kind, narrow, in fp32 with TF32 off (cuDNN's too): the
+    card's features against the port's on the CPU on the same weights,
+    at the component's CPU-test tolerance (the BERT-family text towers
+    through #1)."""
+    import chip_smoke
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        row = chip_smoke.check_card_vs_cpu(torch, kind, name, atol, rtol,
+                                           device="cuda", shrink=_narrow)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    assert row["max_abs_err"] <= atol + rtol * row["max_abs_ref"]
+
+
+@pytest.mark.parametrize("name", ["ViT-B-32-bert", "roberta-ViT-B-32",
+                                  "xlm-roberta-large-ViT-H-14"])
+def test_bert_family_text_tower_through_kernel(cuda, name):
+    """A BERT-family text tower at its width, 2 layers, bf16: one #1 launch
+    a layer, cosine ≥ 0.999 per row against plain attention."""
+    import chip_smoke
+    from keep_tpu_torch import presets
+
+    r = chip_smoke.shrink_blocks(presets.resolve(name))
+    m = presets.build_preset(r, dtype=torch.bfloat16, device="cuda")
+    ids = torch.from_numpy(chip_smoke.text_ids(
+        r, 16, 128, __import__("numpy").random.default_rng(0))).cuda()
+    with torch.inference_mode():
+        feats, launches = chip_smoke.counted_encode(
+            torch, fa, lambda: m.encode_text(ids, normalize=True,
+                                             use_flash=True))
+        plain = m.encode_text(ids, normalize=True)
+    assert launches == 2
+    assert chip_smoke.cos_min(torch, feats, plain) >= 0.999

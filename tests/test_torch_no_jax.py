@@ -44,6 +44,8 @@ def test_imports_leave_jax_unloaded():
         "keep_tpu_torch.models.text_transformer, keep_tpu_torch.text.bpe, "
         "keep_tpu_torch.zeroshot.openclip, "
         "keep_tpu_torch.zeroshot.imagenet_metadata\n"
+        "from keep_tpu_torch.models import (convnext, eva, hf_text, kep, "
+        "poolers, resnet, swin, t5, vit_relpos)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'keep_tpu'))\n"
         "assert not bad, bad\n"
