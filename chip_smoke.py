@@ -251,6 +251,41 @@ After phase 9:
     row of the trained model's own merged encode; int8 at ≥ 0.999 of the
     bf16 server's; the int8 sub-block and MLP launches cover every block.
 
+After phase 14, the model families ported last:
+
+17. coca — ``coca_ViT-L-14`` from ``factory.create_model`` at published
+    width and depth, bf16 (vision 24 × 1024, patch 14 on 224², S = 257,
+    the 8-head attentional pooler over 256 queries; text 12 × 768 over 76
+    tokens, vocab 49,408; decoder 12 layers): the image tower through #1
+    (24 launches a batch of 32, latents at cosine ≥ 0.999 per row of plain
+    attention), the training forward and ``coca_loss``, a greedy caption
+    (``coca.generate``, 20 tokens, B = 4) and a beam one (3 beams, 12
+    tokens), one loss backward through #1b at S = 257 (24 launches), #1
+    against its plain version at the trunk's shape; ``coca_roberta-ViT-
+    B-32``'s RoBERTa tower through #1 with its key mask (12 launches, ≥
+    0.999) and its per-length greedy captions; the card against the CPU
+    at 2 blocks a stack, full width, fp32, at 1e-5 (tests/test_torch_coca).
+18. pmc_clip — ``factory.create_model("pmc-clip")`` at its config's
+    defaults (RN50 with output 768, BERT-base, 4 fusion layers), bf16: the
+    unmasked text through #1 with a zero key bias (12 launches, ≥ 0.999 per
+    row of plain), the fusion module, the MLM head and ``mlm_loss``; card
+    against CPU at 2 blocks, 1e-5.
+19. moe — the Switch-MoE KEEP (ViT-L/16 224² with 8 experts, top-1,
+    capacity factor 1.25, both ``moe_dispatch`` values; BERT-base) from
+    ``KEEPModel.init``, bf16: features and aux; W8A8, W8A16 and calibrated
+    int8 trunks at a mean row cosine ≥ 0.999 against bf16 on the bf16
+    run's pinned routes (``scripts/moe_lab.py --route-study``'s measure),
+    the least row's and the free-routing cosines and the share of routes
+    moved beside it; the W8A8 model served through
+    ``serve.InferenceServer``: 49 #8 launches an image dispatch (the 48 qkv /
+    proj of the trunk and the patch embed), 2 #9, 12 #5 and 12 #6 a text
+    dispatch; #8 bit for bit against its plain version on that dispatch's
+    qkv and proj inputs, timed there; routes and features of a 2-block
+    full-width trunk on the card against the CPU; then two unfrozen
+    training steps through ``train.main`` at ``keep_train.yml``'s values,
+    batch 128: losses finite, #1 24 and #1b 12 launches a step, the router
+    and experts moved, ms a step and peak memory.
+
 Then one JSON line describing the kernels (each TPU kernel's counterpart:
 its launches on the path that runs it, its time, its plain version's, its
 bound — the larger of its operations over the card's peak for their type
@@ -2666,13 +2701,18 @@ def seg_mask(grid: int, ps: int) -> np.ndarray:
              <= radius ** 2) * 255).astype(np.uint8)
 
 
-def synced_ms(torch, fn):
+def _sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def synced_ms(torch, fn, device: str = "cuda"):
     """(result, wall ms) of one call of ``fn``, the card synchronised
-    before and after."""
-    torch.cuda.synchronize()
+    before and after (nothing to wait for on the CPU)."""
+    _sync(torch, device)
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    _sync(torch, device)
     return out, (time.perf_counter() - t0) * 1e3
 
 
@@ -4388,6 +4428,591 @@ def drive_zoo_towers(torch, fa, device: str = "cuda",
     return out
 
 
+# ---- 17.–19. CoCa, PMC-CLIP and the Switch-MoE KEEP --------------------------
+
+COCA_PRESET = "coca_ViT-L-14"
+COCA_ROBERTA = "coca_roberta-ViT-B-32"
+COCA_BATCH = 32
+# PMC-CLIP at its config's defaults: RN50 (output 768), BERT-base, 4 fusion
+# layers; prompts at its context length
+PMC_BATCH = (32, 64)
+# the MoE KEEP: ViT-L/16 224² with scripts/moe_lab.py's default 8 experts,
+# top-1, capacity factor 1.25, and BERT-base
+MOE_EXPERTS = 8
+MOE_BATCH = 32
+MOE_TRAIN_BATCH = 128
+
+
+def counted(torch, fa, device: str, fn) -> tuple:
+    """(result, #1 launches, #1b launches, int8 launches by name) of one
+    call of ``fn``, every count set to 0 just before it and read just
+    after."""
+    from keep_tpu_torch.kernels import _kops
+
+    with fa._launch_lock:
+        fa.LAUNCHES = fa.BWD_LAUNCHES = 0
+    with _kops._launch_lock:
+        _kops.LAUNCHES.clear()
+    out = fn()
+    _sync(torch, device)
+    return out, fa.LAUNCHES, fa.BWD_LAUNCHES, dict(_kops.LAUNCHES)
+
+
+def slab_row(fa, torch, gen, name: str, b: int, s: int, h: int,
+             padded: bool) -> dict:
+    """#1 in bf16 at one path's shape against its plain version (max |Δ|
+    < 0.05 on the unpadded rows), timed beside its bound and SDPA."""
+    qkv = torch.randn(b, s, 3 * h * 64, device="cuda",
+                      generator=gen).bfloat16()
+    kb, valid = None, torch.ones(b, s, dtype=torch.bool, device="cuda")
+    if padded:
+        lens = torch.randint(8, s + 1, (b,), device="cuda", generator=gen)
+        valid = torch.arange(s, device="cuda")[None] < lens[:, None]
+        kb = (1.0 - valid.float()) * -1e9
+    with uncounted(fa):
+        got = fa.attention_qkv_slab(qkv, kb, num_heads=h)
+        ref = fa.attention_qkv_slab_reference(qkv, kb, num_heads=h)
+        err = (got.float() - ref.float())[valid].abs().max().item()
+        if not err < 0.05:
+            raise AssertionError(f"{name}: #1 bf16 vs plain max |Δ| {err}")
+        q, k, v = qkv.view(b, s, 3, h, 64).permute(2, 0, 3, 1, 4)
+        mask = None if kb is None else kb[:, None, None, :].bfloat16()
+        row = {"shape": name, "B": b, "S": s, "H": h, "dtype": "bfloat16",
+               "max_abs_err": err,
+               "ms": cuda_ms(lambda: fa.attention_qkv_slab(qkv, kb,
+                                                           num_heads=h)),
+               "plain_ms": cuda_ms(lambda: fa.attention_qkv_slab_reference(
+                   qkv, kb, num_heads=h)),
+               "library_ms": cuda_ms(
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q, k, v, attn_mask=mask))}
+    row["bound_ms"], row["bound_by"] = attention_bound(b, s, h, 2,
+                                                       kb is not None)
+    phase("kernel", **row)
+    return row
+
+
+def state_close(torch, name: str, got: dict, ref: dict, atol: float,
+                rtol: float) -> dict:
+    """Each tensor of ``got`` (card) against ``ref`` (CPU) at atol / rtol;
+    the largest error."""
+    err = 0.0
+    for k, r in ref.items():
+        g = got[k].float().cpu()
+        e = (g - r.float()).abs().max().item()
+        err = max(err, e)
+        if not torch.allclose(g, r.float(), atol=atol, rtol=rtol):
+            raise AssertionError(f"{name} card vs CPU: {k} max |Δ| {e}")
+    return {"name": name, "max_abs_err": err, "atol": atol, "rtol": rtol}
+
+
+def shrink_coca(r, n: int = 2):
+    """A CoCa resolution with every stack cut to ``n`` blocks."""
+    c = r.text_cfg
+    kw = dict(vision=dataclasses.replace(c.vision, depth=n), text_layers=n,
+              decoder_layers=n)
+    if c.hf_text is not None:
+        kw["hf_text"] = dataclasses.replace(c.hf_text, trunk=dataclasses.replace(
+            c.hf_text.trunk, num_hidden_layers=n))
+    c = dataclasses.replace(c, **kw)
+    return dataclasses.replace(r, text_cfg=c, vision_cfg=c.vision)
+
+
+def drive_coca(torch, fa, gen, device: str = "cuda",
+               batch: int = COCA_BATCH, shrink=None) -> dict:
+    """Phase 17: ``coca_ViT-L-14`` from ``factory.create_model`` at its
+    published width and depth in bf16 (vision 24 × 1024 at patch 14 on
+    224², S = 257, the 8-head attentional pooler over 256 queries; text 12 ×
+    768 over 76 tokens, vocab 49,408; decoder 12 layers): the image trunk
+    through #1 (24 launches a batch, latents at cosine ≥ 0.999 per row of
+    plain attention), the training forward and ``coca_loss``, greedy and
+    beam captions (``coca.generate`` / ``generate_beam``), one loss
+    backward through #1b at S = 257 (24 launches); #1 against its plain
+    version at the trunk's shape; ``coca_roberta-ViT-B-32``'s RoBERTa
+    tower through #1 with its key mask (12 launches an encode, cosine ≥
+    0.999) and its per-length greedy captions; the card against the CPU at
+    2 blocks a stack, full width, fp32, at the CPU test's 1e-5.
+    ``shrink`` (a CPU rehearsal) cuts the presets."""
+    from keep_tpu_torch import factory, presets
+    from keep_tpu_torch.models import coca
+
+    def make(name, dtype):
+        if shrink is None:
+            return factory.create_model(name, seed=0, dtype=dtype,
+                                        device=device)
+        return presets.build_preset(shrink(presets.resolve(name)), seed=0,
+                                    dtype=dtype, device=device)
+
+    rng = np.random.default_rng(17)
+    model, build_ms = synced_ms(torch, lambda: make(COCA_PRESET,
+                                                        torch.bfloat16), device)
+    c = model.cfg
+    v = c.vision
+    px = torch.from_numpy(rng.standard_normal(
+        (batch, v.img_size, v.img_size, 3), dtype=np.float32)).to(device)
+    ids = torch.from_numpy(padded_ids(c.vocab_size, c.pad_id, batch,
+                                      c.context_length + 1, rng)).to(device)
+    out = {"preset": COCA_PRESET, "batch": batch, "build_ms": build_ms,
+           "params": sum(p.numel() for p in model.parameters()),
+           "seq": v.num_patches + 1}
+    with torch.inference_mode():
+        model.encode_image_tokens(px, use_flash=True)  # warm-up
+        # ---- the main path: the image tower through #1 ---------------------
+        (lat, ctx), launches, _, _ = counted(
+            torch, fa, device, lambda: model.encode_image_tokens(
+                px, use_flash=True))
+        # -------------------------------------------------------------------
+        _, ms = synced_ms(torch, lambda: model.encode_image_tokens(
+            px, use_flash=True), device)
+        plain, _ = model.encode_image_tokens(px)
+        fwd, fwd_ms = synced_ms(torch, lambda: model(px, ids,
+                                                         use_flash=True), device)
+        loss = coca.coca_loss(fwd, pad_id=c.pad_id).item()
+    held_unit(COCA_PRESET, torch, lat, c.embed_dim)
+    out.update(attention_launches=launches, image_ms=ms,
+               tiles_per_s=batch / (ms / 1e3),
+               cos_vs_plain_min=cos_min(torch, lat, plain),
+               context=list(ctx.shape), forward_ms=fwd_ms, loss=loss,
+               logits=list(fwd["logits"].shape))
+    if (launches != v.depth or not out["cos_vs_plain_min"] >= 0.999
+            or not np.isfinite(loss)
+            or not torch.isfinite(fwd["logits"]).all()
+            or list(ctx.shape) != [batch, c.n_queries - 1, c.embed_dim]):
+        raise AssertionError(f"coca: {out}")
+    caps, gen_ms = synced_ms(torch, lambda: coca.generate(
+        model, px[:4], seq_len=20, use_flash=True), device)
+    beams, beam_ms = synced_ms(torch, lambda: coca.generate_beam(
+        model, px[:2], seq_len=12, num_beams=3, use_flash=True), device)
+    for name, cap in (("greedy", caps), ("beam", beams)):
+        if (cap[:, 0] != c.sot_id).any() or cap.shape[1] < 2 or \
+                cap.min() < 0 or cap.max() >= c.vocab_size:
+            raise AssertionError(f"coca {name} captions {cap}")
+    out.update(greedy_ms=gen_ms, greedy_tokens=caps.shape[1],
+               beam_ms=beam_ms, beam_tokens=beams.shape[1])
+    # one loss backward through #1b at S = 257
+    sub = max(2, batch // 4)
+    model.train()
+    (bwd_loss, f1, b1, _) = counted(torch, fa, device, lambda: coca.coca_loss(
+        model(px[:sub], ids[:sub], use_flash=True)))
+    (_, f2, b2, _) = counted(torch, fa, device, bwd_loss.backward)
+    grads_finite = all(torch.isfinite(p.grad).all().item()
+                       for p in model.parameters() if p.grad is not None)
+    model.zero_grad(set_to_none=True)
+    model.eval()
+    out.update(backward_batch=sub, backward_fwd_launches=f1,
+               backward_launches=b2, grads_finite=grads_finite)
+    if f1 != v.depth or b2 != v.depth or not grads_finite:
+        raise AssertionError(f"coca backward: {out}")
+    del model, fwd, lat, ctx, plain
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        out["slab"] = slab_row(fa, torch, gen, "coca_l14", batch,
+                               v.num_patches + 1, v.num_heads, False)
+
+    # coca_roberta: the RoBERTa tower through #1 with its key mask
+    rob, _ = synced_ms(torch, lambda: make(COCA_ROBERTA, torch.bfloat16), device)
+    rc = rob.cfg
+    tc = rc.hf_text.trunk
+    rids = torch.from_numpy(padded_ids(tc.vocab_size, tc.pad_token_id,
+                                       2 * batch, rc.context_length,
+                                       rng)).to(device)
+    with torch.inference_mode():
+        (rlat, rtok), rl, _, _ = counted(
+            torch, fa, device, lambda: rob.encode_text_tokens(
+                rids, embed_cls=False, use_flash=True))
+        rplain, _ = rob.encode_text_tokens(rids, embed_cls=False)
+    rpx = torch.from_numpy(rng.standard_normal(
+        (2, rc.vision.img_size, rc.vision.img_size, 3),
+        dtype=np.float32)).to(device)
+    rcaps, rgen_ms = synced_ms(torch, lambda: coca.generate(
+        rob, rpx, seq_len=8), device)
+    out["roberta"] = {"preset": COCA_ROBERTA, "batch": 2 * batch,
+                      "seq": rc.context_length, "attention_launches": rl,
+                      "cos_vs_plain_min": cos_min(torch, rlat, rplain),
+                      "greedy_ms": rgen_ms, "greedy_tokens": rcaps.shape[1]}
+    held_unit(COCA_ROBERTA, torch, rlat, rc.embed_dim)
+    if rl != tc.num_hidden_layers or \
+            not out["roberta"]["cos_vs_plain_min"] >= 0.999 or \
+            (rcaps[:, 0] != rc.sot_id).any():
+        raise AssertionError(f"coca_roberta: {out['roberta']}")
+    del rob
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # the card against the CPU, 2 blocks a stack, full width, fp32
+    rows = []
+    for name in (COCA_PRESET, COCA_ROBERTA):
+        r = shrink_coca((shrink or (lambda x: x))(presets.resolve(name)))
+        card_m = presets.build_preset(r, seed=0, device=device)
+        cpu_m = coca.CoCa(r.text_cfg, device="cpu")
+        cpu_m.load_state_dict(card_m.state_dict())
+        cpu_m.eval()
+        cc = r.text_cfg
+        x = torch.from_numpy(rng.standard_normal(
+            (2, cc.vision.img_size, cc.vision.img_size, 3),
+            dtype=np.float32))
+        pad = cc.pad_id
+        i = torch.from_numpy(padded_ids(cc.vocab_size if cc.hf_text is None
+                                        else cc.hf_text.trunk.vocab_size,
+                                        pad, 2, min(24, cc.context_length),
+                                        rng))
+        with torch.inference_mode():
+            got = card_m(x.to(device), i.to(device), use_flash=True)
+            ref = cpu_m(x, i)
+        rows.append(state_close(torch, name, {k: got[k] for k in (
+            "image_features", "text_features", "logits")}, {k: ref[k] for k in (
+                "image_features", "text_features", "logits")}, 1e-5, 1e-5))
+        del card_m, cpu_m
+    out["card_vs_cpu"] = rows
+    phase("coca", **{k: v for k, v in out.items() if k != "slab"})
+    return out
+
+
+def drive_pmc_clip(torch, fa, device: str = "cuda",
+                   batch: tuple = PMC_BATCH, cfg=None) -> dict:
+    """Phase 18: ``factory.create_model("pmc-clip")`` at its config's
+    defaults in bf16 (RN50 with output 768, BERT-base, 4 fusion layers):
+    images through the RN tower, the unmasked text (pads attend) through
+    #1 with a zero key bias (12 launches an encode; the text features at
+    cosine ≥ 0.999 per row of plain attention), the fusion module and the
+    MLM head, ``mlm_loss``; the card against the CPU at 2 blocks a stack in
+    fp32 at the CPU test's 1e-5. ``cfg`` (a CPU rehearsal) replaces the
+    default config."""
+    from keep_tpu_torch import factory
+    from keep_tpu_torch.models import pmc_clip
+
+    rng = np.random.default_rng(18)
+    over = {} if cfg is None else dataclasses.asdict(cfg) | {
+        "vision": cfg.vision, "text": cfg.text}
+    model, build_ms = synced_ms(torch, lambda: factory.create_model(
+        "pmc-clip", seed=0, dtype=torch.bfloat16, device=device, **over), device)
+    c = model.cfg
+    s = c.vision.image_size
+    px = torch.from_numpy(rng.standard_normal((batch[0], s, s, 3),
+                                              dtype=np.float32)).to(device)
+    ids = padded_ids(c.text.vocab_size, 0, batch[0], c.context_length, rng)
+    ids[:, 0] = c.cls_id
+    ids = torch.from_numpy(ids).to(device)
+    with torch.inference_mode():
+        model(px, ids, use_flash=True)  # warm-up
+        # ---- the main path: both towers, fusion and MLM ---------------------
+        out_f, launches, _, _ = counted(torch, fa, device, lambda: model(
+            px, ids, use_flash=True))
+        # -------------------------------------------------------------------
+        _, ms = synced_ms(torch, lambda: model(px, ids, use_flash=True), device)
+        plain = model(px, ids)
+        img_ms = synced_ms(torch, lambda: model.encode_image(px), device)[1]
+        txt_ids = ids.repeat(batch[1] // batch[0], 1)
+        _, txt_ms = synced_ms(torch, lambda: model.encode_text(
+            txt_ids, None, out_f["image_features"].repeat(
+                batch[1] // batch[0], 1), use_flash=True), device)
+    labels = torch.where(ids % 7 == 0, ids, torch.zeros_like(ids))
+    loss = pmc_clip.mlm_loss(out_f["bert_prediction"], labels).item()
+    out = {"batch": batch, "build_ms": build_ms,
+           "params": sum(p.numel() for p in model.parameters()),
+           "forward_ms": ms, "image_ms": img_ms,
+           "tiles_per_s": batch[0] / (img_ms / 1e3), "text_ms": txt_ms,
+           "prompts_per_s": batch[1] / (txt_ms / 1e3),
+           "attention_launches": launches, "mlm_loss": loss,
+           "cos_vs_plain_min": cos_min(torch, out_f["text_features"],
+                                       plain["text_features"])}
+    for k in ("image_features", "text_features"):
+        held_unit(f"pmc-clip {k}", torch, out_f[k], c.embed_dim)
+    if launches != c.text.num_hidden_layers or \
+            not out["cos_vs_plain_min"] >= 0.999 or not np.isfinite(loss):
+        raise AssertionError(f"pmc-clip: {out}")
+    del model, out_f, plain
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    small = dataclasses.replace(
+        c, fusion_layers=2,
+        vision=dataclasses.replace(c.vision, layers=(2, 2, 2, 2)),
+        text=dataclasses.replace(c.text, num_hidden_layers=2))
+    gen = torch.Generator(device=device).manual_seed(0)
+    card_m = pmc_clip.PMCCLIP.init(small, gen, device=device)
+    cpu_m = pmc_clip.PMCCLIP(small, device="cpu")
+    cpu_m.load_state_dict(card_m.state_dict())
+    card_m.eval()
+    cpu_m.eval()
+    x = torch.from_numpy(rng.standard_normal((2, s, s, 3), dtype=np.float32))
+    i = ids[:2].cpu()
+    with torch.inference_mode():
+        got = card_m(x.to(device), i.to(device), use_flash=True)
+        ref = cpu_m(x, i)
+    keys = ("image_features", "text_features", "bert_prediction")
+    out["card_vs_cpu"] = state_close(torch, "pmc-clip", {
+        k: got[k] for k in keys}, {k: ref[k] for k in keys}, 1e-5, 1e-5)
+    phase("pmc_clip", **out)
+    return out
+
+
+def moe_keep_config(dispatch: str, vision: dict | None = None,
+                    text: dict | None = None):
+    """The MoE KEEP: ``KEEPConfig()``'s ViT-L/16 with ``MOE_EXPERTS``
+    experts (top-1, capacity factor 1.25) and BERT-base; ``vision`` /
+    ``text`` override fields (a CPU rehearsal)."""
+    from keep_tpu_torch.configs import BertConfig, KEEPConfig, ViTConfig
+
+    text_cfg = BertConfig(**(text or {}))
+    return KEEPConfig(
+        vision=ViTConfig(moe_experts=MOE_EXPERTS, moe_top_k=1,
+                         moe_capacity_factor=1.25, moe_dispatch=dispatch,
+                         **(vision or {})),
+        text=text_cfg, projection_dim=text_cfg.hidden_size)
+
+
+def cos_mean(torch, a, b) -> float:
+    """The mean cosine between matching rows of a and b."""
+    return torch.nn.functional.cosine_similarity(
+        a.float(), b.float(), dim=-1).mean().item()
+
+
+def drive_moe(torch, fa, serve, d: str, device: str = "cuda",
+              batch: int = MOE_BATCH, train_batch: int = MOE_TRAIN_BATCH,
+              vision: dict | None = None, text: dict | None = None,
+              steps: int = 2) -> dict:
+    """Phase 19: the Switch-MoE KEEP (``moe_keep_config``) from
+    ``KEEPModel.init`` at full width in bf16, both ``moe_dispatch`` values:
+    features, aux and realized routes; the int8 model (``quantize()``,
+    W8A8) served through the server core (``serve.InferenceServer``):
+    ``quantized_matmul_bsd`` (#8) 49 launches an image dispatch (the 48
+    qkv / proj of the trunk, the patch embed), ``quantized_matmul`` (#9) 2
+    (the visual head), the text tower's #5 / #6 12 each; #8 held bit for bit
+    against its plain version on the qkv and proj inputs of that path and
+    timed there; W8A8, W8A16 and calibrated int8 trunks at a mean row
+    cosine ≥ 0.999 against bf16 on the bf16 run's pinned routes (gather
+    dispatch; ``scripts/moe_lab.py --route-study``'s measure), the least
+    row's and the free-routing cosines beside it; the routes on the card against the CPU
+    at 2 blocks, full width, fp32; then ``steps`` unfrozen training steps
+    through ``train.main`` at ``configs/keep_train.yml``'s values, batch
+    ``train_batch``, with ms a step and peak memory."""
+    from keep_tpu_torch.kernels import qmatmul
+    from keep_tpu_torch.models import moe
+    from keep_tpu_torch.models.keep import KEEPModel
+    from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
+
+    rng = np.random.default_rng(19)
+    out = {"experts": MOE_EXPERTS, "batch": batch}
+    cfgs = {k: moe_keep_config(k, vision, text) for k in ("einsum", "gather")}
+    v = cfgs["gather"].vision
+    px = torch.from_numpy(rng.standard_normal(
+        (batch, v.img_size, v.img_size, 3), dtype=np.float32)).to(device)
+    feats = {}
+    for dispatch, cfg in cfgs.items():
+        gen = torch.Generator(device=device).manual_seed(0)
+        model, build_ms = synced_ms(torch, lambda: KEEPModel.init(
+            cfg, gen, dtype=torch.bfloat16, use_flash=True, device=device), device)
+        with torch.inference_mode():
+            model.encode_image(px)  # warm-up
+            (f, aux), ms = synced_ms(torch, lambda: model.encode_image(
+                px, return_aux=True), device)
+        held_unit(f"moe {dispatch}", torch, f, cfg.projection_dim)
+        feats[dispatch] = f
+        out[dispatch] = {"build_ms": build_ms, "image_ms": ms,
+                         "tiles_per_s": batch / (ms / 1e3),
+                         "aux": aux.item()}
+        if dispatch == "einsum":
+            out["params"] = sum(p.numel() for p in model.parameters())
+            del model
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    # the same weights under both dispatches: no drop at this batch moves
+    # a token's expert, so the features agree up to the drops
+    out["einsum_vs_gather_cos_min"] = cos_min(torch, feats["einsum"],
+                                              feats["gather"])
+
+    # int8 on pinned routes (the bf16 run's), gather dispatch: the trunk's
+    # pooled features, the route study's (scripts/moe_lab.py
+    # --route-study) mean row cosine, with the least row's beside it
+    def trunk(m, **kw):
+        return m.visual(px, dtype=m.dtype, gelu_approx=m.gelu_approx, **kw)
+
+    with torch.inference_mode():
+        t16, _, routes = trunk(model, return_routes=True)
+    variants = {"w8a8": lambda: model.quantize(),
+                "w8a16": lambda: model.quantize(moe_w8a16=True),
+                "calibrated": lambda: model.quantize(
+                    calib_pixels=px[: max(2, batch // 4)].float())}
+    out["int8"] = {}
+    for name, make in variants.items():
+        (m8, q_ms) = synced_ms(torch, make, device)
+        with torch.inference_mode():
+            pinned = trunk(m8, routes=routes)[0]
+            free, _, r8 = trunk(m8, return_routes=True)
+        row = {"quantize_ms": q_ms,
+               "cos_pinned_mean": cos_mean(torch, pinned, t16),
+               "cos_pinned_min": cos_min(torch, pinned, t16),
+               "cos_free_mean": cos_mean(torch, free, t16),
+               "cos_free_min": cos_min(torch, free, t16),
+               "routes_moved_share": (r8 != routes).float().mean().item()}
+        out["int8"][name] = row
+        if not row["cos_pinned_mean"] >= 0.999:
+            raise AssertionError(f"moe int8 {name}: {row}")
+        if name == "w8a8":
+            model8 = m8
+        else:
+            del m8
+    del model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # the int8 model through the server core
+    vocab = os.path.join(d, "vocab.txt")
+    with open(vocab, "w") as fh:
+        fh.write("\n".join(VOCAB) + "\n")
+    tok = WordPieceTokenizer(vocab)
+    core = serve.InferenceServer(model8, tok, max_length=64,
+                                 image_size=v.img_size, buckets=(batch,))
+    tiles = rng.integers(0, 256, (batch, v.img_size, v.img_size, 3),
+                         dtype=np.uint8)
+    try:
+        core.warmup()
+        blk0 = model8.visual.blocks[0]
+        seen = capture_inputs(torch, {"qkv": blk0.attn.qkv,
+                                      "proj": blk0.attn.proj}, lambda: (
+            core.encode_image(tiles)))
+        served, _, _, img_launches = counted(
+            torch, fa, device, lambda: core.encode_image(tiles))
+        _, _, _, txt_launches = counted(torch, fa, device, lambda: (
+            core.encode_text(PROMPTS * (batch // len(PROMPTS)))))
+        _, serve_ms = synced_ms(torch, lambda: core.encode_image(tiles), device)
+    finally:
+        core.stop()
+    depth = v.depth
+    want_img = {"quantized_matmul_bsd": 2 * depth + 1, "quantized_matmul": 2}
+    want_txt = {"quantized_attention_block_postln":
+                cfgs["gather"].text.num_hidden_layers,
+                "quantized_mlp_bsd": cfgs["gather"].text.num_hidden_layers}
+    if device == "cuda" and (
+            {k: img_launches.get(k, 0) for k in want_img} != want_img or
+            {k: txt_launches.get(k, 0) for k in want_txt} != want_txt):
+        raise AssertionError(f"moe int8 launches: image {img_launches}, "
+                             f"text {txt_launches}")
+    if not np.isfinite(served).all() or served.shape != (
+            batch, cfgs["gather"].projection_dim):
+        raise AssertionError(f"moe int8 served features {served.shape}")
+    out["serve"] = {"image_launches": img_launches,
+                    "text_launches": txt_launches,
+                    "image_dispatch_ms": serve_ms,
+                    "tiles_per_s": batch / (serve_ms / 1e3)}
+    # #8 against its plain version on the path's own inputs, timed there
+    out["qmatmul_rows"] = []
+    with uncounted(fa), torch.inference_mode():
+        for key, lin in (("qkv", blk0.attn.qkv), ("proj", blk0.attn.proj)):
+            (x,) = seen[key]
+            args = (x, lin.weight_q, lin.weight_scale, lin.bias)
+            row = hold_int8(torch, "quantized_matmul_bsd",
+                            f"moe {key} {tuple(x.shape)}->"
+                            f"{lin.weight_q.shape[0]}",
+                            qmatmul.quantized_matmul_bsd,
+                            qmatmul.quantized_matmul_bsd_reference, args,
+                            dict(out_dtype=x.dtype))
+            if device == "cuda":
+                fn = lambda: qmatmul.quantized_matmul_bsd(  # noqa: E731
+                    *args, out_dtype=x.dtype)
+                ref = lambda: qmatmul.quantized_matmul_bsd_reference(  # noqa
+                    *args, out_dtype=x.dtype)
+                n, k = lin.weight_q.shape
+                m = x.numel() // k
+                row.update(ms_bf16=cuda_ms(fn), device_ms_bf16=device_ms(
+                    torch, fn), plain_ms_bf16=cuda_ms(ref))
+                row["bound_ms_bf16"], row["bound_by"] = bound(
+                    {"int8": 2 * m * n * k},
+                    nbytes(x, lin.weight_q, fn()) + 8 * n)
+            out["qmatmul_rows"].append(row)
+    del model8
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # routes on the card against the CPU: 2 blocks, full width, fp32
+    small = dataclasses.replace(cfgs["gather"], vision=dataclasses.replace(
+        v, depth=2))
+    card_v = moe.MoEVisionTransformer(small.vision, device=device)
+    card_v.init_weights(torch.Generator(device=device).manual_seed(0))
+    cpu_v = moe.MoEVisionTransformer(small.vision, device="cpu")
+    cpu_v.load_state_dict(card_v.state_dict())
+    x = torch.from_numpy(rng.standard_normal(
+        (4, v.img_size, v.img_size, 3), dtype=np.float32))
+    with torch.inference_mode():
+        gf, gaux, groutes = card_v(x.to(device), return_routes=True)
+        rf, raux, rroutes = cpu_v(x, return_routes=True)
+    row = state_close(torch, "moe trunk", {"features": gf, "aux": gaux},
+                      {"features": rf, "aux": raux}, 1e-4, 1e-4)
+    row["routes_equal"] = bool(torch.equal(groutes.cpu(), rroutes))
+    if not row["routes_equal"]:
+        raise AssertionError(f"moe routes card vs CPU: {row}")
+    out["card_vs_cpu"] = row
+    del card_v, cpu_v
+
+    # training: unfrozen steps through the CLI
+    out["train"] = drive_moe_train(torch, fa, os.path.join(d, "train"),
+                                   cfgs["einsum"], train_batch, steps,
+                                   device)
+    phase("moe", **out)
+    return out
+
+
+def drive_moe_train(torch, fa, d: str, cfg, batch: int, steps: int,
+                    device: str) -> dict:
+    """``train.main.main`` on ``train_config``'s values (keep_train.yml) with
+    the MoE KEEP ``cfg``, one epoch of ``steps`` steps with both towers
+    unfrozen: every loss finite, #1 forward 24 and #1b 12 launches a step
+    (the BERT tower with remat; the MoE trunk's attention is plain), the
+    router and experts moved; ms a step, peak memory."""
+    from keep_tpu_torch.train import main as tmain
+
+    os.makedirs(d, exist_ok=True)
+    keep = {"vision": dataclasses.asdict(cfg.vision),
+            "text": dataclasses.asdict(cfg.text),
+            "projection_dim": cfg.projection_dim}
+    raw = train_config(d, keep=keep, batch_size=batch,
+                       caption_num=min(32, batch // 4),
+                       steps_per_epoch=steps)
+    raw["solver"].update(epochs=1, freeze_visual_epochs=0,
+                         freeze_text_epochs=0)
+    path = os.path.join(d, "train.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    log: list[dict] = []
+    seen = {}
+
+    def before(i, state, batch_, model, kw):
+        if i == 0:
+            seen["router"] = state.params[
+                "visual.blocks.0.moe.router.weight"].detach().clone()
+            seen["wi"] = state.params[
+                "visual.blocks.0.moe.wi.weight"].detach().clone()
+
+    def after(i, state, batch_, model, kw):
+        seen["moved"] = {k: not torch.equal(state.params[
+            f"visual.blocks.0.moe.{k}.weight"], t) for k, t in
+            (("router", seen["router"]), ("wi", seen["wi"]))}
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    with counted_steps(torch, fa, tmain, log, {}, -1, device, before, after):
+        t0 = time.perf_counter()
+        tmain.main(["--config", path, "--device", device])
+        wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    text_layers = cfg.text.num_hidden_layers
+    for i, s in enumerate(log):
+        if s["frozen"] or not np.isfinite(s["loss"]) or (
+                s["fwd_launches"], s["bwd_launches"]) != (2 * text_layers,
+                                                          text_layers):
+            raise AssertionError(f"moe train step {i}: {s}")
+    if len(log) != steps or not all(seen["moved"].values()):
+        raise AssertionError(f"moe train: {log}, moved {seen}")
+    return {"batch": batch, "steps": len(log),
+            "step_ms": [s["ms"] for s in log],
+            "step_losses": [s["loss"] for s in log],
+            "fwd_launches": [s["fwd_launches"] for s in log],
+            "bwd_launches": [s["bwd_launches"] for s in log],
+            "router_and_experts_moved": seen["moved"],
+            "peak_memory_gb": peak / 1e9, "wall_s": wall_s}
+
+
 def main() -> int:
     import torch
 
@@ -4501,11 +5126,22 @@ def main() -> int:
         lora_served = drive_lora_serve(torch, serve, lora_raw,
                                        lora_trained["ckpt_dir"], model_dir)
 
+    torch.cuda.empty_cache()
+
+    # 17.–19. CoCa, PMC-CLIP and the Switch-MoE KEEP
+    coca_out = drive_coca(torch, fa, gen)
+    torch.cuda.empty_cache()
+    pmc = drive_pmc_clip(torch, fa)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d_moe:
+        moe_out = drive_moe(torch, fa, serve, d_moe)
+    torch.cuda.empty_cache()
+
     print(json.dumps({"kernels": kernel_line(
         rows, bwd_rows, heads_rows, heads_launches, int8_rows, ln_rows,
         fused, served, served8, trained, f32_rows, wsi, lora_trained,
         lora_served, calibrated, pyramid, zoo_rows, zoo_heads_rows, zoo,
-        long_seq, towers)}), flush=True)
+        long_seq, towers, coca_out, pmc, moe_out)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -4516,7 +5152,7 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                 ln_rows, fused, served, served8, trained,
                 f32_rows, wsi, lora_trained, lora_served, calibrated,
                 pyramid, zoo_rows, zoo_heads_rows, zoo,
-                long_seq, towers) -> list[dict]:
+                long_seq, towers, coca_out, pmc, moe_out) -> list[dict]:
     """One entry per TPU kernel: its launches on the main path that runs it,
     and, at ViT-L B=32 in bf16 (the int8 kernels: the first shape of their
     phase), its time, its plain version's, its bound and the one PyTorch
@@ -4530,7 +5166,11 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
     #1 and #2 also carry their rows at the zoo's shapes (phase 3e), and
     #1 its launches on the zoo's paths (3f: one ViT-H-14 batch; 3g) and
     on the other towers' (3h: one encode of each BERT-family text preset
-    and of each of ``kep``'s towers)."""
+    and of each of ``kep``'s towers). Phases 17–19 add #1's launches on a
+    CoCa ViT-L/14 batch, a coca_roberta and a PMC-CLIP text encode and its
+    row at S = 257, #1b's on the CoCa loss backward, and the int8 kernels'
+    launches on an MoE KEEP image and text dispatch with #8's rows at the
+    MoE trunk's qkv and proj shapes."""
     def pick(rs, shape="vit_l16"):
         return next(r for r in rs if r["shape"] == shape and r["B"] == 32
                     and r["dtype"] == "bfloat16")
@@ -4571,13 +5211,23 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                for k, r in towers["text"].items()},
             **{f"kep {t}": towers["registry"]["kep"][t]["attention_launches"]
                for t in ("image", "text", "knowledge")}},
-        shapes=rows, zoo_shapes=zoo_rows)]
+        launches_coca={
+            f"{coca_out['preset']} image B={coca_out['batch']}":
+                coca_out["attention_launches"],
+            f"{coca_out['roberta']['preset']} text "
+            f"B={coca_out['roberta']['batch']}":
+                coca_out["roberta"]["attention_launches"]},
+        launches_pmc_clip_text=pmc["attention_launches"],
+        launches_moe_text_train=moe_out["train"]["fwd_launches"],
+        shapes=rows, zoo_shapes=zoo_rows, coca_shape=coca_out["slab"])]
     vit_bwd = pick(bwd_rows)
     kernels.append(entry(
         "attention_qkv_slab_bwd", BWD_SOURCE, BWD_REPLACES,
         trained["bwd_launches"], vit_bwd,
         max(r["max_abs_err"] for r in bwd_rows),
         launches_lora_train=lora_trained["bwd_launches"],
+        launches_coca_backward=coca_out["backward_launches"],
+        launches_moe_train=moe_out["train"]["bwd_launches"],
         library_call="scaled_dot_product_attention backward through "
                      "autograd (retain_graph; the forward not timed)",
         library_kernel=vit_bwd["library_kernel"], shapes=bwd_rows))
@@ -4629,6 +5279,11 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
             calibrated["launches"].get(kname, 0))
         kernels[-1]["launches_pyramid_path"] = (
             pyramid["int8_launches"].get(kname, 0))
+        kernels[-1]["launches_moe_int8_path"] = {
+            "image": moe_out["serve"]["image_launches"].get(kname, 0),
+            "text": moe_out["serve"]["text_launches"].get(kname, 0)}
+        if kname == "quantized_matmul_bsd":
+            kernels[-1]["moe_shapes"] = moe_out["qmatmul_rows"]
         if kname in tower_of:
             kernels[-1]["attention_bf16_to_fp32"] = [
                 r for r in f32_rows if r["shape"] == tower_of[kname]]

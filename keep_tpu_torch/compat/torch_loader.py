@@ -24,9 +24,11 @@
   conv kernels (HWIO, depthwise too) → [O, I, kh, kw], BatchNorm nodes →
   ``running_mean`` / ``running_var``, stacked ``blocks`` and lists of
   block dicts unstacked, each stack's count checked against the caller's.
-- ``from_jax_preset_params`` / ``from_jax_kep_params``: any of the 58
-  built presets' pytrees (``presets.create_preset``) and the KEP model's
-  (``kep.init``), each stack counted by its own config.
+- ``from_jax_preset_params`` / ``from_jax_kep_params`` /
+  ``from_jax_coca_params`` / ``from_jax_pmc_params``: any preset's pytree
+  (``presets.create_preset``, the CoCa entries too) and the KEP, CoCa and
+  PMC-CLIP models' (``kep.init``, ``coca.init``, ``pmc_clip.init``), each
+  stack counted by its own config.
 - ``convert_timm_eva`` / ``convert_timm_vit_relpos``: timm EVA02 and relpos
   ViT checkpoints → the state dicts of ``models.eva.Eva`` and
   ``models.vit_relpos.ViTRelPos``.
@@ -393,6 +395,8 @@ def from_jax_preset_params(params: Mapping, resolved) -> dict:
     resolution's config of that stack (per ConvNeXt stage, per ResNet /
     Swin stage), the leaves map as in ``from_jax_tree``."""
     r = resolved
+    if r.family == "coca":
+        return from_jax_coca_params(params, r.text_cfg)
     stacks = _vision_stacks(r.vision_kind, r.vision_cfg)
     t = r.text_cfg
     if r.text_kind == "clip":
@@ -404,6 +408,44 @@ def from_jax_preset_params(params: Mapping, resolved) -> dict:
             t.trunk.num_layers if t.arch == "mt5"
             else t.trunk.num_hidden_layers)
     return from_jax_tree(params, _stack_count(stacks))
+
+
+def _as_list(stacked: Mapping) -> list:
+    """A dict of leaves stacked on a leading layer axis → a list of the
+    layers' dicts."""
+    n = np.asarray(next(_leaves(stacked))).shape[0]
+    return [_index(stacked, i) for i in range(n)]
+
+
+def from_jax_coca_params(params: Mapping, cfg) -> dict:
+    """A JAX ``coca.init`` pytree → the state dict of the port's
+    ``models.coca.CoCa`` for the same ``CoCaConfig``: the decoder's stacked
+    ``self_blocks`` / ``cross_blocks`` unstacked like ``blocks``, each
+    stack counted by the config."""
+    tree = dict(params)
+    tree["decoder"] = {k: (_as_list(v) if k.endswith("_blocks") else v)
+                       for k, v in params["decoder"].items()}
+    stacks = {("visual", "blocks"): cfg.vision.depth,
+              ("decoder", "self_blocks"): cfg.decoder_layers,
+              ("decoder", "cross_blocks"): cfg.decoder_layers}
+    if cfg.hf_text is not None:
+        stacks[("text", "trunk", "blocks")] = \
+            cfg.hf_text.trunk.num_hidden_layers
+    else:
+        stacks[("text", "blocks")] = cfg.text_layers
+    return from_jax_tree(tree, _stack_count(stacks))
+
+
+def from_jax_pmc_params(params: Mapping, cfg) -> dict:
+    """A JAX ``pmc_clip.init`` pytree → the state dict of the port's
+    ``models.pmc_clip.PMCCLIP``: the RN stages and the BERT and fusion
+    stacks counted by the config."""
+    tree = dict(params)
+    tree["fusion"] = _as_list(params["fusion"])
+    stacks = _vision_stacks("rn", cfg.vision)
+    stacks[("text", "blocks")] = cfg.text.num_hidden_layers
+    stacks[("fusion",)] = cfg.fusion_layers
+    return from_jax_tree(tree, _stack_count(stacks))
 
 
 def from_jax_kep_params(params: Mapping, cfg) -> dict:

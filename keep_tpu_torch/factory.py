@@ -3,16 +3,15 @@
 ``create_model(name)`` builds a registry entry (``keep``, the released
 ViT-L/16 + BERT model; ``kep``, the knowledge-enhanced training model;
 ``clip-vit-b-16``, ``clip-vit-l-14``; ``rn50-clip``, the RN50 image tower
-alone) or, for any other name, an OpenCLIP preset (``presets``). It returns an ``nn.Module``
+alone; ``coca``; ``pmc-clip``) or, for any other name, an OpenCLIP preset (``presets``). It returns an ``nn.Module``
 whose ``encode_image`` / ``encode_text`` / ``forward`` are the surface of
 the JAX package's ``ModelSpec`` closures and which carries ``family`` and
 ``config``. Weights are drawn on ``device`` (default: the card) from a
 generator seeded with ``seed``, or loaded from a local released
 checkpoint (``pretrained=``, ``keep`` only).
 
-Not ported yet, and raising with ROADMAP queue 1, item 11: the registry
-entries ``coca`` and ``pmc-clip``; ``pretrained=`` as a registry name or
-URL (``compat/registry.py``, ``compat/hub.py``).
+Not ported yet, and raising with ROADMAP queue 1, item 11: ``pretrained=``
+as a registry name or URL (``compat/registry.py``, ``compat/hub.py``).
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ from keep_tpu_torch.presets import ITEM_11, card_device
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    family: str  # 'keep' | 'kep' | 'clip'
+    family: str  # 'keep' | 'kep' | 'clip' | 'coca' | 'pmc_clip'
     config: Any
     # (config, generator, dtype, device) → the model with drawn weights
     build: Callable[..., nn.Module]
@@ -183,18 +182,19 @@ def _rn50() -> ModelSpec:
                      build=ModifiedResNet.init)
 
 
-def _not_ported(name: str, module: str) -> Callable[[], ModelSpec]:
-    def spec() -> ModelSpec:
-        raise NotImplementedError(
-            f"{name}: needs keep_tpu/{module}, which is not ported to "
-            f"keep_tpu_torch yet ({ITEM_11})")
+@register_model("coca")
+def _coca() -> ModelSpec:
+    from keep_tpu_torch.models.coca import CoCa, CoCaConfig
 
-    return spec
+    return ModelSpec(family="coca", config=CoCaConfig(), build=CoCa.init)
 
 
-for _name, _module in (("coca", "models/coca.py"),
-                       ("pmc-clip", "models/pmc_clip.py")):
-    register_model(_name)(_not_ported(_name, _module))
+@register_model("pmc-clip")
+def _pmc() -> ModelSpec:
+    from keep_tpu_torch.models.pmc_clip import PMCCLIP, PMCCLIPConfig
+
+    return ModelSpec(family="pmc_clip", config=PMCCLIPConfig(),
+                     build=PMCCLIP.init)
 
 
 def get_tokenizer(kind: str, path: str, **kw):

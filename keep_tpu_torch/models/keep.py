@@ -6,7 +6,11 @@
 
 with ``visual_head`` = Linear(1024→768) → exact GELU → Linear(768→768).
 Both encoders train (``remat`` for per-block recompute); ``KEEPModel.init``
-draws a random model for training from scratch.
+draws a random model for training from scratch. A config with
+``vision.moe_experts > 0`` takes the Switch-MoE trunk
+(``models.moe.MoEVisionTransformer``) as its image tower, whose
+load-balancing loss ``encode_image(..., return_aux=True)`` returns beside
+the features (0 for the dense trunk).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from torch import nn
 
 from keep_tpu_torch.configs import KEEPConfig
 from keep_tpu_torch.models.bert import BertModel
+from keep_tpu_torch.models.moe import MoEVisionTransformer
 from keep_tpu_torch.models.vit import VisionTransformer
 from keep_tpu_torch.ops.nn import (Linear, cast_linear_weights, gelu,
                                    l2_normalize)
@@ -61,7 +66,9 @@ class KEEPModel(nn.Module):
         self.use_flash = use_flash
         self.gelu_approx = (dtype == torch.bfloat16 if gelu_approx is None
                             else gelu_approx)
-        self.visual = VisionTransformer(cfg.vision, device=device)
+        self.visual = (MoEVisionTransformer(cfg.vision, device=device)
+                       if self.moe else
+                       VisionTransformer(cfg.vision, device=device))
         self.visual_head = VisualHead(cfg.vision.embed_dim, cfg.projection_dim,
                                       device=device)
         self.text = BertModel(cfg.text, device=device)
@@ -69,13 +76,29 @@ class KEEPModel(nn.Module):
             math.log(1.0 / cfg.logit_scale_init), device=device))
         cast_linear_weights(self, weight_dtype or dtype)
 
-    def encode_image(self, pixels: torch.Tensor,
-                     remat: bool = False) -> torch.Tensor:
+    @property
+    def moe(self) -> bool:
+        """Whether the image tower is the Switch-MoE trunk."""
+        return self.cfg.vision.moe_experts > 0
+
+    def encode_image(self, pixels: torch.Tensor, remat: bool = False,
+                     return_aux: bool = False):
         """[B, H, W, 3] normalised pixels → [B, projection_dim] unit fp32.
-        ``remat`` recomputes each block in the backward."""
-        feats = self.visual(pixels, dtype=self.dtype, use_flash=self.use_flash,
-                            gelu_approx=self.gelu_approx, remat=remat)
-        return self.visual_head(feats)
+        ``remat`` recomputes each block in the backward. ``return_aux``
+        also returns the MoE trunk's load-balancing loss (a 0 tensor for
+        the dense trunk); the MoE trunk's attention is plain, as in the JAX
+        package (``use_flash`` does not reach it)."""
+        if self.moe:
+            feats, aux = self.visual(pixels, dtype=self.dtype,
+                                     gelu_approx=self.gelu_approx,
+                                     remat=remat)
+        else:
+            feats = self.visual(pixels, dtype=self.dtype,
+                                use_flash=self.use_flash,
+                                gelu_approx=self.gelu_approx, remat=remat)
+            aux = torch.zeros((), device=feats.device)
+        feats = self.visual_head(feats)
+        return (feats, aux) if return_aux else feats
 
     def encode_text(self, input_ids: torch.Tensor,
                     attention_mask: torch.Tensor | None = None,
@@ -92,11 +115,18 @@ class KEEPModel(nn.Module):
         return self.cfg
 
     def forward(self, pixels: torch.Tensor, input_ids: torch.Tensor,
-                attention_mask: torch.Tensor | None = None) -> dict:
+                attention_mask: torch.Tensor | None = None,
+                return_aux: bool = False) -> dict:
         """Both towers' unit features, the JAX package's ``keep.forward``
-        contract (the factory's uniform ``forward``)."""
-        return {"image_features": self.encode_image(pixels),
-                "text_features": self.encode_text(input_ids, attention_mask)}
+        contract (the factory's uniform ``forward``); ``return_aux`` adds
+        the MoE aux loss as ``"aux"``."""
+        out = {}
+        img = self.encode_image(pixels, return_aux=return_aux)
+        if return_aux:
+            img, out["aux"] = img
+        out["image_features"] = img
+        out["text_features"] = self.encode_text(input_ids, attention_mask)
+        return out
 
     @classmethod
     @torch.no_grad()
@@ -113,10 +143,20 @@ class KEEPModel(nn.Module):
         from keep_tpu_torch.compat.torch_loader import (load_keep_state_dict,
                                                         random_keep_state_dict)
 
-        sd = load_keep_state_dict(random_keep_state_dict(
-            cfg, generator, device=device, keep_init=True), cfg)
-        model = cls(cfg, device=device, **kw)
-        model.load_state_dict(sd, strict=True)
+        if cfg.vision.moe_experts > 0:
+            # the MoE trunk has no released layout: each tower draws its own
+            model = cls(cfg, device=device, **kw)
+            model.visual.init_weights(generator)
+            for lin in (model.visual_head.fc1, model.visual_head.fc2):
+                lin.weight.normal_(0.0, lin.weight.shape[1] ** -0.5,
+                                   generator=generator)
+                lin.bias.zero_()
+            model.text.init_weights(generator)
+        else:
+            sd = load_keep_state_dict(random_keep_state_dict(
+                cfg, generator, device=device, keep_init=True), cfg)
+            model = cls(cfg, device=device, **kw)
+            model.load_state_dict(sd, strict=True)
         model.logit_scale.fill_(math.log(
             1.0 / (cfg.logit_scale_init if logit_scale is None
                    else logit_scale)))
@@ -145,13 +185,15 @@ class KEEPModel(nn.Module):
         ``calib_pixels`` ([N, H, W, 3] normalised images) smooths the ViT's
         LayerNorm → qkv / fc1 edges (``quant.smooth_vit``) after the
         LayerScale fold. The statistics come from fp32 forwards with plain
-        attention over the fp32 weights. ``moe_w8a16`` (weight-only int8 MoE
-        experts) raises: the MoE trunk is ROADMAP queue 1, item 11."""
-        if moe_w8a16:
-            raise NotImplementedError(
-                "moe_w8a16 (weight-only int8 MoE experts) needs the MoE "
-                "visual trunk, which is not ported yet (ROADMAP queue 1, "
-                "item 11)")
+        attention over the fp32 weights.
+
+        An MoE trunk (``vision.moe_experts > 0``) has no LayerScale: its
+        expert ``wi`` / ``wo`` are quantized too (``quant.MOE_TARGETS``; the
+        router stays fp32), ``calib_pixels`` smooths it with
+        ``quant.smooth_moe`` (norm2's scale folded into both the router and
+        every expert's ``wi``, so routing is unchanged), and ``moe_w8a16``
+        makes the experts weight-only int8 (W8A16); on a dense trunk
+        ``moe_w8a16`` changes nothing, as in the JAX package."""
         from keep_tpu_torch.quant import is_quantized
 
         if is_quantized(self):
@@ -163,12 +205,13 @@ class KEEPModel(nn.Module):
         memo = {id(m.fp32_weight): m.fp32_weight for m in self.modules()
                 if isinstance(m, Linear) and m.fp32_weight is not None}
         model = copy.deepcopy(self, memo)
-        model._quantize_in_place(calib_pixels, smooth_alpha, calib_text)
+        model._quantize_in_place(calib_pixels, smooth_alpha, calib_text,
+                                 moe_w8a16)
         return model
 
     @torch.no_grad()
     def _quantize_in_place(self, calib_pixels=None, smooth_alpha: float = 0.5,
-                           calib_text=None) -> None:
+                           calib_text=None, moe_w8a16: bool = False) -> None:
         """``quantize()``'s work on this float model itself."""
         from keep_tpu_torch import quant
         from keep_tpu_torch.models.vit import fold_layerscale
@@ -183,12 +226,21 @@ class KEEPModel(nn.Module):
             quant.smooth_bert(self.text, quant.bert_ln_stats(self.text, ids,
                                                              mask),
                               smooth_alpha)
-        fold_layerscale(self.visual)
-        if calib_pixels is not None:
-            quant.smooth_vit(self.visual,
-                             quant.vit_ln_stats(self.visual, calib_pixels),
-                             smooth_alpha)
-        quant.quantize_linear_weights(self)
+        if self.moe:
+            if calib_pixels is not None:
+                quant.calibrate_smooth_moe(self.visual, calib_pixels,
+                                           smooth_alpha)
+            quant.quantize_linear_weights(
+                self, quant.MOE_TARGETS,
+                weight_only=("wi", "wo") if moe_w8a16 else ())
+        else:
+            fold_layerscale(self.visual)
+            if calib_pixels is not None:
+                quant.smooth_vit(self.visual,
+                                 quant.vit_ln_stats(self.visual,
+                                                    calib_pixels),
+                                 smooth_alpha)
+            quant.quantize_linear_weights(self)
         cast_linear_weights(self, self.dtype)
 
     @classmethod

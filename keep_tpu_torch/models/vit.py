@@ -27,7 +27,9 @@ per-channel abs-max of the two LayerNorm outputs that feed qkv and fc1,
 the inputs the int8 path quantizes per token (``quant.smooth_vit``).
 
 Not ported: ``act_sharding`` (sequence parallelism, ROADMAP queue 1,
-item 10) and the MoE trunk (item 11) raise.
+item 10) raises. A config with ``moe_experts > 0`` is the Switch-MoE trunk,
+``models.moe.MoEVisionTransformer``: this class refuses it rather than
+build a dense trunk for it.
 """
 
 from __future__ import annotations
@@ -223,9 +225,9 @@ class VisionTransformer(nn.Module):
                  device=None):
         super().__init__()
         if cfg.moe_experts != 0:
-            raise NotImplementedError(
-                "the MoE trunk (ViTConfig.moe_experts) is not ported yet "
-                "(ROADMAP queue 1, item 11)")
+            raise ValueError(
+                "ViTConfig.moe_experts > 0 is the Switch-MoE trunk: build "
+                "keep_tpu_torch.models.moe.MoEVisionTransformer")
         d = cfg.embed_dim
         self.cfg = cfg
         self.patch_embed = Linear(cfg.patch_size * cfg.patch_size * 3, d,

@@ -25,10 +25,12 @@ the JAX package's ``resolve``:
 - ``roberta`` / ``xlm-roberta`` / ``mt5`` (``hf``) → ``models.hf_text``
   (mean pooler + MLP projection; ``models.t5`` for mT5).
 
-These are 58 of the 62 entries. The four ``coca*`` presets need
-``models/coca.py``, not ported yet: ``resolve`` raises
-``UnsupportedPresetError`` (a ``NotImplementedError``) naming it and
-ROADMAP queue 1, item 11.
+- ``coca_*`` → ``models.coca`` (the ViT trunk with ``ln_pre`` and
+  ``pool="none"``, the attentional pooler where the entry has one, the
+  causal CLIP token tower or, for ``coca_roberta-ViT-B-32``, the RoBERTa
+  tower of ``models.hf_text``, and the multimodal decoder).
+
+These are all 62 entries.
 
 ``create_preset(name)`` is ``build_preset(resolve(name))``: a
 ``PresetModel`` (an ``nn.Module``) with ``encode_image``, ``encode_text``
@@ -163,18 +165,10 @@ ENCODER_STATS = {
 
 
 ITEM_11 = "ROADMAP queue 1, item 11"
-# the JAX modules the unported preset families need
-_MISSING_FAMILY = {"coca": "models/coca.py (CoCa)"}
 
 
 class UnsupportedPresetError(NotImplementedError):
     pass
-
-
-def _not_ported(name: str, module: str):
-    raise UnsupportedPresetError(
-        f"{name}: needs keep_tpu/{module}, which is not ported to "
-        f"keep_tpu_torch yet ({ITEM_11})")
 
 
 def tokenizer_kind(name: str) -> str:
@@ -185,11 +179,13 @@ def tokenizer_kind(name: str) -> str:
     that ship with those checkpoints): they raise, as in the JAX
     package."""
     r = resolve(name)
+    if r.family == "coca" and r.text_cfg.hf_text is None:
+        return "clip"
     if r.text_kind == "clip":
         return "clip"
     if r.text_kind == "path_bert":
         return "bert"
-    arch = r.text_cfg.arch
+    arch = (r.text_cfg.hf_text if r.family == "coca" else r.text_cfg).arch
     raise UnsupportedPresetError(
         f"{name}: the {arch} text tower uses its upstream HF tokenizer "
         f"({'SentencePiece' if arch in ('xlm-roberta', 'mt5') else 'byte-BPE'}"
@@ -220,7 +216,7 @@ def preset_names() -> list[str]:
 @dataclasses.dataclass(frozen=True)
 class ResolvedPreset:
     name: str
-    family: str  # 'clip'
+    family: str  # 'clip' | 'coca'
     embed_dim: int
     vision_kind: str  # 'vit' | 'vit_gap' | 'eva01_g' | 'rn' | 'convnext'
     #                   | 'swin' | 'eva02' | 'vit_relpos'
@@ -233,8 +229,9 @@ class ResolvedPreset:
 
 def resolve(name: str) -> ResolvedPreset:
     """A preset's resolved configs, field for field as the JAX package's
-    ``resolve``; raises ``UnsupportedPresetError`` for the kinds not ported
-    yet and ``KeyError`` for an unknown name."""
+    ``resolve``; ``KeyError`` for an unknown name. A CoCa entry resolves to
+    family ``coca`` with its ``CoCaConfig`` as ``text_cfg`` (the JAX
+    package's layout)."""
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; have {preset_names()}")
     raw = PRESETS[name]
@@ -242,13 +239,47 @@ def resolve(name: str) -> ResolvedPreset:
     qg = raw.get("quick_gelu", False)
     act = "quick_gelu" if qg else "gelu"
     v = raw["vision"]
-    if raw.get("family") in _MISSING_FAMILY:
-        _not_ported(name, _MISSING_FAMILY[raw["family"]])
+    if raw.get("family") == "coca":
+        cfg = _resolve_coca(raw)
+        return ResolvedPreset(name, "coca", e, "vit", cfg.vision, "none",
+                              "coca", cfg, qg)
     kind = v["kind"]
     vcfg, vproj = _resolve_vision(name, kind, v, e, act)
     tcfg, tkind = _resolve_text(raw["text"].get("kind", "clip"), raw["text"],
                                 e, act)
     return ResolvedPreset(name, "clip", e, kind, vcfg, vproj, tkind, tcfg, qg)
+
+
+def _resolve_coca(raw: dict):
+    """A CoCa entry's ``CoCaConfig``, as the JAX ``resolve``: the pooler
+    belongs to the vision config (``coca_base`` has none, and
+    ``coca_ViT-L-14``'s runs 8 heads: its multimodal ``attn_pooler_heads``
+    is dead config); ``coca_roberta`` takes the RoBERTa tower, no pooler
+    and RoBERTa's special ids (<s> 0, <pad> 1, </s> 2)."""
+    from keep_tpu_torch.models.coca import CoCaConfig
+
+    e, v, t, mm = raw["embed_dim"], raw["vision"], raw["text"], \
+        raw["multimodal"]
+    vision = ViTConfig(
+        img_size=v["image_size"], patch_size=v["patch_size"],
+        embed_dim=v["width"], depth=v["layers"],
+        num_heads=v["width"] // v.get("head_width", 64),
+        layerscale_init=None, ln_eps=1e-5, pool="none")
+    common = dict(embed_dim=e, vocab_size=t["vocab_size"],
+                  text_width=t["width"], text_heads=t["heads"],
+                  text_layers=t["layers"], decoder_layers=mm["layers"],
+                  decoder_heads=mm["heads"], vision=vision)
+    if t.get("kind") == "roberta":
+        hf, _ = _resolve_text("roberta", t, e, "gelu")
+        return CoCaConfig(**common, context_length=mm.get("context_length",
+                                                          76),
+                          hf_text=hf, use_attn_pool=False, pad_id=1,
+                          sot_id=0, eos_id=2)
+    return CoCaConfig(**common, context_length=76,
+                      use_attn_pool=v.get("attentional_pool", False),
+                      attn_pooler_heads=v.get("attn_pooler_heads", 8),
+                      n_queries=mm.get("n_queries", 256),
+                      sot_id=t["vocab_size"] - 2, eos_id=t["vocab_size"] - 1)
 
 
 def _resolve_vision(name: str, kind: str, v: dict, e: int, act: str):
@@ -522,6 +553,12 @@ def build_preset(preset: ResolvedPreset, seed: int = 0,
     log(1 / 0.07)``."""
     device = card_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
+    if preset.family == "coca":
+        from keep_tpu_torch.models.coca import CoCa
+
+        model = CoCa.init(preset.text_cfg, gen, dtype=dtype, device=device)
+        model.preset = preset
+        return model.eval()
     model = PresetModel(preset, device=device)
     if preset.vision_kind in _VIT_KINDS:
         init_vit_weights(model.visual, gen)
@@ -542,6 +579,6 @@ def build_preset(preset: ResolvedPreset, seed: int = 0,
 def create_preset(name: str, seed: int = 0,
                   dtype: torch.dtype = torch.float32,
                   device=None) -> PresetModel:
-    """``build_preset(resolve(name), ...)``; raises
-    ``UnsupportedPresetError`` for the CoCa presets (not ported yet)."""
+    """``build_preset(resolve(name), ...)``: a ``PresetModel``, or for the
+    CoCa entries a ``models.coca.CoCa``."""
     return build_preset(resolve(name), seed=seed, dtype=dtype, device=device)

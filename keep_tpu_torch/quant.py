@@ -21,9 +21,14 @@ the modules they are given in place, computing in fp32 from each weight's
 fp32 source values (``ops.nn.Linear.quantize_source``) and keeping the
 smoothed fp32 values as that source; ``KEEPModel.quantize`` runs them on its
 copy of the model. The statistics come from the towers' ``ln_stats``
-forwards. Not ported: the MoE targets and their calibration
-(``smooth_moe``) and the weight-only W8A16 marker, which wait for the MoE
-trunk (ROADMAP queue 1, item 11).
+forwards.
+
+The Switch-MoE trunk (``models.moe``): ``MOE_TARGETS`` adds the experts'
+``wi`` / ``wo`` (``ExpertLinear`` → ``QExpertLinear``, one scale per
+(expert, column)); the router stays fp32. ``weight_only`` marks targets
+W8A16 (the JAX ``w_only`` marker). ``smooth_moe`` folds the qkv edge as
+``smooth_vit`` does and norm2's scale, shared by every expert, into both
+the router and each expert's ``wi``, so that routing does not move.
 """
 
 from __future__ import annotations
@@ -38,6 +43,9 @@ from keep_tpu_torch.ops.nn import LayerNorm, Linear, QLinear, ieee_fp32
 # module names whose Linear is quantized (the big matmuls); heads, poolers
 # and embeddings stay in the float dtype
 DEFAULT_TARGETS = ("qkv", "proj", "fc1", "fc2", "out", "patch_embed")
+# the MoE experts carry the trunk's FLOPs; the router stays fp32 (its argmax
+# places the tokens)
+MOE_TARGETS = DEFAULT_TARGETS + ("wi", "wo")
 
 
 def quantize_kernel(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -60,23 +68,36 @@ def _eligible(name: str, ancestors: tuple, targets: Sequence[str]) -> bool:
     if name not in targets or "rel_pos" in ancestors:
         return False
     parent = ancestors[-1] if ancestors else ""
+    if name in ("wi", "wo") and parent != "moe":
+        return False
     return name != "proj" or parent == "attn"
 
 
 @torch.no_grad()
 def quantize_linear_weights(model: nn.Module,
-                            targets: Sequence[str] = DEFAULT_TARGETS
-                            ) -> nn.Module:
+                            targets: Sequence[str] = DEFAULT_TARGETS,
+                            weight_only: Sequence[str] = ()) -> nn.Module:
     """Swaps, in place, every ``Linear`` named in ``targets`` (path-aware)
-    for a ``QLinear`` quantized from its stored weight. Returns ``model``."""
+    for a ``QLinear`` (an MoE ``ExpertLinear`` for a ``QExpertLinear``)
+    quantized from its stored weight; expert linears named in
+    ``weight_only`` become W8A16. Returns ``model``."""
+    from keep_tpu_torch.models.moe import ExpertLinear, QExpertLinear
 
     def visit(mod: nn.Module, ancestors: tuple) -> None:
         for name, child in mod.named_children():
             if isinstance(child, Linear) and _eligible(name, ancestors,
                                                        targets):
                 q, s = quantize_kernel(child.weight)
-                setattr(mod, name, QLinear.from_quantized(q, s, child.bias,
-                                                          child.pre_scale))
+                if isinstance(child, ExpertLinear):
+                    new = QExpertLinear.from_quantized(
+                        q, s, child.bias, w_only=name in weight_only)
+                elif name in weight_only:
+                    raise ValueError(f"{name}: weight-only int8 is for the "
+                                     f"MoE expert linears")
+                else:
+                    new = QLinear.from_quantized(q, s, child.bias,
+                                                 child.pre_scale)
+                setattr(mod, name, new)
             else:
                 visit(child, ancestors + (name,))
 
@@ -85,9 +106,13 @@ def quantize_linear_weights(model: nn.Module,
 
 
 def is_quantized(model: nn.Module) -> bool:
-    """True if any submodule is a ``QLinear``: the tree already went through
-    ``quantize_linear_weights``, and quantizing again would corrupt it."""
-    return any(isinstance(m, QLinear) for m in model.modules())
+    """True if any submodule is a ``QLinear`` or ``QExpertLinear``: the tree
+    already went through ``quantize_linear_weights``, and quantizing again
+    would corrupt it."""
+    from keep_tpu_torch.models.moe import QExpertLinear
+
+    return any(isinstance(m, (QLinear, QExpertLinear))
+               for m in model.modules())
 
 
 def smooth_scales(act_amax, weight: torch.Tensor,
@@ -152,6 +177,56 @@ def smooth_bert(bert: nn.Module, stats: dict, alpha: float = 0.5
         _prescale_lin(blk.attn.qkv, stats["qkv"][i], alpha)
         _prescale_lin(blk.mlp.fc1, stats["fc1"][i], alpha)
     return bert
+
+
+@torch.no_grad()
+def smooth_moe(vit: nn.Module, stats: dict, alpha: float = 0.5
+               ) -> nn.Module:
+    """SmoothQuant (the LayerNorm-fold form) for the Switch-MoE trunk, in
+    place; ``stats`` from ``moe_ln_stats``. The qkv edge folds as in
+    ``smooth_vit``. norm2's output feeds the router and every expert's
+    ``wi``: one scale s per input channel, shared by the experts (against
+    the abs-max over all experts' ``wi`` rows), divides norm2 and
+    multiplies both consumers' input columns, so that the router's logits
+    are the same in real arithmetic and no token changes expert. Returns
+    ``vit``."""
+    for i, blk in enumerate(vit.blocks):
+        _fold_smooth(blk.norm1, blk.attn.qkv, stats["qkv"][i], alpha)
+        wi, router = blk.moe.wi, blk.moe.router
+        w32 = wi.quantize_source().float()  # [E, F, D]
+        s = smooth_scales(stats["wi"][i], w32.reshape(-1, w32.shape[-1]),
+                          alpha)
+        for p in (blk.norm2.weight, blk.norm2.bias):
+            p.data = (p.data.float() / s).to(p.dtype)
+        wi.set_source(w32 * s)
+        router.weight.data = (router.weight.float() * s).to(
+            router.weight.dtype)
+    return vit
+
+
+@torch.no_grad()
+def moe_ln_stats(vit: nn.Module, calib_pixels) -> dict:
+    """The MoE trunk's LayerNorm-output statistics on ``calib_pixels``
+    ({"qkv": [L, D], "wi": [L, D]}): an fp32 forward with full fp32
+    products, as ``vit_ln_stats``."""
+    with ieee_fp32():
+        _, _, stats = vit(_on(vit, calib_pixels, torch.float32),
+                          dtype=torch.float32, ln_stats=True)
+    return stats
+
+
+def calibrate_smooth_moe(vit: nn.Module, calib_pixels,
+                         alpha: float = 0.5) -> nn.Module:
+    """``moe_ln_stats`` on ``calib_pixels``, folded in by ``smooth_moe``."""
+    return smooth_moe(vit, moe_ln_stats(vit, calib_pixels), alpha)
+
+
+def smooth_quantize_moe_vit(vit: nn.Module, calib_pixels,
+                            alpha: float = 0.5) -> nn.Module:
+    """Calibrate → smooth → quantize the MoE trunk (experts included), in
+    place. Returns ``vit``."""
+    return quantize_linear_weights(
+        calibrate_smooth_moe(vit, calib_pixels, alpha), MOE_TARGETS)
 
 
 def _on(module: nn.Module, x, dtype=None) -> torch.Tensor:

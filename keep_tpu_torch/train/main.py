@@ -17,9 +17,14 @@ tensors are on the CPU. The device is ``--device`` (``train(device=...)``),
 ``cuda`` by default: without a card the run raises unless the caller asks
 for the CPU with ``--device cpu``; it never moves to the CPU by itself.
 
+An MoE trunk (``keep.vision.moe_experts > 0``) trains in one process, its
+load-balancing loss added at ``moe_aux_weight``; a dense pretrained image
+tower cannot initialize it (ValueError, as in the JAX package).
+
 Not ported yet, and refused with NotImplementedError: more than one process
-or device and the ``solver.tp/pp/sp/ep/fsdp`` layouts (ROADMAP queue 1,
-item 10), the MoE trunk and tokenizers other than BERT's (item 11).
+or device and the ``solver.tp/pp/sp/ep/fsdp`` layouts (``ep``, the experts
+over cards, included; ROADMAP queue 1, item 10), and tokenizers other than
+BERT's (item 11).
 """
 
 from __future__ import annotations
@@ -78,7 +83,14 @@ def build_schedule(cfg: TrainRunConfig, steps_per_epoch: int):
 
 def check_supported(cfg: TrainRunConfig) -> None:
     """Raises NotImplementedError for what the port does not train yet,
-    naming the ROADMAP item that brings it."""
+    naming the ROADMAP item that brings it (an MoE trunk trains in one
+    process; ``solver.ep`` waits with the rest of item 10), and ValueError
+    for a dense pretrained image tower asked for an MoE trunk."""
+    if cfg.keep.vision.moe_experts > 0 and cfg.model.pretrained_image:
+        raise ValueError(
+            "model.pretrained_image loads a DENSE timm trunk: it cannot "
+            "initialize an MoE trunk (vision.moe_experts > 0); drop one of "
+            "the two")
     s = cfg.solver
     refused = {
         "solver.tp / pp / sp / ep / fsdp (ROADMAP queue 1, item 10: "
@@ -87,8 +99,6 @@ def check_supported(cfg: TrainRunConfig) -> None:
             int(os.environ.get("WORLD_SIZE", "1")) > 1,
         "more than one CUDA device (ROADMAP queue 1, item 10: distributed; "
         "pin one with CUDA_VISIBLE_DEVICES)": torch.cuda.device_count() > 1,
-        "an MoE trunk, keep.vision.moe_experts > 0 (ROADMAP queue 1, "
-        "item 11: models/moe.py)": cfg.keep.vision.moe_experts > 0,
         "dataset.tokenizer_type other than 'bert' (ROADMAP queue 1, item 11)":
             cfg.dataset.tokenizer_type != "bert",
     }

@@ -34,16 +34,18 @@ _MU_DTYPES = {None: torch.float32, "float32": torch.float32,
 
 def wd_mask(model: nn.Module) -> dict[str, bool]:
     """True where weight decay applies, decided by module: every ``Linear``
-    weight (the patch embed, the visual head and the pooler included) and the
-    three BERT embedding tables. Biases, LayerNorm gains, ``cls_token``,
-    ``pos_embed``, ``ls1``/``ls2`` and ``logit_scale`` are not decayed."""
+    weight (the patch embed, the visual head, the pooler and the MoE
+    experts included), the MoE router's and the three BERT embedding
+    tables. Biases, LayerNorm gains, ``cls_token``, ``pos_embed``,
+    ``ls1``/``ls2`` and ``logit_scale`` are not decayed."""
     from keep_tpu_torch.models.bert import Embeddings
+    from keep_tpu_torch.models.moe import Router
     from keep_tpu_torch.ops.nn import Linear
 
     decayed = set()
     for mname, m in model.named_modules():
         prefix = f"{mname}." if mname else ""
-        if isinstance(m, Linear):
+        if isinstance(m, (Linear, Router)):
             decayed.add(prefix + "weight")
         elif isinstance(m, Embeddings):
             decayed.update(prefix + n for n in ("word", "position",

@@ -1,7 +1,8 @@
 """The training step (counterpart of ``keep_tpu/train/trainer.py``).
 
 encode_image / encode_text (bf16 compute over fp32 master weights, per-block
-remat) → HyMetricLoss or CLIP loss with ``exp(logit_scale)`` → gradients →
+remat) → HyMetricLoss or CLIP loss with ``exp(logit_scale)`` (+
+``moe_aux_weight`` · the MoE trunk's load-balancing loss) → gradients →
 freeze mask → AdamW (``optim.AdamW``) → freeze mask on the updates →
 ``logit_scale`` clamped to [0, ln 100]. Gradient accumulation caches every
 microbatch's features without grad, then re-forwards each chunk with the
@@ -80,10 +81,12 @@ def to_device(batch: dict, device) -> dict:
 
 
 def _encode_batch(model: KEEPModel, batch: dict, remat: bool = True):
-    img = model.encode_image(batch["pixels"], remat=remat)
+    """(image features, text features, the MoE aux loss: 0 when dense)."""
+    img, aux = model.encode_image(batch["pixels"], remat=remat,
+                                  return_aux=True)
     txt = model.encode_text(batch["input_ids"], batch.get("attention_mask"),
                             batch.get("token_type_ids"), remat=remat)
-    return img, txt
+    return img, txt, aux
 
 
 def _loss(img, txt, batch, scale, loss_cfg: LossConfig, caption_num: int):
@@ -98,9 +101,12 @@ def _loss(img, txt, batch, scale, loss_cfg: LossConfig, caption_num: int):
 
 def compute_loss(model: KEEPModel, batch: dict, loss_cfg: LossConfig, *,
                  remat: bool = True) -> torch.Tensor:
-    img, txt = _encode_batch(model, batch, remat)
-    return _loss(img, txt, batch, torch.exp(model.logit_scale), loss_cfg,
+    img, txt, aux = _encode_batch(model, batch, remat)
+    loss = _loss(img, txt, batch, torch.exp(model.logit_scale), loss_cfg,
                  loss_cfg.caption_num)
+    if model.moe:
+        loss = loss + model.cfg.vision.moe_aux_weight * aux
+    return loss
 
 
 def _apply_freeze(tree: dict, frozen: Optional[dict]) -> dict:
@@ -199,13 +205,18 @@ def make_accum_train_step(model: KEEPModel, loss_cfg: LossConfig, tx: AdamW,
         micro = feats[0][0].shape[0]
         grads, losses = None, []
         for j, mb in enumerate(chunks):
-            img_j, txt_j = _encode_batch(model, mb, remat)
+            img_j, txt_j, aux_j = _encode_batch(model, mb, remat)
             lo, hi = j * micro, (j + 1) * micro
             img_all = torch.cat([img_cache[:lo], img_j, img_cache[hi:]])
             txt_all = torch.cat([txt_cache[:lo], txt_j, txt_cache[hi:]])
             loss = _loss(img_all, txt_all, batches,
                          torch.exp(model.logit_scale), loss_cfg,
                          accum_freq * loss_cfg.caption_num)
+            if model.moe:
+                # the chunk gradients sum: each chunk's aux at 1 / accum, so
+                # that the aux gradient is that of the chunks' mean
+                loss = loss + (model.cfg.vision.moe_aux_weight
+                               / accum_freq) * aux_j
             g = _grads(loss, state.params)
             grads = g if grads is None else {n: grads[n] + g[n] for n in g}
             losses.append(loss.detach())

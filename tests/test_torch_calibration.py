@@ -435,8 +435,179 @@ def test_calibrated_int8_features_match_jax(jparams):
 
 
 def test_quantize_refuses_moe_w8a16(jparams):
-    """Weight-only int8 MoE experts wait for the MoE trunk (item 11)."""
+    """``moe_w8a16`` on a dense trunk changes nothing, as in the JAX package
+    (its weight-only marker applies to the MoE experts alone): the same
+    int8 model as ``quantize()``, and the float model untouched."""
     m = _port(jparams)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        m.quantize(moe_w8a16=True)
+    a, b = m.quantize(moe_w8a16=True), m.quantize()
     assert not quant.is_quantized(m)
+    sa, sb = a.state_dict(), b.state_dict()
+    assert sa.keys() == sb.keys()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+
+
+# ---- the Switch-MoE trunk (tests/test_quant.py:697-880) ---------------------
+
+MOE_VISION = dict(img_size=32, patch_size=8, embed_dim=64, depth=2,
+                  num_heads=4, moe_experts=4, moe_capacity_factor=2.0,
+                  moe_dispatch="gather")
+MOE_CFG = configs.KEEPConfig(vision=configs.ViTConfig(**MOE_VISION),
+                             text=configs.BertConfig(**TEXT),
+                             projection_dim=48)
+
+
+def _moe(jparams):
+    """The port's MoE-ViT holding a JAX ``moe.init_vit`` tree (fp32)."""
+    from keep_tpu_torch.models.moe import MoEVisionTransformer
+
+    tower = MoEVisionTransformer(MOE_CFG.vision)
+    sd = from_jax_params({"visual": jax.tree.map(np.asarray, jparams)},
+                         MOE_CFG)
+    tower.load_state_dict({k[len("visual."):]: v for k, v in sd.items()})
+    return tower.eval()
+
+
+def _jmoe_outliers():
+    from tests.test_quant import _outlier_moe_params
+
+    cfg = jcfgs.ViTConfig(**MOE_VISION)
+    return cfg, _outlier_moe_params(cfg)
+
+
+def test_smooth_moe_fold_is_exact(rng):
+    """The statistics equal JAX's; smoothing alone changes neither the
+    features (the JAX test's 2e-4 / 1e-4) nor the aux loss nor a single
+    route (the router is compensated)."""
+    from keep_tpu.models import moe as jmoe
+
+    jcfg, jp = _jmoe_outliers()
+    x = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
+    _, _, jstats = jmoe.vit_forward(jp, jnp.asarray(x), jcfg, ln_stats=True)
+    tower = _moe(jp)
+    stats = quant.moe_ln_stats(tower, x)
+    for k in ("qkv", "wi"):
+        np.testing.assert_allclose(stats[k].numpy(), np.asarray(jstats[k]),
+                                   rtol=1e-5, atol=1e-5)
+    with torch.no_grad():
+        ref, aux_ref, routes = tower(_t(x), return_routes=True)
+        quant.smooth_moe(tower, stats)
+        got, aux, routes_sm = tower(_t(x), return_routes=True)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-4,
+                               rtol=1e-4)
+    assert aux.item() == pytest.approx(aux_ref.item(), rel=1e-5)
+    assert torch.equal(routes, routes_sm)
+
+
+def test_smooth_quantize_moe_codes_match_jax(rng):
+    """``smooth_quantize_moe_vit`` on the same weights and calibration batch
+    as JAX's: the stacked expert codes (per (expert, column) scales) and
+    the trunk's as ``test_smooth_quantize_vit_codes_match_jax`` holds
+    them."""
+    jcfg, jp = _jmoe_outliers()
+    calib = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
+    jq = jquant.smooth_quantize_moe_vit(jp, jnp.asarray(calib), jcfg)
+    port = quant.smooth_quantize_moe_vit(_moe(jp), calib)
+    assert port.blocks[0].moe.wi.weight_q.shape == (4, 256, 64)
+    moved, total = _codes_against_jax(port, jq, "visual", MOE_CFG)
+    print(f"MoE: {moved} of {total} int8 codes differ from JAX's by one")
+    assert moved <= CODE_SHARE * total
+
+
+def test_smooth_quantize_moe_recovers_outliers(rng):
+    """The JAX test's claim on the port: plain W8A8 over outlier channels
+    degrades below the clean model's quantization floor, the
+    router-compensated fold recovers it (same thresholds)."""
+    from keep_tpu.models import moe as jmoe
+    from tests.test_quant import _cos
+
+    jcfg, jp = _jmoe_outliers()
+    calib = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
+    x = _t(rng.standard_normal((8, 32, 32, 3)).astype(np.float32))
+
+    def feats(tower):
+        with torch.no_grad():
+            return tower(x)[0].numpy()
+
+    clean = _moe(jax.tree.map(np.asarray, jmoe.init_vit(
+        jax.random.PRNGKey(1), jcfg)))
+    ref_c = feats(clean)
+    floor = _cos(feats(quant.quantize_linear_weights(clean,
+                                                     quant.MOE_TARGETS)),
+                 ref_c)
+    ref = feats(_moe(jp))
+    naive = _cos(feats(quant.quantize_linear_weights(_moe(jp),
+                                                     quant.MOE_TARGETS)), ref)
+    smooth = _cos(feats(quant.smooth_quantize_moe_vit(_moe(jp), calib)), ref)
+    assert naive < floor - 0.01, (naive, floor)
+    assert smooth > floor - 0.005, (smooth, floor)
+
+
+def test_keep_moe_quantize_with_calibration(rng):
+    """``KEEPModel.quantize(calib_pixels=...)`` on an MoE config smooths
+    through ``smooth_moe``: the experts int8, the features at the JAX
+    test's cosine > 0.98 of the float model and at > 0.9999 of the JAX
+    package's calibrated int8 model on the same weights."""
+    jcfg = jcfgs.KEEPConfig(vision=jcfgs.ViTConfig(**MOE_VISION),
+                            text=jcfgs.BertConfig(**TEXT), projection_dim=48)
+    jp = jkeep.init(jax.random.PRNGKey(0), jcfg)
+    jm = jkeep.KEEPModel(params=jp, cfg=jcfg)
+    calib = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    x = rng.standard_normal((3, 32, 32, 3)).astype(np.float32)
+    m = KEEPModel(MOE_CFG)
+    m.load_state_dict(from_jax_params(jax.tree.map(np.asarray, jp), MOE_CFG),
+                      strict=True)
+    qm = m.quantize(calib_pixels=calib)
+    from keep_tpu_torch.models.moe import QExpertLinear
+
+    assert isinstance(qm.visual.blocks[0].moe.wi, QExpertLinear)
+    with torch.no_grad():
+        ref, got = m.encode_image(_t(x)).numpy(), qm.encode_image(
+            _t(x)).numpy()
+    assert _cos_mean(got, ref) > 0.98
+    want = np.asarray(jm.quantize(calib_pixels=jnp.asarray(calib))
+                      .encode_image(jnp.asarray(x)))
+    assert _cos_mean(got, want) > 0.9999
+
+
+def test_moe_w8a16_marker_and_oracle(rng):
+    """``weight_only`` makes the experts' ``wi`` / ``wo`` W8A16 (and only
+    they are: qkv stays W8A8), ``KEEPModel.quantize(moe_w8a16=True)``
+    gives them; the W8A16 expert linear is exactly a product against the
+    dequantized weight in bf16, as the JAX branch oracle holds, and equals
+    the JAX ``_expert_linear`` on the same codes."""
+    from keep_tpu.models.moe import _expert_linear
+    from keep_tpu_torch.models.moe import QExpertLinear
+
+    jcfg = jcfgs.KEEPConfig(vision=jcfgs.ViTConfig(**MOE_VISION),
+                            text=jcfgs.BertConfig(**TEXT), projection_dim=48)
+    m = KEEPModel(MOE_CFG)
+    m.load_state_dict(from_jax_params(jax.tree.map(
+        np.asarray, jkeep.init(jax.random.PRNGKey(1), jcfg)), MOE_CFG))
+    qm = m.quantize(moe_w8a16=True)
+    blk = qm.visual.blocks[0]
+    assert blk.moe.wi.w_only and blk.moe.wo.w_only
+    assert isinstance(blk.attn.qkv, QLinear)
+    assert not m.quantize().visual.blocks[0].moe.wi.w_only
+
+    e, d, f = 4, 64, 96
+    k = rng.standard_normal((e, d, f)).astype(np.float32) * 0.05
+    b = rng.standard_normal((e, f)).astype(np.float32) * 0.01
+    jp = {**jquant.quantize_kernel(jnp.asarray(k)), "bias": jnp.asarray(b),
+          "w_only": ()}
+    lin = QExpertLinear.from_quantized(
+        _t(np.asarray(jp["kernel_q"]).transpose(0, 2, 1)),
+        _t(np.asarray(jp["scale"])), _t(b), w_only=True)
+    x = rng.standard_normal((e, 8, d)).astype(np.float32)
+    with torch.no_grad():
+        got = lin(_t(x).bfloat16())
+    w = (lin.weight_q.bfloat16() * lin.weight_scale[:, :, None].bfloat16())
+    want = torch.matmul(_t(x).bfloat16(), w.transpose(-1, -2)) \
+        + _t(b)[:, None, :].bfloat16()
+    assert torch.equal(got, want)
+    jgot = _expert_linear(jp, jnp.asarray(x).astype(jnp.bfloat16),
+                          "ecd,edf->ecf")
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(jgot, np.float32), rtol=1e-2,
+                               atol=1e-2)

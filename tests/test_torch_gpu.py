@@ -1244,3 +1244,49 @@ def test_bert_family_text_tower_through_kernel(cuda, name):
         plain = m.encode_text(ids, normalize=True)
     assert launches == 2
     assert chip_smoke.cos_min(torch, feats, plain) >= 0.999
+
+
+def test_bert_base_flash_distance_is_the_card_models(cuda):
+    """ROADMAP queue 3's fault, the card's half (the CPU half:
+    ``tests/test_torch_attention.py -k card_body_model``): at BERT-base
+    width, 2 layers, bf16, on ``chip_smoke.bert_check_inputs``, #1 sits
+    from the plain route where the model of its order of sums predicts
+    (5.5e-6 / 5.7e-6 on the CPU): within the same decade, 5e-7 … 5e-5, for
+    the pooler and the unpadded hidden rows; and on one BERT-base slab the
+    kernel is within 0.01 of that model (one bf16 step of the output)."""
+    import sys
+    from pathlib import Path
+
+    import chip_smoke
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from card_attention_model import card_body_attention
+
+    out = chip_smoke.check_bert_flash_bf16(torch)
+    for key in ("pooler_1_minus_cos", "hidden_1_minus_cos"):
+        assert 5e-7 <= out[key] <= 5e-5, (key, out[key])
+    b, s, h = 8, 128, 12
+    qkv = torch.randn(b, s, 3 * h * 64, generator=cuda,
+                      device="cuda").bfloat16()
+    lens = torch.randint(s // 4, s + 1, (b,), generator=cuda, device="cuda")
+    valid = torch.arange(s, device="cuda")[None] < lens[:, None]
+    kb = (~valid).float() * -1e9
+    got = fa.attention_qkv_slab(qkv, kb, num_heads=h).float()
+    model = card_body_attention(qkv, kb, num_heads=h).float()
+    assert (got - model)[valid].abs().max().item() < 0.01
+
+
+@pytest.mark.parametrize("rows", [40, 5])
+def test_int8_expert_product_is_exact_on_the_card(cuda, rows):
+    """The MoE experts' W8A8 product on the card (``torch._int_mm`` per
+    expert, rows padded past its minimum) equals the exact float64 route
+    of the CPU bit for bit, at the ViT-L expert widths."""
+    from keep_tpu_torch.models.moe import int8_expert_product
+
+    xq = torch.randint(-127, 128, (3, 8, rows, 1024), generator=cuda,
+                       device="cuda").to(torch.int8)
+    wq = torch.randint(-127, 128, (8, 4096, 1024), generator=cuda,
+                       device="cuda").to(torch.int8)
+    got = int8_expert_product(xq, wq)
+    assert got.dtype == torch.int32 and got.shape == (3, 8, rows, 4096)
+    assert torch.equal(got.cpu(), int8_expert_product(xq.cpu(), wq.cpu()))

@@ -15,7 +15,9 @@ SOURCES = sorted((REPO / "keep_tpu_torch").rglob("*.py")) + [
     REPO / "scripts" / "torch_dispatch_profile.py",
     REPO / "scripts" / "torch_screening_bench.py",
     REPO / "scripts" / "torch_calibration_sweep.py",
-    REPO / "scripts" / "torch_attention_shapes_bench.py"]
+    REPO / "scripts" / "torch_attention_shapes_bench.py",
+    REPO / "scripts" / "torch_attention_divide.py",
+    REPO / "tests" / "card_attention_model.py"]
 
 
 def test_imports_leave_jax_unloaded():
@@ -44,8 +46,9 @@ def test_imports_leave_jax_unloaded():
         "keep_tpu_torch.models.text_transformer, keep_tpu_torch.text.bpe, "
         "keep_tpu_torch.zeroshot.openclip, "
         "keep_tpu_torch.zeroshot.imagenet_metadata\n"
-        "from keep_tpu_torch.models import (convnext, eva, hf_text, kep, "
-        "poolers, resnet, swin, t5, vit_relpos)\n"
+        "from keep_tpu_torch.models import (coca, convnext, eva, hf_text, "
+        "kep, moe, pmc_clip, poolers, resnet, swin, t5, vit_relpos)\n"
+        "import scripts.torch_attention_divide\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'keep_tpu'))\n"
         "assert not bad, bad\n"

@@ -1,8 +1,9 @@
 """The port's OpenCLIP presets and model factory against the JAX package
-(CPU): the 62 names; the 58 presets the port builds (every tower kind but
-CoCa's) resolved field for field as there, with the same tokenizer kind
-(or the same refusal, for the HF text towers), the 4 CoCa presets refused
-naming ROADMAP item 11; one shrunk preset per tower kind (at its own head
+(CPU): the 62 names; the 58 presets of every tower kind but CoCa's
+resolved field for field as there, with the same tokenizer kind (or the
+same refusal, for the HF text towers); the 4 CoCa presets, which raised
+until ``models.coca`` was ported, built and encoding (their parity:
+``tests/test_torch_coca.py``); one shrunk preset per tower kind (at its own head
 width) held to JAX's ``encode_image`` / ``encode_text`` / ``forward`` at
 its component's tolerance, weights carried by ``from_jax_clip_params``
 (the ViT family) or ``from_jax_preset_params`` (every kind); and twins of
@@ -71,10 +72,32 @@ def test_built_presets_resolve_like_jax(name):
 
 @pytest.mark.parametrize("name", REFUSED)
 def test_other_presets_raise_naming_item_11(name):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        presets.resolve(name)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        factory.create_model(name, device="cpu")
+    """The four CoCa presets, which raised naming ROADMAP item 11 until
+    ``models.coca`` was ported, now resolve to the ``coca`` family and
+    build and encode (shrunk to one block a stack; the published widths on
+    the card, ``chip_smoke.py`` phase ``coca``; the JAX parity in
+    ``tests/test_torch_coca.py``)."""
+    from keep_tpu_torch.models.coca import CoCa
+
+    r = presets.resolve(name)
+    assert r.family == "coca"
+    c = r.text_cfg
+    small = dataclasses.replace(
+        c, vision=dataclasses.replace(c.vision, img_size=64, depth=1),
+        text_layers=1, decoder_layers=1, n_queries=4, vocab_size=64,
+        hf_text=None if c.hf_text is None else dataclasses.replace(
+            c.hf_text, trunk=dataclasses.replace(
+                c.hf_text.trunk, num_hidden_layers=1, vocab_size=64)))
+    m = presets.build_preset(dataclasses.replace(r, text_cfg=small),
+                             device="cpu")
+    assert isinstance(m, CoCa)
+    px = torch.zeros(1, 64 // c.vision.patch_size * c.vision.patch_size,
+                     64 // c.vision.patch_size * c.vision.patch_size, 3)
+    with torch.no_grad():
+        img = m.encode_image(px, normalize=True)
+        txt = m.encode_text(torch.full((1, 8), 5), normalize=True)
+    assert img.shape == txt.shape == (1, r.embed_dim)
+    assert torch.isfinite(img).all() and torch.isfinite(txt).all()
 
 
 def _shrink(r, img_patches=4, embed=32):
@@ -228,9 +251,21 @@ def test_error_legs(tmp_path):
         factory.create_model("ViT-B-32", embed_dim=99, device="cpu")
     with pytest.raises(FileNotFoundError, match="no weights file"):
         factory.create_model("keep", pretrained=str(tmp_path), device="cpu")
-    for name in ("coca", "pmc-clip"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            factory.create_model(name, device="cpu")
+    # the coca and pmc-clip entries build
+    coca_m = factory.create_model("coca", device="cpu", text_layers=1,
+                                  decoder_layers=1, vision=configs.ViTConfig(
+                                      img_size=32, patch_size=16,
+                                      embed_dim=64, depth=1, num_heads=1,
+                                      layerscale_init=None, ln_eps=1e-5,
+                                      pool="none"))
+    assert coca_m.family == "coca" and len(coca_m.decoder.self_blocks) == 1
+    pmc = factory.create_model("pmc-clip", device="cpu", fusion_layers=1)
+    assert pmc.family == "pmc_clip" and len(pmc.fusion) == 1
+    with torch.no_grad():
+        assert coca_m.encode_image(torch.zeros(1, 32, 32, 3)).shape == (1,
+                                                                         512)
+        out = pmc(torch.zeros(1, 224, 224, 3), torch.full((1, 8), 2))
+    assert out["text_features"].shape == (1, 768)
     for ref in ("keep-vit-l16", "https://example.invalid/keep.bin"):
         with pytest.raises(NotImplementedError, match="item 11"):
             factory.create_model("keep", pretrained=ref, device="cpu")

@@ -576,13 +576,23 @@ def test_config_matches_jax_loader(tmp_path):
     ("dataset", "tokenizer_type", "clip"),
 ])
 def test_refused_options_raise(run_dirs, tmp_path, section, key, value):
+    """What the port does not train yet raises, naming its ROADMAP item,
+    before any output. An MoE trunk trains (``test_moe_train_step_matches_
+    jax``); what stays refused for it is a dense pretrained image tower,
+    as in the JAX package (keep_tpu/train/main.py:150-154)."""
     raw = _run_config(run_dirs, tmp_path)
     node = raw
     for part in section.split("."):
         node = node.setdefault(part, {})
     node[key] = value
-    with pytest.raises(NotImplementedError, match="not ported yet.*ROADMAP"):
-        tmain.train(TrainRunConfig.from_dict(raw))
+    if key == "moe_experts":
+        raw["model"]["pretrained_image"] = str(tmp_path / "vit.bin")
+        with pytest.raises(ValueError, match="cannot initialize an MoE"):
+            tmain.train(TrainRunConfig.from_dict(raw))
+    else:
+        with pytest.raises(NotImplementedError,
+                           match="not ported yet.*ROADMAP"):
+            tmain.train(TrainRunConfig.from_dict(raw))
     assert not (tmp_path / "exp").exists()  # refused before any output
 
 
@@ -687,3 +697,80 @@ def test_keep_init_statistics():
         pytest.approx(0.02, rel=0.1)
     assert float(blk.mlp.fc1.weight.detach().std()) == pytest.approx(
         32 ** -0.5, rel=0.1)
+
+
+# ---- the Switch-MoE trunk ----------------------------------------------------
+
+MOE_VISION = dict(VISION, moe_experts=2, moe_capacity_factor=1.25)
+JCFG_MOE = jcfgs.KEEPConfig(vision=jcfgs.ViTConfig(**MOE_VISION),
+                            text=jcfgs.BertConfig(**TEXT), projection_dim=32,
+                            max_text_length=16)
+CFG_MOE = configs.KEEPConfig(vision=configs.ViTConfig(**MOE_VISION),
+                             text=configs.BertConfig(**TEXT),
+                             projection_dim=32, max_text_length=16)
+
+
+def test_moe_train_step_matches_jax(rng):
+    """One step of the MoE KEEP (2 experts, top-1, capacity factor 1.25)
+    in fp32: the aux loss of the forward, the loss with
+    ``moe_aux_weight · aux`` added, the gradient norm and every updated
+    parameter (router and experts included) against the JAX trainer's."""
+    jp = jkeep.init(jax.random.PRNGKey(1), JCFG_MOE)
+    jp = jax.tree.map(np.asarray, jp)
+    batch = _batch(rng)
+    loss_kw = dict(kind="hierarchy_metric", caption_num=4,
+                   loss_subtype="lhp-hn")
+    _, jaux = jkeep.encode_image(jax.tree.map(jnp.asarray, jp),
+                                 jnp.asarray(batch["pixels"]), JCFG_MOE,
+                                 return_aux=True)
+    jtx = joptim.adamw(1e-3, weight_decay=0.2, grad_clip_norm=1.0)
+    jstate = jtrainer.tree_state(jax.tree.map(jnp.asarray, jp), jtx)
+    jstep = jtrainer.make_train_step(JCFG_MOE, jtrainer.LossConfig(**loss_kw),
+                                     jtx, dtype=jnp.float32, use_flash=True,
+                                     donate=False)
+    jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+
+    model = KEEPModel(CFG_MOE, dtype=torch.float32,
+                      weight_dtype=torch.float32, use_flash=True,
+                      gelu_approx=False)
+    model.load_state_dict(from_jax_params(jp, CFG_MOE), strict=True)
+    with torch.no_grad():
+        _, aux = model.encode_image(torch.from_numpy(batch["pixels"]),
+                                    return_aux=True)
+    assert aux.item() == pytest.approx(float(jaux), rel=1e-6)
+    tx = optim.AdamW(lambda s: 1e-3, decay_mask=optim.wd_mask(model),
+                     weight_decay=0.2, grad_clip_norm=1.0)
+    assert optim.wd_mask(model)["visual.blocks.0.moe.router.weight"]
+    state = trainer.tree_state(model, tx)
+    step = trainer.make_train_step(model, trainer.LossConfig(**loss_kw), tx)
+    state, m = step(state, trainer.to_device(batch, "cpu"))
+    assert float(m["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
+    assert float(m["grad_norm"]) == pytest.approx(float(jm["grad_norm"]),
+                                                  rel=1e-4)
+    want = from_jax_params(_jax_state_params(jstate), CFG_MOE)
+    # 5e-6 (0.5% of the learning rate) where the dense step holds 1e-6:
+    # the one-hot dispatch einsums sum the gradients in another order, and
+    # Adam's first step, lr·g / (|g| + ε), carries a tiny gradient's
+    # relative difference into the update whole
+    for n, p in model.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), want[n].numpy(), atol=5e-6,
+                                   err_msg=n)
+
+
+def test_moe_train_matches_jax(run_dirs, tmp_path, tmp_path_factory):
+    """``train.main.train`` with ``keep.vision.moe_experts = 2`` against
+    ``keep_tpu.train.main.train`` from the same initial weights: one epoch,
+    both towers unfrozen, the same loss within rtol 1e-5."""
+    d = tmp_path_factory.mktemp("jax_moe_run")
+    raw = _run_config(run_dirs, d, epochs=1, freeze_visual_epochs=0)
+    raw["keep"]["vision"] = MOE_VISION
+    jcfg = JRunConfig.from_dict(raw)
+    jmain.train(jcfg)
+    init = from_jax_params(jax.tree.map(
+        np.asarray, jmain.build_params(jcfg, jcfg.seed)), CFG_MOE)
+    raw = _run_config(run_dirs, tmp_path, epochs=1, freeze_visual_epochs=0)
+    raw["keep"]["vision"] = MOE_VISION
+    tmain.train(TrainRunConfig.from_dict(raw), params=init, device="cpu")
+    got, want = _losses(tmp_path), _losses(d)
+    assert len(got) == len(want) == 1
+    np.testing.assert_allclose(got, want, rtol=1e-5)

@@ -256,7 +256,8 @@ def test_keep_tower_at_larger_images(rng):
 
 
 def test_refusals():
-    """act_sharding and the MoE trunk raise, naming their ROADMAP items;
+    """act_sharding raises, naming its ROADMAP item; the dense trunk
+    refuses an MoE config (``models.moe.MoEVisionTransformer`` builds it);
     a size off the patch grid and register tokens raise as in JAX."""
     m = vit.VisionTransformer(configs.ViTConfig(**SMALL))
     x = torch.zeros(1, 32, 32, 3)
@@ -264,7 +265,9 @@ def test_refusals():
         m(x, act_sharding=object())
     with pytest.raises(ValueError, match="multiple of patch_size"):
         m(torch.zeros(1, 30, 32, 3))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # the MoE trunk is its own class: the dense
+    # class refuses to stand in for it
+    with pytest.raises(ValueError, match="MoEVisionTransformer"):
         vit.VisionTransformer(configs.ViTConfig(**SMALL, moe_experts=4))
     with pytest.raises(ValueError, match="register tokens"):
         vit.VisionTransformer(configs.ViTConfig(
