@@ -285,6 +285,30 @@ After phase 14, the model families ported last:
     training steps through ``train.main`` at ``keep_train.yml``'s values,
     batch 128: losses finite, #1 24 and #1b 12 launches a step, the router
     and experts moved, ms a step and peak memory.
+20. compat — phase 4's random draw written back in the released layout
+    (``compat.export.save_pretrained``) as the ``keep`` entry of a
+    temporary ``KEEP_TPU_HOME`` and loaded by name
+    (``factory.create_model("keep", pretrained="keep")``, bf16, the fused
+    attention): features equal to the source model's bit for bit, 24 + 12
+    #1 launches; then calibrated (32 tiles, 64 prompts), written as the
+    int8 deploy artifact (``save_quantized``) and served by ``serve --int8``
+    over HTTP, which prints that it serves the artifact as it is: features
+    equal to the in-memory int8 model's through the same server core, #4
+    24 / #5 12 / #6 24 + 12 / #8 1 / #9 2 launches a dispatch pair; the
+    artifact's bytes against the fp32 ``pytorch_model.bin``.
+21. aot — the bf16 model (weights as inputs) and the int8 model (weights
+    baked) exported by ``compat.aot.save_aot`` at buckets (1, 8, 32), then
+    loaded and run in a fresh process (``chip_smoke.py --aot-child``) at
+    batches 5 (padded to 8) and 32: per-row cosine ≥ 0.99999 against the
+    eager model with max |Δ| reported, the same launches as eager counted
+    in that process, export and load seconds, ms a call against eager.
+22. fast_tokenizer — ``factory.get_tokenizer("bert", ...)`` takes the
+    native WordPiece (built from ``native/wordpiece.cpp`` and ``bpe.cpp``
+    alone): ids equal to the Python tokenizer's on phase 11's prompts, both
+    timed, and phase 11's flat classifier build timed with each.
+23. profiling — ``utils.profiling.trace`` around one bf16 image dispatch:
+    the Chrome trace names the ``keep::attention_qkv_slab`` operator and
+    its kernel.
 
 Then one JSON line describing the kernels (each TPU kernel's counterpart:
 its launches on the path that runs it, its time, its plain version's, its
@@ -304,6 +328,7 @@ import io
 import json
 import os
 import statistics
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -5013,9 +5038,377 @@ def drive_moe_train(torch, fa, d: str, cfg, batch: int, steps: int,
             "peak_memory_gb": peak / 1e9, "wall_s": wall_s}
 
 
+# ---- 20. compat: released layout → registry → pretrained=; int8 artifact --
+
+
+def served_http(port: int, cfg) -> dict:
+    """The server phases' texts and tiles through the HTTP front end."""
+    tiles, _ = smoke_images(cfg)
+    txt = np.asarray(json.loads(http(port, "/encode_text", json.dumps(
+        {"texts": PROMPTS}).encode()))["embeddings"], np.float32)
+    buf = io.BytesIO()
+    np.save(buf, tiles)
+    img = np.load(io.BytesIO(http(port, "/encode_image_npy", buf.getvalue(),
+                                  "application/octet-stream")))
+    return {"text": txt, "image": img}
+
+
+def drive_compat(torch, fa, serve, src: str, home: str,
+                 device: str = "cuda") -> dict:
+    """Phase 20 (``compat``): the model in ``src`` (the released layout)
+    written back with ``compat.export.save_pretrained`` into a temporary
+    ``KEEP_TPU_HOME`` as the registry's ``keep`` entry and loaded by name
+    (``factory.create_model("keep", pretrained="keep")``, bf16, the fused
+    attention on): its features equal the source model's bit for bit, with
+    #1's launches counted. Then calibrated (``CALIB_TILES`` tiles,
+    ``CALIB_PROMPTS`` prompts), written as the int8 deploy artifact
+    (``save_quantized``) and served by ``serve --int8`` over HTTP, which
+    must print that it serves the artifact as it is: the served features
+    equal the in-memory int8 model's through the same server core, with
+    #4–#9 launched. Returns the phase's numbers and the two models."""
+    from keep_tpu_torch import factory
+    from keep_tpu_torch.compat import export, registry
+    from keep_tpu_torch.models.keep import KEEPModel
+
+    os.environ["KEEP_TPU_HOME"] = home
+    target = os.path.join(home, "KEEP")
+    src_model = KEEPModel.from_pretrained(src, dtype=torch.bfloat16,
+                                          use_flash=True, device=device)
+    t0 = time.perf_counter()
+    export.save_pretrained(target, src_model)
+    shutil.copy(os.path.join(src, "vocab.txt"), target)
+    save_s = time.perf_counter() - t0
+    if registry.resolve("keep") != target:
+        raise AssertionError(f"registry: keep → {registry.resolve('keep')}")
+    t0 = time.perf_counter()
+    model = factory.create_model("keep", pretrained="keep",
+                                 dtype=torch.bfloat16, device=device)
+    load_s = time.perf_counter() - t0
+    model.use_flash = True
+    x = aot_inputs(torch, model.cfg, n=32, device=device)
+    with torch.no_grad():
+        want = (src_model.encode_image(x["pixels"]),
+                src_model.encode_text(x["ids"], x["mask"]))
+        (got_i, launches_i, _, _), (got_t, launches_t, _, _) = (
+            counted(torch, fa, device, lambda: model.encode_image(
+                x["pixels"])),
+            counted(torch, fa, device, lambda: model.encode_text(
+                x["ids"], x["mask"])))
+    if not (torch.equal(got_i, want[0]) and torch.equal(got_t, want[1])):
+        raise AssertionError("the registry-loaded model's features differ "
+                             "from its source's")
+    cfg = model.cfg
+    if device == "cuda" and (launches_i, launches_t) != (
+            cfg.vision.depth, cfg.text.num_hidden_layers):
+        raise AssertionError(f"#1 launches {launches_i} / {launches_t}")
+    del src_model
+
+    # calibrate once offline, write the artifact, serve it as it is
+    rng = np.random.default_rng(20)
+    calib = aot_inputs(torch, cfg, n=max(CALIB_TILES, CALIB_PROMPTS),
+                       seed=21, device=device)
+    t0 = time.perf_counter()
+    model8 = model.quantize(calib_pixels=calib["pixels"][:CALIB_TILES],
+                            calib_text=(calib["ids"][:CALIB_PROMPTS],
+                                        calib["mask"][:CALIB_PROMPTS]))
+    calib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    export.save_quantized(target, model8)
+    save8_s = time.perf_counter() - t0
+    art = os.path.join(target, export.QUANTIZED_SUBDIR, export.QUANTIZED_FILE)
+    sizes = {"artifact_bytes": os.path.getsize(art),
+             "fp32_bin_bytes": os.path.getsize(
+                 os.path.join(target, "pytorch_model.bin"))}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        core, httpd = serve.build_server(["--model-dir", target, "--port",
+                                          "0", "--device", device, "--int8"])
+    setup_s = time.perf_counter() - t0
+    if "serving it as-is" not in out.getvalue():
+        raise AssertionError(f"serve --int8 over the artifact said: "
+                             f"{out.getvalue()!r}")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        if any(not torch.equal(core.model.state_dict()[k], v)
+               for k, v in model8.state_dict().items()):
+            raise AssertionError("the served artifact differs from the "
+                                 "quantized model")
+        stats0 = core.stats()
+        reset_launches(fa)
+        # ---- the main path, through the HTTP front end -------------------
+        served = served_http(httpd.server_address[1], cfg)
+        _sync(torch, device)
+        attention, int8 = read_launches(fa)
+        # ------------------------------------------------------------------
+        stats = core.stats()
+        ref_core = serve.InferenceServer(model8, core.tokenizer,
+                                         max_length=core.max_length,
+                                         image_size=core.image_size)
+        try:
+            tiles, _ = smoke_images(cfg)
+            ref = {"text": ref_core.encode_text(PROMPTS),
+                   "image": ref_core.encode_image(tiles)}
+        finally:
+            ref_core.stop()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        core.stop()
+    for k in ("text", "image"):
+        if not np.array_equal(served[k], ref[k]):
+            raise AssertionError(f"served {k} features differ from the "
+                                 f"in-memory int8 model's: max |Δ| "
+                                 f"{np.abs(served[k] - ref[k]).max()}")
+    img_disp = stats["image"]["dispatches"] - stats0["image"]["dispatches"]
+    txt_disp = stats["text"]["dispatches"] - stats0["text"]["dispatches"]
+    want8 = {"quantized_attention_block": img_disp * cfg.vision.depth,
+             "quantized_attention_block_postln":
+                 txt_disp * cfg.text.num_hidden_layers,
+             "quantized_mlp_bsd": img_disp * cfg.vision.depth
+             + txt_disp * cfg.text.num_hidden_layers,
+             "quantized_matmul_bsd": img_disp,
+             "quantized_matmul": 2 * img_disp}
+    if device == "cuda" and any(int8.get(k) != v for k, v in want8.items()):
+        raise AssertionError(f"artifact path launches {int8}, want {want8}")
+    result = {"save_pretrained_s": save_s, "registry_load_s": load_s,
+              "attention_launches": {"image": launches_i,
+                                     "text": launches_t},
+              "registry_equal_to_source": True, "calibration_s": calib_s,
+              "save_quantized_s": save8_s, "serve_setup_s": setup_s,
+              **sizes, "artifact_over_fp32_bin":
+                  sizes["artifact_bytes"] / sizes["fp32_bin_bytes"],
+              "image_dispatches": img_disp, "text_dispatches": txt_disp,
+              "artifact_launches": {"attention": attention, **int8},
+              "served_equal_to_in_memory": True}
+    phase("compat", **result)
+    return result, model, model8
+
+
+# ---- 21. aot: torch.export bundles through the keep:: operators ----------
+
+AOT_BUCKETS = (1, 8, 32)
+AOT_BATCHES = (5, 32)  # 5 pads to bucket 8
+AOT_COS = 0.99999
+
+
+def aot_inputs(torch, cfg, n: int = max(AOT_BATCHES), seed: int = 0,
+               device: str = "cuda") -> dict:
+    """Normalised pixels and padded token ids for the aot phase: a seeded
+    draw of ``n`` rows, rows past their length masked."""
+    rng = np.random.default_rng(seed)
+    size, seq = cfg.vision.img_size, cfg.max_text_length
+    pixels = rng.standard_normal((n, size, size, 3), dtype=np.float32)
+    ids = rng.integers(5, cfg.text.vocab_size, (n, seq))
+    lens = rng.integers(4, seq + 1, n)
+    mask = (np.arange(seq)[None] < lens[:, None]).astype(np.int64)
+    ids = ids * mask
+    return {"pixels": torch.from_numpy(pixels).to(device),
+            "ids": torch.from_numpy(ids).to(device),
+            "mask": torch.from_numpy(mask).to(device)}
+
+
+def aot_encode(torch, encode_image, encode_text, x: dict) -> dict:
+    """Features at each of ``AOT_BATCHES``' batch sizes, with the launches
+    of each call (#1 and the int8 counts, set to 0 just before and read
+    just after), then the ms of a batch-32 call of each tower."""
+    from keep_tpu_torch.kernels import _kops
+    from keep_tpu_torch.kernels import flash_attention as fa
+
+    out = {}
+    for b in AOT_BATCHES:
+        for tower, fn, args in (
+                ("image", encode_image, (x["pixels"][:b],)),
+                ("text", encode_text, (x["ids"][:b], x["mask"][:b]))):
+            reset_launches(fa)
+            feats = fn(*args)
+            torch.cuda.synchronize()
+            out[f"{tower}_{b}"] = {"features": feats.float().cpu(),
+                                   "attention": fa.LAUNCHES,
+                                   "int8": dict(_kops.LAUNCHES)}
+    b = max(AOT_BATCHES)
+    out["ms"] = {
+        "image": cuda_ms(lambda: encode_image(x["pixels"][:b]), runs=10),
+        "text": cuda_ms(lambda: encode_text(x["ids"][:b], x["mask"][:b]),
+                        runs=10)}
+    return out
+
+
+def aot_child(io_path: str) -> None:
+    """The aot phase's fresh process: loads each bundle the parent wrote
+    (nothing traced), encodes the parent's inputs with it and writes the
+    features, launches and times."""
+    import torch
+
+    from keep_tpu_torch.compat import aot
+
+    io_ = torch.load(io_path, map_location="cuda")
+    out = {}
+    for tag, job in io_["jobs"].items():
+        t0 = time.perf_counter()
+        m = aot.load_aot(job["bundle"])
+        load_s = time.perf_counter() - t0
+        lead = () if job["params"] is None else (job["params"],)
+        out[tag] = aot_encode(torch, lambda px: m.encode_image(*lead, px),
+                              lambda i, k: m.encode_text(*lead, i, k),
+                              io_["x"])
+        out[tag]["load_s"] = load_s
+        del m
+    torch.save(out, io_["out"])
+
+
+def drive_aot(torch, fa, models: dict, d: str) -> dict:
+    """Phase 21 (``aot``): each model of ``models`` ({tag: (KEEPModel,
+    bake_params)}, one config) exported through ``compat.aot.save_aot`` at
+    buckets ``AOT_BUCKETS`` (``use_flash`` on, as served), then loaded and
+    run in one fresh process (``python chip_smoke.py --aot-child``) at
+    batches 5 and 32, held row by row to the eager model on the same inputs
+    (cosine ≥ ``AOT_COS``; max |Δ| reported), with the kernels' launches
+    counted in that process: the exported graph must launch what the eager
+    forward launches."""
+    from keep_tpu_torch.compat import aot
+
+    x = aot_inputs(torch, next(iter(models.values()))[0].cfg)
+    jobs, eager, rows = {}, {}, {}
+    for tag, (model, bake) in models.items():
+        bundle = os.path.join(d, tag)
+        t0 = time.perf_counter()
+        aot.save_aot(bundle, model, use_flash=True, batch_sizes=AOT_BUCKETS,
+                     bake_params=bake)
+        rows[tag] = {"bake_params": bake,
+                     "export_s": time.perf_counter() - t0,
+                     "bundle_bytes": sum(
+                         os.path.getsize(os.path.join(bundle, f))
+                         for f in os.listdir(bundle))}
+        with torch.no_grad():
+            eager[tag] = aot_encode(torch, model.encode_image,
+                                    model.encode_text, x)
+        jobs[tag] = {"bundle": bundle,
+                     "params": None if bake else aot._state(model)}
+    io_path, out_path = os.path.join(d, "io.pt"), os.path.join(d, "out.pt")
+    torch.save({"x": x, "out": out_path, "jobs": jobs}, io_path)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--aot-child",
+                    io_path], check=True, timeout=600,
+                   cwd=os.path.dirname(os.path.abspath(__file__)))
+    child_s = time.perf_counter() - t0
+    loaded = torch.load(out_path)
+    for tag, row in rows.items():
+        got, want = loaded[tag], eager[tag]
+        row.update(load_s=got["load_s"], ms=got["ms"], eager_ms=want["ms"],
+                   batches={})
+        for key in (k for k in want if k != "ms"):
+            a, e = got[key], want[key]
+            fa_, fe = a["features"].numpy(), e["features"].numpy()
+            cos = cosine_rows(fa_, fe)
+            if fa_.shape != fe.shape or not (cos >= AOT_COS).all():
+                raise AssertionError(f"aot {tag} {key}: cosine {cos}")
+            if (a["attention"], a["int8"]) != (e["attention"], e["int8"]):
+                raise AssertionError(
+                    f"aot {tag} {key}: launches {a['attention']}, "
+                    f"{a['int8']} against eager {e['attention']}, "
+                    f"{e['int8']}")
+            if a["attention"] == 0:
+                raise AssertionError(f"aot {tag} {key}: no #1 launch")
+            row["batches"][key] = {
+                "min_row_cos": float(cos.min()),
+                "max_abs_diff": float(np.abs(fa_ - fe).max()),
+                "attention_launches": a["attention"],
+                "int8_launches": a["int8"]}
+        phase("aot", model=tag, **row)
+    phase("aot_time", child_s=child_s)
+    return rows
+
+
+# ---- 22.–23. fast_tokenizer and profiling ---------------------------------
+
+
+def drive_fast_tokenizer(torch, model, d: str, device: str = "cuda") -> dict:
+    """Phase 22 (``fast_tokenizer``): ``factory.get_tokenizer("bert", ...)``
+    gives the native WordPiece (``native/wordpiece.cpp`` built alone), whose
+    ids and masks over phase 11's ``WSI_PROMPTS`` prompts equal the Python
+    tokenizer's; both timed, and phase 11's flat classifier build timed
+    with each (the same stack from both)."""
+    from keep_tpu_torch.factory import get_tokenizer
+    from keep_tpu_torch.io import _native
+    from keep_tpu_torch.text.fast_tokenizer import FastWordPieceTokenizer
+    from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from keep_tpu_torch.wsi import run as wsi_run
+    from keep_tpu_torch.zeroshot import build_classifiers_batched
+
+    t0 = time.perf_counter()
+    fast = get_tokenizer("bert", d)
+    build_s = time.perf_counter() - t0
+    if not isinstance(fast, FastWordPieceTokenizer):
+        raise AssertionError(f"get_tokenizer gave {type(fast).__name__}")
+    py = WordPieceTokenizer.from_pretrained(d)
+    prompts = wsi_prompts(WSI_PROMPTS)
+    texts = [t for p in prompts.values() for t in p["classnames"].values()]
+    ms = {}
+    for tag, tok in (("native", fast), ("python", py)):
+        enc, ms[tag] = synced_ms(torch, lambda: tok(texts, max_length=256),
+                                 "cpu")
+        ms[tag] = min(ms[tag], synced_ms(
+            torch, lambda: tok(texts, max_length=256), "cpu")[1])
+        if tag == "native":
+            ids = enc
+    if not all(np.array_equal(np.asarray(ids[k]), np.asarray(enc[k]))
+               for k in ("input_ids", "attention_mask")):
+        raise AssertionError("native and Python token ids differ")
+    enc_fn = wsi_run._encoder(model, torch.device(device))
+    stacks, build = {}, {}
+    for tag, tok in (("native", fast), ("python", py)):
+        stacks[tag], build[tag] = synced_ms(torch, lambda: torch.as_tensor(
+            build_classifiers_batched(
+                enc_fn, tok, prompts, {"Normal": 0, "Tumor": 1},
+                max_length=256, batch_size=256, length_buckets=None,
+                device=device)).float().cpu().numpy(), device)
+    if not np.array_equal(stacks["native"], stacks["python"]):
+        raise AssertionError("the classifier differs between tokenizers")
+    result = {"library": os.path.basename(_native.tokenizer_library_path()),
+              "first_use_s": build_s, "texts": len(texts),
+              "ids_equal": True, "tokenize_ms": ms,
+              "classifier_build_s": {k: v / 1e3 for k, v in build.items()},
+              "classifier_equal": True}
+    phase("fast_tokenizer", **result)
+    return result
+
+
+def drive_profiling(torch, model, d: str, device: str = "cuda") -> dict:
+    """Phase 23 (``profiling``): ``utils.profiling.trace`` around one bf16
+    image dispatch: the Chrome trace names the ``keep::attention_qkv_slab``
+    operator and the kernel its C entry point ``keep_attention`` launches
+    (``slab_attention_tc_kernel``), with the device time by kernel."""
+    from keep_tpu_torch.utils import profiling
+
+    x = aot_inputs(torch, model.cfg, n=32, device=device)
+    with torch.no_grad():
+        model.encode_image(x["pixels"])
+        with profiling.trace(d) as prof:
+            model.encode_image(x["pixels"])
+    path = os.path.join(d, profiling.TRACE_FILE)
+    names = {e.get("name", "") for e in json.load(open(path))["traceEvents"]}
+    want = ("keep::attention_qkv_slab", "slab_attention_tc_kernel")
+    found = {w: sum(w in n for n in names) > 0 for w in want}
+    if not all(found.values()):
+        raise AssertionError(f"trace names {found}")
+    by_kernel = kernel_ms(torch, prof)
+    result = {"trace_bytes": os.path.getsize(path), "names": found,
+              "attention_device_ms": sum(
+                  v for k, v in by_kernel.items() if "slab_attention" in k),
+              "device_ms": sum(by_kernel.values())}
+    phase("profiling", **result)
+    return result
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--aot-child":
+        aot_child(sys.argv[2])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
@@ -5137,11 +5530,35 @@ def main() -> int:
         moe_out = drive_moe(torch, fa, serve, d_moe)
     torch.cuda.empty_cache()
 
+    # 20.–23. the released layout back through the registry, the int8
+    # deploy artifact served as it is, AOT bundles in a fresh process, the
+    # native tokenizer and a profiler trace
+    saved_home = os.environ.get("KEEP_TPU_HOME")
+    with tempfile.TemporaryDirectory() as d_src, \
+            tempfile.TemporaryDirectory() as home, \
+            tempfile.TemporaryDirectory() as d_aot:
+        try:
+            write_model(d_src, torch, cfg)
+            compat, model, model8 = drive_compat(torch, fa, serve, d_src,
+                                                 home)
+        finally:
+            if saved_home is None:
+                os.environ.pop("KEEP_TPU_HOME", None)
+            else:
+                os.environ["KEEP_TPU_HOME"] = saved_home
+        aot_out = drive_aot(torch, fa, {"bf16": (model, False),
+                                        "int8": (model8, True)}, d_aot)
+        fast_tok = drive_fast_tokenizer(torch, model, d_src)
+        profiled = drive_profiling(torch, model, os.path.join(d_aot, "trace"))
+        del model, model8
+    torch.cuda.empty_cache()
+
     print(json.dumps({"kernels": kernel_line(
         rows, bwd_rows, heads_rows, heads_launches, int8_rows, ln_rows,
         fused, served, served8, trained, f32_rows, wsi, lora_trained,
         lora_served, calibrated, pyramid, zoo_rows, zoo_heads_rows, zoo,
-        long_seq, towers, coca_out, pmc, moe_out)}), flush=True)
+        long_seq, towers, coca_out, pmc, moe_out, compat, aot_out)}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -5152,7 +5569,8 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                 ln_rows, fused, served, served8, trained,
                 f32_rows, wsi, lora_trained, lora_served, calibrated,
                 pyramid, zoo_rows, zoo_heads_rows, zoo,
-                long_seq, towers, coca_out, pmc, moe_out) -> list[dict]:
+                long_seq, towers, coca_out, pmc, moe_out, compat,
+                aot_out) -> list[dict]:
     """One entry per TPU kernel: its launches on the main path that runs it,
     and, at ViT-L B=32 in bf16 (the int8 kernels: the first shape of their
     phase), its time, its plain version's, its bound and the one PyTorch
@@ -5170,7 +5588,10 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
     CoCa ViT-L/14 batch, a coca_roberta and a PMC-CLIP text encode and its
     row at S = 257, #1b's on the CoCa loss backward, and the int8 kernels'
     launches on an MoE KEEP image and text dispatch with #8's rows at the
-    MoE trunk's qkv and proj shapes."""
+    MoE trunk's qkv and proj shapes. Phases 20–21 add the launches on the
+    registry-loaded model and the served int8 artifact
+    (``launches_artifact_path``) and those the exported graphs made in
+    their own process (``launches_aot_path``, a batch of 32 a tower)."""
     def pick(rs, shape="vit_l16"):
         return next(r for r in rs if r["shape"] == shape and r["B"] == 32
                     and r["dtype"] == "bfloat16")
@@ -5219,6 +5640,12 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                 coca_out["roberta"]["attention_launches"]},
         launches_pmc_clip_text=pmc["attention_launches"],
         launches_moe_text_train=moe_out["train"]["fwd_launches"],
+        launches_registry_path=compat["attention_launches"],
+        launches_artifact_path=compat["artifact_launches"]["attention"],
+        launches_aot_path={
+            tag: {t: r["batches"][f"{t}_32"]["attention_launches"]
+                  for t in ("image", "text")}
+            for tag, r in aot_out.items()},
         shapes=rows, zoo_shapes=zoo_rows, coca_shape=coca_out["slab"])]
     vit_bwd = pick(bwd_rows)
     kernels.append(entry(
@@ -5282,6 +5709,11 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
         kernels[-1]["launches_moe_int8_path"] = {
             "image": moe_out["serve"]["image_launches"].get(kname, 0),
             "text": moe_out["serve"]["text_launches"].get(kname, 0)}
+        kernels[-1]["launches_artifact_path"] = (
+            compat["artifact_launches"].get(kname, 0))
+        kernels[-1]["launches_aot_path"] = {
+            t: aot_out["int8"]["batches"][f"{t}_32"]["int8_launches"].get(
+                kname, 0) for t in ("image", "text")}
         if kname == "quantized_matmul_bsd":
             kernels[-1]["moe_shapes"] = moe_out["qmatmul_rows"]
         if kname in tower_of:

@@ -542,6 +542,13 @@ def load_state_dict_file(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def load_keep_checkpoint(path: str, cfg: KEEPConfig) -> dict:
+    """A released KEEP weights file (``.bin`` / ``.pt`` / ``.safetensors``)
+    → ``KEEPModel`` state dict (the JAX package's ``load_keep_checkpoint``
+    gives its pytree)."""
+    return load_keep_state_dict(load_state_dict_file(path), cfg)
+
+
 def released_keep_shapes(cfg: KEEPConfig) -> dict[str, tuple]:
     """Every key of a released KEEP state dict with its shape."""
     v, t = cfg.vision, cfg.text

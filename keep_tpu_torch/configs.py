@@ -99,7 +99,11 @@ class KEEPConfig:
     @classmethod
     def from_hf_json(cls, path: str) -> "KEEPConfig":
         with open(path) as f:
-            d = json.load(f)
+            return cls.from_hf_dict(json.load(f))
+
+    @classmethod
+    def from_hf_dict(cls, d: dict) -> "KEEPConfig":
+        """The config of a released ``config.json``'s contents."""
         # the released config carries no usable vision_config (the model is
         # hard-coded timm ViT-L/16); exported configs carry ViTConfig fields
         vision = ViTConfig()

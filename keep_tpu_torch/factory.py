@@ -7,11 +7,10 @@ alone; ``coca``; ``pmc-clip``) or, for any other name, an OpenCLIP preset (``pre
 whose ``encode_image`` / ``encode_text`` / ``forward`` are the surface of
 the JAX package's ``ModelSpec`` closures and which carries ``family`` and
 ``config``. Weights are drawn on ``device`` (default: the card) from a
-generator seeded with ``seed``, or loaded from a local released
-checkpoint (``pretrained=``, ``keep`` only).
-
-Not ported yet, and raising with ROADMAP queue 1, item 11: ``pretrained=``
-as a registry name or URL (``compat/registry.py``, ``compat/hub.py``).
+generator seeded with ``seed``, or loaded from a released checkpoint
+(``pretrained=``, ``keep`` only: a local path, a name of the local registry
+``compat.registry`` or a URL, through ``registry.fetch``). ``get_tokenizer``
+takes the native C++ tokenizers when they build.
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ from torch import nn
 
 from keep_tpu_torch import presets
 from keep_tpu_torch.configs import KEEPConfig, ViTConfig
-from keep_tpu_torch.presets import ITEM_11, card_device
+from keep_tpu_torch.presets import card_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,13 +59,14 @@ def create_model(name: str, seed: int = 0, dtype: torch.dtype | None = None,
     card; raises without one unless ``device="cpu"``). ``overrides``
     replace top-level config fields of a registry entry.
 
-    ``pretrained`` (``keep`` only): a local released checkpoint, a
-    directory (``config.json``, which ``overrides`` then amend, and
-    ``pytorch_model.bin`` or ``model.safetensors``) or a weights file read
-    with the default config. A registry name or URL raises (ROADMAP queue
-    1, item 11). Names outside the registry resolve through the OpenCLIP
-    preset inventory (``presets.create_preset``), which takes no
-    overrides."""
+    ``pretrained`` (``keep`` only): a released checkpoint, as the JAX
+    package's factory takes it (``compat.registry.fetch``): a local path, a
+    name of the local registry (``$KEEP_TPU_HOME``) or a URL (fetched into
+    the cache and sha-checked). A directory brings ``config.json``, which
+    ``overrides`` then amend, and ``pytorch_model.bin`` or
+    ``model.safetensors``; a weights file is read with the default config.
+    Names outside the registry resolve through the OpenCLIP preset
+    inventory (``presets.create_preset``), which takes no overrides."""
     if pretrained is not None and name != "keep":
         raise NotImplementedError(
             "pretrained= loading is wired for the released 'keep' model; "
@@ -95,15 +95,12 @@ def create_model(name: str, seed: int = 0, dtype: torch.dtype | None = None,
 
 def _load_keep(path: str, cfg: KEEPConfig, overrides: dict,
                dtype: torch.dtype, device: torch.device) -> nn.Module:
+    from keep_tpu_torch.compat.registry import fetch
     from keep_tpu_torch.compat.torch_loader import (load_keep_state_dict,
                                                     load_state_dict_file)
     from keep_tpu_torch.models.keep import KEEPModel
 
-    if not os.path.exists(path):
-        raise NotImplementedError(
-            f"pretrained={path!r} is not a local file or directory; "
-            f"registry names and URLs (keep_tpu/compat/registry.py, "
-            f"hub.py) are not ported yet ({ITEM_11})")
+    path = fetch(path)
     weights = path
     if os.path.isdir(path):
         cfg_json = os.path.join(path, "config.json")
@@ -198,17 +195,36 @@ def _pmc() -> ModelSpec:
 
 
 def get_tokenizer(kind: str, path: str, **kw):
-    """'bert' → WordPiece (a ``vocab.txt`` or a model directory), 'clip' →
-    byte-level BPE (a merges file); both pure Python (the JAX package's
-    native fast path, ``text/fast_tokenizer.py``, is not ported)."""
+    """Tokenizer factory (the JAX package's ``factory.get_tokenizer``):
+    'bert' → WordPiece (a ``vocab.txt`` or a model directory), 'clip' →
+    byte-level BPE (a merges file). The native C++ tokenizers
+    (``text.fast_tokenizer``) are taken when their library builds; only a
+    build-environment failure (no compiler, a library that does not load)
+    gives the pure-Python tokenizer, and a bad vocabulary or keyword
+    raises."""
+    import os
+
     if kind == "bert":
-        from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
+        try:
+            from keep_tpu_torch.text.fast_tokenizer import (
+                FastWordPieceTokenizer)
 
-        if path.endswith(".txt"):
-            return WordPieceTokenizer(path, **kw)
-        return WordPieceTokenizer.from_pretrained(path, **kw)
+            vocab = (path if path.endswith(".txt")
+                     else os.path.join(path, "vocab.txt"))
+            return FastWordPieceTokenizer(vocab, **kw)
+        except (ImportError, OSError, RuntimeError):
+            from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
+
+            if path.endswith(".txt"):
+                return WordPieceTokenizer(path, **kw)
+            return WordPieceTokenizer.from_pretrained(path, **kw)
     if kind == "clip":
-        from keep_tpu_torch.text.bpe import BPETokenizer
+        try:
+            from keep_tpu_torch.text.fast_tokenizer import FastBPETokenizer
 
-        return BPETokenizer(path, **kw)
+            return FastBPETokenizer(path, **kw)
+        except (ImportError, OSError, RuntimeError):
+            from keep_tpu_torch.text.bpe import BPETokenizer
+
+            return BPETokenizer(path, **kw)
     raise ValueError(f"unknown tokenizer kind {kind!r} (want 'bert' or 'clip')")

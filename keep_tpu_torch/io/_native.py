@@ -1,16 +1,20 @@
-"""Builds the repo's native C++ library (``native/*.cpp``: the libtiff
-pyramid reader, the JPEG / PNG decoder and the tokenizers) at first use
-(counterpart of ``keep_tpu.text.fast_tokenizer.build_native``).
+"""Builds the repo's native C++ libraries (``native/*.cpp``) at first use
+(counterpart of ``keep_tpu.text.fast_tokenizer.build_native``):
+
+- ``build_native``: every source (the libtiff pyramid reader, the JPEG /
+  PNG decoder and the tokenizers), linked with ``-ljpeg -lpng -ltiff``;
+- ``build_tokenizers``: ``wordpiece.cpp`` and ``bpe.cpp`` alone, with no
+  library, so that the fast tokenizers build where the image libraries'
+  headers are missing.
 
 The sources are compiled with ``native/Makefile``'s flags
-(``-O3 -std=c++17 -fPIC -Wall``, linked with ``-ljpeg -lpng -ltiff``) into
-``keep_tpu_torch/io/build/`` (ignored by git), under a name that carries a
-hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one loaded as it is. Nothing is written under ``native/``. The
-library is built under a temporary name and renamed into place, so that a
-concurrent process never loads a half-written one. A failed build raises
-with the compiler's output, which names the header or library that is
-missing.
+(``-O3 -std=c++17 -fPIC -Wall``) into ``keep_tpu_torch/io/build/`` (ignored
+by git), under a name that carries a hash of the sources and flags, so an
+edited source is rebuilt and an unchanged one loaded as it is. Nothing is
+written under ``native/``. A library is built under a temporary name and
+renamed into place, so that a concurrent process never loads a
+half-written one. A failed build raises with the compiler's output, which
+names the header or library that is missing.
 """
 
 from __future__ import annotations
@@ -31,22 +35,35 @@ LIBS = ("-ljpeg", "-lpng", "-ltiff")
 _lock = threading.Lock()
 
 
+TOKENIZER_SOURCES = ("wordpiece.cpp", "bpe.cpp")
+
+
 def _sources() -> list[Path]:
     return sorted(NATIVE_DIR.glob("*.cpp"))
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXXFLAGS + LIBS).encode())
-    for src in _sources():
+def _library_path(stem: str, sources: list[Path], libs: tuple) -> Path:
+    h = hashlib.sha256(" ".join(CXXFLAGS + libs).encode())
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libkeep_native_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build_native() -> str:
-    """The library's path, compiled first if its sources changed."""
+def library_path() -> Path:
+    return _library_path("libkeep_native", _sources(), LIBS)
+
+
+def tokenizer_library_path() -> Path:
+    return _library_path("libkeep_tokenizers", _tokenizer_sources(), ())
+
+
+def _tokenizer_sources() -> list[Path]:
+    return [NATIVE_DIR / name for name in TOKENIZER_SOURCES]
+
+
+def _build(target: Path, sources: list[Path], libs: tuple) -> str:
     with _lock:
-        target = library_path()
         if target.exists():
             return str(target)
         cxx = os.environ.get("CXX") or shutil.which("g++") or "c++"
@@ -54,7 +71,7 @@ def build_native() -> str:
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
             tmp = Path(work, target.name)
             cmd = [cxx, *CXXFLAGS, "-shared", "-o", str(tmp),
-                   *map(str, _sources()), *LIBS]
+                   *map(str, sources), *libs]
             try:
                 p = subprocess.run(cmd, capture_output=True, text=True)
             except OSError as e:
@@ -66,3 +83,14 @@ def build_native() -> str:
                     f"{' '.join(cmd)}\n{p.stderr}")
             os.replace(tmp, target)
         return str(target)
+
+
+def build_native() -> str:
+    """The whole library's path, compiled first if its sources changed."""
+    return _build(library_path(), _sources(), LIBS)
+
+
+def build_tokenizers() -> str:
+    """The tokenizer-only library's path, compiled first if its sources
+    changed."""
+    return _build(tokenizer_library_path(), _tokenizer_sources(), ())

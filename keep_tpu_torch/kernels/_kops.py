@@ -17,15 +17,19 @@ MXU dots. On Hopper they are three kernels (``csrc/quant_rows.cu``,
   tanh-GELU and optional residual.
 - ``ln_rows``: fp32 row LayerNorm, cast once to the output dtype.
 
-Each wrapper launches its kernel for a CUDA tensor and raises on what the
-kernel does not take; for a CPU tensor it runs its plain version
-(``*_reference``), which the tests and ``chip_smoke.py`` also hold the
-kernel against. There is no fallback from one to the other.
+Each wrapper calls its ``keep::`` operator (``_library``): on a CUDA
+tensor the operator launches the kernel and raises on what the kernel does
+not take; on a CPU tensor it runs the plain version (``*_reference``),
+which the tests and ``chip_smoke.py`` also hold the kernel against. There
+is no fallback from one to the other. The wrappers check shapes only, so
+that a traced program (``compat.aot``) records the operators.
 
 ``LAUNCHES`` counts kernel launches by name in this process, for these
 three kernels and for the int8 counterparts of the TPU kernels built from
-them (``qmatmul``, ``qmlp``, ``qblock``); a run clears it to check that its
-main path went through them.
+them (``qmatmul``, ``qmlp``, ``qblock``: counted by the operator that
+launches their last kernel, its ``block`` argument, so that an exported
+graph counts them too); a run clears it to check that its main path went
+through them.
 """
 
 from __future__ import annotations
@@ -36,8 +40,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from keep_tpu_torch.kernels._library import define
 from keep_tpu_torch.kernels.flash_attention import (
-    attention_qkv_slab, attention_qkv_slab_reference)
+    _check_device, attention_qkv_slab, attention_qkv_slab_reference)
 
 MAX_ROW = 4096  # quant_rows / ln_rows keep a whole row in a block's registers
 
@@ -68,8 +73,8 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 
 def ln_rows_reference(xf: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-                      eps: float, out_dtype: torch.dtype = torch.float32
-                      ) -> torch.Tensor:
+                      eps: float, out_dtype: torch.dtype = torch.float32,
+                      block: str | None = None) -> torch.Tensor:
     """Row LayerNorm of fp32 [M, D]: the mean, then the mean of (x − mean)²,
     then ``(x − mean)·(1/sqrt(var + eps))·g + b``, cast once to
     ``out_dtype``. The two means are summed in fp64 and rounded once to
@@ -118,10 +123,11 @@ def int8_gemm_reference(xq: torch.Tensor, a_scale: torch.Tensor,
                         wq: torch.Tensor, w_scale: torch.Tensor,
                         bias: torch.Tensor, *, order: int, gelu: bool = False,
                         residual: torch.Tensor | None = None,
-                        out_dtype: torch.dtype = torch.float32
-                        ) -> torch.Tensor:
+                        out_dtype: torch.dtype = torch.float32,
+                        block: str | None = None) -> torch.Tensor:
     """The kernel's math: exact int32 dot, dequant in ``order``, + bias,
-    optional tanh-GELU, optional ``residual + ·`` in fp32, one cast."""
+    optional tanh-GELU, optional ``residual + ·`` in fp32, one cast.
+    ``block`` is the wrapper's launch count's, and changes nothing here."""
     acc = int8_dot(xq, wq).float()
     a, s = a_scale.float()[:, None], w_scale.float()[None, :]
     v = acc * a * s if order == DEQUANT_LEFT else acc * (a * s)
@@ -134,15 +140,6 @@ def int8_gemm_reference(xq: torch.Tensor, a_scale: torch.Tensor,
 
 
 # ---- the kernels' wrappers ---------------------------------------------------
-
-
-def _device_path(x: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises for others."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel for device {x.device}")
 
 
 def _check_contiguous(name: str, t: torch.Tensor, align: int = 1) -> None:
@@ -188,21 +185,8 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
 
-def quant_rows(x: torch.Tensor, ln_scale: torch.Tensor | None = None,
-               ln_bias: torch.Tensor | None = None, eps: float = 1e-6,
-               pre_scale: torch.Tensor | None = None
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [M, K] (bf16 or fp32) → (int8 codes [M, K], fp32 scales [M]), with
-    an optional row LayerNorm (``ln_scale``/``ln_bias`` [K], ``eps``) and
-    per-channel ``pre_scale`` [K] in front. A CUDA tensor goes through the
-    kernel (contiguous and 16-byte aligned, K a multiple of 16 and at most
-    4096); a CPU tensor through the plain version."""
-    if x.dim() != 2:
-        raise ValueError(f"quant_rows takes [M, K], got {tuple(x.shape)}")
-    if (ln_scale is None) != (ln_bias is None):
-        raise ValueError("ln_scale and ln_bias go together")
-    if not _device_path(x):
-        return quant_rows_reference(x, ln_scale, ln_bias, eps, pre_scale)
+def _quant_rows_cuda(x, ln_scale, ln_bias, eps, pre_scale):
+    """``keep::quant_rows`` on the card: the launch, counted."""
     m, k = x.shape
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {x.dtype}")
@@ -225,30 +209,39 @@ def quant_rows(x: torch.Tensor, ln_scale: torch.Tensor | None = None,
     return q, scale
 
 
-def int8_gemm(xq: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
-              w_scale: torch.Tensor, bias: torch.Tensor, *, order: int,
-              gelu: bool = False, residual: torch.Tensor | None = None,
-              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """int8 xq [M, K] (row scales ``a_scale`` [M]) × int8 wq [N, K] (column
-    scales ``w_scale`` [N]) → [M, N] ``out_dtype``: dequant in ``order``
-    (``DEQUANT_LEFT`` or ``DEQUANT_PAIRED``), + ``bias`` [N], optional
-    tanh-GELU, optional ``residual`` [M, N] added in fp32. A CUDA tensor goes
-    through the kernel (contiguous 16-byte aligned operands and residual, K
-    a multiple of 16, N of 8); a CPU tensor through the plain version."""
-    if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[1]:
-        raise ValueError(f"int8_gemm takes [M, K] × [N, K], got "
-                         f"{tuple(xq.shape)} × {tuple(wq.shape)}")
-    if order not in (DEQUANT_LEFT, DEQUANT_PAIRED):
-        raise ValueError(f"unknown dequant order {order}")
+define("quant_rows(Tensor x, Tensor? ln_scale, Tensor? ln_bias, float eps, "
+       "Tensor? pre_scale) -> (Tensor, Tensor)", _quant_rows_cuda,
+       lambda *a: quant_rows_reference(*a),
+       lambda x, ln_scale, ln_bias, eps, pre_scale: (
+           x.new_empty(x.shape, dtype=torch.int8),
+           x.new_empty(x.shape[:1], dtype=torch.float32)))
+
+
+def quant_rows(x: torch.Tensor, ln_scale: torch.Tensor | None = None,
+               ln_bias: torch.Tensor | None = None, eps: float = 1e-6,
+               pre_scale: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [M, K] (bf16 or fp32) → (int8 codes [M, K], fp32 scales [M]), with
+    an optional row LayerNorm (``ln_scale``/``ln_bias`` [K], ``eps``) and
+    per-channel ``pre_scale`` [K] in front; ``keep::quant_rows``. A CUDA
+    tensor goes through the kernel (contiguous and 16-byte aligned, K a
+    multiple of 16 and at most 4096); a CPU tensor through the plain
+    version."""
+    if x.dim() != 2:
+        raise ValueError(f"quant_rows takes [M, K], got {tuple(x.shape)}")
+    if (ln_scale is None) != (ln_bias is None):
+        raise ValueError("ln_scale and ln_bias go together")
+    _check_device(x)
+    return torch.ops.keep.quant_rows(x, ln_scale, ln_bias, eps, pre_scale)
+
+
+def _int8_gemm_cuda(xq, a_scale, wq, w_scale, bias, order, gelu, residual,
+                    out_dtype, block=None):
+    """``keep::int8_gemm`` on the card: the launch, counted, and counted
+    for ``block`` too when it closes one of the int8 TPU kernels'
+    counterparts."""
     m, k = xq.shape
     n = wq.shape[0]
-    if residual is not None and tuple(residual.shape) != (m, n):
-        raise ValueError(f"residual must be [{m}, {n}], got "
-                         f"{tuple(residual.shape)}")
-    if not _device_path(xq):
-        return int8_gemm_reference(xq, a_scale, wq, w_scale, bias, order=order,
-                                   gelu=gelu, residual=residual,
-                                   out_dtype=out_dtype)
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise TypeError(f"the kernel takes int8 operands, got {xq.dtype} and "
                         f"{wq.dtype}")
@@ -285,19 +278,59 @@ def int8_gemm(xq: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
         res_code, out.data_ptr(), _DTYPE_CODE[out_dtype], m, n, k, order,
         int(gelu), _stream(xq)), "int8_gemm")
     count("int8_gemm")
+    if block:
+        count(block)
     return out
 
 
-def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float,
-            out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """fp32 x [M, D] → LayerNorm (``g``/``b`` [D]) → ``out_dtype``. A CUDA
-    tensor goes through the kernel (contiguous and 16-byte aligned, D a
-    multiple of 16 and at most 4096); a CPU tensor through the plain
-    version."""
-    if x.dim() != 2:
-        raise ValueError(f"ln_rows takes [M, D], got {tuple(x.shape)}")
-    if not _device_path(x):
-        return ln_rows_reference(x, g, b, eps, out_dtype)
+def _int8_gemm_cpu(xq, a_scale, wq, w_scale, bias, order, gelu, residual,
+                   out_dtype, block=None):
+    return int8_gemm_reference(xq, a_scale, wq, w_scale, bias, order=order,
+                               gelu=gelu, residual=residual,
+                               out_dtype=out_dtype)
+
+
+define("int8_gemm(Tensor xq, Tensor a_scale, Tensor wq, Tensor w_scale, "
+       "Tensor bias, int order, bool gelu, Tensor? residual, "
+       "ScalarType out_dtype, str? block=None) -> Tensor", _int8_gemm_cuda,
+       _int8_gemm_cpu,
+       lambda xq, a_scale, wq, w_scale, bias, order, gelu, residual,
+       out_dtype, block=None: xq.new_empty((xq.shape[0], wq.shape[0]),
+                                           dtype=out_dtype))
+
+
+def int8_gemm(xq: torch.Tensor, a_scale: torch.Tensor, wq: torch.Tensor,
+              w_scale: torch.Tensor, bias: torch.Tensor, *, order: int,
+              gelu: bool = False, residual: torch.Tensor | None = None,
+              out_dtype: torch.dtype = torch.float32,
+              block: str | None = None) -> torch.Tensor:
+    """int8 xq [M, K] (row scales ``a_scale`` [M]) × int8 wq [N, K] (column
+    scales ``w_scale`` [N]) → [M, N] ``out_dtype``: dequant in ``order``
+    (``DEQUANT_LEFT`` or ``DEQUANT_PAIRED``), + ``bias`` [N], optional
+    tanh-GELU, optional ``residual`` [M, N] added in fp32;
+    ``keep::int8_gemm``. A CUDA tensor goes through the kernel (contiguous
+    16-byte aligned operands and residual, K a multiple of 16, N of 8); a
+    CPU tensor through the plain version. ``block`` names the int8 TPU
+    kernel's counterpart whose last launch this is (``LAUNCHES`` counts it
+    there)."""
+    if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[1]:
+        raise ValueError(f"int8_gemm takes [M, K] × [N, K], got "
+                         f"{tuple(xq.shape)} × {tuple(wq.shape)}")
+    if order not in (DEQUANT_LEFT, DEQUANT_PAIRED):
+        raise ValueError(f"unknown dequant order {order}")
+    m = xq.shape[0]
+    n = wq.shape[0]
+    if residual is not None and tuple(residual.shape) != (m, n):
+        raise ValueError(f"residual must be [{m}, {n}], got "
+                         f"{tuple(residual.shape)}")
+    _check_device(xq)
+    return torch.ops.keep.int8_gemm(xq, a_scale, wq, w_scale, bias, order,
+                                    gelu, residual, out_dtype, block)
+
+
+def _ln_rows_cuda(x, g, b, eps, out_dtype, block=None):
+    """``keep::ln_rows`` on the card: the launch, counted (and for
+    ``block``, as ``int8_gemm``)."""
     m, d = x.shape
     if x.dtype != torch.float32:
         raise TypeError(f"the kernel takes float32 rows, got {x.dtype}")
@@ -316,7 +349,30 @@ def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float,
         x.data_ptr(), gg.data_ptr(), bb.data_ptr(), eps, out.data_ptr(),
         _DTYPE_CODE[out_dtype], m, d, _stream(x)), "ln_rows")
     count("ln_rows")
+    if block:
+        count(block)
     return out
+
+
+define("ln_rows(Tensor x, Tensor g, Tensor b, float eps, "
+       "ScalarType out_dtype, str? block=None) -> Tensor", _ln_rows_cuda,
+       lambda x, g, b, eps, out_dtype, block=None: ln_rows_reference(
+           x, g, b, eps, out_dtype),
+       lambda x, g, b, eps, out_dtype, block=None: x.new_empty(
+           x.shape, dtype=out_dtype))
+
+
+def ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float,
+            out_dtype: torch.dtype = torch.float32,
+            block: str | None = None) -> torch.Tensor:
+    """fp32 x [M, D] → LayerNorm (``g``/``b`` [D]) → ``out_dtype``;
+    ``keep::ln_rows``. A CUDA tensor goes through the kernel (contiguous
+    and 16-byte aligned, D a multiple of 16 and at most 4096); a CPU tensor
+    through the plain version. ``block`` as in ``int8_gemm``."""
+    if x.dim() != 2:
+        raise ValueError(f"ln_rows takes [M, D], got {tuple(x.shape)}")
+    _check_device(x)
+    return torch.ops.keep.ln_rows(x, g, b, eps, out_dtype, block)
 
 
 class Ops(NamedTuple):
@@ -336,6 +392,8 @@ PLAIN = Ops(quant_rows_reference, int8_gemm_reference, ln_rows_reference,
 
 
 def ops_for(x: torch.Tensor) -> Ops:
-    """The steps for ``x``'s device: the kernels on a CUDA tensor, the plain
-    versions on a CPU tensor; raises on any other device."""
-    return KERNELS if _device_path(x) else PLAIN
+    """The steps the int8 counterparts run: ``KERNELS``, whose operators
+    launch the kernels on a CUDA tensor and run the plain versions on a CPU
+    tensor; raises on any other device."""
+    _check_device(x)
+    return KERNELS

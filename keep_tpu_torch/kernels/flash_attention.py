@@ -15,11 +15,15 @@ cores, and the bf16 → fp32 form below on its own tensor-core body
 the scores in registers). For a CPU tensor they run
 the ``*_reference`` versions, the same math in plain PyTorch, which the
 tests and ``chip_smoke.py`` also hold the kernels against. There is no
-fallback from one to the other.
+fallback from one to the other. The choice is the dispatcher's: the C
+entry point ``keep_attention`` is two ``keep::`` operators
+(``attention_qkv_slab`` on the slab, ``attention_qkv_heads`` on [B, H, S,
+Dh] views, each with its launch count), and ``keep_attention_qkv_slab_bwd``
+a third (``_library``).
 
-``attention_qkv_slab`` is differentiable with respect to the slab: under
-autograd it goes through ``SlabAttention``, whose backward is
-``attention_qkv_slab_bwd``. No gradient flows to the key bias (a mask).
+``attention_qkv_slab`` is differentiable with respect to the slab: the
+operator's autograd formula is ``attention_qkv_slab_bwd``. No gradient
+flows to the key bias (a mask).
 
 ``out_dtype=torch.float32`` on a bf16 slab gives the fp32 sum uncast: the
 attention inside the int8 megakernels (``keep_tpu/kernels/qblock.py``
@@ -40,6 +44,7 @@ import threading
 
 import torch
 
+from keep_tpu_torch.kernels._library import LIB, define
 from keep_tpu_torch.ops.nn import mha_attention
 
 # What each CUDA body takes; the wrappers raise on anything else. The
@@ -83,6 +88,14 @@ def _split(qkv: torch.Tensor, num_heads: int):
     dh = _head_dim(qkv, num_heads)
     q, k, v = qkv.reshape(b, s, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
     return q, k, v, dh
+
+
+def _check_device(x: torch.Tensor) -> None:
+    """The operators have a CUDA and a CPU implementation; any other device
+    raises (a traced program's fake tensors carry the device they stand
+    for)."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for device {x.device}")
 
 
 def _check_kernel_slab(qkv: torch.Tensor) -> None:
@@ -154,14 +167,13 @@ def _launch_forward(name: str, q: int, k: int, v: int,
     return out
 
 
-def _forward(qkv: torch.Tensor, key_bias: torch.Tensor | None, num_heads: int,
-             out_dtype: torch.dtype) -> torch.Tensor:
+def _slab_cuda(qkv: torch.Tensor, key_bias: torch.Tensor | None,
+               num_heads: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """``keep::attention_qkv_slab`` on the card: the launch, counted in
+    ``LAUNCHES``."""
     global LAUNCHES
     b, s, three_hd = qkv.shape
     dh = _head_dim(qkv, num_heads)
-    if qkv.device.type == "cpu":
-        return attention_qkv_slab_reference(qkv, key_bias, num_heads=num_heads,
-                                            out_dtype=out_dtype)
     _check_kernel_slab(qkv)
     # q, k and v are the slab's thirds: head h of each at lanes h·Dh
     d, ptr, size = three_hd // 3, qkv.data_ptr(), qkv.element_size()
@@ -174,56 +186,78 @@ def _forward(qkv: torch.Tensor, key_bias: torch.Tensor | None, num_heads: int,
     return out
 
 
-class SlabAttention(torch.autograd.Function):
-    """``attention_qkv_slab`` under autograd, the counterpart of the JAX
-    package's ``_slab_attn_vjp``: the forward kernel, then the closed-form
-    backward from the saved slab and fp32 key bias. The bias gets no
-    gradient."""
+def _slab_cpu(qkv, key_bias, num_heads, out_dtype):
+    return attention_qkv_slab_reference(qkv, key_bias, num_heads=num_heads,
+                                        out_dtype=out_dtype)
 
-    @staticmethod
-    def forward(ctx, qkv, key_bias, num_heads):
-        ctx.num_heads = num_heads
-        ctx.save_for_backward(qkv, key_bias)
-        return _forward(qkv, key_bias, num_heads, qkv.dtype)
 
-    @staticmethod
-    def backward(ctx, dout):
-        qkv, key_bias = ctx.saved_tensors
-        dqkv = attention_qkv_slab_bwd(qkv, key_bias, dout.contiguous(),
-                                      ctx.num_heads)
-        return dqkv, None, None
+def _slab_fake(qkv, key_bias, num_heads, out_dtype):
+    b, s, _ = qkv.shape
+    return qkv.new_empty((b, s, num_heads * _head_dim(qkv, num_heads)),
+                         dtype=out_dtype)
+
+
+define("attention_qkv_slab(Tensor qkv, Tensor? key_bias, int num_heads, "
+       "ScalarType out_dtype) -> Tensor", _slab_cuda, _slab_cpu, _slab_fake)
+
+
+def _slab_setup(ctx, inputs, output) -> None:
+    qkv, key_bias, num_heads, out_dtype = inputs
+    if out_dtype != qkv.dtype:
+        raise NotImplementedError(
+            "the fp32-output form of attention_qkv_slab (a bf16 slab with "
+            "out_dtype=float32, the int8 blocks' attention) is inference-"
+            "only; run it under torch.no_grad() / torch.inference_mode()")
+    ctx.num_heads = num_heads
+    ctx.save_for_backward(qkv, key_bias)
+
+
+def _slab_backward(ctx, dout):
+    """The counterpart of the JAX package's ``_slab_attn_vjp``: the
+    closed-form backward from the saved slab and fp32 key bias. The bias
+    gets no gradient."""
+    qkv, key_bias = ctx.saved_tensors
+    if key_bias is None:
+        b, s, _ = qkv.shape
+        key_bias = torch.zeros(b, s, dtype=torch.float32, device=qkv.device)
+    dqkv = torch.ops.keep.attention_qkv_slab_bwd(
+        qkv, key_bias, dout.contiguous(), ctx.num_heads)
+    return dqkv, None, None, None
+
+
+torch.library.register_autograd("keep::attention_qkv_slab", _slab_backward,
+                                setup_context=_slab_setup, lib=LIB)
 
 
 def attention_qkv_slab(qkv: torch.Tensor, key_bias: torch.Tensor | None = None,
                        *, num_heads: int,
                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """qkv [B, S, 3·H·Dh], the unsplit qkv-projection output, → [B, S, H·Dh]
-    in ``out_dtype`` (default: qkv's dtype).
+    in ``out_dtype`` (default: qkv's dtype); ``keep::attention_qkv_slab``.
 
     ``key_bias``: optional [B, S] additive mask on key positions (0 valid,
     −1e9 masked), taken in fp32. A CUDA tensor goes through the kernel,
     which takes a contiguous slab, fp32 → fp32 or bf16 → bf16 at every Dh
     in ``HEAD_DIMS`` and any S, bf16 → fp32 at Dh = 64 and S ≤ 512, and
     raises on anything else; a CPU tensor goes through the plain version.
-    When the slab requires grad, the call is differentiable
-    (``SlabAttention``; a ``None`` bias becomes zeros, as in the JAX
-    package), except for the fp32-output form, which raises."""
+    When the slab requires grad, the call is differentiable (the operator's
+    backward is ``attention_qkv_slab_bwd``; a ``None`` bias becomes zeros,
+    as in the JAX package), except for the fp32-output form, which
+    raises."""
     b, s, _ = qkv.shape
     _head_dim(qkv, num_heads)
     if key_bias is not None and tuple(key_bias.shape) != (b, s):
         raise ValueError(f"key_bias must be [B, S] = {(b, s)}, got "
                          f"{tuple(key_bias.shape)}")
+    _check_device(qkv)
     out_dtype = qkv.dtype if out_dtype is None else out_dtype
-    if not (qkv.requires_grad and torch.is_grad_enabled()):
-        return _forward(qkv, key_bias, num_heads, out_dtype)
-    if out_dtype != qkv.dtype:
-        raise NotImplementedError(
-            "the fp32-output form of attention_qkv_slab (a bf16 slab with "
-            "out_dtype=float32, the int8 blocks' attention) is inference-"
-            "only; run it under torch.no_grad() / torch.inference_mode()")
-    if key_bias is None:
-        key_bias = torch.zeros(b, s, dtype=torch.float32, device=qkv.device)
-    return SlabAttention.apply(qkv, key_bias.detach().float(), num_heads)
+    if qkv.requires_grad and torch.is_grad_enabled():
+        if key_bias is None:
+            key_bias = torch.zeros(b, s, dtype=torch.float32,
+                                   device=qkv.device)
+        key_bias = key_bias.detach().float()
+    return torch.ops.keep.attention_qkv_slab(qkv, key_bias, num_heads,
+                                             out_dtype)
 
 
 def attention_qkv_slab_bwd_reference(qkv: torch.Tensor,
@@ -252,26 +286,13 @@ def attention_qkv_slab_bwd_reference(qkv: torch.Tensor,
     return dqkv.permute(1, 3, 0, 2, 4).reshape(b, s, three_hd).to(qkv.dtype)
 
 
-def attention_qkv_slab_bwd(qkv: torch.Tensor, key_bias: torch.Tensor,
-                           dout: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """The gradient of ``attention_qkv_slab`` with respect to the slab:
-    qkv [B, S, 3·H·Dh], fp32 key bias [B, S], dout [B, S, H·Dh] →
-    dqkv [B, S, 3·H·Dh] in the slab's dtype. A CUDA tensor goes through the
-    backward kernel, which takes fp32 or bf16 (dout in the slab's dtype),
-    Dh = 64, S ≤ 512 (the KEEP towers' training shapes) and contiguous
-    tensors, and raises on anything else; a CPU tensor goes through the
-    plain version."""
+def _bwd_cuda(qkv: torch.Tensor, key_bias: torch.Tensor, dout: torch.Tensor,
+              num_heads: int) -> torch.Tensor:
+    """``keep::attention_qkv_slab_bwd`` on the card: the launch, counted in
+    ``BWD_LAUNCHES``."""
     global BWD_LAUNCHES
     b, s, _ = qkv.shape
     dh = _head_dim(qkv, num_heads)
-    if tuple(key_bias.shape) != (b, s):
-        raise ValueError(f"key_bias must be [B, S] = {(b, s)}, got "
-                         f"{tuple(key_bias.shape)}")
-    if tuple(dout.shape) != (b, s, num_heads * dh):
-        raise ValueError(f"dout must be [B, S, H·Dh] = "
-                         f"{(b, s, num_heads * dh)}, got {tuple(dout.shape)}")
-    if qkv.device.type == "cpu":
-        return attention_qkv_slab_bwd_reference(qkv, key_bias, dout, num_heads)
     _check_kernel_slab(qkv)
     _check_shape(dh, s, "the backward kernel")
     if qkv.dtype not in _IO_DTYPE_CODE or dout.dtype != qkv.dtype:
@@ -299,6 +320,37 @@ def attention_qkv_slab_bwd(qkv: torch.Tensor, key_bias: torch.Tensor,
     with _launch_lock:
         BWD_LAUNCHES += 1
     return dqkv
+
+
+def _bwd_cpu(qkv, key_bias, dout, num_heads):
+    return attention_qkv_slab_bwd_reference(qkv, key_bias, dout, num_heads)
+
+
+define("attention_qkv_slab_bwd(Tensor qkv, Tensor key_bias, Tensor dout, "
+       "int num_heads) -> Tensor", _bwd_cuda, _bwd_cpu,
+       lambda qkv, key_bias, dout, num_heads: torch.empty_like(qkv))
+
+
+def attention_qkv_slab_bwd(qkv: torch.Tensor, key_bias: torch.Tensor,
+                           dout: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The gradient of ``attention_qkv_slab`` with respect to the slab:
+    qkv [B, S, 3·H·Dh], fp32 key bias [B, S], dout [B, S, H·Dh] →
+    dqkv [B, S, 3·H·Dh] in the slab's dtype; ``keep::attention_qkv_slab_bwd``.
+    A CUDA tensor goes through the backward kernel, which takes fp32 or
+    bf16 (dout in the slab's dtype), Dh = 64, S ≤ 512 (the KEEP towers'
+    training shapes) and contiguous tensors, and raises on anything else; a
+    CPU tensor goes through the plain version."""
+    b, s, _ = qkv.shape
+    dh = _head_dim(qkv, num_heads)
+    if tuple(key_bias.shape) != (b, s):
+        raise ValueError(f"key_bias must be [B, S] = {(b, s)}, got "
+                         f"{tuple(key_bias.shape)}")
+    if tuple(dout.shape) != (b, s, num_heads * dh):
+        raise ValueError(f"dout must be [B, S, H·Dh] = "
+                         f"{(b, s, num_heads * dh)}, got {tuple(dout.shape)}")
+    _check_device(qkv)
+    return torch.ops.keep.attention_qkv_slab_bwd(qkv, key_bias, dout,
+                                                 num_heads)
 
 
 # ---- split q, k, v: attention_qkv_heads and flash_attention ------------------
@@ -330,13 +382,12 @@ def _heads_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return hd // num_heads
 
 
-def _heads_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  strides: tuple[int, int, int],
-                  key_bias: torch.Tensor | None, b: int, s: int, h: int,
-                  dh: int) -> torch.Tensor:
-    """The split-heads launch: q, k, v of one dtype on one CUDA device,
-    sharing the (batch, head, row) element strides; counted in
-    ``HEADS_LAUNCHES``."""
+def _heads_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                key_bias: torch.Tensor | None, num_heads: int) -> torch.Tensor:
+    """``keep::attention_qkv_heads`` on the card: q, k, v [B, H, S, Dh] of
+    one dtype on one CUDA device, sharing one layout with contiguous rows
+    (the kernel reads them through their (batch, head, row) strides);
+    counted in ``HEADS_LAUNCHES``."""
     global HEADS_LAUNCHES
     if k.dtype != q.dtype or v.dtype != q.dtype or \
             q.dtype not in _IO_DTYPE_CODE:
@@ -344,12 +395,43 @@ def _heads_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
+    b, h, s, dh = q.shape
+    if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
+            and all(st % 8 == 0 for st in q.stride()[:3])):
+        raise ValueError("the kernel takes contiguous rows of q, k, v in one "
+                         "layout")
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("the kernel takes 16-byte aligned q, k, v")
+    if b > 65535:
+        raise ValueError(f"the kernel takes B ≤ 65535, got {tuple(q.shape)}")
     out = _launch_forward("attention_qkv_heads", q.data_ptr(), k.data_ptr(),
-                          v.data_ptr(), strides, key_bias, b, s, h, dh,
+                          v.data_ptr(), q.stride()[:3], key_bias, b, s, h, dh,
                           q.dtype, q.dtype, q.device)
     with _launch_lock:
         HEADS_LAUNCHES += 1
     return out
+
+
+def _heads_plain(q, k, v, key_bias, num_heads):
+    """The kernel's math on [B, H, S, Dh] views: ``mha_attention``'s plain
+    path → [B, S, H·Dh] in q's dtype."""
+    b, h, s, dh = q.shape
+    bias = None if key_bias is None else key_bias.float()[:, None, None, :]
+    out = mha_attention(q, k, v, bias=bias, out_dtype=q.dtype)
+    return out.transpose(1, 2).reshape(b, s, h * dh)
+
+
+define("attention_qkv_heads(Tensor q, Tensor k, Tensor v, Tensor? key_bias, "
+       "int num_heads) -> Tensor", _heads_cuda, _heads_plain,
+       lambda q, k, v, key_bias, num_heads: q.new_empty(
+           (q.shape[0], q.shape[2], q.shape[1] * q.shape[3])))
+
+
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, S, H·Dh] → [B, H, S, Dh] (a view of a contiguous tensor)."""
+    b, s, hd = t.shape
+    return t.reshape(b, s, num_heads, hd // num_heads).transpose(1, 2)
 
 
 def attention_qkv_heads_reference(q: torch.Tensor, k: torch.Tensor,
@@ -362,12 +444,9 @@ def attention_qkv_heads_reference(q: torch.Tensor, k: torch.Tensor,
     [B, S]) → [B, S, H·Dh] in q's dtype. ``group`` does not change the
     result."""
     dh = _heads_check(q, k, v, key_bias, num_heads)
-    b, s, hd = q.shape
-    heads = lambda t: t.reshape(b, s, num_heads, dh).transpose(1, 2)  # noqa: E731
-    bias = None if key_bias is None else key_bias.float()[:, None, None, :]
-    out = mha_attention(heads(q), heads(k), heads(v), bias=bias,
-                        out_dtype=q.dtype)
-    return out.transpose(1, 2).reshape(b, s, hd)
+    b, s, _ = q.shape
+    return _heads_plain(*(t.reshape(b, s, num_heads, dh).transpose(1, 2)
+                          for t in (q, k, v)), key_bias, num_heads)
 
 
 def attention_qkv_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -384,17 +463,15 @@ def attention_qkv_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous, 16-byte aligned operands, and raises on anything else; a CPU
     tensor goes through the plain version. Inference-only: raises under
     autograd."""
-    dh = _heads_check(q, k, v, key_bias, num_heads)
+    _heads_check(q, k, v, key_bias, num_heads)
     while num_heads % group:
         group //= 2
-    if q.device.type == "cpu":
-        return attention_qkv_heads_reference(q, k, v, key_bias,
-                                             num_heads=num_heads, group=group)
-    b, s, hd = q.shape
-    for t in (q, k, v):
-        _check_kernel_slab(t)
-    return _heads_kernel(q, k, v, (s * hd, dh, hd), key_bias, b, s, num_heads,
-                         dh)
+    _check_device(q)
+    if q.device.type == "cuda" and not all(t.is_contiguous()
+                                           for t in (q, k, v)):
+        raise ValueError("the kernel takes contiguous q, k, v")
+    return torch.ops.keep.attention_qkv_heads(
+        *(_heads(t, num_heads) for t in (q, k, v)), key_bias, num_heads)
 
 
 def _key_bias(bias: torch.Tensor | None, b: int, s: int
@@ -438,10 +515,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel reads q, k and v through their strides, without the layout
     copies of the plain version, when the three share one layout with
     contiguous rows; otherwise it takes contiguous copies. Inference-only."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, bias, group)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
+    _check_device(q)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k and v must be one [B, H, S, Dh] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -449,13 +523,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _inference_only(q, k, v)
     b, h, s, dh = q.shape
     key_bias = _key_bias(bias, b, s)
-    if not (q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
+    if q.device.type == "cuda" and not (
+            q.stride() == k.stride() == v.stride() and q.stride(-1) == 1
             and all(st % 8 == 0 for st in q.stride()[:3])):
         q, k, v = (t.contiguous() for t in (q, k, v))
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError("the kernel takes 16-byte aligned q, k, v")
-    if b > 65535:
-        raise ValueError(f"the kernel takes B ≤ 65535, got {tuple(q.shape)}")
-    out = _heads_kernel(q, k, v, q.stride()[:3], key_bias, b, s, h, dh)
+    out = torch.ops.keep.attention_qkv_heads(q, k, v, key_bias, h)
     return out.view(b, s, h, dh).transpose(1, 2)

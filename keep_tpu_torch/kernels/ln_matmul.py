@@ -25,6 +25,7 @@ import threading
 import torch
 
 from keep_tpu_torch.kernels import _kops
+from keep_tpu_torch.kernels._library import define
 
 MAX_K = 4096  # the row statistics and the K loop are written for K ≤ 4096
 
@@ -68,25 +69,10 @@ def ln_matmul_reference(x: torch.Tensor, ln_scale: torch.Tensor,
     return out.to(out_dtype)
 
 
-def ln_matmul(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
-              weight: torch.Tensor, w_bias: torch.Tensor, eps: float = 1e-6,
-              out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """x [M, K] → LayerNorm (fp32, ``ln_scale``/``ln_bias`` [K]) → rounded
-    to the weight's dtype → · ``weight`` [N, K]ᵀ (fp32 accumulation) +
-    ``w_bias`` [N] in fp32 → [M, N] ``out_dtype``.
-
-    A CUDA tensor goes through the kernel, which takes fp32 x with an fp32
-    weight or bf16 x with a bf16 weight, an fp32 or bf16 output, K a
-    multiple of 16 and at most 4096, N a multiple of 8, contiguous,
-    16-byte aligned x and weight (any M), and ``ln_scale`` / ``ln_bias``
-    that are 16-byte aligned once in fp32, and raises on anything else; a
-    CPU tensor goes through the plain version. Inference-only: raises under
-    autograd."""
+def _ln_matmul_cuda(x, ln_scale, ln_bias, weight, w_bias, eps, out_dtype):
+    """``keep::ln_matmul`` on the card: the launch, counted in
+    ``LAUNCHES``."""
     global LAUNCHES
-    _check(x, ln_scale, ln_bias, weight, w_bias)
-    if not _kops._device_path(x):
-        return ln_matmul_reference(x, ln_scale, ln_bias, weight, w_bias, eps,
-                                   out_dtype)
     m, k = x.shape
     n = weight.shape[0]
     if x.dtype not in _kops._DTYPE_CODE or weight.dtype != x.dtype:
@@ -125,3 +111,30 @@ def ln_matmul(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
     with _launch_lock:
         LAUNCHES += 1
     return out
+
+
+define("ln_matmul(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor weight, "
+       "Tensor w_bias, float eps, ScalarType out_dtype) -> Tensor",
+       _ln_matmul_cuda, lambda *a: ln_matmul_reference(*a),
+       lambda x, ln_scale, ln_bias, weight, w_bias, eps, out_dtype:
+       x.new_empty((x.shape[0], weight.shape[0]), dtype=out_dtype))
+
+
+def ln_matmul(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+              weight: torch.Tensor, w_bias: torch.Tensor, eps: float = 1e-6,
+              out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """x [M, K] → LayerNorm (fp32, ``ln_scale``/``ln_bias`` [K]) → rounded
+    to the weight's dtype → · ``weight`` [N, K]ᵀ (fp32 accumulation) +
+    ``w_bias`` [N] in fp32 → [M, N] ``out_dtype``; ``keep::ln_matmul``.
+
+    A CUDA tensor goes through the kernel, which takes fp32 x with an fp32
+    weight or bf16 x with a bf16 weight, an fp32 or bf16 output, K a
+    multiple of 16 and at most 4096, N a multiple of 8, contiguous,
+    16-byte aligned x and weight (any M), and ``ln_scale`` / ``ln_bias``
+    that are 16-byte aligned once in fp32, and raises on anything else; a
+    CPU tensor goes through the plain version. Inference-only: raises under
+    autograd."""
+    _check(x, ln_scale, ln_bias, weight, w_bias)
+    _kops._check_device(x)
+    return torch.ops.keep.ln_matmul(x, ln_scale, ln_bias, weight, w_bias, eps,
+                                    out_dtype)

@@ -33,7 +33,7 @@ from keep_tpu_torch.kernels import _kops
 
 
 def _block(ops: _kops.Ops, x, norm, qkv, proj, key_bias, *, num_heads, eps,
-           post_ln):
+           post_ln, block=None):
     b, s, d = x.shape
     if tuple(qkv.weight_q.shape) != (3 * d, d) or tuple(
             proj.weight_q.shape) != (d, d):
@@ -54,11 +54,12 @@ def _block(ops: _kops.Ops, x, norm, qkv, proj, key_bias, *, num_heads, eps,
         y = ops.int8_gemm(aq, a2, proj.weight_q, proj.weight_scale, proj.bias,
                           order=_kops.DEQUANT_PAIRED, residual=x2,
                           out_dtype=torch.float32)
-        out = ops.ln_rows(y, norm.weight, norm.bias, eps, x.dtype)
+        out = ops.ln_rows(y, norm.weight, norm.bias, eps, x.dtype,
+                          block=block)
     else:
         out = ops.int8_gemm(aq, a2, proj.weight_q, proj.weight_scale,
                             proj.bias, order=_kops.DEQUANT_PAIRED,
-                            residual=x2, out_dtype=x.dtype)
+                            residual=x2, out_dtype=x.dtype, block=block)
     return out.view(b, s, d)
 
 
@@ -75,12 +76,9 @@ def quantized_attention_block(x: torch.Tensor, norm1, qkv, proj, *,
 
     ``norm1``: the block's LayerNorm (``weight``, ``bias``); ``qkv`` and
     ``proj``: ``ops.nn.QLinear``s (LayerScale folded into proj)."""
-    ops = _kops.ops_for(x)
-    out = _block(ops, x, norm1, qkv, proj, None, num_heads=num_heads, eps=eps,
-                 post_ln=False)
-    if ops is _kops.KERNELS:
-        _kops.count("quantized_attention_block")
-    return out
+    return _block(_kops.ops_for(x), x, norm1, qkv, proj, None,
+                  num_heads=num_heads, eps=eps, post_ln=False,
+                  block="quantized_attention_block")
 
 
 def quantized_attention_block_postln_reference(x, key_bias, norm, qkv, out, *,
@@ -98,9 +96,6 @@ def quantized_attention_block_postln(x: torch.Tensor, key_bias: torch.Tensor,
     −1e9 padded) is added to the scores; ``norm`` is the sub-block's exit
     LayerNorm. A ``pre_scale`` on ``qkv`` (SmoothQuant) multiplies only the
     quantize input."""
-    ops = _kops.ops_for(x)
-    res = _block(ops, x, norm, qkv, out, key_bias, num_heads=num_heads,
-                 eps=eps, post_ln=True)
-    if ops is _kops.KERNELS:
-        _kops.count("quantized_attention_block_postln")
-    return res
+    return _block(_kops.ops_for(x), x, norm, qkv, out, key_bias,
+                  num_heads=num_heads, eps=eps, post_ln=True,
+                  block="quantized_attention_block_postln")

@@ -24,13 +24,14 @@ from keep_tpu_torch.kernels import _kops
 
 
 def _qmm(ops: _kops.Ops, x2: torch.Tensor, w_q, w_scale, bias, activation,
-         out_dtype, pre_scale) -> torch.Tensor:
+         out_dtype, pre_scale, block=None) -> torch.Tensor:
     if activation not in (None, "gelu_tanh"):
         raise ValueError(f"unknown activation {activation!r}; expected None "
                          f"or 'gelu_tanh'")
     xq, a = ops.quant_rows(x2, pre_scale=pre_scale)
     return ops.int8_gemm(xq, a, w_q, w_scale, bias, order=_kops.DEQUANT_LEFT,
-                         gelu=activation == "gelu_tanh", out_dtype=out_dtype)
+                         gelu=activation == "gelu_tanh", out_dtype=out_dtype,
+                         block=block)
 
 
 def quantized_matmul_reference(x, w_q, w_scale, bias, activation=None,
@@ -49,12 +50,8 @@ def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     [K] (SmoothQuant 1/s) multiplies the quantize input in-kernel."""
     if x.dim() != 2:
         raise ValueError(f"quantized_matmul takes [M, K], got {tuple(x.shape)}")
-    ops = _kops.ops_for(x)
-    out = _qmm(ops, x.contiguous(), w_q, w_scale, bias, activation, out_dtype,
-               pre_scale)
-    if ops is _kops.KERNELS:
-        _kops.count("quantized_matmul")
-    return out
+    return _qmm(_kops.ops_for(x), x.contiguous(), w_q, w_scale, bias,
+                activation, out_dtype, pre_scale, block="quantized_matmul")
 
 
 def quantized_matmul_bsd_reference(x, w_q, w_scale, bias, activation=None,
@@ -76,11 +73,9 @@ def quantized_matmul_bsd(x: torch.Tensor, w_q: torch.Tensor,
         raise ValueError(f"quantized_matmul_bsd takes [B, S, K], got "
                          f"{tuple(x.shape)}")
     b, s, k = x.shape
-    ops = _kops.ops_for(x)
-    out = _qmm(ops, x.contiguous().view(b * s, k), w_q, w_scale, bias,
-               activation, out_dtype, pre_scale)
-    if ops is _kops.KERNELS:
-        _kops.count("quantized_matmul_bsd")
+    out = _qmm(_kops.ops_for(x), x.contiguous().view(b * s, k), w_q, w_scale,
+               bias, activation, out_dtype, pre_scale,
+               block="quantized_matmul_bsd")
     return out.view(b, s, -1)
 
 

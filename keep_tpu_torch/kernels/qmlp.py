@@ -56,7 +56,7 @@ def _check(x, w1_q, w2_q, ln_scale, ln_bias, post_ln, rows):
 
 
 def _mlp(ops: _kops.Ops, x, w1_q, w1_scale, b1, w2_q, w2_scale, b2, out_dtype,
-         ln_scale, ln_bias, eps, residual, post_ln, pre_scale1):
+         ln_scale, ln_bias, eps, residual, post_ln, pre_scale1, block=None):
     """The chain over x [..., D] (every step per token); the output has x's
     shape."""
     d = x.shape[-1]
@@ -73,12 +73,12 @@ def _mlp(ops: _kops.Ops, x, w1_q, w1_scale, b1, w2_q, w2_scale, b2, out_dtype,
         y = ops.int8_gemm(hq, a2, w2_q, w2_scale, b2,
                           order=_kops.DEQUANT_PAIRED, residual=x2,
                           out_dtype=torch.float32)
-        out = ops.ln_rows(y, ln_scale, ln_bias, eps, out_dtype)
+        out = ops.ln_rows(y, ln_scale, ln_bias, eps, out_dtype, block=block)
     else:
         out = ops.int8_gemm(hq, a2, w2_q, w2_scale, b2,
                             order=_kops.DEQUANT_PAIRED,
                             residual=x2 if residual else None,
-                            out_dtype=out_dtype)
+                            out_dtype=out_dtype, block=block)
     return out.view(x.shape)
 
 
@@ -117,12 +117,9 @@ def quantized_mlp_bsd(x: torch.Tensor,
     ``pre_scale1`` [D] (SmoothQuant 1/s) multiplies fc1's quantize input.
     ``rows`` must divide B and does not change the result."""
     _check(x, w1_q, w2_q, ln_scale, ln_bias, post_ln, rows)
-    ops = _kops.ops_for(x)
-    out = _mlp(ops, x, w1_q, w1_scale, b1, w2_q, w2_scale, b2, out_dtype,
-               ln_scale, ln_bias, eps, residual, post_ln, pre_scale1)
-    if ops is _kops.KERNELS:
-        _kops.count("quantized_mlp_bsd")
-    return out
+    return _mlp(_kops.ops_for(x), x, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
+                out_dtype, ln_scale, ln_bias, eps, residual, post_ln,
+                pre_scale1, block="quantized_mlp_bsd")
 
 
 def _check_flat(x, w1_q, w2_q):
@@ -156,12 +153,9 @@ def quantized_mlp(x: torch.Tensor,
     the same rows bit for bit. A CUDA tensor goes through the kernels
     (``_kops``), a CPU tensor through the plain versions."""
     _check_flat(x, w1_q, w2_q)
-    ops = _kops.ops_for(x)
-    out = _mlp(ops, x, w1_q, w1_scale, b1, w2_q, w2_scale, b2, out_dtype,
-               None, None, 1e-6, False, False, pre_scale1)
-    if ops is _kops.KERNELS:
-        _kops.count("quantized_mlp")
-    return out
+    return _mlp(_kops.ops_for(x), x, w1_q, w1_scale, b1, w2_q, w2_scale, b2,
+                out_dtype, None, None, 1e-6, False, False, pre_scale1,
+                block="quantized_mlp")
 
 
 def qmlp_fused(fc1, fc2, x: torch.Tensor) -> torch.Tensor:

@@ -255,16 +255,33 @@ class KEEPModel(nn.Module):
         checkpoint's fp32 values before the float linears are cast to
         ``dtype``.
 
-        The JAX package's own int8 artifact (a ``quantized/`` Orbax
-        checkpoint, ``keep_tpu.compat.export.save_quantized``) is not read
-        by the port: a model dir that carries one raises.
+        A model dir that carries this package's int8 deploy artifact
+        (``compat.export.save_quantized``, under
+        ``export.QUANTIZED_SUBDIR``) loads that, as the JAX package's
+        ``from_pretrained`` loads its own: the int8 model as it was
+        quantized and calibrated, in its compute dtype, with nothing
+        re-quantized (``quantize`` and ``dtype`` then change nothing).
+        The JAX package's artifact (a ``quantized/`` Orbax checkpoint) is
+        not read by the port: a model dir that carries only that one
+        raises.
 
         ``device`` defaults to the card (``cuda``); without one the call
         raises unless the caller asks for the CPU with ``device="cpu"``: it
         never moves to the CPU by itself."""
+        from keep_tpu_torch.compat import export
         from keep_tpu_torch.compat.torch_loader import (load_keep_state_dict,
                                                         load_state_dict_file)
 
+        def card_or_cpu() -> torch.device:
+            dev = torch.device("cuda" if device is None else device)
+            if dev.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError('no CUDA device: pass device="cpu" to load '
+                                   'on the CPU')
+            return dev
+
+        if os.path.isdir(os.path.join(model_dir, export.QUANTIZED_SUBDIR)):
+            return export.load_quantized(model_dir, use_flash=use_flash,
+                                         device=card_or_cpu())
         if os.path.isdir(os.path.join(model_dir, "quantized")):
             raise NotImplementedError(
                 f"{model_dir} carries the JAX package's quantized artifact "
@@ -280,10 +297,7 @@ class KEEPModel(nn.Module):
         else:
             raise FileNotFoundError(
                 f"no pytorch_model.bin or model.safetensors in {model_dir}")
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError('no CUDA device: pass device="cpu" to load on '
-                               'the CPU')
+        device = card_or_cpu()
         sd = load_keep_state_dict(load_state_dict_file(weights), cfg)
         model = cls(cfg, dtype=dtype, use_flash=use_flash, device=device,
                     weight_dtype=torch.float32 if quantize else None)

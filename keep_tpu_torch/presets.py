@@ -164,9 +164,6 @@ ENCODER_STATS = {
 }
 
 
-ITEM_11 = "ROADMAP queue 1, item 11"
-
-
 class UnsupportedPresetError(NotImplementedError):
     pass
 

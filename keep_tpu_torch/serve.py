@@ -447,14 +447,22 @@ def build_server(argv=None):
         raise SystemExit("no CUDA device: pass --device cpu to serve on the "
                          "CPU")
 
+    from keep_tpu_torch.compat.export import QUANTIZED_SUBDIR
+    from keep_tpu_torch.factory import get_tokenizer
     from keep_tpu_torch.models.keep import KEEPModel
-    from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
 
     # the published quick-start setting: bf16 with the fused attention
-    # kernel; --int8 quantizes from the checkpoint's fp32 values
+    # kernel; --int8 quantizes from the checkpoint's fp32 values, unless
+    # the dir carries the int8 deploy artifact, which loads as it is
     model = KEEPModel.from_pretrained(args.model_dir, dtype=torch.bfloat16,
                                       use_flash=True, device=device,
                                       quantize=args.int8 and not args.lora)
+    artifact = os.path.isdir(os.path.join(args.model_dir, QUANTIZED_SUBDIR))
+    if args.lora and artifact:
+        raise SystemExit(
+            "--lora cannot merge adapters into a quantized artifact (int8 "
+            "kernels); merge into the fp model first, then quantize + "
+            "save_quantized")
     if args.lora:
         # merged into the fp32 values, rounded once into the stored
         # weights; --int8 then quantizes the merged fp32 values
@@ -468,13 +476,18 @@ def build_server(argv=None):
               f"{restored['epoch']}, scale {scale})", flush=True)
         if args.int8:
             model = model.quantize()
-    if args.int8 and args.precision_policy == "auto":
+    if args.int8 and artifact:
+        # the pre-calibrated deploy artifact (compat.export.save_quantized):
+        # already int8, nothing to quantize
+        print("model dir carries a quantized artifact; serving it as-is",
+              flush=True)
+    elif args.int8 and args.precision_policy == "auto":
         # the JAX server measures a relay's round trip here; with the card
         # in the same host there is no relay, and its co-located branch
         # serves int8 at every bucket
         print("precision policy: co-located — int8 at every bucket",
               flush=True)
-    tokenizer = WordPieceTokenizer.from_pretrained(args.model_dir)
+    tokenizer = get_tokenizer("bert", args.model_dir)
     max_len = min(model.cfg.max_text_length,
                   model.cfg.text.max_position_embeddings)
     core = InferenceServer(model, tokenizer, max_length=max_len,

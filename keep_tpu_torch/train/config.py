@@ -32,7 +32,7 @@ class DatasetConfig:
     csv_caption_key: str = "caption"
     csv_separator: str = "|"
     vocab_path: str = ""  # a vocab.txt or a directory holding one
-    tokenizer_type: str = "bert"  # 'bert' (WordPiece); 'clip' is not ported
+    tokenizer_type: str = "bert"  # 'bert' (WordPiece) | 'clip' (BPE)
     preload_data: bool = False  # decode every image into RAM up front
 
 

@@ -23,8 +23,10 @@ tower cannot initialize it (ValueError, as in the JAX package).
 
 Not ported yet, and refused with NotImplementedError: more than one process
 or device and the ``solver.tp/pp/sp/ep/fsdp`` layouts (``ep``, the experts
-over cards, included; ROADMAP queue 1, item 10), and tokenizers other than
-BERT's (item 11).
+over cards, included; ROADMAP queue 1, item 10). The tokenizer is
+``factory.get_tokenizer``'s for ``dataset.tokenizer_type`` (the native
+WordPiece for ``bert`` where it builds; BPE for ``clip``), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -99,8 +101,6 @@ def check_supported(cfg: TrainRunConfig) -> None:
             int(os.environ.get("WORLD_SIZE", "1")) > 1,
         "more than one CUDA device (ROADMAP queue 1, item 10: distributed; "
         "pin one with CUDA_VISIBLE_DEVICES)": torch.cuda.device_count() > 1,
-        "dataset.tokenizer_type other than 'bert' (ROADMAP queue 1, item 11)":
-            cfg.dataset.tokenizer_type != "bert",
     }
     bad = [k for k, v in refused.items() if v]
     if bad:
@@ -143,12 +143,12 @@ def build_model(cfg: TrainRunConfig, device) -> KEEPModel:
 
 
 def _tokenizer(cfg: TrainRunConfig):
-    from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from keep_tpu_torch.factory import get_tokenizer
 
+    # vocab source: dataset.vocab_path (a vocab.txt or a model dir), with
+    # img_dir as the last resort for old configs, as in the JAX package
     vocab = cfg.dataset.vocab_path or cfg.dataset.img_dir
-    if vocab.endswith(".txt"):
-        return WordPieceTokenizer(vocab)
-    return WordPieceTokenizer.from_pretrained(vocab)
+    return get_tokenizer(cfg.dataset.tokenizer_type, vocab)
 
 
 def resolve_device(name: str | torch.device) -> torch.device:

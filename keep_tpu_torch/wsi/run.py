@@ -65,8 +65,8 @@ def load_model(args, calib_pixels=None):
     """The bf16 model with the fused attention kernels on ``args.device``
     (with ``--int8`` the W8A8 model, SmoothQuant-calibrated on
     ``calib_pixels`` when they are given), and its tokenizer."""
+    from keep_tpu_torch.factory import get_tokenizer
     from keep_tpu_torch.models.keep import KEEPModel
-    from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
 
     int8 = getattr(args, "int8", False)
     # the JAX CLI turns its flash kernels on only on a TPU; the port's
@@ -78,7 +78,8 @@ def load_model(args, calib_pixels=None):
         device=args.device, quantize=int8 and calib_pixels is None)
     if int8 and calib_pixels is not None:
         model = model.quantize(calib_pixels=calib_pixels)
-    return model, WordPieceTokenizer.from_pretrained(args.model)
+    # the native WordPiece when it builds, as in the JAX package
+    return model, get_tokenizer("bert", args.model)
 
 
 def _try_open_pyramid(path: str):

@@ -1,5 +1,5 @@
-"""The gradient of the port's attention_qkv_slab (autograd through
-``SlabAttention``, whose backward on CPU tensors is
+"""The gradient of the port's attention_qkv_slab (autograd through the
+``keep::attention_qkv_slab`` operator, whose backward on CPU tensors is
 ``attention_qkv_slab_bwd_reference``) against ``jax.grad`` through the JAX
 package's ``attention_qkv_slab`` (the Pallas forward in interpret mode under
 its custom VJP, ``_slab_attn_bwd``), on the same numpy inputs. fp32 at

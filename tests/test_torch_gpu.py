@@ -1290,3 +1290,98 @@ def test_int8_expert_product_is_exact_on_the_card(cuda, rows):
     got = int8_expert_product(xq, wq)
     assert got.dtype == torch.int32 and got.shape == (3, 8, rows, 4096)
     assert torch.equal(got.cpu(), int8_expert_product(xq.cpu(), wq.cpu()))
+
+
+# ---- the keep:: operators, AOT bundles and the int8 artifact on the card ---
+
+
+def _small_keep(dtype=torch.bfloat16, **kw):
+    from keep_tpu_torch.configs import BertConfig, KEEPConfig, ViTConfig
+    from keep_tpu_torch.models.keep import KEEPModel
+
+    cfg = KEEPConfig(vision=ViTConfig(img_size=64, patch_size=16,
+                                      embed_dim=128, depth=2, num_heads=2),
+                     text=BertConfig(vocab_size=64, hidden_size=128,
+                                     num_hidden_layers=2,
+                                     num_attention_heads=2,
+                                     intermediate_size=256,
+                                     max_position_embeddings=64),
+                     projection_dim=128, max_text_length=32)
+    return KEEPModel.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          device="cuda", dtype=dtype, **kw).eval()
+
+
+def _inputs(cfg, b):
+    g = torch.Generator(device="cuda").manual_seed(1)
+    px = torch.randn(b, cfg.vision.img_size, cfg.vision.img_size, 3,
+                     device="cuda", generator=g)
+    ids = torch.randint(1, cfg.text.vocab_size, (b, cfg.max_text_length),
+                        device="cuda", generator=g)
+    mask = torch.ones_like(ids)
+    mask[:, 20:] = 0
+    return px, ids, mask
+
+
+@pytest.mark.parametrize("name,args", [
+    ("attention_qkv_slab", lambda g: (torch.randn(
+        2, 197, 3 * 1024, device="cuda", generator=g).bfloat16(), None, 16,
+        torch.bfloat16)),
+    ("quant_rows", lambda g: (torch.randn(64, 1024, device="cuda",
+                                          generator=g), None, None, 1e-6,
+                              None)),
+    ("ln_rows", lambda g: (torch.randn(64, 768, device="cuda", generator=g),
+                           torch.ones(768, device="cuda"),
+                           torch.zeros(768, device="cuda"), 1e-12,
+                           torch.bfloat16, None)),
+])
+def test_operators_opcheck_on_the_card(cuda, name, args):
+    """The operators' CUDA implementations (the kernels) against their fake
+    ones and their schemas."""
+    torch.library.opcheck(getattr(torch.ops.keep, name).default, args(cuda),
+                          test_utils=("test_schema", "test_faketensor",
+                                      "test_autograd_registration"))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_aot_export_on_the_card(cuda, tmp_path, int8):
+    """A bucketed bundle exported on the card launches the kernels from its
+    graph and equals the eager model bit for bit (bf16) or at ≤ 1e-6
+    (int8's fp32 epilogues)."""
+    from keep_tpu_torch.compat import aot
+
+    m = _small_keep(use_flash=True)
+    if int8:
+        m = m.quantize()
+    aot.save_aot(str(tmp_path), m, batch_sizes=(4,), bake_params=int8)
+    b = aot.load_aot(str(tmp_path))
+    px, ids, mask = _inputs(m.cfg, 3)
+    lead = () if int8 else (m.state_dict(),)
+    with torch.no_grad():
+        want = (m.encode_image(px), m.encode_text(ids, mask))
+    before = fa.LAUNCHES, sum(_kops.LAUNCHES.values())
+    got = (b.encode_image(*lead, px), b.encode_text(*lead, ids, mask))
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES - before[0] == 4
+    assert (sum(_kops.LAUNCHES.values()) > before[1]) == int8
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, rtol=0, atol=1e-6 if int8 else 0)
+
+
+def test_int8_artifact_bit_for_bit_on_the_card(cuda, tmp_path):
+    """save_quantized → from_pretrained on the card: the same codes and the
+    same features, bit for bit."""
+    from keep_tpu_torch.compat import export
+    from keep_tpu_torch.models.keep import KEEPModel
+
+    src = _small_keep(use_flash=True)
+    px, ids, mask = _inputs(src.cfg, 4)
+    q = src.quantize(calib_pixels=px, calib_text=(ids, mask))
+    export.save_pretrained(str(tmp_path), src)
+    export.save_quantized(str(tmp_path), q)
+    back = KEEPModel.from_pretrained(str(tmp_path), use_flash=True)
+    for k, v in q.state_dict().items():
+        assert torch.equal(back.state_dict()[k], v), k
+    with torch.no_grad():
+        assert torch.equal(back.encode_image(px), q.encode_image(px))
+        assert torch.equal(back.encode_text(ids, mask),
+                           q.encode_text(ids, mask))

@@ -49,6 +49,11 @@ def test_imports_leave_jax_unloaded():
         "from keep_tpu_torch.models import (coca, convnext, eva, hf_text, "
         "kep, moe, pmc_clip, poolers, resnet, swin, t5, vit_relpos)\n"
         "import scripts.torch_attention_divide\n"
+        "from keep_tpu_torch.compat import (aot, composite, export, hub, "
+        "registry)\n"
+        "import keep_tpu_torch.text.fast_tokenizer, "
+        "keep_tpu_torch.utils.golden, keep_tpu_torch.utils.profiling, "
+        "keep_tpu_torch.kernels._library\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'keep_tpu'))\n"
         "assert not bad, bad\n"

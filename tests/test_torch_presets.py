@@ -242,7 +242,8 @@ def test_preset_passthrough():
         assert m.encode_image(torch.zeros(1, 224, 224, 3)).shape == (1, 512)
 
 
-def test_error_legs(tmp_path):
+def test_error_legs(tmp_path, monkeypatch):
+    monkeypatch.setenv("KEEP_TPU_HOME", str(tmp_path / "home"))
     with pytest.raises(KeyError, match="unknown model"):
         factory.create_model("not-a-model", device="cpu")
     with pytest.raises(NotImplementedError, match="pretrained"):
@@ -266,8 +267,16 @@ def test_error_legs(tmp_path):
                                                                          512)
         out = pmc(torch.zeros(1, 224, 224, 3), torch.full((1, 8), 2))
     assert out["text_features"].shape == (1, 768)
-    for ref in ("keep-vit-l16", "https://example.invalid/keep.bin"):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    # pretrained= goes through the local registry (compat.registry.fetch):
+    # an unknown name raises naming the registry, a URL whose file is
+    # missing fails to fetch
+    import urllib.error
+
+    for ref, err, match in (
+            ("keep-vit-l16", KeyError, "unknown pretrained name"),
+            ((tmp_path / "missing" / "keep.bin").as_uri(), urllib.error.URLError,
+             "")):
+        with pytest.raises(err, match=match):
             factory.create_model("keep", pretrained=ref, device="cpu")
 
 

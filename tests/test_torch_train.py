@@ -579,13 +579,27 @@ def test_refused_options_raise(run_dirs, tmp_path, section, key, value):
     """What the port does not train yet raises, naming its ROADMAP item,
     before any output. An MoE trunk trains (``test_moe_train_step_matches_
     jax``); what stays refused for it is a dense pretrained image tower,
-    as in the JAX package (keep_tpu/train/main.py:150-154)."""
+    as in the JAX package (keep_tpu/train/main.py:150-154). The CLIP
+    tokenizer, refused until the fast tokenizers were ported, is now taken
+    as the JAX trainer takes it: ``factory.get_tokenizer('clip', ...)``
+    gives the BPE tokenizer of the merges file at ``dataset.vocab_path``."""
     raw = _run_config(run_dirs, tmp_path)
     node = raw
     for part in section.split("."):
         node = node.setdefault(part, {})
     node[key] = value
-    if key == "moe_experts":
+    if key == "tokenizer_type":
+        from keep_tpu.factory import get_tokenizer as jax_get_tokenizer
+
+        merges = tmp_path / "merges.txt"
+        merges.write_text("#version: 0.2\na n\nt h\n")
+        raw["dataset"]["vocab_path"] = str(merges)
+        tok = tmain._tokenizer(TrainRunConfig.from_dict(raw))
+        ref = jax_get_tokenizer("clip", str(merges))
+        texts = ["an h&e image", "the tumour"]
+        assert np.array_equal(tok(texts), ref(texts))
+        assert tok(texts).shape == (2, 77)
+    elif key == "moe_experts":
         raw["model"]["pretrained_image"] = str(tmp_path / "vit.bin")
         with pytest.raises(ValueError, match="cannot initialize an MoE"):
             tmain.train(TrainRunConfig.from_dict(raw))
