@@ -310,6 +310,28 @@ After phase 14, the model families ported last:
     the Chrome trace names the ``keep::attention_qkv_slab`` operator and
     its kernel.
 
+24. dp — data parallelism through the entry points. (a) ``train.main``
+    under a torchrun-style environment at world 1 over NCCL, at
+    ``keep_train.yml``'s values (full width and depth, batch 128, 3 open
+    steps), against the same steps in one process: losses and trained
+    parameters bit for bit, #1 72 / #1b 36 launches a step, ms a step,
+    peak memory, and the gradient all-reduce's time beside its bytes'.
+    (b) Two ranks over gloo, both on ``cuda:0`` (``chip_smoke.py
+    --dp-child``), fp32 with TF32 off, global batch 32, KEEP's width at 6
+    blocks a tower (the NCCL run has the full depth): per-step losses
+    within rtol 1e-5 of one process on the same global batch, #1 / #1b
+    launched per rank as the step's block count gives them. (c) ``serve
+    --mesh-dp 1`` in bf16 and with ``--int8``: features bit-equal to the
+    plain server's at buckets 1, 8, 32 and 128, the launches of a
+    bucket-128 dispatch pair, tiles/s and prompts/s of both servers in
+    turns. (d) ``wsi.run extract`` with and without ``--mesh-dp`` (bf16 and
+    ``--int8``) on the top-left 8,192² of phase 10's slide: the same
+    printed lines and h5 features (an npz stands in for h5py where it is
+    missing); then ``prompt_select_sharded``, ``score_tiles_sharded`` and
+    ``refined_probs_sharded`` on a mesh of the card against their
+    unsharded forms: the same bits. (a) and (b) run after phase 9, (c) and
+    (d) after phase 16.
+
 Then one JSON line describing the kernels (each TPU kernel's counterpart:
 its launches on the path that runs it, its time, its plain version's, its
 bound — the larger of its operations over the card's peak for their type
@@ -4004,6 +4026,31 @@ def kernel_ms(torch, prof) -> dict[str, float]:
     return by_kernel
 
 
+def served_rate(fn, items: int, calls: int = 6, callers: int = 2) -> float:
+    """Items a second through a server core's ``fn`` (``items`` a call),
+    ``callers`` threads at a time so that double buffering works, after
+    one warm call."""
+    fn()  # warm
+    errors = []
+
+    def caller():
+        try:
+            for _ in range(calls // callers):
+                fn()
+        except BaseException as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=caller) for _ in range(callers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return items * calls / (time.perf_counter() - t0)
+
+
 def throughput(torch, core, rng, int8: bool = False) -> dict:
     """Serving throughput at bucket 128 through the server core (queue, H2D,
     dispatch, fetch), two callers at a time so that double buffering works,
@@ -4013,30 +4060,8 @@ def throughput(torch, core, rng, int8: bool = False) -> dict:
     summed by kernel family."""
     tiles = rng.integers(0, 256, (128, 224, 224, 3), dtype=np.uint8)
     texts = [PROMPTS[i % 3] for i in range(128)]
-
-    def rate(fn, items: int, calls: int = 6, callers: int = 2) -> float:
-        fn()  # warm
-        errors = []
-
-        def caller():
-            try:
-                for _ in range(calls // callers):
-                    fn()
-            except BaseException as e:  # re-raised below, in the main thread
-                errors.append(e)
-
-        t0 = time.perf_counter()
-        threads = [threading.Thread(target=caller) for _ in range(callers)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
-        if errors:
-            raise errors[0]
-        return items * calls / (time.perf_counter() - t0)
-
-    img_rate = rate(lambda: core.encode_image(tiles), 128)
-    txt_rate = rate(lambda: core.encode_text(texts), 128)
+    img_rate = served_rate(lambda: core.encode_image(tiles), 128)
+    txt_rate = served_rate(lambda: core.encode_text(texts), 128)
 
     # device time of one bucket-128 dispatch of each tower, with the kernel
     # and with plain attention (same weights), and the image dispatch's
@@ -5403,11 +5428,608 @@ def drive_profiling(torch, model, d: str, device: str = "cuda") -> dict:
     return result
 
 
+# ---- 24. dp: data parallelism through the entry points ----------------------
+
+DP_STEPS = 7              # unfrozen steps of a world-1 NCCL run, batch 128
+DP_TURNS = 2              # one process and NCCL in turns, this many runs each
+DP_TRACE_AT = 1           # the step traced in the last turn (not timed)
+DP_GLOO_BATCH = 32        # the two-rank gloo run's global batch (fp32)
+DP_GLOO_STEPS = 2
+DP_GLOO_DEPTH = 6         # blocks a tower there, at full width (24b proves
+                          # the two ranks' cross-rank code, not the depth)
+DP_BUCKETS = (1, 8, 32, 128)
+DP_SLIDE_PX = 8192        # the top-left quarter of phase 10's slide
+DP_CHILD_TIMEOUT = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def launcher_env(**env):
+    """A torchrun-style environment for the span of the block."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update({k: str(v) for k, v in env.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_train_config(d: str, batch_size: int, caption_num: int, steps: int,
+                    precision: str = "amp_bf16",
+                    keep: dict | None = None) -> dict:
+    """``train_config``'s values (``keep_train.yml``'s), one epoch of
+    ``steps`` steps with both towers open."""
+    raw = train_config(d, keep=keep, batch_size=batch_size,
+                       caption_num=caption_num, steps_per_epoch=steps)
+    raw["solver"].update(epochs=1, freeze_visual_epochs=0,
+                         freeze_text_epochs=0)
+    raw["model"]["precision"] = precision
+    return raw
+
+
+def counted_train(torch, fa, raw: dict, argv: list, device: str,
+                  keep_params: bool = False, trace_at: int = -1) -> dict:
+    """``train.main`` on ``raw`` (plus ``argv``): each step timed, its loss
+    and attention launches (``counted_steps``), the process group it ran
+    in, peak device memory, the device ms by kernel of step ``trace_at``
+    (on a card) and, with ``keep_params``, the trained parameters (on the
+    card)."""
+    from keep_tpu_torch.train import main as tmain
+
+    os.makedirs(raw["save"]["output_dir"], exist_ok=True)
+    path = os.path.join(raw["save"]["output_dir"], "run.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    steps: list[dict] = []
+    group: dict = {}
+    final: dict = {}
+
+    def before(i, state, batch, model, kw):
+        dist = torch.distributed
+        if i == 0:
+            group.update(backend=dist.get_backend() if dist.is_initialized()
+                         else None,
+                         world=dist.get_world_size() if dist.is_initialized()
+                         else 1)
+
+    def after(i, state, batch, model, kw):
+        if keep_params:
+            final.clear()
+            final.update({n: p.detach().clone()
+                          for n, p in state.params.items()})
+
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    traced: dict = {}
+    with counted_steps(torch, fa, tmain, steps, traced, trace_at, device,
+                       before, after):
+        t0 = time.perf_counter()
+        tmain.main(["--config", path, *argv])
+        wall_s = time.perf_counter() - t0
+    return {"steps": steps, "group": group, "params": final,
+            "traced": traced,
+            "wall_s": wall_s,
+            "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                               if device.startswith("cuda") else 0.0)}
+
+
+def check_dp_steps(tag: str, steps: list, blocks: int, n: int) -> None:
+    """``n`` open steps, finite losses, #1 twice (remat) and #1b once per
+    block of each."""
+    if len(steps) != n:
+        raise AssertionError(f"{tag}: {len(steps)} steps, want {n}")
+    for i, st in enumerate(steps):
+        if not np.isfinite(st["loss"]) or st["frozen"]:
+            raise AssertionError(f"{tag} step {i}: {st}")
+        if (st["fwd_launches"], st["bwd_launches"]) != (2 * blocks, blocks):
+            raise AssertionError(
+                f"{tag} step {i}: forward / backward launches "
+                f"{st['fwd_launches']} / {st['bwd_launches']}, want "
+                f"{(2 * blocks, blocks)}")
+
+
+def allreduce_ms(torch, params: dict, runs: int = 5) -> dict:
+    """The gradient all-reduce of a world-1 NCCL group on buffers of the
+    trained parameters' shapes (``parallel.all_reduce_grads``: flattened
+    into buckets, summed, viewed back), CUDA-event median, beside the time
+    its bytes take at the card's memory rate (the buckets' concatenation
+    reads and writes each gradient once)."""
+    from keep_tpu_torch.parallel import all_reduce_grads, multihost
+
+    grads = {n: torch.zeros_like(p, dtype=torch.float32)
+             for n, p in params.items()}
+    nbytes_ = sum(g.numel() * 4 for g in grads.values())
+    with launcher_env(MASTER_ADDR="127.0.0.1", MASTER_PORT=free_port(),
+                      RANK=0, WORLD_SIZE=1, LOCAL_RANK=0):
+        multihost.init_from_env("cuda")
+        try:
+            ms = cuda_ms(lambda: all_reduce_grads(dict(grads)), warmup=1,
+                         runs=runs)
+        finally:
+            torch.distributed.destroy_process_group()
+    return {"ms": ms, "gradient_bytes": nbytes_,
+            "bytes_bound_ms": 2 * nbytes_ / HBM_BYTES_PER_S * 1e3}
+
+
+def drive_dp_train(torch, fa, d: str, blocks: int, steps: int = DP_STEPS,
+                   device: str = "cuda", batch: int = 128,
+                   keep: dict | None = None, turns: int = DP_TURNS) -> dict:
+    """24a. ``train.main`` under a torchrun-style environment at world 1
+    over NCCL, at ``keep_train.yml``'s values (full width and depth,
+    batch 128, ``steps`` open steps), against the same steps in one
+    process, ``turns`` runs each in turns: losses and trained parameters
+    bit for bit, launches per step, ms a step (the first of each run and
+    the traced step left out) and the NCCL step's ms less the one-process
+    step's, step for step, peak memory, the gradient all-reduce's
+    time, and step ``DP_TRACE_AT`` of the last turn traced with
+    torch.profiler: each one's device ms and the kernels whose device
+    time differs most between the two."""
+    raw = dp_train_config(os.path.join(d, "data"), batch, batch // 4, steps,
+                          keep=keep)
+    tags = ("one_process", "nccl_world1")
+    runs: dict = {tag: [] for tag in tags}
+    traced: dict = {}
+    on_card = device == "cuda"
+    for turn in range(turns):
+        for tag in tags:
+            r = json.loads(json.dumps(raw))
+            r["save"]["output_dir"] = os.path.join(d, f"{tag}_{turn}")
+            env = (launcher_env(MASTER_ADDR="127.0.0.1",
+                                MASTER_PORT=free_port(), RANK=0,
+                                WORLD_SIZE=1, LOCAL_RANK=0)
+                   if tag == "nccl_world1" else contextlib.nullcontext())
+            last = turn == turns - 1
+            with env:
+                run = counted_train(
+                    torch, fa, r, ["--device", device], device,
+                    keep_params=True,
+                    trace_at=DP_TRACE_AT if last and on_card else -1)
+            check_dp_steps(tag, run["steps"], blocks, steps)
+            if last and on_card:
+                traced[tag] = run["traced"]
+            runs[tag].append(run)
+        one, dp = runs["one_process"][-1], runs["nccl_world1"][-1]
+        backend = "nccl" if on_card else "gloo"
+        if dp["group"] != {"backend": backend, "world": 1} or one[
+                "group"] != {"backend": None, "world": 1}:
+            raise AssertionError(f"groups {one['group']} / {dp['group']}")
+        losses = [[st["loss"] for st in r["steps"]] for r in (one, dp)]
+        if losses[0] != losses[1]:
+            raise AssertionError(f"world-1 NCCL losses {losses[1]} against "
+                                 f"one process {losses[0]}")
+        differ = [n for n, t in one["params"].items()
+                  if not torch.equal(t, dp["params"][n])]
+        if differ:
+            raise AssertionError(f"{len(differ)} parameters differ, e.g. "
+                                 f"{differ[:3]}")
+        n_params = len(one["params"])
+        if turn < turns - 1:
+            one["params"] = dp["params"] = None
+            if on_card:
+                torch.cuda.empty_cache()
+    reduce = (allreduce_ms(torch, runs["one_process"][-1]["params"])
+              if on_card else "not measured")
+    def timed(k: int, i: int) -> bool:
+        return i > 0 and not (on_card and k == turns - 1
+                              and i == DP_TRACE_AT)
+
+    step_ms = {tag: [st["ms"] for k, r in enumerate(rs)
+                     for i, st in enumerate(r["steps"]) if timed(k, i)]
+               for tag, rs in runs.items()}
+    # the same step of the same turn: the step's time follows its batch
+    paired = [b - a for a, b in zip(step_ms["one_process"],
+                                    step_ms["nccl_world1"])]
+    device_ms = {tag: sum(k.values()) for tag, k in traced.items()}
+    names = set().union(*traced.values()) if traced else set()
+    moved = sorted(((traced["nccl_world1"].get(k, 0.0)
+                     - traced["one_process"].get(k, 0.0), k)
+                    for k in names), key=lambda x: -abs(x[0]))[:8]
+    dp = runs["nccl_world1"][-1]
+    out = {"card": card() if on_card else "cpu", "steps": steps,
+           "turns": turns, "batch": batch, "losses": losses[1],
+           "params_bit_equal": n_params,
+           "ms_per_step": {tag: statistics.median(v)
+                           for tag, v in step_ms.items()},
+           "timed_steps": {tag: len(v) for tag, v in step_ms.items()},
+           "paired_ms_nccl_minus_one": paired,
+           "paired_median_ms": statistics.median(paired),
+           "step_ms": {tag: [[st["ms"] for st in r["steps"]] for r in rs]
+                       for tag, rs in runs.items()},
+           "traced_step": DP_TRACE_AT,
+           "traced_step_ms": {tag: rs[-1]["steps"][DP_TRACE_AT]["ms"]
+                              for tag, rs in runs.items()},
+           "traced_device_ms": device_ms if traced else "not measured",
+           "kernels_nccl_minus_one_ms": [[k, ms] for ms, k in moved],
+           "peak_memory_gb": {tag: rs[-1]["peak_memory_gb"]
+                              for tag, rs in runs.items()},
+           "allreduce": reduce,
+           "launches_per_step": [dp["steps"][0]["fwd_launches"],
+                                 dp["steps"][0]["bwd_launches"]],
+           "fwd_launches": sum(st["fwd_launches"] for st in dp["steps"]),
+           "bwd_launches": sum(st["bwd_launches"] for st in dp["steps"])}
+    del runs, one, dp
+    if on_card:
+        torch.cuda.empty_cache()
+    phase("dp_train_nccl_world1", **out)
+    return out
+
+
+@contextlib.contextmanager
+def first_step_grads(torch, out: dict):
+    """Records, into ``out``, each parameter's gradient norm and sum as the
+    optimizer gets them in the first step of the block's training (summed
+    over the ranks under data parallelism), in name order."""
+    from keep_tpu_torch.train import trainer
+
+    apply = trainer._optimizer_apply
+
+    def recording(state, grads, *args, **kw):
+        if not out:
+            names = sorted(grads)
+            with torch.no_grad():
+                out.update(names=names, norm=torch.stack(
+                    [grads[n].float().norm() for n in names]).tolist(),
+                    sum=torch.stack([grads[n].float().sum()
+                                     for n in names]).tolist())
+        return apply(state, grads, *args, **kw)
+
+    trainer._optimizer_apply = recording
+    try:
+        yield out
+    finally:
+        trainer._optimizer_apply = apply
+
+
+def dp_child(spec_path: str) -> None:
+    """A rank of 24b (``chip_smoke.py --dp-child <spec>``): ``train.main``
+    on ``cuda:0`` over gloo in fp32 with TF32 off; writes its steps and
+    its first step's gradient norms and sums."""
+    import torch
+
+    from keep_tpu_torch.kernels import flash_attention as fa
+    from keep_tpu_torch.ops.nn import ieee_fp32
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    with ieee_fp32(), first_step_grads(torch, {}) as grads:
+        run = counted_train(torch, fa, spec["raw"],
+                            ["--device", spec["device"], "--dist-backend",
+                             "gloo"], spec["device"])
+    with open(f"{spec['out']}.{os.environ['RANK']}.json", "w") as f:
+        json.dump({"grads": grads, **{k: run[k] for k in (
+            "steps", "group", "wall_s", "peak_memory_gb")}}, f)
+
+
+def drive_dp_gloo(torch, fa, d: str, blocks: int = 2 * DP_GLOO_DEPTH,
+                  batch: int = DP_GLOO_BATCH, steps: int = DP_GLOO_STEPS,
+                  device: str = "cuda:0", keep: dict | None = None) -> dict:
+    """24b. Two ranks over gloo, both on ``cuda:0`` (NCCL refuses two ranks
+    on one card), each a process running ``train.main`` with the real
+    kernels forward and backward, fp32 with TF32 off (``ops.nn.
+    ieee_fp32``): per-step losses within rtol 1e-5 of one process on the
+    same global batch, the first step's summed gradient (each parameter's
+    norm and sum) within rtol 1e-5 / atol 1e-6 of one process's, and #1 /
+    #1b launched per rank as each open step's block count gives them. KEEP's width, ``DP_GLOO_DEPTH`` blocks a tower
+    unless ``keep`` says otherwise."""
+    from keep_tpu_torch.ops.nn import ieee_fp32
+
+    keep = keep or {"projection_dim": 768,
+                    "vision": {"depth": DP_GLOO_DEPTH},
+                    "text": {"num_hidden_layers": DP_GLOO_DEPTH}}
+
+    raw = dp_train_config(os.path.join(d, "data"), batch, batch // 4, steps,
+                          precision="fp32", keep=keep)
+    one_raw = json.loads(json.dumps(raw))
+    one_raw["save"]["output_dir"] = os.path.join(d, "one_process")
+    with ieee_fp32(), first_step_grads(torch, {}) as one_grads:
+        one = counted_train(torch, fa, one_raw, ["--device", device], device)
+    check_dp_steps("one process (fp32)", one["steps"], blocks, steps)
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+    dp_raw = json.loads(json.dumps(raw))
+    dp_raw["save"]["output_dir"] = os.path.join(d, "gloo_world2")
+    spec_path = os.path.join(d, "dp_spec.json")
+    out_base = os.path.join(d, "dp_rank")
+    with open(spec_path, "w") as f:
+        json.dump({"raw": dp_raw, "out": out_base, "device": device}, f)
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()), WORLD_SIZE="2",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__))
+               + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-child", spec_path],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_CHILD_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"gloo rank {r} exited {p.returncode}:\n"
+                                 + (logs[r] if r < len(logs) else "")[-4000:])
+    ranks = []
+    for r in range(2):
+        with open(f"{out_base}.{r}.json") as f:
+            ranks.append(json.load(f))
+    want = [st["loss"] for st in one["steps"]]
+    for r, rank in enumerate(ranks):
+        if rank["group"] != {"backend": "gloo", "world": 2}:
+            raise AssertionError(f"rank {r}: group {rank['group']}")
+        check_dp_steps(f"gloo rank {r}", rank["steps"], blocks, steps)
+        got = [st["loss"] for st in rank["steps"]]
+        np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=f"rank {r}")
+        if rank["grads"]["names"] != one_grads["names"]:
+            raise AssertionError(f"rank {r}: gradient names differ")
+        for key in ("norm", "sum"):
+            np.testing.assert_allclose(
+                rank["grads"][key], one_grads[key], rtol=1e-5, atol=1e-6,
+                err_msg=f"rank {r}: first step's gradient {key}s")
+    grad_diff = max(abs(a - b) / max(abs(b), 1e-30) for rk in ranks
+                    for a, b in zip(rk["grads"]["norm"], one_grads["norm"]))
+    out = {"card": card() if device.startswith("cuda") else "cpu",
+           "blocks": blocks, "batch": batch, "per_rank": batch // 2,
+           "steps": steps, "precision": "fp32, TF32 off",
+           "losses_one_process": want,
+           "losses_ranks": [[st["loss"] for st in rk["steps"]]
+                            for rk in ranks],
+           "grads_compared": len(one_grads["names"]),
+           "grad_norm_max_rel_diff": grad_diff,
+           "max_rel_diff": max(abs(a - b) / max(abs(b), 1e-30)
+                               for rk in ranks
+                               for a, b in zip(
+                                   [st["loss"] for st in rk["steps"]], want)),
+           "launches_per_rank_step": [ranks[0]["steps"][0]["fwd_launches"],
+                                      ranks[0]["steps"][0]["bwd_launches"]],
+           "fwd_launches_per_rank": [sum(st["fwd_launches"]
+                                         for st in rk["steps"])
+                                     for rk in ranks],
+           "bwd_launches_per_rank": [sum(st["bwd_launches"]
+                                         for st in rk["steps"])
+                                     for rk in ranks],
+           "ms_per_step_one_process": [st["ms"] for st in one["steps"]],
+           "ms_per_step_ranks": [[st["ms"] for st in rk["steps"]]
+                                 for rk in ranks],
+           "peak_memory_gb_ranks": [rk["peak_memory_gb"] for rk in ranks],
+           "wall_s": wall_s}
+    phase("dp_train_gloo_world2", **out)
+    return out
+
+
+def drive_dp_serve(torch, fa, serve, d: str, device: str = "cuda",
+                   width: int = 768) -> dict:
+    """24c. ``serve --mesh-dp 1`` in bf16 and with ``--int8`` on the model
+    in ``d``: features bit-equal to the plain server's at every bucket,
+    the mesh server's launches for a bucket-128 dispatch pair, and both
+    servers' tiles/s and prompts/s at bucket 128, in turns (plain, mesh,
+    mesh, plain)."""
+    rng = np.random.default_rng(3)
+    out = {"card": card() if device == "cuda" else "cpu"}
+    for tag, extra in (("bf16", []), ("int8", ["--int8"])):
+        argv = ["--model-dir", d, "--port", "0", "--device", device, *extra]
+        plain, httpd = serve.build_server(argv)
+        httpd.server_close()
+        mesh, httpd = serve.build_server(argv + ["--mesh-dp", "1"])
+        httpd.server_close()
+        try:
+            if len(mesh.mesh) != 1 or mesh.buckets != plain.buckets:
+                raise AssertionError(f"mesh {mesh.mesh}, buckets "
+                                     f"{mesh.buckets} / {plain.buckets}")
+            size = mesh.image_size
+            for b in DP_BUCKETS:
+                tiles = rng.integers(0, 256, (b, size, size, 3), np.uint8)
+                texts = [PROMPTS[i % len(PROMPTS)] for i in range(b)]
+                for what, fn in (("image", lambda c: c.encode_image(tiles)),
+                                 ("text", lambda c: c.encode_text(texts))):
+                    a, m = fn(plain), fn(mesh)
+                    check_features(f"dp {tag} {what} B={b}", m, b, width)
+                    if not np.array_equal(a, m):
+                        raise AssertionError(
+                            f"--mesh-dp 1 {tag} {what} at bucket {b}: max "
+                            f"|Δ| {np.abs(a - m).max()} against the plain "
+                            f"server")
+            tiles = rng.integers(0, 256, (128, size, size, 3), np.uint8)
+            texts = [PROMPTS[i % len(PROMPTS)] for i in range(128)]
+            reset_launches(fa)
+            mesh.encode_image(tiles)
+            mesh.encode_text(texts)
+            attn, int8 = read_launches(fa)
+            rates = {"plain": {"image": [], "text": []},
+                     "mesh_dp_1": {"image": [], "text": []}}
+            for who in ("plain", "mesh_dp_1", "mesh_dp_1", "plain"):
+                core = plain if who == "plain" else mesh
+                rates[who]["image"].append(served_rate(
+                    lambda: core.encode_image(tiles), 128))
+                rates[who]["text"].append(served_rate(
+                    lambda: core.encode_text(texts), 128))
+            out[tag] = {"buckets_bit_equal": list(DP_BUCKETS),
+                        "attention_launches": attn, "launches": int8,
+                        "image_tiles_per_s_bucket128": {
+                            k: v["image"] for k, v in rates.items()},
+                        "text_prompts_per_s_bucket128x256": {
+                            k: v["text"] for k, v in rates.items()}}
+        finally:
+            plain.stop()
+            mesh.stop()
+        del plain, mesh
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    if device == "cuda" and out["bf16"]["attention_launches"] != 24 + 12:
+        raise AssertionError(f"bf16 mesh dispatch pair: "
+                             f"{out['bf16']['attention_launches']} #1")
+    phase("dp_serve", **out)
+    return out
+
+
+class _H5:
+    """The part of ``h5py.File`` the extraction writes and reads (datasets
+    of whole arrays), stored as an npz: the card's machine has no h5py."""
+
+    def __init__(self, path: str, mode: str = "r"):
+        self.path, self.mode = path, mode
+        self.data = {}
+        if mode == "r":
+            with np.load(path) as z:
+                self.data = {k: z[k] for k in z.files}
+
+    def create_dataset(self, name: str, data) -> None:
+        self.data[name] = np.asarray(data)
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        return self.data[name]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.mode == "w" and exc[0] is None:
+            with open(self.path, "wb") as f:
+                np.savez(f, **self.data)
+
+
+@contextlib.contextmanager
+def h5_files():
+    """``h5py`` where it is installed, else ``_H5`` in its place for the
+    span of the block."""
+    try:
+        import h5py  # noqa: F401
+        yield
+        return
+    except ImportError:
+        pass
+    import types
+
+    shim = types.ModuleType("h5py")
+    shim.File = _H5
+    sys.modules["h5py"] = shim
+    try:
+        yield
+    finally:
+        sys.modules.pop("h5py", None)
+
+
+def drive_dp_wsi(torch, fa, d: str, device: str = "cuda",
+                 slide_px: int = DP_SLIDE_PX, batch_size: int = WSI_BATCH,
+                 n_prompts: int = WSI_PROMPTS, width: int = 768) -> dict:
+    """24d. ``wsi.run extract`` with and without ``--mesh-dp`` (bf16, then
+    ``--int8``) on the top-left ``slide_px``² of phase 10's slide written
+    as a PNG: the same printed lines, the same h5 features and coords, bit
+    for bit, and the mesh runs' launches; then the sharded sweeps
+    (``prompt_select_sharded``, ``pipelines.score_tiles_sharded``,
+    ``refined_probs_sharded``) on a mesh of the card against their
+    unsharded forms on those features: the same bits."""
+    from PIL import Image
+
+    from keep_tpu_torch.io.h5 import read_h5_slide
+    from keep_tpu_torch.parallel import make_mesh
+    from keep_tpu_torch.wsi import pipelines, run as wsi_run, sharded
+    from keep_tpu_torch.wsi.grid import CoordGrid
+    from keep_tpu_torch.zeroshot.classifier import prompt_select
+
+    png = os.path.join(d, "slide.png")
+    Image.fromarray(np.ascontiguousarray(
+        wsi_slide(WSI_SLIDE_PX)[:slide_px, :slide_px])).save(
+        png, compress_level=1)
+    out = {"card": card() if device == "cuda" else "cpu",
+           "slide_px": slide_px}
+    feats = coords = None
+    with h5_files():
+        for tag, extra in (("bf16", []), ("int8", ["--int8"])):
+            runs = {}
+            for mode in ("plain", "mesh_dp"):
+                h5 = os.path.join(d, f"{tag}_{mode}.h5")
+                argv = ["extract", "--model", d, "--image", png, "--out", h5,
+                        "--batch-size", str(batch_size), "--device", device,
+                        *extra] + (["--mesh-dp"] if mode == "mesh_dp" else [])
+                buf = io.StringIO()
+                reset_launches(fa)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    wsi_run.main(argv)
+                seconds = time.perf_counter() - t0
+                attn, int8 = read_launches(fa)
+                f, c = read_h5_slide(h5)
+                runs[mode] = {"printed": buf.getvalue().replace(h5, "<out>"),
+                              "features": f, "coords": c, "seconds": seconds,
+                              "attention_launches": attn, "launches": int8}
+            a, m = runs["plain"], runs["mesh_dp"]
+            if a["printed"] != m["printed"]:
+                raise AssertionError(f"{tag}: printed {m['printed']!r} "
+                                     f"against {a['printed']!r}")
+            if not (np.array_equal(a["features"], m["features"])
+                    and np.array_equal(a["coords"], m["coords"])):
+                gap = np.abs(a["features"] - m["features"]).max()
+                raise AssertionError(f"{tag}: --mesh-dp features differ, max "
+                                     f"|Δ| {gap}")
+            check_features(f"dp wsi {tag}", m["features"], len(m["coords"]),
+                           width)
+            out[tag] = {"tiles": len(m["coords"]),
+                        "printed": m["printed"].strip(),
+                        "seconds": {k: r["seconds"] for k, r in runs.items()},
+                        "attention_launches": m["attention_launches"],
+                        "launches": m["launches"]}
+            if tag == "bf16":
+                feats, coords = m["features"], m["coords"]
+    mesh = make_mesh(1) if device == "cuda" else make_mesh(
+        1, devices=[torch.device(device)])
+    rng = np.random.default_rng(5)
+    stack = rng.standard_normal((n_prompts, feats.shape[1], 2)).astype(
+        np.float32)
+    stack /= np.linalg.norm(stack, axis=1, keepdims=True)
+    x = torch.from_numpy(feats).to(mesh[0])
+    stack_d = torch.from_numpy(stack).to(mesh[0])
+    merged = prompt_select(stack_d, x)
+    merged_sh = sharded.prompt_select_sharded(stack_d, x, mesh=mesh)
+    probs = pipelines.score_tiles(merged, x)
+    probs_sh = pipelines.score_tiles_sharded(merged, x, mesh=mesh)
+    grid = CoordGrid.from_coords(coords, 256)
+    refined = pipelines._refined_probs(merged, x, grid, True).cpu().numpy()
+    refined_sh = sharded.refined_probs_sharded(merged, x, coords, 256,
+                                               mesh=mesh)
+    for name, a, b in (("prompt_select", merged, merged_sh),
+                       ("score_tiles", probs, probs_sh)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"sharded {name}: max |Δ| "
+                                 f"{(a - b).abs().max().item()}")
+    if not np.array_equal(refined, refined_sh):
+        raise AssertionError(f"sharded refine: max |Δ| "
+                             f"{np.abs(refined - refined_sh).max()}")
+    out["sweeps"] = {"prompts": n_prompts, "patches": len(coords),
+                     "bit_equal": ["prompt_select_sharded",
+                                   "score_tiles_sharded",
+                                   "refined_probs_sharded"]}
+    phase("dp_wsi", **out)
+    return out
+
+
 def main() -> int:
     import torch
 
     if len(sys.argv) == 3 and sys.argv[1] == "--aot-child":
         aot_child(sys.argv[2])
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--dp-child":
+        dp_child(sys.argv[2])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -5496,6 +6118,10 @@ def main() -> int:
         calibrated = drive_int8_calibrated(torch, fa, d)
         torch.cuda.empty_cache()
         pyramid = drive_wsi_pyramid(torch, fa, d_init)
+        torch.cuda.empty_cache()
+        # 24c.–24d. --mesh-dp: the server and the WSI extraction and sweeps
+        dp_serve = drive_dp_serve(torch, fa, serve, d_init)
+        dp_wsi = drive_dp_wsi(torch, fa, d_init)
         wsi_slide.cache_clear()
         torch.cuda.empty_cache()
 
@@ -5506,6 +6132,13 @@ def main() -> int:
         trained = drive_train(torch, fa, d_train,
                               train_config(d_train, steps_per_epoch=4),
                               blocks=blocks, steps_per_epoch=4)
+    torch.cuda.empty_cache()
+
+    # 24a.–24b. data-parallel training: world 1 over NCCL, world 2 over gloo
+    with tempfile.TemporaryDirectory() as d_dp:
+        dp_train = drive_dp_train(torch, fa, d_dp, blocks)
+    with tempfile.TemporaryDirectory() as d_dp:
+        dp_gloo = drive_dp_gloo(torch, fa, d_dp)
     torch.cuda.empty_cache()
 
     # 13.–14. LoRA fine-tuning with the eval, then serving its adapters
@@ -5557,8 +6190,9 @@ def main() -> int:
         rows, bwd_rows, heads_rows, heads_launches, int8_rows, ln_rows,
         fused, served, served8, trained, f32_rows, wsi, lora_trained,
         lora_served, calibrated, pyramid, zoo_rows, zoo_heads_rows, zoo,
-        long_seq, towers, coca_out, pmc, moe_out, compat, aot_out)}),
-        flush=True)
+        long_seq, towers, coca_out, pmc, moe_out, compat, aot_out,
+        {"train": dp_train, "gloo": dp_gloo, "serve": dp_serve,
+         "wsi": dp_wsi})}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -5570,7 +6204,7 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                 f32_rows, wsi, lora_trained, lora_served, calibrated,
                 pyramid, zoo_rows, zoo_heads_rows, zoo,
                 long_seq, towers, coca_out, pmc, moe_out, compat,
-                aot_out) -> list[dict]:
+                aot_out, dp) -> list[dict]:
     """One entry per TPU kernel: its launches on the main path that runs it,
     and, at ViT-L B=32 in bf16 (the int8 kernels: the first shape of their
     phase), its time, its plain version's, its bound and the one PyTorch
@@ -5591,7 +6225,11 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
     MoE trunk's qkv and proj shapes. Phases 20–21 add the launches on the
     registry-loaded model and the served int8 artifact
     (``launches_artifact_path``) and those the exported graphs made in
-    their own process (``launches_aot_path``, a batch of 32 a tower)."""
+    their own process (``launches_aot_path``, a batch of 32 a tower).
+    Phase 24 adds the data-parallel paths' (``launches_dp_path``): the
+    world-1 NCCL and the world-2 gloo training runs (per rank), a bucket-128
+    dispatch pair of ``serve --mesh-dp 1`` and ``wsi.run extract
+    --mesh-dp``, bf16 and int8."""
     def pick(rs, shape="vit_l16"):
         return next(r for r in rs if r["shape"] == shape and r["B"] == 32
                     and r["dtype"] == "bfloat16")
@@ -5646,6 +6284,15 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
             tag: {t: r["batches"][f"{t}_32"]["attention_launches"]
                   for t in ("image", "text")}
             for tag, r in aot_out.items()},
+        launches_dp_path={
+            "train_nccl_world1": dp["train"]["fwd_launches"],
+            "train_gloo_world2_per_rank": dp["gloo"]["fwd_launches_per_rank"],
+            "serve_mesh_dp_1_pair": dp["serve"]["bf16"]["attention_launches"],
+            "serve_mesh_dp_1_int8_pair":
+                dp["serve"]["int8"]["attention_launches"],
+            "wsi_extract_mesh_dp": dp["wsi"]["bf16"]["attention_launches"],
+            "wsi_extract_mesh_dp_int8":
+                dp["wsi"]["int8"]["attention_launches"]},
         shapes=rows, zoo_shapes=zoo_rows, coca_shape=coca_out["slab"])]
     vit_bwd = pick(bwd_rows)
     kernels.append(entry(
@@ -5655,6 +6302,10 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
         launches_lora_train=lora_trained["bwd_launches"],
         launches_coca_backward=coca_out["backward_launches"],
         launches_moe_train=moe_out["train"]["bwd_launches"],
+        launches_dp_path={
+            "train_nccl_world1": dp["train"]["bwd_launches"],
+            "train_gloo_world2_per_rank":
+                dp["gloo"]["bwd_launches_per_rank"]},
         library_call="scaled_dot_product_attention backward through "
                      "autograd (retain_graph; the forward not timed)",
         library_kernel=vit_bwd["library_kernel"], shapes=bwd_rows))
@@ -5714,6 +6365,11 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
         kernels[-1]["launches_aot_path"] = {
             t: aot_out["int8"]["batches"][f"{t}_32"]["int8_launches"].get(
                 kname, 0) for t in ("image", "text")}
+        kernels[-1]["launches_dp_path"] = {
+            "serve_mesh_dp_1_int8_pair":
+                dp["serve"]["int8"]["launches"].get(kname, 0),
+            "wsi_extract_mesh_dp_int8":
+                dp["wsi"]["int8"]["launches"].get(kname, 0)}
         if kname == "quantized_matmul_bsd":
             kernels[-1]["moe_shapes"] = moe_out["qmatmul_rows"]
         if kname in tower_of:

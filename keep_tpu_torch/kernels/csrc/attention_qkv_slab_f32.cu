@@ -465,9 +465,9 @@ struct Args {
 template <int NB, int NC>
 cudaError_t launch(const Args& a) {
   constexpr size_t smem = smem_bytes(NB * 16 * NC);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      slab_attention_wgmma_kernel<NB, NC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  static std::atomic<int> smem_allowed[kMaxDevices];
+  const cudaError_t attr = allow_smem(slab_attention_wgmma_kernel<NB, NC>,
+                                      int(smem), smem_allowed);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((a.S + kQRows - 1) / kQRows, a.H, a.B);
   slab_attention_wgmma_kernel<NB, NC><<<grid, 128, smem, a.stream>>>(

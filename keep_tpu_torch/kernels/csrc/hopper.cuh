@@ -9,6 +9,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -164,15 +166,44 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The card's SM count, for the persistent kernels' grids.
+// Host state that belongs to a card is kept per device: one process may
+// launch on several cards, each made current by the caller for its launch.
+constexpr int kMaxDevices = 64;
+
+int current_device() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return -1;
+  return dev;
+}
+
+// The current card's SM count, for the persistent kernels' grids.
 int sm_count() {
-  static const int n = [] {
-    int dev = 0, count = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    return count > 0 ? count : 1;
-  }();
+  static std::atomic<int> counts[kMaxDevices];
+  const int dev = current_device();
+  if (dev < 0) return 1;
+  int n = counts[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 1;
+    counts[dev].store(n, std::memory_order_relaxed);
+  }
   return n;
+}
+
+// Allows `kernel` more than 48 KB of dynamic shared memory on the current
+// card, once per card (the attribute is set on the current device only).
+// `done` is the calling launcher's own table, one flag per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, int bytes,
+                       std::atomic<int> (&done)[kMaxDevices]) {
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) done[dev].store(1, std::memory_order_release);
+  return e;
 }
 
 // TMA reads global memory from 16-byte aligned addresses only.

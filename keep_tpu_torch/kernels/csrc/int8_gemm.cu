@@ -341,9 +341,9 @@ cudaError_t launch(const CUtensorMap& map_a, const CUtensorMap& map_b,
                    const void* a_scale, const void* b_scale, const void* bias,
                    const void* res, void* out, int M, int N, int K, int order,
                    int gelu, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      int8_gemm_kernel<TOut, TRes>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  static std::atomic<int> smem_allowed[kMaxDevices];
+  const cudaError_t attr =
+      allow_smem(int8_gemm_kernel<TOut, TRes>, kSmemBytes, smem_allowed);
   if (attr != cudaSuccess) return attr;
   const long long tiles =
       static_cast<long long>((M + BM - 1) / BM) * ((N + BN - 1) / BN);

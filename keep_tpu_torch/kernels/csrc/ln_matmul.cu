@@ -582,9 +582,9 @@ cudaError_t launch_bf16(const void* x, const void* g, const void* b,
                         float eps, const void* w, const void* bias,
                         void* stats, void* out, int M, int N, int K,
                         cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      ln_matmul_wgmma_kernel<TOut>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  static std::atomic<int> smem_allowed[kMaxDevices];
+  const cudaError_t attr =
+      allow_smem(ln_matmul_wgmma_kernel<TOut>, kSmemBytes, smem_allowed);
   if (attr != cudaSuccess) return attr;
   constexpr bool kF32 = sizeof(TOut) == 4;
   CUtensorMap map_x, map_w, map_out;

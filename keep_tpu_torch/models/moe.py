@@ -34,10 +34,18 @@ into the activation dtype's product.
 The trunk's attention is plain (``mha_attention``), as in the JAX block;
 its qkv / proj and the stem's patch embed are ``ops.nn`` linears, so
 the int8 model runs them through ``kernels.qmatmul`` (#8).
+
+Under data parallelism (``global_batch()``, which the trainer enters) the
+routing is the global batch's, as XLA computes the JAX package's over its
+mesh: the aux loss's f_e and P_e are means over every rank's tokens, and
+the gather dispatch claims its slots in global (round, token) order under
+the global batch's capacity. The grouped dispatch routes each batch row
+alone, so its routing needs no exchange.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -50,6 +58,45 @@ from keep_tpu_torch.models.vit import (Attention, patchify,
                                        resample_pos_embed)
 from keep_tpu_torch.ops.nn import (LayerNorm, Linear, QLinear, gelu,
                                    ieee_fp32, mha_attention)
+from keep_tpu_torch.parallel import mesh as dp
+
+_GLOBAL_BATCH = False
+
+
+@contextlib.contextmanager
+def global_batch(enabled: bool = True):
+    """Routes over the process group's global batch inside the block (a
+    no-op without a process group)."""
+    global _GLOBAL_BATCH
+    prev, _GLOBAL_BATCH = _GLOBAL_BATCH, enabled
+    try:
+        yield
+    finally:
+        _GLOBAL_BATCH = prev
+
+
+def _routed_as_now(fn):
+    """``fn`` run under the ``global_batch`` setting of this moment (a
+    remat's recompute runs in the backward, outside the caller's block)."""
+    enabled = _GLOBAL_BATCH
+
+    def run(*args, **kw):
+        with global_batch(enabled):
+            return fn(*args, **kw)
+    return run
+
+
+def _ranks() -> tuple[int, int]:
+    return dp.dp_rank_world() if _GLOBAL_BATCH else (0, 1)
+
+
+def _switch_aux(e: int, f_e: torch.Tensor, p_e: torch.Tensor
+                ) -> torch.Tensor:
+    """E · Σ_e f_e · P_e, the statistics over the global batch under
+    ``global_batch()``."""
+    if _ranks()[1] > 1:
+        f_e, p_e = dp.mean_over_ranks(f_e), dp.mean_over_ranks(p_e)
+    return e * (f_e * p_e).sum()
 
 
 def moe_capacity(group_tokens: int, num_experts: int, top_k: int,
@@ -252,7 +299,7 @@ def moe_mlp(p: MoEMLP, x: torch.Tensor, *, top_k: int = 1,
         remaining = remaining * (1.0 - onehot)
     # Switch aux: f_e over every (token, round) assignment before drops
     f_e = importance / (top_k * g * s)
-    aux = e * (f_e * probs.mean((0, 1))).sum()
+    aux = _switch_aux(e, f_e, probs.mean((0, 1)))
     expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
     out = p.experts(expert_in, gelu_approx)
     yt = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), out)
@@ -277,7 +324,9 @@ def moe_mlp_gather(p: MoEMLP, x: torch.Tensor, *, top_k: int = 1,
     e = p.num_experts
     if top_k > e:
         raise ValueError(f"top_k={top_k} > num_experts={e}")
-    c = moe_capacity(t, e, top_k, capacity_factor)
+    rank, world = _ranks()
+    # the capacity of the global batch's T (equal shards)
+    c = moe_capacity(t * world, e, top_k, capacity_factor)
     probs = p.router.probs(xf)  # [T, E]
     if route is not None:
         route = torch.as_tensor(route, device=x.device).long()
@@ -294,6 +343,16 @@ def moe_mlp_gather(p: MoEMLP, x: torch.Tensor, *, top_k: int = 1,
     onehot = F.one_hot(idx_f, e).to(torch.int32)  # [K·T, E]
     counts = _chunked_cumsum(onehot)
     my_pos = ((counts - onehot) * onehot).sum(-1)
+    if world > 1:
+        # global (round, token) order: a slot of round j comes after every
+        # rank's earlier rounds and the lower ranks' round j
+        per_round = onehot.reshape(k, t, e).sum(1)  # [K, E]
+        every = dp.gather_rows(per_round[None])  # [world, K, E]
+        before = (every.sum(0) - per_round).cumsum(0) - (every.sum(0)
+                                                         - per_round)
+        offset = before + every[:rank].sum(0)  # [K, E]
+        rounds = torch.arange(k, device=x.device).repeat_interleave(t)
+        my_pos = my_pos + offset[rounds, idx_f].to(my_pos.dtype)
     kept = my_pos < c
     slot = torch.where(kept, idx_f * c + my_pos, e * c)  # E·C: the pad slot
     # the inverse map: kept slots are unique; every dropped token writes
@@ -310,8 +369,7 @@ def moe_mlp_gather(p: MoEMLP, x: torch.Tensor, *, top_k: int = 1,
                       torch.zeros(1, d, dtype=out.dtype, device=x.device)])
     w = (gate * kept.reshape(k, t)).to(x.dtype)
     yt = (flat[slot.reshape(k, t)] * w[..., None]).sum(0)
-    f_e = onehot.float().mean(0)
-    aux = e * (f_e * probs.mean(0)).sum()
+    aux = _switch_aux(e, onehot.float().mean(0), probs.mean(0))
     if return_route:
         return yt.reshape(orig), aux, idx[0]
     return yt.reshape(orig), aux
@@ -399,8 +457,9 @@ class MoETrunk(nn.Module):
         for i, blk in enumerate(self.blocks):
             route = None if routes is None else routes[i]
             if remat:
-                out = checkpoint(blk, tokens, route, use_reentrant=False,
-                                 **kw)
+                # the backward's recompute routes as the forward did
+                out = checkpoint(_routed_as_now(blk), tokens, route,
+                                 use_reentrant=False, **kw)
             else:
                 out = blk(tokens, route, **kw)
             tokens = out[0]

@@ -11,6 +11,11 @@
   memory to the card without waiting and returns the unfinished CUDA
   result; ``fetch`` (``.cpu().numpy()``) waits for it one dispatch later, so
   the host assembles batch N+1 while the card computes batch N.
+- **Data parallelism** (``mesh=``, ``--mesh-dp N``): the model is
+  replicated on each of the mesh's N cards, every bucket is rounded up to a
+  multiple of N, and a dispatch splits into N contiguous chunks, each
+  copied to its card and launched on that card's current stream without a
+  host sync between them; the fetch takes the chunks back in order.
 
 HTTP layer (stdlib ``ThreadingHTTPServer``):
 POST /encode_text      {"texts": ["...", ...]}           → {"embeddings": [[...]]}
@@ -27,13 +32,15 @@ accepted; co-located with the card, both serve int8 at every bucket, which
 is the JAX server's co-located branch. ``--lora <checkpoints dir>``
 merges the adapters a LoRA fine-tune wrote (``train/lora.py``) into the
 model at startup, with the scale ``--lora-scale`` or, by default, the run's
-``params.txt``; with ``--int8`` the merged fp32 values are quantized. The
-JAX server's ``--mesh-dp`` is not ported yet and is refused.
+``params.txt``; with ``--int8`` the merged fp32 values are quantized.
+``--mesh-dp N`` serves over the first N cards (the JAX server's flag; with
+``--int8``, ``--lora`` and the int8 artifact too).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io
 import json
 import os
@@ -48,6 +55,7 @@ import torch
 from keep_tpu_torch.configs import PreprocessConfig
 from keep_tpu_torch.ops.preprocess import (crop_window, normalize_only,
                                            resized_output_size)
+from keep_tpu_torch.parallel import batch_sharding, make_mesh, replicate
 
 _BUCKETS = (1, 8, 32, 128)
 
@@ -200,23 +208,35 @@ class BatchQueue:
         self.thread.join(timeout=5)
 
 
-def _fetch(handle: torch.Tensor) -> np.ndarray:
-    return handle.cpu().numpy()
+def _fetch(handle: list) -> np.ndarray:
+    """The features of one chunk per mesh device, in order."""
+    if len(handle) == 1:
+        return handle[0].cpu().numpy()
+    return np.concatenate([h.cpu().numpy() for h in handle])
 
 
 class InferenceServer:
     """Model-side server core (HTTP-free; ``make_http_server`` wraps it).
-    The model's device is the device of its parameters."""
+    The model's device is the device of its parameters.
+
+    ``mesh`` (``parallel.make_mesh``): a tuple of devices to serve over, the
+    model replicated on each; buckets round up to multiples of its size."""
 
     def __init__(self, model, tokenizer, *, max_length: int = 256,
                  image_size: int = 224, buckets=_BUCKETS,
-                 max_delay_ms: float = 3.0):
+                 max_delay_ms: float = 3.0, mesh=None):
         self.model = model
         self.tokenizer = tokenizer
         self.max_length = max_length
         self.image_size = image_size
-        self.buckets = tuple(buckets)
         self.device = next(model.parameters()).device
+        # without a mesh: the model's own device, a mesh of one
+        self.mesh = (self.device,) if mesh is None else tuple(mesh)
+        n = len(self.mesh)
+        if n > 1:
+            buckets = sorted({max(b, n) + (-max(b, n)) % n for b in buckets})
+        self._replicas = replicate(self.mesh, model)
+        self.buckets = tuple(buckets)
         self._pcfg = PreprocessConfig(size=image_size)
         _b_of = lambda n: _bucket(n, self.buckets)  # noqa: E731
         self.text_q = BatchQueue(self._launch_text, self.buckets[-1],
@@ -227,28 +247,45 @@ class InferenceServer:
                                   bucket_of=_b_of)
         self.started = time.time()
 
-    def _pad_put(self, arr: np.ndarray) -> torch.Tensor:
-        """Pads to the bucket and starts the copy to the device; padded tail
-        rows are computed and never read back."""
+    @staticmethod
+    def _put(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+        if device.type != "cuda":
+            return host.to(device)
+        return host.pin_memory().to(device, non_blocking=True)
+
+    def _padded(self, arr: np.ndarray) -> torch.Tensor:
+        """The batch padded to its bucket, on the host; padded tail rows are
+        computed and never read back."""
         n = len(arr)
         pad = np.zeros((_bucket(n, self.buckets) - n,) + arr.shape[1:],
                        arr.dtype)
-        host = torch.from_numpy(np.concatenate([arr, pad], 0))
-        if self.device.type != "cuda":
-            return host.to(self.device)
-        return host.pin_memory().to(self.device, non_blocking=True)
+        return torch.from_numpy(np.concatenate([arr, pad], 0))
 
-    def _launch_text(self, ids_mask: np.ndarray) -> torch.Tensor:
-        im = self._pad_put(ids_mask.astype(np.int64))
+    def _dispatch(self, arr: np.ndarray, encode):
+        """Starts ``encode(model, device batch)`` on the padded batch and
+        returns the unfetched result, one tensor a mesh device: each chunk
+        copied to its card and launched there."""
+        host = self._padded(arr)
+        out = []
         with torch.inference_mode():
-            return self.model.encode_text(im[:, 0], im[:, 1])  # unfetched
+            for rows, device, m in zip(batch_sharding(self.mesh, len(host)),
+                                       self.mesh, self._replicas):
+                with (torch.cuda.device(device) if device.type == "cuda"
+                      else contextlib.nullcontext()):
+                    out.append(encode(m, self._put(host[rows], device)))
+        return out
 
-    def _launch_image(self, tiles_u8: np.ndarray) -> torch.Tensor:
+    def _launch_text(self, ids_mask: np.ndarray):
+        return self._dispatch(
+            ids_mask.astype(np.int64),
+            lambda m, im: m.encode_text(im[:, 0], im[:, 1]))  # unfetched
+
+    def _launch_image(self, tiles_u8: np.ndarray):
         # tiles travel as raw uint8 and are normalised on the device inside
         # this dispatch; only the [N, D] features come back
-        px = self._pad_put(tiles_u8)
-        with torch.inference_mode():
-            return self.model.encode_image(normalize_only(px, self._pcfg))
+        return self._dispatch(
+            tiles_u8,
+            lambda m, px: m.encode_image(normalize_only(px, self._pcfg)))
 
     # -- public API ---------------------------------------------------------
 
@@ -316,6 +353,7 @@ class InferenceServer:
                       "dispatches": self.image_q.dispatches,
                       "bucket_hits": dict(self.image_q.bucket_hits)},
             "buckets": list(self.buckets),
+            "mesh": len(self.mesh),
         }
 
     def stop(self):
@@ -383,9 +421,6 @@ def make_http_server(core: InferenceServer, port: int = 0,
     return ThreadingHTTPServer((host, port), Handler)
 
 
-_NOT_PORTED = {"mesh_dp": "--mesh-dp"}
-
-
 def lora_scale_for(lora_dir: str, scale: float | None) -> float:
     """The LoRA scale α / r: ``scale`` when given, else from the training
     run's ``params.txt`` (``solver.lora_alpha / lora_rank``) in
@@ -436,16 +471,22 @@ def build_server(argv=None):
                     help="alpha / rank used in training; default: read "
                          "solver.lora_alpha / lora_rank from the run's "
                          "params.txt beside the checkpoint dir")
-    ap.add_argument("--mesh-dp", type=int, default=0, help="not ported yet")
+    ap.add_argument("--mesh-dp", type=int, default=0,
+                    help="serve over the first N cards (data parallel: the "
+                         "model replicated, each dispatch split N ways)")
     args = ap.parse_args(argv)
-    for dest, flag in _NOT_PORTED.items():
-        if getattr(args, dest):
-            ap.error(f"{flag} is not ported to the PyTorch server yet; "
-                     f"serve it with python -m keep_tpu.serve")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to serve on the "
                          "CPU")
+    mesh = None
+    if args.mesh_dp:
+        # the cards from the first (or the one --device names); on the CPU
+        # the one CPU device
+        present = ([device] if device.type != "cuda" or device.index
+                   is not None else None)
+        mesh = make_mesh(args.mesh_dp, devices=present)
+        device = mesh[0]
 
     from keep_tpu_torch.compat.export import QUANTIZED_SUBDIR
     from keep_tpu_torch.factory import get_tokenizer
@@ -481,7 +522,7 @@ def build_server(argv=None):
         # already int8, nothing to quantize
         print("model dir carries a quantized artifact; serving it as-is",
               flush=True)
-    elif args.int8 and args.precision_policy == "auto":
+    elif args.int8 and args.precision_policy == "auto" and not mesh:
         # the JAX server measures a relay's round trip here; with the card
         # in the same host there is no relay, and its co-located branch
         # serves int8 at every bucket
@@ -492,7 +533,7 @@ def build_server(argv=None):
                   model.cfg.text.max_position_embeddings)
     core = InferenceServer(model, tokenizer, max_length=max_len,
                            image_size=model.cfg.vision.img_size,
-                           max_delay_ms=args.max_delay_ms)
+                           max_delay_ms=args.max_delay_ms, mesh=mesh)
     try:
         core.warmup()
         httpd = make_http_server(core, args.port, args.host)

@@ -160,7 +160,7 @@ class GroupDataset:
         self.num_instance = num_instance
         self.text_drop = text_drop
         self.seed = seed
-        self.process_index = 0  # single process: the JAX package's shard 0
+        self.process_index = 0  # every rank: the JAX package's shard 0 of 1
         self.rng = np.random.default_rng(seed + self.process_index)
         groups = list(self.data.keys())
         if labeled_cap in ("label", "unlabel"):
@@ -312,7 +312,16 @@ class BatchIterator:
     """Group-blocked batches of numpy arrays: pixels [B, S, S, 3]
     (normalised fp32), input_ids / attention_mask [B, L], node_connection
     [N_id, N_id] (when ``do_graph`` is given), and the raw texts and
-    labels."""
+    labels.
+
+    ``shard = (r, n)``: rank r of n takes rows [r·B/n, (r+1)·B/n) of each
+    batch that one process draws from the same seed (``batch_size`` is the
+    global batch; ValueError naming it when it does not divide). The RNG
+    runs through every row, so the rows equal the one-process batch's;
+    only the rank's own images are decoded (the others' sizes, which the
+    random crop draws on, come from the preload or from the image file's
+    header; a custom ``image_loader`` is called for them). ``texts``,
+    ``cap_labels`` and ``node_connection`` stay the global batch's."""
 
     dataset: GroupDataset
     tokenizer: Callable
@@ -327,11 +336,16 @@ class BatchIterator:
     drop_last: bool = True
     seed: int = 0
     workers: int = 8  # image decode threads
+    shard: tuple[int, int] = (0, 1)  # (rank, ranks) splitting each batch
 
     def __post_init__(self):
         if self.batch_size % self.caption_num:
             raise ValueError(f"batch_size {self.batch_size} is not a "
                              f"multiple of caption_num {self.caption_num}")
+        rank, ranks = self.shard
+        if self.batch_size % ranks:
+            raise ValueError(f"batch_size {self.batch_size} (the global "
+                             f"batch) does not divide over {ranks} ranks")
         n_ins = self.batch_size // self.caption_num
         ds_ins = getattr(self.dataset, "num_instance", None)
         if ds_ins is not None and ds_ins != n_ins:
@@ -357,6 +371,9 @@ class BatchIterator:
             loader = lambda name: pre[name] if name in pre else base(name)
         else:
             loader = base
+        rank, ranks = self.shard
+        per_rank = self.batch_size // ranks
+        own = range(rank * per_rank, (rank + 1) * per_rank)
         pool = (ThreadPoolExecutor(max_workers=self.workers)
                 if self.workers > 1 else None)
         try:
@@ -365,18 +382,29 @@ class BatchIterator:
                     self.batch_size):
                 idxs = range(start, min(start + self.batch_size, n))
                 samples = [self.dataset[i] for i in idxs]
+                mine = samples if ranks == 1 else [samples[i] for i in own
+                                                   if i < len(samples)]
                 if pool is not None:
-                    raw = list(pool.map(lambda s: loader(s.image), samples))
+                    raw = list(pool.map(lambda s: loader(s.image), mine))
                 else:
-                    raw = [loader(s.image) for s in samples]
-                pixels = np.stack([random_crop(img, self.image_size, self.rng)
-                                   for img in raw])
+                    raw = [loader(s.image) for s in mine]
+                crops = iter(raw)
+                pixels = []
+                for i, s in enumerate(samples):
+                    if ranks == 1 or i in own:
+                        pixels.append(random_crop(next(crops),
+                                                  self.image_size, self.rng))
+                    else:  # the draws the crop would make, in order
+                        _skip_crop(self._image_hw(s.image, loader),
+                                   self.image_size, self.rng)
                 enc = self.tokenizer([s.text for s in samples],
                                      max_length=self.max_length)
+                rows = slice(own.start, own.stop) if ranks > 1 else slice(None)
                 batch = {
-                    "pixels": normalize_only(torch.from_numpy(pixels)).numpy(),
-                    "input_ids": enc["input_ids"],
-                    "attention_mask": enc["attention_mask"],
+                    "pixels": normalize_only(torch.from_numpy(
+                        np.stack(pixels))).numpy(),
+                    "input_ids": np.asarray(enc["input_ids"])[rows],
+                    "attention_mask": np.asarray(enc["attention_mask"])[rows],
                     "texts": [s.text for s in samples],
                     "cap_labels": [s.cap_label for s in samples],
                 }
@@ -388,3 +416,23 @@ class BatchIterator:
         finally:
             if pool is not None:
                 pool.shutdown(wait=False)
+
+    def _image_hw(self, name: str, loader) -> tuple[int, int]:
+        """(height, width) of an image another rank decodes."""
+        if self.preload is not None and name in self.preload:
+            return self.preload[name].shape[:2]
+        if self.image_loader is not None:
+            return np.asarray(loader(name)).shape[:2]
+        from PIL import Image
+
+        with Image.open(resolve_image_path(self.img_dir, name)) as im:
+            w, h = im.size
+        return h, w
+
+
+def _skip_crop(hw: tuple[int, int], size: int,
+               rng: np.random.Generator) -> None:
+    """Advances ``rng`` as ``random_crop`` of an image of ``hw`` would."""
+    h, w = max(hw[0], size), max(hw[1], size)
+    rng.integers(0, h - size + 1)
+    rng.integers(0, w - size + 1)

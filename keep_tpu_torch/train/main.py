@@ -1,6 +1,6 @@
 """Training entry point: ``python -m keep_tpu_torch.train.main --config
-cfg.yml`` (counterpart of ``keep_tpu/train/main.py``), single process on one
-device.
+cfg.yml`` (counterpart of ``keep_tpu/train/main.py``), one process per
+card.
 
 Experiment naming, logging, model build (random init, optional pretrained
 towers), resume-latest, data, LR schedule, freeze phases with the freeze
@@ -17,16 +17,30 @@ tensors are on the CPU. The device is ``--device`` (``train(device=...)``),
 ``cuda`` by default: without a card the run raises unless the caller asks
 for the CPU with ``--device cpu``; it never moves to the CPU by itself.
 
-An MoE trunk (``keep.vision.moe_experts > 0``) trains in one process, its
-load-balancing loss added at ``moe_aux_weight``; a dense pretrained image
-tower cannot initialize it (ValueError, as in the JAX package).
+An MoE trunk (``keep.vision.moe_experts > 0``) trains, its load-balancing
+loss added at ``moe_aux_weight``; a dense pretrained image tower cannot
+initialize it (ValueError, as in the JAX package).
 
-Not ported yet, and refused with NotImplementedError: more than one process
-or device and the ``solver.tp/pp/sp/ep/fsdp`` layouts (``ep``, the experts
-over cards, included; ROADMAP queue 1, item 10). The tokenizer is
-``factory.get_tokenizer``'s for ``dataset.tokenizer_type`` (the native
-WordPiece for ``bert`` where it builds; BPE for ``clip``), as in the JAX
-package.
+Data parallelism: under torchrun (``torchrun --nproc-per-node N -m
+keep_tpu_torch.train.main ...``), srun or mpirun, ``train`` first joins the
+process group (``parallel.multihost.init_from_env``: NCCL on the cards,
+gloo on the CPU, or ``--dist-backend``). ``dataloader.batch_size`` is the
+global batch, as the JAX package's mesh splits it: rank r of N trains on
+rows [r·B/N, (r+1)·B/N) of the batch one process draws from the same seed,
+and the step computes the global batch's loss and gradient
+(``train/trainer.py``), so the run follows the one-process trajectory. A
+global batch that does not divide over the ranks raises ValueError (the
+JAX package falls back to one device there). Rank 0 alone writes the log
+file, ``params.txt``, results, checkpoints and the remote sync; the
+experiment name and the resumed epoch are rank 0's. With several visible
+cards and no launcher in the environment, ``main`` starts one worker per
+card itself (``spawn_local_workers``).
+
+Not ported yet, and refused with NotImplementedError: the
+``solver.tp/pp/sp/ep/fsdp`` layouts (ROADMAP queue 1, item 10, step 2).
+The tokenizer is ``factory.get_tokenizer``'s for ``dataset.tokenizer_type``
+(the native WordPiece for ``bert`` where it builds; BPE for ``clip``), as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,6 +52,9 @@ import datetime
 import json
 import logging
 import os
+import socket
+import subprocess
+import sys
 import time
 from typing import Optional
 
@@ -45,6 +62,7 @@ import numpy as np
 import torch
 
 from keep_tpu_torch.models.keep import KEEPModel
+from keep_tpu_torch.parallel import gather_rows, local_rows, multihost
 from keep_tpu_torch.train import checkpoint as ckpt
 from keep_tpu_torch.train import eval as zs_eval
 from keep_tpu_torch.train import lora, optim, schedules, sync
@@ -61,12 +79,14 @@ from keep_tpu_torch.utils.logging import (AverageMeter, append_results,
 
 
 def experiment_name(cfg: TrainRunConfig) -> str:
+    """The configured name, else a timestamped one: rank 0's, so that
+    startup skew cannot split a run over two directories."""
     if cfg.save.experiment_name:
         return cfg.save.experiment_name
     date_str = datetime.datetime.now().strftime("%Y_%m_%d-%H_%M_%S")
-    return "-".join([date_str, f"model_{cfg.model.type}",
-                     f"lr_{cfg.solver.lr}", f"b_{cfg.dataloader.batch_size}",
-                     f"e_{cfg.solver.epochs}"])
+    return multihost.broadcast_object("-".join([
+        date_str, f"model_{cfg.model.type}", f"lr_{cfg.solver.lr}",
+        f"b_{cfg.dataloader.batch_size}", f"e_{cfg.solver.epochs}"]))
 
 
 def build_schedule(cfg: TrainRunConfig, steps_per_epoch: int):
@@ -84,27 +104,19 @@ def build_schedule(cfg: TrainRunConfig, steps_per_epoch: int):
 
 
 def check_supported(cfg: TrainRunConfig) -> None:
-    """Raises NotImplementedError for what the port does not train yet,
-    naming the ROADMAP item that brings it (an MoE trunk trains in one
-    process; ``solver.ep`` waits with the rest of item 10), and ValueError
-    for a dense pretrained image tower asked for an MoE trunk."""
+    """Raises NotImplementedError for the layouts the port does not train
+    yet (``solver.tp/pp/sp/ep/fsdp``: ROADMAP item 10, step 2), and
+    ValueError for a dense pretrained image tower asked for an MoE trunk."""
     if cfg.keep.vision.moe_experts > 0 and cfg.model.pretrained_image:
         raise ValueError(
             "model.pretrained_image loads a DENSE timm trunk: it cannot "
             "initialize an MoE trunk (vision.moe_experts > 0); drop one of "
             "the two")
     s = cfg.solver
-    refused = {
-        "solver.tp / pp / sp / ep / fsdp (ROADMAP queue 1, item 10: "
-        "distributed)": (s.tp > 1 or s.pp > 1 or s.sp or s.ep > 1 or s.fsdp),
-        "more than one process (ROADMAP queue 1, item 10: distributed)":
-            int(os.environ.get("WORLD_SIZE", "1")) > 1,
-        "more than one CUDA device (ROADMAP queue 1, item 10: distributed; "
-        "pin one with CUDA_VISIBLE_DEVICES)": torch.cuda.device_count() > 1,
-    }
-    bad = [k for k, v in refused.items() if v]
-    if bad:
-        raise NotImplementedError("not ported yet: " + "; ".join(bad))
+    if s.tp > 1 or s.pp > 1 or s.sp or s.ep > 1 or s.fsdp:
+        raise NotImplementedError(
+            "not ported yet: solver.tp / pp / sp / ep / fsdp (ROADMAP queue "
+            "1, item 10, step 2: only data parallelism is ported)")
 
 
 def build_model(cfg: TrainRunConfig, device) -> KEEPModel:
@@ -205,10 +217,23 @@ def eval_encoders(model: KEEPModel, weights: Optional[dict], device):
     """``(encode_image(pixels), encode_text(ids, mask))`` for the eval:
     numpy batches in, feature tensors on ``device`` out, without autograd;
     ``weights`` (the merged LoRA tensors, or None) are swapped into the
-    model for each call."""
+    model for each call. Under data parallelism a batch that divides over
+    the ranks is split, each rank encoding its rows, and the features
+    gathered; any other batch is encoded whole on every rank."""
+    world = multihost.process_count()
+
     def weights_in():
         return (contextlib.nullcontext() if weights is None
                 else lora.swapped(model, weights))
+
+    def split(encode):
+        def run(*arrays):
+            n = len(arrays[0])
+            if world == 1 or n % world:
+                return encode(*arrays)
+            rows = local_rows(n, "eval batch")
+            return gather_rows(encode(*(a[rows] for a in arrays)))
+        return run
 
     @torch.inference_mode()
     def encode_image(pixels):
@@ -222,7 +247,7 @@ def eval_encoders(model: KEEPModel, weights: Optional[dict], device):
             return model.encode_text(torch.as_tensor(ids).long().to(device),
                                      torch.as_tensor(mask).long().to(device))
 
-    return encode_image, encode_text
+    return split(encode_image), split(encode_text)
 
 
 def evaluate(cfg: TrainRunConfig, model: KEEPModel, weights: Optional[dict],
@@ -250,29 +275,46 @@ def evaluate(cfg: TrainRunConfig, model: KEEPModel, weights: Optional[dict],
 
 def train(cfg: TrainRunConfig, tokenizer=None, dataset=None,
           image_loader=None, eval_data=None, params: Optional[dict] = None,
-          device: str | torch.device = "cuda") -> dict:
+          device: str | torch.device = "cuda",
+          dist_backend: Optional[str] = None,
+          adapters: Optional[dict] = None) -> dict:
     """Runs training on ``device`` and returns the last epoch's record.
     ``dataset``, ``image_loader``, ``tokenizer`` and ``eval_data`` (as
     ``build_eval_data`` returns it) replace the configured sources;
     ``params`` (a ``KEEPModel`` state dict) replaces the random initial
-    weights (with LoRA: the base)."""
+    weights (with LoRA: the base), ``adapters`` LoRA's seeded initial
+    adapters (``lora.init_lora``'s names). Under a launcher the process
+    first joins the process group (``dist_backend``: default NCCL on a
+    card, gloo on the CPU); each rank passes the same arguments."""
     check_supported(cfg)
     if cfg.solver.lora_rank > 0 and cfg.solver.accum_freq > 1:
         raise ValueError("solver.lora_rank does not compose with "
                          "accum_freq > 1")
     device = resolve_device(device)
+    layout = multihost.discover()
+    world = layout["world"] if layout else multihost.process_count()
+    if cfg.dataloader.batch_size % world:  # before joining the group
+        raise ValueError(
+            f"dataloader.batch_size {cfg.dataloader.batch_size} (the global "
+            f"batch) does not divide over {world} ranks")
+    multihost.init_from_env(device, dist_backend)
+    device = multihost.local_device(device)
+    master = multihost.is_master()
     name = experiment_name(cfg)
     out_dir = os.path.join(cfg.save.output_dir, name)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
-    setup_logging(os.path.join(out_dir, "out.log"))
-    logging.info("experiment %s → %s on %s", name, out_dir, device)
-    with open(os.path.join(out_dir, "params.txt"), "w") as f:
-        f.write(json.dumps(dataclasses.asdict(cfg), indent=2, default=str))
-    if cfg.save.copy_codebase:
-        _copy_codebase(out_dir)
+    setup_logging(os.path.join(out_dir, "out.log") if master else None)
+    logging.info("experiment %s → %s on %s (rank %d of %d)", name, out_dir,
+                 device, multihost.process_index(), world)
+    if master:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "params.txt"), "w") as f:
+            f.write(json.dumps(dataclasses.asdict(cfg), indent=2,
+                               default=str))
+        if cfg.save.copy_codebase:
+            _copy_codebase(out_dir)
     sync_proc = None
-    if cfg.save.remote_sync:
+    if cfg.save.remote_sync and master:
         # a target that cannot be written fails the run now, not after the
         # local disk has lost the checkpoints
         if not sync.remote_sync(ckpt_dir, cfg.save.remote_sync):
@@ -285,7 +327,7 @@ def train(cfg: TrainRunConfig, tokenizer=None, dataset=None,
                      cfg.save.remote_sync_frequency)
     try:
         results = _train(cfg, tokenizer, dataset, image_loader, eval_data,
-                         params, device, out_dir, ckpt_dir)
+                         params, device, out_dir, ckpt_dir, adapters)
     finally:
         if sync_proc is not None:
             sync_proc.terminate()
@@ -296,16 +338,22 @@ def train(cfg: TrainRunConfig, tokenizer=None, dataset=None,
 
 
 def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
-           params, device, out_dir: str, ckpt_dir: str) -> dict:
+           params, device, out_dir: str, ckpt_dir: str,
+           adapters: Optional[dict] = None) -> dict:
     from keep_tpu_torch.utils.writers import MetricWriter
 
-    writer = MetricWriter(out_dir, wandb_project=cfg.save.wandb_project)
+    rank, world = multihost.process_index(), multihost.process_count()
+    master = rank == 0
+    writer = (MetricWriter(out_dir, wandb_project=cfg.save.wandb_project)
+              if master else None)
     tokenizer = tokenizer or _tokenizer(cfg)
     nodes = (load_knowledge_json(cfg.dataset.knowledge_file)
              if cfg.dataset.knowledge_file else None)
     do_graph = DOGraph({k: v["parent"] for k, v in nodes.items()}
                        if nodes else {})
     if dataset is None:
+        # every rank, on every node, draws the one-process batches and
+        # keeps its rows of them (BatchIterator.shard)
         dataset = GroupDataset(
             cfg.dataset.train_data,
             num_instance=cfg.dataloader.batch_size // cfg.dataloader.caption_num,
@@ -332,7 +380,7 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
             image_size=cfg.keep.vision.img_size,
             max_length=cfg.keep.max_text_length, do_graph=do_graph,
             image_loader=image_loader, preload=preload, seed=cfg.seed,
-            workers=cfg.dataloader.workers)
+            workers=cfg.dataloader.workers, shard=(rank, world))
 
     steps_per_epoch = make_iter().num_batches
     accum = max(1, cfg.solver.accum_freq)
@@ -362,6 +410,13 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
         trainable = lora.init_lora(
             base, cfg.solver.lora_rank, targets=cfg.solver.lora_targets,
             generator=torch.Generator(device=device).manual_seed(cfg.seed + 1))
+        if adapters is not None:
+            if adapters.keys() != trainable.keys():
+                raise KeyError("adapters do not match solver.lora_rank / "
+                               "lora_targets")
+            with torch.no_grad():
+                for n, t in adapters.items():
+                    trainable[n].copy_(t)
         n_ad, _ = lora.lora_param_count(trainable)
         n_base = sum(p.numel() for p in base.values())
         logging.info(
@@ -387,7 +442,11 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
     if cfg.save.resume:
         epoch_sel = None if cfg.save.resume == "latest" else int(
             cfg.save.resume)
+        if epoch_sel is None:  # every rank resumes rank 0's latest
+            epoch_sel = multihost.broadcast_object(ckpt.latest_epoch(ckpt_dir))
         try:
+            if epoch_sel is None:
+                raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
             restored = ckpt.restore(ckpt_dir, epoch=epoch_sel)
         except FileNotFoundError:
             logging.info("resume requested but no checkpoint found; fresh "
@@ -434,9 +493,10 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
         logging.info("resume epoch %d >= epochs %d: nothing to train",
                      start_epoch, cfg.solver.epochs)
     n_ins = cfg.dataloader.batch_size // cfg.dataloader.caption_num
-    writer_ckpt = ckpt.CheckpointWriter(
+    writer_ckpt = (ckpt.CheckpointWriter(
         ckpt_dir, async_save=cfg.save.async_checkpointing,
         keep_previous=not cfg.save.delete_previous_checkpoint)
+        if master else None)
     try:
         for epoch in range(start_epoch, cfg.solver.epochs):
             phase = fs.frozen_towers(epoch)
@@ -501,6 +561,8 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
                 del weights
                 results.update(zs)
                 logging.info("epoch %d eval: %s", epoch, zs)
+            if not master:
+                continue
             append_results(os.path.join(ckpt_dir, "results.jsonl"), results)
             writer.write(state.step, results)
             if ((epoch + 1) % cfg.save.save_frequency == 0
@@ -512,8 +574,10 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
                              " (async)" if cfg.save.async_checkpointing
                              else "")
     finally:
-        writer_ckpt.close()  # waits for a save still being written
-    writer.close()
+        if writer_ckpt is not None:
+            writer_ckpt.close()  # waits for a save still being written
+    if writer is not None:
+        writer.close()
     return results
 
 
@@ -534,9 +598,51 @@ def _copy_codebase(out_dir: str) -> None:
     logging.info("code snapshot at %s", dst)
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_local_workers(argv: list[str], n: int,
+                        timeout: Optional[float] = None) -> list[int]:
+    """Runs ``python -m keep_tpu_torch.train.main <argv>`` as ``n`` local
+    workers under a torchrun-style environment (rank i on card i), and
+    waits for them. A failing worker stops the others; raises SystemExit
+    with its exit code. Returns the exit codes (all 0)."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(_free_port()), WORLD_SIZE=str(n),
+               LOCAL_WORLD_SIZE=str(n))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "keep_tpu_torch.train.main", *argv],
+        env=dict(env, RANK=str(i), LOCAL_RANK=str(i))) for i in range(n)]
+    deadline = None if timeout is None else time.time() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [p.returncode for p in procs if p.returncode]
+            if failed:
+                raise SystemExit(f"a training worker exited with "
+                                 f"{failed[0]}")
+            if deadline is not None and time.time() > deadline:
+                raise SystemExit(f"training workers still running after "
+                                 f"{timeout} s")
+            time.sleep(0.2)
+        codes = [p.returncode for p in procs]
+        if any(codes):
+            raise SystemExit(f"training workers exited with {codes}")
+        return codes
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def main(argv: Optional[list[str]] = None):
     parser = argparse.ArgumentParser(
-        description="Train KEEP (single process, one device).")
+        description="Train KEEP: one process per card (under torchrun, "
+                    "srun or mpirun; or one worker per visible card, "
+                    "started here).")
     parser.add_argument("--config", required=True,
                         help="run config, YAML or JSON")
     parser.add_argument("--resume",
@@ -544,14 +650,31 @@ def main(argv: Optional[list[str]] = None):
     parser.add_argument("--experiment-name",
                         help="override save.experiment_name")
     parser.add_argument("--device", default="cuda",
-                        help="torch device to train on (default: cuda)")
-    args = parser.parse_args(argv)
+                        help="torch device to train on (default: cuda, the "
+                             "local rank's card)")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                        help="process group backend under a launcher "
+                             "(default: nccl on cards, gloo on the CPU)")
+    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
     cfg = TrainRunConfig.from_yaml(args.config)
     if args.resume is not None:
         cfg.save.resume = args.resume
     if args.experiment_name is not None:
         cfg.save.experiment_name = args.experiment_name
-    return train(cfg, device=args.device)
+    device = resolve_device(args.device)
+    if (device.type == "cuda" and device.index is None
+            and multihost.discover() is None
+            and torch.cuda.device_count() > 1):
+        # every visible card, as the JAX package's mesh takes every device
+        spawn_local_workers(sys.argv[1:] if argv is None else list(argv),
+                            torch.cuda.device_count())
+        return None
+    joined = not torch.distributed.is_initialized()
+    try:
+        return train(cfg, device=device, dist_backend=args.dist_backend)
+    finally:
+        if joined and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

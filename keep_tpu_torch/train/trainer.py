@@ -17,6 +17,19 @@ LoRA fine-tuning (``make_train_step(lora_scale=, base=)``): the state holds
 the adapter dict only (``train/lora.py``), so that the optimizer keeps no
 moments for the frozen base; the step swaps the merged weights into the
 model for its forward and backward.
+
+Data parallelism, under a ``torch.distributed`` process group: each rank's
+batch holds its rows of the global batch, and ``node_connection`` is the
+global batch's. The towers' features are gathered across the ranks
+(``parallel.gather_rows``), so every rank computes the global batch's loss,
+its negatives and hard mining included, as XLA does for the JAX package
+over its mesh; the MoE trunk routes over the global batch
+(``moe.global_batch``). There is no ``DistributedDataParallel`` wrapper:
+right after the backward the gradient dict is summed over the ranks
+(``parallel.all_reduce_grads``, the trainable leaves only), and clipping,
+the freeze mask and AdamW run on the sum, as the optax chain sees the
+global gradient. ``logit_scale`` enters the loss after the gather, so each
+rank already holds its whole gradient: it is not summed.
 """
 
 from __future__ import annotations
@@ -29,7 +42,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from keep_tpu_torch.models import moe
 from keep_tpu_torch.models.keep import KEEPModel
+from keep_tpu_torch.parallel.mesh import all_reduce_grads, gather_rows
 from keep_tpu_torch.train import lora
 from keep_tpu_torch.train.loss import clip_loss, hy_metric_loss
 from keep_tpu_torch.train.optim import AdamW, global_norm
@@ -81,15 +96,18 @@ def to_device(batch: dict, device) -> dict:
 
 
 def _encode_batch(model: KEEPModel, batch: dict, remat: bool = True):
-    """(image features, text features, the MoE aux loss: 0 when dense)."""
-    img, aux = model.encode_image(batch["pixels"], remat=remat,
-                                  return_aux=True)
+    """(image features, text features, the MoE aux loss: 0 when dense) of
+    this rank's rows; the aux loss is the global batch's."""
+    with moe.global_batch():
+        img, aux = model.encode_image(batch["pixels"], remat=remat,
+                                      return_aux=True)
     txt = model.encode_text(batch["input_ids"], batch.get("attention_mask"),
                             batch.get("token_type_ids"), remat=remat)
     return img, txt, aux
 
 
 def _loss(img, txt, batch, scale, loss_cfg: LossConfig, caption_num: int):
+    """The loss of the global batch's features ``img`` / ``txt``."""
     if loss_cfg.kind == "hierarchy_metric":
         return hy_metric_loss(img, txt, batch["node_connection"], scale,
                               caption_num=caption_num,
@@ -99,10 +117,21 @@ def _loss(img, txt, batch, scale, loss_cfg: LossConfig, caption_num: int):
                      labels=None if labels is None else labels.reshape(-1))
 
 
+def _global_labels(batch: dict, row_dim: int = 0) -> dict:
+    """``batch`` with its per-row ``labels`` gathered across the ranks
+    along ``row_dim``."""
+    labels = batch.get("labels")
+    if labels is None:
+        return batch
+    return {**batch, "labels": gather_rows(labels.transpose(0, row_dim)
+                                           ).transpose(0, row_dim)}
+
+
 def compute_loss(model: KEEPModel, batch: dict, loss_cfg: LossConfig, *,
                  remat: bool = True) -> torch.Tensor:
     img, txt, aux = _encode_batch(model, batch, remat)
-    loss = _loss(img, txt, batch, torch.exp(model.logit_scale), loss_cfg,
+    loss = _loss(gather_rows(img), gather_rows(txt), _global_labels(batch),
+                 torch.exp(model.logit_scale), loss_cfg,
                  loss_cfg.caption_num)
     if model.moe:
         loss = loss + model.cfg.vision.moe_aux_weight * aux
@@ -134,9 +163,13 @@ def _optimizer_apply(state: TrainState, grads: dict, tx: AdamW,
                    "logit_scale": torch.exp(ls)}
 
 
+def _live(params: dict) -> list[str]:
+    return [n for n, p in params.items() if p.requires_grad]
+
+
 def _grads(loss: torch.Tensor, params: dict) -> dict:
     """d loss / d params, zeros where a parameter takes no gradient."""
-    live = [n for n, p in params.items() if p.requires_grad]
+    live = _live(params)
     got = torch.autograd.grad(loss, [params[n] for n in live],
                               allow_unused=True)
     out = {n: torch.zeros_like(p) for n, p in params.items()}
@@ -178,6 +211,7 @@ def make_train_step(model: KEEPModel, loss_cfg: LossConfig, tx: AdamW, *,
         with weights:
             loss = compute_loss(model, batch, loss_cfg, remat=remat)
             grads = _grads(loss, state.params)
+        all_reduce_grads(grads, _live(state.params))
         return _optimizer_apply(state, grads, tx, frozen, loss.detach())
 
     return step
@@ -191,7 +225,9 @@ def make_accum_train_step(model: KEEPModel, loss_cfg: LossConfig, tx: AdamW,
     group labels. Each chunk's loss is the full super-batch loss with only
     that chunk's features live; the chunk gradients sum into one optimizer
     step (``logit_scale``'s gradient so ~accum× the full-batch one, as in
-    the reference)."""
+    the reference). Under data parallelism each chunk holds this rank's
+    rows of the microbatch; the cache and the live chunk are the gathered
+    global microbatches."""
 
     def step(state: TrainState, batches: dict, frozen: Optional[dict] = None):
         _set_static_frozen(state.params, None)
@@ -200,15 +236,18 @@ def make_accum_train_step(model: KEEPModel, loss_cfg: LossConfig, tx: AdamW,
                   for j in range(accum_freq)]
         with torch.no_grad():
             feats = [_encode_batch(model, mb, remat=False) for mb in chunks]
-        img_cache = torch.cat([f[0] for f in feats])
-        txt_cache = torch.cat([f[1] for f in feats])
-        micro = feats[0][0].shape[0]
+        img_cache = torch.cat([gather_rows(f[0]) for f in feats])
+        txt_cache = torch.cat([gather_rows(f[1]) for f in feats])
+        micro = img_cache.shape[0] // accum_freq
+        batches = _global_labels(batches, row_dim=1)
         grads, losses = None, []
         for j, mb in enumerate(chunks):
             img_j, txt_j, aux_j = _encode_batch(model, mb, remat)
             lo, hi = j * micro, (j + 1) * micro
-            img_all = torch.cat([img_cache[:lo], img_j, img_cache[hi:]])
-            txt_all = torch.cat([txt_cache[:lo], txt_j, txt_cache[hi:]])
+            img_all = torch.cat([img_cache[:lo], gather_rows(img_j),
+                                 img_cache[hi:]])
+            txt_all = torch.cat([txt_cache[:lo], gather_rows(txt_j),
+                                 txt_cache[hi:]])
             loss = _loss(img_all, txt_all, batches,
                          torch.exp(model.logit_scale), loss_cfg,
                          accum_freq * loss_cfg.caption_num)
@@ -220,6 +259,7 @@ def make_accum_train_step(model: KEEPModel, loss_cfg: LossConfig, tx: AdamW,
             g = _grads(loss, state.params)
             grads = g if grads is None else {n: grads[n] + g[n] for n in g}
             losses.append(loss.detach())
+        all_reduce_grads(grads, _live(state.params))
         return _optimizer_apply(state, grads, tx, frozen,
                                 torch.stack(losses).mean())
 

@@ -13,7 +13,8 @@ batch's buffer.
 
 ``extract_wsi_to_h5`` streams a pyramidal slide's tissue tiles
 (``io.tiles.iter_wsi_tiles``) through the same pipeline into an h5 file.
-The mesh-sharded form (``mesh=``) is not ported yet.
+With ``mesh=`` each device runs its own such pipeline on its chunk of
+every batch.
 """
 
 from __future__ import annotations
@@ -26,9 +27,7 @@ import torch
 
 from keep_tpu_torch.configs import PreprocessConfig
 from keep_tpu_torch.ops.preprocess import normalize_only, preprocess
-
-MESH_ITEM = "ROADMAP queue 1, item 10 (distributed)"
-
+from keep_tpu_torch.parallel import replicate
 
 class _Slot:
     """Buffers of one batch in flight: pinned host tiles and features, the
@@ -43,6 +42,70 @@ class _Slot:
         self.uploaded = torch.cuda.Event()
         self.computed = torch.cuda.Event()
         self.fetched = torch.cuda.Event()
+
+
+class _Pipeline:
+    """One device's side of the extraction: ``dispatch`` a chunk (padded to
+    ``batch_size`` rows) without waiting, ``fetch`` its features later."""
+
+    def __init__(self, model, batch_size: int, encode):
+        self.model = model
+        self.batch_size = batch_size
+        self.encode = encode  # (model, uint8 device tiles) -> features
+        self.device = next(model.parameters()).device
+        self.dim = model.cfg.projection_dim
+        self.cuda = self.device.type == "cuda"
+        if self.cuda:
+            self.up = torch.cuda.Stream(self.device)
+            self.down = torch.cuda.Stream(self.device)
+        self.free: list[_Slot] = []
+
+    def dispatch(self, chunk: np.ndarray):
+        n = chunk.shape[0]
+        if not self.cuda:
+            if n < self.batch_size:
+                chunk = np.pad(chunk, ((0, self.batch_size - n), (0, 0),
+                                       (0, 0), (0, 0)))
+            return self.encode(self.model, torch.from_numpy(
+                np.ascontiguousarray(chunk)).to(self.device)), n
+        with torch.cuda.device(self.device):
+            return self._dispatch_cuda(chunk, n), n
+
+    def _dispatch_cuda(self, chunk: np.ndarray, n: int) -> _Slot:
+        device, up, down = self.device, self.up, self.down
+        compute = torch.cuda.current_stream(device)
+        shape = (self.batch_size,) + chunk.shape[1:]
+        if self.free:
+            slot = self.free.pop()
+        else:
+            slot = _Slot(shape, self.dim, device)
+            # the new device buffer may take memory that work queued on the
+            # compute stream still uses (the allocator orders reuse on that
+            # stream only): its upload waits for that work
+            up.wait_stream(compute)
+        host = slot.host_in.numpy()
+        host[:n] = chunk
+        host[n:] = 0
+        with torch.cuda.stream(up):
+            slot.dev_in.copy_(slot.host_in, non_blocking=True)
+            slot.uploaded.record(up)
+        compute.wait_event(slot.uploaded)
+        feats = self.encode(self.model, slot.dev_in)
+        slot.computed.record(compute)
+        with torch.cuda.stream(down):
+            down.wait_event(slot.computed)
+            feats.record_stream(down)
+            slot.host_out.copy_(feats, non_blocking=True)
+            slot.fetched.record(down)
+        return slot
+
+    def fetch(self, handle, n: int) -> np.ndarray:
+        if not self.cuda:
+            return handle.cpu().numpy()[:n]
+        handle.fetched.synchronize()
+        out = handle.host_out.numpy()[:n].copy()
+        self.free.append(handle)
+        return out
 
 
 def extract_features(
@@ -61,13 +124,16 @@ def extract_features(
 
     ``resize``: the bicubic resize to ``preprocess_cfg.size``
     (``ops.preprocess.preprocess``) instead of ``normalize_only``.
+    ``mesh`` (``parallel.make_mesh``): shard the tile axis over its devices,
+    the model replicated on each; ``batch_size`` is rounded up to a
+    multiple of the mesh, and each batch splits into one contiguous chunk
+    per device, dispatched on every device before the first is fetched.
     ``pipeline_depth``: batches kept in flight before the oldest is fetched
     (1 = double buffering); it changes the order of fetches, never a
     value."""
     if mesh is not None:
-        raise NotImplementedError(
-            f"extract_features(mesh=...) shards the tile axis over several "
-            f"devices, which is {MESH_ITEM}, not ported yet")
+        mesh = tuple(mesh)
+        batch_size += (-batch_size) % len(mesh)  # divisible batch shape
     if isinstance(tiles, np.ndarray):
         chunks: Iterator[np.ndarray] = (
             tiles[i: i + batch_size] for i in range(0, len(tiles), batch_size))
@@ -84,71 +150,33 @@ def extract_features(
     if pipeline_depth < 1:
         raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
 
-    device = next(model.parameters()).device
-    dim = model.cfg.projection_dim
-    cuda = device.type == "cuda"
-    if cuda:
-        up = torch.cuda.Stream(device)
-        down = torch.cuda.Stream(device)
-    free: list[_Slot] = []
-
-    def encode(x: torch.Tensor) -> torch.Tensor:
+    def encode(m, x: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
             pixels = (preprocess(x, preprocess_cfg) if resize
                       else normalize_only(x, preprocess_cfg))
-            return model.encode_image(pixels)
+            return m.encode_image(pixels)
 
-    def dispatch(chunk: np.ndarray):
-        n = chunk.shape[0]
-        if not cuda:
-            if n < batch_size:
-                chunk = np.pad(chunk, ((0, batch_size - n), (0, 0), (0, 0),
-                                       (0, 0)))
-            return encode(torch.from_numpy(np.ascontiguousarray(
-                chunk)).to(device)), n
-        shape = (batch_size,) + chunk.shape[1:]
-        if free:
-            slot = free.pop()
-        else:
-            slot = _Slot(shape, dim, device)
-            # the new device buffer may take memory that work queued on the
-            # compute stream still uses (the allocator orders reuse on that
-            # stream only): its upload waits for that work
-            up.wait_stream(torch.cuda.current_stream(device))
-        host = slot.host_in.numpy()
-        host[:n] = chunk
-        host[n:] = 0
-        with torch.cuda.stream(up):
-            slot.dev_in.copy_(slot.host_in, non_blocking=True)
-            slot.uploaded.record(up)
-        torch.cuda.current_stream(device).wait_event(slot.uploaded)
-        feats = encode(slot.dev_in)
-        slot.computed.record()
-        with torch.cuda.stream(down):
-            down.wait_event(slot.computed)
-            feats.record_stream(down)
-            slot.host_out.copy_(feats, non_blocking=True)
-            slot.fetched.record(down)
-        return slot, n
+    models = [model] if mesh is None else replicate(mesh, model)
+    per = batch_size // len(models)
+    pipes = [_Pipeline(m, per, encode) for m in models]
 
-    def fetch(handle, n: int) -> np.ndarray:
-        if not cuda:
-            return handle.cpu().numpy()[:n]
-        handle.fetched.synchronize()
-        out = handle.host_out.numpy()[:n].copy()
-        free.append(handle)
-        return out
+    def dispatch(chunk: np.ndarray) -> list:
+        return [(pipe, pipe.dispatch(chunk[i * per: (i + 1) * per]))
+                for i, pipe in enumerate(pipes) if i * per < len(chunk)]
+
+    def fetch(handles: list) -> np.ndarray:
+        return np.concatenate([pipe.fetch(*h) for pipe, h in handles])
 
     pending: deque = deque()
     outs: list[np.ndarray] = []
     for c in chunks:
         pending.append(dispatch(c))
         if len(pending) > pipeline_depth:
-            outs.append(fetch(*pending.popleft()))
+            outs.append(fetch(pending.popleft()))
     while pending:
-        outs.append(fetch(*pending.popleft()))
+        outs.append(fetch(pending.popleft()))
     if not outs:  # a slide with no tissue tiles keeps the feature width
-        return np.zeros((0, dim), np.float32)
+        return np.zeros((0, model.cfg.projection_dim), np.float32)
     return np.concatenate(outs, axis=0)
 
 

@@ -12,7 +12,7 @@ threshold either way.
 
 Pass the features as a tensor on the device to run on; numpy features run
 on the CPU. The classifier follows the features. ``score_tiles_sharded``
-(the patch axis over several cards) is not ported yet.
+runs the patch axis over a device mesh (``wsi.sharded``).
 """
 
 from __future__ import annotations
@@ -35,6 +35,17 @@ def score_tiles(classifier, features, scale: float = 10.0) -> torch.Tensor:
     with ieee_fp32():
         logits = feats @ cls
     return torch.softmax(logits * scale, dim=-1)
+
+
+def score_tiles_sharded(classifier, features, mesh=None,
+                        scale: float = 10.0) -> torch.Tensor:
+    """``score_tiles`` with the patch axis over ``mesh``'s devices (default:
+    every card): the tiles padded to a multiple of the mesh, each device's
+    chunk scored, the [N, C] result on the first device."""
+    from keep_tpu_torch.wsi.sharded import _mesh_or_default, over_mesh
+
+    return over_mesh(_mesh_or_default(mesh), features,
+                     lambda f: score_tiles(classifier, f, scale))
 
 
 def zero_shot_detection(

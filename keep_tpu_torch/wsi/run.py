@@ -13,10 +13,9 @@ a pyramid the native reader cannot open) is cut whole through PIL.
 --image`` runs the coarse-to-fine cascade straight off a pyramid
 (``wsi.cascade``). The flags and defaults are the JAX CLI's, plus
 ``--device`` (default ``cuda``; without a card the CLI raises unless
-``--device cpu`` is passed).
-
-Not ported yet, and refused with the ROADMAP item that brings it:
-``--mesh-dp`` (item 10).
+``--device cpu`` is passed). ``extract --mesh-dp`` shards the tile axis
+over every card (``wsi.extract.extract_features(mesh=)``), extraction only,
+as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -27,9 +26,6 @@ import logging
 
 import numpy as np
 import torch
-
-MESH = "ROADMAP queue 1, item 10: distributed"
-
 
 def _encoder(model, device):
     def encode(ids, mask):
@@ -162,7 +158,7 @@ def _slide_calib(args, image_path):
         args.device))
 
 
-def _extract_one(model, args, image_path, out_path) -> int:
+def _extract_one(model, args, image_path, out_path, mesh=None) -> int:
     """One slide → one h5: the streaming native-pyramid path when the file
     is a pyramid, the whole-image PIL path otherwise. Returns the tile
     count."""
@@ -178,13 +174,13 @@ def _extract_one(model, args, image_path, out_path) -> int:
         return extract_wsi_to_h5(
             model, image_path, out_path, patch_size=args.patch_size,
             tissue_fraction=args.tissue_fraction, level=args.wsi_level,
-            batch_size=args.batch_size, resize=True)
+            batch_size=args.batch_size, resize=True, mesh=mesh)
 
     from keep_tpu_torch.wsi.extract import extract_to_h5
 
     tiles, coords = _flat_tiles(args, image_path)
     extract_to_h5(model, tiles, coords, out_path,
-                  batch_size=args.batch_size, resize=True)
+                  batch_size=args.batch_size, resize=True, mesh=mesh)
     return len(tiles)
 
 
@@ -279,16 +275,14 @@ def main(argv=None):
                         help="cascade: target pyramid downsample for the "
                              "coarse pass (d^2 fewer tiles)")
     parser.add_argument("--mesh-dp", action="store_true",
-                        help="extract: shard the tile axis over a device "
-                             "mesh (not ported yet)")
+                        help="extract: shard the tile axis over every card "
+                             "(data parallel, the model replicated)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default: cuda)")
     args = parser.parse_args(argv)
     args.add_normal = args.task == "subtyping"
     if args.patch_size is None:
         args.patch_size = 224 if args.task == "segmentation" else 256
-    if args.mesh_dp:
-        parser.error(f"--mesh-dp is not ported yet ({MESH})")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
@@ -304,6 +298,16 @@ def main(argv=None):
         elif not (args.image and args.out):
             parser.error("extract needs --image and --out "
                          "(or --slide-dir and --out-dir)")
+        mesh = None
+        if args.mesh_dp:
+            from keep_tpu_torch.parallel import make_mesh
+
+            # every card (or the device --device names); the model loads on
+            # the first and is replicated on the others
+            mesh = make_mesh(devices=None if device.type == "cuda"
+                             and device.index is None else [device])
+            args.device = str(mesh[0])
+            logging.info("extraction sharded over %d devices", len(mesh))
 
         if args.slide_dir:
             # cohort mode: every slide in the dir → <out-dir>/h5_files/
@@ -329,7 +333,7 @@ def main(argv=None):
                         args, calib_pixels=_slide_calib(args, path))
                 stem = os.path.splitext(os.path.basename(path))[0]
                 out = os.path.join(h5_dir, stem + ".h5")
-                n = _extract_one(model, args, path, out)
+                n = _extract_one(model, args, path, out, mesh)
                 # the cache serves only the first slide's calibration and
                 # extraction: holding a slide's tiles while the next one is
                 # cut would double the host's peak memory
@@ -342,7 +346,7 @@ def main(argv=None):
 
         model, _ = load_model(args,
                               calib_pixels=_slide_calib(args, args.image))
-        n = _extract_one(model, args, args.image, args.out)
+        n = _extract_one(model, args, args.image, args.out, mesh)
         print(f"wrote {n} features to {args.out}")
         return
     from keep_tpu_torch.io.h5 import WSIDataset, read_h5_slide

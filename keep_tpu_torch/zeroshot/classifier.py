@@ -418,8 +418,9 @@ def build_classifiers_batched(
     return torch.from_numpy(stack).to(device or "cpu")  # [P, D, C]
 
 
-def rank_cls_scores(logits: torch.Tensor) -> torch.Tensor:
-    """[P, N, C] logits → [P] screening scores (utils.py:107-117)."""
+def rank_cls_values(logits: torch.Tensor) -> torch.Tensor:
+    """[P, N, C] logits → [P, N] per-tile screening values: (largest −
+    second) − |largest + second − 1| (utils.py:107-117)."""
     # the two largest of each row, as top_k's values (a tie gives the max
     # twice): the max, then the max with that one entry masked.
     # torch.topk takes ~200 ms on the card at 1,386 × 100,000 rows of two
@@ -427,14 +428,18 @@ def rank_cls_scores(logits: torch.Tensor) -> torch.Tensor:
     second = logits.scatter(-1, at[..., None], float("-inf")).amax(dim=-1)
     diff = largest - second
     complement = torch.abs(largest + second - 1.0)
-    return (diff - complement).mean(dim=-1)
+    return diff - complement
 
 
-def _prompt_select_jit(classifiers: torch.Tensor, features: torch.Tensor,
-                       topn: int) -> tuple:
-    """The screening itself (the JAX package jits a function of this name;
-    here it is eager tensor ops on the features' device): → (merged [D, C],
-    scores [P], order [topn])."""
+def rank_cls_scores(logits: torch.Tensor) -> torch.Tensor:
+    """[P, N, C] logits → [P] screening scores (utils.py:107-117)."""
+    return rank_cls_values(logits).mean(dim=-1)
+
+
+def tile_screening_values(classifiers: torch.Tensor,
+                          features: torch.Tensor) -> torch.Tensor:
+    """[P, N] ``rank_cls_values`` of [P, D, C] classifiers on [N, D] tile
+    features, on the features' device."""
     feats = l2_normalize(features.float())
     classifiers = classifiers.to(feats.device, torch.float32)
     p, d, c = classifiers.shape
@@ -442,12 +447,28 @@ def _prompt_select_jit(classifiers: torch.Tensor, features: torch.Tensor,
         # one [N, D] × [D, P·C] product that reads the features once (an
         # einsum to [P, N, C] runs P products of C columns each)
         logits = feats @ classifiers.permute(1, 0, 2).reshape(d, p * c)
-    scores = rank_cls_scores(logits.view(-1, p, c).transpose(0, 1))
+    return rank_cls_values(logits.view(-1, p, c).transpose(0, 1))
+
+
+def select_top(classifiers: torch.Tensor, scores: torch.Tensor,
+               topn: int) -> tuple:
+    """(merged [D, C], order [topn]): the column-normalised sum of the
+    ``topn`` best-scoring classifiers, on the scores' device."""
     # descending score, ties to the lower index (jax.lax.top_k's order); the
     # sum below runs in that order
     order = torch.argsort(-scores, stable=True)[:topn]
-    merged = classifiers[order].sum(dim=0)  # [D, C]
+    merged = classifiers.to(scores.device, torch.float32)[order].sum(dim=0)
     merged = merged / torch.linalg.vector_norm(merged, dim=0, keepdim=True)
+    return merged, order
+
+
+def _prompt_select_jit(classifiers: torch.Tensor, features: torch.Tensor,
+                       topn: int) -> tuple:
+    """The screening itself (the JAX package jits a function of this name;
+    here it is eager tensor ops on the features' device): → (merged [D, C],
+    scores [P], order [topn])."""
+    scores = tile_screening_values(classifiers, features).mean(dim=-1)
+    merged, order = select_top(classifiers, scores, topn)
     return merged, scores, order
 
 

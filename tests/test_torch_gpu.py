@@ -1385,3 +1385,54 @@ def test_int8_artifact_bit_for_bit_on_the_card(cuda, tmp_path):
         assert torch.equal(back.encode_image(px), q.encode_image(px))
         assert torch.equal(back.encode_text(ids, mask),
                            q.encode_text(ids, mask))
+
+
+def test_kernels_on_a_second_card(cuda):
+    """One process, two cards: with card 0 current, each kernel on card 1
+    tensors launches there (its device's stream, its shared-memory opt-in
+    and SM count) and equals the same call on card 0 bit for bit: the
+    attention forward and backward, the int8 GEMM and row passes, the
+    int8 blocks' attention and ``ln_matmul``."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    from keep_tpu_torch.kernels import _kops
+    from keep_tpu_torch.kernels import flash_attention as fa
+    from keep_tpu_torch.kernels import ln_matmul as lm
+
+    torch.cuda.set_device(0)
+    g = torch.Generator().manual_seed(0)
+
+    def both(fn, *host):
+        return [fn(*[t.to(f"cuda:{i}") if isinstance(t, torch.Tensor) else t
+                     for t in host]) for i in (0, 1)]
+
+    qkv = torch.randn(4, 197, 3 * 1024, generator=g).bfloat16()
+    kb = torch.zeros(4, 197)
+    for fn in (lambda q, b: fa.attention_qkv_slab(q, b, num_heads=16),
+               lambda q, b: fa.attention_qkv_slab(q, b, num_heads=16,
+                                                  out_dtype=torch.float32)):
+        a, b = both(fn, qkv, kb)
+        assert b.device == torch.device("cuda:1")
+        assert torch.equal(a.cpu(), b.cpu())
+
+    def backward(q, b):
+        q.requires_grad_()
+        fa.attention_qkv_slab(q, b, num_heads=16).float().sum().backward()
+        return q.grad
+
+    a, b = both(backward, qkv, kb)
+    assert torch.equal(a.cpu(), b.cpu())
+    x = torch.randn(512, 1024, generator=g)
+    (qa, sa), (qb, sb) = both(lambda t: _kops.quant_rows(t), x)
+    assert torch.equal(qa.cpu(), qb.cpu()) and torch.equal(sa.cpu(), sb.cpu())
+    w = torch.randint(-127, 128, (3072, 1024), generator=g, dtype=torch.int8)
+    ws, bias = torch.rand(3072, generator=g), torch.randn(3072, generator=g)
+    a, b = both(lambda q, s_, w_, ws_, bi: _kops.int8_gemm(
+        q, s_, w_, ws_, bi, order=_kops.DEQUANT_LEFT), qa.cpu(), sa.cpu(), w,
+        ws, bias)
+    assert torch.equal(a.cpu(), b.cpu())
+    wb = torch.randn(3072, 1024, generator=g).bfloat16()
+    gg, bb = torch.ones(1024), torch.zeros(1024)
+    a, b = both(lambda t, w_, g_, b_, bi: lm.ln_matmul(t, g_, b_, w_, bi),
+                x.bfloat16(), wb, gg, bb, bias)
+    assert torch.equal(a.cpu(), b.cpu())

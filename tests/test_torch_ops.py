@@ -129,3 +129,36 @@ def test_slab_gradient_goes_through_the_backward_operator():
     fa.attention_qkv_slab(qkv, kb, num_heads=2).backward(dout)
     ref = fa.attention_qkv_slab_bwd(qkv.detach(), kb, dout, 2)
     assert torch.equal(qkv.grad, ref)
+
+
+@pytest.mark.parametrize("device", ["cuda:1", "cuda:3"])
+def test_cuda_impls_run_on_their_tensors_card(monkeypatch, device):
+    """Each operator's CUDA implementation enters the card of its first
+    tensor for the call (``_library.on_device``): the kernels' C code reads
+    the current device (SM count, shared-memory opt-in) and launches on
+    its current stream, so a tensor on another card than the caller's
+    current one must make its own card current. Checked with the device
+    context recorded."""
+    from keep_tpu_torch.kernels import _library
+
+    entered = []
+
+    class Recorder:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            entered.append(("enter", torch.device(self.dev)))
+
+        def __exit__(self, *exc):
+            entered.append(("exit", torch.device(self.dev)))
+
+    monkeypatch.setattr(torch.cuda, "device", Recorder)
+    seen = []
+    run = _library.on_device(lambda x, *a, **k: seen.append((a, k)) or 7)
+    # stands in for a tensor on that card: the wrapper reads its .device
+    fake = type("T", (), {"device": torch.device(device)})()
+    assert run(fake, 1, block="qkv") == 7
+    assert entered == [("enter", torch.device(device)),
+                       ("exit", torch.device(device))]
+    assert seen == [((1,), {"block": "qkv"})]

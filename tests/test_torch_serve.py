@@ -317,8 +317,72 @@ def test_build_server_int8(int8_model_dir, policy, capsys):
 
 @pytest.mark.parametrize("flag", [["--mesh-dp", "2"]])
 def test_build_server_refuses_unported_options(model_dir, flag, capsys):
-    with pytest.raises(SystemExit) as e:
+    """``--mesh-dp`` is served (it was refused until data parallelism was
+    ported): ``--mesh-dp 1`` serves the plain server's features bit for
+    bit, with and without ``--int8`` (whose co-located policy line the
+    mesh skips, as the JAX server does); a mesh larger than the devices
+    present (two on the one CPU) raises."""
+    with pytest.raises(ValueError, match="needs 2 present, found 1"):
         serve.build_server(["--model-dir", str(model_dir), "--device", "cpu",
                             *flag])
-    assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    imgs = np.random.default_rng(9).integers(0, 255, (3, 32, 32, 3),
+                                             dtype=np.uint8)
+    texts = ["lung tumor .", "normal tissue image ."]
+    for extra in ([], ["--int8"]):
+        argv = ["--model-dir", str(model_dir), "--port", "0", "--device",
+                "cpu", *extra]
+        ref, ref_httpd = serve.build_server(argv)
+        capsys.readouterr()
+        core, httpd = serve.build_server(argv + ["--mesh-dp", "1"])
+        assert "precision policy" not in capsys.readouterr().out
+        ref_httpd.server_close()
+        httpd.server_close()
+        try:
+            assert core.mesh == (torch.device("cpu"),)
+            assert core.stats()["mesh"] == 1
+            np.testing.assert_array_equal(core.encode_image(imgs),
+                                          ref.encode_image(imgs))
+            np.testing.assert_array_equal(core.encode_text(texts),
+                                          ref.encode_text(texts))
+        finally:
+            core.stop()
+            ref.stop()
+
+
+def test_mesh_sharded_server(core, jparams):
+    """Twin of the JAX server's ``test_mesh_sharded_server``: ``mesh=``
+    over 8 devices (the CPU eight times) splits each dispatch into 8
+    chunks with the model replicated; buckets round up to multiples of 8;
+    features equal the one-device server's within 1e-5, and the JAX mesh
+    server's within 2e-5."""
+    from keep_tpu.parallel import make_mesh as jmake_mesh
+
+    from keep_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(8, devices=[torch.device("cpu")] * 8)
+    sharded = serve.InferenceServer(core.model, core.tokenizer, max_length=16,
+                                    image_size=16, buckets=(2, 4),
+                                    max_delay_ms=5.0, mesh=mesh)
+    jsharded = jserve.InferenceServer(
+        jkeep.KEEPModel(params=jparams, cfg=JCFG), JTokenizer(vocab=_vocab()),
+        max_length=16, image_size=16, buckets=(2, 4), max_delay_ms=5.0,
+        mesh=jmake_mesh(8))
+    try:
+        assert sharded.buckets == jsharded.buckets == (8,)
+        texts = ["an image of lung tumor .", "normal tissue ."]
+        a = core.encode_text(texts)
+        b = sharded.encode_text(texts)
+        np.testing.assert_allclose(a, b, atol=1e-5)
+        np.testing.assert_allclose(b, jsharded.encode_text(texts), atol=2e-5)
+        imgs = np.random.default_rng(3).integers(
+            0, 255, (3, 16, 16, 3)).astype(np.uint8)
+        got = sharded.encode_image(imgs)
+        np.testing.assert_allclose(core.encode_image(imgs), got, atol=1e-5)
+        np.testing.assert_allclose(got, jsharded.encode_image(imgs),
+                                   atol=2e-5)
+        # the dispatch really split: one chunk per device, in order
+        chunks = sharded._launch_image(np.zeros((8, 16, 16, 3), np.uint8))
+        assert len(chunks) == 8 and all(c.shape == (1, 32) for c in chunks)
+    finally:
+        sharded.stop()
+        jsharded.stop()

@@ -605,18 +605,41 @@ def test_refused_options_raise(run_dirs, tmp_path, section, key, value):
             tmain.train(TrainRunConfig.from_dict(raw))
     else:
         with pytest.raises(NotImplementedError,
-                           match="not ported yet.*ROADMAP"):
+                           match="not ported yet.*ROADMAP.*step 2"):
             tmain.train(TrainRunConfig.from_dict(raw))
     assert not (tmp_path / "exp").exists()  # refused before any output
 
 
 def test_more_than_one_process_raises(run_dirs, tmp_path, monkeypatch):
-    """More than one process is refused; one process runs, with the eval
-    sets handed in through ``eval_data``."""
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one process"):
-        tmain.train(TrainRunConfig.from_dict(_run_config(run_dirs, tmp_path)))
-    monkeypatch.delenv("WORLD_SIZE")
+    """More than one process trains (it was refused until data parallelism
+    was ported; the two-process runs are in
+    ``tests/test_torch_multiprocess.py``). What still raises, before any
+    output and before joining a process group: a global batch that does
+    not divide over the ranks (8 over 3). ``main`` with several visible
+    cards and no launcher starts one worker per card; one process runs,
+    with the eval sets handed in through ``eval_data``."""
+    for var in ("MASTER_ADDR", "RANK", "WORLD_SIZE", "SLURM_NTASKS",
+                "OMPI_COMM_WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(ValueError, match="dataloader.batch_size 8"):
+        tmain.train(TrainRunConfig.from_dict(_run_config(run_dirs, tmp_path)),
+                    device="cpu")
+    assert not (tmp_path / "exp").exists()
+    for var in ("MASTER_ADDR", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var)
+    launched = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(tmain, "spawn_local_workers",
+                        lambda argv, n: launched.append((argv, n)))
+    path = tmp_path / "run.json"
+    path.write_text(json.dumps(_run_config(run_dirs, tmp_path)))
+    assert tmain.main(["--config", str(path)]) is None
+    assert launched == [(["--config", str(path)], 2)]
+    monkeypatch.undo()
     rng = np.random.default_rng(0)
     pixels = rng.standard_normal((4, 16, 16, 3)).astype(np.float32)
     texts = ["lung cancer tissue .", "melanoma of skin .",

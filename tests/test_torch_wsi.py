@@ -581,13 +581,33 @@ def test_extract_features_rechunks_oversize_iterable(models, rng):
     np.testing.assert_allclose(got, ref, atol=1e-5)
 
 
-def test_extract_features_empty_and_mesh(models):
-    port, _ = models
+def test_extract_features_empty_and_mesh(models, rng):
+    """An empty iterable keeps the feature width. ``mesh=`` (refused until
+    data parallelism was ported) shards the tiles over a mesh of the CPU
+    listed twice: the batch rounds up to the mesh, the rows equal the
+    one-device run's, and the JAX package's features at 2e-5."""
+    from keep_tpu.parallel import make_mesh as jmake_mesh
+
+    from keep_tpu_torch.parallel import make_mesh
+
+    port, jmodel = models
     out = textract.extract_features(port, iter([]), batch_size=4)
     assert out.shape == (0, CFG.projection_dim) and out.dtype == np.float32
-    with pytest.raises(NotImplementedError, match="item 10"):
-        textract.extract_features(port, np.zeros((2, 32, 32, 3), np.uint8),
-                                  mesh=object())
+    mesh = make_mesh(2, devices=[torch.device("cpu")] * 2)
+    tiles = rng.integers(0, 255, (7, 32, 32, 3), dtype=np.uint8)
+    got = textract.extract_features(port, tiles, batch_size=3, mesh=mesh)
+    np.testing.assert_allclose(
+        got, textract.extract_features(port, tiles, batch_size=4), atol=1e-5)
+    np.testing.assert_allclose(
+        got, jextract.extract_features(jmodel, tiles, batch_size=3,
+                                       mesh=jmake_mesh(2)),
+        atol=2e-5, rtol=2e-5)
+    empty = textract.extract_features(port, iter([]), batch_size=4,
+                                      mesh=mesh)
+    assert empty.shape == (0, CFG.projection_dim)
+    with pytest.raises(ValueError, match="needs 3 present"):
+        textract.extract_features(port, tiles, mesh=make_mesh(
+            3, devices=[torch.device("cpu")] * 2))
 
 
 def test_extract_with_resize_matches_jax(models, rng):

@@ -285,18 +285,28 @@ def test_int8_detection_runs(fixtures, capsys):
     assert 0.0 <= prob <= 1.0
 
 
-def _refused(capsys, argv, item):
-    with pytest.raises(SystemExit):
-        trun.main(argv + ["--device", "cpu"])
-    err = capsys.readouterr().err
-    assert item in err, err
-
-
-def test_refuses_mesh_dp(fixtures, capsys, tmp_path):
+def test_refuses_mesh_dp(fixtures, fp32, capsys, tmp_path):
+    """``extract --mesh-dp`` (refused until data parallelism was ported)
+    shards the tiles over the mesh of the one CPU device: the same printed
+    line and h5 as the unsharded extract, and the JAX CLI's ``--mesh-dp``
+    features (its 8-device mesh) at 2e-5."""
     d = fixtures
-    _refused(capsys, ["extract", "--model", str(d / "model"), "--image",
-                      str(d / "slide.png"), "--out", str(tmp_path / "x.h5"),
-                      "--mesh-dp"], "item 10")
+    argv = ["extract", "--model", str(d / "model"), "--image",
+            str(d / "slide.png"), "--batch-size", "3", "--device", "cpu"]
+    trun.main(argv + ["--out", str(tmp_path / "a.h5")])
+    plain = capsys.readouterr().out
+    trun.main(argv + ["--out", str(tmp_path / "b.h5"), "--mesh-dp"])
+    sharded = capsys.readouterr().out
+    assert sharded.replace("b.h5", "a.h5") == plain
+    assert "wrote 4 features" in plain
+    jrun.main(argv[:-2] + ["--out", str(tmp_path / "j.h5"), "--mesh-dp"])
+    with h5py.File(tmp_path / "a.h5") as fa, \
+            h5py.File(tmp_path / "b.h5") as fb, \
+            h5py.File(tmp_path / "j.h5") as fj:
+        np.testing.assert_array_equal(fb["features"][:], fa["features"][:])
+        np.testing.assert_array_equal(fb["coords"][:], fa["coords"][:])
+        np.testing.assert_allclose(fb["features"][:], fj["features"][:],
+                                   atol=2e-5, rtol=2e-5)
 
 
 def test_flat_tiff_is_read_as_an_image(fixtures, fp32, capsys, tmp_path):

@@ -1,0 +1,151 @@
+"""Worker of the two-process data-parallel tests
+(``tests/test_torch_multiprocess.py``), one process per rank over gloo on
+the CPU:
+
+    python tests/torch_dp_worker.py <objects|train> <spec.json>
+
+under the torchrun-style environment the test sets (MASTER_ADDR /
+MASTER_PORT / RANK / WORLD_SIZE). ``objects`` checks the object
+collectives and the training step's tensor collectives against their
+definitions; ``train`` runs ``keep_tpu_torch.train.main.train`` as the spec
+says and writes each step's loss and the last record to
+``<spec.out>.<rank>.json``, and each step's starting parameters and
+reduced gradients to ``<spec.out>.<rank>.grads.pt``. Imports the port only.
+"""
+
+import contextlib
+import json
+import sys
+
+
+@contextlib.contextmanager
+def record_losses(tmain, losses: list):
+    """Appends each optimizer step's loss to ``losses`` while ``tmain``
+    (``keep_tpu_torch.train.main``) trains."""
+    made = (tmain.make_train_step, tmain.make_accum_train_step)
+
+    def recording(make):
+        def build(*args, **kw):
+            step = make(*args, **kw)
+
+            def run(*a, **k):
+                state, metrics = step(*a, **k)
+                losses.append(float(metrics["loss"]))
+                return state, metrics
+            return run
+        return build
+
+    tmain.make_train_step, tmain.make_accum_train_step = map(recording, made)
+    try:
+        yield losses
+    finally:
+        tmain.make_train_step, tmain.make_accum_train_step = made
+
+
+@contextlib.contextmanager
+def record_grads(grads: list):
+    """Appends, for each optimizer step, ``{"params": ..., "grads": ...}``
+    to ``grads``: the trained parameters the step started from and the
+    gradient dict as the optimizer gets it (summed over the ranks, before
+    the freeze mask and clipping), as CPU tensors."""
+    from keep_tpu_torch.train import trainer
+
+    apply = trainer._optimizer_apply
+
+    def recording(state, g, *args, **kw):
+        grads.append({key: {n: t.detach().cpu().clone()
+                            for n, t in tree.items()}
+                      for key, tree in (("params", state.params),
+                                        ("grads", g))})
+        return apply(state, g, *args, **kw)
+
+    trainer._optimizer_apply = recording
+    try:
+        yield grads
+    finally:
+        trainer._optimizer_apply = apply
+
+
+def check_objects() -> str:
+    import torch
+
+    from keep_tpu_torch.parallel import (all_reduce_grads, gather_rows,
+                                         mean_over_ranks, multihost)
+
+    assert multihost.init_from_env("cpu") is True
+    rank, world = multihost.process_index(), multihost.process_count()
+    assert world == 2, world
+    # object broadcast: process 0's value everywhere
+    obj = {"resume": "epoch_7.pt", "rank_saw": rank} if rank == 0 else None
+    assert multihost.broadcast_object(obj) == {"resume": "epoch_7.pt",
+                                               "rank_saw": 0}
+    # object all-gather: one entry per process, in rank order
+    got = multihost.all_gather_object({"rank": rank, "tag": "x" * (rank + 1)})
+    assert [g["rank"] for g in got] == [0, 1] and got[1]["tag"] == "xx", got
+    # the row gather: rank order forward, this rank's rows backward
+    x = torch.arange(6.0).reshape(3, 2).add(10 * rank).requires_grad_()
+    y = gather_rows(x)
+    want = torch.cat([torch.arange(6.0).reshape(3, 2),
+                      torch.arange(6.0).reshape(3, 2) + 10])
+    assert torch.equal(y.detach(), want), y
+    w = torch.arange(12.0).reshape(6, 2)
+    (y * w).sum().backward()
+    assert torch.equal(x.grad, w[3 * rank: 3 * rank + 3]), x.grad
+    # the mean over ranks: the global statistic forward, 1/N backward
+    s = torch.tensor([1.0 + rank, 4.0]).requires_grad_()
+    m = mean_over_ranks(s)
+    assert torch.equal(m.detach(), torch.tensor([1.5, 4.0])), m
+    m.sum().backward()
+    assert torch.equal(s.grad, torch.full((2,), 0.5)), s.grad
+    # gradients summed over the ranks in buckets; logit_scale left whole
+    grads = {"a": torch.full((3,), 1.0 + rank), "b": torch.ones(2, 2) * rank,
+             "logit_scale": torch.tensor(5.0)}
+    all_reduce_grads(grads)
+    assert torch.equal(grads["a"], torch.full((3,), 3.0))
+    assert torch.equal(grads["b"], torch.ones(2, 2))
+    assert float(grads["logit_scale"]) == 5.0
+    return f"OK rank={rank}"
+
+
+def run_train(spec: dict) -> str:
+    import numpy as np
+    import torch
+
+    from keep_tpu_torch.parallel import multihost
+    from keep_tpu_torch.train import main as tmain
+    from keep_tpu_torch.train.config import TrainRunConfig
+
+    cfg = TrainRunConfig.from_dict(spec["config"])
+    kw = {}
+    for key in ("params", "adapters"):
+        if spec.get(key):
+            kw[key] = torch.load(spec[key], weights_only=True)
+    if spec.get("eval"):
+        ev = np.load(spec["eval"])
+        kw["eval_data"] = {"val": (ev["pixels"], list(ev["texts"]))}
+    losses: list = []
+    grads: list = []
+    with record_losses(tmain, losses), record_grads(grads):
+        results = tmain.train(cfg, device="cpu", **kw)
+    rank = multihost.process_index()
+    torch.save(grads, f"{spec['out']}.{rank}.grads.pt")
+    with open(f"{spec['out']}.{rank}.json", "w") as f:
+        json.dump({"rank": rank, "world": multihost.process_count(),
+                   "losses": losses, "results": results}, f, default=float)
+    return f"OK rank={rank}"
+
+
+def main(mode: str, spec_path: str) -> None:
+    if mode == "objects":
+        print(check_objects(), flush=True)
+    else:
+        with open(spec_path) as f:
+            print(run_train(json.load(f)), flush=True)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2] if len(sys.argv) > 2 else "")
