@@ -317,10 +317,7 @@ After phase 14, the model families ported last:
     parameters bit for bit, #1 72 / #1b 36 launches a step, ms a step,
     peak memory, and the gradient all-reduce's time beside its bytes'.
     (b) Two ranks over gloo, both on ``cuda:0`` (``chip_smoke.py
-    --dp-child``), fp32 with TF32 off, global batch 32, KEEP's width at 6
-    blocks a tower (the NCCL run has the full depth): per-step losses
-    within rtol 1e-5 of one process on the same global batch, #1 / #1b
-    launched per rank as the step's block count gives them. (c) ``serve
+    --dp-child``), fp32 with TF32 off: the dp case of phase 26. (c) ``serve
     --mesh-dp 1`` in bf16 and with ``--int8``: features bit-equal to the
     plain server's at buckets 1, 8, 32 and 128, the launches of a
     bucket-128 dispatch pair, tiles/s and prompts/s of both servers in
@@ -329,8 +326,35 @@ After phase 14, the model families ported last:
     printed lines and h5 features (an npz stands in for h5py where it is
     missing); then ``prompt_select_sharded``, ``score_tiles_sharded`` and
     ``refined_probs_sharded`` on a mesh of the card against their
-    unsharded forms: the same bits. (a) and (b) run after phase 9, (c) and
-    (d) after phase 16.
+    unsharded forms: the same bits. (a) runs after phase 9, (b) with 26,
+    (c) and (d) after phase 16.
+25. wide_shapes — after phase 9: (a) #1b and the bf16 → fp32 form of the
+    int8 blocks' attention at the shapes they were widened to (Dh 64 at
+    S = 577 / 785; Dh 80 / 88 / 104 / 112 at S = 257; B = 32, H = 16)
+    against their plain versions at phase 8's and phase 3's gates, timed
+    beside their bounds and SDPA (backward through autograd beside #1b,
+    the bf16 forward beside the fp32 form); (b) an int8 KEEP at 384² and
+    448² (``keep.init`` statistics) through the server core at bucket 32:
+    int8 against bf16 at cos ≥ 0.999 per row, against its plain blocks at
+    the JAX route gate (> 0.9999), #4 / #5 launched; (c) KEEP trained at
+    384² (S = 577), batch 32, 3 open steps in bf16: finite losses, #1 72 /
+    #1b 36 launches a step, the first step's gradient norms against a
+    plain-attention step (each leaf within 5e-2, the global norm within
+    3e-3).
+26. dp2_layouts — after 24a: dp, fsdp, tp = 2 and tp = 2 + sp at world
+    2, tp = 2 + fsdp at world 4 (dp 2 × mp 2)
+    (``train/trainer.ParallelLayout``), over gloo on the one card (every
+    rank on ``cuda:0``), fp32 with TF32 off, KEEP at full width with 6
+    blocks a tower, global batch 16, 3 steps, all layouts' ranks started
+    together: each rank's losses within rtol 1e-5 / atol 1e-6 of one
+    process's; each leaf's first-step gradient (gathered from the ranks'
+    pieces) against one process's, its norm within 1e-4 and its sum within
+    1e-4 of the leaf's sum of magnitudes (dp's norms within rtol 1e-5 /
+    atol 1e-6, its sums within 1e-5 of the sum of magnitudes); #1 / #1b
+    per rank as the blocks give them (under tp each launch takes H/2
+    heads); per rank the resident state's bytes (the compute copy, the
+    optimizer's leaves and moments, each tensor once) beside dp's and the
+    peak memory.
 
 Then one JSON line describing the kernels (each TPU kernel's counterpart:
 its launches on the path that runs it, its time, its plain version's, its
@@ -408,7 +432,7 @@ ATTENTION_SHAPES = [(name, b, s, h, padded) for b in (32, 128)
                     for name, s, h, padded in (("vit_l16", 197, 16, False),
                                                ("bert_base", 256, 12, True))]
 # sequence lengths around the attention bodies' tiles and pieces, the two
-# towers' lengths, the narrow bodies' limit (512) and, past it, the
+# towers' lengths, the whole-slice bodies' limit (512) and, past it, the
 # streamed body's 64-key tiles, ViT-L-14-336's 577, KEEP at 448²'s 785 and
 # one past the longest row PyTorch's warp softmax serves
 EDGE_S = [1, 15, 16, 17, 64, 197, 256, 257, 512, 513, 575, 576, 577, 640,
@@ -628,18 +652,19 @@ def check_f32_form(fa, torch, name, qkv, kb, valid, h, sdpa_ms) -> dict:
            "plain_ms": cuda_ms(lambda: fa.attention_qkv_slab_reference(
                qkv, kb, **kw)),
            "sdpa_bf16_ms_reading": sdpa_ms}
+    row["Dh"] = qkv.shape[-1] // (3 * h)
     row["bound_ms"], row["bound_by"] = attention_bound(
-        b, s, h, 2, kb is not None, out_bytes=4)
+        b, s, h, 2, kb is not None, out_bytes=4, dh=row["Dh"])
     phase("kernel_f32", **row)
     return row
 
 
 def check_f32_edges(fa, torch, gen) -> None:
-    """The bf16 → fp32 form at every length of ``EDGE_S`` it takes (S ≤
-    512; B=2, H=2), padded and unpadded: finite, max |Δ| < 0.05 on
-    unpadded query rows."""
+    """The bf16 → fp32 form at every length of ``EDGE_S`` (B=2, H=2; the
+    one-pass wgmma body up to 512, the streamed body past it), padded and unpadded:
+    finite, max |Δ| < 0.05 on unpadded query rows."""
     errs = {}
-    for s in [s for s in EDGE_S if s <= fa.NARROW_MAX_SEQ]:
+    for s in EDGE_S:
         for padded in (False, True):
             qkv = torch.randn(2, s, 3 * 2 * 64, device="cuda",
                               generator=gen).bfloat16()
@@ -5433,10 +5458,6 @@ def drive_profiling(torch, model, d: str, device: str = "cuda") -> dict:
 DP_STEPS = 7              # unfrozen steps of a world-1 NCCL run, batch 128
 DP_TURNS = 2              # one process and NCCL in turns, this many runs each
 DP_TRACE_AT = 1           # the step traced in the last turn (not timed)
-DP_GLOO_BATCH = 32        # the two-rank gloo run's global batch (fp32)
-DP_GLOO_STEPS = 2
-DP_GLOO_DEPTH = 6         # blocks a tower there, at full width (24b proves
-                          # the two ranks' cross-rank code, not the depth)
 DP_BUCKETS = (1, 8, 32, 128)
 DP_SLIDE_PX = 8192        # the top-left quarter of phase 10's slide
 DP_CHILD_TIMEOUT = 600
@@ -5494,6 +5515,7 @@ def counted_train(torch, fa, raw: dict, argv: list, device: str,
     steps: list[dict] = []
     group: dict = {}
     final: dict = {}
+    state_bytes: dict = {}
 
     def before(i, state, batch, model, kw):
         dist = torch.distributed
@@ -5508,6 +5530,14 @@ def counted_train(torch, fa, raw: dict, argv: list, device: str,
             final.clear()
             final.update({n: p.detach().clone()
                           for n, p in state.params.items()})
+        # this rank's resident training state, each tensor once: the
+        # model's parameters (the compute copy), the optimizer's leaves
+        # where they are other tensors (FSDP's fp32 shards) and their
+        # AdamW moments
+        held = {t.data_ptr(): t for t in (
+            *model.parameters(), *state.params.values(),
+            *(t for m in ("mu", "nu") for t in state.opt_state[m].values()))}
+        state_bytes["bytes"] = nbytes(*held.values())
 
     if device.startswith("cuda"):
         torch.cuda.empty_cache()
@@ -5519,7 +5549,7 @@ def counted_train(torch, fa, raw: dict, argv: list, device: str,
         tmain.main(["--config", path, *argv])
         wall_s = time.perf_counter() - t0
     return {"steps": steps, "group": group, "params": final,
-            "traced": traced,
+            "traced": traced, "state_bytes": state_bytes.get("bytes"),
             "wall_s": wall_s,
             "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
                                if device.startswith("cuda") else 0.0)}
@@ -5668,21 +5698,27 @@ def drive_dp_train(torch, fa, d: str, blocks: int, steps: int = DP_STEPS,
 
 @contextlib.contextmanager
 def first_step_grads(torch, out: dict):
-    """Records, into ``out``, each parameter's gradient norm and sum as the
-    optimizer gets them in the first step of the block's training (summed
-    over the ranks under data parallelism), in name order."""
+    """Records, into ``out``, each parameter's gradient norm, sum and sum
+    of magnitudes (``l1``) as the optimizer gets them in the first step of
+    the block's training (summed over the ranks under data parallelism;
+    under a parallel layout, the step's ``layout``, gathered from every
+    rank's pieces into one-process leaves first), in name order."""
     from keep_tpu_torch.train import trainer
 
     apply = trainer._optimizer_apply
 
     def recording(state, grads, *args, **kw):
         if not out:
-            names = sorted(grads)
+            layout = args[3] if len(args) > 3 else kw.get("layout")
+            full = grads if layout is None else layout.full(grads)
+            names = sorted(full)
             with torch.no_grad():
                 out.update(names=names, norm=torch.stack(
-                    [grads[n].float().norm() for n in names]).tolist(),
-                    sum=torch.stack([grads[n].float().sum()
-                                     for n in names]).tolist())
+                    [full[n].float().norm() for n in names]).tolist(),
+                    sum=torch.stack([full[n].float().sum()
+                                     for n in names]).tolist(),
+                    l1=torch.stack([full[n].float().abs().sum()
+                                    for n in names]).tolist())
         return apply(state, grads, *args, **kw)
 
     trainer._optimizer_apply = recording
@@ -5693,7 +5729,7 @@ def first_step_grads(torch, out: dict):
 
 
 def dp_child(spec_path: str) -> None:
-    """A rank of 24b (``chip_smoke.py --dp-child <spec>``): ``train.main``
+    """A rank of phase 26 (``chip_smoke.py --dp-child <spec>``): ``train.main``
     on ``cuda:0`` over gloo in fp32 with TF32 off; writes its steps and
     its first step's gradient norms and sums."""
     import torch
@@ -5709,111 +5745,8 @@ def dp_child(spec_path: str) -> None:
                              "gloo"], spec["device"])
     with open(f"{spec['out']}.{os.environ['RANK']}.json", "w") as f:
         json.dump({"grads": grads, **{k: run[k] for k in (
-            "steps", "group", "wall_s", "peak_memory_gb")}}, f)
-
-
-def drive_dp_gloo(torch, fa, d: str, blocks: int = 2 * DP_GLOO_DEPTH,
-                  batch: int = DP_GLOO_BATCH, steps: int = DP_GLOO_STEPS,
-                  device: str = "cuda:0", keep: dict | None = None) -> dict:
-    """24b. Two ranks over gloo, both on ``cuda:0`` (NCCL refuses two ranks
-    on one card), each a process running ``train.main`` with the real
-    kernels forward and backward, fp32 with TF32 off (``ops.nn.
-    ieee_fp32``): per-step losses within rtol 1e-5 of one process on the
-    same global batch, the first step's summed gradient (each parameter's
-    norm and sum) within rtol 1e-5 / atol 1e-6 of one process's, and #1 /
-    #1b launched per rank as each open step's block count gives them. KEEP's width, ``DP_GLOO_DEPTH`` blocks a tower
-    unless ``keep`` says otherwise."""
-    from keep_tpu_torch.ops.nn import ieee_fp32
-
-    keep = keep or {"projection_dim": 768,
-                    "vision": {"depth": DP_GLOO_DEPTH},
-                    "text": {"num_hidden_layers": DP_GLOO_DEPTH}}
-
-    raw = dp_train_config(os.path.join(d, "data"), batch, batch // 4, steps,
-                          precision="fp32", keep=keep)
-    one_raw = json.loads(json.dumps(raw))
-    one_raw["save"]["output_dir"] = os.path.join(d, "one_process")
-    with ieee_fp32(), first_step_grads(torch, {}) as one_grads:
-        one = counted_train(torch, fa, one_raw, ["--device", device], device)
-    check_dp_steps("one process (fp32)", one["steps"], blocks, steps)
-    if device.startswith("cuda"):
-        torch.cuda.empty_cache()
-    dp_raw = json.loads(json.dumps(raw))
-    dp_raw["save"]["output_dir"] = os.path.join(d, "gloo_world2")
-    spec_path = os.path.join(d, "dp_spec.json")
-    out_base = os.path.join(d, "dp_rank")
-    with open(spec_path, "w") as f:
-        json.dump({"raw": dp_raw, "out": out_base, "device": device}, f)
-    env = dict(os.environ, MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(free_port()), WORLD_SIZE="2",
-               PYTHONPATH=os.path.dirname(os.path.abspath(__file__))
-               + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--dp-child", spec_path],
-        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=DP_CHILD_TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    wall_s = time.perf_counter() - t0
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            raise AssertionError(f"gloo rank {r} exited {p.returncode}:\n"
-                                 + (logs[r] if r < len(logs) else "")[-4000:])
-    ranks = []
-    for r in range(2):
-        with open(f"{out_base}.{r}.json") as f:
-            ranks.append(json.load(f))
-    want = [st["loss"] for st in one["steps"]]
-    for r, rank in enumerate(ranks):
-        if rank["group"] != {"backend": "gloo", "world": 2}:
-            raise AssertionError(f"rank {r}: group {rank['group']}")
-        check_dp_steps(f"gloo rank {r}", rank["steps"], blocks, steps)
-        got = [st["loss"] for st in rank["steps"]]
-        np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=f"rank {r}")
-        if rank["grads"]["names"] != one_grads["names"]:
-            raise AssertionError(f"rank {r}: gradient names differ")
-        for key in ("norm", "sum"):
-            np.testing.assert_allclose(
-                rank["grads"][key], one_grads[key], rtol=1e-5, atol=1e-6,
-                err_msg=f"rank {r}: first step's gradient {key}s")
-    grad_diff = max(abs(a - b) / max(abs(b), 1e-30) for rk in ranks
-                    for a, b in zip(rk["grads"]["norm"], one_grads["norm"]))
-    out = {"card": card() if device.startswith("cuda") else "cpu",
-           "blocks": blocks, "batch": batch, "per_rank": batch // 2,
-           "steps": steps, "precision": "fp32, TF32 off",
-           "losses_one_process": want,
-           "losses_ranks": [[st["loss"] for st in rk["steps"]]
-                            for rk in ranks],
-           "grads_compared": len(one_grads["names"]),
-           "grad_norm_max_rel_diff": grad_diff,
-           "max_rel_diff": max(abs(a - b) / max(abs(b), 1e-30)
-                               for rk in ranks
-                               for a, b in zip(
-                                   [st["loss"] for st in rk["steps"]], want)),
-           "launches_per_rank_step": [ranks[0]["steps"][0]["fwd_launches"],
-                                      ranks[0]["steps"][0]["bwd_launches"]],
-           "fwd_launches_per_rank": [sum(st["fwd_launches"]
-                                         for st in rk["steps"])
-                                     for rk in ranks],
-           "bwd_launches_per_rank": [sum(st["bwd_launches"]
-                                         for st in rk["steps"])
-                                     for rk in ranks],
-           "ms_per_step_one_process": [st["ms"] for st in one["steps"]],
-           "ms_per_step_ranks": [[st["ms"] for st in rk["steps"]]
-                                 for rk in ranks],
-           "peak_memory_gb_ranks": [rk["peak_memory_gb"] for rk in ranks],
-           "wall_s": wall_s}
-    phase("dp_train_gloo_world2", **out)
-    return out
+            "steps", "group", "wall_s", "peak_memory_gb",
+            "state_bytes")}}, f)
 
 
 def drive_dp_serve(torch, fa, serve, d: str, device: str = "cuda",
@@ -6021,6 +5954,413 @@ def drive_dp_wsi(torch, fa, d: str, device: str = "cuda",
     phase("dp_wsi", **out)
     return out
 
+# ---- wide_shapes: the widened attention bodies on their paths -------------------
+
+# the shapes the widened bodies take (name, B, S, H, Dh): KEEP's ViT-L/16 at
+# 384² and 448², and the zoo's head widths past 64 at 224² (patch 14)
+WIDE_SHAPES = [("keep_384", 32, 577, 16, 64), ("keep_448", 32, 785, 16, 64),
+               ("vit_h14", 32, 257, 16, 80), ("vit_g14", 32, 257, 16, 88),
+               ("vit_bigg14", 32, 257, 16, 104), ("vit_e14", 32, 257, 16, 112)]
+WIDE_SERVE_SIZES = (384, 448)
+WIDE_SERVE_BATCH = 32      # one dispatch at bucket 32
+WIDE_TRAIN_SIZE = 384
+WIDE_TRAIN_BATCH = 32
+WIDE_TRAIN_STEPS = 3
+# the first step's gradient through the kernels against a plain-attention
+# step in bf16: each leaf's norm (leaves of at least 1e-3 of the largest
+# norm) and the global norm, relative. Sound runs read ≤ 1.34e-2 / 3.06e-4
+# on the card; one block's dv dropped from #1b reads 0.867 / 2.84e-2
+# (scripts/torch_smoke_phases.py --plant; PERF.md §6, PR 17). Faults that
+# move no norm past the bf16 floor (one block's dk, the last token's row)
+# are the kernel checks' to see (phase 25 (a), fp32 at 2e-4 / 1e-4).
+WIDE_GRAD_LEAF_GATE = 5e-2
+WIDE_GRAD_GLOBAL_GATE = 3e-3
+
+
+def check_wide_kernels(fa, torch, gen) -> tuple[list[dict], list[dict]]:
+    """wide_shapes (a). #1b and the bf16 → fp32 form of the int8 blocks'
+    attention at ``WIDE_SHAPES`` (the bodies that kept Dh = 64, S ≤ 512
+    until they were widened) against their plain versions: the backward
+    fp32 at atol 2e-4 / rtol 1e-4 and bf16 within 1e-2 of the largest plain
+    gradient, the fp32 form within the bf16 attention gate
+    (``check_f32_form``); each call one launch; their times, the plain
+    versions', their bounds and SDPA's (backward through autograd beside
+    #1b, the bf16 forward beside the fp32 form)."""
+    F = torch.nn.functional
+    bwd_rows, f32_rows = [], []
+    for name, b, s, h, dh in WIDE_SHAPES:
+        qkv32 = torch.randn(b, s, 3 * h * dh, device="cuda", generator=gen)
+        do32 = torch.randn(b, s, h * dh, device="cuda", generator=gen)
+        kb = torch.zeros(b, s, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, do = qkv32.to(dtype), do32.to(dtype)
+            n0 = fa.BWD_LAUNCHES
+            got = fa.attention_qkv_slab_bwd(qkv, kb, do, h)
+            torch.cuda.synchronize()
+            if fa.BWD_LAUNCHES != n0 + 1:
+                raise AssertionError(f"{name}: the backward did not launch")
+            ref = fa.attention_qkv_slab_bwd_reference(qkv, kb, do, h)
+            err = (got.float() - ref.float()).abs().max().item()
+            limit = 1e-2 * ref.float().abs().max().item()
+            if dtype == torch.float32:
+                if not torch.allclose(got, ref, atol=2e-4, rtol=1e-4):
+                    raise AssertionError(f"{name} fp32 backward vs plain: "
+                                         f"max |Δ| {err}")
+            elif not (torch.isfinite(got).all() and err <= limit):
+                raise AssertionError(f"{name} bf16 backward vs plain: max "
+                                     f"|Δ| {err} > {limit}")
+            del ref
+            q, k, v = (t.detach().requires_grad_() for t in
+                       qkv.view(b, s, 3, h, dh).permute(2, 0, 3, 1, 4))
+            out = F.scaled_dot_product_attention(q, k, v)
+            do4 = do.view(b, s, h, dh).transpose(1, 2)
+            sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+                out, (q, k, v), do4, retain_graph=True)
+            row = {"shape": name, "B": b, "S": s, "H": h, "Dh": dh,
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "max_abs_err": err, "ms": cuda_ms(
+                       lambda: fa.attention_qkv_slab_bwd(qkv, kb, do, h)),
+                   "plain_ms": cuda_ms(
+                       lambda: fa.attention_qkv_slab_bwd_reference(
+                           qkv, kb, do, h), runs=5),
+                   "library_ms": cuda_ms(sdpa_bwd),
+                   "library_kernel": sdpa_backend(torch, sdpa_bwd)}
+            row["bound_ms"], row["bound_by"] = attention_bound(
+                b, s, h, qkv.element_size(), True, backward=True, dh=dh)
+            del out, q, k, v
+            phase("wide_bwd", **row)
+            bwd_rows.append(row)
+        qkv = qkv32.bfloat16()
+        q, k, v = qkv.view(b, s, 3, h, dh).permute(2, 0, 3, 1, 4)
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        n0 = fa.LAUNCHES
+        row = check_f32_form(fa, torch, name, qkv, None,
+                             torch.ones(b, s, dtype=torch.bool,
+                                        device="cuda"), h, sdpa_ms)
+        if fa.LAUNCHES <= n0:
+            raise AssertionError(f"{name}: the bf16 -> fp32 form did not "
+                                 f"launch")
+        f32_rows.append(row)
+        torch.cuda.empty_cache()
+    return bwd_rows, f32_rows
+
+
+def drive_wide_int8(torch, fa, serve, d: str, cfg, device: str = "cuda",
+                    sizes=WIDE_SERVE_SIZES,
+                    batch: int = WIDE_SERVE_BATCH) -> dict:
+    """wide_shapes (b). An int8 KEEP at each of ``sizes`` (S = 577 and 785
+    for ViT-L/16), served through the server core at bucket ``batch``: the
+    bf16 model, the int8 model and the int8 model with its blocks' plain
+    versions, on ``keep.init``-statistics weights (those the int8 gate is
+    measured on). Gates: int8 against bf16 at cos ≥ 0.999 per row (image
+    and text), int8 against its plain blocks in the JAX route gate's form
+    (mean image-row cosine and whole text cosine > 0.9999). The int8
+    dispatch's launches of #4 / #5, whose attention is the bf16 → fp32 form
+    at these lengths."""
+    from keep_tpu_torch.models.keep import KEEPModel
+    from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
+
+    out = {"card": card() if device == "cuda" else "cpu", "batch": batch}
+    for size in sizes:
+        c = dataclasses.replace(cfg, vision=dataclasses.replace(
+            cfg.vision, img_size=size))
+        sub = os.path.join(d, f"keep_{size}")
+        os.makedirs(sub)
+        write_model(sub, torch, c, device=device, keep_init=True)
+        tiles = np.random.default_rng(size).integers(
+            0, 256, (batch, size, size, 3), dtype=np.uint8)
+        feats, launches = {}, {}
+        for tag, quantize, plain in (("bf16", False, False),
+                                     ("int8", True, False),
+                                     ("int8_plain_blocks", True, True)):
+            model = KEEPModel.from_pretrained(
+                sub, dtype=torch.bfloat16, use_flash=True, device=device,
+                quantize=quantize)
+            core = serve.InferenceServer(
+                model, WordPieceTokenizer.from_pretrained(sub),
+                max_length=min(c.max_text_length,
+                               c.text.max_position_embeddings),
+                image_size=size)
+            try:
+                with (plain_int8_blocks() if plain
+                      else contextlib.nullcontext()):
+                    reset_launches(fa)
+                    feats[tag] = {"image": core.encode_image(tiles),
+                                  "text": core.encode_text(PROMPTS)}
+                    launches[tag] = read_launches(fa)[1]
+            finally:
+                core.stop()
+            del model, core
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        row = {"S": c.vision.num_patches + 1}
+        for kind in ("image", "text"):
+            check_features(f"int8 {size} {kind}", feats["int8"][kind],
+                           batch if kind == "image" else len(PROMPTS),
+                           c.projection_dim)
+            cos = cosine_rows(feats["int8"][kind], feats["bf16"][kind])
+            route = int8_route(feats["int8"][kind],
+                               feats["int8_plain_blocks"][kind])
+            row[kind] = {"min_row_cos_vs_bf16": float(cos.min()),
+                         "route_vs_plain_blocks": route}
+            if not cos.min() >= 0.999:
+                raise AssertionError(f"int8 KEEP at {size}²: {kind} rows at "
+                                     f"cos {cos.min()} < 0.999 of bf16")
+            form = "mean_row_cos" if kind == "image" else "whole_cos"
+            if not route[form] > 0.9999:
+                raise AssertionError(f"int8 KEEP at {size}²: {kind} {form} "
+                                     f"{route[form]} against its plain "
+                                     f"blocks, not > 0.9999")
+        row["launches"] = launches["int8"]
+        for kname in ("quantized_attention_block",
+                      "quantized_attention_block_postln"):
+            if not launches["int8"].get(kname):
+                raise AssertionError(f"int8 KEEP at {size}²: {kname} did not "
+                                     f"launch")
+        out[f"keep_{size}"] = row
+    phase("wide_int8_serve", **out)
+    return out
+
+
+def drive_wide_train(torch, fa, d: str, device: str = "cuda",
+                     img_size: int = WIDE_TRAIN_SIZE,
+                     batch: int = WIDE_TRAIN_BATCH,
+                     steps: int = WIDE_TRAIN_STEPS,
+                     keep: dict | None = None, gate: bool = True,
+                     name: str = "wide_train") -> dict:
+    """wide_shapes (c). KEEP with both towers open at ``img_size``² (S =
+    577 at 384²) through ``train.main`` in bf16 at ``batch`` for ``steps``
+    steps: finite losses, #1 twice (remat) and #1b once per block of each
+    step (36 #1b launches a step at full depth); the first step's gradient
+    against the same step with plain attention (``model.use_flash`` off),
+    each leaf's norm and the global norm, within ``WIDE_GRAD_*_GATE``
+    unless ``gate`` is off (the readings of planted faults,
+    ``scripts/torch_smoke_phases.py --plant``). Prints the phase
+    ``name``."""
+    keep = keep or {"projection_dim": 768, "vision": {"img_size": img_size}}
+    raw = dp_train_config(os.path.join(d, "data"), batch, batch // 4, steps,
+                          keep=keep)
+    raw["save"]["output_dir"] = os.path.join(d, "kernels")
+    blocks = (raw["keep"].get("vision", {}).get("depth", 24)
+              + raw["keep"].get("text", {}).get("num_hidden_layers", 12))
+    with first_step_grads(torch, {}) as grads:
+        run = counted_train(torch, fa, raw, ["--device", device], device)
+    check_dp_steps(f"{img_size}² training", run["steps"], blocks, steps)
+    plain_raw = json.loads(json.dumps(raw))
+    plain_raw["save"]["output_dir"] = os.path.join(d, "plain")
+    plain_raw["model"]["use_flash"] = False
+    with first_step_grads(torch, {}) as plain_grads:
+        plain = counted_train(torch, fa, plain_raw, ["--device", device],
+                              device)
+    if grads["names"] != plain_grads["names"]:
+        raise AssertionError("the plain step's gradient names differ")
+    a, b = np.asarray(grads["norm"]), np.asarray(plain_grads["norm"])
+    big = b >= 1e-3 * b.max()
+    leaf_diff = float((np.abs(a - b) / np.maximum(b, 1e-30))[big].max())
+    global_diff = float(abs(np.linalg.norm(a) - np.linalg.norm(b))
+                        / np.linalg.norm(b))
+    if gate and not (leaf_diff <= WIDE_GRAD_LEAF_GATE
+                     and global_diff <= WIDE_GRAD_GLOBAL_GATE):
+        raise AssertionError(
+            f"{img_size}² first step through the kernels vs plain "
+            f"attention: leaf norm diff {leaf_diff}, global {global_diff}")
+    img_size = raw["keep"].get("vision", {}).get("img_size", 224)
+    patch = raw["keep"].get("vision", {}).get("patch_size", 16)
+    out = {"card": card() if device == "cuda" else "cpu",
+           "img_size": img_size, "S": (img_size // patch) ** 2 + 1,
+           "batch": batch, "steps": steps, "blocks": blocks,
+           "precision": raw["model"]["precision"],
+           "losses": [st["loss"] for st in run["steps"]],
+           "losses_plain_attention": [st["loss"] for st in plain["steps"]],
+           "fwd_launches_per_step": [st["fwd_launches"]
+                                     for st in run["steps"]],
+           "bwd_launches_per_step": [st["bwd_launches"]
+                                     for st in run["steps"]],
+           "first_step_grad_leaf_norm_max_rel_diff": leaf_diff,
+           "first_step_grad_global_norm_rel_diff": global_diff,
+           "ms_per_step": [st["ms"] for st in run["steps"]],
+           "ms_per_step_plain_attention": [st["ms"] for st in plain["steps"]],
+           "peak_memory_gb": run["peak_memory_gb"]}
+    phase(name, **out)
+    return out
+
+
+# ---- dp2_layouts: fsdp, tp, sp and tp·fsdp across ranks ----------------------
+
+# tag: (the solver's layout keys, world); tp · fsdp at world 4 (dp 2 × mp
+# 2: at world 2 tp = 2 leaves dp = 1 and fsdp nothing to shard)
+DP2_LAYOUTS = {"dp": ({}, 2), "fsdp": ({"fsdp": True}, 2),
+               "tp2": ({"tp": 2}, 2), "tp2_sp": ({"tp": 2, "sp": True}, 2),
+               "tp2_fsdp": ({"tp": 2, "fsdp": True}, 4)}
+DP2_BATCH = 16
+DP2_STEPS = 3
+DP2_DEPTH = 6             # blocks a tower, at full width (the ranks'
+                          # cross-rank code is proven, not the depth)
+# a layout's first-step gradient against one process's, per leaf: its norm
+# relative, and its sum within this share of the leaf's sum of magnitudes
+# (a sum cancels). Sound layouts read ≤ 4.24e-6 on the card; dropping one
+# block's mp all-reduce reads 0.313 on a norm, 1.63e-2 on a sum, and its
+# losses stay within rtol 1.6e-6 (scripts/torch_smoke_phases.py --plant;
+# PERF.md §6, PR 17)
+DP2_LEAF_GATE = 1e-4
+# dp's: each row's arithmetic is one process's (norms at rtol 1e-5 / atol
+# 1e-6, sums within 1e-5 of the sum of magnitudes)
+DP2_DP_SUM_GATE = 1e-5
+
+
+def drive_dp2_layouts(torch, fa, d: str, batch: int = DP2_BATCH,
+                      steps: int = DP2_STEPS, device: str = "cuda:0",
+                      keep: dict | None = None,
+                      layouts: dict | None = None,
+                      child: list | None = None, gate: bool = True,
+                      name: str = "dp2_layouts") -> dict:
+    """24b / dp2_layouts. Every layout of ``DP2_LAYOUTS`` (dp, fsdp, tp =
+    2, tp = 2 + sp at world 2; tp = 2 + fsdp at world 4) over gloo on one
+    card (every rank on ``cuda:0``; NCCL refuses two ranks on one card),
+    fp32 with TF32 off, KEEP at full width with ``DP2_DEPTH`` blocks a
+    tower, the global batch ``batch`` for ``steps`` steps, all layouts'
+    ranks started together (each a ``child`` process: default
+    ``chip_smoke.py --dp-child``). Gated unless ``gate`` is off (the
+    readings of planted faults, ``scripts/torch_smoke_phases.py
+    --plant``): each rank's losses within rtol 1e-5 / atol 1e-6 of one
+    process's (the CPU tests' tolerance); each leaf's first-step gradient
+    (gathered from the ranks' pieces) against one process's, its norm
+    within ``DP2_LEAF_GATE`` and its sum within ``DP2_LEAF_GATE`` of the
+    leaf's sum of magnitudes (dp's norms at rtol 1e-5 / atol 1e-6, its sums
+    within ``DP2_DP_SUM_GATE``); #1 and #1b per rank as each step's blocks
+    give them (under tp each launch takes H/2 heads). Per rank the
+    resident state's bytes (beside dp's) and the peak device memory.
+    Prints the phase ``name``."""
+    from keep_tpu_torch.ops.nn import ieee_fp32
+
+    keep = keep or {"projection_dim": 768,
+                    "vision": {"depth": DP2_DEPTH},
+                    "text": {"num_hidden_layers": DP2_DEPTH}}
+    layouts = layouts or DP2_LAYOUTS
+    child = child or [sys.executable, os.path.abspath(__file__),
+                      "--dp-child"]
+    blocks = (keep.get("vision", {}).get("depth", 24)
+              + keep.get("text", {}).get("num_hidden_layers", 12))
+    raw = dp_train_config(os.path.join(d, "data"), batch, batch // 4, steps,
+                          precision="fp32", keep=keep)
+    one_raw = json.loads(json.dumps(raw))
+    one_raw["save"]["output_dir"] = os.path.join(d, "one_process")
+    with ieee_fp32(), first_step_grads(torch, {}) as one_grads:
+        one = counted_train(torch, fa, one_raw, ["--device", device], device)
+    check_dp_steps("one process (fp32)", one["steps"], blocks, steps)
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+    procs, outs = {}, {}
+    t0 = time.perf_counter()
+    for tag, (solver, world) in layouts.items():
+        lraw = json.loads(json.dumps(raw))
+        lraw["solver"].update(solver)
+        lraw["save"]["output_dir"] = os.path.join(d, tag)
+        spec_path = os.path.join(d, f"{tag}_spec.json")
+        outs[tag] = os.path.join(d, f"{tag}_rank")
+        with open(spec_path, "w") as f:
+            json.dump({"raw": lraw, "out": outs[tag], "device": device}, f)
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(free_port()), WORLD_SIZE=str(world),
+                   LOCAL_WORLD_SIZE=str(world), OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__))
+                   + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        procs[tag] = [subprocess.Popen(
+            [*child, spec_path], env=dict(env, RANK=str(r),
+                                          LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+    logs: dict = {}
+    try:
+        for tag, ps in procs.items():
+            logs[tag] = [p.communicate(timeout=DP_CHILD_TIMEOUT)[0]
+                         for p in ps]
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    wall_s = time.perf_counter() - t0
+    want = [st["loss"] for st in one["steps"]]
+    norms, sums, l1 = (np.asarray(one_grads[k]) for k in ("norm", "sum",
+                                                          "l1"))
+    result = {"card": card() if device.startswith("cuda") else "cpu",
+              "blocks": blocks, "batch": batch, "steps": steps,
+              "precision": "fp32, TF32 off", "losses_one_process": want,
+              "one_process_state_bytes": one["state_bytes"],
+              "wall_s_all_layouts": wall_s}
+    for tag, ps in procs.items():
+        ranks = []
+        for r, p in enumerate(ps):
+            if p.returncode != 0:
+                raise AssertionError(f"{tag} rank {r} exited {p.returncode}:"
+                                     f"\n" + logs[tag][r][-4000:])
+            with open(f"{outs[tag]}.{r}.json") as f:
+                ranks.append(json.load(f))
+        world = layouts[tag][1]
+        for r, rank in enumerate(ranks):
+            if rank["group"] != {"backend": "gloo", "world": world}:
+                raise AssertionError(f"{tag} rank {r}: group {rank['group']}")
+            check_dp_steps(f"{tag} rank {r}", rank["steps"], blocks, steps)
+            if rank["grads"]["names"] != one_grads["names"]:
+                raise AssertionError(f"{tag} rank {r}: gradient names differ")
+        got_norms = np.asarray([rk["grads"]["norm"] for rk in ranks])
+        got_sums = np.asarray([rk["grads"]["sum"] for rk in ranks])
+        losses = np.asarray([[st["loss"] for st in rk["steps"]]
+                             for rk in ranks])
+        result[tag] = {
+            "world": world,
+            "losses_ranks": losses.tolist(),
+            "loss_max_rel_diff": float(
+                (np.abs(losses - want) / np.maximum(np.abs(want), 1e-30))
+                .max()),
+            "grad_leaf_norm_max_rel_diff": float(
+                (np.abs(got_norms - norms) / np.maximum(norms, 1e-30))
+                .max()),
+            "grad_leaf_sum_max_diff_over_l1": float(
+                (np.abs(got_sums - sums) / np.maximum(l1, 1e-30)).max()),
+            "fwd_launches_per_rank": [sum(st["fwd_launches"]
+                                          for st in rk["steps"])
+                                      for rk in ranks],
+            "bwd_launches_per_rank": [sum(st["bwd_launches"]
+                                          for st in rk["steps"])
+                                      for rk in ranks],
+            "state_bytes_per_rank": [rk["state_bytes"] for rk in ranks],
+            "ms_per_step_rank0": [st["ms"] for st in ranks[0]["steps"]],
+            "peak_memory_gb_ranks": [rk["peak_memory_gb"] for rk in ranks]}
+        if not gate:
+            continue
+        np.testing.assert_allclose(losses, np.broadcast_to(want,
+                                                           losses.shape),
+                                   rtol=1e-5, atol=1e-6, err_msg=tag)
+        row = result[tag]
+        if tag == "dp":  # each row's arithmetic is one process's
+            np.testing.assert_allclose(
+                got_norms, np.broadcast_to(norms, got_norms.shape),
+                rtol=1e-5, atol=1e-6,
+                err_msg="dp: first-step gradient norms")
+            sum_gate = DP2_DP_SUM_GATE
+        else:
+            if not row["grad_leaf_norm_max_rel_diff"] <= DP2_LEAF_GATE:
+                raise AssertionError(
+                    f"{tag}: a leaf's first-step gradient norm "
+                    f"{row['grad_leaf_norm_max_rel_diff']} from one "
+                    f"process's")
+            sum_gate = DP2_LEAF_GATE
+        if not row["grad_leaf_sum_max_diff_over_l1"] <= sum_gate:
+            raise AssertionError(
+                f"{tag}: a leaf's first-step gradient sum "
+                f"{row['grad_leaf_sum_max_diff_over_l1']} of its sum of "
+                f"magnitudes from one process's")
+    if "dp" in result:
+        for tag in layouts:
+            result[tag]["state_bytes_vs_dp"] = [
+                a / result["dp"]["state_bytes_per_rank"][0]
+                for a in result[tag]["state_bytes_per_rank"]]
+    phase(name, **result)
+    return result
+
 
 def main() -> int:
     import torch
@@ -6134,12 +6474,34 @@ def main() -> int:
                               blocks=blocks, steps_per_epoch=4)
     torch.cuda.empty_cache()
 
-    # 24a.–24b. data-parallel training: world 1 over NCCL, world 2 over gloo
+    # 25. wide_shapes: #1b and the int8 blocks' attention at the shapes
+    # they were widened to, an int8 KEEP served at 384² and 448², a KEEP
+    # trained at 384²
+    t0 = time.perf_counter()
+    wide_bwd_rows, wide_f32_rows = check_wide_kernels(fa, torch, gen)
+    with tempfile.TemporaryDirectory() as d_wide:
+        wide_int8 = drive_wide_int8(torch, fa, serve, d_wide, cfg)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d_wide:
+        wide_train = drive_wide_train(torch, fa, d_wide)
+    torch.cuda.empty_cache()
+    phase("wide_shapes_time", seconds=time.perf_counter() - t0)
+    wide = {"bwd": wide_bwd_rows, "f32": wide_f32_rows, "int8": wide_int8,
+            "train": wide_train}
+
+    # 24a. data-parallel training: world 1 over NCCL
     with tempfile.TemporaryDirectory() as d_dp:
         dp_train = drive_dp_train(torch, fa, d_dp, blocks)
-    with tempfile.TemporaryDirectory() as d_dp:
-        dp_gloo = drive_dp_gloo(torch, fa, d_dp)
     torch.cuda.empty_cache()
+
+    # 24b. / 26. dp2_layouts: dp (24b's world 2 over gloo), fsdp, tp = 2
+    # and tp = 2 + sp at world 2, tp = 2 + fsdp at world 4, over gloo,
+    # against one process
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d_dp:
+        dp2 = drive_dp2_layouts(torch, fa, d_dp)
+    torch.cuda.empty_cache()
+    phase("dp2_layouts_time", seconds=time.perf_counter() - t0)
 
     # 13.–14. LoRA fine-tuning with the eval, then serving its adapters
     with tempfile.TemporaryDirectory() as d_lora:
@@ -6191,8 +6553,8 @@ def main() -> int:
         fused, served, served8, trained, f32_rows, wsi, lora_trained,
         lora_served, calibrated, pyramid, zoo_rows, zoo_heads_rows, zoo,
         long_seq, towers, coca_out, pmc, moe_out, compat, aot_out,
-        {"train": dp_train, "gloo": dp_gloo, "serve": dp_serve,
-         "wsi": dp_wsi})}), flush=True)
+        {"train": dp_train, "gloo": dp2["dp"], "serve": dp_serve,
+         "wsi": dp_wsi}, wide, dp2)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -6204,7 +6566,7 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                 f32_rows, wsi, lora_trained, lora_served, calibrated,
                 pyramid, zoo_rows, zoo_heads_rows, zoo,
                 long_seq, towers, coca_out, pmc, moe_out, compat,
-                aot_out, dp) -> list[dict]:
+                aot_out, dp, wide, dp2) -> list[dict]:
     """One entry per TPU kernel: its launches on the main path that runs it,
     and, at ViT-L B=32 in bf16 (the int8 kernels: the first shape of their
     phase), its time, its plain version's, its bound and the one PyTorch
@@ -6229,7 +6591,12 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
     Phase 24 adds the data-parallel paths' (``launches_dp_path``): the
     world-1 NCCL and the world-2 gloo training runs (per rank), a bucket-128
     dispatch pair of ``serve --mesh-dp 1`` and ``wsi.run extract
-    --mesh-dp``, bf16 and int8."""
+    --mesh-dp``, bf16 and int8. Phase 25 (``wide``) adds #1b's and the
+    bf16 → fp32 form's rows at the widened shapes (beside #1b and beside
+    #4 / #5), #4 / #5's launches on the int8 KEEP served at 384² and 448²,
+    and #1 / #1b's on the 384² training steps; phase 26 (``dp2``) #1 / #1b's
+    per rank on each layout."""
+    dp2_tags = [t for t in DP2_LAYOUTS if t in dp2]
     def pick(rs, shape="vit_l16"):
         return next(r for r in rs if r["shape"] == shape and r["B"] == 32
                     and r["dtype"] == "bfloat16")
@@ -6293,6 +6660,9 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
             "wsi_extract_mesh_dp": dp["wsi"]["bf16"]["attention_launches"],
             "wsi_extract_mesh_dp_int8":
                 dp["wsi"]["int8"]["attention_launches"]},
+        launches_wide_train=sum(wide["train"]["fwd_launches_per_step"]),
+        launches_dp2_layouts_per_rank={
+            t: dp2[t]["fwd_launches_per_rank"] for t in dp2_tags},
         shapes=rows, zoo_shapes=zoo_rows, coca_shape=coca_out["slab"])]
     vit_bwd = pick(bwd_rows)
     kernels.append(entry(
@@ -6306,9 +6676,14 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
             "train_nccl_world1": dp["train"]["bwd_launches"],
             "train_gloo_world2_per_rank":
                 dp["gloo"]["bwd_launches_per_rank"]},
+        launches_wide_train=sum(wide["train"]["bwd_launches_per_step"]),
+        launches_dp2_layouts_per_rank={
+            t: dp2[t]["bwd_launches_per_rank"] for t in dp2_tags},
         library_call="scaled_dot_product_attention backward through "
                      "autograd (retain_graph; the forward not timed)",
-        library_kernel=vit_bwd["library_kernel"], shapes=bwd_rows))
+        library_kernel=vit_bwd["library_kernel"], shapes=bwd_rows,
+        wide_shapes=wide["bwd"],
+        max_abs_err_wide=max(r["max_abs_err"] for r in wide["bwd"])))
     vit_heads = pick(heads_rows)
     kernels.append(entry(
         "attention_qkv_heads", SOURCE, HEADS_REPLACES, heads_launches,
@@ -6375,6 +6750,10 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
         if kname in tower_of:
             kernels[-1]["attention_bf16_to_fp32"] = [
                 r for r in f32_rows if r["shape"] == tower_of[kname]]
+            kernels[-1]["attention_bf16_to_fp32_wide"] = wide["f32"]
+            kernels[-1]["launches_wide_int8_path"] = {
+                k: r["launches"].get(kname, 0)
+                for k, r in wide["int8"].items() if k.startswith("keep_")}
     return kernels
 
 

@@ -199,8 +199,13 @@ def save_quantized(model_dir: str, model: nn.Module) -> None:
     state dict with its dtypes kept (the int8 codes, the fp32 scales, the
     SmoothQuant ``pre_scale`` rows, the LayerScale folded into proj and
     fc2), its compute dtype and GELU form and the names of its int8
-    linears. The weights
-    are about half the fp32 ``pytorch_model.bin``."""
+    linears. An MoE trunk's int8 experts (``QExpertLinear``: ``weight_q``
+    [E, out, in], ``weight_scale``, ``bias``, and the W8A16 ``w_only``
+    marker) are written with their names and form, its fp32 router in the
+    state dict and its ``moe_*`` fields in the config, as the JAX package
+    writes any quantized tree. The weights are about half the fp32
+    ``pytorch_model.bin``."""
+    from keep_tpu_torch.models.moe import QExpertLinear
     from keep_tpu_torch.ops.nn import QLinear
     from keep_tpu_torch.quant import is_quantized
 
@@ -208,10 +213,6 @@ def save_quantized(model_dir: str, model: nn.Module) -> None:
         raise ValueError(
             "save_quantized expects an already-quantized model "
             "(KEEPModel.quantize(...)) — got unquantized linears")
-    if model.moe:
-        raise NotImplementedError(
-            "the int8 deploy artifact is written for the dense KEEP trunk; "
-            "an MoE trunk's experts are re-quantized at load")
     payload = {
         "format": QUANTIZED_FORMAT,
         "config": _config_dict(model.cfg),
@@ -219,7 +220,12 @@ def save_quantized(model_dir: str, model: nn.Module) -> None:
         "gelu_approx": model.gelu_approx,
         "quantized": sorted(n for n, m in model.named_modules()
                             if isinstance(m, QLinear)),
-        "state_dict": {k: v.detach().to("cpu")
+        # an MoE trunk's int8 experts and their form (W8A16 under w_only)
+        "quantized_experts": {n: m.w_only for n, m in model.named_modules()
+                              if isinstance(m, QExpertLinear)},
+        # tensors to the host; an expert's extra state ({"w_only": ...}) as
+        # it is
+        "state_dict": {k: v.detach().to("cpu") if torch.is_tensor(v) else v
                        for k, v in model.state_dict().items()},
     }
     qdir = os.path.join(model_dir, QUANTIZED_SUBDIR)
@@ -233,9 +239,11 @@ def load_quantized(model_dir: str, use_flash: bool = False,
                    device=None) -> nn.Module:
     """The model ``save_quantized`` wrote into ``model_dir``, on ``device``
     (the caller's, already checked), in the artifact's compute dtype and
-    GELU form: the int8 linears rebuilt where the artifact names them,
-    LayerScale folded, then every tensor loaded as written."""
+    GELU form: the int8 linears (and an MoE trunk's int8 experts) rebuilt
+    where the artifact names them, LayerScale folded (the dense trunk; the
+    MoE trunk has none), then every tensor loaded as written."""
     from keep_tpu_torch.models.keep import KEEPModel
+    from keep_tpu_torch.models.moe import QExpertLinear
     from keep_tpu_torch.models.vit import fold_layerscale
     from keep_tpu_torch.ops.nn import QLinear, cast_linear_weights
 
@@ -249,13 +257,19 @@ def load_quantized(model_dir: str, use_flash: bool = False,
     dtype = getattr(torch, payload["dtype"])
     model = KEEPModel(cfg, dtype=dtype, use_flash=use_flash,
                       gelu_approx=payload["gelu_approx"], device=device)
-    with torch.no_grad():
-        fold_layerscale(model.visual)
+    if not model.moe:
+        with torch.no_grad():
+            fold_layerscale(model.visual)
     for name in payload["quantized"]:
         parent, _, leaf = name.rpartition(".")
         lin = model.get_submodule(name)
         setattr(model.get_submodule(parent), leaf, QLinear(
             lin.weight.shape[1], lin.weight.shape[0], device=device))
+    for name, w_only in payload.get("quantized_experts", {}).items():
+        parent, _, leaf = name.rpartition(".")
+        e, n, k = model.get_submodule(name).weight.shape
+        setattr(model.get_submodule(parent), leaf, QExpertLinear(
+            e, k, n, w_only=w_only, device=device))
     cast_linear_weights(model, dtype)
     model.load_state_dict(payload["state_dict"], strict=True)
     return model.eval()

@@ -305,6 +305,10 @@ def from_jax_tree(params: Mapping, count: Callable[[tuple], int | None]
       (``scale``, ``bias``, ``mean``, ``var``) → ``weight``, ``bias``,
       ``running_mean``, ``running_var``;
     - a quantized linear (``kernel_q``) → an ``ops.nn.QLinear``'s leaves;
+      a quantized expert stack (a 3-D ``kernel_q``) → a
+      ``models.moe.QExpertLinear``'s, its extra state saying whether the
+      JAX ``w_only`` marker (W8A16, ``quant.quantize_linear_weights``'s
+      ``weight_only``) was there;
     - ``blocks`` stacked on a leading layer axis → ``blocks.{i}``, and a
       list of block dicts (ResNet stages, Swin blocks, ConvNeXt stages) →
       ``{i}``; ``count(path)`` gives the number each stack or list must
@@ -320,14 +324,24 @@ def from_jax_tree(params: Mapping, count: Callable[[tuple], int | None]
 
     def walk(node, path: tuple) -> None:
         if isinstance(node, Mapping) and "kernel_q" in node:
+            experts = np.ndim(node["kernel_q"]) == 3
+            if "w_only" in node and not experts:
+                raise ValueError(f"{'.'.join(path)}: a dense W8A16 linear "
+                                 f"(w_only on a 2-D kernel_q) is not ported; "
+                                 f"the JAX package marks only MoE experts")
             for key, child in node.items():
+                if key == "w_only":
+                    continue
                 if key not in _QUANTIZED_LEAVES:
                     raise ValueError(f"{'.'.join(path)}: quantized linear leaf "
-                                     f"{key!r} is not ported (W8A16 / MoE)")
+                                     f"{key!r} is not ported")
                 t = _tensor(child)
                 if key == "kernel_q":
                     t = t.transpose(-1, -2).contiguous()
                 out[".".join((*path, _QUANTIZED_LEAVES[key]))] = t
+            if experts:  # a QExpertLinear: W8A8, or W8A16 under w_only
+                out[".".join((*path, "_extra_state"))] = {
+                    "w_only": "w_only" in node}
             return
         if isinstance(node, Mapping) and set(node) == set(_BATCH_NORM):
             for key, child in node.items():
@@ -520,16 +534,20 @@ def to_jax_params(state_dict: Mapping, cfg: KEEPConfig) -> dict:
 
 
 def _leaves(node):
+    """The array leaves of a JAX pytree; an empty tuple (the ``w_only``
+    marker) holds none."""
     if isinstance(node, Mapping):
         for v in node.values():
             yield from _leaves(v)
-    else:
+    elif not (isinstance(node, tuple) and node == ()):
         yield node
 
 
 def _index(node, i: int):
     if isinstance(node, Mapping):
         return {k: _index(v, i) for k, v in node.items()}
+    if isinstance(node, tuple) and node == ():
+        return node  # a structural marker, the same in every layer
     return np.asarray(node)[i]
 
 

@@ -26,14 +26,16 @@
 // attention inside the int8 megakernels, keep_tpu/kernels/qblock.py `_sdpa`
 // / `_sdpa_masked` (:36-44, :131-139, in the pallas_calls at :79 and
 // :182), which return the fp32 sum into an fp32 scratch that is quantized
-// without a bf16 round; the entry point below sends it to its own body,
-// single-pass wgmma fed by TMA (attention_qkv_slab_f32.cu), which takes
-// only Dh = 64 and S <= 512 (the KEEP towers' int8 blocks).
+// without a bf16 round; the entry point below sends it at Dh = 64 and
+// S <= 512 (the KEEP towers' int8 blocks at 224^2) to its own body,
+// single-pass wgmma fed by TMA (attention_qkv_slab_f32.cu), and at every
+// other shape (an int8 KEEP at 384^2 or 448^2) to the streamed body below
+// with an fp32 epilogue.
 //
-// Shapes: the bf16 -> bf16 and fp32 -> fp32 bodies take every head width
-// that is a multiple of 8 from 64 to 128 (the OpenCLIP zoo: 64, 80 for
-// ViT-H, 88 for ViT-g and EVA01-g, 104 for ViT-bigG, 112 for ViT-e) and any
-// S (577 for ViT-L-14-336, 785 for KEEP's ViT-L/16 at 448^2).
+// Shapes: every form takes every head width that is a multiple of 8 from
+// 64 to 128 (the OpenCLIP zoo: 64, 80 for ViT-H, 88 for ViT-g and EVA01-g,
+// 104 for ViT-bigG, 112 for ViT-e) and any S (577 for ViT-L-14-336, 785
+// for KEEP's ViT-L/16 at 448^2).
 //
 // What bounds it on this card: bytes in principle (q, k and v read once, the
 // output written once: 0.015 ms at ViT-L B=32), but at these lengths the
@@ -60,7 +62,9 @@
 //     presets at 224^2): PR 5's body, which stages Q, the whole K slice and
 //     then the whole V slice (at most 64 KB each) in 128-byte rows whose
 //     16-byte chunks are XOR-swizzled by the row;
-//   - any other shape: K (pass 1), then K and V (pass 2) stream through
+//   - any other shape, and the bf16 -> fp32 form outside the one-pass wgmma body (p
+//     rounded to bf16 at the same point, o stored in fp32 uncast): K
+//     (pass 1), then K and V (pass 2) stream through
 //     two-stage cp.async rings of 64-row tiles, so shared memory no longer
 //     grows with S (87 KB at Dh = 128). A row holds Dh padded with zeros to
 //     a multiple of 16 (the k16 steps of q . k^T; the zeros add exact
@@ -376,38 +380,6 @@ slab_attention_tc_kernel(const bf16* __restrict__ q_base,
 
 // ---- bf16: tensor cores, any Dh and S (K and V streamed) ----------------------
 
-// Bytes of one 64-row tile whose rows hold kDP bf16 values (Dh padded to a
-// multiple of 16) and one 16-byte chunk of pitch.
-__host__ __device__ constexpr uint32_t tile_bytes(int dp) {
-  return kTcRows * (dp / 8 + 1) * 16;
-}
-
-// Byte offset of 16-byte chunk c of row r in such a tile. The row pitch is
-// an odd number of chunks, so the 8 rows an ldmatrix phase reads at one
-// chunk column start in 8 distinct 16-byte bank groups.
-template <int kDP>
-__device__ __forceinline__ uint32_t prow(int r, int c) {
-  return uint32_t((r * (kDP / 8 + 1) + c) << 4);
-}
-
-// Starts the copy of rows [r0, r0 + 64) of a head's dh-wide bf16 slice (row
-// stride `stride` elements) into the tile at shared address `dst`; chunks
-// past dh (up to kDP) and rows at or past S are zero-filled (their source
-// is not read).
-template <int kDP>
-__device__ __forceinline__ void stage_tile(uint32_t dst, const bf16* src,
-                                           long long stride, int r0, int S,
-                                           int dh) {
-  constexpr int kChunks = kDP / 8;
-  for (int idx = threadIdx.x; idx < kTcRows * kChunks; idx += kTcThreads) {
-    const int r = idx / kChunks;
-    const int c = idx - r * kChunks;
-    const bool ok = r0 + r < S && 8 * c < dh;
-    cp_async16(dst + prow<kDP>(r, c),
-               ok ? src + (r0 + r) * stride + 8 * c : src, ok);
-  }
-}
-
 // s = (q.k^T)*scale + bias for the 64 keys kb.. of the tile at `k_s`, in the
 // reference's order (a rounded product, then a rounded sum), over kDP / 16
 // k16 steps; keys at or past S score -inf. Fragment layout as `scores`.
@@ -440,13 +412,16 @@ __device__ __forceinline__ void tile_scores(
     }
 }
 
-template <int kDP>
+// TOut: bf16 (#1's bf16 -> bf16 form) or float (the bf16 -> fp32 form of
+// the int8 blocks at the shapes the one-pass wgmma body does not take: o
+// stored uncast)
+template <int kDP, typename TOut>
 __global__ void __launch_bounds__(kTcThreads)
 attention_tc_any_kernel(const bf16* __restrict__ q_base,
                         const bf16* __restrict__ k_base,
                         const bf16* __restrict__ v_base, Strides st,
                         const float* __restrict__ key_bias,
-                        bf16* __restrict__ out, int S, int H, int dh,
+                        TOut* __restrict__ out, int S, int H, int dh,
                         float scale) {
   extern __shared__ __align__(128) uint8_t tc_smem[];
   constexpr uint32_t kTile = tile_bytes(kDP);
@@ -556,11 +531,11 @@ attention_tc_any_kernel(const bf16* __restrict__ q_base,
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + 16 * warp + (lane >> 2) + 8 * half;
     if (row >= S) continue;
-    bf16* dst = out + ((long long)b * S + row) * D + h * dh + 2 * (lane & 3);
+    TOut* dst = out + ((long long)b * S + row) * D + h * dh + 2 * (lane & 3);
 #pragma unroll
     for (int n = 0; n < kDP / 8; ++n)
       if (8 * n < dh)
-        Elem<bf16>::store(dst + 8 * n, o[n][2 * half], o[n][2 * half + 1]);
+        Elem<TOut>::store(dst + 8 * n, o[n][2 * half], o[n][2 * half + 1]);
   }
 }
 
@@ -600,28 +575,29 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
   return cudaGetLastError();
 }
 
-template <int kDP>
+template <int kDP, typename TOut>
 cudaError_t launch_tc_any(const bf16* q, const bf16* k, const bf16* v,
-                          Strides st, const float* key_bias, bf16* out, int B,
+                          Strides st, const float* key_bias, TOut* out, int B,
                           int S, int H, int dh, float scale,
                           cudaStream_t stream) {
   const size_t smem = 5 * size_t(tile_bytes(kDP));
   const cudaError_t e = allow_smem(
-      reinterpret_cast<const void*>(attention_tc_any_kernel<kDP>), smem);
+      reinterpret_cast<const void*>(attention_tc_any_kernel<kDP, TOut>),
+      smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((S + kTcRows - 1) / kTcRows, H, B);
-  attention_tc_any_kernel<kDP><<<grid, kTcThreads, smem, stream>>>(
+  attention_tc_any_kernel<kDP, TOut><<<grid, kTcThreads, smem, stream>>>(
       q, k, v, st, key_bias, out, S, H, dh, scale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
-                        Strides st, const float* key_bias, bf16* out, int B,
-                        int S, int H, int dh, float scale,
-                        cudaStream_t stream) {
-  if (dh == kHeadDim && S <= kMaxSeq)
-    return launch_tc(q, k, v, st, key_bias, out, B, S, H, scale, stream);
-  switch ((dh + 15) / 16) {  // Dh padded to a multiple of 16
+// The streamed body at Dh padded to a multiple of 16.
+template <typename TOut>
+cudaError_t launch_streamed(const bf16* q, const bf16* k, const bf16* v,
+                            Strides st, const float* key_bias, TOut* out,
+                            int B, int S, int H, int dh, float scale,
+                            cudaStream_t stream) {
+  switch ((dh + 15) / 16) {
     case 4:
       return launch_tc_any<64>(q, k, v, st, key_bias, out, B, S, H, dh, scale,
                                stream);
@@ -642,6 +618,16 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
   }
 }
 
+cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
+                        Strides st, const float* key_bias, bf16* out, int B,
+                        int S, int H, int dh, float scale,
+                        cudaStream_t stream) {
+  if (dh == kHeadDim && S <= kMaxSeq)
+    return launch_tc(q, k, v, st, key_bias, out, B, S, H, scale, stream);
+  return launch_streamed(q, k, v, st, key_bias, out, B, S, H, dh, scale,
+                         stream);
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes; returns the cudaError_t of the
@@ -653,9 +639,8 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
 // (S*D, head_dim, D); [B, H, S, head_dim] heads pass their own strides.
 // `key_bias` is a contiguous fp32 [B, S] tensor or null, `out` a contiguous
 // [B, S, H*head_dim] tensor. dtype: 0 = float32 in and out, 1 = bfloat16 in
-// and out (both: head_dim a multiple of 8 from 64 to 128, any S), 2 =
-// bfloat16 in and float32 out (head_dim 64, S <= 512; q, k and v 16-byte
-// aligned).
+// and out, 2 = bfloat16 in and float32 out (all three: head_dim a multiple
+// of 8 from 64 to 128, any S; q, k and v 16-byte aligned).
 extern "C" int keep_attention(const void* q, const void* k, const void* v,
                               long long batch_stride, long long head_stride,
                               long long row_stride, const void* key_bias,
@@ -685,12 +670,17 @@ extern "C" int keep_attention(const void* q, const void* k, const void* v,
                              static_cast<bf16*>(out), B, S, H, head_dim,
                              scale, st));
     case 2:
-      if (head_dim != kHeadDim || S > kMaxSeq)
-        return int(cudaErrorInvalidValue);
-      return int(keep_attention_bf16_f32(q, k, v, batch_stride, head_stride,
-                                         row_stride, kb,
-                                         static_cast<float*>(out), B, S, H,
-                                         scale, st));
+      if (!any_shape) return int(cudaErrorInvalidValue);
+      if (head_dim == kHeadDim && S <= kMaxSeq)  // the one-pass wgmma body
+        return int(keep_attention_bf16_f32(q, k, v, batch_stride,
+                                           head_stride, row_stride, kb,
+                                           static_cast<float*>(out), B, S, H,
+                                           scale, st));
+      return int(launch_streamed(static_cast<const bf16*>(q),
+                                 static_cast<const bf16*>(k),
+                                 static_cast<const bf16*>(v), strides, kb,
+                                 static_cast<float*>(out), B, S, H, head_dim,
+                                 scale, st));
     default:
       return int(cudaErrorInvalidValue);
   }

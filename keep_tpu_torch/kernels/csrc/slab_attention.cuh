@@ -8,7 +8,9 @@
 //     64-wide row into registers;
 //   - the bf16 tensor-core bodies: cp.async staging into XOR-swizzled shared
 //     tiles (rows past S zero-filled), ldmatrix fragment loads and
-//     mma.sync.m16n8k16 bf16 with fp32 accumulators.
+//     mma.sync.m16n8k16 bf16 with fp32 accumulators; and the tiles of the
+//     streamed bodies at any head width (rows of Dh padded to a multiple of
+//     16 plus one chunk of pitch).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -332,6 +334,40 @@ __device__ __forceinline__ void raise_max(const float (&s)[8][4],
     mx[i] = quad_max(mx[i]);
     alpha[i] = expf(__fsub_rn(m[i], mx[i]));
     m[i] = mx[i];
+  }
+}
+
+// ---- bf16 tiles of any head width (the streamed bodies) ---------------------
+
+// Bytes of one 64-row tile whose rows hold kDP bf16 values (Dh padded to a
+// multiple of 16) and one 16-byte chunk of pitch.
+__host__ __device__ constexpr uint32_t tile_bytes(int dp) {
+  return kTcRows * (dp / 8 + 1) * 16;
+}
+
+// Byte offset of 16-byte chunk c of row r in such a tile. The row pitch is
+// an odd number of chunks, so the 8 rows an ldmatrix phase reads at one
+// chunk column start in 8 distinct 16-byte bank groups.
+template <int kDP>
+__device__ __forceinline__ uint32_t prow(int r, int c) {
+  return uint32_t((r * (kDP / 8 + 1) + c) << 4);
+}
+
+// Starts the copy of rows [r0, r0 + 64) of a head's dh-wide bf16 slice (row
+// stride `stride` elements) into the tile at shared address `dst`; chunks
+// past dh (up to kDP) and rows at or past S are zero-filled (their source
+// is not read).
+template <int kDP>
+__device__ __forceinline__ void stage_tile(uint32_t dst, const bf16* src,
+                                           long long stride, int r0, int S,
+                                           int dh) {
+  constexpr int kChunks = kDP / 8;
+  for (int idx = threadIdx.x; idx < kTcRows * kChunks; idx += kTcThreads) {
+    const int r = idx / kChunks;
+    const int c = idx - r * kChunks;
+    const bool ok = r0 + r < S && 8 * c < dh;
+    cp_async16(dst + prow<kDP>(r, c),
+               ok ? src + (r0 + r) * stride + 8 * c : src, ok);
   }
 }
 

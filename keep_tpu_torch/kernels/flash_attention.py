@@ -12,7 +12,8 @@ pointers and batch, head and row strides) and
 ``_slab_attn_bwd``); bf16 runs on the tensor cores, fp32 on the CUDA
 cores, and the bf16 → fp32 form below on its own tensor-core body
 (``csrc/attention_qkv_slab_f32.cu``: ``wgmma`` fed by TMA, one pass with
-the scores in registers). For a CPU tensor they run
+the scores in registers, at Dh = 64 and S ≤ 512; the streamed bf16 body
+with an fp32 epilogue elsewhere). For a CPU tensor they run
 the ``*_reference`` versions, the same math in plain PyTorch, which the
 tests and ``chip_smoke.py`` also hold the kernels against. There is no
 fallback from one to the other. The choice is the dispatcher's: the C
@@ -47,14 +48,10 @@ import torch
 from keep_tpu_torch.kernels._library import LIB, define
 from keep_tpu_torch.ops.nn import mha_attention
 
-# What each CUDA body takes; the wrappers raise on anything else. The
-# bf16 → bf16 and fp32 → fp32 forward bodies take every head width in
-# HEAD_DIMS (the OpenCLIP zoo's 64, 80, 88, 104 and 112 among them) and any
-# S. The bf16 → fp32 body (the int8 blocks' attention) and the backward
-# keep the KEEP towers' shape: Dh = NARROW_HEAD_DIM and S ≤ NARROW_MAX_SEQ.
+# What every CUDA body takes (the forward in each dtype pair, the backward):
+# every head width in HEAD_DIMS (the OpenCLIP zoo's 64, 80, 88, 104 and 112
+# among them) at any S; the wrappers raise on any other head width.
 HEAD_DIMS = tuple(range(64, 129, 8))
-NARROW_HEAD_DIM = 64
-NARROW_MAX_SEQ = 512
 
 # Counts of kernel launches in this process (slab forward, slab backward,
 # split-heads forward); a run resets them to check that its main path went
@@ -109,17 +106,12 @@ def _check_kernel_slab(qkv: torch.Tensor) -> None:
         raise ValueError(f"the kernel takes B ≤ 65535, got {b}")
 
 
-def _check_shape(dh: int, s: int, narrow: str | None = None) -> None:
-    """The head width and length a body takes: every Dh in ``HEAD_DIMS`` at
-    any S, or, for the body named by ``narrow`` (the bf16 → fp32 form, the
-    backward), Dh = 64 and S ≤ 512."""
-    if narrow is None:
-        if dh not in HEAD_DIMS:
-            raise ValueError(f"the kernel takes head_dim a multiple of 8 from "
-                             f"{HEAD_DIMS[0]} to {HEAD_DIMS[-1]}, got {dh}")
-    elif dh != NARROW_HEAD_DIM or s > NARROW_MAX_SEQ:
-        raise ValueError(f"{narrow} takes head_dim {NARROW_HEAD_DIM} and "
-                         f"S ≤ {NARROW_MAX_SEQ}, got head_dim {dh} and S {s}")
+def _check_shape(dh: int) -> None:
+    """The head width every body takes: every Dh in ``HEAD_DIMS``, at any
+    S."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the kernel takes head_dim a multiple of 8 from "
+                         f"{HEAD_DIMS[0]} to {HEAD_DIMS[-1]}, got {dh}")
 
 
 def attention_qkv_slab_reference(qkv: torch.Tensor,
@@ -148,8 +140,7 @@ def _launch_forward(name: str, q: int, k: int, v: int,
         raise TypeError(f"the kernel takes float32 or bfloat16 in and "
                         f"float32 or the input's dtype out, got {dtype} "
                         f"→ {out_dtype}")
-    _check_shape(dh, s, "the bf16 → fp32 kernel" if dtype != out_dtype
-                 else None)
+    _check_shape(dh)
     if key_bias is not None:
         if key_bias.device != device:
             raise ValueError("key_bias must be on the operands' device")
@@ -237,9 +228,8 @@ def attention_qkv_slab(qkv: torch.Tensor, key_bias: torch.Tensor | None = None,
 
     ``key_bias``: optional [B, S] additive mask on key positions (0 valid,
     −1e9 masked), taken in fp32. A CUDA tensor goes through the kernel,
-    which takes a contiguous slab, fp32 → fp32 or bf16 → bf16 at every Dh
-    in ``HEAD_DIMS`` and any S, bf16 → fp32 at Dh = 64 and S ≤ 512, and
-    raises on anything else; a CPU tensor goes through the plain version.
+    which takes a contiguous slab, fp32 → fp32, bf16 → bf16 or bf16 → fp32
+    at every Dh in ``HEAD_DIMS`` and any S, and raises on anything else; a CPU tensor goes through the plain version.
     When the slab requires grad, the call is differentiable (the operator's
     backward is ``attention_qkv_slab_bwd``; a ``None`` bias becomes zeros,
     as in the JAX package), except for the fp32-output form, which
@@ -294,7 +284,7 @@ def _bwd_cuda(qkv: torch.Tensor, key_bias: torch.Tensor, dout: torch.Tensor,
     b, s, _ = qkv.shape
     dh = _head_dim(qkv, num_heads)
     _check_kernel_slab(qkv)
-    _check_shape(dh, s, "the backward kernel")
+    _check_shape(dh)
     if qkv.dtype not in _IO_DTYPE_CODE or dout.dtype != qkv.dtype:
         raise TypeError(f"the backward kernel takes float32 or bfloat16 slabs "
                         f"with dout in the slab's dtype, got {qkv.dtype} and "
@@ -337,9 +327,9 @@ def attention_qkv_slab_bwd(qkv: torch.Tensor, key_bias: torch.Tensor,
     qkv [B, S, 3·H·Dh], fp32 key bias [B, S], dout [B, S, H·Dh] →
     dqkv [B, S, 3·H·Dh] in the slab's dtype; ``keep::attention_qkv_slab_bwd``.
     A CUDA tensor goes through the backward kernel, which takes fp32 or
-    bf16 (dout in the slab's dtype), Dh = 64, S ≤ 512 (the KEEP towers'
-    training shapes) and contiguous tensors, and raises on anything else; a
-    CPU tensor goes through the plain version."""
+    bf16 (dout in the slab's dtype), every Dh in ``HEAD_DIMS`` at any S and
+    contiguous tensors, and raises on anything else; a CPU tensor goes
+    through the plain version."""
     b, s, _ = qkv.shape
     dh = _head_dim(qkv, num_heads)
     if tuple(key_bias.shape) != (b, s):

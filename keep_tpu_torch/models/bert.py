@@ -10,6 +10,12 @@ Parameter names follow the JAX pytree (``embeddings.word``,
 ``blocks.{i}.attn.qkv``, ``blocks.{i}.attn.out``, ``pooler``, ...). The
 embedding tables stay fp32 whatever the compute dtype, as in the JAX package.
 
+Tensor and sequence parallelism (training over a process mesh): a block
+split by ``parallel.tp.shard_model_`` (its ``tp``) runs its attention and
+MLP pairs on this rank's heads and hidden slice; ``act_sharding``
+(``parallel.sp.SeqParallel``) splits the stream along S between the
+blocks, the key mask staying whole.
+
 Calibration: ``forward(..., ln_stats=True)`` also returns the per-layer
 per-channel abs-max of the qkv input (the block's input stream) and the fc1
 input (the attention sub-block's exit LayerNorm), pad positions masked out
@@ -62,6 +68,9 @@ class Block(nn.Module):
         self.attn = Attention(cfg, device=device)
         self.mlp = Mlp(cfg.hidden_size, cfg.intermediate_size, device=device)
         self.norm = LayerNorm(cfg.hidden_size, cfg.ln_eps, device=device)
+        # the tensor-parallel split of this block's pairs
+        # (parallel.tp.shard_model_); None: the whole block on every rank
+        self.tp = None
 
     def int8_megakernel(self) -> bool:
         """Whether the block can run the int8 megakernel path: all four
@@ -71,10 +80,27 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, key_bias: torch.Tensor, *,
                 use_flash: bool, gelu_approx: bool,
-                collect_ln_stats: bool = False):
+                collect_ln_stats: bool = False, seq=None):
         """``collect_ln_stats`` (calibration) also returns the fp32 abs-max
         over the unpadded positions of the qkv and fc1 inputs, {"qkv": [D],
-        "fc1": [D]}; it needs float linears."""
+        "fc1": [D]}; it needs float linears. Under tensor parallelism
+        (``self.tp``) and / or sequence parallelism (``seq``, this tower's
+        ``parallel.sp.SeqShard``: ``x`` holds this rank's rows, ``key_bias``
+        the whole sequence's) the pairs run split (``parallel.tp``)."""
+        if self.tp is not None or seq is not None:
+            from keep_tpu_torch.parallel import tp as ptp
+
+            if collect_ln_stats or isinstance(self.attn.qkv, QLinear):
+                raise ValueError("tensor / sequence parallelism is a "
+                                 "training path: no int8 or calibration")
+            attn = ptp.attention_pair(
+                self.attn.qkv, self.attn.out, x,
+                self.cfg.num_attention_heads, self.tp, seq,
+                key_bias=key_bias,
+                attend=attention_qkv_slab if use_flash else None)
+            x = self.attn.norm(x + attn)
+            return self.norm(x + ptp.mlp_pair(self.mlp, x, self.tp, seq,
+                                              gelu_approx=gelu_approx))
         b, s, d = x.shape
         h = self.cfg.num_attention_heads
         if collect_ln_stats and isinstance(self.attn.qkv, QLinear):
@@ -130,14 +156,17 @@ class BertModel(nn.Module):
                 dtype: torch.dtype = torch.float32, use_flash: bool = False,
                 gelu_approx: bool = False, remat: bool = False,
                 ln_stats: bool = False,
-                position_ids: torch.Tensor | None = None):
+                position_ids: torch.Tensor | None = None,
+                act_sharding=None):
         """[B, S] token ids → {'last_hidden_state': [B, S, D],
         'pooler_output': [B, D]}. ``position_ids`` [B, S] replace the
         default positions 0..S−1 (the RoBERTa-family towers derive them
         from the padding, ``models.hf_text``). ``remat`` recomputes each
         block in the backward (``torch.utils.checkpoint``).
         ``ln_stats=True`` returns ``(outputs, {"qkv": [L, D], "fc1": [L,
-        D]})``, the calibration pass of ``quant.smooth_bert``."""
+        D]})``, the calibration pass of ``quant.smooth_bert``.
+        ``act_sharding`` (a ``parallel.sp.SeqParallel``) splits the stream
+        along S over its group between the blocks (training only)."""
         b, s = input_ids.shape
         if s > self.cfg.max_position_embeddings:
             raise ValueError(
@@ -154,10 +183,18 @@ class BertModel(nn.Module):
         x = emb.word[input_ids] + pos + emb.token_type[token_type_ids]
         x = emb.norm(x).to(dtype)
         key_bias = (1.0 - attention_mask.float()) * MASK_VALUE  # [B, S] fp32
+        seq = None
+        if act_sharding is not None:
+            from keep_tpu_torch.parallel.sp import seq_shard
+
+            seq = seq_shard(act_sharding, s)
+            x = seq.enter(x)
         stats = []
         for blk in self.blocks:
             kw = dict(use_flash=use_flash, gelu_approx=gelu_approx,
                       collect_ln_stats=ln_stats)
+            if seq is not None:
+                kw["seq"] = seq
             if remat:
                 x = checkpoint(blk, x, key_bias, use_reentrant=False, **kw)
             else:
@@ -165,6 +202,8 @@ class BertModel(nn.Module):
             if ln_stats:
                 x, st = x
                 stats.append(st)
+        if seq is not None:
+            x = seq.leave(x)
         out = {"last_hidden_state": x,
                "pooler_output": torch.tanh(self.pooler(x[:, 0]))}
         if ln_stats:

@@ -35,10 +35,18 @@ class VisualHead(nn.Module):
         super().__init__()
         self.fc1 = Linear(d_in, d_out, device=device)
         self.fc2 = Linear(d_out, d_out, device=device)
+        # the tensor-parallel split of the fc1 / fc2 pair
+        # (parallel.tp.shard_model_); None: whole on every rank
+        self.tp = None
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         # the head's GELU is always the exact erf form
-        feats = self.fc2(gelu(self.fc1(feats)))
+        if self.tp is not None and self.tp.mlp:
+            from keep_tpu_torch.parallel import tp as ptp
+
+            feats = ptp.mlp_pair(self, feats, self.tp)
+        else:
+            feats = self.fc2(gelu(self.fc1(feats)))
         return l2_normalize(feats.float())
 
 
@@ -82,20 +90,26 @@ class KEEPModel(nn.Module):
         return self.cfg.vision.moe_experts > 0
 
     def encode_image(self, pixels: torch.Tensor, remat: bool = False,
-                     return_aux: bool = False):
+                     return_aux: bool = False, act_sharding=None):
         """[B, H, W, 3] normalised pixels → [B, projection_dim] unit fp32.
         ``remat`` recomputes each block in the backward. ``return_aux``
         also returns the MoE trunk's load-balancing loss (a 0 tensor for
         the dense trunk); the MoE trunk's attention is plain, as in the JAX
-        package (``use_flash`` does not reach it)."""
+        package (``use_flash`` does not reach it). ``act_sharding``
+        (``parallel.sp.SeqParallel``, dense trunk only) splits the stream
+        along S between the blocks."""
         if self.moe:
+            if act_sharding is not None:
+                raise ValueError("sequence parallelism (solver.sp) is not "
+                                 "composed with the MoE trunk")
             feats, aux = self.visual(pixels, dtype=self.dtype,
                                      gelu_approx=self.gelu_approx,
                                      remat=remat)
         else:
             feats = self.visual(pixels, dtype=self.dtype,
                                 use_flash=self.use_flash,
-                                gelu_approx=self.gelu_approx, remat=remat)
+                                gelu_approx=self.gelu_approx, remat=remat,
+                                act_sharding=act_sharding)
             aux = torch.zeros((), device=feats.device)
         feats = self.visual_head(feats)
         return (feats, aux) if return_aux else feats
@@ -103,11 +117,13 @@ class KEEPModel(nn.Module):
     def encode_text(self, input_ids: torch.Tensor,
                     attention_mask: torch.Tensor | None = None,
                     token_type_ids: torch.Tensor | None = None,
-                    remat: bool = False) -> torch.Tensor:
-        """[B, S] token ids (+ mask) → [B, hidden] unit fp32 features."""
+                    remat: bool = False, act_sharding=None) -> torch.Tensor:
+        """[B, S] token ids (+ mask) → [B, hidden] unit fp32 features;
+        ``act_sharding`` as for ``encode_image``."""
         out = self.text(input_ids, attention_mask, token_type_ids,
                         dtype=self.dtype, use_flash=self.use_flash,
-                        gelu_approx=self.gelu_approx, remat=remat)
+                        gelu_approx=self.gelu_approx, remat=remat,
+                        act_sharding=act_sharding)
         return l2_normalize(out["pooler_output"].float())
 
     @property

@@ -192,7 +192,11 @@ class QExpertLinear(nn.Module):
     """An int8 ``ExpertLinear``: ``weight_q`` [E, out, in] int8,
     ``weight_scale`` [E, out] and ``bias`` [E, out] fp32. W8A8 by default;
     ``w_only`` (W8A16, the JAX ``w_only`` marker) dequantizes the weight
-    into the activation dtype's product instead. Inference only."""
+    into the activation dtype's product instead. Inference only. The
+    marker travels in the state dict as the module's extra state
+    (``{"w_only": bool}``), so a state dict rebuilds the form it was
+    written from (``compat.export.load_quantized``,
+    ``compat.torch_loader.from_jax_params``)."""
 
     def __init__(self, experts: int, in_features: int, out_features: int, *,
                  w_only: bool = False, device=None):
@@ -205,6 +209,12 @@ class QExpertLinear(nn.Module):
                              torch.ones(experts, out_features, device=device))
         self.register_buffer("bias",
                              torch.zeros(experts, out_features, device=device))
+
+    def get_extra_state(self) -> dict:
+        return {"w_only": self.w_only}
+
+    def set_extra_state(self, state: dict) -> None:
+        self.w_only = bool(state["w_only"])
 
     @classmethod
     def from_quantized(cls, weight_q: torch.Tensor,

@@ -26,8 +26,11 @@ Calibration: ``forward(..., ln_stats=True)`` also returns the per-layer
 per-channel abs-max of the two LayerNorm outputs that feed qkv and fc1,
 the inputs the int8 path quantizes per token (``quant.smooth_vit``).
 
-Not ported: ``act_sharding`` (sequence parallelism, ROADMAP queue 1,
-item 10) raises. A config with ``moe_experts > 0`` is the Switch-MoE trunk,
+Tensor and sequence parallelism (training over a process mesh): a block
+split by ``parallel.tp.shard_model_`` (its ``tp``) runs its attention and
+MLP pairs on this rank's heads and hidden slice; ``act_sharding``
+(``parallel.sp.SeqParallel``) splits the residual stream along S between
+the blocks. A config with ``moe_experts > 0`` is the Switch-MoE trunk,
 ``models.moe.MoEVisionTransformer``: this class refuses it rather than
 build a dense trunk for it.
 """
@@ -132,6 +135,9 @@ class Block(nn.Module):
                                                device=device))
         else:
             self.ls1 = self.ls2 = None
+        # the tensor-parallel split of this block's pairs
+        # (parallel.tp.shard_model_); None: the whole block on every rank
+        self.tp = None
 
     def int8_megakernel(self) -> bool:
         """Whether the block can run the int8 megakernel path: all four
@@ -149,9 +155,28 @@ class Block(nn.Module):
                          lin.weight.to(x.dtype), lin.bias, eps=self.cfg.ln_eps,
                          out_dtype=x.dtype)
 
+    def _forward_parallel(self, x: torch.Tensor, seq, *, use_flash: bool,
+                          gelu_approx: bool) -> torch.Tensor:
+        """The training forward under tensor parallelism (``self.tp``)
+        and / or sequence parallelism (``seq``, this tower's
+        ``parallel.sp.SeqShard``; ``x`` then holds this rank's rows)."""
+        from keep_tpu_torch.parallel import tp as ptp
+
+        attn = ptp.attention_pair(
+            self.attn.qkv, self.attn.proj, self.norm1(x), self.cfg.num_heads,
+            self.tp, seq, attend=attention_qkv_slab if use_flash else None)
+        if self.ls1 is not None:
+            attn = attn * self.ls1.to(attn.dtype)
+        x = x + attn
+        y = ptp.mlp_pair(self.mlp, self.norm2(x), self.tp, seq,
+                         gelu_approx=gelu_approx)
+        if self.ls2 is not None:
+            y = y * self.ls2.to(y.dtype)
+        return x + y
+
     def forward(self, x: torch.Tensor, *, use_flash: bool,
                 gelu_approx: bool, fuse_ln: bool = False,
-                collect_ln_stats: bool = False):
+                collect_ln_stats: bool = False, seq=None):
         """The block's branches in the JAX package's order: the int8
         megakernels; then, under ``fuse_ln`` with ``use_flash`` and a float
         qkv, LayerNorm fused into the qkv matmul (``ln_matmul``) feeding the
@@ -162,6 +187,14 @@ class Block(nn.Module):
         ``collect_ln_stats`` (calibration) also returns the fp32 abs-max
         over batch and tokens of norm1's and norm2's outputs, {"qkv": [D],
         "fc1": [D]}; it needs float linears and no ``fuse_ln``."""
+        if self.tp is not None or seq is not None:
+            if fuse_ln or collect_ln_stats or isinstance(self.attn.qkv,
+                                                         QLinear):
+                raise ValueError("tensor / sequence parallelism is a "
+                                 "training path: no fuse_ln, int8 or "
+                                 "calibration")
+            return self._forward_parallel(x, seq, use_flash=use_flash,
+                                          gelu_approx=gelu_approx)
         b, s, d = x.shape
         h = self.cfg.num_heads
         gelu_act = self.cfg.act == "gelu"
@@ -261,15 +294,12 @@ class VisionTransformer(nn.Module):
         generator it is eval mode and keeps them all, as in the JAX package.
         ``ln_stats=True`` returns ``(features, {"qkv": [L, D], "fc1": [L,
         D]})``, each block's LayerNorm-output abs-max (the calibration pass
-        of ``quant.smooth_vit``). ``act_sharding`` raises: sequence
-        parallelism is ROADMAP queue 1, item 10."""
+        of ``quant.smooth_vit``). ``act_sharding`` (a
+        ``parallel.sp.SeqParallel``) splits the residual stream along S
+        over its group between the blocks (Megatron-SP; training only)."""
         b, h, w, _ = x.shape
         cfg = self.cfg
         ps = cfg.patch_size
-        if act_sharding is not None:
-            raise NotImplementedError(
-                "act_sharding (sequence parallelism over a mesh) is not "
-                "ported yet (ROADMAP queue 1, item 10)")
         if h % ps or w % ps:
             raise ValueError(f"image size {(h, w)} not a multiple of "
                              f"patch_size {ps}")
@@ -293,10 +323,18 @@ class VisionTransformer(nn.Module):
                 dropout_generator, tokens.device)
             tokens = patch_dropout(tokens, noise, 1.0 - patch_dropout_rate,
                                    cfg.num_prefix_tokens)
+        seq = None
+        if act_sharding is not None:
+            from keep_tpu_torch.parallel.sp import seq_shard
+
+            seq = seq_shard(act_sharding, tokens.shape[1])
+            tokens = seq.enter(tokens)
         stats = []
         for blk in self.blocks:
             kw = dict(use_flash=use_flash, gelu_approx=gelu_approx,
                       fuse_ln=fuse_ln, collect_ln_stats=ln_stats)
+            if seq is not None:
+                kw["seq"] = seq
             if remat:
                 tokens = checkpoint(blk, tokens, use_reentrant=False, **kw)
             else:
@@ -304,6 +342,8 @@ class VisionTransformer(nn.Module):
             if ln_stats:
                 tokens, st = tokens
                 stats.append(st)
+        if seq is not None:
+            tokens = seq.leave(tokens)
         if cfg.pool == "token" and not cfg.fc_norm:
             # LayerNorm is per token, so normalising the pooled CLS row
             # alone equals the JAX package's norm-then-pool

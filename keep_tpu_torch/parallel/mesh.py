@@ -1,15 +1,19 @@
-"""Data parallelism: device meshes in one process, and the collectives of a
-training step across processes (counterpart of
+"""Device meshes in one process, the process mesh of training across
+processes, and the collectives of a training step (counterpart of
 ``keep_tpu/parallel/mesh.py``).
 
-Two forms of one layout, the JAX package's 'dp' axis:
-
-- **In one process** (the server, WSI extraction): a mesh is an ordered
-  tuple of ``torch.device``s. A batch splits into one contiguous chunk per
-  device, in order; the model is replicated on each device.
-- **Across processes** (training, one process per card): rank r of N holds
-  rows [r·B/N, (r+1)·B/N) of the global batch. ``gather_rows`` joins the
-  rows' features for the loss; ``all_reduce_grads`` sums the gradients.
+- **In one process** (the server, WSI extraction): a 'dp' mesh is an
+  ordered tuple of ``torch.device``s. A batch splits into one contiguous
+  chunk per device, in order; the model is replicated on each device.
+- **Across processes** (training, one process per card): the ranks of the
+  ``torch.distributed`` group form a ``ProcessMesh``, 'dp' alone or 'dp' ×
+  'mp' (``make_mesh(axes=("dp", "mp"), shape=(dp, mp))``,
+  ``make_hybrid_mesh``). Ranks are numbered dp-major with mp inner, so that
+  an mp group (tensor and sequence parallelism: ``parallel.tp``,
+  ``parallel.sp``) stays inside a node. The mp ranks of one dp index share
+  their rows of the global batch: dp index i of N holds rows
+  [i·B/N, (i+1)·B/N). ``gather_rows`` joins the rows' features over the dp
+  group for the loss; ``all_reduce_grads`` sums the gradients over it.
 
 Every rank computes the same global loss from the gathered features, so a
 collective's backward takes the rank's own part of the gradient without
@@ -18,32 +22,152 @@ summing the ranks' parameter gradients gives the global batch's. A
 parameter that enters the loss only after the gather (``logit_scale``)
 already holds the whole gradient on every rank: it is not summed.
 
-The JAX package's ``make_hybrid_mesh`` and the tp / pp / sp / ep / fsdp
-layouts wait for ROADMAP item 10, step 2.
+The training run sets its mesh with ``use_mesh``; without one the dp group
+is every rank. The pp and ep layouts wait for ROADMAP item 10, step 2.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import dataclasses
+import math
+import os
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-STEP_2 = "ROADMAP queue 1, item 10, step 2 (tp, pp, sp, ep, fsdp)"
+STEP_2 = "ROADMAP queue 1, item 10, step 2 (pp, ep)"
+
+
+# -- the process mesh of a training run ----------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    """The ranks of the process group laid out over named axes, row-major
+    (the last axis inner): this rank's index along each axis and its group
+    along each (the ranks that differ from it along that axis only; None
+    for an axis of size 1)."""
+
+    axes: tuple[str, ...]
+    shape: tuple[int, ...]
+    index: tuple[int, ...]
+    groups: tuple
+
+    def size(self, axis: str) -> int:
+        return self.shape[self.axes.index(axis)] if axis in self.axes else 1
+
+    def rank(self, axis: str) -> int:
+        return self.index[self.axes.index(axis)] if axis in self.axes else 0
+
+    def group(self, axis: str):
+        return self.groups[self.axes.index(axis)] if axis in self.axes \
+            else None
+
+
+def _process_mesh(axes: Sequence[str], shape: Sequence[int]) -> ProcessMesh:
+    """Every rank calls ``dist.new_group`` for every group of every axis in
+    one order (the collective contract of ``new_group``) and keeps its
+    own."""
+    axes, shape = tuple(axes), tuple(int(n) for n in shape)
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"a mesh of shape {shape} over axes {axes} needs "
+                         f"{math.prod(shape)} ranks, the group has {world}")
+    ranks = np.arange(world).reshape(shape)
+    me = dist.get_rank()
+    index = tuple(int(i) for i in np.argwhere(ranks == me)[0])
+    groups = []
+    for a in range(len(axes)):
+        lines = np.moveaxis(ranks, a, -1).reshape(-1, shape[a])
+        for line in lines:
+            g = dist.new_group([int(r) for r in line])
+            if me in line:
+                groups.append(g)
+    return ProcessMesh(axes, shape, index, tuple(groups))
+
+
+def make_hybrid_mesh(ici_shape: Sequence[int], dcn_shape: Sequence[int],
+                     axes: Sequence[str]) -> ProcessMesh:
+    """A process mesh over several nodes: axis i spans ``dcn_shape[i]`` ·
+    ``ici_shape[i]`` ranks, ``dcn_shape`` counting nodes and ``ici_shape``
+    the ranks inside one. Keep 'dp' the only axis that crosses nodes, as
+    the JAX package's recipe does::
+
+        mesh = make_hybrid_mesh((per_node // tp, tp), (nodes, 1),
+                                axes=("dp", "mp"))
+
+    The launcher numbers ranks node-major (torchrun, srun), so the
+    row-major layout puts each group of an axis with ``dcn_shape[i] == 1``
+    inside one node; an inner axis wider than a node raises."""
+    if len(ici_shape) != len(dcn_shape) or len(ici_shape) != len(axes):
+        raise ValueError(
+            f"ici_shape {tuple(ici_shape)} / dcn_shape {tuple(dcn_shape)} "
+            f"/ axes {tuple(axes)} must have equal rank")
+    shape = tuple(int(d) * int(i) for d, i in zip(dcn_shape, ici_shape))
+    per_node = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                  dist.get_world_size()))
+    crossing = [i for i, d in enumerate(dcn_shape) if d > 1]
+    if crossing:
+        # the axes after the last one that crosses nodes lie in one node
+        inner = math.prod(shape[crossing[-1] + 1:])
+        if inner > per_node or per_node % inner:
+            raise ValueError(f"the axes inside a node span {inner} ranks, "
+                             f"a node holds {per_node}")
+    return _process_mesh(axes, shape)
+
+
+_MESH: Optional[ProcessMesh] = None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[ProcessMesh]):
+    """Makes ``mesh`` the training run's mesh while the block runs: the
+    collectives of this module then work over its dp group."""
+    global _MESH
+    saved, _MESH = _MESH, mesh
+    try:
+        yield mesh
+    finally:
+        _MESH = saved
+
+
+def current_mesh() -> Optional[ProcessMesh]:
+    return _MESH
+
+
+def dp_group():
+    """The dp group of the current mesh (None: every rank)."""
+    return None if _MESH is None else _MESH.group("dp")
 
 
 # -- meshes in one process ----------------------------------------------------
 
 
 def make_mesh(n_devices: Optional[int] = None, axes: Sequence[str] = ("dp",),
-              devices: Optional[Sequence] = None) -> tuple[torch.device, ...]:
-    """The first ``n_devices`` of ``devices`` (default: every CUDA device)
-    as a 'dp' mesh. Raises ValueError when fewer are present."""
-    if tuple(axes) != ("dp",):
-        raise NotImplementedError(f"a mesh over axes {tuple(axes)} is "
-                                  f"{STEP_2}, not ported yet")
+              devices: Optional[Sequence] = None,
+              shape: Optional[Sequence[int]] = None):
+    """A 'dp' mesh in one process: the first ``n_devices`` of ``devices``
+    (default: every CUDA device), a tuple of ``torch.device``s; ValueError
+    when fewer are present. Any other ``axes`` (('dp', 'mp')) is a
+    ``ProcessMesh`` over the ranks of the process group, of ``shape``
+    (default: every rank on 'dp'); axes but 'dp' and 'mp' (pp, ep) raise
+    NotImplementedError."""
+    axes = tuple(axes)
+    if axes != ("dp",) or shape is not None:
+        if set(axes) - {"dp", "mp"}:
+            raise NotImplementedError(f"a mesh over axes {axes} is "
+                                      f"{STEP_2}, not ported yet")
+        if not dist.is_initialized():
+            raise ValueError(f"a mesh over axes {axes} lays out the ranks "
+                             f"of a process group: join one first")
+        world = dist.get_world_size()
+        if shape is None:
+            shape = (world,) + (1,) * (len(axes) - 1)
+        return _process_mesh(axes, shape)
     if devices is None:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
@@ -111,7 +235,10 @@ def pad_to_multiple(x: np.ndarray, multiple: int,
 
 
 def dp_rank_world() -> tuple[int, int]:
-    """(rank, world) of the process group, (0, 1) without one."""
+    """(index, size) of this rank along 'dp': the current mesh's, else the
+    process group's rank and size; (0, 1) without one."""
+    if _MESH is not None:
+        return _MESH.rank("dp"), _MESH.size("dp")
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
@@ -136,28 +263,47 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _all_gather(x: torch.Tensor) -> torch.Tensor:
-    world = dist.get_world_size()
+def group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The ranks' ``x`` of ``group`` (default: every rank) joined along
+    dim 0 in rank order."""
+    world = dist.get_world_size(group)
     src = _staged(x.contiguous())
     out = src.new_empty((world * src.shape[0],) + tuple(src.shape[1:]))
-    dist.all_gather_into_tensor(out, src)
+    dist.all_gather_into_tensor(out, src, group=group)
     return out.to(x.device)
 
 
-def _all_reduce_(t: torch.Tensor) -> torch.Tensor:
-    """Sums ``t`` over the ranks in place."""
+def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sums ``t`` over the ranks of ``group`` (default: every rank) in
+    place."""
     src = _staged(t)
-    dist.all_reduce(src)
+    dist.all_reduce(src, group=group)
     if src is not t:
         t.copy_(src)
     return t
 
 
+def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` [n·k, ...] summed over the ranks of ``group``, rank r keeping
+    rows [r·k, (r+1)·k)."""
+    world = dist.get_world_size(group)
+    src = _staged(x.contiguous())
+    out = src.new_empty((src.shape[0] // world,) + tuple(src.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.to(x.device)
+
+
 class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        ctx.rows = local_rows(dist.get_world_size() * x.shape[0], "rows")
-        return _all_gather(x)
+        group = dp_group()
+        ctx.rows = local_rows(dist.get_world_size(group) * x.shape[0],
+                              "rows")
+        return all_gather(x, group)
 
     @staticmethod
     def backward(ctx, grad):
@@ -167,26 +313,28 @@ class _GatherRows(torch.autograd.Function):
 class _MeanOverRanks(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        return _all_reduce_(x.detach().clone()) / dist.get_world_size()
+        group = dp_group()
+        ctx.n = dist.get_world_size(group)
+        return all_reduce_(x.detach().clone(), group) / ctx.n
 
     @staticmethod
     def backward(ctx, grad):
-        return grad / dist.get_world_size()
+        return grad / ctx.n
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of ``x`` joined in rank order (the global batch);
-    the backward returns this rank's rows of the gradient. ``x`` itself
-    without a process group."""
+    """Every dp rank's rows of ``x`` joined in rank order (the global
+    batch); the backward returns this rank's rows of the gradient. ``x``
+    itself without a process group."""
     if not dist.is_initialized():
         return x
     return _GatherRows.apply(x)
 
 
 def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """The mean of ``x`` over the ranks (a statistic of equal shards: the
-    global batch's); the backward takes 1/N of the gradient. ``x`` itself
-    without a process group."""
+    """The mean of ``x`` over the dp ranks (a statistic of equal shards:
+    the global batch's); the backward takes 1/N of the gradient. ``x``
+    itself without a process group."""
     if not dist.is_initialized():
         return x
     return _MeanOverRanks.apply(x)
@@ -195,34 +343,45 @@ def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
 BUCKET_ELEMENTS = 1 << 26  # 256 MB of fp32 per all-reduce
 
 
+def buckets(tensors: dict[str, torch.Tensor], names: Sequence[str],
+            elements: int = None) -> list[list[str]]:
+    """``names`` in order, grouped by (dtype, device) into buckets of at
+    most ``elements`` (default ``BUCKET_ELEMENTS``) values, a larger tensor
+    alone in its own."""
+    elements = BUCKET_ELEMENTS if elements is None else elements
+    out: dict[tuple, list[list[str]]] = {}
+    for n in names:
+        t = tensors[n]
+        groups = out.setdefault((t.dtype, t.device), [[]])
+        size = sum(tensors[m].numel() for m in groups[-1])
+        if groups[-1] and size + t.numel() > elements:
+            groups.append([])
+        groups[-1].append(n)
+    return [g for groups in out.values() for g in groups]
+
+
 def all_reduce_grads(grads: dict[str, torch.Tensor],
                      names: Optional[Sequence[str]] = None,
-                     replicated: Sequence[str] = ("logit_scale",)) -> dict:
-    """Sums the gradients named in ``names`` (default: all) over the ranks,
-    flattened into buffers of at most ``BUCKET_ELEMENTS`` values per
-    dtype; the gradients of ``replicated`` parameters (used only after the
-    gather, so whole on every rank) stay as they are. Returns ``grads``
+                     replicated: Sequence[str] = ("logit_scale",),
+                     group="dp") -> dict:
+    """Sums the gradients named in ``names`` (default: all) over the ranks
+    of ``group`` (default: the current mesh's dp group, every rank without
+    a mesh), flattened into buffers of at most ``BUCKET_ELEMENTS`` values
+    per dtype; the gradients of ``replicated`` parameters (used only after
+    the gather, so whole on every rank) stay as they are. Returns ``grads``
     updated in place. Nothing to do without a process group."""
     if not dist.is_initialized():
         return grads
+    if group == "dp":
+        group = dp_group()
     skip = set(replicated)
     todo = [n for n in (grads if names is None else names) if n not in skip]
-    buckets: dict[tuple, list[list[str]]] = {}
-    for n in todo:
-        g = grads[n]
-        key = (g.dtype, g.device)
-        groups = buckets.setdefault(key, [[]])
-        size = sum(grads[m].numel() for m in groups[-1])
-        if groups[-1] and size + g.numel() > BUCKET_ELEMENTS:
-            groups.append([])
-        groups[-1].append(n)
-    for groups in buckets.values():
-        for group in groups:
-            flat = torch.cat([grads[n].reshape(-1) for n in group])
-            _all_reduce_(flat)
-            off = 0
-            for n in group:
-                k = grads[n].numel()
-                grads[n] = flat[off: off + k].view_as(grads[n])
-                off += k
+    for bucket in buckets(grads, todo):
+        flat = torch.cat([grads[n].reshape(-1) for n in bucket])
+        all_reduce_(flat, group)
+        off = 0
+        for n in bucket:
+            k = grads[n].numel()
+            grads[n] = flat[off: off + k].view_as(grads[n])
+            off += k
     return grads

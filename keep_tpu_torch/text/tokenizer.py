@@ -9,7 +9,9 @@
 6. [CLS] ... [SEP] framing, truncation, fixed-length padding.
 
 The output is int32 numpy arrays; the server copies them to the device.
-The native C++ fast path of the JAX package is not ported yet.
+The native C++ fast path is ``text.fast_tokenizer.FastWordPieceTokenizer``
+(``native/wordpiece.cpp``), which ``factory.get_tokenizer`` takes where its
+library builds, with this tokenizer as its reference.
 """
 
 from __future__ import annotations

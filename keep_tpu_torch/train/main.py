@@ -36,8 +36,16 @@ experiment name and the resumed epoch are rank 0's. With several visible
 cards and no launcher in the environment, ``main`` starts one worker per
 card itself (``spawn_local_workers``).
 
-Not ported yet, and refused with NotImplementedError: the
-``solver.tp/pp/sp/ep/fsdp`` layouts (ROADMAP queue 1, item 10, step 2).
+The other layouts, across ranks: ``solver.fsdp`` (the state's large
+leaves sharded over dp), ``solver.tp = N`` (Megatron tensor parallelism
+over an mp group of N ranks; the ranks form a dp × mp mesh, mp inner),
+``solver.sp`` with tp (Megatron sequence parallelism) and tp with fsdp
+(``train/trainer.py``'s ``ParallelLayout``). Each follows the one-process
+trajectory; the checkpoints hold the one-process leaves, so a run resumes
+under any layout. The JAX trainer's config errors are raised in its words
+(``check_supported``). Not ported yet, and refused with
+NotImplementedError: ``solver.pp`` and ``solver.ep`` (ROADMAP queue 1,
+item 10, step 2).
 The tokenizer is ``factory.get_tokenizer``'s for ``dataset.tokenizer_type``
 (the native WordPiece for ``bert`` where it builds; BPE for ``clip``), as
 in the JAX package.
@@ -63,6 +71,8 @@ import torch
 
 from keep_tpu_torch.models.keep import KEEPModel
 from keep_tpu_torch.parallel import gather_rows, local_rows, multihost
+from keep_tpu_torch.parallel.mesh import (current_mesh, dp_rank_world,
+                                          make_mesh, use_mesh)
 from keep_tpu_torch.train import checkpoint as ckpt
 from keep_tpu_torch.train import eval as zs_eval
 from keep_tpu_torch.train import lora, optim, schedules, sync
@@ -71,7 +81,8 @@ from keep_tpu_torch.train.data import (BatchIterator, GroupDataset,
                                        Prefetcher, load_knowledge_json)
 from keep_tpu_torch.train.freeze import FreezeSchedule, diff_report, snapshot
 from keep_tpu_torch.train.loss import DOGraph
-from keep_tpu_torch.train.trainer import (LossConfig, make_accum_train_step,
+from keep_tpu_torch.train.trainer import (LossConfig, ParallelLayout,
+                                          make_accum_train_step,
                                           make_train_step, to_device,
                                           tree_state)
 from keep_tpu_torch.utils.logging import (AverageMeter, append_results,
@@ -103,20 +114,96 @@ def build_schedule(cfg: TrainRunConfig, steps_per_epoch: int):
     raise ValueError(f"unknown lr scheduler {s.lr_scheduler}")
 
 
-def check_supported(cfg: TrainRunConfig) -> None:
-    """Raises NotImplementedError for the layouts the port does not train
-    yet (``solver.tp/pp/sp/ep/fsdp``: ROADMAP item 10, step 2), and
-    ValueError for a dense pretrained image tower asked for an MoE trunk."""
+def check_supported(cfg: TrainRunConfig, world: int = 1) -> None:
+    """The layout checks of the JAX trainer (keep_tpu/train/main.py), in
+    its words, for ``world`` ranks: ValueError for a combination it
+    refuses, NotImplementedError for the layouts the port does not train
+    yet (``solver.pp`` / ``solver.ep``: ROADMAP item 10, step 2), then
+    ValueError for a tp that does not divide the ranks or a global batch
+    that does not divide over dp; and ValueError for a dense pretrained
+    image tower asked for an MoE trunk."""
     if cfg.keep.vision.moe_experts > 0 and cfg.model.pretrained_image:
         raise ValueError(
             "model.pretrained_image loads a DENSE timm trunk: it cannot "
             "initialize an MoE trunk (vision.moe_experts > 0); drop one of "
             "the two")
     s = cfg.solver
-    if s.tp > 1 or s.pp > 1 or s.sp or s.ep > 1 or s.fsdp:
+    tp, pp, ep = max(1, s.tp), max(1, s.pp), max(1, s.ep)
+    accum = max(1, s.accum_freq)
+    moe = cfg.keep.vision.moe_experts
+    if tp > 1 and pp > 1:
+        raise ValueError("solver.tp and solver.pp are mutually exclusive")
+    if s.lora_rank > 0 and (tp > 1 or pp > 1 or ep > 1 or s.fsdp):
+        raise ValueError("solver.lora_rank composes with dp only (the "
+                         "adapter tree is tiny — shard the batch, "
+                         "replicate the rest)")
+    if s.sp and tp <= 1:
+        raise ValueError("solver.sp requires solver.tp > 1 (sequence shards "
+                         "over the tensor-parallel 'mp' axis)")
+    if s.sp and accum > 1:
+        raise ValueError("solver.sp does not compose with accum_freq > 1")
+    if ep > 1 and moe <= 0:
+        raise ValueError("solver.ep requires model.vision.moe_experts > 0 "
+                         "(a dense trunk has no expert axis)")
+    if ep > 1 and (tp > 1 or pp > 1):
+        raise ValueError("solver.ep composes with dp only "
+                         "(not solver.tp / solver.pp)")
+    if moe > 0 and (tp > 1 or pp > 1):
+        raise ValueError("the MoE trunk trains with dp/fsdp/ep; "
+                         "solver.tp / solver.pp are not composed with it")
+    if pp > 1 and s.fsdp:
+        raise ValueError("solver.pp and solver.fsdp are mutually exclusive "
+                         "(tp composes with fsdp; pp does not)")
+    if pp > 1 and accum > 1:
+        raise ValueError("solver.pp does not compose with accum_freq > 1")
+    if ep > 1 and s.fsdp:
+        raise ValueError("solver.ep and solver.fsdp are mutually exclusive "
+                         "(expert leaves already shard; compose ep with "
+                         "plain dp)")
+    if pp > 1 or ep > 1:
         raise NotImplementedError(
-            "not ported yet: solver.tp / pp / sp / ep / fsdp (ROADMAP queue "
-            "1, item 10, step 2: only data parallelism is ported)")
+            "not ported yet: solver.pp / solver.ep (ROADMAP queue 1, item "
+            "10, step 2: dp, fsdp, tp and sp are ported)")
+    if tp > 1 and world % tp:
+        raise ValueError(f"solver.tp={tp} does not divide {world} devices")
+    dp = world // tp
+    if cfg.dataloader.batch_size % dp:
+        if tp > 1:
+            raise ValueError(
+                f"batch_size {cfg.dataloader.batch_size} not divisible by "
+                f"dp={dp} (devices {world} / tp={tp})")
+        raise ValueError(
+            f"dataloader.batch_size {cfg.dataloader.batch_size} (the global "
+            f"batch) does not divide over {world} ranks")
+
+
+def build_mesh(cfg: TrainRunConfig):
+    """The run's process mesh: 'dp' × 'mp' (mp = ``solver.tp``) when a
+    layout beyond plain data parallelism is asked for across ranks
+    (``solver.tp > 1``, or ``solver.fsdp`` over more than one rank); None
+    for plain data parallelism (the dp group is then every rank) and for
+    one process, where ``solver.fsdp`` changes nothing, as in the JAX
+    package on one device."""
+    world = multihost.process_count()
+    tp = max(1, cfg.solver.tp)
+    if world == 1 or (tp == 1 and not cfg.solver.fsdp):
+        return None
+    mesh = make_mesh(axes=("dp", "mp"), shape=(world // tp, tp))
+    logging.info("2-D mesh: dp=%d x tp=%d ranks", world // tp, tp)
+    return mesh
+
+
+def log_layout(mesh, layout: ParallelLayout) -> None:
+    """The layout's log lines: the leaves split over mp and sharded over
+    dp."""
+    if layout.fsdp:
+        logging.info("FSDP: %d of %d leaves sharded over dp=%d",
+                     len(layout.fsdp), len(layout.tp), mesh.size("dp"))
+    if mesh.size("mp") > 1:
+        logging.info("TP: %d of %d leaves split over mp=%d%s",
+                     sum(v is not None for v in layout.tp.values()),
+                     len(layout.tp), mesh.size("mp"),
+                     " (SP: streams sequence-sharded)" if layout.sp else "")
 
 
 def build_model(cfg: TrainRunConfig, device) -> KEEPModel:
@@ -220,7 +307,7 @@ def eval_encoders(model: KEEPModel, weights: Optional[dict], device):
     model for each call. Under data parallelism a batch that divides over
     the ranks is split, each rank encoding its rows, and the features
     gathered; any other batch is encoded whole on every rank."""
-    world = multihost.process_count()
+    world = dp_rank_world()[1]
 
     def weights_in():
         return (contextlib.nullcontext() if weights is None
@@ -286,17 +373,13 @@ def train(cfg: TrainRunConfig, tokenizer=None, dataset=None,
     adapters (``lora.init_lora``'s names). Under a launcher the process
     first joins the process group (``dist_backend``: default NCCL on a
     card, gloo on the CPU); each rank passes the same arguments."""
-    check_supported(cfg)
     if cfg.solver.lora_rank > 0 and cfg.solver.accum_freq > 1:
         raise ValueError("solver.lora_rank does not compose with "
                          "accum_freq > 1")
+    env = multihost.discover()
+    # before joining the group
+    check_supported(cfg, env["world"] if env else multihost.process_count())
     device = resolve_device(device)
-    layout = multihost.discover()
-    world = layout["world"] if layout else multihost.process_count()
-    if cfg.dataloader.batch_size % world:  # before joining the group
-        raise ValueError(
-            f"dataloader.batch_size {cfg.dataloader.batch_size} (the global "
-            f"batch) does not divide over {world} ranks")
     multihost.init_from_env(device, dist_backend)
     device = multihost.local_device(device)
     master = multihost.is_master()
@@ -305,7 +388,7 @@ def train(cfg: TrainRunConfig, tokenizer=None, dataset=None,
     ckpt_dir = os.path.join(out_dir, "checkpoints")
     setup_logging(os.path.join(out_dir, "out.log") if master else None)
     logging.info("experiment %s → %s on %s (rank %d of %d)", name, out_dir,
-                 device, multihost.process_index(), world)
+                 device, multihost.process_index(), multihost.process_count())
     if master:
         os.makedirs(ckpt_dir, exist_ok=True)
         with open(os.path.join(out_dir, "params.txt"), "w") as f:
@@ -326,8 +409,10 @@ def train(cfg: TrainRunConfig, tokenizer=None, dataset=None,
         logging.info("remote sync → %s every %ds", cfg.save.remote_sync,
                      cfg.save.remote_sync_frequency)
     try:
-        results = _train(cfg, tokenizer, dataset, image_loader, eval_data,
-                         params, device, out_dir, ckpt_dir, adapters)
+        with use_mesh(build_mesh(cfg)):
+            results = _train(cfg, tokenizer, dataset, image_loader,
+                             eval_data, params, device, out_dir, ckpt_dir,
+                             adapters)
     finally:
         if sync_proc is not None:
             sync_proc.terminate()
@@ -342,8 +427,11 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
            adapters: Optional[dict] = None) -> dict:
     from keep_tpu_torch.utils.writers import MetricWriter
 
-    rank, world = multihost.process_index(), multihost.process_count()
+    rank = multihost.process_index()
     master = rank == 0
+    # the rows of the global batch this rank trains on: its dp index's
+    # (the mp ranks of one dp index share them)
+    dp_rank, dp = dp_rank_world()
     writer = (MetricWriter(out_dir, wandb_project=cfg.save.wandb_project)
               if master else None)
     tokenizer = tokenizer or _tokenizer(cfg)
@@ -380,7 +468,7 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
             image_size=cfg.keep.vision.img_size,
             max_length=cfg.keep.max_text_length, do_graph=do_graph,
             image_loader=image_loader, preload=preload, seed=cfg.seed,
-            workers=cfg.dataloader.workers, shard=(rank, world))
+            workers=cfg.dataloader.workers, shard=(dp_rank, dp))
 
     steps_per_epoch = make_iter().num_batches
     accum = max(1, cfg.solver.accum_freq)
@@ -436,7 +524,15 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
                      eps=cfg.solver.eps,
                      grad_clip_norm=cfg.solver.grad_clip_norm,
                      mu_dtype=cfg.solver.mu_dtype)
-    state = tree_state(trainable, tx)
+    layout = None
+    mesh = current_mesh()
+    if mesh is not None:
+        layout = ParallelLayout.build(model, mesh, fsdp=cfg.solver.fsdp,
+                                      sp=cfg.solver.sp,
+                                      min_size=cfg.solver.fsdp_min_size)
+        tx = dataclasses.replace(tx, norm=layout.norm)
+        log_layout(mesh, layout)
+    state = tree_state(trainable, tx, layout)
 
     start_epoch = 0
     if cfg.save.resume:
@@ -452,7 +548,10 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
             logging.info("resume requested but no checkpoint found; fresh "
                          "start")
         else:
-            if lora_scale is None:
+            if layout is not None:  # one-process leaves into the pieces
+                layout.load(model, state, restored["params"],
+                            restored["opt_state"])
+            elif lora_scale is None:
                 model.load_state_dict(restored["params"], strict=True)
             else:  # the adapters, over the base rebuilt from the seed
                 if restored["params"].keys() != state.params.keys():
@@ -461,7 +560,9 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
                 with torch.no_grad():
                     for n, t in restored["params"].items():
                         state.params[n].copy_(t)
-            state.opt_state = _opt_state_to(restored["opt_state"], device)
+            if layout is None:
+                state.opt_state = _opt_state_to(restored["opt_state"],
+                                                device)
             state.step = int(restored["step"])
             start_epoch = restored["epoch"] + 1
             logging.info("resumed from epoch %d (step %d, optimizer state "
@@ -469,7 +570,8 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
 
     names = list(state.params)
     if accum > 1:
-        base_step = make_accum_train_step(model, loss_cfg, tx, accum)
+        base_step = make_accum_train_step(model, loss_cfg, tx, accum,
+                                          layout=layout)
     phase_steps: dict = {}
 
     def phase_step_fn(epoch: int):
@@ -483,7 +585,7 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
                 static = {n: f > 0.5 for n, f in m.items()}
             phase_steps[key] = make_train_step(
                 model, loss_cfg, tx, static_frozen=static,
-                lora_scale=lora_scale, base=base)
+                lora_scale=lora_scale, base=base, layout=layout)
         return phase_steps[key]
 
     cur_phase = None
@@ -561,15 +663,24 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
                 del weights
                 results.update(zs)
                 logging.info("epoch %d eval: %s", epoch, zs)
+            saving = ((epoch + 1) % cfg.save.save_frequency == 0
+                      or epoch + 1 == cfg.solver.epochs)
+            if saving and layout is not None:
+                # every rank joins the gathers; rank 0 writes the
+                # one-process leaves
+                saved = ({**model.state_dict(), **layout.full(state.params)},
+                         {"count": state.opt_state["count"],
+                          "mu": layout.full(state.opt_state["mu"]),
+                          "nu": layout.full(state.opt_state["nu"])})
             if not master:
                 continue
             append_results(os.path.join(ckpt_dir, "results.jsonl"), results)
             writer.write(state.step, results)
-            if ((epoch + 1) % cfg.save.save_frequency == 0
-                    or epoch + 1 == cfg.solver.epochs):
-                writer_ckpt.save(epoch, (model.state_dict() if lora_scale
-                                         is None else state.params),
-                                 state.opt_state, step=state.step)
+            if saving:
+                if layout is None:
+                    saved = ((model.state_dict() if lora_scale is None
+                              else state.params), state.opt_state)
+                writer_ckpt.save(epoch, *saved, step=state.step)
                 logging.info("saved checkpoint epoch %d%s", epoch,
                              " (async)" if cfg.save.async_checkpointing
                              else "")

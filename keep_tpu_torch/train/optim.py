@@ -94,6 +94,10 @@ class AdamW:
     eps: float = 1e-6
     grad_clip_norm: Optional[float] = None
     mu_dtype: Optional[str] = None
+    # the global norm that clipping takes: over a split state, the layout's
+    # (trainer.ParallelLayout.norm: shards summed across the ranks)
+    norm: Callable[[Params], torch.Tensor] = dataclasses.field(
+        default=global_norm, repr=False, compare=False)
 
     def __post_init__(self):
         if self.mu_dtype not in _MU_DTYPES:
@@ -117,7 +121,7 @@ class AdamW:
         bn = bn_stats_mask(grads)
         g = {n: torch.zeros_like(t) if bn[n] else t for n, t in grads.items()}
         if self.grad_clip_norm is not None:
-            norm = global_norm(g)
+            norm = self.norm(g)
             if not bool(norm < self.grad_clip_norm):
                 g = {n: (t / norm) * self.grad_clip_norm for n, t in g.items()}
         count = state["count"] + 1

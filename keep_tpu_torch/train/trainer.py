@@ -30,6 +30,17 @@ right after the backward the gradient dict is summed over the ranks
 the freeze mask and AdamW run on the sum, as the optax chain sees the
 global gradient. ``logit_scale`` enters the loss after the gather, so each
 rank already holds its whole gradient: it is not summed.
+
+The other layouts (``ParallelLayout``, over a 'dp' × 'mp' process mesh):
+under tensor parallelism the model holds this rank's pieces of the split
+leaves (``parallel.tp``) and the state is over them; under sequence
+parallelism the towers split their streams along S (``parallel.sp``) and
+the gradients of the leaves used on a rank's rows only are summed over mp;
+under FSDP the state holds this rank's shards of the large leaves
+(``parallel.fsdp``), their gradients are reduce-scattered over dp, and
+after each update the shards are all-gathered into the model's compute
+copy. Clipping takes the global norm over the shards, a replicated leaf
+counted once.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
+import re
 from typing import Callable, Optional
 
 import numpy as np
@@ -44,12 +56,162 @@ import torch
 
 from keep_tpu_torch.models import moe
 from keep_tpu_torch.models.keep import KEEPModel
+from keep_tpu_torch.parallel import fsdp as pfsdp
+from keep_tpu_torch.parallel import mesh as pmesh
+from keep_tpu_torch.parallel import tp as ptp
 from keep_tpu_torch.parallel.mesh import all_reduce_grads, gather_rows
 from keep_tpu_torch.train import lora
 from keep_tpu_torch.train.loss import clip_loss, hy_metric_loss
-from keep_tpu_torch.train.optim import AdamW, global_norm
+from keep_tpu_torch.train.optim import AdamW
 
 LOGIT_SCALE_MAX = math.log(100.0)
+_IN_BLOCK = re.compile(r"^(visual|text)\.blocks\.\d+\.")
+
+
+@dataclasses.dataclass
+class ParallelLayout:
+    """The training state's layout over a process mesh and the step's
+    collectives for it. ``tp``: every parameter's ``parallel.tp.Split``
+    over mp (None: replicated); ``fsdp``: {name: the axis of its (mp-local)
+    leaf sharded over dp}; ``sp``: the towers' ``act_sharding``;
+    ``sp_partial``: the leaves whose gradients sum over mp under it."""
+
+    mesh: pmesh.ProcessMesh
+    tp: dict
+    fsdp: dict
+    sp: Optional[object] = None
+    sp_partial: frozenset = frozenset()
+
+    @classmethod
+    def build(cls, model: KEEPModel, mesh: pmesh.ProcessMesh, *,
+              fsdp: bool = False, sp: bool = False,
+              min_size: int = 1 << 16) -> "ParallelLayout":
+        """Splits ``model`` over the mesh's mp group (when it has one) and
+        lays the state out: the FSDP specs are taken on the one-process
+        shapes, before the split."""
+        from keep_tpu_torch.parallel.sp import seq_sharding
+
+        n_mp, n_dp = mesh.size("mp"), mesh.size("dp")
+        specs = ptp.tp_fsdp_shardings(model, n_mp, n_dp, min_size)
+        if n_mp > 1:
+            ptp.shard_model_(model, mesh)
+        tp = {n: split for n, (split, _) in specs.items()}
+        shards = ({n: ax for n, (_, ax) in specs.items() if ax is not None}
+                  if fsdp and n_dp > 1 else {})
+        partial = frozenset(n for n in tp if sp and tp[n] is None
+                            and _IN_BLOCK.match(n))
+        return cls(mesh, tp, shards, seq_sharding(mesh) if sp else None,
+                   partial)
+
+    def state_params(self, model: KEEPModel) -> dict:
+        """The state's leaves: this rank's fp32 master shard of each FSDP
+        leaf (a copy), the model's own parameter of every other."""
+        n, r = self.mesh.size("dp"), self.mesh.rank("dp")
+        return {k: pfsdp.shard_of(p.detach().float(), self.fsdp[k], n,
+                                  r).clone() if k in self.fsdp else p
+                for k, p in model.named_parameters()}
+
+    def reduce_grads(self, grads: dict, live) -> dict:
+        """The full gradients of the model's leaves (this rank's rows) →
+        the state's: summed over mp where sequence parallelism left a part
+        on each rank, then reduce-scattered over dp into the FSDP shards,
+        summed over dp elsewhere (``logit_scale`` aside, as in
+        ``all_reduce_grads``)."""
+        live = set(live)
+        if self.sp_partial:
+            all_reduce_grads(grads, [n for n in grads
+                                     if n in self.sp_partial and n in live],
+                             replicated=(), group=self.mesh.group("mp"))
+        dp = self.mesh.group("dp")
+        all_reduce_grads(grads, [n for n in grads
+                                 if n in live and n not in self.fsdp],
+                         group=dp)
+        if not self.fsdp:
+            return grads
+        n, r = self.mesh.size("dp"), self.mesh.rank("dp")
+        sharded = {k: grads[k] for k in grads if k in self.fsdp and k in live}
+        out = dict(grads)
+        out.update(pfsdp.reduce_scatter_grads(
+            sharded, {k: self.fsdp[k] for k in sharded}, dp))
+        for k in self.fsdp:
+            if k not in live:
+                out[k] = pfsdp.shard_of(grads[k], self.fsdp[k], n, r)
+        return out
+
+    @torch.no_grad()
+    def refresh(self, model: KEEPModel, params: dict) -> None:
+        """The FSDP shards in ``params`` all-gathered into the model's
+        compute copy (what the next forward reads)."""
+        if not self.fsdp:
+            return
+        full = pfsdp.all_gather_shards({k: params[k] for k in self.fsdp},
+                                       self.fsdp, self.mesh.group("dp"))
+        own = dict(model.named_parameters())
+        for k, v in full.items():
+            own[k].copy_(v)
+
+    def norm(self, grads: dict) -> torch.Tensor:
+        """The global gradient norm over the state's leaves: each leaf's
+        sum of squares summed over the ranks that split it (dp for an FSDP
+        shard, mp for a tensor-parallel piece, every rank for both), a
+        replicated leaf counted once."""
+        parts: dict[tuple, torch.Tensor] = {}
+        for k, g in grads.items():
+            key = (k in self.fsdp, self.tp.get(k) is not None)
+            sq = torch.sum(g.float() * g.float())
+            parts[key] = parts[key] + sq if key in parts else sq
+        groups = {(False, False): False, (True, False): self.mesh.group("dp"),
+                  (False, True): self.mesh.group("mp"), (True, True): None}
+        total = 0.0
+        for key, sq in parts.items():
+            if groups[key] is not False:
+                sq = pmesh.all_reduce_(sq.clone(), groups[key])
+            total = total + sq
+        return torch.sqrt(total)
+
+    @torch.no_grad()
+    def full(self, tree: dict) -> dict:
+        """The one-process leaves from every rank's pieces of ``tree``
+        (the state's leaves, or its moments): FSDP shards all-gathered over
+        dp, then tensor-parallel pieces over mp. A collective: every rank
+        calls it."""
+        out = {k: v.detach() for k, v in tree.items()}
+        if self.fsdp:
+            out.update(pfsdp.all_gather_shards(
+                {k: tree[k] for k in self.fsdp}, self.fsdp,
+                self.mesh.group("dp")))
+        if self.mesh.size("mp") > 1:
+            out = ptp.gather_tp(out, self.tp, self.mesh.group("mp"))
+        return out
+
+    def place(self, full: dict) -> dict:
+        """This rank's pieces of one-process leaves: its mp piece, then
+        its dp shard of that."""
+        return ptp.place_tp_fsdp(full, {k: (self.tp.get(k), self.fsdp.get(k))
+                                        for k in full}, self.mesh)
+
+    @torch.no_grad()
+    def load(self, model: KEEPModel, state: "TrainState", params: dict,
+             opt_state: Optional[dict] = None) -> None:
+        """One-process leaves (a checkpoint's) into the split model and
+        the state: the model's parameters take their mp pieces, the state
+        its pieces, the moments theirs."""
+        n_mp, r_mp = self.mesh.size("mp"), self.mesh.rank("mp")
+        device = next(model.parameters()).device
+        own = dict(model.named_parameters())
+        pieces = ptp.place_tp({k: params[k] for k in own}, self.tp, n_mp,
+                              r_mp)
+        for k, v in pieces.items():
+            own[k].copy_(v)
+        local = self.place({k: params[k] for k in own})
+        for k, p in state.params.items():
+            if p is not own[k]:
+                p.copy_(local[k])
+        if opt_state is not None:
+            state.opt_state = {
+                "count": int(opt_state["count"]),
+                **{m: {k: v.to(device) for k, v in self.place(
+                    opt_state[m]).items()} for m in ("mu", "nu")}}
 
 
 @dataclasses.dataclass
@@ -60,11 +222,15 @@ class TrainState:
     step: int
 
 
-def tree_state(model: KEEPModel | dict, tx: AdamW) -> TrainState:
-    """The state over a model's parameters, or over a dict of trainable
-    tensors (LoRA adapters)."""
-    params = (dict(model) if isinstance(model, dict)
-              else dict(model.named_parameters()))
+def tree_state(model: KEEPModel | dict, tx: AdamW,
+               layout: Optional[ParallelLayout] = None) -> TrainState:
+    """The state over a model's parameters (this rank's pieces under a
+    ``layout``), or over a dict of trainable tensors (LoRA adapters)."""
+    if layout is not None:
+        params = layout.state_params(model)
+    else:
+        params = (dict(model) if isinstance(model, dict)
+                  else dict(model.named_parameters()))
     return TrainState(params=params,
                       opt_state=tx.init({n: p.detach()
                                          for n, p in params.items()}),
@@ -95,14 +261,17 @@ def to_device(batch: dict, device) -> dict:
     return out
 
 
-def _encode_batch(model: KEEPModel, batch: dict, remat: bool = True):
+def _encode_batch(model: KEEPModel, batch: dict, remat: bool = True,
+                  act_sharding=None):
     """(image features, text features, the MoE aux loss: 0 when dense) of
-    this rank's rows; the aux loss is the global batch's."""
+    this rank's rows; the aux loss is the global batch's.
+    ``act_sharding``: the towers' sequence split (``parallel.sp``)."""
+    kw = {} if act_sharding is None else {"act_sharding": act_sharding}
     with moe.global_batch():
         img, aux = model.encode_image(batch["pixels"], remat=remat,
-                                      return_aux=True)
+                                      return_aux=True, **kw)
     txt = model.encode_text(batch["input_ids"], batch.get("attention_mask"),
-                            batch.get("token_type_ids"), remat=remat)
+                            batch.get("token_type_ids"), remat=remat, **kw)
     return img, txt, aux
 
 
@@ -128,8 +297,8 @@ def _global_labels(batch: dict, row_dim: int = 0) -> dict:
 
 
 def compute_loss(model: KEEPModel, batch: dict, loss_cfg: LossConfig, *,
-                 remat: bool = True) -> torch.Tensor:
-    img, txt, aux = _encode_batch(model, batch, remat)
+                 remat: bool = True, act_sharding=None) -> torch.Tensor:
+    img, txt, aux = _encode_batch(model, batch, remat, act_sharding)
     loss = _loss(gather_rows(img), gather_rows(txt), _global_labels(batch),
                  torch.exp(model.logit_scale), loss_cfg,
                  loss_cfg.caption_num)
@@ -148,8 +317,11 @@ def _apply_freeze(tree: dict, frozen: Optional[dict]) -> dict:
 
 @torch.no_grad()
 def _optimizer_apply(state: TrainState, grads: dict, tx: AdamW,
-                     frozen: Optional[dict], loss: torch.Tensor):
-    """The freeze → update → clamp → metrics tail shared by both steps."""
+                     frozen: Optional[dict], loss: torch.Tensor,
+                     layout: Optional[ParallelLayout] = None,
+                     model: Optional[KEEPModel] = None):
+    """The freeze → update → clamp → metrics tail shared by both steps;
+    under FSDP the updated shards then refresh the model's compute copy."""
     grads = _apply_freeze(grads, frozen)
     params = {n: p.detach() for n, p in state.params.items()}
     updates, state.opt_state = tx.update(grads, state.opt_state, params)
@@ -158,8 +330,10 @@ def _optimizer_apply(state: TrainState, grads: dict, tx: AdamW,
         p.add_(updates[n])
     ls = state.params["logit_scale"]
     ls.clamp_(0.0, LOGIT_SCALE_MAX)
+    if layout is not None:
+        layout.refresh(model, state.params)
     state.step += 1
-    return state, {"loss": loss, "grad_norm": global_norm(grads),
+    return state, {"loss": loss, "grad_norm": tx.norm(grads),
                    "logit_scale": torch.exp(ls)}
 
 
@@ -188,7 +362,8 @@ def make_train_step(model: KEEPModel, loss_cfg: LossConfig, tx: AdamW, *,
                     remat: bool = True,
                     static_frozen: Optional[dict] = None,
                     lora_scale: Optional[float] = None,
-                    base: Optional[dict] = None) -> Callable:
+                    base: Optional[dict] = None,
+                    layout: Optional[ParallelLayout] = None) -> Callable:
     """One optimizer step: ``step(state, batch, frozen=None) → (state,
     metrics)``. ``batch`` holds device tensors (``to_device``); ``frozen`` is
     an ``optim.freeze_mask`` dict of 0/1. ``static_frozen`` ({name: bool})
@@ -199,26 +374,41 @@ def make_train_step(model: KEEPModel, loss_cfg: LossConfig, tx: AdamW, *,
     is the adapter dict, ``base`` every parameter of the model as a tensor
     that takes no gradient (``{n: p.detach()}``), and the forward and the
     backward run on ``lora.apply_lora(base, adapters, lora_scale)`` swapped
-    into the model; gradients reach only the adapters."""
+    into the model; gradients reach only the adapters.
+
+    ``layout`` (a ``ParallelLayout``) trains the model split over a process
+    mesh: the gradients are taken on the model's own (compute) parameters
+    and reduced into the state's pieces."""
     if lora_scale is not None and base is None:
         raise ValueError("a LoRA step needs the base parameters (base=)")
+    if lora_scale is not None and layout is not None:
+        raise ValueError("a LoRA step composes with dp only")
 
     def step(state: TrainState, batch: dict, frozen: Optional[dict] = None):
-        _set_static_frozen(state.params, static_frozen)
+        compute = (state.params if layout is None
+                   else dict(model.named_parameters()))
+        _set_static_frozen(compute, static_frozen)
         weights = (contextlib.nullcontext() if lora_scale is None else
                    lora.swapped(model, lora.apply_lora(base, state.params,
                                                        lora_scale)))
         with weights:
-            loss = compute_loss(model, batch, loss_cfg, remat=remat)
-            grads = _grads(loss, state.params)
-        all_reduce_grads(grads, _live(state.params))
-        return _optimizer_apply(state, grads, tx, frozen, loss.detach())
+            loss = compute_loss(model, batch, loss_cfg, remat=remat,
+                                act_sharding=layout and layout.sp)
+            grads = _grads(loss, compute)
+        if layout is None:
+            all_reduce_grads(grads, _live(state.params))
+        else:
+            grads = layout.reduce_grads(grads, _live(compute))
+        return _optimizer_apply(state, grads, tx, frozen, loss.detach(),
+                                layout, model)
 
     return step
 
 
 def make_accum_train_step(model: KEEPModel, loss_cfg: LossConfig, tx: AdamW,
-                          accum_freq: int, *, remat: bool = True) -> Callable:
+                          accum_freq: int, *, remat: bool = True,
+                          layout: Optional[ParallelLayout] = None
+                          ) -> Callable:
     """Gradient accumulation with cached negatives: ``batches`` arrays carry
     a leading [accum_freq, micro, ...] axis, except ``node_connection``,
     which is ONE [accum·caption_num]² reachability matrix over every chunk's
@@ -227,10 +417,15 @@ def make_accum_train_step(model: KEEPModel, loss_cfg: LossConfig, tx: AdamW,
     step (``logit_scale``'s gradient so ~accum× the full-batch one, as in
     the reference). Under data parallelism each chunk holds this rank's
     rows of the microbatch; the cache and the live chunk are the gathered
-    global microbatches."""
+    global microbatches. ``layout``: as for ``make_train_step`` (sequence
+    parallelism does not compose with accumulation)."""
+    if layout is not None and layout.sp is not None:
+        raise ValueError("solver.sp does not compose with accum_freq > 1")
 
     def step(state: TrainState, batches: dict, frozen: Optional[dict] = None):
-        _set_static_frozen(state.params, None)
+        compute = (state.params if layout is None
+                   else dict(model.named_parameters()))
+        _set_static_frozen(compute, None)
         stacked = {k: v for k, v in batches.items() if k != "node_connection"}
         chunks = [{k: v[j] for k, v in stacked.items()}
                   for j in range(accum_freq)]
@@ -256,11 +451,14 @@ def make_accum_train_step(model: KEEPModel, loss_cfg: LossConfig, tx: AdamW,
                 # that the aux gradient is that of the chunks' mean
                 loss = loss + (model.cfg.vision.moe_aux_weight
                                / accum_freq) * aux_j
-            g = _grads(loss, state.params)
+            g = _grads(loss, compute)
             grads = g if grads is None else {n: grads[n] + g[n] for n in g}
             losses.append(loss.detach())
-        all_reduce_grads(grads, _live(state.params))
+        if layout is None:
+            all_reduce_grads(grads, _live(state.params))
+        else:
+            grads = layout.reduce_grads(grads, _live(compute))
         return _optimizer_apply(state, grads, tx, frozen,
-                                torch.stack(losses).mean())
+                                torch.stack(losses).mean(), layout, model)
 
     return step

@@ -1,5 +1,6 @@
 """The world-1 NCCL training step against the one-process step on one card:
-``chip_smoke.py``'s phase 24a alone (and, with ``--gloo``, 24b).
+``chip_smoke.py``'s phase 24a alone (and, with ``--gloo``, 24b: phase
+26's dp case, two gloo ranks on the card).
 
     python scripts/torch_dp_step_bench.py [--steps 7] [--turns 2] [--gloo]
         [--host-lines]
@@ -129,7 +130,7 @@ def main() -> int:
                           turns=args.turns)
     if args.gloo:
         with tempfile.TemporaryDirectory() as d:
-            cs.drive_dp_gloo(torch, fa, d)
+            cs.drive_dp2_layouts(torch, fa, d, layouts={"dp": ({}, 2)})
     return 0
 
 

@@ -74,6 +74,22 @@ def test_bwd_reference_matches_jax_vjp(rng, with_bias):
     assert not np.asarray(dbias).any()
 
 
+@pytest.mark.parametrize("b,s,h,dh", [(1, 577, 2, 80), (1, 785, 1, 64),
+                                     (2, 257, 1, 112)])
+def test_bwd_reference_matches_jax_vjp_at_wide_shapes(rng, b, s, h, dh):
+    """The plain backward against ``_slab_attn_bwd`` at the shapes the
+    backward's streamed bodies take (an int8 or trained KEEP at 384² and
+    448², the zoo's head widths), with a padded bias."""
+    qkv, dout, kb = _inputs(rng, b, s, h, dh, True)
+    want, _ = _slab_attn_bwd(h, (jnp.asarray(qkv), jnp.asarray(kb)),
+                             jnp.asarray(dout))
+    got = fa.attention_qkv_slab_bwd(torch.from_numpy(qkv),
+                                    torch.from_numpy(kb),
+                                    torch.from_numpy(dout), h)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
 def test_bwd_reference_bf16_matches_jax_vjp(rng):
     """bf16 slab and dout: both sides sum in fp32 and round once to bf16,
     so they differ by at most a bf16 rounding of fp32 sums taken in another

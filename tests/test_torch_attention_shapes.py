@@ -76,17 +76,55 @@ def test_heads_plain_matches_pallas(rng, dh, s, dtype):
                                got, rtol=0, atol=0)
 
 
-def test_per_body_limits_on_the_cpu():
-    """The head widths the forward bodies take, and the narrow bodies'
-    shape, as the wrappers state them (the checks that run before a
-    launch)."""
+def test_per_body_limits_on_the_cpu(monkeypatch):
+    """The head widths every body takes, as the wrappers state them (the
+    checks that run before a launch): the forward in each dtype pair, the
+    bf16 → fp32 form of the int8 blocks and the backward all take every
+    width of ``HEAD_DIMS`` at any S, 577 and 785 among them (an int8 or a
+    trained KEEP at 384² and 448²), and hand the C entry points the shape
+    as it is; other widths raise."""
+    import types
+
+    from keep_tpu_torch.kernels import _build
+
     assert fa.HEAD_DIMS == (64, 72, 80, 88, 96, 104, 112, 120, 128)
     for dh in (80, 88, 104, 112):
         assert dh in fa.HEAD_DIMS
-    fa._check_shape(80, 785)
+    assert not hasattr(fa, "NARROW_MAX_SEQ")
+    for dh in (36, 60, 130, 136):
+        with pytest.raises(ValueError, match="multiple of 8 from 64 to 128"):
+            fa._check_shape(dh)
+    # the wrappers' checks on host tensors, with the library and the stream
+    # stood in for: what reaches the C entry points
+    calls = []
+
+    def entry(name):
+        def call(*args):
+            calls.append((name, args))
+            return 0
+        return call
+
+    lib = types.SimpleNamespace(
+        keep_attention=entry("fwd"),
+        keep_attention_qkv_slab_bwd=entry("bwd"))
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(fa, "_check_kernel_slab", lambda qkv: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    for s in (577, 785):
+        for dh in fa.HEAD_DIMS:
+            qkv = torch.zeros(1, s, 3 * dh, dtype=torch.bfloat16)
+            out = fa._slab_cuda(qkv, None, 1, torch.float32)
+            assert out.shape == (1, s, dh) and out.dtype == torch.float32
+            dqkv = fa._bwd_cuda(qkv, torch.zeros(1, s),
+                                torch.zeros(1, s, dh, dtype=torch.bfloat16),
+                                1)
+            assert dqkv.shape == qkv.shape
+            (fname, fargs), (bname, bargs) = calls[-2:]
+            # (B, S, H, Dh, dtype code) as the entry points take them
+            assert fname == "fwd" and fargs[8:13] == (1, s, 1, dh, 2)
+            assert bname == "bwd" and bargs[5:10] == (1, s, 1, dh, 1)
     with pytest.raises(ValueError, match="multiple of 8 from 64 to 128"):
-        fa._check_shape(36, 16)
-    for dh, s in ((80, 197), (64, 577)):
-        with pytest.raises(ValueError, match="head_dim 64 and S ≤ 512"):
-            fa._check_shape(dh, s, "the backward kernel")
-    fa._check_shape(64, 512, "the bf16 → fp32 kernel")
+        fa._bwd_cuda(torch.zeros(1, 577, 3 * 56), torch.zeros(1, 577),
+                     torch.zeros(1, 577, 56), 1)

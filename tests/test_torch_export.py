@@ -334,3 +334,67 @@ def test_jax_quantized_dir_still_refused_alone(tmp_path, jparams):
         KEEPModel.from_pretrained(str(d), device="cpu")
     export.save_quantized(str(d), _port(jparams).quantize())
     assert is_quantized(KEEPModel.from_pretrained(str(d), device="cpu"))
+
+
+@pytest.mark.parametrize("w8a16", [False, True])
+def test_int8_moe_artifact_roundtrip_bit_for_bit(tmp_path, rng, w8a16):
+    """An MoE KEEP's int8 artifact (W8A8, and W8A16 experts under
+    ``moe_w8a16``): save_quantized writes the experts (``weight_q`` [E, out,
+    in], ``weight_scale``, ``bias``, their form), the fp32 router and the
+    ``moe_*`` config fields; from_pretrained reads it back with every
+    tensor, every expert's form and the features bit for bit, and
+    ``serve --int8`` serves it as it is."""
+    from keep_tpu_torch import quant, serve
+    from keep_tpu_torch.models.moe import QExpertLinear
+    from tests.test_torch_moe import _keep_cfgs
+
+    jc, pc = _keep_cfgs()
+    jp = jkeep.init(jax.random.PRNGKey(4), jc)
+    src = KEEPModel(pc, device="cpu")
+    src.load_state_dict(from_jax_params(_np_tree(jp), pc))
+    q = src.eval().quantize(moe_w8a16=w8a16)
+    d = tmp_path / "model"
+    export.save_quantized(str(d), q)
+    cfg = json.loads((d / "config.json").read_text())
+    assert cfg["vision_config"]["moe_experts"] == 4
+    back = KEEPModel.from_pretrained(str(d), device="cpu")
+    assert back.cfg == q.cfg and back.moe
+    experts = {n: m.w_only for n, m in back.named_modules()
+               if isinstance(m, QExpertLinear)}
+    assert len(experts) == 2 * pc.vision.depth
+    assert set(experts.values()) == {w8a16}
+    sd, want = back.state_dict(), q.state_dict()
+    assert sorted(sd) == sorted(want)
+    for k, v in want.items():
+        if k.endswith("_extra_state"):
+            assert sd[k] == v, k
+        else:
+            assert sd[k].dtype == v.dtype and torch.equal(sd[k], v), k
+    assert back.visual.blocks[0].moe.router.weight.dtype == torch.float32
+    px = rng.standard_normal((3, 16, 16, 3)).astype(np.float32)
+    ids = rng.integers(1, pc.text.vocab_size, (2, 8))
+    mask = np.ones_like(ids)
+    for a, b in zip(_features(back, px, ids, mask),
+                    _features(q, px, ids, mask)):
+        assert torch.equal(a, b)
+    from chip_smoke import VOCAB
+
+    (d / "vocab.txt").write_text("\n".join(VOCAB) + "\n")
+    calls = []
+    orig = quant.quantize_linear_weights
+    try:
+        quant.quantize_linear_weights = lambda *a, **k: calls.append(a)
+        core, httpd = serve.build_server(["--model-dir", str(d), "--port",
+                                          "0", "--device", "cpu", "--int8"])
+    finally:
+        quant.quantize_linear_weights = orig
+    try:
+        assert calls == [] and is_quantized(core.model)
+        img = rng.integers(0, 255, (2, 16, 16, 3), dtype=np.uint8)
+        got = core.encode_image(img)
+        assert got.shape == (2, pc.projection_dim) and np.isfinite(got).all()
+        assert {m.w_only for m in core.model.modules()
+                if isinstance(m, QExpertLinear)} == {w8a16}
+    finally:
+        httpd.server_close()
+        core.stop()

@@ -146,24 +146,75 @@ def test_kernel_matches_plain_at_zoo_shapes(cuda, dh, s, padded, dtype):
 
 
 def test_narrow_bodies_refuse_zoo_shapes(cuda):
-    """The bf16 → fp32 body (the int8 blocks' attention) and the backward
-    keep Dh = 64 and S ≤ 512: at Dh = 80 and at S = 577 they raise, and
-    nothing runs the plain version in their place."""
+    """The bodies that kept Dh = 64 and S ≤ 512 until they were widened,
+    the bf16 → fp32 form (the int8 blocks' attention) and the backward, now
+    launch at Dh = 80 and at S = 577: each call is one launch of its
+    kernel, and autograd goes through both kernels once."""
     n0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
     for s, dh in ((197, 80), (577, 64)):
         qkv = torch.randn(1, s, 3 * 2 * dh, device="cuda",
                           generator=cuda).bfloat16()
-        with pytest.raises(ValueError, match="head_dim 64 and S ≤ 512"):
-            fa.attention_qkv_slab(qkv, num_heads=2, out_dtype=torch.float32)
-        with pytest.raises(ValueError, match="head_dim 64 and S ≤ 512"):
-            fa.attention_qkv_slab_bwd(
-                qkv, torch.zeros(1, s, device="cuda"),
-                torch.zeros(1, s, 2 * dh, device="cuda",
-                            dtype=torch.bfloat16), 2)
-        with pytest.raises(ValueError, match="head_dim 64 and S ≤ 512"):
-            fa.attention_qkv_slab(qkv.requires_grad_(), num_heads=2).sum(
-            ).backward()
-    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (n0 + 2, b0)
+        out = fa.attention_qkv_slab(qkv, num_heads=2, out_dtype=torch.float32)
+        grad = fa.attention_qkv_slab_bwd(
+            qkv, torch.zeros(1, s, device="cuda"),
+            torch.ones(1, s, 2 * dh, device="cuda", dtype=torch.bfloat16), 2)
+        fa.attention_qkv_slab(qkv.requires_grad_(), num_heads=2).sum(
+        ).backward()
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all() and torch.isfinite(grad).all()
+        assert torch.isfinite(qkv.grad).all()
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (n0 + 4, b0 + 4)
+
+
+# the widened bodies' shapes: every head width past 64 at the zoo's S = 257,
+# Dh = 64 past 512 (an int8 or trained KEEP at 384² and 448²), and a few
+# lengths around the streamed bodies' 64-row tiles
+WIDE_SHAPES = ([(dh, 257) for dh in (72, 80, 88, 96, 104, 112, 120, 128)]
+               + [(64, s) for s in (513, 577, 785)]
+               + [(80, s) for s in (1, 63, 65, 577)])
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("dh,s", WIDE_SHAPES)
+def test_attention_fp32_output_at_wide_shapes(cuda, dh, s, padded):
+    """The bf16 → fp32 form outside its one-pass wgmma body (the streamed
+    body with an fp32 epilogue): one launch, finite, within the bf16
+    attention gate (max |Δ| < 0.05) of the plain version on valid rows."""
+    b, h = 2, 2
+    qkv, kb, valid = _zoo_inputs(cuda, b, s, h, dh, padded, torch.bfloat16)
+    n0 = fa.LAUNCHES
+    got = fa.attention_qkv_slab(qkv, kb, num_heads=h, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == n0 + 1 and got.dtype == torch.float32
+    ref = fa.attention_qkv_slab_reference(qkv, kb, num_heads=h,
+                                          out_dtype=torch.float32)
+    assert torch.isfinite(got).all()
+    assert (got[valid] - ref[valid]).abs().max().item() < 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("dh,s", WIDE_SHAPES)
+def test_bwd_kernel_matches_plain_at_wide_shapes(cuda, dh, s, padded, dtype):
+    """The backward's streamed bodies at the shapes the whole-slice bodies do not
+    take, at ``test_bwd_kernel_matches_plain``'s gates: fp32 atol 2e-4,
+    rtol 1e-4; bf16 within 1e-2 of the largest plain gradient on valid
+    rows."""
+    b, h = 3, 2
+    qkv, _, valid = _zoo_inputs(cuda, b, s, h, dh, padded, dtype)
+    kb = (1.0 - valid.float()) * -1e9
+    do = torch.randn(b, s, h * dh, device="cuda", generator=cuda).to(dtype)
+    n0 = fa.BWD_LAUNCHES
+    got = fa.attention_qkv_slab_bwd(qkv, kb, do, h)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == n0 + 1
+    assert got.dtype == dtype and got.shape == qkv.shape
+    ref = fa.attention_qkv_slab_bwd_reference(qkv, kb, do, h)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=2e-4, rtol=1e-4)
+    else:
+        g, r = got.float()[valid], ref.float()[valid]
+        assert (g - r).abs().max().item() <= 1e-2 * r.abs().max().item()
 
 
 def test_zoo_preset_on_the_card(cuda):
@@ -580,10 +631,10 @@ def test_bwd_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         fa.attention_qkv_slab_bwd(torch.zeros(1, 4, 96, device="cuda"), kb,
                                   torch.zeros(1, 4, 32, device="cuda"), 1)
-    with pytest.raises(ValueError, match="S ≤"):
-        fa.attention_qkv_slab_bwd(torch.zeros(1, 513, 192, device="cuda"),
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.attention_qkv_slab_bwd(torch.zeros(1, 513, 408, device="cuda"),
                                   torch.zeros(1, 513, device="cuda"),
-                                  torch.zeros(1, 513, 64, device="cuda"), 1)
+                                  torch.zeros(1, 513, 136, device="cuda"), 1)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.attention_qkv_slab_bwd(torch.zeros(1, 4, 192, device="cuda"), kb,
                                   torch.zeros(1, 4, 64, device="cuda",

@@ -280,6 +280,40 @@ def test_keep_moe_integration():
     assert float((feats * qfeats).sum(-1).mean()) > 0.99
 
 
+def test_keep_moe_w8a16_tree_from_jax_params():
+    """A JAX KEEP tree quantized with ``moe_w8a16`` (the experts marked
+    ``w_only``: W8A16) carried by ``from_jax_params`` into the port: the
+    experts load as W8A16 ``QExpertLinear``s (the marker in their extra
+    state), the codes as the JAX tree holds them, and the features match
+    the JAX int8 model's at the int8 gate (cosine ≥ 0.999 per row) and at
+    1e-5 (both dequantize the codes into the fp32 product)."""
+    jc, pc = _keep_cfgs()
+    params = jkeep.init(jax.random.PRNGKey(0), jc)
+    jq = jkeep.KEEPModel(params=params, cfg=jc).quantize(moe_w8a16=True)
+    m = KEEPModel(pc)
+    m.load_state_dict(from_jax_params(jax.tree.map(np.asarray, params), pc),
+                      strict=True)
+    qm = m.quantize()  # W8A8 experts; the JAX tree's marker turns them
+    qm.load_state_dict(from_jax_params(jax.tree.map(np.asarray, jq.params),
+                                       pc), strict=True)
+    experts = [mod for mod in qm.modules()
+               if isinstance(mod, moe.QExpertLinear)]
+    assert len(experts) == 2 * pc.vision.depth
+    assert all(e.w_only for e in experts)
+    np.testing.assert_array_equal(
+        qm.visual.blocks[0].moe.wo.weight_q.numpy(),
+        np.asarray(jq.params["visual"]["blocks"]["moe"]["wo"]["kernel_q"][0]
+                   ).transpose(0, 2, 1))
+    px = jax.random.normal(jax.random.PRNGKey(1), (3, 16, 16, 3))
+    with torch.no_grad():
+        got = qm.encode_image(torch.from_numpy(np.asarray(px)))
+    want = np.asarray(jq.encode_image(px))
+    cos = (got.numpy() * want).sum(-1) / (
+        np.linalg.norm(got.numpy(), axis=-1) * np.linalg.norm(want, axis=-1))
+    assert (cos >= 0.999).all(), cos
+    _close(got, want)
+
+
 class TestGatherDispatch:
     def test_matches_einsum_when_no_drops(self):
         p = make_moe_params(jax.random.PRNGKey(20))

@@ -17,6 +17,7 @@ SOURCES = sorted((REPO / "keep_tpu_torch").rglob("*.py")) + [
     REPO / "scripts" / "torch_calibration_sweep.py",
     REPO / "scripts" / "torch_attention_shapes_bench.py",
     REPO / "scripts" / "torch_attention_divide.py",
+    REPO / "scripts" / "torch_smoke_phases.py",
     REPO / "tests" / "card_attention_model.py"]
 
 

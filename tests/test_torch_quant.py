@@ -263,9 +263,20 @@ def test_from_jax_params_maps_quantized_nodes(rng):
     lin.load_state_dict({k.split(".")[-1]: v for k, v in sd.items()
                          if ".fc1." in k})
     assert lin.pre_scale is not None and lin.pre_scale[0].item() == 2.0
+    # the JAX ``w_only`` marker (W8A16) on an expert stack maps to the
+    # QExpertLinear's extra state; the JAX package marks experts only, and a
+    # dense marked linear still raises
+    e = {"kernel_q": np.stack([np.asarray(p["kernel_q"])] * 3),
+         "scale": np.stack([np.asarray(p["scale"])] * 3),
+         "bias": np.zeros((3, 8), np.float32)}
+    for marked in (False, True):
+        node = {**e, "w_only": ()} if marked else e
+        sd = from_jax_params({"moe": {"wi": node}}, CFG)
+        assert sd["moe.wi._extra_state"] == {"w_only": marked}
+        assert sd["moe.wi.weight_q"].shape == (3, 8, 16)
     with pytest.raises(ValueError, match="w_only"):
         from_jax_params({"fc1": {**jax.tree.map(np.asarray, p),
-                                 "w_only": np.zeros(0)}}, CFG)
+                                 "w_only": ()}}, CFG)
 
 
 # ---- kernels: qmatmul (#8, #9) -------------------------------------------------

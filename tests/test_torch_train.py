@@ -576,8 +576,11 @@ def test_config_matches_jax_loader(tmp_path):
     ("dataset", "tokenizer_type", "clip"),
 ])
 def test_refused_options_raise(run_dirs, tmp_path, section, key, value):
-    """What the port does not train yet raises, naming its ROADMAP item,
-    before any output. An MoE trunk trains (``test_moe_train_step_matches_
+    """What the port does not train yet (pp, ep) raises, naming its
+    ROADMAP item, before any output. The layouts ported since raise the JAX
+    trainer's ValueErrors in one process (tp = 2 does not divide one
+    device; sp requires tp), and fsdp in one process trains unsharded, as
+    the JAX trainer does on one device. An MoE trunk trains (``test_moe_train_step_matches_
     jax``); what stays refused for it is a dense pretrained image tower,
     as in the JAX package (keep_tpu/train/main.py:150-154). The CLIP
     tokenizer, refused until the fast tokenizers were ported, is now taken
@@ -603,7 +606,19 @@ def test_refused_options_raise(run_dirs, tmp_path, section, key, value):
         raw["model"]["pretrained_image"] = str(tmp_path / "vit.bin")
         with pytest.raises(ValueError, match="cannot initialize an MoE"):
             tmain.train(TrainRunConfig.from_dict(raw))
+    elif key == "tp":
+        with pytest.raises(ValueError, match="solver.tp=2 does not divide 1"):
+            tmain.train(TrainRunConfig.from_dict(raw))
+    elif key == "sp":
+        with pytest.raises(ValueError, match="requires solver.tp"):
+            tmain.train(TrainRunConfig.from_dict(raw))
+    elif key == "fsdp":
+        res = tmain.train(TrainRunConfig.from_dict(raw), device="cpu")
+        assert np.isfinite(res["train_loss"])
+        return
     else:
+        if key == "ep":  # on a dense trunk ep is the JAX config error
+            raw["keep"]["vision"] = dict(VISION, moe_experts=4)
         with pytest.raises(NotImplementedError,
                            match="not ported yet.*ROADMAP.*step 2"):
             tmain.train(TrainRunConfig.from_dict(raw))

@@ -256,12 +256,14 @@ def test_keep_tower_at_larger_images(rng):
 
 
 def test_refusals():
-    """act_sharding raises, naming its ROADMAP item; the dense trunk
-    refuses an MoE config (``models.moe.MoEVisionTransformer`` builds it);
-    a size off the patch grid and register tokens raise as in JAX."""
+    """``act_sharding`` is the port's own argument since sequence
+    parallelism was ported (``parallel.sp.SeqParallel``): anything else
+    raises TypeError naming it; the dense trunk refuses an MoE config
+    (``models.moe.MoEVisionTransformer`` builds it); a size off the patch
+    grid and register tokens raise as in JAX."""
     m = vit.VisionTransformer(configs.ViTConfig(**SMALL))
     x = torch.zeros(1, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="SeqParallel"):
         m(x, act_sharding=object())
     with pytest.raises(ValueError, match="multiple of patch_size"):
         m(torch.zeros(1, 30, 32, 3))

@@ -2,12 +2,13 @@
 (``tests/test_torch_multiprocess.py``), one process per rank over gloo on
 the CPU:
 
-    python tests/torch_dp_worker.py <objects|train> <spec.json>
+    python tests/torch_dp_worker.py <objects|mesh|train> <spec.json>
 
 under the torchrun-style environment the test sets (MASTER_ADDR /
 MASTER_PORT / RANK / WORLD_SIZE). ``objects`` checks the object
 collectives and the training step's tensor collectives against their
-definitions; ``train`` runs ``keep_tpu_torch.train.main.train`` as the spec
+definitions; ``mesh`` (four ranks) the dp × mp process mesh, its groups
+and the sequence-parallel collectives; ``train`` runs ``keep_tpu_torch.train.main.train`` as the spec
 says and writes each step's loss and the last record to
 ``<spec.out>.<rank>.json``, and each step's starting parameters and
 reduced gradients to ``<spec.out>.<rank>.grads.pt``. Imports the port only.
@@ -15,6 +16,7 @@ reduced gradients to ``<spec.out>.<rank>.grads.pt``. Imports the port only.
 
 import contextlib
 import json
+import os
 import sys
 
 
@@ -47,16 +49,24 @@ def record_grads(grads: list):
     """Appends, for each optimizer step, ``{"params": ..., "grads": ...}``
     to ``grads``: the trained parameters the step started from and the
     gradient dict as the optimizer gets it (summed over the ranks, before
-    the freeze mask and clipping), as CPU tensors."""
+    the freeze mask and clipping), as CPU tensors; under a parallel layout
+    (the step's ``layout``) both as one-process leaves, gathered from every
+    rank's pieces."""
     from keep_tpu_torch.train import trainer
 
     apply = trainer._optimizer_apply
 
     def recording(state, g, *args, **kw):
+        params = state.params
+        layout = args[3] if len(args) > 3 else kw.get("layout")
+        if layout is not None:  # every rank's pieces as one-process leaves
+            params, g_full = layout.full(params), layout.full(g)
+        else:
+            g_full = g
         grads.append({key: {n: t.detach().cpu().clone()
                             for n, t in tree.items()}
-                      for key, tree in (("params", state.params),
-                                        ("grads", g))})
+                      for key, tree in (("params", params),
+                                        ("grads", g_full))})
         return apply(state, g, *args, **kw)
 
     trainer._optimizer_apply = recording
@@ -107,6 +117,61 @@ def check_objects() -> str:
     return f"OK rank={rank}"
 
 
+def check_mesh() -> str:
+    """Four ranks as a dp 2 × mp 2 mesh: rank r at (r // 2, r % 2), each
+    axis's group summing over its own ranks, the row gather over dp; the
+    hybrid mesh's node check; the sequence split of an odd length (pad,
+    gather, reduce-scatter, and their backwards)."""
+    import torch
+
+    from keep_tpu_torch.parallel import gather_rows, mesh, multihost
+    from keep_tpu_torch.parallel.sp import seq_sharding
+
+    assert multihost.init_from_env("cpu") is True
+    rank = multihost.process_index()
+    m = mesh.make_mesh(axes=("dp", "mp"), shape=(2, 2))
+    assert (m.rank("dp"), m.rank("mp")) == (rank // 2, rank % 2), m.index
+    for axis, want in (("mp", [2 * (rank // 2), 2 * (rank // 2) + 1]),
+                       ("dp", [rank % 2, rank % 2 + 2])):
+        t = torch.tensor([float(rank)])
+        mesh.all_reduce_(t, m.group(axis))
+        assert t.item() == sum(want), (axis, t)
+    with mesh.use_mesh(m):
+        assert mesh.dp_rank_world() == (rank // 2, 2)
+        x = torch.full((2, 3), float(rank // 2)).requires_grad_()
+        y = gather_rows(x)
+        assert torch.equal(y.detach()[:, 0], torch.tensor([0., 0., 1., 1.]))
+    hybrid = mesh.make_hybrid_mesh((1, 2), (2, 1), ("dp", "mp"))
+    assert hybrid.shape == (2, 2) and hybrid.index == m.index
+    os.environ["LOCAL_WORLD_SIZE"] = "1"
+    try:
+        mesh.make_hybrid_mesh((1, 2), (2, 1), ("dp", "mp"))
+    except ValueError as e:
+        assert "inside a node" in str(e)
+    else:
+        raise AssertionError("an mp group across nodes was accepted")
+    finally:
+        os.environ["LOCAL_WORLD_SIZE"] = "4"
+    # the sequence split over mp: 5 rows padded to 6, 3 a rank
+    shard = seq_sharding(m).shard(5)
+    full = torch.arange(10.0).view(1, 5, 2).requires_grad_()
+    mine = shard.enter(full)
+    assert mine.shape == (1, 3, 2)
+    back = shard.gather(mine)
+    assert torch.equal(back.detach(), full.detach())
+    partial = back * (1.0 + m.rank("mp"))  # a rank's own weights
+    summed = shard.reduce_scatter(partial)
+    want = (full.detach() * 3.0)
+    want = torch.nn.functional.pad(want, (0, 0, 0, 1))[:, 3 * m.rank("mp"):
+                                                        3 * m.rank("mp") + 3]
+    assert torch.equal(summed.detach(), want), (summed, want)
+    out = shard.leave(summed)
+    out.sum().backward()
+    # every full row reaches the loss through both ranks' partial products
+    assert torch.equal(full.grad, torch.full((1, 5, 2), 3.0)), full.grad
+    return f"OK rank={rank}"
+
+
 def run_train(spec: dict) -> str:
     import numpy as np
     import torch
@@ -138,6 +203,8 @@ def run_train(spec: dict) -> str:
 def main(mode: str, spec_path: str) -> None:
     if mode == "objects":
         print(check_objects(), flush=True)
+    elif mode == "mesh":
+        print(check_mesh(), flush=True)
     else:
         with open(spec_path) as f:
             print(run_train(json.load(f)), flush=True)
