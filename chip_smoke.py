@@ -355,6 +355,23 @@ After phase 14, the model families ported last:
     heads); per rank the resident state's bytes (the compute copy, the
     optimizer's leaves and moments, each tensor once) beside dp's and the
     peak memory.
+27. pp_ep_layouts — after 26, in its setting but the depth (gloo ranks
+    on ``cuda:0``, fp32, full width, 2 blocks a tower, batch 16, 3
+    steps): pp = 2 at world 2 and dp 2 × pp 2 at world 4 on the dense
+    KEEP (GPipe over the ViT trunk, two microbatches a dp index,
+    ``parallel.pp``), ep = 2 at world 2 and dp 2 × ep 2 at world 4 on the
+    8-expert MoE KEEP of phase 19 with the grouped einsum dispatch
+    (``models.moe.shard_experts_``), each kind against its own one-process
+    run, the four layouts' ranks started together: phase 26's gates
+    (losses, each leaf's first-step gradient norm and sum), #1 / #1b per
+    rank as a stage's blocks × microbatches give them (BERT's alone on the
+    MoE KEEP, whose trunk's attention is plain), every leaf two ranks of a
+    pp or ep group hold bit-equal after the last step (digests), each rank
+    holding only its stage's ViT blocks or its E / ep experts (the leaves'
+    names and shapes) with its resident state bytes that share of the
+    one-process run's (dp's) within 1e-3; per rank the peak memory and
+    where its time went (spawn, imports, group, model, steps, gathers,
+    checkpoint).
 
 Then one JSON line describing the kernels (each TPU kernel's counterpart:
 its launches on the path that runs it, its time, its plain version's, its
@@ -467,8 +484,13 @@ PROMPTS = ["an h&e image of breast invasive carcinoma.",
            "an h&e image of clear cell renal carcinoma."]
 
 
+STARTED = time.perf_counter()
+
+
 def phase(tag: str, /, **fields) -> None:
-    print(json.dumps({"phase": tag, **fields}), flush=True)
+    """One phase's line; ``at_s``: the seconds since this script started."""
+    print(json.dumps({"phase": tag, "at_s": time.perf_counter() - STARTED,
+                      **fields}), flush=True)
 
 
 def card() -> str:
@@ -2098,8 +2120,8 @@ def drive_lora_train(torch, fa, d: str, raw: dict, blocks: int,
                    launches=fa.LAUNCHES - f0)
         return out
 
-    def recording_encoders(model, weights, dev):
-        enc_img, enc_txt = real_encoders(model, weights, dev)
+    def recording_encoders(model, weights, dev, *rest):
+        enc_img, enc_txt = real_encoders(model, weights, dev, *rest)
         rec = evals[-1]
 
         def held(fn, key, *args):
@@ -5471,6 +5493,33 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def host_state() -> dict:
+    """The host as a phase of ranks finds it: the memory available (GB),
+    this process's threads, and the processes it has started that are
+    still alive (pid: command), which would contend with the ranks."""
+    children = []
+    for task in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{task}/children") as f:
+                children += f.read().split()
+        except OSError:
+            pass
+    alive = {}
+    for pid in children:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                alive[pid] = f.read().replace(b"\0", b" ").decode()[:120]
+        except OSError:
+            pass
+    avail = None
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) / 1e6
+    return {"mem_available_gb": avail, "threads": len(os.listdir("/proc/self/task")),
+            "children": alive}
+
+
 @contextlib.contextmanager
 def launcher_env(**env):
     """A torchrun-style environment for the span of the block."""
@@ -5500,12 +5549,14 @@ def dp_train_config(d: str, batch_size: int, caption_num: int, steps: int,
 
 
 def counted_train(torch, fa, raw: dict, argv: list, device: str,
-                  keep_params: bool = False, trace_at: int = -1) -> dict:
+                  keep_params: bool = False, trace_at: int = -1,
+                  hold: bool = False) -> dict:
     """``train.main`` on ``raw`` (plus ``argv``): each step timed, its loss
     and attention launches (``counted_steps``), the process group it ran
     in, peak device memory, the device ms by kernel of step ``trace_at``
-    (on a card) and, with ``keep_params``, the trained parameters (on the
-    card)."""
+    (on a card) and, with ``hold``, the state's own leaves after the last
+    step (``held``: the tensors themselves, no copy), with ``keep_params``
+    the trained parameters (a copy, on the card)."""
     from keep_tpu_torch.train import main as tmain
 
     os.makedirs(raw["save"]["output_dir"], exist_ok=True)
@@ -5525,7 +5576,12 @@ def counted_train(torch, fa, raw: dict, argv: list, device: str,
                          world=dist.get_world_size() if dist.is_initialized()
                          else 1)
 
+    last_state: dict = {}
+
     def after(i, state, batch, model, kw):
+        if hold:
+            last_state.clear()
+            last_state.update(state.params)
         if keep_params:
             final.clear()
             final.update({n: p.detach().clone()
@@ -5549,6 +5605,7 @@ def counted_train(torch, fa, raw: dict, argv: list, device: str,
         tmain.main(["--config", path, *argv])
         wall_s = time.perf_counter() - t0
     return {"steps": steps, "group": group, "params": final,
+            "held": last_state,
             "traced": traced, "state_bytes": state_bytes.get("bytes"),
             "wall_s": wall_s,
             "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
@@ -5728,25 +5785,136 @@ def first_step_grads(torch, out: dict):
         trainer._optimizer_apply = apply
 
 
+def leaf_digest(t) -> str:
+    """A digest of a tensor's bits (equal bits, equal digests)."""
+    import hashlib
+
+    import torch
+
+    host = t.detach().contiguous().cpu().view(-1).view(torch.uint8)
+    return hashlib.blake2b(host.numpy().tobytes(),
+                           digest_size=16).hexdigest()
+
+
+@contextlib.contextmanager
+def rank_timeline(marks: dict, since: float):
+    """Where a rank's ``train.main`` spends its time, into ``marks``
+    (seconds since ``since``, the parent's spawn, on the wall clock):
+    joined (the process group), built (the model on the card),
+    state_built (its training state), step_made, snapshot_done (the
+    epoch's parameter norms), first_batch (off the prefetcher),
+    batch_on_device, first_step (its start), steps_done (the last step's
+    end), main_returned; the seconds outside the steps in the layout's gathers (``gather_s``), the
+    eval (``eval_s``) and the checkpoint writer (``save_s``, rank 0); the
+    process's CPU seconds (``cpu_s``)."""
+    import resource
+
+    from keep_tpu_torch.train import checkpoint as ckpt
+    from keep_tpu_torch.train import main as tmain
+    from keep_tpu_torch.train import trainer
+
+    spans = {"gather_s": 0.0, "eval_s": 0.0, "save_s": 0.0}
+    in_step = [False]
+
+    def mark(key):
+        marks[key] = time.time() - since
+
+    def first(key):
+        return lambda: marks.setdefault(key, time.time() - since)
+
+    def timed(owner, attr, span=None, after=None):
+        fn = getattr(owner, attr)
+
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            t0 = time.time()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if span and not in_step[0]:
+                    spans[span] += time.time() - t0
+                if after:
+                    after()
+        setattr(owner, attr, wrapper)
+        return owner, attr, fn
+
+    make_step = tmain.make_train_step
+
+    def marked_make_train_step(*a, **kw):
+        inner = make_step(*a, **kw)
+        first("step_made")()
+
+        def step(*sa, **skw):
+            in_step[0] = True
+            marks.setdefault("first_step", time.time() - since)
+            try:
+                return inner(*sa, **skw)
+            finally:
+                in_step[0] = False
+                mark("steps_done")
+        return step
+
+    prefetcher = tmain.Prefetcher
+
+    def marked_prefetcher(*a, **kw):
+        for i, item in enumerate(prefetcher(*a, **kw)):
+            if i == 0:
+                first("first_batch")()
+            yield item
+
+    saved = [timed(tmain.multihost, "init_from_env", after=first("joined")),
+             timed(tmain, "build_model", after=first("built")),
+             timed(tmain, "tree_state", after=first("state_built")),
+             timed(tmain, "snapshot", after=first("snapshot_done")),
+             timed(tmain, "to_device", after=first("batch_on_device")),
+             timed(trainer.ParallelLayout, "full", "gather_s"),
+             timed(tmain, "evaluate", "eval_s"),
+             timed(ckpt.CheckpointWriter, "save", "save_s"),
+             timed(ckpt.CheckpointWriter, "close", "save_s")]
+    tmain.make_train_step = marked_make_train_step
+    tmain.Prefetcher = marked_prefetcher
+    try:
+        yield marks
+    finally:
+        tmain.make_train_step = make_step
+        tmain.Prefetcher = prefetcher
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+        mark("main_returned")
+        marks.update(spans)
+        use = resource.getrusage(resource.RUSAGE_SELF)
+        marks["cpu_s"] = use.ru_utime + use.ru_stime
+
+
 def dp_child(spec_path: str) -> None:
-    """A rank of phase 26 (``chip_smoke.py --dp-child <spec>``): ``train.main``
-    on ``cuda:0`` over gloo in fp32 with TF32 off; writes its steps and
-    its first step's gradient norms and sums."""
+    """A rank of phases 26 and 27 (``chip_smoke.py --dp-child <spec>``):
+    ``train.main`` on ``cuda:0`` over gloo in fp32 with TF32 off; writes
+    its steps, its first step's gradient norms and sums, a digest and the
+    shape of each state leaf it holds after the last step, and where its
+    time went (``rank_timeline``: ``up`` and ``imported`` are the seconds
+    from the spawn to this function and past the imports)."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    marks = {"up": time.time() - spec["spawned_at"]}
     import torch
 
     from keep_tpu_torch.kernels import flash_attention as fa
     from keep_tpu_torch.ops.nn import ieee_fp32
 
-    with open(spec_path) as f:
-        spec = json.load(f)
-    with ieee_fp32(), first_step_grads(torch, {}) as grads:
+    marks["imported"] = time.time() - spec["spawned_at"]
+    with ieee_fp32(), first_step_grads(torch, {}) as grads, \
+            rank_timeline(marks, spec["spawned_at"]):
         run = counted_train(torch, fa, spec["raw"],
                             ["--device", spec["device"], "--dist-backend",
-                             "gloo"], spec["device"])
+                             "gloo"], spec["device"], hold=True)
+    held = run.pop("held")
     with open(f"{spec['out']}.{os.environ['RANK']}.json", "w") as f:
-        json.dump({"grads": grads, **{k: run[k] for k in (
-            "steps", "group", "wall_s", "peak_memory_gb",
-            "state_bytes")}}, f)
+        json.dump({"grads": grads, "timeline": marks,
+                   "digests": {k: leaf_digest(v) for k, v in held.items()},
+                   "shapes": {k: list(v.shape) for k, v in held.items()},
+                   **{k: run[k] for k in ("steps", "group", "wall_s",
+                                          "peak_memory_gb", "state_bytes")}},
+                  f)
 
 
 def drive_dp_serve(torch, fa, serve, d: str, device: str = "cuda",
@@ -6208,50 +6376,27 @@ DP2_LEAF_GATE = 1e-4
 DP2_DP_SUM_GATE = 1e-5
 
 
-def drive_dp2_layouts(torch, fa, d: str, batch: int = DP2_BATCH,
-                      steps: int = DP2_STEPS, device: str = "cuda:0",
-                      keep: dict | None = None,
-                      layouts: dict | None = None,
-                      child: list | None = None, gate: bool = True,
-                      name: str = "dp2_layouts") -> dict:
-    """24b / dp2_layouts. Every layout of ``DP2_LAYOUTS`` (dp, fsdp, tp =
-    2, tp = 2 + sp at world 2; tp = 2 + fsdp at world 4) over gloo on one
-    card (every rank on ``cuda:0``; NCCL refuses two ranks on one card),
-    fp32 with TF32 off, KEEP at full width with ``DP2_DEPTH`` blocks a
-    tower, the global batch ``batch`` for ``steps`` steps, all layouts'
-    ranks started together (each a ``child`` process: default
-    ``chip_smoke.py --dp-child``). Gated unless ``gate`` is off (the
-    readings of planted faults, ``scripts/torch_smoke_phases.py
-    --plant``): each rank's losses within rtol 1e-5 / atol 1e-6 of one
-    process's (the CPU tests' tolerance); each leaf's first-step gradient
-    (gathered from the ranks' pieces) against one process's, its norm
-    within ``DP2_LEAF_GATE`` and its sum within ``DP2_LEAF_GATE`` of the
-    leaf's sum of magnitudes (dp's norms at rtol 1e-5 / atol 1e-6, its sums
-    within ``DP2_DP_SUM_GATE``); #1 and #1b per rank as each step's blocks
-    give them (under tp each launch takes H/2 heads). Per rank the
-    resident state's bytes (beside dp's) and the peak device memory.
-    Prints the phase ``name``."""
+def layout_reference(torch, fa, d: str, raw: dict, device: str,
+                     blocks: int, steps: int) -> tuple[dict, dict]:
+    """The one-process run every layout of ``raw`` is held to (fp32, TF32
+    off) and its first step's gradient norms and sums: (run, grads)."""
     from keep_tpu_torch.ops.nn import ieee_fp32
 
-    keep = keep or {"projection_dim": 768,
-                    "vision": {"depth": DP2_DEPTH},
-                    "text": {"num_hidden_layers": DP2_DEPTH}}
-    layouts = layouts or DP2_LAYOUTS
-    child = child or [sys.executable, os.path.abspath(__file__),
-                      "--dp-child"]
-    blocks = (keep.get("vision", {}).get("depth", 24)
-              + keep.get("text", {}).get("num_hidden_layers", 12))
-    raw = dp_train_config(os.path.join(d, "data"), batch, batch // 4, steps,
-                          precision="fp32", keep=keep)
     one_raw = json.loads(json.dumps(raw))
     one_raw["save"]["output_dir"] = os.path.join(d, "one_process")
-    with ieee_fp32(), first_step_grads(torch, {}) as one_grads:
+    with ieee_fp32(), first_step_grads(torch, {}) as grads:
         one = counted_train(torch, fa, one_raw, ["--device", device], device)
     check_dp_steps("one process (fp32)", one["steps"], blocks, steps)
     if device.startswith("cuda"):
         torch.cuda.empty_cache()
+    return one, grads
+
+
+def start_layout_ranks(raw: dict, layouts: dict, d: str, device: str,
+                       child: list) -> tuple[dict, dict]:
+    """Every layout's ranks started at once, each a ``child`` process over
+    gloo on ``device``: ({tag: [process]}, {tag: its output prefix})."""
     procs, outs = {}, {}
-    t0 = time.perf_counter()
     for tag, (solver, world) in layouts.items():
         lraw = json.loads(json.dumps(raw))
         lraw["solver"].update(solver)
@@ -6259,7 +6404,8 @@ def drive_dp2_layouts(torch, fa, d: str, batch: int = DP2_BATCH,
         spec_path = os.path.join(d, f"{tag}_spec.json")
         outs[tag] = os.path.join(d, f"{tag}_rank")
         with open(spec_path, "w") as f:
-            json.dump({"raw": lraw, "out": outs[tag], "device": device}, f)
+            json.dump({"raw": lraw, "out": outs[tag], "device": device,
+                       "spawned_at": time.time()}, f)
         env = dict(os.environ, MASTER_ADDR="127.0.0.1",
                    MASTER_PORT=str(free_port()), WORLD_SIZE=str(world),
                    LOCAL_WORLD_SIZE=str(world), OMP_NUM_THREADS="1",
@@ -6270,26 +6416,53 @@ def drive_dp2_layouts(torch, fa, d: str, batch: int = DP2_BATCH,
                                           LOCAL_RANK=str(r)),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in range(world)]
+    return procs, outs
+
+
+def wait_ranks(procs: dict) -> dict:
+    """{tag: each rank's log} once every rank has exited; a rank past
+    ``DP_CHILD_TIMEOUT`` (a deadlocked collective shows only so) is killed
+    with every other, and the error carries every rank's log tail."""
     logs: dict = {}
+    deadline = time.monotonic() + DP_CHILD_TIMEOUT
     try:
         for tag, ps in procs.items():
-            logs[tag] = [p.communicate(timeout=DP_CHILD_TIMEOUT)[0]
-                         for p in ps]
+            logs[tag] = [p.communicate(timeout=max(
+                1.0, deadline - time.monotonic()))[0] for p in ps]
+    except subprocess.TimeoutExpired:
+        tails = []
+        for tag, ps in procs.items():
+            for r, p in enumerate(ps):
+                if p.poll() is None:
+                    p.kill()
+                log = p.communicate()[0] or ""
+                tails.append(f"--- {tag} rank {r} (rc {p.returncode}):\n"
+                             + log[-2000:])
+        raise AssertionError(f"layout ranks outlived {DP_CHILD_TIMEOUT} s:"
+                             f"\n" + "\n".join(tails))
     finally:
         for ps in procs.values():
             for p in ps:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-    wall_s = time.perf_counter() - t0
+    return logs
+
+
+def hold_layouts(result: dict, one: dict, one_grads: dict, layouts: dict,
+                 procs: dict, outs: dict, logs: dict, launches,
+                 gate: bool = True) -> None:
+    """Each layout's ranks against the one-process run, into ``result``:
+    their group, launches per step (``launches(tag)``: the #1 blocks a
+    rank's step runs), losses, first-step gradient norms and sums by leaf,
+    resident state bytes, peak memory; the leaves each rank holds as
+    digests (``leaf_digests``) where the child wrote them. Gated (losses at
+    rtol 1e-5 / atol 1e-6, ``DP2_LEAF_GATE`` on the gradients, dp's norms
+    at rtol 1e-5 and its sums at ``DP2_DP_SUM_GATE``) unless ``gate`` is
+    off; a failing rank raises with its log tail."""
     want = [st["loss"] for st in one["steps"]]
     norms, sums, l1 = (np.asarray(one_grads[k]) for k in ("norm", "sum",
                                                           "l1"))
-    result = {"card": card() if device.startswith("cuda") else "cpu",
-              "blocks": blocks, "batch": batch, "steps": steps,
-              "precision": "fp32, TF32 off", "losses_one_process": want,
-              "one_process_state_bytes": one["state_bytes"],
-              "wall_s_all_layouts": wall_s}
     for tag, ps in procs.items():
         ranks = []
         for r, p in enumerate(ps):
@@ -6299,10 +6472,12 @@ def drive_dp2_layouts(torch, fa, d: str, batch: int = DP2_BATCH,
             with open(f"{outs[tag]}.{r}.json") as f:
                 ranks.append(json.load(f))
         world = layouts[tag][1]
+        steps = len(want)
         for r, rank in enumerate(ranks):
             if rank["group"] != {"backend": "gloo", "world": world}:
                 raise AssertionError(f"{tag} rank {r}: group {rank['group']}")
-            check_dp_steps(f"{tag} rank {r}", rank["steps"], blocks, steps)
+            check_dp_steps(f"{tag} rank {r}", rank["steps"], launches(tag),
+                           steps)
             if rank["grads"]["names"] != one_grads["names"]:
                 raise AssertionError(f"{tag} rank {r}: gradient names differ")
         got_norms = np.asarray([rk["grads"]["norm"] for rk in ranks])
@@ -6327,8 +6502,14 @@ def drive_dp2_layouts(torch, fa, d: str, batch: int = DP2_BATCH,
                                           for st in rk["steps"])
                                       for rk in ranks],
             "state_bytes_per_rank": [rk["state_bytes"] for rk in ranks],
+            "state_bytes_vs_one_process": [
+                rk["state_bytes"] / one["state_bytes"] for rk in ranks],
             "ms_per_step_rank0": [st["ms"] for st in ranks[0]["steps"]],
+            "wall_s_ranks": [rk["wall_s"] for rk in ranks],
             "peak_memory_gb_ranks": [rk["peak_memory_gb"] for rk in ranks]}
+        for key in ("digests", "shapes", "timeline"):
+            if key in ranks[0]:
+                result[tag][key] = [rk[key] for rk in ranks]
         if not gate:
             continue
         np.testing.assert_allclose(losses, np.broadcast_to(want,
@@ -6353,11 +6534,289 @@ def drive_dp2_layouts(torch, fa, d: str, batch: int = DP2_BATCH,
                 f"{tag}: a leaf's first-step gradient sum "
                 f"{row['grad_leaf_sum_max_diff_over_l1']} of its sum of "
                 f"magnitudes from one process's")
+
+
+def tower_blocks(keep: dict) -> tuple[int, int]:
+    """(ViT blocks, BERT blocks) of a ``keep`` config dict."""
+    return (keep.get("vision", {}).get("depth", 24),
+            keep.get("text", {}).get("num_hidden_layers", 12))
+
+
+def drive_dp2_layouts(torch, fa, d: str, batch: int = DP2_BATCH,
+                      steps: int = DP2_STEPS, device: str = "cuda:0",
+                      keep: dict | None = None,
+                      layouts: dict | None = None,
+                      child: list | None = None, gate: bool = True,
+                      name: str = "dp2_layouts") -> dict:
+    """24b / dp2_layouts. Every layout of ``DP2_LAYOUTS`` (dp, fsdp, tp =
+    2, tp = 2 + sp at world 2; tp = 2 + fsdp at world 4) over gloo on one
+    card (every rank on ``cuda:0``; NCCL refuses two ranks on one card),
+    fp32 with TF32 off, KEEP at full width with ``DP2_DEPTH`` blocks a
+    tower, the global batch ``batch`` for ``steps`` steps, all layouts'
+    ranks started together (each a ``child`` process: default
+    ``chip_smoke.py --dp-child``). Gated unless ``gate`` is off (the
+    readings of planted faults, ``scripts/torch_smoke_phases.py
+    --plant``): each rank's losses within rtol 1e-5 / atol 1e-6 of one
+    process's (the CPU tests' tolerance); each leaf's first-step gradient
+    (gathered from the ranks' pieces) against one process's, its norm
+    within ``DP2_LEAF_GATE`` and its sum within ``DP2_LEAF_GATE`` of the
+    leaf's sum of magnitudes (dp's norms at rtol 1e-5 / atol 1e-6, its sums
+    within ``DP2_DP_SUM_GATE``); #1 and #1b per rank as each step's blocks
+    give them (under tp each launch takes H/2 heads). Per rank the
+    resident state's bytes (beside dp's) and the peak device memory.
+    Prints the phase ``name``."""
+    keep = keep or {"projection_dim": 768,
+                    "vision": {"depth": DP2_DEPTH},
+                    "text": {"num_hidden_layers": DP2_DEPTH}}
+    layouts = layouts or DP2_LAYOUTS
+    child = child or [sys.executable, os.path.abspath(__file__),
+                      "--dp-child"]
+    blocks = sum(tower_blocks(keep))
+    raw = dp_train_config(os.path.join(d, "data"), batch, batch // 4, steps,
+                          precision="fp32", keep=keep)
+    one, one_grads = layout_reference(torch, fa, d, raw, device, blocks,
+                                      steps)
+    t0 = time.perf_counter()
+    procs, outs = start_layout_ranks(raw, layouts, d, device, child)
+    logs = wait_ranks(procs)
+    result = {"card": card() if device.startswith("cuda") else "cpu",
+              "host": host_state(),
+              "blocks": blocks, "batch": batch, "steps": steps,
+              "precision": "fp32, TF32 off",
+              "losses_one_process": [st["loss"] for st in one["steps"]],
+              "one_process_state_bytes": one["state_bytes"],
+              "wall_s_all_layouts": time.perf_counter() - t0}
+    hold_layouts(result, one, one_grads, layouts, procs, outs, logs,
+                 lambda tag: blocks, gate)
+    for tag in layouts:
+        result[tag].pop("digests", None)
+        result[tag].pop("shapes", None)
     if "dp" in result:
         for tag in layouts:
             result[tag]["state_bytes_vs_dp"] = [
                 a / result["dp"]["state_bytes_per_rank"][0]
                 for a in result[tag]["state_bytes_per_rank"]]
+    phase(name, **result)
+    return result
+
+
+# ---- 27. pp_ep_layouts: pipeline and expert parallelism across ranks -------
+
+# tag: (the solver's layout keys, world); pp on the dense KEEP, ep on the
+# 8-expert MoE KEEP of phase 19 (the grouped einsum dispatch)
+PP_LAYOUTS = {"pp2": ({"pp": 2}, 2), "dp2_pp2": ({"pp": 2}, 4)}
+EP_LAYOUTS = {"ep2": ({"ep": 2}, 2), "dp2_ep2": ({"ep": 2}, 4)}
+# blocks a tower: at phase 26's 6, twelve ranks at once need more than the
+# card's 80 GB, and the pp ranks then the ep ranks took 220 s of the smoke
+# run, past phase 27's 200 s; at 2 all twelve start together. Only the
+# depth is cut: the pp hops, the replication and the ep gathers are the
+# same per block and microbatch.
+PP_EP_DEPTH = 2
+# a rank's resident state against one process's, from its piece's share
+# (``state_share``): the sound layouts read it to 4 digits; a rank that
+# kept the whole trunk or every expert reads 1.0
+PP_EP_STATE_GATE = 1e-3
+
+
+def pp_launch_blocks(keep: dict, pp: int) -> int:
+    """The #1 blocks a pp rank's step runs: its stage's ViT blocks once per
+    microbatch (M = pp, the default) and every BERT block (the text tower
+    runs on every pp rank, as JAX replicates it)."""
+    vision, text = tower_blocks(keep)
+    return vision // pp * pp + text
+
+
+def moe_launch_blocks(keep: dict) -> int:
+    """The #1 blocks an MoE KEEP's step runs: BERT's (the MoE trunk's
+    attention is plain, as in the JAX package)."""
+    return tower_blocks(keep)[1]
+
+
+def held_leaves(tag: str, digests: list, layouts: dict) -> dict:
+    """The leaves several ranks of one pp or ep group hold (the inner axis
+    is the last: the group of rank r is the ``inner`` ranks from r −
+    r % inner), each digest against its peers': {"compared": n, "differ":
+    [...]}.
+    Expert leaves (``.moe.wi.`` / ``.moe.wo.``) differ by design under ep
+    (each rank its own experts): left out."""
+    solver, world = layouts[tag]
+    inner = solver.get("pp") or solver["ep"]
+    compared, differ = 0, []
+    for base in range(0, world, inner):
+        group = digests[base: base + inner]
+        for k in group[0]:
+            if ".moe.wi." in k or ".moe.wo." in k:
+                continue
+            peers = [g[k] for g in group if k in g]
+            if len(peers) < 2:
+                continue
+            compared += 1
+            if len(set(peers)) != 1:
+                differ.append(k)
+    return {"compared": compared, "differ": differ}
+
+
+def one_process_shapes(raw: dict) -> dict:
+    """{name: shape} of the one-process KEEP of ``raw`` (on the meta
+    device)."""
+    from keep_tpu_torch.models.keep import KEEPModel
+    from keep_tpu_torch.train.config import TrainRunConfig
+
+    cfg = TrainRunConfig.from_dict(json.loads(json.dumps(raw)))
+    return {n: list(p.shape) for n, p in
+            KEEPModel(cfg.keep, device="meta").named_parameters()}
+
+
+def split_leaf(kind: str, name: str) -> bool:
+    """Whether a pp stage or an ep rank holds only a piece of the leaf:
+    the ViT's blocks under pp, the expert stacks under ep."""
+    if kind == "pp":
+        return name.startswith("visual.blocks.")
+    return ".moe.wi." in name or ".moe.wo." in name
+
+
+def rank_piece(kind: str, index: int, inner: int, shapes: dict,
+               depth: int) -> dict:
+    """{name: shape} of what the rank at ``index`` of its pp or ep group
+    holds of the one-process ``shapes``: under pp its stage's ViT blocks
+    (stage s: blocks [s·L/pp, (s+1)·L/pp)) and every other leaf whole;
+    under ep the expert leaves with E / ep experts (axis 0) and every
+    other leaf whole."""
+    out = {}
+    for n, shp in shapes.items():
+        if split_leaf(kind, n):
+            if kind == "pp":
+                if int(n.split(".")[2]) * inner // depth != index:
+                    continue
+            else:
+                shp = [shp[0] // inner, *shp[1:]]
+        out[n] = shp
+    return out
+
+
+def state_share(kind: str, inner: int, shapes: dict) -> float:
+    """A rank's resident state against one process's, by elements (every
+    state tensor is fp32): 1 − (the split leaves' share)·(1 − 1/inner)."""
+    sizes = {n: int(np.prod(s)) for n, s in shapes.items()}
+    split = sum(e for n, e in sizes.items() if split_leaf(kind, n))
+    return 1 - split / sum(sizes.values()) * (1 - 1 / inner)
+
+
+def check_pieces(tag: str, kind: str, inner: int, row: dict,
+                 shape_ranks: list, shapes: dict, depth: int,
+                 gate: bool) -> None:
+    """Each rank of a pp or ep layout holds its own piece of the state and
+    no more (``rank_piece``: the leaves' names and shapes), and its
+    resident state bytes are that piece's share of one process's
+    (``state_share``) within ``PP_EP_STATE_GATE``: into ``row``, raised
+    when ``gate``. A rank that kept the whole trunk or every expert (a
+    layout that drops to dp) fails both."""
+    want = state_share(kind, inner, shapes)
+    row["state_share_want"] = want
+    wrong = [r for r, got in enumerate(shape_ranks)
+             if got != rank_piece(kind, r % inner, inner, shapes, depth)]
+    row["ranks_holding_another_piece"] = wrong
+    if not gate:
+        return
+    if wrong:
+        raise AssertionError(f"{tag}: ranks {wrong} hold another piece of "
+                             f"the state than their {kind} index's")
+    for r, got in enumerate(row["state_bytes_vs_one_process"]):
+        if not abs(got - want) <= PP_EP_STATE_GATE:
+            raise AssertionError(f"{tag} rank {r}: resident state × {got} "
+                                 f"of one process's, want × {want}")
+
+
+def drive_pp_ep_layouts(torch, fa, d: str, batch: int = DP2_BATCH,
+                        steps: int = DP2_STEPS, device: str = "cuda:0",
+                        keep: dict | None = None,
+                        moe_keep: dict | None = None,
+                        pp_layouts: dict | None = None,
+                        ep_layouts: dict | None = None,
+                        child: list | None = None, gate: bool = True,
+                        name: str = "pp_ep_layouts") -> dict:
+    """27. pp_ep_layouts: ``train.main`` at pp = 2 (world 2) and dp 2 × pp
+    2 (world 4) on the dense KEEP, and at ep = 2 (world 2) and dp 2 × ep 2
+    (world 4) on the 8-expert MoE KEEP (``moe_dispatch='einsum'``), over
+    gloo with every rank on ``cuda:0``, fp32 with TF32 off, full width
+    with ``PP_EP_DEPTH`` blocks a tower, the global batch ``batch`` for
+    ``steps`` steps: phase 26's setting but the depth, the two one-process
+    runs they are held to first, then the four layouts' twelve ranks
+    together.
+    Gated as phase 26 (losses at rtol 1e-5 / atol 1e-6, each leaf's
+    first-step gradient norm and sum at ``DP2_LEAF_GATE``), and: #1 / #1b
+    per rank per step as a pp stage's blocks × microbatches give them
+    (``pp_launch_blocks``; BERT's alone on the MoE KEEP); every leaf that
+    two ranks of a pp or ep group hold bit-equal after the last step
+    (digests); each rank holds its stage's blocks or its E / ep experts,
+    and its resident state is that share of the one-process run's (dp's,
+    which replicates it) within ``PP_EP_STATE_GATE`` (``check_pieces``).
+    Per rank the peak memory and where its time went (``rank_timeline``)."""
+    keep = keep or {"projection_dim": 768,
+                    "vision": {"depth": PP_EP_DEPTH},
+                    "text": {"num_hidden_layers": PP_EP_DEPTH}}
+    moe_keep = moe_keep or {
+        "projection_dim": 768,
+        "vision": {"depth": PP_EP_DEPTH, "moe_experts": MOE_EXPERTS,
+                   "moe_top_k": 1, "moe_capacity_factor": 1.25,
+                   "moe_dispatch": "einsum"},
+        "text": {"num_hidden_layers": PP_EP_DEPTH}}
+    pp_layouts = PP_LAYOUTS if pp_layouts is None else pp_layouts
+    ep_layouts = EP_LAYOUTS if ep_layouts is None else ep_layouts
+    child = child or [sys.executable, os.path.abspath(__file__),
+                      "--dp-child"]
+    groups = {}
+    for kind, kcfg, layouts, blocks in (
+            ("pp", keep, pp_layouts, sum(tower_blocks(keep))),
+            ("ep", moe_keep, ep_layouts, moe_launch_blocks(moe_keep))):
+        if not layouts:
+            continue
+        kd = os.path.join(d, kind)
+        raw = dp_train_config(os.path.join(kd, "data"), batch, batch // 4,
+                              steps, precision="fp32", keep=kcfg)
+        t0 = time.perf_counter()
+        one, grads = layout_reference(torch, fa, kd, raw, device, blocks,
+                                      steps)
+        groups[kind] = (kcfg, kd, raw, layouts, one, grads,
+                        time.perf_counter() - t0)
+    result = {"card": card() if device.startswith("cuda") else "cpu",
+              "host": host_state(), "batch": batch, "steps": steps,
+              "precision": "fp32, TF32 off",
+              "blocks_a_tower": tower_blocks(keep)}
+    t0 = time.perf_counter()
+    started = {kind: start_layout_ranks(g[2], g[3], g[1], device, child)
+               for kind, g in groups.items()}
+    # one deadline for all twelve: a rank past it kills every other
+    logs = wait_ranks({tag: ps for procs, _ in started.values()
+                       for tag, ps in procs.items()})
+    result["wall_s_all_layouts"] = time.perf_counter() - t0
+    for kind, (kcfg, kd, raw, layouts, one, grads, one_s) in groups.items():
+        procs, outs = started[kind]
+
+        def launches(tag, kcfg=kcfg, layouts=layouts, kind=kind):
+            if kind == "ep":
+                return moe_launch_blocks(kcfg)
+            return pp_launch_blocks(kcfg, layouts[tag][0]["pp"])
+
+        result[f"one_process_{kind}"] = {
+            "losses": [st["loss"] for st in one["steps"]],
+            "state_bytes": one["state_bytes"],
+            "peak_memory_gb": one["peak_memory_gb"], "seconds": one_s}
+        hold_layouts(result, one, grads, layouts, procs, outs, logs,
+                     launches, gate)
+        shapes = one_process_shapes(raw)
+        for tag in layouts:
+            row = result[tag]
+            row["launch_blocks_per_step"] = launches(tag)
+            row["held_leaves"] = held_leaves(tag, row.pop("digests"),
+                                             layouts)
+            if gate and (row["held_leaves"]["differ"]
+                         or not row["held_leaves"]["compared"]):
+                raise AssertionError(f"{tag}: leaves held by several ranks "
+                                     f"of a group: {row['held_leaves']}")
+            check_pieces(tag, kind, layouts[tag][0][kind], row,
+                         row.pop("shapes"), shapes, tower_blocks(kcfg)[0],
+                         gate)
     phase(name, **result)
     return result
 
@@ -6503,6 +6962,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("dp2_layouts_time", seconds=time.perf_counter() - t0)
 
+    # 27. pp_ep_layouts: pp = 2 and dp 2 × pp 2 on the dense KEEP, ep = 2
+    # and dp 2 × ep 2 on the 8-expert MoE KEEP, over gloo, against one
+    # process each
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d_pp:
+        pp_ep = drive_pp_ep_layouts(torch, fa, d_pp)
+    torch.cuda.empty_cache()
+    phase("pp_ep_layouts_time", seconds=time.perf_counter() - t0)
+
     # 13.–14. LoRA fine-tuning with the eval, then serving its adapters
     with tempfile.TemporaryDirectory() as d_lora:
         lora_raw = lora_train_config(d_lora, steps_per_epoch=4)
@@ -6554,7 +7022,7 @@ def main() -> int:
         lora_served, calibrated, pyramid, zoo_rows, zoo_heads_rows, zoo,
         long_seq, towers, coca_out, pmc, moe_out, compat, aot_out,
         {"train": dp_train, "gloo": dp2["dp"], "serve": dp_serve,
-         "wsi": dp_wsi}, wide, dp2)}), flush=True)
+         "wsi": dp_wsi}, wide, dp2, pp_ep)}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -6566,7 +7034,7 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                 f32_rows, wsi, lora_trained, lora_served, calibrated,
                 pyramid, zoo_rows, zoo_heads_rows, zoo,
                 long_seq, towers, coca_out, pmc, moe_out, compat,
-                aot_out, dp, wide, dp2) -> list[dict]:
+                aot_out, dp, wide, dp2, pp_ep) -> list[dict]:
     """One entry per TPU kernel: its launches on the main path that runs it,
     and, at ViT-L B=32 in bf16 (the int8 kernels: the first shape of their
     phase), its time, its plain version's, its bound and the one PyTorch
@@ -6595,8 +7063,11 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
     bf16 → fp32 form's rows at the widened shapes (beside #1b and beside
     #4 / #5), #4 / #5's launches on the int8 KEEP served at 384² and 448²,
     and #1 / #1b's on the 384² training steps; phase 26 (``dp2``) #1 / #1b's
-    per rank on each layout."""
+    per rank on each layout; phase 27 (``pp_ep``) theirs per rank on the pp
+    and ep layouts (a pp rank's stage × microbatches; BERT's alone on the
+    MoE KEEP)."""
     dp2_tags = [t for t in DP2_LAYOUTS if t in dp2]
+    pp_ep_tags = [t for t in {**PP_LAYOUTS, **EP_LAYOUTS} if t in pp_ep]
     def pick(rs, shape="vit_l16"):
         return next(r for r in rs if r["shape"] == shape and r["B"] == 32
                     and r["dtype"] == "bfloat16")
@@ -6663,6 +7134,8 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
         launches_wide_train=sum(wide["train"]["fwd_launches_per_step"]),
         launches_dp2_layouts_per_rank={
             t: dp2[t]["fwd_launches_per_rank"] for t in dp2_tags},
+        launches_pp_ep_layouts_per_rank={
+            t: pp_ep[t]["fwd_launches_per_rank"] for t in pp_ep_tags},
         shapes=rows, zoo_shapes=zoo_rows, coca_shape=coca_out["slab"])]
     vit_bwd = pick(bwd_rows)
     kernels.append(entry(
@@ -6679,6 +7152,8 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
         launches_wide_train=sum(wide["train"]["bwd_launches_per_step"]),
         launches_dp2_layouts_per_rank={
             t: dp2[t]["bwd_launches_per_rank"] for t in dp2_tags},
+        launches_pp_ep_layouts_per_rank={
+            t: pp_ep[t]["bwd_launches_per_rank"] for t in pp_ep_tags},
         library_call="scaled_dot_product_attention backward through "
                      "autograd (retain_graph; the forward not timed)",
         library_kernel=vit_bwd["library_kernel"], shapes=bwd_rows,

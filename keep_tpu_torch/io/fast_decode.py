@@ -13,6 +13,7 @@ same array.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -22,9 +23,18 @@ from keep_tpu_torch.io._native import build_native
 _lib = None
 _lib_failed = False  # a failed build is not retried on every decode
 _lib_error = ""
+_load_lock = threading.Lock()
 
 
 def _load_lib():
+    # one build a process, not one for each decode thread that asks before
+    # the first has failed: where the library cannot be built, each would
+    # run the compiler anew, a rank's 8 threads one after another
+    with _load_lock:
+        return _open_lib()
+
+
+def _open_lib():
     global _lib, _lib_failed, _lib_error
     if _lib_failed:
         raise RuntimeError(

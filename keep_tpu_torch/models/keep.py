@@ -114,6 +114,26 @@ class KEEPModel(nn.Module):
         feats = self.visual_head(feats)
         return (feats, aux) if return_aux else feats
 
+    def encode_image_pp(self, pixels: torch.Tensor, mesh=None,
+                        remat: bool = False,
+                        num_microbatches: int | None = None) -> torch.Tensor:
+        """``encode_image`` with the ViT trunk pipelined over the 'pp' axis
+        of ``mesh`` (default: the current process mesh; GPipe,
+        ``parallel.pp.vit_forward_pp``): the same features on every pp
+        rank; the stem, the head and the visual head run on every rank.
+        The MoE trunk raises, as in the JAX package."""
+        if self.moe:
+            raise NotImplementedError(
+                "pipeline parallelism does not compose with the MoE trunk "
+                "(train it with dp/fsdp/ep) — same rule the CLI enforces")
+        from keep_tpu_torch.parallel.pp import vit_forward_pp
+
+        feats = vit_forward_pp(self.visual, pixels, mesh,
+                               num_microbatches=num_microbatches,
+                               dtype=self.dtype, use_flash=self.use_flash,
+                               gelu_approx=self.gelu_approx, remat=remat)
+        return self.visual_head(feats)
+
     def encode_text(self, input_ids: torch.Tensor,
                     attention_mask: torch.Tensor | None = None,
                     token_type_ids: torch.Tensor | None = None,

@@ -41,11 +41,24 @@ mesh: the aux loss's f_e and P_e are means over every rank's tokens, and
 the gather dispatch claims its slots in global (round, token) order under
 the global batch's capacity. The grouped dispatch routes each batch row
 alone, so its routing needs no exchange.
+
+Expert parallelism (the 'ep' axis of a (dp, ep) process mesh,
+``shard_experts_``; the JAX package's ``ep_shardings``): each rank of an ep
+group holds E/ep of the experts of every ``wi`` / ``wo`` whose E divides,
+and the rows of its dp index, the same on every rank of the group. The
+grouped dispatch computes the rank's experts only, on those rows, then
+completes the experts' output over the ep group (an all-gather along E,
+whose backward is the rank's own slice of the gradient, the same on every
+rank) before the combine einsum, so that the combine's bits are one
+process's. The rows' gradient from the rank's experts is that share of the
+whole: it is summed over the group (``parallel.tp.copy_to``). The gather
+dispatch is refused under ep, as the JAX trainer refuses it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 
 import torch
@@ -59,8 +72,12 @@ from keep_tpu_torch.models.vit import (Attention, patchify,
 from keep_tpu_torch.ops.nn import (LayerNorm, Linear, QLinear, gelu,
                                    ieee_fp32, mha_attention)
 from keep_tpu_torch.parallel import mesh as dp
+from keep_tpu_torch.parallel import tp as ptp
 
 _GLOBAL_BATCH = False
+EP_GATHER_REFUSED = ("solver.ep requires vision.moe_dispatch='einsum' (the "
+                     "grouped one-hot dispatch is the EP-shardable form; "
+                     "'gather' is the single-device/dp fast path)")
 
 
 @contextlib.contextmanager
@@ -242,6 +259,17 @@ class QExpertLinear(nn.Module):
         return (out + bias).to(x.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class ExpertParallel:
+    """The ep group an ``MoEMLP``'s experts split over: its size and this
+    rank's index in it (the rank holds experts [rank·E/size,
+    (rank+1)·E/size))."""
+
+    group: object
+    size: int
+    rank: int
+
+
 class MoEMLP(nn.Module):
     """``router`` [E, D], ``wi`` (D → F) and ``wo`` (F → D) per expert."""
 
@@ -251,6 +279,8 @@ class MoEMLP(nn.Module):
         self.router = Router(dim, experts, device=device)
         self.wi = ExpertLinear(experts, dim, hidden, device=device)
         self.wo = ExpertLinear(experts, hidden, dim, device=device)
+        # the expert-parallel split (shard_experts_); None: every expert here
+        self.ep: ExpertParallel | None = None
 
     def experts(self, x: torch.Tensor, gelu_approx: bool) -> torch.Tensor:
         return self.wo(gelu(self.wi(x), approximate=gelu_approx))
@@ -310,10 +340,73 @@ def moe_mlp(p: MoEMLP, x: torch.Tensor, *, top_k: int = 1,
     # Switch aux: f_e over every (token, round) assignment before drops
     f_e = importance / (top_k * g * s)
     aux = _switch_aux(e, f_e, probs.mean((0, 1)))
-    expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
-    out = p.experts(expert_in, gelu_approx)
+    if p.ep is None:
+        expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
+        out = p.experts(expert_in, gelu_approx)
+    else:  # this rank's experts, then every expert's output
+        k = e // p.ep.size
+        mine = dispatch[:, :, p.ep.rank * k: (p.ep.rank + 1) * k]
+        expert_in = torch.einsum("gsec,gsd->gecd", mine.to(x.dtype),
+                                 ptp.copy_to(xg, p.ep.group))
+        out = _GatherExperts.apply(p.experts(expert_in, gelu_approx),
+                                   p.ep.group, p.ep.rank)
     yt = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), out)
     return yt.reshape(orig), aux
+
+
+class _GatherExperts(torch.autograd.Function):
+    """[G, E/ep, C, D] of this rank's experts → [G, E, C, D] of the ep
+    group's, in rank order; backward this rank's slice of the gradient
+    (the same gradient on every rank of the group)."""
+
+    @staticmethod
+    def forward(ctx, out, group, rank):
+        ctx.k, ctx.rank = out.shape[1], rank
+        return dp.all_gather(out.movedim(1, 0), group).movedim(0, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        k, r = ctx.k, ctx.rank
+        return grad[:, r * k: (r + 1) * k], None, None
+
+
+def ep_specs(model: nn.Module, n_ep: int) -> dict:
+    """{parameter name: ``parallel.tp.Split`` of its expert axis over ep,
+    or None (replicated)} (``ep_shardings``): the expert-stacked ``wi`` /
+    ``wo`` leaves of the MoE blocks split their expert axis (ndim − 3 for a
+    weight, ndim − 2 for a bias: 0 in both); a leaf whose E does not divide
+    ``n_ep`` and every other leaf (router, attention, LayerNorms, the text
+    tower) replicate."""
+    out = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        axis = None
+        if "moe" in parts and ("wi" in parts or "wo" in parts):
+            axis = p.ndim - 3 if parts[-1] == "weight" else p.ndim - 2
+            if not (0 <= axis < p.ndim and p.shape[axis] % n_ep == 0):
+                axis = None
+        out[name] = None if axis is None or n_ep <= 1 else ptp.Split(axis)
+    return out
+
+
+@torch.no_grad()
+def shard_experts_(model: nn.Module, mesh) -> dict:
+    """Splits an MoE model's experts over the mesh's ep group in place:
+    each split ``wi`` / ``wo`` leaf becomes this rank's experts (a new
+    parameter) and each ``MoEMLP`` whose experts split learns its group
+    (``.ep``). Returns the specs (``ep_specs``, on the one-process
+    shapes)."""
+    n, r, group = mesh.size("ep"), mesh.rank("ep"), mesh.group("ep")
+    specs = ep_specs(model, n)
+    for name, m in model.named_modules():
+        if isinstance(m, MoEMLP) and specs[f"{name}.wi.weight"] is not None:
+            m.ep = ExpertParallel(group, n, r)
+    pieces = ptp.place_tp({k: p.detach() for k, p in model.named_parameters()
+                           if specs[k] is not None}, specs, n, r)
+    for name, piece in pieces.items():
+        parent, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(parent), leaf, nn.Parameter(piece))
+    return specs
 
 
 def moe_mlp_gather(p: MoEMLP, x: torch.Tensor, *, top_k: int = 1,
@@ -327,6 +420,8 @@ def moe_mlp_gather(p: MoEMLP, x: torch.Tensor, *, top_k: int = 1,
     only."""
     if (route is not None or return_route) and top_k != 1:
         raise ValueError("route tracing/forcing is top-1 only")
+    if p.ep is not None:
+        raise ValueError(EP_GATHER_REFUSED)
     orig = x.shape
     d = orig[-1]
     xf = x.reshape(-1, d)

@@ -297,26 +297,9 @@ class VisionTransformer(nn.Module):
         of ``quant.smooth_vit``). ``act_sharding`` (a
         ``parallel.sp.SeqParallel``) splits the residual stream along S
         over its group between the blocks (Megatron-SP; training only)."""
-        b, h, w, _ = x.shape
+        b = x.shape[0]
         cfg = self.cfg
-        ps = cfg.patch_size
-        if h % ps or w % ps:
-            raise ValueError(f"image size {(h, w)} not a multiple of "
-                             f"patch_size {ps}")
-        if cfg.num_prefix_tokens > 1:
-            raise ValueError(
-                f"num_prefix_tokens={cfg.num_prefix_tokens} unsupported (0 = "
-                f"gap ViT, 1 = CLS); register tokens are not implemented")
-        x = x.to(dtype)
-        tokens = self.patch_embed(patchify(x, ps))
-        if self.cls_token is not None:
-            cls = self.cls_token.to(dtype).expand(b, 1, cfg.embed_dim)
-            tokens = torch.cat([cls, tokens], dim=1)
-        pos = resample_pos_embed(self.pos_embed, (h // ps, w // ps),
-                                 cfg.num_prefix_tokens)
-        tokens = tokens + pos.to(dtype)
-        if self.ln_pre is not None:
-            tokens = self.ln_pre(tokens)
+        tokens = self.embed(x, dtype)
         if patch_dropout_rate > 0.0 and dropout_generator is not None:
             noise = patch_dropout_noise(
                 b, tokens.shape[1] - cfg.num_prefix_tokens,
@@ -344,25 +327,58 @@ class VisionTransformer(nn.Module):
                 stats.append(st)
         if seq is not None:
             tokens = seq.leave(tokens)
-        if cfg.pool == "token" and not cfg.fc_norm:
-            # LayerNorm is per token, so normalising the pooled CLS row
-            # alone equals the JAX package's norm-then-pool
-            pooled = self.norm(tokens[:, 0])
-        else:
-            if not cfg.fc_norm:
-                tokens = self.norm(tokens)
-            if cfg.pool == "token":
-                pooled = tokens[:, 0]
-            elif cfg.pool == "avg":
-                pooled = tokens[:, cfg.num_prefix_tokens:].mean(dim=1)
-            else:
-                pooled = tokens
-            if cfg.fc_norm and cfg.pool in ("token", "avg"):
-                # timm's gap-ViT order: pool first, then the LayerNorm
-                pooled = self.norm(pooled)
+        pooled = self.pool(tokens)
         if ln_stats:
             return pooled, {k: torch.stack([st[k] for st in stats])
                             for k in ("qkv", "fc1")}
+        return pooled
+
+    def embed(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """The stem: [B, H, W, 3] pixels → [B, S, D] tokens in ``dtype``
+        (patchify, the CLS token, the pos embed resampled to the grid, and
+        ``ln_pre``)."""
+        b, h, w, _ = x.shape
+        cfg = self.cfg
+        ps = cfg.patch_size
+        if h % ps or w % ps:
+            raise ValueError(f"image size {(h, w)} not a multiple of "
+                             f"patch_size {ps}")
+        if cfg.num_prefix_tokens > 1:
+            raise ValueError(
+                f"num_prefix_tokens={cfg.num_prefix_tokens} unsupported (0 = "
+                f"gap ViT, 1 = CLS); register tokens are not implemented")
+        x = x.to(dtype)
+        tokens = self.patch_embed(patchify(x, ps))
+        if self.cls_token is not None:
+            cls = self.cls_token.to(dtype).expand(b, 1, cfg.embed_dim)
+            tokens = torch.cat([cls, tokens], dim=1)
+        pos = resample_pos_embed(self.pos_embed, (h // ps, w // ps),
+                                 cfg.num_prefix_tokens)
+        tokens = tokens + pos.to(dtype)
+        if self.ln_pre is not None:
+            tokens = self.ln_pre(tokens)
+        return tokens
+
+    def pool(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The head: the trunk's [B, S, D] tokens → [B, D] pooled features
+        (the final LayerNorm and the pool), or the normalised tokens under
+        ``pool="none"``."""
+        cfg = self.cfg
+        if cfg.pool == "token" and not cfg.fc_norm:
+            # LayerNorm is per token, so normalising the pooled CLS row
+            # alone equals the JAX package's norm-then-pool
+            return self.norm(tokens[:, 0])
+        if not cfg.fc_norm:
+            tokens = self.norm(tokens)
+        if cfg.pool == "token":
+            pooled = tokens[:, 0]
+        elif cfg.pool == "avg":
+            pooled = tokens[:, cfg.num_prefix_tokens:].mean(dim=1)
+        else:
+            pooled = tokens
+        if cfg.fc_norm and cfg.pool in ("token", "avg"):
+            # timm's gap-ViT order: pool first, then the LayerNorm
+            pooled = self.norm(pooled)
         return pooled
 
 

@@ -1,8 +1,9 @@
 """Parallelism (counterpart of ``keep_tpu/parallel``): the 'dp' mesh in one
-process and the dp × mp process mesh of training (``mesh``), the process
-group and its environment discovery (``multihost``), FSDP (``fsdp``),
-tensor parallelism (``tp``) and sequence parallelism (``sp``). pp and ep
-wait for ROADMAP item 10, step 2."""
+process and the dp × mp / pp / ep process meshes of training (``mesh``),
+the process group and its environment discovery (``multihost``), FSDP
+(``fsdp``), tensor parallelism (``tp``), sequence parallelism (``sp``) and
+pipeline parallelism (``pp``); expert parallelism lives with the MoE trunk
+(``models.moe``)."""
 
 from keep_tpu_torch.parallel.mesh import (  # noqa: F401
     ProcessMesh,

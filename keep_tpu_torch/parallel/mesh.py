@@ -7,13 +7,15 @@ processes, and the collectives of a training step (counterpart of
   chunk per device, in order; the model is replicated on each device.
 - **Across processes** (training, one process per card): the ranks of the
   ``torch.distributed`` group form a ``ProcessMesh``, 'dp' alone or 'dp' ×
-  'mp' (``make_mesh(axes=("dp", "mp"), shape=(dp, mp))``,
-  ``make_hybrid_mesh``). Ranks are numbered dp-major with mp inner, so that
-  an mp group (tensor and sequence parallelism: ``parallel.tp``,
-  ``parallel.sp``) stays inside a node. The mp ranks of one dp index share
-  their rows of the global batch: dp index i of N holds rows
-  [i·B/N, (i+1)·B/N). ``gather_rows`` joins the rows' features over the dp
-  group for the loss; ``all_reduce_grads`` sums the gradients over it.
+  one inner axis: 'mp' (tensor and sequence parallelism: ``parallel.tp``,
+  ``parallel.sp``), 'pp' (pipeline stages: ``parallel.pp``) or 'ep'
+  (experts: ``models.moe``), as ``make_mesh(axes=("dp", "pp"), shape=(dp,
+  pp))`` or ``make_hybrid_mesh``. Ranks are numbered dp-major with the
+  inner axis last, so that its groups stay inside a node. The inner ranks
+  of one dp index share their rows of the global batch: dp index i of N
+  holds rows [i·B/N, (i+1)·B/N). ``gather_rows`` joins the rows' features
+  over the dp group for the loss; ``all_reduce_grads`` sums the gradients
+  over it.
 
 Every rank computes the same global loss from the gathered features, so a
 collective's backward takes the rank's own part of the gradient without
@@ -23,7 +25,12 @@ parameter that enters the loss only after the gather (``logit_scale``)
 already holds the whole gradient on every rank: it is not summed.
 
 The training run sets its mesh with ``use_mesh``; without one the dp group
-is every rank. The pp and ep layouts wait for ROADMAP item 10, step 2.
+is every rank.
+
+Every collective here goes through ``_staged``: gloo runs its collectives
+and its point-to-point sends on host tensors only, and the card's
+multi-rank runs share one device over gloo (NCCL refuses two ranks on one
+device), so a CUDA tensor travels through a host copy there.
 """
 
 from __future__ import annotations
@@ -39,7 +46,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-STEP_2 = "ROADMAP queue 1, item 10, step 2 (pp, ep)"
+# the axes a process mesh lays ranks out on: data, tensor (and sequence),
+# pipeline and expert parallelism
+AXES = ("dp", "mp", "pp", "ep")
 
 
 # -- the process mesh of a training run ----------------------------------------
@@ -152,15 +161,15 @@ def make_mesh(n_devices: Optional[int] = None, axes: Sequence[str] = ("dp",),
               shape: Optional[Sequence[int]] = None):
     """A 'dp' mesh in one process: the first ``n_devices`` of ``devices``
     (default: every CUDA device), a tuple of ``torch.device``s; ValueError
-    when fewer are present. Any other ``axes`` (('dp', 'mp')) is a
-    ``ProcessMesh`` over the ranks of the process group, of ``shape``
-    (default: every rank on 'dp'); axes but 'dp' and 'mp' (pp, ep) raise
-    NotImplementedError."""
+    when fewer are present. Any other ``axes`` (('dp', 'mp'), ('dp', 'pp'),
+    ('dp', 'ep')) is a ``ProcessMesh`` over the ranks of the process group,
+    of ``shape`` (default: every rank on 'dp'), the last axis inner; a shape
+    whose product is not the group's size raises ValueError."""
     axes = tuple(axes)
     if axes != ("dp",) or shape is not None:
-        if set(axes) - {"dp", "mp"}:
-            raise NotImplementedError(f"a mesh over axes {axes} is "
-                                      f"{STEP_2}, not ported yet")
+        unknown = [a for a in axes if a not in AXES]
+        if unknown or len(set(axes)) != len(axes):
+            raise ValueError(f"mesh axes {axes}: each one of {AXES}, once")
         if not dist.is_initialized():
             raise ValueError(f"a mesh over axes {axes} lays out the ranks "
                              f"of a process group: join one first")
@@ -285,6 +294,21 @@ def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
     if src is not t:
         t.copy_(src)
     return t
+
+
+def send(t: torch.Tensor, dst: int, group) -> None:
+    """Sends ``t`` to the rank of index ``dst`` in ``group`` (blocking)."""
+    dist.send(_staged(t.contiguous()), dist.get_global_rank(group, dst),
+              group=group)
+
+
+def recv(like: torch.Tensor, src: int, group) -> torch.Tensor:
+    """A tensor of ``like``'s shape, dtype and device received from the
+    rank of index ``src`` in ``group`` (blocking)."""
+    buf = _staged(torch.empty_like(
+        like, memory_format=torch.contiguous_format))
+    dist.recv(buf, dist.get_global_rank(group, src), group=group)
+    return buf.to(like.device)
 
 
 def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:

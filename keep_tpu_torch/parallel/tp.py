@@ -274,6 +274,12 @@ class _ReduceFromTP(torch.autograd.Function):
         return grad, None
 
 
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself; its gradient summed over ``group`` in the backward
+    (the input of a region whose every rank computes a share)."""
+    return _CopyToTP.apply(x, group)
+
+
 def region_in(x: torch.Tensor, tp: Optional[TensorParallel], split: bool,
               seq=None) -> torch.Tensor:
     """The input of a pair: [B, S, D] in full (sequence) on every mp rank.
@@ -283,7 +289,7 @@ def region_in(x: torch.Tensor, tp: Optional[TensorParallel], split: bool,
     if seq is not None:
         return seq.gather(x)
     if split:
-        return _CopyToTP.apply(x, tp.group)
+        return copy_to(x, tp.group)
     return x
 
 

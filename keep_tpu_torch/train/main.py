@@ -39,13 +39,13 @@ card itself (``spawn_local_workers``).
 The other layouts, across ranks: ``solver.fsdp`` (the state's large
 leaves sharded over dp), ``solver.tp = N`` (Megatron tensor parallelism
 over an mp group of N ranks; the ranks form a dp × mp mesh, mp inner),
-``solver.sp`` with tp (Megatron sequence parallelism) and tp with fsdp
-(``train/trainer.py``'s ``ParallelLayout``). Each follows the one-process
-trajectory; the checkpoints hold the one-process leaves, so a run resumes
-under any layout. The JAX trainer's config errors are raised in its words
-(``check_supported``). Not ported yet, and refused with
-NotImplementedError: ``solver.pp`` and ``solver.ep`` (ROADMAP queue 1,
-item 10, step 2).
+``solver.sp`` with tp (Megatron sequence parallelism), tp with fsdp,
+``solver.pp = N`` (GPipe over the visual trunk, N stages of a dp × pp
+mesh) and ``solver.ep = N`` (the MoE trunk's experts split over a dp × ep
+mesh) (``train/trainer.py``'s ``ParallelLayout``). Each follows the
+one-process trajectory; the checkpoints hold the one-process leaves, so a
+run resumes under any layout. The JAX trainer's config errors are raised
+in its words (``check_supported``).
 The tokenizer is ``factory.get_tokenizer``'s for ``dataset.tokenizer_type``
 (the native WordPiece for ``bert`` where it builds; BPE for ``clip``), as
 in the JAX package.
@@ -70,9 +70,11 @@ import numpy as np
 import torch
 
 from keep_tpu_torch.models.keep import KEEPModel
+from keep_tpu_torch.models.moe import EP_GATHER_REFUSED
 from keep_tpu_torch.parallel import gather_rows, local_rows, multihost
 from keep_tpu_torch.parallel.mesh import (current_mesh, dp_rank_world,
                                           make_mesh, use_mesh)
+from keep_tpu_torch.parallel.pp import pp_fraction
 from keep_tpu_torch.train import checkpoint as ckpt
 from keep_tpu_torch.train import eval as zs_eval
 from keep_tpu_torch.train import lora, optim, schedules, sync
@@ -117,11 +119,10 @@ def build_schedule(cfg: TrainRunConfig, steps_per_epoch: int):
 def check_supported(cfg: TrainRunConfig, world: int = 1) -> None:
     """The layout checks of the JAX trainer (keep_tpu/train/main.py), in
     its words, for ``world`` ranks: ValueError for a combination it
-    refuses, NotImplementedError for the layouts the port does not train
-    yet (``solver.pp`` / ``solver.ep``: ROADMAP item 10, step 2), then
-    ValueError for a tp that does not divide the ranks or a global batch
-    that does not divide over dp; and ValueError for a dense pretrained
-    image tower asked for an MoE trunk."""
+    refuses, for a tp / pp / ep that does not divide the ranks, for a
+    global batch that does not divide over dp (or, under pp, into pp
+    microbatches each divisible by dp); and ValueError for a dense
+    pretrained image tower asked for an MoE trunk."""
     if cfg.keep.vision.moe_experts > 0 and cfg.model.pretrained_image:
         raise ValueError(
             "model.pretrained_image loads a DENSE timm trunk: it cannot "
@@ -148,6 +149,8 @@ def check_supported(cfg: TrainRunConfig, world: int = 1) -> None:
     if ep > 1 and (tp > 1 or pp > 1):
         raise ValueError("solver.ep composes with dp only "
                          "(not solver.tp / solver.pp)")
+    if ep > 1 and cfg.keep.vision.moe_dispatch == "gather":
+        raise ValueError(EP_GATHER_REFUSED)
     if moe > 0 and (tp > 1 or pp > 1):
         raise ValueError("the MoE trunk trains with dp/fsdp/ep; "
                          "solver.tp / solver.pp are not composed with it")
@@ -160,36 +163,51 @@ def check_supported(cfg: TrainRunConfig, world: int = 1) -> None:
         raise ValueError("solver.ep and solver.fsdp are mutually exclusive "
                          "(expert leaves already shard; compose ep with "
                          "plain dp)")
-    if pp > 1 or ep > 1:
-        raise NotImplementedError(
-            "not ported yet: solver.pp / solver.ep (ROADMAP queue 1, item "
-            "10, step 2: dp, fsdp, tp and sp are ported)")
-    if tp > 1 and world % tp:
-        raise ValueError(f"solver.tp={tp} does not divide {world} devices")
-    dp = world // tp
-    if cfg.dataloader.batch_size % dp:
-        if tp > 1:
-            raise ValueError(
-                f"batch_size {cfg.dataloader.batch_size} not divisible by "
-                f"dp={dp} (devices {world} / tp={tp})")
-        raise ValueError(
-            f"dataloader.batch_size {cfg.dataloader.batch_size} (the global "
-            f"batch) does not divide over {world} ranks")
+    axis, mp = _inner_axis(cfg)
+    which = "tp" if axis == "mp" else axis
+    if mp > 1 and world % mp:
+        raise ValueError(f"solver.{which}={mp} does not divide {world} "
+                         f"devices")
+    dp = world // mp
+    batch = cfg.dataloader.batch_size
+    if batch % dp:
+        if mp > 1:
+            raise ValueError(f"batch_size {batch} not divisible by dp={dp} "
+                             f"(devices {world} / {which}={mp})")
+        raise ValueError(f"dataloader.batch_size {batch} (the global batch) "
+                         f"does not divide over {world} ranks")
+    if pp > 1 and (batch % pp or (batch // pp) % dp):
+        raise ValueError(f"solver.pp={pp}: batch_size {batch} must split "
+                         f"into pp microbatches each divisible by dp={dp}")
+
+
+def _inner_axis(cfg: TrainRunConfig) -> tuple[str, int]:
+    """The mesh axis besides 'dp' the solver asks for, and its size:
+    ('mp', tp), ('pp', pp) or ('ep', ep); ('mp', 1) for none."""
+    s = cfg.solver
+    for axis, n in (("mp", s.tp), ("pp", s.pp), ("ep", s.ep)):
+        if n > 1:
+            return axis, n
+    return "mp", 1
 
 
 def build_mesh(cfg: TrainRunConfig):
-    """The run's process mesh: 'dp' × 'mp' (mp = ``solver.tp``) when a
-    layout beyond plain data parallelism is asked for across ranks
-    (``solver.tp > 1``, or ``solver.fsdp`` over more than one rank); None
-    for plain data parallelism (the dp group is then every rank) and for
-    one process, where ``solver.fsdp`` changes nothing, as in the JAX
-    package on one device."""
+    """The run's process mesh: 'dp' × 'mp' (mp = ``solver.tp``), 'dp' ×
+    'pp' (``solver.pp``) or 'dp' × 'ep' (``solver.ep``) when a layout
+    beyond plain data parallelism is asked for across ranks (one of them
+    > 1, or ``solver.fsdp`` over more than one rank); None for plain data
+    parallelism (the dp group is then every rank) and for one process,
+    where ``solver.fsdp`` changes nothing, as in the JAX package on one
+    device."""
     world = multihost.process_count()
-    tp = max(1, cfg.solver.tp)
-    if world == 1 or (tp == 1 and not cfg.solver.fsdp):
+    axis, n = _inner_axis(cfg)
+    if world == 1 or (n == 1 and not cfg.solver.fsdp):
         return None
-    mesh = make_mesh(axes=("dp", "mp"), shape=(world // tp, tp))
-    logging.info("2-D mesh: dp=%d x tp=%d ranks", world // tp, tp)
+    mesh = make_mesh(axes=("dp", axis), shape=(world // n, n))
+    what = {"mp": "tp=%d ranks", "pp": "pp=%d ranks (GPipe over the "
+            "visual trunk)", "ep": "ep=%d ranks (experts sharded over "
+            "'ep')"}[axis]
+    logging.info("2-D mesh: dp=%d x " + what, world // n, n)
     return mesh
 
 
@@ -204,6 +222,10 @@ def log_layout(mesh, layout: ParallelLayout) -> None:
                      sum(v is not None for v in layout.tp.values()),
                      len(layout.tp), mesh.size("mp"),
                      " (SP: streams sequence-sharded)" if layout.sp else "")
+    if mesh.size("ep") > 1:
+        logging.info("EP: expert kernels sharded over ep=%d (%d of %d "
+                     "leaves)", mesh.size("ep"), len(layout.ep),
+                     len(layout.tp))
 
 
 def build_model(cfg: TrainRunConfig, device) -> KEEPModel:
@@ -300,13 +322,17 @@ def build_eval_data(cfg: TrainRunConfig, image_loader=None,
     return out
 
 
-def eval_encoders(model: KEEPModel, weights: Optional[dict], device):
+def eval_encoders(model: KEEPModel, weights: Optional[dict], device,
+                  pp_mesh=None):
     """``(encode_image(pixels), encode_text(ids, mask))`` for the eval:
     numpy batches in, feature tensors on ``device`` out, without autograd;
     ``weights`` (the merged LoRA tensors, or None) are swapped into the
     model for each call. Under data parallelism a batch that divides over
     the ranks is split, each rank encoding its rows, and the features
-    gathered; any other batch is encoded whole on every rank."""
+    gathered; any other batch is encoded whole on every rank. Under
+    pipeline parallelism (``pp_mesh``: the model's trunk is staged) the
+    image batch goes through the pipeline as one microbatch, which any
+    batch size divides."""
     world = dp_rank_world()[1]
 
     def weights_in():
@@ -325,8 +351,10 @@ def eval_encoders(model: KEEPModel, weights: Optional[dict], device):
     @torch.inference_mode()
     def encode_image(pixels):
         with weights_in():
-            return model.encode_image(torch.from_numpy(
-                np.ascontiguousarray(pixels)).to(device))
+            x = torch.from_numpy(np.ascontiguousarray(pixels)).to(device)
+            if pp_mesh is not None:
+                return model.encode_image_pp(x, pp_mesh, num_microbatches=1)
+            return model.encode_image(x)
 
     @torch.inference_mode()
     def encode_text(ids, mask):
@@ -338,11 +366,12 @@ def eval_encoders(model: KEEPModel, weights: Optional[dict], device):
 
 
 def evaluate(cfg: TrainRunConfig, model: KEEPModel, weights: Optional[dict],
-             eval_data: dict, tokenizer, logit_scale: float, device) -> dict:
+             eval_data: dict, tokenizer, logit_scale: float, device,
+             pp_mesh=None) -> dict:
     """The zero-shot metrics (``eval.zero_shot_eval``) and, with a 'val'
     set, the validation contrastive loss and R@K / rank metrics, at batch
     ``min(batch_size, 64)``."""
-    enc_img, enc_txt = eval_encoders(model, weights, device)
+    enc_img, enc_txt = eval_encoders(model, weights, device, pp_mesh)
     batch = min(cfg.dataloader.batch_size, 64)
     max_len = cfg.keep.max_text_length
     results = zs_eval.zero_shot_eval(
@@ -526,6 +555,10 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
                      mu_dtype=cfg.solver.mu_dtype)
     layout = None
     mesh = current_mesh()
+    if mesh is not None and mesh.size("pp") > 1:
+        logging.info("PP: %.0f%% of param elements staged over pp=%d",
+                     100 * pp_fraction(model, mesh.size("pp")),
+                     mesh.size("pp"))
     if mesh is not None:
         layout = ParallelLayout.build(model, mesh, fsdp=cfg.solver.fsdp,
                                       sp=cfg.solver.sp,
@@ -659,7 +692,8 @@ def _train(cfg: TrainRunConfig, tokenizer, dataset, image_loader, eval_data,
                                                lora_scale))
                     logit_scale = float(torch.exp(state.params["logit_scale"]))
                 zs = evaluate(cfg, model, weights, eval_data, tokenizer,
-                              logit_scale, device)
+                              logit_scale, device,
+                              layout and layout.pp_mesh)
                 del weights
                 results.update(zs)
                 logging.info("epoch %d eval: %s", epoch, zs)

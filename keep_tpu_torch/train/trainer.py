@@ -39,8 +39,15 @@ the gradients of the leaves used on a rank's rows only are summed over mp;
 under FSDP the state holds this rank's shards of the large leaves
 (``parallel.fsdp``), their gradients are reduce-scattered over dp, and
 after each update the shards are all-gathered into the model's compute
-copy. Clipping takes the global norm over the shards, a replicated leaf
-counted once.
+copy. Under pipeline parallelism (a 'dp' × 'pp' mesh) the model keeps its
+stage's trunk blocks only (``parallel.pp``) and the image tower runs
+through the pipeline (``encode_image_pp``); under expert parallelism ('dp'
+× 'ep') it keeps its experts of each MoE block (``models.moe``). Either
+way the state holds the model's own leaves, and every leaf's gradient
+sums over dp only: a staged leaf or an expert is whole on its rank, and a
+replicated leaf comes out the same on every rank of the pp or ep group.
+Clipping takes the global norm over the pieces, a replicated leaf counted
+once.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from keep_tpu_torch.models import moe
 from keep_tpu_torch.models.keep import KEEPModel
 from keep_tpu_torch.parallel import fsdp as pfsdp
 from keep_tpu_torch.parallel import mesh as pmesh
+from keep_tpu_torch.parallel import pp as ppp
 from keep_tpu_torch.parallel import tp as ptp
 from keep_tpu_torch.parallel.mesh import all_reduce_grads, gather_rows
 from keep_tpu_torch.train import lora
@@ -72,36 +80,53 @@ _IN_BLOCK = re.compile(r"^(visual|text)\.blocks\.\d+\.")
 class ParallelLayout:
     """The training state's layout over a process mesh and the step's
     collectives for it. ``tp``: every parameter's ``parallel.tp.Split``
-    over mp (None: replicated); ``fsdp``: {name: the axis of its (mp-local)
-    leaf sharded over dp}; ``sp``: the towers' ``act_sharding``;
-    ``sp_partial``: the leaves whose gradients sum over mp under it."""
+    over mp (None: replicated; every one-process name is a key);
+    ``fsdp``: {name: the axis of its (mp-local) leaf sharded over dp};
+    ``sp``: the towers' ``act_sharding``; ``sp_partial``: the leaves whose
+    gradients sum over mp under it; ``pp``: {name: the stage that holds
+    it} of the staged trunk leaves; ``ep``: {name: ``parallel.tp.Split``
+    of its expert axis over ep} of the split expert leaves."""
 
     mesh: pmesh.ProcessMesh
     tp: dict
     fsdp: dict
     sp: Optional[object] = None
     sp_partial: frozenset = frozenset()
+    pp: dict = dataclasses.field(default_factory=dict)
+    ep: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
     def build(cls, model: KEEPModel, mesh: pmesh.ProcessMesh, *,
               fsdp: bool = False, sp: bool = False,
               min_size: int = 1 << 16) -> "ParallelLayout":
-        """Splits ``model`` over the mesh's mp group (when it has one) and
-        lays the state out: the FSDP specs are taken on the one-process
-        shapes, before the split."""
+        """Splits ``model`` over the mesh's inner group (mp, pp or ep, when
+        it has one) and lays the state out: the specs are taken on the
+        one-process shapes, before the split."""
         from keep_tpu_torch.parallel.sp import seq_sharding
 
         n_mp, n_dp = mesh.size("mp"), mesh.size("dp")
         specs = ptp.tp_fsdp_shardings(model, n_mp, n_dp, min_size)
+        staged = experts = {}
         if n_mp > 1:
             ptp.shard_model_(model, mesh)
+        if mesh.size("pp") > 1:
+            staged = ppp.stage_model_(model, mesh)
+        if mesh.size("ep") > 1:
+            experts = moe.shard_experts_(model, mesh)
         tp = {n: split for n, (split, _) in specs.items()}
         shards = ({n: ax for n, (_, ax) in specs.items() if ax is not None}
                   if fsdp and n_dp > 1 else {})
         partial = frozenset(n for n in tp if sp and tp[n] is None
                             and _IN_BLOCK.match(n))
         return cls(mesh, tp, shards, seq_sharding(mesh) if sp else None,
-                   partial)
+                   partial,
+                   {n: s for n, s in staged.items() if s is not None},
+                   {n: s for n, s in experts.items() if s is not None})
+
+    @property
+    def pp_mesh(self) -> Optional[pmesh.ProcessMesh]:
+        """The mesh the image tower pipelines over, or None."""
+        return self.mesh if self.mesh.size("pp") > 1 else None
 
     def state_params(self, model: KEEPModel) -> dict:
         """The state's leaves: this rank's fp32 master shard of each FSDP
@@ -150,18 +175,25 @@ class ParallelLayout:
         for k, v in full.items():
             own[k].copy_(v)
 
+    def _inner(self) -> str:
+        """The mesh's axis besides 'dp' ('mp' when it has none)."""
+        return next((a for a in self.mesh.axes if a != "dp"), "mp")
+
     def norm(self, grads: dict) -> torch.Tensor:
         """The global gradient norm over the state's leaves: each leaf's
         sum of squares summed over the ranks that split it (dp for an FSDP
-        shard, mp for a tensor-parallel piece, every rank for both), a
-        replicated leaf counted once."""
+        shard; mp, pp or ep for a tensor-parallel piece, a stage's leaf or
+        an expert; every rank for an FSDP shard of a tensor-parallel
+        piece), a replicated leaf counted once."""
         parts: dict[tuple, torch.Tensor] = {}
         for k, g in grads.items():
-            key = (k in self.fsdp, self.tp.get(k) is not None)
+            key = (k in self.fsdp, self.tp.get(k) is not None
+                   or k in self.pp or k in self.ep)
             sq = torch.sum(g.float() * g.float())
             parts[key] = parts[key] + sq if key in parts else sq
         groups = {(False, False): False, (True, False): self.mesh.group("dp"),
-                  (False, True): self.mesh.group("mp"), (True, True): None}
+                  (False, True): self.mesh.group(self._inner()),
+                  (True, True): None}
         total = 0.0
         for key, sq in parts.items():
             if groups[key] is not False:
@@ -182,13 +214,39 @@ class ParallelLayout:
                 self.mesh.group("dp")))
         if self.mesh.size("mp") > 1:
             out = ptp.gather_tp(out, self.tp, self.mesh.group("mp"))
+        if self.ep:
+            out = ptp.gather_tp(out, self.ep, self.mesh.group("ep"))
+        if self.pp:
+            out.update(self._gather_stages(out))
+        return out
+
+    def _gather_stages(self, tree: dict) -> dict:
+        """Every stage's trunk leaves from the pp ranks' own (``tree``
+        holds this rank's stage): the stages' blocks have the same leaves,
+        so the j-th of each stage's names travel in one all-gather."""
+        n, me = self.mesh.size("pp"), self.mesh.rank("pp")
+        names = [[k for k, s in self.pp.items() if s == stage]
+                 for stage in range(n)]
+        out = {}
+        for j, k in enumerate(names[me]):
+            every = pmesh.all_gather(tree[k][None].contiguous(),
+                                     self.mesh.group("pp"))
+            for stage in range(n):
+                out[names[stage][j]] = every[stage]
         return out
 
     def place(self, full: dict) -> dict:
         """This rank's pieces of one-process leaves: its mp piece, then
-        its dp shard of that."""
-        return ptp.place_tp_fsdp(full, {k: (self.tp.get(k), self.fsdp.get(k))
-                                        for k in full}, self.mesh)
+        its dp shard of that; its experts; its stage's leaves and the
+        replicated ones."""
+        me = self.mesh.rank("pp")
+        full = {k: v for k, v in full.items() if self.pp.get(k, me) == me}
+        out = ptp.place_tp_fsdp(full, {k: (self.tp.get(k), self.fsdp.get(k))
+                                       for k in full}, self.mesh)
+        if self.ep:
+            out = ptp.place_tp(out, self.ep, self.mesh.size("ep"),
+                               self.mesh.rank("ep"))
+        return out
 
     @torch.no_grad()
     def load(self, model: KEEPModel, state: "TrainState", params: dict,
@@ -201,6 +259,9 @@ class ParallelLayout:
         own = dict(model.named_parameters())
         pieces = ptp.place_tp({k: params[k] for k in own}, self.tp, n_mp,
                               r_mp)
+        if self.ep:
+            pieces = ptp.place_tp(pieces, self.ep, self.mesh.size("ep"),
+                                  self.mesh.rank("ep"))
         for k, v in pieces.items():
             own[k].copy_(v)
         local = self.place({k: params[k] for k in own})
@@ -262,14 +323,25 @@ def to_device(batch: dict, device) -> dict:
 
 
 def _encode_batch(model: KEEPModel, batch: dict, remat: bool = True,
-                  act_sharding=None):
+                  act_sharding=None, pp_mesh=None):
     """(image features, text features, the MoE aux loss: 0 when dense) of
     this rank's rows; the aux loss is the global batch's.
-    ``act_sharding``: the towers' sequence split (``parallel.sp``)."""
+    ``act_sharding``: the towers' sequence split (``parallel.sp``);
+    ``pp_mesh``: the mesh whose 'pp' axis the visual trunk is staged over
+    (GPipe, ``parallel.pp``)."""
     kw = {} if act_sharding is None else {"act_sharding": act_sharding}
-    with moe.global_batch():
-        img, aux = model.encode_image(batch["pixels"], remat=remat,
-                                      return_aux=True, **kw)
+    if pp_mesh is not None:
+        if model.moe:
+            # encode_image_pp raises too; fail here so that library callers
+            # of compute_loss cannot train the router with a zero aux loss
+            raise NotImplementedError(
+                "pipeline parallelism does not compose with the MoE trunk")
+        img = model.encode_image_pp(batch["pixels"], pp_mesh, remat=remat)
+        aux = torch.zeros((), device=img.device)
+    else:
+        with moe.global_batch():
+            img, aux = model.encode_image(batch["pixels"], remat=remat,
+                                          return_aux=True, **kw)
     txt = model.encode_text(batch["input_ids"], batch.get("attention_mask"),
                             batch.get("token_type_ids"), remat=remat, **kw)
     return img, txt, aux
@@ -297,8 +369,10 @@ def _global_labels(batch: dict, row_dim: int = 0) -> dict:
 
 
 def compute_loss(model: KEEPModel, batch: dict, loss_cfg: LossConfig, *,
-                 remat: bool = True, act_sharding=None) -> torch.Tensor:
-    img, txt, aux = _encode_batch(model, batch, remat, act_sharding)
+                 remat: bool = True, act_sharding=None,
+                 pp_mesh=None) -> torch.Tensor:
+    img, txt, aux = _encode_batch(model, batch, remat, act_sharding,
+                                  pp_mesh)
     loss = _loss(gather_rows(img), gather_rows(txt), _global_labels(batch),
                  torch.exp(model.logit_scale), loss_cfg,
                  loss_cfg.caption_num)
@@ -393,7 +467,8 @@ def make_train_step(model: KEEPModel, loss_cfg: LossConfig, tx: AdamW, *,
                                                        lora_scale)))
         with weights:
             loss = compute_loss(model, batch, loss_cfg, remat=remat,
-                                act_sharding=layout and layout.sp)
+                                act_sharding=layout and layout.sp,
+                                pp_mesh=layout and layout.pp_mesh)
             grads = _grads(loss, compute)
         if layout is None:
             all_reduce_grads(grads, _live(state.params))

@@ -26,9 +26,10 @@ from keep_tpu.parallel import fsdp as jfsdp
 from keep_tpu_torch import configs
 from keep_tpu_torch.models.keep import KEEPModel
 from keep_tpu_torch.parallel import fsdp
-from tests.test_torch_tp import (assert_same_run, jax_losses,  # noqa: F401
+from tests.test_torch_multiprocess import jax_losses
+from tests.test_torch_tp import (assert_same_run,  # noqa: F401
                                  layout_config, one_process, reference,
-                                 run_layout, start)
+                                 run_cache, run_layout, start)
 from tests.test_torch_train import (CFG, JCFG, MOE_VISION,  # noqa: F401
                                     run_dirs)
 
@@ -105,7 +106,8 @@ def test_shards_gather_back():
     assert placed["big"].shape == (4, 3) and placed["small"].shape == (3,)
 
 
-def test_fsdp_follows_one_process(run_dirs, tmp_path, start, reference):
+def test_fsdp_follows_one_process(run_dirs, tmp_path, start, reference,
+                                  run_cache):
     """solver.fsdp at world 2 (the JAX test's min size 256): the
     one-process trajectory, and the state each rank keeps is its shard of
     every large leaf (the ranks' records); the losses also the JAX
@@ -117,7 +119,7 @@ def test_fsdp_follows_one_process(run_dirs, tmp_path, start, reference):
     assert_same_run(ranks, raw, layout_config(run_dirs, tmp_path / "probe"),
                     reference)
     want = jax_losses(layout_config(run_dirs, tmp_path / "jax", fsdp=True,
-                                    fsdp_min_size=256))
+                                    fsdp_min_size=256), run_cache)
     np.testing.assert_allclose(ranks[0]["losses"], want, rtol=1e-5)
 
 

@@ -14,10 +14,25 @@
 - ``main`` starting one worker per card (``spawn_local_workers``).
 
 Each worker has its own timeout; at these sizes a dp run takes ~10 s.
+
+The harness shared with the layout tests (``test_torch_{fsdp,tp,sp,pp,
+ep}.py``) is built for a loaded machine (the tier-1 run's six xdist
+workers on eight cores): every rank runs one thread; a rank that outlives
+``TIMEOUT`` fails its test with every rank's log tail; the JAX package's
+mesh runs (``jax_train``) run in a child process with ``JAX_POOL_THREADS``
+threads in XLA:CPU's pool (its default, one a core, equals the 8 virtual
+devices: a collective needs all 8 running at once, so one thread taken by
+other work deadlocked it on a loaded machine) whose collectives wait
+``JAX_COLLECTIVE_WAIT_S`` for a late participant; and what several
+tests share (the JAX mesh losses, the JAX initial weights, the
+one-process runs) is computed once per run, whichever worker asks first
+(``cached``).
 """
 
 import contextlib
 import copy
+import fcntl
+import hashlib
 import json
 import os
 import socket
@@ -41,7 +56,106 @@ from tests.torch_dp_worker import record_grads, record_losses
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_dp_worker.py")
-TIMEOUT = 180
+# seconds a rank may take: a run takes 10-35 s alone, several times that
+# beside five other busy workers
+TIMEOUT = 600
+# seconds an XLA:CPU collective of the JAX mesh runs waits for its last
+# participant before the process aborts
+JAX_COLLECTIVE_WAIT_S = 300
+# threads of XLA:CPU's pool in a JAX mesh run (``PJRT_NPROC``), which runs
+# the 8 virtual devices' programs: with the default (one a core, 8 on an
+# 8-core host) 3 of 16 fsdp runs, eight at once, left a collective waiting
+# for its eighth device; with 32, 16 of 16 ran through
+# (``tests/jax_pool_probe.py``)
+JAX_POOL_THREADS = 32
+JAX_CHILD = """
+import json, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+from keep_tpu.train import main as jmain
+from keep_tpu.train.config import TrainRunConfig
+with open(sys.argv[1]) as f:
+    jmain.train(TrainRunConfig.from_dict(json.load(f)))
+"""
+
+
+def cache_dir(factory) -> str:
+    """The directory every worker of this pytest run shares (xdist gives
+    each worker its own base temp under one run directory)."""
+    root = factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    d = root / "torch_shared"
+    d.mkdir(exist_ok=True)
+    return str(d)
+
+
+def _portable(raw: dict) -> dict:
+    """``raw`` without its directories (the data's are each worker's own
+    copy of the same files): a cache key."""
+    out = copy.deepcopy(raw)
+    out["save"]["output_dir"] = ""
+    for k, v in out["dataset"].items():
+        if isinstance(v, str) and os.sep in v:
+            out["dataset"][k] = os.path.basename(v)
+    return out
+
+
+def cached(root: str, kind: str, key, compute):
+    """``compute()`` once per pytest run for ``(kind, key)``: the first
+    caller computes and saves it (torch.save) under ``root`` while holding
+    the key's lock; every later caller, in any worker, loads it."""
+    h = hashlib.sha256(json.dumps([kind, key], sort_keys=True,
+                                  default=str).encode()).hexdigest()[:20]
+    path = os.path.join(root, f"{kind}_{h}.pt")
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            torch.save(compute(), path + ".tmp")
+            os.replace(path + ".tmp", path)
+    return torch.load(path, weights_only=False)
+
+
+def jax_child(raw: dict, pool: int | None = JAX_POOL_THREADS,
+              wait_s: int = JAX_COLLECTIVE_WAIT_S):
+    """``keep_tpu.train.main.train`` on ``raw`` on the JAX package's
+    8-device CPU mesh in a child process, with ``pool`` threads in
+    XLA:CPU's pool (None: its default) and collectives that abort after
+    ``wait_s``: the finished process (its output in ``stdout``)."""
+    os.makedirs(raw["save"]["output_dir"], exist_ok=True)
+    path = os.path.join(raw["save"]["output_dir"], "jax_run.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    flags = os.environ.get("XLA_FLAGS", "")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=(
+        f"{flags} --xla_cpu_collective_call_terminate_timeout_seconds="
+        f"{wait_s} --xla_cpu_collective_timeout_seconds={wait_s}").strip(),
+        PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    if pool is not None:
+        env["PJRT_NPROC"] = str(pool)
+    if "xla_force_host_platform_device_count" not in env["XLA_FLAGS"]:
+        env["XLA_FLAGS"] += " --xla_force_host_platform_device_count=8"
+    return subprocess.run([sys.executable, "-c", JAX_CHILD, path], env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=2 * wait_s)
+
+
+def jax_train(raw: dict) -> None:
+    """``jax_child`` on ``raw``; fails the test with the child's log
+    tail."""
+    p = jax_child(raw)
+    assert p.returncode == 0, f"JAX mesh run rc={p.returncode}\n" + \
+        p.stdout[-4000:]
+
+
+def jax_losses(raw: dict, root: str) -> list:
+    """The JAX trainer's per-epoch losses of ``raw`` (one step an epoch
+    here) on its 8-device CPU mesh, with ``raw``'s layout; once per run
+    (``cached`` under ``root``)."""
+    def run():
+        jax_train(copy.deepcopy(raw))
+        return _losses_of(raw)
+    return cached(root, "jax_losses", _portable(raw), run)
 
 
 def _free_port() -> int:
@@ -62,7 +176,7 @@ def _run_workers(mode: str, spec: dict | None, tmp_path, n: int = 2,
             json.dump(spec, f)
     env = dict(os.environ, MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(_free_port()), WORLD_SIZE=str(n),
-               LOCAL_WORLD_SIZE=str(n // nodes), OMP_NUM_THREADS="2",
+               LOCAL_WORLD_SIZE=str(n // nodes), OMP_NUM_THREADS="1",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
     procs = [subprocess.Popen([sys.executable, WORKER, mode, spec_path],
@@ -76,7 +190,16 @@ def _run_workers(mode: str, spec: dict | None, tmp_path, n: int = 2,
         for p in procs:
             outs.append(p.communicate(timeout=TIMEOUT)[0])
     except subprocess.TimeoutExpired:
-        pytest.fail("dp workers timed out:\n" + "\n".join(outs))
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        tails = []
+        for r, p in enumerate(procs):
+            log = outs[r] if r < len(outs) else p.communicate()[0]
+            state = f"exited {p.returncode}" if r < len(outs) else "killed"
+            tails.append(f"--- rank {r} ({state}):\n{log[-3000:]}")
+        pytest.fail(f"{mode} workers outlived {TIMEOUT} s:\n"
+                    + "\n".join(tails))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -161,11 +284,11 @@ def _variant(run_dirs, out_dir, name: str) -> dict:
     return raw
 
 
-def _jax_reference(raw: dict, variant: str):
+def _jax_reference(raw: dict, variant: str, root: str):
     """The JAX package's per-epoch losses (one step an epoch here) on its
     8-device mesh, and its initial weights (and adapters) as the port's."""
     cfg = JRunConfig.from_dict(copy.deepcopy(raw))
-    jmain.train(cfg)
+    losses = jax_losses(raw, root)
     kcfg = CFG_MOE if variant.startswith("moe") else CFG
     init = jmain.build_params(cfg, cfg.seed)
     params = from_jax_params(jax.tree.map(np.asarray, init), kcfg)
@@ -175,7 +298,7 @@ def _jax_reference(raw: dict, variant: str):
                              cfg.solver.lora_rank,
                              targets=tuple(cfg.solver.lora_targets))
         adapters = from_jax_lora(jax.tree.map(np.asarray, ad), kcfg)
-    return _losses_of(raw), params, adapters
+    return losses, params, adapters
 
 
 def _losses_of(raw: dict) -> list:
@@ -187,7 +310,8 @@ def _losses_of(raw: dict) -> list:
 
 @pytest.mark.parametrize("variant", ["plain", "accum", "lora", "moe",
                                      "moe_gather", "plain_two_nodes"])
-def test_dp2_train_matches_one_process_and_jax(run_dirs, tmp_path, variant):
+def test_dp2_train_matches_one_process_and_jax(run_dirs, tmp_path, variant,
+                                               tmp_path_factory):
     """dp=2 over gloo: each step's loss and summed gradient equal the
     one-process port's (rtol 1e-5, atol 1e-6) and the loss the JAX mesh
     run's (rtol 1e-5); the validation metrics of every epoch equal the
@@ -195,7 +319,8 @@ def test_dp2_train_matches_one_process_and_jax(run_dirs, tmp_path, variant):
     (``LOCAL_WORLD_SIZE=1``) each rank still takes its rows of the
     one-process batch."""
     want, params, adapters = _jax_reference(
-        _variant(run_dirs, tmp_path / "jax", variant), variant)
+        _variant(run_dirs, tmp_path / "jax", variant), variant,
+        cache_dir(tmp_path_factory))
     torch.save(params, tmp_path / "params.pt")
     spec = {"config": _variant(run_dirs, tmp_path / "dp", variant),
             "params": str(tmp_path / "params.pt"),

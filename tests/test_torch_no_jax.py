@@ -55,6 +55,8 @@ def test_imports_leave_jax_unloaded():
         "import keep_tpu_torch.text.fast_tokenizer, "
         "keep_tpu_torch.utils.golden, keep_tpu_torch.utils.profiling, "
         "keep_tpu_torch.kernels._library\n"
+        "from keep_tpu_torch.parallel import fsdp, mesh, multihost, pp, sp, "
+        "tp\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'keep_tpu'))\n"
         "assert not bad, bad\n"

@@ -53,16 +53,20 @@ def test_mesh_helpers():
     padded, n = pad_to_multiple(np.ones((10, 3)), 8)
     assert padded.shape == (16, 3) and n == 10
     assert make_mesh(3, devices=CPU8) == tuple(CPU8[:3])
-    # the errors that stay: a mesh larger than the devices present, and the
-    # layouts of item 10's step 2 still to come (pp, ep); a 'dp' × 'mp'
-    # mesh lays out the ranks of a process group, which needs one
+    # the errors that stay: a mesh larger than the devices present; a
+    # 'dp' × 'mp', 'dp' × 'pp' or 'dp' × 'ep' mesh lays out the ranks of a
+    # process group, which needs one (the layouts build over gloo ranks in
+    # tests/test_torch_pp.py and tests/test_torch_ep.py); an axis the
+    # meshes do not have
     with pytest.raises(ValueError, match="needs 9 present, found 8"):
         make_mesh(9, devices=CPU8)
     for axes in (("dp", "pp"), ("dp", "ep")):
-        with pytest.raises(NotImplementedError, match="step 2"):
+        with pytest.raises(ValueError, match="process group"):
             make_mesh(axes=axes, devices=CPU8)
     with pytest.raises(ValueError, match="process group"):
         make_mesh(axes=("dp", "mp"), devices=CPU8)
+    with pytest.raises(ValueError, match="each one of"):
+        make_mesh(axes=("dp", "sp"), devices=CPU8)
     model = torch.nn.Linear(2, 2)
     assert all(m is model for m in replicate(mesh, model))
 

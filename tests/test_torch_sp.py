@@ -18,7 +18,7 @@ from keep_tpu_torch.parallel import mesh as pmesh
 from keep_tpu_torch.parallel.sp import SeqParallel, seq_sharding
 from keep_tpu_torch.train import trainer
 from tests.test_torch_tp import (assert_same_run, layout_config,  # noqa: F401
-                                 reference, run_layout, start)
+                                 reference, run_cache, run_layout, start)
 from tests.test_torch_train import MOE_VISION, TEXT, run_dirs  # noqa: F401
 
 

@@ -19,7 +19,10 @@ port's one-process run, on the CPU over gloo (one process per rank,
 - the JAX trainer's config errors, in its words (``check_supported``).
 
 Each run is a few seconds at these sizes; the file stays under a minute on
-one worker.
+one worker. What the layout files share (the JAX initial weights, the
+one-process run, the JAX mesh losses) is computed once per pytest run
+(``tests/test_torch_multiprocess.cached``), whichever xdist worker asks
+first.
 """
 
 import copy
@@ -43,8 +46,8 @@ from keep_tpu_torch.parallel import tp as ptp
 from keep_tpu_torch.train import checkpoint as ckpt
 from keep_tpu_torch.train import main as tmain
 from keep_tpu_torch.train.config import TrainRunConfig
-from tests.test_torch_multiprocess import (_losses_of, _run_workers,
-                                           probe_grads)
+from tests.test_torch_multiprocess import (_portable, _run_workers, cache_dir,
+                                           cached, jax_losses, probe_grads)
 from tests.test_torch_train import CFG, _run_config, run_dirs  # noqa: F401
 from tests.torch_dp_worker import record_grads, record_losses
 
@@ -89,13 +92,6 @@ def one_process(raw: dict, params: dict | None = None) -> Run:
         tmain.train(TrainRunConfig.from_dict(raw), device="cpu",
                     params=params)
     return Run(losses, final_params(raw), steps[0]["params"])
-
-
-def jax_losses(raw: dict) -> list:
-    """The JAX trainer's per-epoch losses of ``raw`` (one step an epoch
-    here) on its 8-device CPU mesh, with ``raw``'s layout."""
-    jmain.train(JRunConfig.from_dict(copy.deepcopy(raw)))
-    return _losses_of(raw)
 
 
 def run_layout(raw: dict, tmp_path, name: str, n: int,
@@ -172,25 +168,38 @@ def assert_same_run(ranks: list[dict], raw: dict, probe: dict,
     assert not bad, bad
 
 
+def jax_start(raw: dict, cfg=CFG) -> dict:
+    """The JAX trainer's initial parameters of ``raw`` as the port's state
+    dict."""
+    jcfg = JRunConfig.from_dict(copy.deepcopy(raw))
+    return from_jax_params(
+        jax.tree.map(np.asarray, jmain.build_params(jcfg, jcfg.seed)), cfg)
+
+
+@pytest.fixture(scope="session")
+def run_cache(tmp_path_factory) -> str:
+    return cache_dir(tmp_path_factory)
+
+
 @pytest.fixture(scope="module")
-def start(run_dirs, tmp_path_factory) -> tuple[str, dict]:
+def start(run_dirs, tmp_path_factory, run_cache) -> tuple[str, dict]:
     """The JAX trainer's initial parameters of the layout config as the
     port's state dict, and the file they are saved in: every run here
     starts from them, so that the JAX mesh runs are comparable."""
     raw = layout_config(run_dirs, tmp_path_factory.mktemp("start"))
-    cfg = JRunConfig.from_dict(raw)
-    params = from_jax_params(
-        jax.tree.map(np.asarray, jmain.build_params(cfg, cfg.seed)), CFG)
+    params = cached(run_cache, "start", _portable(raw),
+                    lambda: jax_start(raw))
     path = str(tmp_path_factory.mktemp("start") / "params.pt")
     torch.save(params, path)
     return path, params
 
 
 @pytest.fixture(scope="module")
-def reference(run_dirs, tmp_path_factory, start):
+def reference(run_dirs, tmp_path_factory, start, run_cache):
     """The one-process run every layout here is held to."""
     raw = layout_config(run_dirs, tmp_path_factory.mktemp("one"))
-    return one_process(raw, start[1])
+    return Run(*cached(run_cache, "one_process", _portable(raw),
+                       lambda: tuple(one_process(raw, start[1]))))
 
 
 def _model(cfg=CFG) -> KEEPModel:
@@ -273,7 +282,8 @@ def test_qkv_pieces_hold_their_heads():
     assert torch.equal(ptp._unshard(pieces, split), w)
 
 
-def test_tp2_follows_one_process(run_dirs, tmp_path, start, reference):
+def test_tp2_follows_one_process(run_dirs, tmp_path, start, reference,
+                                run_cache):
     """solver.tp = 2 at world 2 (dp 1 × mp 2): the towers' attention on
     H/2 heads a rank, Megatron's collectives, the one-process trajectory;
     the losses also the JAX trainer's at tp = 2 on its 8-device mesh (dp 4
@@ -282,7 +292,8 @@ def test_tp2_follows_one_process(run_dirs, tmp_path, start, reference):
     ranks = run_layout(raw, tmp_path, "tp", 2, start[0])
     assert_same_run(ranks, raw, layout_config(run_dirs, tmp_path / "probe"),
                     reference)
-    want = jax_losses(layout_config(run_dirs, tmp_path / "jax", tp=2))
+    want = jax_losses(layout_config(run_dirs, tmp_path / "jax", tp=2),
+                      run_cache)
     np.testing.assert_allclose(ranks[0]["losses"], want, rtol=1e-5)
 
 
@@ -362,13 +373,19 @@ def test_config_errors_as_jax(run_dirs, tmp_path, solver, world, match):
 
 @pytest.mark.parametrize("solver", [{"pp": 2}, {"ep": 2, "moe": True}])
 def test_pp_and_ep_still_refused(run_dirs, tmp_path, solver):
+    """pp and ep are refused only where the JAX trainer refuses them: at
+    world 8 the (dp 4, pp 2) and (dp 4, ep 2) layouts pass the checks; 3
+    ranks raise its ValueError, in its words."""
     raw = _run_config(run_dirs, tmp_path)
     solver = dict(solver)
     if solver.pop("moe", False):
         raw["keep"]["vision"]["moe_experts"] = 4
     raw["solver"].update(solver)
-    with pytest.raises(NotImplementedError, match="item 10, step 2"):
-        tmain.check_supported(TrainRunConfig.from_dict(raw), 8)
+    tmain.check_supported(TrainRunConfig.from_dict(raw), 8)
+    which = "pp" if "pp" in solver else "ep"
+    with pytest.raises(ValueError,
+                       match=f"solver.{which}=2 does not divide 3 devices"):
+        tmain.check_supported(TrainRunConfig.from_dict(raw), 3)
 
 
 def test_dataclass_layout_matches_specs():

@@ -347,11 +347,11 @@ def test_accum_step_matches_full_batch(jparams, rng):
 # ---- data ---------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def run_dirs(tmp_path_factory):
+def write_run_data(d):
+    """The training runs' data under the directory ``d`` (a Path): 8
+    images in 4 groups, the knowledge graph and the vocabulary."""
     from PIL import Image
 
-    d = tmp_path_factory.mktemp("torch_train")
     img_dir = d / "images"
     img_dir.mkdir()
     rng = np.random.default_rng(0)
@@ -374,6 +374,11 @@ def run_dirs(tmp_path_factory):
     (d / "kg.json").write_text(json.dumps(NODES))
     (d / "vocab.txt").write_text("\n".join(VOCAB))
     return d
+
+
+@pytest.fixture(scope="module")
+def run_dirs(tmp_path_factory):
+    return write_run_data(tmp_path_factory.mktemp("torch_train"))
 
 
 def test_batch_iterator_matches_jax(run_dirs):
@@ -576,9 +581,8 @@ def test_config_matches_jax_loader(tmp_path):
     ("dataset", "tokenizer_type", "clip"),
 ])
 def test_refused_options_raise(run_dirs, tmp_path, section, key, value):
-    """What the port does not train yet (pp, ep) raises, naming its
-    ROADMAP item, before any output. The layouts ported since raise the JAX
-    trainer's ValueErrors in one process (tp = 2 does not divide one
+    """The parallel layouts raise the JAX trainer's ValueErrors in one
+    process, before any output (tp, pp or ep = 2 does not divide one
     device; sp requires tp), and fsdp in one process trains unsharded, as
     the JAX trainer does on one device. An MoE trunk trains (``test_moe_train_step_matches_
     jax``); what stays refused for it is a dense pretrained image tower,
@@ -616,11 +620,11 @@ def test_refused_options_raise(run_dirs, tmp_path, section, key, value):
         res = tmain.train(TrainRunConfig.from_dict(raw), device="cpu")
         assert np.isfinite(res["train_loss"])
         return
-    else:
+    else:  # pp, ep: in one process, the JAX trainer's config error
         if key == "ep":  # on a dense trunk ep is the JAX config error
             raw["keep"]["vision"] = dict(VISION, moe_experts=4)
-        with pytest.raises(NotImplementedError,
-                           match="not ported yet.*ROADMAP.*step 2"):
+        with pytest.raises(ValueError,
+                           match=f"solver.{key}=2 does not divide 1 devices"):
             tmain.train(TrainRunConfig.from_dict(raw))
     assert not (tmp_path / "exp").exists()  # refused before any output
 

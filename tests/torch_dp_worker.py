@@ -2,16 +2,21 @@
 (``tests/test_torch_multiprocess.py``), one process per rank over gloo on
 the CPU:
 
-    python tests/torch_dp_worker.py <objects|mesh|train> <spec.json>
+    python tests/torch_dp_worker.py <objects|mesh|pipeline|train> <spec>
 
 under the torchrun-style environment the test sets (MASTER_ADDR /
 MASTER_PORT / RANK / WORLD_SIZE). ``objects`` checks the object
 collectives and the training step's tensor collectives against their
 definitions; ``mesh`` (four ranks) the dp × mp process mesh, its groups
-and the sequence-parallel collectives; ``train`` runs ``keep_tpu_torch.train.main.train`` as the spec
-says and writes each step's loss and the last record to
-``<spec.out>.<rank>.json``, and each step's starting parameters and
-reduced gradients to ``<spec.out>.<rank>.grads.pt``. Imports the port only.
+and the sequence-parallel collectives; ``pipeline`` (four ranks)
+``parallel.pp.pipeline_blocks`` and ``vit_forward_pp`` against a loop in
+one process, writing its readings to ``<spec.out>.<rank>.json`` and the
+ViT's features to ``<spec.out>.<rank>.vit.pt``; ``train`` runs
+``keep_tpu_torch.train.main.train`` as the spec says and writes each
+step's loss and the last record to ``<spec.out>.<rank>.json``, each step's
+starting parameters and reduced gradients to
+``<spec.out>.<rank>.grads.pt`` and the rank's own state after the last
+step to ``<spec.out>.<rank>.final.pt``. Imports the port only.
 """
 
 import contextlib
@@ -45,13 +50,14 @@ def record_losses(tmain, losses: list):
 
 
 @contextlib.contextmanager
-def record_grads(grads: list):
+def record_grads(grads: list, final: dict | None = None):
     """Appends, for each optimizer step, ``{"params": ..., "grads": ...}``
     to ``grads``: the trained parameters the step started from and the
     gradient dict as the optimizer gets it (summed over the ranks, before
     the freeze mask and clipping), as CPU tensors; under a parallel layout
     (the step's ``layout``) both as one-process leaves, gathered from every
-    rank's pieces."""
+    rank's pieces. ``final`` takes this rank's own state leaves after each
+    step (the last step's when the block ends)."""
     from keep_tpu_torch.train import trainer
 
     apply = trainer._optimizer_apply
@@ -67,7 +73,11 @@ def record_grads(grads: list):
                             for n, t in tree.items()}
                       for key, tree in (("params", params),
                                         ("grads", g_full))})
-        return apply(state, g, *args, **kw)
+        out = apply(state, g, *args, **kw)
+        if final is not None:
+            final.update({n: t.detach().cpu().clone()
+                          for n, t in state.params.items()})
+        return out
 
     trainer._optimizer_apply = recording
     try:
@@ -172,6 +182,109 @@ def check_mesh() -> str:
     return f"OK rank={rank}"
 
 
+def _toy_blocks(depth: int, d: int, seed: int = 0) -> list:
+    """``depth`` layers of tanh(h @ w + b), each a dict of tensors that
+    take gradients."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return [{"w": (torch.randn(d, d, generator=gen) / d).requires_grad_(),
+             "b": torch.randn(d, generator=gen).requires_grad_()}
+            for _ in range(depth)]
+
+
+def _toy_step(lp, h):
+    import torch
+
+    return torch.tanh(h @ lp["w"] + lp["b"])
+
+
+def check_pipeline(spec: dict) -> str:
+    """Four ranks: ``pipeline_blocks`` over 4 stages (one dp index) and
+    over 2 stages of a dp 2 × pp 2 mesh, each at two microbatch counts,
+    with and without remat, against the loop over all layers in this
+    process: the output on every rank, the gradients of the stage's
+    layers (summed over dp) and of the input (max |Δ| of each, written to
+    the readings); the shape errors; one stage; ``vit_forward_pp`` of the
+    ViT in the spec over 4 stages, its blocks whole and staged
+    (``HeldElsewhere``), the features written for the test to hold to the
+    JAX package's."""
+    import torch
+
+    from keep_tpu_torch import configs
+    from keep_tpu_torch.models.vit import VisionTransformer
+    from keep_tpu_torch.parallel import mesh, multihost, pp
+
+    assert multihost.init_from_env("cpu") is True
+    rank = multihost.process_index()
+    depth, d, b = 8, 16, 8
+    blocks = _toy_blocks(depth, d)
+    x0 = torch.randn(b, d, generator=torch.Generator().manual_seed(1))
+    x = x0.clone().requires_grad_()
+    h = x
+    for lp in blocks:
+        h = _toy_step(lp, h)
+    want = h.detach()
+    want_g = torch.autograd.grad(h.pow(2).sum(), [x] + [lp[k] for lp in blocks
+                                                        for k in "wb"])
+    readings: dict = {}
+    meshes = {4: mesh.make_mesh(axes=("dp", "pp"), shape=(1, 4)),
+              2: mesh.make_mesh(axes=("dp", "pp"), shape=(2, 2))}
+    for n_stages, m, remat in ((4, 4, False), (4, 8, False), (2, 2, False),
+                               (2, 4, False), (4, 4, True), (2, 2, True)):
+        mm = meshes[n_stages]
+        rows = mesh.batch_sharding(range(mm.size("dp")), b)[mm.rank("dp")]
+        x = x0[rows].clone().requires_grad_()
+        got = pp.pipeline_blocks(_toy_step, blocks, x, mm,
+                                 num_microbatches=m, remat=remat)
+        leaves = [lp[k] for lp in blocks for k in "wb"]
+        g = torch.autograd.grad(got.pow(2).sum(), [x] + leaves,
+                                allow_unused=True)
+        # the stage's layers: their gradient summed over dp; the others
+        # take none on this rank
+        k = depth // n_stages
+        mine = range(mm.rank("pp") * k * 2, (mm.rank("pp") + 1) * k * 2)
+        err_p = 0.0
+        for i, gi in enumerate(g[1:]):
+            if i not in mine:
+                assert gi is None, (n_stages, m, i)
+                continue
+            gi = mesh.all_reduce_(gi.clone(), mm.group("dp"))
+            err_p = max(err_p, float((gi - want_g[1 + i]).abs().max()))
+        readings[f"{n_stages}_{m}_{'remat' if remat else 'plain'}"] = {
+            "out": float((got.detach() - want[rows]).abs().max()),
+            "grad_params": err_p,
+            "grad_input": float((g[0] - want_g[0][rows]).abs().max())}
+    errors = []
+    for depth_, rows_ in ((6, 4), (8, 3)):  # 6 layers over 4; B=3 over M=4
+        try:
+            pp.pipeline_blocks(_toy_step, _toy_blocks(depth_, d),
+                               torch.zeros(rows_, d), meshes[4])
+        except ValueError as e:
+            errors.append(str(e))
+    readings["shape_errors"] = errors
+    one = pp.pipeline_blocks(_toy_step, blocks, x0, None)
+    readings["one_stage_equal"] = bool(torch.equal(one, want))
+    # the ViT: whole blocks, then staged ones
+    cfg = configs.ViTConfig(**spec["vit_cfg"])
+    vit = VisionTransformer(cfg)
+    vit.load_state_dict(torch.load(spec["vit"], weights_only=True))
+    px = torch.load(spec["pixels"], weights_only=True)
+    feats = {"whole": pp.vit_forward_pp(vit, px, meshes[4],
+                                        num_microbatches=4)}
+    with torch.no_grad():
+        for j in range(len(vit.blocks)):
+            s = pp.stage_of(j, len(vit.blocks), 4)
+            if s != meshes[4].rank("pp"):
+                vit.blocks[j] = pp.HeldElsewhere(j, s)
+    feats["staged"] = pp.vit_forward_pp(vit, px, meshes[4])
+    torch.save({k: v.detach() for k, v in feats.items()},
+               f"{spec['out']}.{rank}.vit.pt")
+    with open(f"{spec['out']}.{rank}.json", "w") as f:
+        json.dump(readings, f)
+    return f"OK rank={rank}"
+
+
 def run_train(spec: dict) -> str:
     import numpy as np
     import torch
@@ -190,10 +303,12 @@ def run_train(spec: dict) -> str:
         kw["eval_data"] = {"val": (ev["pixels"], list(ev["texts"]))}
     losses: list = []
     grads: list = []
-    with record_losses(tmain, losses), record_grads(grads):
+    final: dict = {}
+    with record_losses(tmain, losses), record_grads(grads, final):
         results = tmain.train(cfg, device="cpu", **kw)
     rank = multihost.process_index()
     torch.save(grads, f"{spec['out']}.{rank}.grads.pt")
+    torch.save(final, f"{spec['out']}.{rank}.final.pt")
     with open(f"{spec['out']}.{rank}.json", "w") as f:
         json.dump({"rank": rank, "world": multihost.process_count(),
                    "losses": losses, "results": results}, f, default=float)
@@ -205,6 +320,9 @@ def main(mode: str, spec_path: str) -> None:
         print(check_objects(), flush=True)
     elif mode == "mesh":
         print(check_mesh(), flush=True)
+    elif mode == "pipeline":
+        with open(spec_path) as f:
+            print(check_pipeline(json.load(f)), flush=True)
     else:
         with open(spec_path) as f:
             print(run_train(json.load(f)), flush=True)
