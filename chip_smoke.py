@@ -372,8 +372,26 @@ After phase 14, the model families ported last:
     one-process run's (dp's) within 1e-3; per rank the peak memory and
     where its time went (spawn, imports, group, model, steps, gathers,
     checkpoint).
+28. precision_policy — after 7, on phase 6's weights: ``serve.build_server
+    (["--int8"])`` as it stands (the co-located line with the link's
+    measured RTT median: int8 at every bucket), then again with
+    ``utils.rtt``'s memo at a relay's 28 ms median, where the real
+    ``rtt.pick_by_probe`` times B=1 int8 and bf16 image dispatches (both
+    medians printed) and serves image bucket 1 from the winner: the
+    winner's bucket-1 features bit-equal to its own ``encode_image`` of
+    the tile, with the launches of its route; buckets 8 and 128 bit-equal
+    to the int8 model's; after an int8 choice the build's device memory
+    within 5% of the co-located build's (no bf16 copy; where the probe
+    picks bf16, a third build with an infinite margin keeps int8 and
+    takes this gate). Then ``InferenceServer(alt_model=bf16,
+    alt_buckets={"image": (1,)})`` built directly: bucket 1 through #1
+    alone (24 launches, no int8 operator), bucket 8 through #4 / #6 / #8 /
+    #9 (24 / 24 / 1 / 2).
 
-Then one JSON line describing the kernels (each TPU kernel's counterpart:
+Then one JSON line of what ptxas made of every kernel function of the
+library (``utils.compile.kernel_resources``: registers, spills, stack,
+static shared memory), every ``.cu`` the kernels line names among its
+sources, then one JSON line describing the kernels (each TPU kernel's counterpart:
 its launches on the path that runs it, its time, its plain version's, its
 bound — the larger of its operations over the card's peak for their type
 and its bytes over 3.35 TB/s — and the one PyTorch call that computes the
@@ -2685,6 +2703,238 @@ def check_int8_server(cfg, feats, bf16_features, plain_features, launches,
               "similarity_max_err": sim_err}
     phase("server_int8", **result)
     return result
+
+
+# ---- 28. precision_policy: --precision-policy auto's probe -----------------
+
+# a relay's median round trip, as tests/test_serve.py:424 sets it
+RELAY_MS = 28.0
+POLICY_MEMORY_GATE = 0.05   # of the co-located build's device bytes
+POLICY_BUCKETS = (8, 128)   # besides bucket 1, held to the int8 model
+
+
+def _allocated(torch, device: str) -> int:
+    import gc
+
+    gc.collect()
+    if torch.device(device).type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def policy_build(torch, serve, d: str, device: str, probe=None) -> tuple:
+    """``build_server(["--int8"])`` on ``d``: the core, the lines it
+    printed (echoed), the device bytes it holds once built, and what
+    ``rtt.pick_by_probe`` returned (``probe`` in its place, or the real
+    one, recorded)."""
+    from keep_tpu_torch.utils import rtt
+
+    real, seen = rtt.pick_by_probe, []
+
+    def recorded(*a, **kw):
+        out = (probe or real)(*a, **kw)
+        seen.append(out)
+        return out
+
+    base = _allocated(torch, device)
+    buf = io.StringIO()
+    rtt.pick_by_probe = recorded
+    try:
+        with contextlib.redirect_stdout(buf):
+            core, httpd = serve.build_server(["--model-dir", d, "--port", "0",
+                                              "--device", device, "--int8"])
+    finally:
+        rtt.pick_by_probe = real
+    httpd.server_close()
+    print(buf.getvalue(), end="", flush=True)
+    return core, buf.getvalue(), _allocated(torch, device) - base, (
+        seen[0] if seen else None)
+
+
+def counted_serve(fa, core, tiles) -> tuple:
+    """One ``encode_image`` of ``core``, with the launch counts set to 0
+    just before it and read just after: (features, #1's launches, the
+    int8 operators')."""
+    reset_launches(fa)
+    feats = core.encode_image(tiles)
+    attention, int8 = read_launches(fa)
+    return feats, attention, {k: v for k, v in int8.items() if v}
+
+
+def own_features(torch, model, tiles, cfg, device: str) -> np.ndarray:
+    """``model.encode_image`` of the uint8 ``tiles``, normalised on the
+    device as the server does, outside any server."""
+    from keep_tpu_torch.configs import PreprocessConfig
+    from keep_tpu_torch.ops.preprocess import normalize_only
+
+    px = torch.from_numpy(np.ascontiguousarray(tiles)).to(device)
+    with torch.inference_mode():
+        out = model.encode_image(normalize_only(
+            px, PreprocessConfig(size=cfg.vision.img_size)))
+    return out.float().cpu().numpy()
+
+
+def int8_dispatch_launches(cfg) -> dict:
+    """The int8 operators' launches in one image dispatch."""
+    return {"quantized_attention_block": cfg.vision.depth,
+            "quantized_mlp_bsd": cfg.vision.depth,
+            "quantized_matmul_bsd": 1, "quantized_matmul": 2}
+
+
+def check_route(tag: str, cfg, attention: int, int8: dict,
+                bf16: bool) -> None:
+    """A bf16 dispatch launches #1 a block and no int8 kernel; an int8 one
+    #1 a block inside #4 and #4 / #6 / #8 / #9 as
+    ``int8_dispatch_launches`` says."""
+    want = {} if bf16 else int8_dispatch_launches(cfg)
+    got = int8 if bf16 else {k: int8.get(k, 0) for k in want}
+    if attention != cfg.vision.depth or got != want:
+        raise AssertionError(
+            f"{tag}: #1 {attention} launches, int8 operators {int8}; want "
+            f"{cfg.vision.depth} and {want}")
+
+
+def drive_precision_policy(torch, fa, serve, cfg, d: str,
+                           device: str = "cuda", relay_ms: float = RELAY_MS,
+                           buckets: tuple = POLICY_BUCKETS) -> dict:
+    """28. precision_policy (see the module docstring)."""
+    import math
+
+    from keep_tpu_torch.models.keep import KEEPModel
+    from keep_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from keep_tpu_torch.utils import rtt
+
+    t0 = time.perf_counter()
+    key = str(torch.device(device))
+    rng = np.random.default_rng(28)
+    size = cfg.vision.img_size
+    tile = rng.integers(0, 256, (1, size, size, 3), dtype=np.uint8)
+    batches = {b: rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)
+               for b in buckets}
+    out: dict = {}
+
+    # (a) as it stands: the link measured, co-located
+    rtt._memo.pop(key, None)
+    core, text, colocated_bytes, probed = policy_build(torch, serve, d,
+                                                       device)
+    try:
+        link = rtt._memo[key]
+        if ("co-located — int8 at every bucket" not in text or probed
+                or core.alt_model is not None or rtt.rtt_dominated(link)):
+            raise AssertionError(f"co-located build: {text!r}, probe "
+                                 f"{probed}, link {link}")
+        out["colocated"] = {"rtt_median_ms": link["median_ms"],
+                            "rtt_p95_ms": link["p95_ms"],
+                            "device_bytes": colocated_bytes}
+    finally:
+        core.stop()
+    del core
+
+    # (b) a relay's round trip: the real probe decides image bucket 1
+    rtt._memo[key] = {"median_ms": relay_ms, "p95_ms": relay_ms,
+                      "min_ms": relay_ms, "n": 1}
+    try:
+        core, text, relay_bytes, (choice, meds) = policy_build(
+            torch, serve, d, device)
+        try:
+            if f"relay RTT median {relay_ms:.1f} ms" not in text or \
+                    f"image bucket 1 served {choice}" not in text:
+                raise AssertionError(f"relay build printed {text!r}")
+            bf16 = choice == "bf16"
+            if (core.alt_model is not None) != bf16:
+                raise AssertionError(f"probe chose {choice}, alt model "
+                                     f"{core.alt_model is not None}")
+            winner = core.alt_model if bf16 else core.model
+            got, attention, int8 = counted_serve(fa, core, tile)
+            check_route(f"relay bucket 1 ({choice})", cfg, attention, int8,
+                        bf16)
+            if not np.array_equal(got, own_features(torch, winner, tile, cfg,
+                                                    device)):
+                raise AssertionError(f"bucket 1 differs from the {choice} "
+                                     f"model's own encode_image")
+            for b, x in batches.items():
+                if not np.array_equal(core.encode_image(x), own_features(
+                        torch, core.model, x, cfg, device)):
+                    raise AssertionError(f"bucket {b} differs from the int8 "
+                                         f"model's own encode_image")
+        finally:
+            core.stop()
+        del core
+        out["relay"] = {"rtt_median_ms": relay_ms, "choice": choice,
+                        "b1_median_ms": meds, "device_bytes": relay_bytes,
+                        "bucket1_launches": {"attention": attention,
+                                             **int8},
+                        "bit_equal_buckets": [1, *buckets]}
+        if bf16:
+            # (c) the probe picked bf16: a third build, whose margin keeps
+            # int8 whatever the medians, takes the memory gate
+            core, text, int8_bytes, (choice_c, meds_c) = policy_build(
+                torch, serve, d, device,
+                probe=functools.partial(rtt.pick_by_probe, margin=math.inf))
+            core.stop()
+            del core
+            if choice_c != "int8":
+                raise AssertionError(f"infinite margin chose {choice_c}")
+            out["relay_int8_kept"] = {"b1_median_ms": meds_c,
+                                      "device_bytes": int8_bytes}
+        else:
+            int8_bytes = relay_bytes
+    finally:
+        rtt._memo.pop(key, None)
+    if torch.device(device).type == "cuda":
+        excess = abs(int8_bytes - colocated_bytes) / colocated_bytes
+        out["int8_choice_bytes_vs_colocated"] = excess
+        if excess > POLICY_MEMORY_GATE:
+            raise AssertionError(
+                f"after an int8 choice the build holds {int8_bytes} device "
+                f"bytes against the co-located {colocated_bytes}: a bf16 "
+                f"copy stayed")
+
+    # (d) the server core with the bf16 model beside the int8 one, built
+    # directly
+    base = _allocated(torch, device)
+    bf16_model = KEEPModel.from_pretrained(d, dtype=torch.bfloat16,
+                                           use_flash=True, device=device)
+    q = bf16_model.quantize()
+    both = _allocated(torch, device) - base
+    if torch.device(device).type == "cuda" and \
+            both - colocated_bytes <= POLICY_MEMORY_GATE * colocated_bytes:
+        raise AssertionError(f"a bf16 copy ({both - colocated_bytes} bytes) "
+                             f"sits inside the memory gate")
+    direct = serve.InferenceServer(
+        q, WordPieceTokenizer.from_pretrained(d),
+        max_length=min(cfg.max_text_length, cfg.text.max_position_embeddings),
+        image_size=size, alt_model=bf16_model, alt_buckets={"image": (1,)})
+    try:
+        _, attention1, int8_1 = counted_serve(fa, direct, tile)
+        check_route("direct bucket 1", cfg, attention1, int8_1, bf16=True)
+        _, attention8, int8_8 = counted_serve(fa, direct, batches[8])
+        check_route("direct bucket 8", cfg, attention8, int8_8, bf16=False)
+    finally:
+        direct.stop()
+    del direct, q, bf16_model
+    out["direct"] = {"bf16_and_int8_bytes": both,
+                     "bucket1": {"attention": attention1, **int8_1},
+                     "bucket8": {"attention": attention8, **int8_8}}
+    out["seconds"] = time.perf_counter() - t0
+    phase("precision_policy", **out)
+    return out
+
+
+def resources_line(kernels: list[dict]) -> list[dict]:
+    """ptxas's record of every kernel function of the library
+    (``utils.compile.kernel_resources``), checked to cover every ``.cu``
+    the kernels line names among its sources."""
+    from keep_tpu_torch.utils.compile import kernel_resources
+
+    records = kernel_resources()
+    named = {os.path.basename(p) for k in kernels
+             for p in [k["source"], *k.get("sources", [])] if p.endswith(".cu")}
+    covered = {r["source"] for r in records}
+    if not named or named - covered:
+        raise AssertionError(f"no ptxas record for {sorted(named - covered)}")
+    return records
 
 
 # ---- 10.–12. the zero-shot WSI sweep ----------------------------------------
@@ -6909,6 +7159,9 @@ def main() -> int:
             core8.stop()
         del core8
         torch.cuda.empty_cache()
+        # 28. --precision-policy auto: co-located, then the relay's probe
+        policy = drive_precision_policy(torch, fa, serve, cfg, d_init)
+        torch.cuda.empty_cache()
         # 10.–12. the zero-shot WSI sweep on the same weights
         wsi = drive_wsi(torch, fa, d_init)
         torch.cuda.empty_cache()
@@ -7016,13 +7269,16 @@ def main() -> int:
         del model, model8
     torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": kernel_line(
+    kernels = kernel_line(
         rows, bwd_rows, heads_rows, heads_launches, int8_rows, ln_rows,
         fused, served, served8, trained, f32_rows, wsi, lora_trained,
         lora_served, calibrated, pyramid, zoo_rows, zoo_heads_rows, zoo,
         long_seq, towers, coca_out, pmc, moe_out, compat, aot_out,
         {"train": dp_train, "gloo": dp2["dp"], "serve": dp_serve,
-         "wsi": dp_wsi}, wide, dp2, pp_ep)}), flush=True)
+         "wsi": dp_wsi}, wide, dp2, pp_ep, policy)
+    print(json.dumps({"kernel_resources": resources_line(kernels)}),
+          flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -7034,7 +7290,7 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                 f32_rows, wsi, lora_trained, lora_served, calibrated,
                 pyramid, zoo_rows, zoo_heads_rows, zoo,
                 long_seq, towers, coca_out, pmc, moe_out, compat,
-                aot_out, dp, wide, dp2, pp_ep) -> list[dict]:
+                aot_out, dp, wide, dp2, pp_ep, policy) -> list[dict]:
     """One entry per TPU kernel: its launches on the main path that runs it,
     and, at ViT-L B=32 in bf16 (the int8 kernels: the first shape of their
     phase), its time, its plain version's, its bound and the one PyTorch
@@ -7136,6 +7392,11 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
             t: dp2[t]["fwd_launches_per_rank"] for t in dp2_tags},
         launches_pp_ep_layouts_per_rank={
             t: pp_ep[t]["fwd_launches_per_rank"] for t in pp_ep_tags},
+        launches_precision_policy={
+            f"relay_bucket1_{policy['relay']['choice']}":
+                policy["relay"]["bucket1_launches"]["attention"],
+            "alt_bf16_bucket1": policy["direct"]["bucket1"]["attention"],
+            "int8_bucket8": policy["direct"]["bucket8"]["attention"]},
         shapes=rows, zoo_shapes=zoo_rows, coca_shape=coca_out["slab"])]
     vit_bwd = pick(bwd_rows)
     kernels.append(entry(
@@ -7220,6 +7481,11 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
                 dp["serve"]["int8"]["launches"].get(kname, 0),
             "wsi_extract_mesh_dp_int8":
                 dp["wsi"]["int8"]["launches"].get(kname, 0)}
+        kernels[-1]["launches_precision_policy"] = {
+            f"relay_bucket1_{policy['relay']['choice']}":
+                policy["relay"]["bucket1_launches"].get(kname, 0),
+            "alt_bf16_bucket1": policy["direct"]["bucket1"].get(kname, 0),
+            "int8_bucket8": policy["direct"]["bucket8"].get(kname, 0)}
         if kname == "quantized_matmul_bsd":
             kernels[-1]["moe_shapes"] = moe_out["qmatmul_rows"]
         if kname in tower_of:

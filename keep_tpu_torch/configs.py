@@ -1,6 +1,7 @@
-"""Model / pipeline configuration dataclasses of the KEEP serving path.
+"""Model / pipeline configuration dataclasses of the KEEP serving path and
+the WSI sweep.
 
-Counterpart of ``keep_tpu/configs.py:15-143``, re-declared because this
+Counterpart of ``keep_tpu/configs.py``, re-declared because this
 package never imports ``keep_tpu`` (its ``__init__`` imports JAX). The fields
 and defaults are the JAX package's, so a ``config.json`` written for one
 loads into the other. Only the fields the ported slice reads are kept; the
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,3 +131,19 @@ class PreprocessConfig:
     size: int = 224
     mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
     std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+
+
+@dataclasses.dataclass(frozen=True)
+class WSIConfig:
+    """Zero-shot WSI sweep knobs (the reference's zeroshot_*_WSI.py
+    drivers)."""
+
+    patch_size: int = 256
+    softmax_scale: float = 10.0  # softmax(logits * 10)
+    threshold: float = 0.5
+    topn_prompts: int = 50
+    prompt_screening: bool = True
+
+
+def asdict(cfg: Any) -> dict:
+    return dataclasses.asdict(cfg)

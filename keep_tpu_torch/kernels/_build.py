@@ -8,6 +8,11 @@ sources and flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is. Nothing is built when the package is imported: ``library()``
 is called by a wrapper the first time it launches a kernel on a CUDA tensor.
 A failed build raises.
+
+ptxas reports each kernel's registers, spills, stack and static shared
+memory (``-Xptxas -v``); the build keeps that report beside the library
+(``report_path()``, one section per source), and ``utils/compile.py``
+reads it.
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the header of each source's section in the ptxas report
+REPORT_SECTION = "== {} =="
 
 _F = ctypes.c_float
 _I = ctypes.c_int
@@ -86,9 +93,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"libkeep_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Runs the commands in parallel and raises with the output of the first
-    that failed."""
+def report_path() -> Path:
+    """The ptxas report of ``library_path()``'s build."""
+    return library_path().with_suffix(".ptxas.log")
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Runs the commands in parallel and returns their output (stdout and
+    stderr); raises with the output of the first that failed."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for c in cmds]
@@ -97,6 +109,7 @@ def _run_all(cmds: list[list[str]]) -> None:
         if p.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}")
+    return outs
 
 
 def _compile(target: Path) -> None:
@@ -105,15 +118,20 @@ def _compile(target: Path) -> None:
     nvcc = _nvcc()
     cu = [p for p in _sources() if p.suffix == ".cu"]
     t0 = time.perf_counter()
-    # objects and the library are built under temporary names and the
-    # library renamed into place, so that a concurrent process never loads
-    # a half-written one
+    # objects, the report and the library are built under temporary names
+    # and renamed into place, the library last, so that a concurrent process
+    # never loads a half-written one and finds the report beside it
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
         objs = [str(Path(work, p.stem + ".o")) for p in cu]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", o]
-                  for p, o in zip(cu, objs)])
+        outs = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", o]
+                         for p, o in zip(cu, objs)])
+        report = Path(work, "ptxas.log")
+        report.write_text("".join(
+            f"{REPORT_SECTION.format(p.name)}\n{out}\n"
+            for p, out in zip(cu, outs)))
         tmp = str(Path(work, target.name))
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(report, target.with_suffix(".ptxas.log"))
         os.replace(tmp, target)
     BUILD_SECONDS = time.perf_counter() - t0
 

@@ -115,6 +115,29 @@ def is_quantized(model: nn.Module) -> bool:
                for m in model.modules())
 
 
+@torch.no_grad()
+def quantization_error(fp_model: nn.Module, q_model: nn.Module) -> dict:
+    """Largest relative weight reconstruction error of each quantized
+    linear: for every ``Linear`` of ``fp_model`` whose module of the same
+    name in ``q_model`` is a ``QLinear`` (or ``QExpertLinear``),
+    max |w − q·scale| / max |w| over the weight as stored, in fp32 (over a
+    zero weight: max |q·scale|), keyed by the module's dotted name."""
+    from keep_tpu_torch.models.moe import QExpertLinear
+
+    q_mods = dict(q_model.named_modules())
+    out = {}
+    for name, lin in fp_model.named_modules():
+        q = q_mods.get(name)
+        if not (isinstance(lin, Linear)
+                and isinstance(q, (QLinear, QExpertLinear))):
+            continue
+        w = lin.weight.detach().float().cpu()
+        r = q.weight_q.float().cpu() * q.weight_scale.float().cpu()[..., None]
+        denom = float(w.abs().max()) or 1.0
+        out[name] = float((w - r).abs().max()) / denom
+    return out
+
+
 def smooth_scales(act_amax, weight: torch.Tensor,
                   alpha: float = 0.5) -> torch.Tensor:
     """SmoothQuant's per-input-channel equalisation scale for a weight

@@ -27,9 +27,14 @@ GET  /healthz, GET /stats
 CLI: ``python -m keep_tpu_torch.serve --model-dir <released checkpoint>
 [--int8]`` serves the bf16 model with the fused attention kernel on the
 card, or with ``--int8`` the W8A8 model (``KEEPModel.quantize``) through the
-int8 megakernels of both towers. ``--precision-policy {auto,all-int8}`` is
-accepted; co-located with the card, both serve int8 at every bucket, which
-is the JAX server's co-located branch. ``--lora <checkpoints dir>``
+int8 megakernels of both towers. ``--precision-policy auto`` (the default)
+measures the round trip to the card (``utils.rtt.measure_rtt``):
+co-located, int8 serves every bucket; on a link above
+``rtt.RTT_COLOCATED_MS`` it times B=1 int8 and bf16 image dispatches
+(``rtt.pick_by_probe``) and serves image bucket 1 from the bf16 model
+(``alt_model`` / ``alt_buckets``) only when bf16 wins by more than the
+probe's margin; otherwise the bf16 weights are dropped before warmup.
+``all-int8`` serves int8 everywhere. ``--lora <checkpoints dir>``
 merges the adapters a LoRA fine-tune wrote (``train/lora.py``) into the
 model at startup, with the scale ``--lora-scale`` or, by default, the run's
 ``params.txt``; with ``--int8`` the merged fp32 values are quantized.
@@ -220,23 +225,53 @@ class InferenceServer:
     The model's device is the device of its parameters.
 
     ``mesh`` (``parallel.make_mesh``): a tuple of devices to serve over, the
-    model replicated on each; buckets round up to multiples of its size."""
+    model replicated on each; buckets round up to multiples of its size.
+
+    ``alt_model`` / ``alt_buckets``: the per-bucket precision policy.
+    ``alt_buckets`` maps a tower (``"image"``, ``"text"``) to the buckets
+    that ``alt_model`` serves in place of ``model`` (``{"image": (1,)}``
+    serves image bucket 1 from the bf16 model beside an int8 primary);
+    ``alt_model`` is replicated over the mesh as ``model`` is, and
+    ``warmup`` runs, for every (tower, bucket), the model that serves it."""
 
     def __init__(self, model, tokenizer, *, max_length: int = 256,
                  image_size: int = 224, buckets=_BUCKETS,
-                 max_delay_ms: float = 3.0, mesh=None):
+                 max_delay_ms: float = 3.0, mesh=None,
+                 alt_model=None, alt_buckets=None):
+        self.alt_buckets = {k: frozenset(v)
+                            for k, v in (alt_buckets or {}).items()}
+        if any(self.alt_buckets.values()) and alt_model is None:
+            raise ValueError("alt_buckets given without alt_model")
+        n = 1 if mesh is None else len(mesh)
+        if n > 1:
+            buckets = sorted({max(b, n) + (-max(b, n)) % n for b in buckets})
+        self.buckets = tuple(buckets)
+        # fail fast on a policy bucket that can never be hit: a typo, or a
+        # bucket the mesh rounding removed, would serve the primary model
+        # where the policy asked for the other
+        for tower, alts in self.alt_buckets.items():
+            if tower not in ("image", "text"):
+                raise ValueError(
+                    f"alt_buckets tower {tower!r} unknown (must be 'image' "
+                    f"or 'text') — a typo here would silently serve the "
+                    f"primary model for every request")
+            stray = alts - set(self.buckets)
+            if stray:
+                raise ValueError(
+                    f"alt_buckets[{tower!r}] contains {sorted(stray)} not in "
+                    f"the compiled buckets {self.buckets} (mesh rounding "
+                    f"rewrites buckets to multiples of the dp axis)")
         self.model = model
+        self.alt_model = alt_model
         self.tokenizer = tokenizer
         self.max_length = max_length
         self.image_size = image_size
         self.device = next(model.parameters()).device
         # without a mesh: the model's own device, a mesh of one
         self.mesh = (self.device,) if mesh is None else tuple(mesh)
-        n = len(self.mesh)
-        if n > 1:
-            buckets = sorted({max(b, n) + (-max(b, n)) % n for b in buckets})
         self._replicas = replicate(self.mesh, model)
-        self.buckets = tuple(buckets)
+        self._alt_replicas = (None if alt_model is None
+                              else replicate(self.mesh, alt_model))
         self._pcfg = PreprocessConfig(size=image_size)
         _b_of = lambda n: _bucket(n, self.buckets)  # noqa: E731
         self.text_q = BatchQueue(self._launch_text, self.buckets[-1],
@@ -261,15 +296,23 @@ class InferenceServer:
                        arr.dtype)
         return torch.from_numpy(np.concatenate([arr, pad], 0))
 
-    def _dispatch(self, arr: np.ndarray, encode):
-        """Starts ``encode(model, device batch)`` on the padded batch and
-        returns the unfetched result, one tensor a mesh device: each chunk
-        copied to its card and launched there."""
+    def _replicas_for(self, tower: str, n: int) -> list:
+        """The replicas of the model that serves ``n`` rows of ``tower``."""
+        if _bucket(n, self.buckets) in self.alt_buckets.get(tower, ()):
+            return self._alt_replicas
+        return self._replicas
+
+    def _dispatch(self, arr: np.ndarray, encode, tower: str):
+        """Starts ``encode(model, device batch)`` on the padded batch, with
+        the model that serves its (tower, bucket), and returns the unfetched
+        result, one tensor a mesh device: each chunk copied to its card and
+        launched there."""
         host = self._padded(arr)
         out = []
         with torch.inference_mode():
             for rows, device, m in zip(batch_sharding(self.mesh, len(host)),
-                                       self.mesh, self._replicas):
+                                       self.mesh,
+                                       self._replicas_for(tower, len(arr))):
                 with (torch.cuda.device(device) if device.type == "cuda"
                       else contextlib.nullcontext()):
                     out.append(encode(m, self._put(host[rows], device)))
@@ -278,14 +321,16 @@ class InferenceServer:
     def _launch_text(self, ids_mask: np.ndarray):
         return self._dispatch(
             ids_mask.astype(np.int64),
-            lambda m, im: m.encode_text(im[:, 0], im[:, 1]))  # unfetched
+            lambda m, im: m.encode_text(im[:, 0], im[:, 1]),  # unfetched
+            "text")
 
     def _launch_image(self, tiles_u8: np.ndarray):
         # tiles travel as raw uint8 and are normalised on the device inside
         # this dispatch; only the [N, D] features come back
         return self._dispatch(
             tiles_u8,
-            lambda m, px: m.encode_image(normalize_only(px, self._pcfg)))
+            lambda m, px: m.encode_image(normalize_only(px, self._pcfg)),
+            "image")
 
     # -- public API ---------------------------------------------------------
 
@@ -337,7 +382,8 @@ class InferenceServer:
         return out["img"] @ txt.T
 
     def warmup(self) -> None:
-        """Runs every bucket of both towers once before serving."""
+        """Runs every bucket of both towers once before serving, each on the
+        model that serves it."""
         for b in self.buckets:
             self.encode_text(["warmup"] * b)
             self.encode_image(
@@ -461,8 +507,12 @@ def build_server(argv=None):
                     help="serve the W8A8 megakernel path")
     ap.add_argument("--precision-policy", choices=("auto", "all-int8"),
                     default="auto",
-                    help="with --int8: co-located with the card, 'auto' "
-                         "serves int8 at every bucket, as 'all-int8' does")
+                    help="with --int8: 'auto' measures the link and, "
+                         "where its round trip sets B=1 latency, times B=1 "
+                         "int8 against bf16 image dispatches and serves "
+                         "image bucket 1 from the winner (int8 keeps its "
+                         "seat within 10%%); co-located, int8 at every "
+                         "bucket, as 'all-int8' always")
     ap.add_argument("--lora", default="",
                     help="LoRA adapter checkpoint dir (the training CLI's "
                          "checkpoints/ with solver.lora_rank > 0), merged "
@@ -491,19 +541,31 @@ def build_server(argv=None):
     from keep_tpu_torch.compat.export import QUANTIZED_SUBDIR
     from keep_tpu_torch.factory import get_tokenizer
     from keep_tpu_torch.models.keep import KEEPModel
+    from keep_tpu_torch.utils import rtt
 
-    # the published quick-start setting: bf16 with the fused attention
-    # kernel; --int8 quantizes from the checkpoint's fp32 values, unless
-    # the dir carries the int8 deploy artifact, which loads as it is
-    model = KEEPModel.from_pretrained(args.model_dir, dtype=torch.bfloat16,
-                                      use_flash=True, device=device,
-                                      quantize=args.int8 and not args.lora)
     artifact = os.path.isdir(os.path.join(args.model_dir, QUANTIZED_SUBDIR))
     if args.lora and artifact:
         raise SystemExit(
             "--lora cannot merge adapters into a quantized artifact (int8 "
             "kernels); merge into the fp model first, then quantize + "
             "save_quantized")
+    # --precision-policy auto decides image bucket 1's precision by
+    # measurement: on a link whose round trip sets small-batch latency the
+    # B=1 winner flips with the link's jitter, so the real int8 and bf16
+    # dispatches are timed; co-located, int8 wins at every bucket and
+    # nothing is probed. Not under --mesh-dp, nor for the int8 artifact
+    # (no bf16 weights to fall back on), as in the JAX server.
+    policy = (args.int8 and args.precision_policy == "auto" and not mesh
+              and not artifact)
+    link = rtt.measure_rtt(device=device) if policy else None
+    probe = policy and rtt.rtt_dominated(link)
+    # the published quick-start setting: bf16 with the fused attention
+    # kernel; --int8 quantizes from the checkpoint's fp32 values (the load
+    # quantizes its own model unless the bf16 one is still needed), unless
+    # the dir carries the int8 deploy artifact, which loads as it is
+    model = KEEPModel.from_pretrained(
+        args.model_dir, dtype=torch.bfloat16, use_flash=True, device=device,
+        quantize=args.int8 and not args.lora and not probe)
     if args.lora:
         # merged into the fp32 values, rounded once into the stored
         # weights; --int8 then quantizes the merged fp32 values
@@ -515,25 +577,47 @@ def build_server(argv=None):
         lora.merge_into_model(model, restored["params"], scale)
         print(f"merged LoRA adapters from {args.lora} (epoch "
               f"{restored['epoch']}, scale {scale})", flush=True)
-        if args.int8:
-            model = model.quantize()
+    bf16_model = None
+    if args.int8 and not artifact and (args.lora or probe):
+        bf16_model, model = model, model.quantize()
+    alt_model, alt_buckets = None, None
     if args.int8 and artifact:
         # the pre-calibrated deploy artifact (compat.export.save_quantized):
         # already int8, nothing to quantize
         print("model dir carries a quantized artifact; serving it as-is",
               flush=True)
-    elif args.int8 and args.precision_policy == "auto" and not mesh:
-        # the JAX server measures a relay's round trip here; with the card
-        # in the same host there is no relay, and its co-located branch
-        # serves int8 at every bucket
-        print("precision policy: co-located — int8 at every bucket",
-              flush=True)
+    elif probe:
+        size = model.cfg.vision.img_size
+        px = torch.zeros((1, size, size, 3), dtype=torch.uint8, device=device)
+        pcfg = PreprocessConfig(size=size)
+
+        def b1(m):
+            def run():
+                with torch.inference_mode():
+                    return m.encode_image(normalize_only(px, pcfg)).cpu()
+            return run
+
+        choice, meds = rtt.pick_by_probe(
+            {"int8": b1(model), "bf16": b1(bf16_model)}, default="int8")
+        if choice == "bf16":
+            alt_model, alt_buckets = bf16_model, {"image": (1,)}
+        print(f"precision policy: relay RTT median {link['median_ms']:.1f} "
+              f"ms — B=1 image probe int8 {meds['int8']:.1f} / bf16 "
+              f"{meds['bf16']:.1f} ms → image bucket 1 served {choice} "
+              f"(--precision-policy all-int8 to override)", flush=True)
+    elif policy:
+        print(f"precision policy: co-located — int8 at every bucket (RTT "
+              f"median {link['median_ms']:.3f} ms)", flush=True)
+    # the policy did not pick the bf16 weights: drop them before warmup, so
+    # that no bf16 copy stays on the card
+    del bf16_model
     tokenizer = get_tokenizer("bert", args.model_dir)
     max_len = min(model.cfg.max_text_length,
                   model.cfg.text.max_position_embeddings)
     core = InferenceServer(model, tokenizer, max_length=max_len,
                            image_size=model.cfg.vision.img_size,
-                           max_delay_ms=args.max_delay_ms, mesh=mesh)
+                           max_delay_ms=args.max_delay_ms, mesh=mesh,
+                           alt_model=alt_model, alt_buckets=alt_buckets)
     try:
         core.warmup()
         httpd = make_http_server(core, args.port, args.host)

@@ -44,6 +44,17 @@ class FreezeSchedule:
 
         return fn
 
+    def phases(self, epochs: int) -> list[tuple[int, FrozenSet[str]]]:
+        """[(first_epoch, frozen_towers)] at each change over the run."""
+        out = []
+        prev = None
+        for e in range(epochs):
+            cur = self.frozen_towers(e)
+            if cur != prev:
+                out.append((e, cur))
+                prev = cur
+        return out
+
 
 @torch.no_grad()
 def snapshot(params: dict[str, torch.Tensor]) -> dict[str, float]:

@@ -8,8 +8,10 @@ the library's. ``ThroughputMeter`` gives samples/s over a sliding window,
 as the reference's samples/s logs (train_hierarchy.py:216-223).
 
 The JAX module's ``enable_hlo_dump`` sets an XLA flag; the port has no XLA
-compiler to ask, and its counterpart (what the card's compiler made of a
-kernel) waits with ``utils/compile.py`` (ROADMAP queue 1, item 12).
+compiler to ask. Its counterpart, what the card's compiler made of each
+hand-written kernel (ptxas's registers, spills and shared memory, and the
+SASS), is ``utils/compile.py``: ``kernel_resources()`` and
+``dump_kernels(dump_dir)``.
 """
 
 from __future__ import annotations

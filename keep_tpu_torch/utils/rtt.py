@@ -1,10 +1,11 @@
-"""Dispatch round-trip and transfer-rate calibration (counterpart of the
-co-located part of ``keep_tpu/utils/rtt.py``).
+"""Dispatch round-trip and transfer-rate calibration, and the measured A/B
+policy rule (counterpart of ``keep_tpu/utils/rtt.py``).
 
 Policies that compare few-dispatch paths (the bucketed-vs-flat text plan of
-``zeroshot.classifier``) need the fixed cost of one dispatch and of fetching
-its result. With the card in the same host that cost is small, and the JAX
-package's co-located branches apply; this module measures it on the card:
+``zeroshot.classifier``, the server's B=1 image precision) need the fixed
+cost of one dispatch and of fetching its result. With the card in the same
+host that cost is small, and the JAX package's co-located branches apply;
+this module measures it on the card:
 
 - ``measure_rtt``: timed null round trips (a scalar add on the device, then
   ``.item()``) → median / p95 / min milliseconds, memoised per process.
@@ -12,10 +13,13 @@ package's co-located branches apply; this module measures it on the card:
   sets small-batch latency (never the case for a card in the host).
 - ``measure_bandwidth``: timed host→device and device→host copies, the
   download into pinned memory.
+- ``pick_by_probe`` / ``pick_from_medians``: time real blocking calls and
+  keep the default unless a challenger beats it by more than
+  ``PROBE_MARGIN`` (``serve``'s ``--precision-policy auto`` on a link whose
+  round trip is above ``RTT_COLOCATED_MS``).
 
 On the CPU the round trip and the copies are host work and are timed the
-same way. The JAX package's relay probes (``pick_by_probe``) are not
-ported: there is no relay between the host and the card.
+same way.
 """
 
 from __future__ import annotations
@@ -77,6 +81,48 @@ def rtt_dominated(rtt: dict | None = None) -> bool:
     """True when the measured link floor, not the kernel, bounds B=1 latency."""
     rtt = rtt or measure_rtt()
     return rtt["median_ms"] > RTT_COLOCATED_MS
+
+
+# A challenger must beat the default by more than this factor: two paths of
+# the same cost trade places from run to run on a jittery link, so the
+# default keeps its seat inside the margin and a wrong pick costs at most
+# ~10%.
+PROBE_MARGIN = 1.10
+
+
+def pick_from_medians(medians_ms: dict, default: str,
+                      margin: float = PROBE_MARGIN) -> str:
+    """Keeps ``default`` unless some candidate's median beats it by more
+    than ``margin``."""
+    best = min(medians_ms, key=medians_ms.get)
+    if best != default and medians_ms[best] * margin < medians_ms[default]:
+        return best
+    return default
+
+
+def pick_by_probe(candidates: dict, *, n: int = 5, default: str | None = None,
+                  margin: float = PROBE_MARGIN) -> tuple[str, dict]:
+    """Times zero-argument blocking callables and picks one by the data.
+
+    Each candidate runs once untimed (the warm call), then ``n`` timed
+    calls → its median ms. With ``default`` the choice is
+    :func:`pick_from_medians`'s (a challenger needs a win by more than
+    ``margin``); without it the plain minimum wins. A candidate blocks
+    until its result is on the host (on the card: fetched with ``.cpu()``).
+    Returns ``(choice, medians_ms)``."""
+    meds = {}
+    for name, fn in candidates.items():
+        fn()  # warm, untimed
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        ts.sort()
+        meds[name] = ts[n // 2] * 1e3
+    if default is None:
+        return min(meds, key=meds.get), meds
+    return pick_from_medians(meds, default, margin), meds
 
 
 def measure_bandwidth(mb: float = 8.0, reps: int = 3, refresh: bool = False,

@@ -1,9 +1,9 @@
-"""``chip_smoke.py``'s phases 25 (``wide_shapes``), 26 (``dp2_layouts``)
-and 27 (``pp_ep_layouts``) alone on one card, and the readings of their
-gradient gates on planted faults.
+"""``chip_smoke.py``'s phases 25 (``wide_shapes``), 26 (``dp2_layouts``),
+27 (``pp_ep_layouts``) and 28 (``precision_policy``) alone on one card,
+and the readings of their gradient gates on planted faults.
 
     python scripts/torch_smoke_phases.py [--wide] [--layouts] [--pp-ep]
-        [--plant [NAME ...]]
+        [--policy] [--plant [NAME ...]]
 
 Builds the kernels from the checkout (``kernels._build.library``), then
 with ``--wide`` (default: both phases) #1b and the bf16 → fp32 attention of
@@ -12,9 +12,14 @@ int8 KEEP at 384² and 448² through the server core, and KEEP trained at
 384²; with ``--layouts`` dp, fsdp, tp = 2 and tp = 2 + sp at world 2 and
 tp = 2 + fsdp at world 4 over gloo on the card against one process; with
 ``--pp-ep`` pp = 2 and dp 2 × pp 2 on the dense KEEP, ep = 2 and dp 2 × ep
-2 on the 8-expert MoE KEEP, the same way. Prints the card and its power
-limit, then the phases' lines as ``chip_smoke.py`` does, each gate raising
-as there, and each phase's seconds.
+2 on the 8-expert MoE KEEP, the same way; with ``--policy`` the server's
+``--precision-policy auto`` on a full-width KEEP (``keep.init``'s weights):
+co-located, then at a relay's round trip through the real B=1 probe,
+then the bf16 alt model built directly, and ptxas's record of every kernel
+function (``utils.compile.kernel_resources``, one per ``.cu`` at least).
+Prints the card and its power limit, then the phases' lines as
+``chip_smoke.py`` does, each gate raising as there, and each phase's
+seconds.
 
 ``--plant`` (alone: no phase) runs the phases' gradient comparisons on
 faults planted at run time, with the gates off, and prints what each gate
@@ -43,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import sys
 import tempfile
@@ -241,11 +247,13 @@ def main() -> int:
     ap.add_argument("--wide", action="store_true", help="phase 25")
     ap.add_argument("--layouts", action="store_true", help="phase 26")
     ap.add_argument("--pp-ep", action="store_true", help="phase 27")
+    ap.add_argument("--policy", action="store_true",
+                    help="phase 28 and the kernel_resources line")
     ap.add_argument("--plant", nargs="*", choices=PLANTS,
                     help="the gradient gates' readings on planted faults "
                          "(default: all)")
     args = ap.parse_args()
-    every = not (args.wide or args.layouts or args.pp_ep
+    every = not (args.wide or args.layouts or args.pp_ep or args.policy
                  or args.plant is not None)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -276,6 +284,22 @@ def main() -> int:
             cs.drive_pp_ep_layouts(torch, fa, d)
         torch.cuda.empty_cache()
         cs.phase("pp_ep_layouts_time", seconds=time.perf_counter() - t0)
+    if args.policy or every:
+        from keep_tpu_torch.utils.compile import kernel_resources
+
+        t0 = time.perf_counter()
+        cfg = KEEPConfig()
+        with tempfile.TemporaryDirectory() as d:
+            cs.write_model(d, torch, cfg, keep_init=True)
+            cs.drive_precision_policy(torch, fa, serve, cfg, d)
+        torch.cuda.empty_cache()
+        records = kernel_resources()
+        missing = ({p.name for p in _build.CSRC.glob("*.cu")}
+                   - {r["source"] for r in records})
+        if missing:
+            raise AssertionError(f"no ptxas record for {sorted(missing)}")
+        print(json.dumps({"kernel_resources": records}), flush=True)
+        cs.phase("precision_policy_time", seconds=time.perf_counter() - t0)
     if args.plant is not None:
         t0 = time.perf_counter()
         run_plants(torch, cs, fa, args.plant or PLANTS)

@@ -84,6 +84,27 @@ def test_source_imports_no_jax(path):
                 f"{path.name}:{node.lineno} imports {n}")
 
 
+@pytest.mark.parametrize("name", ["chip_smoke.py",
+                                  "scripts/torch_smoke_phases.py"])
+def test_smoke_scripts_define_each_name_once(name):
+    """A module-level function or constant of the card's smoke scripts is
+    defined once: a second ``def`` of a name replaces the first for every
+    phase that calls it."""
+    tree = ast.parse((REPO / name).read_text(), name)
+    seen: dict = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names = [node.name]
+        elif isinstance(node, ast.Assign):
+            names = [t.id for t in node.targets if isinstance(t, ast.Name)]
+        else:
+            continue
+        for n in names:
+            assert n not in seen, (f"{name}: {n} defined at lines "
+                                   f"{seen[n]} and {node.lineno}")
+            seen[n] = node.lineno
+
+
 def test_reader_and_calibration_run_with_jax_blocked(tmp_path):
     """The pyramid reader, the decoder, the cascade and the calibration
     import and run in a process where importing ``jax`` or ``keep_tpu``

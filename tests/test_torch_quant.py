@@ -201,6 +201,52 @@ def test_quantize_returns_a_new_model(jparams):
     assert torch.equal(q2.visual.blocks[0].mlp.fc1.weight_q, want)
 
 
+def _layer(tree, i: int):
+    """Layer ``i`` of the JAX towers' stacked blocks (``visual.blocks``,
+    ``text.layers``), every other leaf as it is."""
+    def pick(node, stacked):
+        if isinstance(node, dict):
+            return {k: pick(v, stacked or k in ("blocks", "layers"))
+                    for k, v in node.items()}
+        return np.asarray(node)[i] if stacked else node
+    return pick(tree, False)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantization_error_matches_jax(jparams, dtype):
+    """``quant.quantization_error`` of a quantized copy against its float
+    model gives, for every quantized linear, the JAX package's
+    ``quantization_error`` of the same weights (tests/test_quant.py:50's
+    use), each layer against the JAX value of that layer's slice of the
+    stacked tree, all below 1%. In bf16 both sides hold the weights rounded
+    to bf16."""
+    import copy
+
+    tree = jax.tree.map(np.asarray, jparams)
+    if dtype == "bfloat16":
+        tree = jax.tree.map(lambda x: np.asarray(jnp.asarray(x).astype(
+            jnp.bfloat16).astype(jnp.float32)), tree)
+    m = KEEPModel(CFG, dtype=getattr(torch, dtype))
+    m.load_state_dict(from_jax_params(tree, CFG))
+    q = quant.quantize_linear_weights(copy.deepcopy(m))
+    got = quant.quantization_error(m, q)
+    jq = jquant.quantize_linear_weights(tree)
+    want = {}
+    for i in range(2):
+        for path, v in jquant.quantization_error(_layer(tree, i),
+                                                 _layer(jq, i)).items():
+            parts = path.strip("/").split("/")
+            if "blocks" in parts:
+                parts.insert(parts.index("blocks") + 1, str(i))
+            want[".".join(parts)] = v
+    assert got.keys() == want.keys()
+    assert len(got) == 19 and set(got) == {
+        n for n, mod in q.named_modules() if isinstance(mod, QLinear)}
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, rel=1e-6), k
+    assert 0 < max(got.values()) < 0.01
+
+
 def _assert_jax_codes(port: KEEPModel, jparams) -> None:
     """``port``'s int8 codes and scales equal the JAX package's
     quantize_linear_weights(fold_layerscale(·)) of ``jparams``."""

@@ -190,6 +190,25 @@ def test_adamw_steps_match_optax(jparams, rng, mu_dtype):
             assert torch.equal(p.detach(), want), n
 
 
+@pytest.mark.parametrize("epochs,fields", [
+    (4, dict(freeze_visual_epochs=2, freeze_text_epochs=1)),
+    (5, dict(freeze_visual_epochs=1, freeze_text_epochs=3,
+             freeze_knowledge_epochs=2)),
+    (3, dict()),
+])
+def test_freeze_phases_equal_jax(epochs, fields):
+    """``FreezeSchedule.phases``: the change points of the frozen towers
+    over a run, as the JAX package's (tests/test_train.py:122's schedule
+    first)."""
+    from keep_tpu.train.freeze import FreezeSchedule as JFreezeSchedule
+
+    got = FreezeSchedule(**fields).phases(epochs)
+    assert got == JFreezeSchedule(**fields).phases(epochs)
+    if fields == dict(freeze_visual_epochs=2, freeze_text_epochs=1):
+        assert got == [(0, frozenset({"visual", "text"})),
+                       (1, frozenset({"visual"})), (2, frozenset())]
+
+
 def test_adamw_refuses_unknown_mu_dtype():
     with pytest.raises(ValueError, match="mu_dtype"):
         optim.AdamW(lambda s: 1e-3, decay_mask={}, mu_dtype="float16")
