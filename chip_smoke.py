@@ -419,7 +419,12 @@ import urllib.request
 
 import numpy as np
 
-SOURCE = "keep_tpu_torch/kernels/csrc/attention_qkv_slab.cu"
+# #1 / #2: the bf16 bodies (wgmma fed by TMA: the one-pass body and the
+# streamed one) and the entry point with the fp32 body
+SOURCE = "keep_tpu_torch/kernels/csrc/attention_qkv_slab_wgmma.cu"
+ATTENTION_SOURCES = [
+    SOURCE, "keep_tpu_torch/kernels/csrc/attention_qkv_slab_wgmma_streamed.cu",
+    "keep_tpu_torch/kernels/csrc/attention_qkv_slab.cu"]
 REPLACES = "keep_tpu/kernels/flash_attention.py:190"
 BWD_SOURCE = "keep_tpu_torch/kernels/csrc/attention_qkv_slab_bwd.cu"
 BWD_REPLACES = "keep_tpu/kernels/flash_attention.py:221"
@@ -440,11 +445,13 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_KERNELS = {
     "quantized_attention_block": (
         "keep_tpu_torch/kernels/qblock.py",
-        ["quant_rows.cu", "int8_gemm.cu", "attention_qkv_slab_f32.cu"],
+        ["quant_rows.cu", "int8_gemm.cu", "attention_qkv_slab_wgmma.cu",
+         "attention_qkv_slab_wgmma_streamed.cu"],
         "keep_tpu/kernels/qblock.py:79"),
     "quantized_attention_block_postln": (
         "keep_tpu_torch/kernels/qblock.py",
-        ["quant_rows.cu", "int8_gemm.cu", "attention_qkv_slab_f32.cu"],
+        ["quant_rows.cu", "int8_gemm.cu", "attention_qkv_slab_wgmma.cu",
+         "attention_qkv_slab_wgmma_streamed.cu"],
         "keep_tpu/kernels/qblock.py:182"),
     "quantized_mlp_bsd": (
         "keep_tpu_torch/kernels/qmlp.py",
@@ -467,11 +474,12 @@ ATTENTION_SHAPES = [(name, b, s, h, padded) for b in (32, 128)
                     for name, s, h, padded in (("vit_l16", 197, 16, False),
                                                ("bert_base", 256, 12, True))]
 # sequence lengths around the attention bodies' tiles and pieces, the two
-# towers' lengths, the whole-slice bodies' limit (512) and, past it, the
-# streamed body's 64-key tiles, ViT-L-14-336's 577, KEEP at 448²'s 785 and
-# one past the longest row PyTorch's warp softmax serves
-EDGE_S = [1, 15, 16, 17, 64, 197, 256, 257, 512, 513, 575, 576, 577, 640,
-          641, 785, 1025]
+# towers' lengths, the one-pass forward's limit (320), the whole-slice
+# backward's (512) and, past them, the streamed bodies' 64-key tiles,
+# ViT-L-14-336's 577, KEEP at 448²'s 785 and one past the longest row
+# PyTorch's warp softmax serves
+EDGE_S = [1, 15, 16, 17, 64, 197, 256, 257, 320, 321, 512, 513, 575, 576,
+          577, 640, 641, 785, 1025]
 # the zoo's attention shapes (name, B, S, H, Dh): every head width of the
 # OpenCLIP presets past 64 at their S = 257 (224², patch 14), and Dh = 64
 # past 512: ViT-L-14-336 (577) and KEEP's ViT-L/16 at 448² (785)
@@ -519,8 +527,9 @@ def card() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup: int = 3, runs: int = 25) -> float:
-    """Median of ``runs`` single-call times from CUDA events."""
+def cuda_ms(fn, warmup: int = 3, runs: int = 25, calls: int = 1) -> float:
+    """Median of ``runs`` times from CUDA events around ``calls`` calls
+    back to back, over the calls (single calls by default)."""
     import torch
 
     for _ in range(warmup):
@@ -530,26 +539,58 @@ def cuda_ms(fn, warmup: int = 3, runs: int = 25) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
-def device_ms(torch, fn, runs: int = 20) -> float:
-    """The device time of one call of ``fn`` (ms): the profiler's kernel
-    time summed over ``runs`` calls, the host's gaps between launches left
-    out."""
+def port_launches() -> int:
+    """Every kernel launch the port's wrappers have counted so far
+    (``_kops.LAUNCHES`` also counts each int8 block under the name of the
+    block whose last kernel it is: those names are left out)."""
+    from keep_tpu_torch.kernels import _kops, ln_matmul
+    from keep_tpu_torch.kernels import flash_attention as fa
+
+    return (sum(_kops.LAUNCHES[k] for k in ("quant_rows", "int8_gemm",
+                                            "ln_rows"))
+            + fa.LAUNCHES + fa.BWD_LAUNCHES + fa.HEADS_LAUNCHES
+            + ln_matmul.LAUNCHES)
+
+
+def device_ms(torch, fn, runs: int = 20, tries: int = 3
+              ) -> tuple[float, str]:
+    """The device time of one call of ``fn`` (ms) and where it came from.
+    ``"profiler"``: its kernels' time in a profiler session of ``runs``
+    calls, over the calls, the host's gaps between launches left out. The
+    profiler on the card's machine now and then records no kernel of a
+    session, or only some: a session is kept only if it holds as many
+    device records as the calls issued, a whole number a call and at least
+    the launches the port's wrappers counted in it, else it is taken again.
+    After ``tries`` sessions short of that, ``"events"``: CUDA events
+    around the ``runs`` calls back to back, the host's gaps in where a call
+    is shorter than its launch."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    return sum(kernel_ms(torch, prof).values()) / runs
+    for _ in range(tries):
+        n0 = port_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        issued = port_launches() - n0
+        records = [ev for ev in prof.key_averages()
+                   if getattr(ev, "device_type", None)
+                   == torch.autograd.DeviceType.CUDA]
+        count = sum(ev.count for ev in records)
+        if count and count % runs == 0 and count >= issued:
+            return (sum(ev.self_device_time_total for ev in records) / 1e3
+                    / runs, "profiler")
+    return cuda_ms(fn, runs=1, calls=runs), "events"
 
 
 def bound(ops: dict[str, float], nbytes: float) -> tuple[float, str]:
@@ -687,11 +728,11 @@ def check_f32_form(fa, torch, name, qkv, kb, valid, h, sdpa_ms) -> dict:
            "mean_abs_err": diff.mean().item(),
            "int8_codes_moved_share": code_moves(torch, got, ref),
            "ms": cuda_ms(lambda: fa.attention_qkv_slab(qkv, kb, **kw)),
-           "device_ms": device_ms(
-               torch, lambda: fa.attention_qkv_slab(qkv, kb, **kw)),
            "plain_ms": cuda_ms(lambda: fa.attention_qkv_slab_reference(
                qkv, kb, **kw)),
            "sdpa_bf16_ms_reading": sdpa_ms}
+    row["device_ms"], row["device_ms_source"] = device_ms(
+        torch, lambda: fa.attention_qkv_slab(qkv, kb, **kw))
     row["Dh"] = qkv.shape[-1] // (3 * h)
     row["bound_ms"], row["bound_by"] = attention_bound(
         b, s, h, 2, kb is not None, out_bytes=4, dh=row["Dh"])
@@ -701,8 +742,8 @@ def check_f32_form(fa, torch, name, qkv, kb, valid, h, sdpa_ms) -> dict:
 
 def check_f32_edges(fa, torch, gen) -> None:
     """The bf16 → fp32 form at every length of ``EDGE_S`` (B=2, H=2; the
-    one-pass wgmma body up to 512, the streamed body past it), padded and unpadded:
-    finite, max |Δ| < 0.05 on unpadded query rows."""
+    one-pass wgmma body up to 320, the streamed wgmma body past it), padded
+    and unpadded: finite, max |Δ| < 0.05 on unpadded query rows."""
     errs = {}
     for s in EDGE_S:
         for padded in (False, True):
@@ -1503,7 +1544,8 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
         x16 = x.bfloat16()
         out16 = {} if not out_kw else {"out_dtype": torch.bfloat16}
         ms = cuda_ms(lambda: fn(*args(x16), **kw, **out16))
-        dev_ms = device_ms(torch, lambda: fn(*args(x16), **kw, **out16))
+        dev_ms, dev_source = device_ms(
+            torch, lambda: fn(*args(x16), **kw, **out16))
         plain_ms = cuda_ms(lambda: ref(*args(x16), **kw, **out16))
         weights = [a for a in args(x16)[1:]
                    if isinstance(a, torch.Tensor) and a.dtype == torch.int8]
@@ -1517,6 +1559,7 @@ def check_int8_kernels(torch, gen) -> tuple[dict, list]:
                "int8_codes_differing": changed, "int8_codes": total,
                "int8_code_diff_share": changed / total,
                "ms_bf16": ms, "device_ms_bf16": dev_ms,
+               "device_ms_source": dev_source,
                "plain_ms_bf16": plain_ms, **extra}
         row["bound_ms_bf16"], row["bound_by"] = bound(
             {"int8": int8_ops, "bf16": attn_ops.get(name, 0)}, moved)
@@ -1591,8 +1634,9 @@ def check_int8_primitives(torch, gen, vit_linears, vit_norm, bert_norm
             raise AssertionError(f"{kind} {name}: not the plain version's "
                                  f"bits")
         row = {"kernel": kind, "shape": name, "bitwise_equal": same,
-               "device_ms": device_ms(torch, fn), "ms": cuda_ms(fn),
-               "plain_ms": cuda_ms(ref), "bytes": moved, **extra}
+               "ms": cuda_ms(fn), "plain_ms": cuda_ms(ref), "bytes": moved,
+               **extra}
+        row["device_ms"], row["device_ms_source"] = device_ms(torch, fn)
         row["bound_ms"], row["bound_by"] = bound(ops, moved)
         row["bound_share"] = row["bound_ms"] / row["device_ms"]
         if ops:
@@ -1614,13 +1658,14 @@ def check_int8_primitives(torch, gen, vit_linears, vit_norm, bert_norm
             ref = lambda: P.int8_gemm(*args, order=1, residual=res, **kw)
             out = fn()
             torch.cuda.synchronize()
-            lib = device_ms(torch, lambda: torch._int_mm(xq,
-                                                         lin.weight_q.t()))
+            lib, lib_source = device_ms(
+                torch, lambda: torch._int_mm(xq, lin.weight_q.t()))
             ops = 2 * m * k * n
             report("int8_gemm", f"{gname} [{m},{k}]x[{k}->{n}] {kw}, "
                    f"residual {with_res}", [out], [ref()], fn, ref,
                    {"int8": ops}, nbytes(xq, a, lin.weight_q, out, res)
                    + 8 * n, int_mm_device_ms=lib,
+                   int_mm_device_ms_source=lib_source,
                    int_mm_tops=ops / lib / 1e9)
         xs = (torch.randn(m, 1024, device=dev, generator=gen) * 3)
         for rname, x, ln in (("LN'd bf16 stream", xs.bfloat16(), True),
@@ -3234,7 +3279,8 @@ def drive_wsi_extract(torch, fa, d: str, device: str = "cuda",
            "min_cos_tail_alone": float(cos_tail.min())}
     if device == "cuda":
         out["bicubic_ms_per_batch"] = cuda_ms(lambda: preprocess(x, cfg))
-        out["bicubic_device_ms_per_batch"] = device_ms(
+        (out["bicubic_device_ms_per_batch"],
+         out["bicubic_device_ms_source"]) = device_ms(
             torch, lambda: preprocess(x, cfg))
         from torch.profiler import ProfilerActivity, profile
 
@@ -5261,8 +5307,9 @@ def drive_moe(torch, fa, serve, d: str, device: str = "cuda",
                     *args, out_dtype=x.dtype)
                 n, k = lin.weight_q.shape
                 m = x.numel() // k
-                row.update(ms_bf16=cuda_ms(fn), device_ms_bf16=device_ms(
-                    torch, fn), plain_ms_bf16=cuda_ms(ref))
+                row["device_ms_bf16"], row["device_ms_source"] = device_ms(
+                    torch, fn)
+                row.update(ms_bf16=cuda_ms(fn), plain_ms_bf16=cuda_ms(ref))
                 row["bound_ms_bf16"], row["bound_by"] = bound(
                     {"int8": 2 * m * n * k},
                     nbytes(x, lin.weight_q, fn()) + 8 * n)
@@ -5702,7 +5749,8 @@ def drive_profiling(torch, model, d: str, device: str = "cuda") -> dict:
     """Phase 23 (``profiling``): ``utils.profiling.trace`` around one bf16
     image dispatch: the Chrome trace names the ``keep::attention_qkv_slab``
     operator and the kernel its C entry point ``keep_attention`` launches
-    (``slab_attention_tc_kernel``), with the device time by kernel."""
+    (``slab_attention_wgmma_kernel``, the one-pass bf16 body at ViT-L's
+    Dh = 64 and S = 197), with the device time by kernel."""
     from keep_tpu_torch.utils import profiling
 
     x = aot_inputs(torch, model.cfg, n=32, device=device)
@@ -5712,7 +5760,7 @@ def drive_profiling(torch, model, d: str, device: str = "cuda") -> dict:
             model.encode_image(x["pixels"])
     path = os.path.join(d, profiling.TRACE_FILE)
     names = {e.get("name", "") for e in json.load(open(path))["traceEvents"]}
-    want = ("keep::attention_qkv_slab", "slab_attention_tc_kernel")
+    want = ("keep::attention_qkv_slab", "slab_attention_wgmma_kernel")
     found = {w: sum(w in n for n in names) > 0 for w in want}
     if not all(found.values()):
         raise AssertionError(f"trace names {found}")
@@ -7338,7 +7386,7 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
     vit = pick(rows)
     kernels = [entry(
         "attention_qkv_slab", SOURCE, REPLACES, served["launches"], vit,
-        max(r["max_abs_err"] for r in rows),
+        max(r["max_abs_err"] for r in rows), sources=ATTENTION_SOURCES,
         library_call="torch.nn.functional.scaled_dot_product_attention",
         library_kernel=vit["library_kernel"],
         launches_int8_path=served8["attention_launches"],
@@ -7424,6 +7472,7 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
     kernels.append(entry(
         "attention_qkv_heads", SOURCE, HEADS_REPLACES, heads_launches,
         vit_heads, max(r["max_abs_err"] for r in heads_rows),
+        sources=ATTENTION_SOURCES,
         library_call="torch.nn.functional.scaled_dot_product_attention",
         library_kernel=vit_heads["library_kernel"],
         flash_attention_ms=vit_heads["flash_attention_ms"],

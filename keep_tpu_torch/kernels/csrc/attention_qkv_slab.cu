@@ -26,51 +26,19 @@
 // attention inside the int8 megakernels, keep_tpu/kernels/qblock.py `_sdpa`
 // / `_sdpa_masked` (:36-44, :131-139, in the pallas_calls at :79 and
 // :182), which return the fp32 sum into an fp32 scratch that is quantized
-// without a bf16 round; the entry point below sends it at Dh = 64 and
-// S <= 512 (the KEEP towers' int8 blocks at 224^2) to its own body,
-// single-pass wgmma fed by TMA (attention_qkv_slab_f32.cu), and at every
-// other shape (an int8 KEEP at 384^2 or 448^2) to the streamed body below
-// with an fp32 epilogue.
+// without a bf16 round.
 //
 // Shapes: every form takes every head width that is a multiple of 8 from
 // 64 to 128 (the OpenCLIP zoo: 64, 80 for ViT-H, 88 for ViT-g and EVA01-g,
 // 104 for ViT-bigG, 112 for ViT-e) and any S (577 for ViT-L-14-336, 785
 // for KEEP's ViT-L/16 at 448^2).
 //
-// What bounds it on this card: bytes in principle (q, k and v read once, the
-// output written once: 0.015 ms at ViT-L B=32), but at these lengths the
-// work per byte is low and what a block can keep busy decides: the two
-// products, the exponentials (the MUFU pipe) and the fp32 softmax
-// arithmetic.
+// This file holds the entry point and the fp32 body. The bf16 input, with
+// a bf16 or an fp32 output, goes to the wgmma bodies fed by TMA in
+// attention_qkv_slab_wgmma.cu (one pass over the keys at Dh = 64 and
+// S <= 320, K and V streamed through a ring elsewhere), which say what
+// bounds them and how they are built.
 //
-// bf16 -> bf16, on the tensor cores: one block of 4 warps per (64 query
-// rows, head, batch row), each warp owning 16 query rows; s = q . k^T and
-// p . v on mma.sync.m16n8k16 (bf16 in, fp32 accumulators; fragments by
-// ldmatrix, V's by ldmatrix.trans). Two passes over the keys, 64 at a time:
-//   pass 1: s, scaled and biased, then the row max and sum with an online
-//   rescale;
-//   pass 2: s again, p = exp(s - m) * (1 / l) in fp32, rounded to bf16 as
-//   the A operand of p . v. This keeps the reference's cast point (p
-//   normalised, then rounded); an online softmax that normalised at the end
-//   would round unnormalised p. The cost is a second q . k^T and a second
-//   exp per score.
-// Keys past S score -inf (the bias read in registers), their K and V rows
-// are zero-filled by cp.async (src-size 0), so no 0 * NaN from stale shared
-// memory reaches p . v. Query rows past S are computed from zero rows and
-// never stored. Two bodies:
-//   - Dh = 64, S <= 512 (the KEEP towers at 224^2, the zoo's Dh = 64
-//     presets at 224^2): PR 5's body, which stages Q, the whole K slice and
-//     then the whole V slice (at most 64 KB each) in 128-byte rows whose
-//     16-byte chunks are XOR-swizzled by the row;
-//   - any other shape, and the bf16 -> fp32 form outside the one-pass wgmma body (p
-//     rounded to bf16 at the same point, o stored in fp32 uncast): K
-//     (pass 1), then K and V (pass 2) stream through
-//     two-stage cp.async rings of 64-row tiles, so shared memory no longer
-//     grows with S (87 KB at Dh = 128). A row holds Dh padded with zeros to
-//     a multiple of 16 (the k16 steps of q . k^T; the zeros add exact
-//     zeros; p . v's padded columns are never stored), plus one 16-byte
-//     chunk of pitch: an odd count of chunks, so the 8 rows an ldmatrix
-//     phase reads start in 8 distinct bank groups without a swizzle.
 // fp32 -> fp32 keeps an exact CUDA-core body: one block per (32 query
 // rows, head, batch row), 8 warps of 4 rows each, K (then V) staged 128
 // rows at a time in padded shared rows, the q rows in shared fp32. Three
@@ -84,21 +52,16 @@
 // which sums in another order. The tensor cores have no fp32 path that meets
 // the fp32 gate (2e-5). The third pass recomputes the scores instead of
 // keeping a row of them, so shared memory does not grow with S.
-//
-// What it leaves on the table: wgmma and TMA (the card's full bf16 rate),
-// keeping K and V of a (b, h) in shared memory across its query tiles, and
-// a persistent schedule.
 
 #include "slab_attention.cuh"
 
-// The bf16 -> fp32 body (attention_qkv_slab_f32.cu).
-cudaError_t keep_attention_bf16_f32(const void* q, const void* k,
-                                    const void* v, long long batch_stride,
-                                    long long head_stride,
-                                    long long row_stride,
-                                    const float* key_bias, float* out, int B,
-                                    int S, int H, float scale,
-                                    cudaStream_t stream);
+// The bf16 bodies, bf16 or fp32 out (attention_qkv_slab_wgmma.cu).
+cudaError_t keep_attention_wgmma(const void* q, const void* k, const void* v,
+                                 long long batch_stride,
+                                 long long head_stride, long long row_stride,
+                                 const float* key_bias, void* out,
+                                 int out_f32, int B, int S, int H, int dh,
+                                 float scale, cudaStream_t stream);
 
 namespace {
 
@@ -294,251 +257,6 @@ attention_f32_kernel(const float* __restrict__ q_base,
   }
 }
 
-// ---- bf16: tensor cores, Dh = 64 and S <= 512 (PR 5's body) ------------------
-
-__global__ void __launch_bounds__(kTcThreads)
-slab_attention_tc_kernel(const bf16* __restrict__ q_base,
-                         const bf16* __restrict__ k_base,
-                         const bf16* __restrict__ v_base, Strides st,
-                         const float* __restrict__ key_bias,
-                         bf16* __restrict__ out, int S, int H, float scale) {
-  extern __shared__ __align__(128) uint8_t tc_smem[];
-  const int sp = (S + kTcTile - 1) / kTcTile * kTcTile;
-  const uint32_t q_s = smem_addr(tc_smem);                  // [64][64]
-  const uint32_t k_s = q_s + kTcRows * kRowBytes;        // [sp][64]
-  const uint32_t v_s = k_s + sp * kRowBytes;             // [sp][64]
-  float* bias_s = reinterpret_cast<float*>(
-      tc_smem + (kTcRows + 2 * sp) * kRowBytes);            // [sp]
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int row0 = blockIdx.x * kTcRows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long long head = b * st.batch + h * st.head;
-
-  stage_async(q_s, q_base + head, st.row, row0, kTcRows, S);
-  stage_async(k_s, k_base + head, st.row, 0, sp, S);
-  cp_async_commit();
-  stage_async(v_s, v_base + head, st.row, 0, sp, S);
-  cp_async_commit();
-  fill_bias(bias_s, key_bias ? key_bias + (long long)b * S : nullptr, S, sp);
-  cp_async_wait<1>();  // Q and K
-  __syncthreads();
-
-  uint32_t qa[4][4];
-  load_a_rows(qa, q_s, 16 * warp, lane);
-
-  // Pass 1: row max m and sum l (this thread's part of rows gid, gid + 8).
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int kb = 0; kb < sp; kb += kTcTile) {
-    float s[8][4], alpha[2];
-    scores(s, qa, k_s, kb, bias_s, scale, lane);
-    raise_max(s, m, alpha);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] *= alpha[i];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        l[e >> 1] += expf(__fsub_rn(s[n][e], m[e >> 1]));
-  }
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) inv[i] = 1.f / quad_sum(l[i]);
-
-  // Pass 2: p = exp(s - m) / l rounded to bf16, o += p . v.
-  cp_async_wait<0>();  // V
-  __syncthreads();
-  float o[8][4] = {};
-  for (int kb = 0; kb < sp; kb += kTcTile) {
-    float s[8][4];
-    scores(s, qa, k_s, kb, bias_s, scale, lane);
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[n][e] = __fmul_rn(expf(__fsub_rn(s[n][e], m[e >> 1])), inv[e >> 1]);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_to_a(pa[c], s[2 * c], s[2 * c + 1]);
-    mma_ax<4>(o, pa, v_s, kb, lane);
-  }
-
-  const int D = H * kHeadDim;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + 16 * warp + (lane >> 2) + 8 * half;
-    if (row >= S) continue;
-    bf16* dst = out + ((long long)b * S + row) * D + h * kHeadDim +
-                2 * (lane & 3);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      Elem<bf16>::store(dst + 8 * n, o[n][2 * half], o[n][2 * half + 1]);
-  }
-}
-
-// ---- bf16: tensor cores, any Dh and S (K and V streamed) ----------------------
-
-// s = (q.k^T)*scale + bias for the 64 keys kb.. of the tile at `k_s`, in the
-// reference's order (a rounded product, then a rounded sum), over kDP / 16
-// k16 steps; keys at or past S score -inf. Fragment layout as `scores`.
-template <int kDP>
-__device__ __forceinline__ void tile_scores(
-    float (&s)[8][4], const uint32_t (&qa)[kDP / 16][4], uint32_t k_s, int kb,
-    const float* __restrict__ bias, int S, float scale, int lane) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kDP / 16; ++kk) {
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      uint32_t b[4];
-      ldsm_x4(b, k_s + prow<kDP>(16 * p + (lane & 7) + ((lane >> 4) << 3),
-                                 2 * kk + ((lane >> 3) & 1)));
-      mma_bf16(s[2 * p], qa[kk], b[0], b[1]);
-      mma_bf16(s[2 * p + 1], qa[kk], b[2], b[3]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = kb + 8 * n + 2 * (lane & 3) + (e & 1);
-      const float bj = j < S ? (bias ? __ldg(bias + j) : 0.f) : -INFINITY;
-      s[n][e] = __fadd_rn(__fmul_rn(s[n][e], scale), bj);
-    }
-}
-
-// TOut: bf16 (#1's bf16 -> bf16 form) or float (the bf16 -> fp32 form of
-// the int8 blocks at the shapes the one-pass wgmma body does not take: o
-// stored uncast)
-template <int kDP, typename TOut>
-__global__ void __launch_bounds__(kTcThreads)
-attention_tc_any_kernel(const bf16* __restrict__ q_base,
-                        const bf16* __restrict__ k_base,
-                        const bf16* __restrict__ v_base, Strides st,
-                        const float* __restrict__ key_bias,
-                        TOut* __restrict__ out, int S, int H, int dh,
-                        float scale) {
-  extern __shared__ __align__(128) uint8_t tc_smem[];
-  constexpr uint32_t kTile = tile_bytes(kDP);
-  // Q, then K's two stages, then V's two stages
-  const uint32_t q_s = smem_addr(tc_smem);
-  const uint32_t k_s = q_s + kTile;
-  const uint32_t v_s = q_s + 3 * kTile;
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int row0 = blockIdx.x * kTcRows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const long long head = b * st.batch + h * st.head;
-  const bf16* kg = k_base + head;
-  const bf16* vg = v_base + head;
-  const float* bias = key_bias ? key_bias + (long long)b * S : nullptr;
-  const int tiles = (S + kTcTile - 1) / kTcTile;
-
-  // Pass 1: row max m and sum l (this thread's part of rows gid, gid + 8),
-  // K streamed through two stages.
-  stage_tile<kDP>(q_s, q_base + head, st.row, row0, S, dh);
-  stage_tile<kDP>(k_s, kg, st.row, 0, S, dh);
-  cp_async_commit();
-  uint32_t qa[kDP / 16][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) {
-      stage_tile<kDP>(k_s + ((t + 1) & 1) * kTile, kg, st.row,
-                      (t + 1) * kTcTile, S, dh);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kDP / 16; ++kk)
-        ldsm_x4(qa[kk], q_s + prow<kDP>(16 * warp + (lane & 15),
-                                        2 * kk + (lane >> 4)));
-    }
-    float s[8][4], alpha[2];
-    tile_scores<kDP>(s, qa, k_s + (t & 1) * kTile, t * kTcTile, bias, S,
-                     scale, lane);
-    raise_max(s, m, alpha);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] *= alpha[i];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        l[e >> 1] += expf(__fsub_rn(s[n][e], m[e >> 1]));
-    __syncthreads();  // this stage is refilled two tiles on
-  }
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) inv[i] = 1.f / quad_sum(l[i]);
-
-  // Pass 2: p = exp(s - m) / l rounded to bf16, o += p . v, K and V
-  // streamed together.
-  stage_tile<kDP>(k_s, kg, st.row, 0, S, dh);
-  stage_tile<kDP>(v_s, vg, st.row, 0, S, dh);
-  cp_async_commit();
-  float o[kDP / 8][4] = {};
-  for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) {
-      const uint32_t next = ((t + 1) & 1) * kTile;
-      stage_tile<kDP>(k_s + next, kg, st.row, (t + 1) * kTcTile, S, dh);
-      stage_tile<kDP>(v_s + next, vg, st.row, (t + 1) * kTcTile, S, dh);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint32_t cur = (t & 1) * kTile;
-    float s[8][4];
-    tile_scores<kDP>(s, qa, k_s + cur, t * kTcTile, bias, S, scale, lane);
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[n][e] = __fmul_rn(expf(__fsub_rn(s[n][e], m[e >> 1])), inv[e >> 1]);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_to_a(pa[c], s[2 * c], s[2 * c + 1]);
-    // o += P . V over the tile's 4 chunks of 16 keys, 16 columns a step
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-#pragma unroll
-      for (int d = 0; d < kDP / 16; ++d) {
-        uint32_t bv[4];
-        ldsm_x4_t(bv, v_s + cur +
-                          prow<kDP>(16 * c + (lane & 7) +
-                                        (((lane >> 3) & 1) << 3),
-                                    2 * d + (lane >> 4)));
-        mma_bf16(o[2 * d], pa[c], bv[0], bv[1]);
-        mma_bf16(o[2 * d + 1], pa[c], bv[2], bv[3]);
-      }
-    }
-    __syncthreads();
-  }
-
-  const int D = H * dh;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + 16 * warp + (lane >> 2) + 8 * half;
-    if (row >= S) continue;
-    TOut* dst = out + ((long long)b * S + row) * D + h * dh + 2 * (lane & 3);
-#pragma unroll
-    for (int n = 0; n < kDP / 8; ++n)
-      if (8 * n < dh)
-        Elem<TOut>::store(dst + 8 * n, o[n][2 * half], o[n][2 * half + 1]);
-  }
-}
-
 // ---- launches -------------------------------------------------------------------
 
 cudaError_t allow_smem(const void* kernel, size_t bytes) {
@@ -562,72 +280,6 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v,
-                      Strides st, const float* key_bias, bf16* out, int B,
-                      int S, int H, float scale, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(1, S);
-  const cudaError_t e = allow_smem(
-      reinterpret_cast<const void*>(slab_attention_tc_kernel), smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((S + kTcRows - 1) / kTcRows, H, B);
-  slab_attention_tc_kernel<<<grid, kTcThreads, smem, stream>>>(
-      q, k, v, st, key_bias, out, S, H, scale);
-  return cudaGetLastError();
-}
-
-template <int kDP, typename TOut>
-cudaError_t launch_tc_any(const bf16* q, const bf16* k, const bf16* v,
-                          Strides st, const float* key_bias, TOut* out, int B,
-                          int S, int H, int dh, float scale,
-                          cudaStream_t stream) {
-  const size_t smem = 5 * size_t(tile_bytes(kDP));
-  const cudaError_t e = allow_smem(
-      reinterpret_cast<const void*>(attention_tc_any_kernel<kDP, TOut>),
-      smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((S + kTcRows - 1) / kTcRows, H, B);
-  attention_tc_any_kernel<kDP, TOut><<<grid, kTcThreads, smem, stream>>>(
-      q, k, v, st, key_bias, out, S, H, dh, scale);
-  return cudaGetLastError();
-}
-
-// The streamed body at Dh padded to a multiple of 16.
-template <typename TOut>
-cudaError_t launch_streamed(const bf16* q, const bf16* k, const bf16* v,
-                            Strides st, const float* key_bias, TOut* out,
-                            int B, int S, int H, int dh, float scale,
-                            cudaStream_t stream) {
-  switch ((dh + 15) / 16) {
-    case 4:
-      return launch_tc_any<64>(q, k, v, st, key_bias, out, B, S, H, dh, scale,
-                               stream);
-    case 5:
-      return launch_tc_any<80>(q, k, v, st, key_bias, out, B, S, H, dh, scale,
-                               stream);
-    case 6:
-      return launch_tc_any<96>(q, k, v, st, key_bias, out, B, S, H, dh, scale,
-                               stream);
-    case 7:
-      return launch_tc_any<112>(q, k, v, st, key_bias, out, B, S, H, dh,
-                                scale, stream);
-    case 8:
-      return launch_tc_any<128>(q, k, v, st, key_bias, out, B, S, H, dh,
-                                scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
-                        Strides st, const float* key_bias, bf16* out, int B,
-                        int S, int H, int dh, float scale,
-                        cudaStream_t stream) {
-  if (dh == kHeadDim && S <= kMaxSeq)
-    return launch_tc(q, k, v, st, key_bias, out, B, S, H, scale, stream);
-  return launch_streamed(q, k, v, st, key_bias, out, B, S, H, dh, scale,
-                         stream);
-}
-
 }  // namespace
 
 // Plain C entry point, loaded with ctypes; returns the cudaError_t of the
@@ -649,38 +301,23 @@ extern "C" int keep_attention(const void* q, const void* k, const void* v,
   if (S < 1 || H < 1 || B < 1 || B > 65535 || H > 65535 ||
       (batch_stride | head_stride | row_stride) % 8)
     return int(cudaErrorInvalidValue);
-  const bool any_shape = head_dim % 8 == 0 && head_dim >= kMinHeadDim &&
-                         head_dim <= kMaxHeadDim;
+  if (head_dim % 8 || head_dim < kMinHeadDim || head_dim > kMaxHeadDim)
+    return int(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Strides strides{batch_stride, head_stride, row_stride};
   const float* kb = static_cast<const float*>(key_bias);
   switch (dtype) {
     case 0:
-      if (!any_shape) return int(cudaErrorInvalidValue);
       return int(launch_f32(static_cast<const float*>(q),
                             static_cast<const float*>(k),
-                            static_cast<const float*>(v), strides, kb,
-                            static_cast<float*>(out), B, S, H, head_dim,
+                            static_cast<const float*>(v),
+                            Strides{batch_stride, head_stride, row_stride},
+                            kb, static_cast<float*>(out), B, S, H, head_dim,
                             scale, st));
     case 1:
-      if (!any_shape) return int(cudaErrorInvalidValue);
-      return int(launch_bf16(static_cast<const bf16*>(q),
-                             static_cast<const bf16*>(k),
-                             static_cast<const bf16*>(v), strides, kb,
-                             static_cast<bf16*>(out), B, S, H, head_dim,
-                             scale, st));
     case 2:
-      if (!any_shape) return int(cudaErrorInvalidValue);
-      if (head_dim == kHeadDim && S <= kMaxSeq)  // the one-pass wgmma body
-        return int(keep_attention_bf16_f32(q, k, v, batch_stride,
-                                           head_stride, row_stride, kb,
-                                           static_cast<float*>(out), B, S, H,
-                                           scale, st));
-      return int(launch_streamed(static_cast<const bf16*>(q),
-                                 static_cast<const bf16*>(k),
-                                 static_cast<const bf16*>(v), strides, kb,
-                                 static_cast<float*>(out), B, S, H, head_dim,
-                                 scale, st));
+      return int(keep_attention_wgmma(q, k, v, batch_stride, head_stride,
+                                      row_stride, kb, out, dtype == 2, B, S,
+                                      H, head_dim, scale, st));
     default:
       return int(cudaErrorInvalidValue);
   }

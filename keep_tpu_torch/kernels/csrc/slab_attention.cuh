@@ -1,16 +1,19 @@
-// Shared pieces of the slab attention kernels (attention_qkv_slab.cu, the
-// forward, and attention_qkv_slab_bwd.cu, its backward).
+// Shared pieces of the slab attention kernels: the forward's fp32 body
+// and entry point (attention_qkv_slab.cu), its wgmma bodies
+// (attention_qkv_slab_wgmma.cu: the constants, element stores, the bf16
+// packing, the quad reductions and the key-bias row) and the backward
+// (attention_qkv_slab_bwd.cu).
 //
 // Two families live here:
 //   - the fp32 CUDA-core bodies: the head width and tile constants, element
 //     access for fp32 and bf16 slabs, the staging of a head's 64-wide column
 //     slice into padded shared rows, warp reductions and the load of one
 //     64-wide row into registers;
-//   - the bf16 tensor-core bodies: cp.async staging into XOR-swizzled shared
-//     tiles (rows past S zero-filled), ldmatrix fragment loads and
-//     mma.sync.m16n8k16 bf16 with fp32 accumulators; and the tiles of the
-//     streamed bodies at any head width (rows of Dh padded to a multiple of
-//     16 plus one chunk of pitch).
+//   - the backward's bf16 tensor-core bodies: cp.async staging into
+//     XOR-swizzled shared tiles (rows past S zero-filled), ldmatrix fragment
+//     loads and mma.sync.m16n8k16 bf16 with fp32 accumulators; and the tiles
+//     of its streamed bodies at any head width (rows of Dh padded to a
+//     multiple of 16 plus one chunk of pitch).
 #pragma once
 
 #include <cuda_bf16.h>

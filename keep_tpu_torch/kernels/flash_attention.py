@@ -5,16 +5,15 @@ Counterpart of ``keep_tpu/kernels/flash_attention.py``:
 ``attention_qkv_slab`` (the Pallas kernel at :132-206, under the
 ``jax.custom_vjp`` of :169-248), ``attention_qkv_heads`` (:80-129) and
 ``flash_attention`` (:251-281). For a CUDA tensor the wrappers launch the
-hand-written Hopper kernels in ``csrc/attention_qkv_slab.cu`` (the forward
-of every layout: one kernel body that reads q, k and v through base
-pointers and batch, head and row strides) and
-``csrc/attention_qkv_slab_bwd.cu`` (the closed-form backward,
-``_slab_attn_bwd``); bf16 runs on the tensor cores, fp32 on the CUDA
-cores, and the bf16 → fp32 form below on its own tensor-core body
-(``csrc/attention_qkv_slab_f32.cu``: ``wgmma`` fed by TMA, one pass with
-the scores in registers, at Dh = 64 and S ≤ 512; the streamed bf16 body
-with an fp32 epilogue elsewhere). For a CPU tensor they run
-the ``*_reference`` versions, the same math in plain PyTorch, which the
+hand-written Hopper kernels behind the C entry point ``keep_attention``
+(``csrc/attention_qkv_slab.cu``: every layout goes to the same bodies,
+which read q, k and v through base pointers and batch, head and row
+strides) and ``csrc/attention_qkv_slab_bwd.cu`` (the closed-form backward,
+``_slab_attn_bwd``). bf16 in, bf16 or fp32 out, runs on ``wgmma`` fed by
+TMA (``csrc/attention_qkv_slab_wgmma.cu``: one pass with the scores in
+registers at Dh = 64 and S ≤ 320, K and V streamed through a ring of
+shared-memory stages elsewhere); fp32 on the CUDA cores. For a CPU tensor
+they run the ``*_reference`` versions, the same math in plain PyTorch, which the
 tests and ``chip_smoke.py`` also hold the kernels against. There is no
 fallback from one to the other. The choice is the dispatcher's: the C
 entry point ``keep_attention`` is two ``keep::`` operators

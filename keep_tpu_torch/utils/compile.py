@@ -40,8 +40,10 @@ _USED = re.compile(r"Used (\d+) registers")
 _SMEM = re.compile(r"(\d+) bytes smem")
 _BARRIERS = re.compile(r"used (\d+) barriers")
 # "(C7512) Potential Performance Loss: wgmma.mma_async instructions are
-# serialized ... for the function '<mangled>'" and the like
-_NOTE = re.compile(r"\((C\d+)\) (.*?)(?: for the function '([^']+)')?\s*$")
+# serialized ... for the function '<mangled>'", C7515's "... in the function
+# '<mangled>'" and the like
+_NOTE = re.compile(
+    r"\((C\d+)\) (.*?)(?: (?:for|in) the function '([^']+)')?\s*$")
 
 
 def nvcc_options(device=None) -> Optional[list[str]]:

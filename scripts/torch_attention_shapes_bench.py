@@ -1,25 +1,36 @@
 #!/usr/bin/env python3
-"""Times the port's fused attention (``attention_qkv_slab``, kernel #1) on
-one NVIDIA GPU at the KEEP towers' and the OpenCLIP zoo's shapes, beside
-the plain version and ``F.scaled_dot_product_attention`` on the same values.
+"""Times the port's bf16 attention forward (#1 ``attention_qkv_slab``, #2
+``attention_qkv_heads`` / ``flash_attention``, and the int8 blocks'
+bf16 → fp32 form) on one NVIDIA GPU at the shapes ``chip_smoke.py``'s
+phases 3, 3e and 25 take, beside ``F.scaled_dot_product_attention`` on the
+same values and the bound.
 
-    python3 scripts/torch_attention_shapes_bench.py [--runs 25]
+    python3 scripts/torch_attention_shapes_bench.py [--runs 7] [--calls 10]
+        [--out f.json] [--edges 257,273,320 --widths 64,80]
 
-Each shape is (name, B, S, H, Dh): ViT-L/16 at 224² (S = 197, Dh = 64) at
-B = 32 and 128, the body PR 5 wrote; ViT-H-14 (Dh = 80), ViT-g-14 /
-EVA01-g-14 (88), ViT-bigG-14 (104) and ViT-e-14 (112) at S = 257; ViT-L
-at S = 577 (ViT-L-14-336, KEEP at 384²) and 785 (KEEP at 448²); and Dh =
-64 at S = 512 and 513, the last length PR 5's body takes and the first the
-streamed body does (one key apart, so the pair compares the two bodies).
-For each, in bf16: the kernel's time (median of ``--runs`` single calls
-between CUDA events), the plain version's, SDPA's and the bound: the larger
-of the two products' 4·S²·Dh operations per head over 989 TFLOP/s and the
-slab read once plus the output written once over 3.35 TB/s. A checkout
-whose kernel refuses a shape prints ``"refused"`` with its error, so the
-same file can time another checkout of the package in the same call (run
-it from that checkout's root with ``PYTHONPATH=.``). Prints the card's name
-and power limit, then one JSON line per shape. Needs an NVIDIA GPU;
-imports no JAX.
+Shapes (name, B, S, H, Dh, padded key bias): ViT-L/16 (S = 197) and
+BERT-base (S = 256, a ragged key mask) at B = 32 and 128; the zoo's head
+widths at S = 257 (ViT-H 80, ViT-g 88, ViT-bigG 104, ViT-e 112) and Dh =
+64 at 577 and 785; the wide shapes of phase 25 at B = 32; and every edge
+length of ``EDGE_S`` at Dh = 64 and 80 (B = 32, H = 16); with ``--edges``
+only those lengths at the ``--widths`` (B = 32, H = 16). For each, in bf16:
+the slab kernel's time (the median over ``--runs`` of CUDA events around
+``--calls`` calls back to back, over the calls: device time wherever a
+call outlasts the host's ~30 µs to launch the next; ``--calls 1`` times
+single calls, host included, as ``chip_smoke.cuda_ms`` does) and its
+device time (``dev_ms``: the profiler's kernel time over ``--calls``
+calls, which host time never enters, also for the fp32-out form and
+SDPA; each beside its ``_source``, ``"events"`` where no whole profiler
+session came and events around the calls back to back stand in), the
+split-heads and [B, H, S, Dh] kernels' (the towers', zoo's
+and wide shapes), the fp32-out form's, SDPA's (its head views of the slab)
+and the bound: the larger of the two products' 4·S²·Dh operations a head
+over 989 TFLOP/s and q, k, v read once plus the output (bf16, or fp32 for
+the fp32-out form) written once over 3.35 TB/s. A checkout whose kernel
+refuses a shape prints ``"refused"`` with its error, so the same file
+times another checkout of the package in the same call (run it from that
+checkout's root with ``PYTHONPATH=.``). Prints the card's name and power
+limit, then one JSON line per shape. Needs an NVIDIA GPU; imports no JAX.
 """
 
 from __future__ import annotations
@@ -33,15 +44,28 @@ import torch
 
 PEAK_BF16 = 989e12
 HBM_BYTES_PER_S = 3.35e12
-SHAPES = [("vit_l16", 32, 197, 16, 64), ("vit_l16", 128, 197, 16, 64),
-          ("s512", 32, 512, 16, 64), ("s513", 32, 513, 16, 64),
-          ("vit_h14", 64, 257, 16, 80), ("vit_g14", 64, 257, 16, 88),
-          ("vit_bigg14", 32, 257, 16, 104), ("vit_e14", 32, 257, 16, 112),
-          ("vit_l14_336", 32, 577, 16, 64), ("keep_448", 32, 785, 16, 64)]
+EDGE_S = [1, 15, 16, 17, 64, 197, 256, 257, 320, 321, 512, 513, 575, 576,
+          577, 640, 641, 785, 1025]
+# (name, B, S, H, Dh, padded, every layout)
+SHAPES = ([(name, b, s, h, 64, padded, True) for b in (32, 128)
+           for name, s, h, padded in (("vit_l16", 197, 16, False),
+                                      ("bert_base", 256, 12, True))]
+          + [("vit_h14", 64, 257, 16, 80, False, True),
+             ("vit_g14", 64, 257, 16, 88, False, True),
+             ("vit_bigg14", 32, 257, 16, 104, False, True),
+             ("vit_e14", 32, 257, 16, 112, False, True),
+             ("vit_l14_336", 32, 577, 16, 64, False, True),
+             ("keep_448", 32, 785, 16, 64, False, True),
+             ("wide_vit_h14", 32, 257, 16, 80, False, False),
+             ("wide_vit_g14", 32, 257, 16, 88, False, False),
+             ("dh128", 32, 257, 16, 128, False, False)]
+          + [(f"edge_dh{dh}", 32, s, 16, dh, False, False)
+             for dh in (64, 80) for s in EDGE_S])
 
 
-def events_ms(fn, warmup: int = 3, runs: int = 25) -> float:
-    """Median of ``runs`` single-call times from CUDA events."""
+def events_ms(fn, runs: int, calls: int, warmup: int = 3) -> float:
+    """Median over ``runs`` of the CUDA-event time of ``calls`` calls back
+    to back, over ``calls``."""
     for _ in range(warmup):
         fn()
     times = []
@@ -49,56 +73,133 @@ def events_ms(fn, warmup: int = 3, runs: int = 25) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / calls)
     return statistics.median(times)
 
 
-def bound_ms(b: int, s: int, h: int, dh: int) -> tuple[float, str]:
+def device_ms(fn, calls: int, tries: int = 3) -> tuple[float, str]:
+    """The device time of one call of ``fn`` (ms) and where it came from.
+    ``"profiler"``: its kernels' time in a profiler session of ``calls``
+    calls, over the calls. The profiler on the card's machine now and then
+    records no kernel of a session, or only some: a session is kept only
+    if it holds as many device records as the calls issued, a whole number
+    a call and at least the attention launches the port counted in it,
+    else it is taken again. After ``tries`` sessions short of that,
+    ``"events"``: events around the calls back to back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from keep_tpu_torch.kernels import flash_attention as fa
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        n0 = fa.LAUNCHES + fa.HEADS_LAUNCHES
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        issued = fa.LAUNCHES + fa.HEADS_LAUNCHES - n0
+        records = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        count = sum(e.count for e in records)
+        if count and count % calls == 0 and count >= issued:
+            return (sum(e.self_device_time_total for e in records) / 1e3
+                    / calls, "profiler")
+    return events_ms(fn, 1, calls, warmup=0), "events"
+
+
+def bound_ms(b: int, s: int, h: int, dh: int, out_bytes: int = 2,
+             padded: bool = False) -> tuple[float, str]:
     ops = 4 * b * h * s * s * dh / PEAK_BF16
-    moved = 4 * b * s * h * dh * 2 / HBM_BYTES_PER_S  # q, k, v in; out
+    moved = (b * s * h * dh * (3 * 2 + out_bytes) + padded * b * s * 4
+             ) / HBM_BYTES_PER_S
     return (ops * 1e3, "operations") if ops >= moved else (moved * 1e3,
                                                            "bytes")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--runs", type=int, default=25)
+    ap.add_argument("--runs", type=int, default=7)
+    ap.add_argument("--calls", type=int, default=10)
+    ap.add_argument("--out", help="also write the rows to this JSON file")
+    ap.add_argument("--edges", help="time only these comma-separated "
+                    "lengths (B = 32, H = 16) at --widths")
+    ap.add_argument("--widths", default="64,80",
+                    help="head widths of --edges (default 64,80)")
     args = ap.parse_args()
+    shapes = SHAPES
+    if args.edges:
+        shapes = [(f"edge_dh{dh}", 32, int(s), 16, int(dh), False, False)
+                  for dh in args.widths.split(",")
+                  for s in args.edges.split(",")]
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     from keep_tpu_torch.kernels import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip(), flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, b, s, h, dh in SHAPES:
+    rows = []
+    for name, b, s, h, dh, padded, layouts in shapes:
         qkv = torch.randn(b, s, 3 * h * dh, device="cuda", generator=gen)
         qkv = qkv.bfloat16()
+        kb = mask = None
+        if padded:
+            lens = torch.randint(8, s + 1, (b,), device="cuda", generator=gen)
+            kb = (torch.arange(s, device="cuda")[None] >= lens[:, None]
+                  ).float() * -1e9
+            mask = kb[:, None, None, :].bfloat16()
         row = {"shape": name, "B": b, "S": s, "H": h, "Dh": dh,
-               "dtype": "bfloat16"}
+               "padded": padded, "dtype": "bfloat16"}
         try:
-            got = fa.attention_qkv_slab(qkv, num_heads=h)
+            got = fa.attention_qkv_slab(qkv, kb, num_heads=h)
         except ValueError as e:
             print(json.dumps({**row, "refused": str(e)}), flush=True)
             continue
-        ref = fa.attention_qkv_slab_reference(qkv, num_heads=h)
+        ref = fa.attention_qkv_slab_reference(qkv, kb, num_heads=h)
+        f32 = dict(num_heads=h, out_dtype=torch.float32)
         q, k, v = qkv.view(b, s, 3, h, dh).permute(2, 0, 3, 1, 4)
+        run = lambda fn: events_ms(fn, args.runs, args.calls)  # noqa: E731
+        slab = lambda: fa.attention_qkv_slab(qkv, kb, num_heads=h)  # noqa
+        slab32 = lambda: fa.attention_qkv_slab(qkv, kb, **f32)  # noqa
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask)
         row.update(
             max_abs_err=(got.float() - ref.float()).abs().max().item(),
-            ms=events_ms(lambda: fa.attention_qkv_slab(qkv, num_heads=h),
-                         runs=args.runs),
-            plain_ms=events_ms(lambda: fa.attention_qkv_slab_reference(
-                qkv, num_heads=h), runs=args.runs),
-            library_ms=events_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v), runs=args.runs))
-        row["bound_ms"], row["bound_by"] = bound_ms(b, s, h, dh)
+            ms=run(slab), f32_out_ms=run(slab32), library_ms=run(sdpa))
+        for key, fn in (("dev_ms", slab), ("f32_out_dev_ms", slab32),
+                        ("library_dev_ms", sdpa)):
+            row[key], row[f"{key}_source"] = device_ms(fn, args.calls)
+        if layouts:
+            lanes = [t.contiguous() for t in qkv.split(h * dh, dim=-1)]
+            bhsd = [t.view(b, s, h, dh).transpose(1, 2) for t in lanes]
+            bias4 = None if kb is None else kb[:, None, None, :]
+            row.update(
+                heads_ms=run(lambda: fa.attention_qkv_heads(
+                    *lanes, kb, num_heads=h)),
+                flash_attention_ms=run(lambda: fa.flash_attention(
+                    *bhsd, bias4)),
+                plain_ms=run(lambda: fa.attention_qkv_slab_reference(
+                    qkv, kb, num_heads=h)))
+        row["bound_ms"], row["bound_by"] = bound_ms(b, s, h, dh,
+                                                    padded=padded)
+        row["f32_out_bound_ms"], _ = bound_ms(b, s, h, dh, 4, padded)
+        row["calls"] = args.calls
         print(json.dumps(row), flush=True)
+        rows.append(row)
+        del qkv, ref, got
+        torch.cuda.empty_cache()
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "rows": rows}, f)
 
 
 if __name__ == "__main__":

@@ -189,7 +189,8 @@ def _one_minus_cos(a, b) -> float:
 def test_card_body_model_distance_at_bert_base():
     """ROADMAP queue 3's fault, pinned: a plain model of the card's bf16 #1
     body in its order of sums and roundings (``card_attention_model``: q·kᵀ
-    in k16 steps, the online row sum over four threads, p = e·(1 / l)
+    in k16 steps; at BERT-base's Dh = 64 and S ≤ 320 the one-pass body's
+    exact row max and its row sum over four threads in key order; p = e / l
     rounded to bf16, p·v in 16-key steps) in the port's BERT at BERT-base
     width on ``chip_smoke.bert_check_inputs``, held against the JAX
     package's Pallas #1 (interpret mode) and against the port's plain #1.
@@ -199,22 +200,19 @@ def test_card_body_model_distance_at_bert_base():
     (``tests/test_torch_hf_text.py``), and the port's plain #1 sits at the
     same distance from the JAX Pallas #1 as the two packages' plain routes
     from each other (2.4e-5: the bf16 towers round elsewhere, not in #1).
-    The model sits at 5.5e-6 / 5.7e-6 (pooler / hidden rows) from the
-    port's plain #1, the card kernel at 3.81e-6 / 5.01e-6 (``chip_smoke.py``
-    phase ``bert_flash_bf16`` on an NVIDIA H100 80GB HBM3): the card's
-    distance is its order of sums. The divide form (the JAX body's e / l) reads 5.5e-6 / 5.2e-6:
-    the reciprocal does not make the distance. Printed with ``-s``; the
-    model's distance is pinned within a decade (5e-7 … 5e-5), every route
-    at the repo's 0.999 gate against the JAX kernel."""
+    The model sits at 5.54e-6 / 5.66e-6 (pooler / hidden rows) from the
+    port's plain #1, the card kernel where ``chip_smoke.py`` phase
+    ``bert_flash_bf16`` reads it (``PERF.md``): the card's distance is its
+    order of sums. Printed with ``-s``; the model's distance is pinned
+    within a decade (5e-7 … 5e-5), every route at the repo's 0.999 gate
+    against the JAX kernel."""
     from card_attention_model import card_body_attention
 
     out = _bert_base_routes({
         "plain": lambda qkv, kb, h: fa.attention_qkv_slab_reference(
             qkv, kb, num_heads=h),
         "card_model": lambda qkv, kb, h: card_body_attention(
-            qkv, kb, num_heads=h),
-        "card_model_divide": lambda qkv, kb, h: card_body_attention(
-            qkv, kb, num_heads=h, divide=True)})
+            qkv, kb, num_heads=h)})
     jax_rows = out.pop("jax_pallas")
     d = {name: [_one_minus_cos(a, r) for a, r in zip(rows, jax_rows)]
          for name, rows in out.items()}
@@ -227,5 +225,34 @@ def test_card_body_model_distance_at_bert_base():
     for name, rows in d.items():
         assert all(1 - x >= 0.999 for x in rows), name
     assert max(own["plain"]) < 1e-6  # the rows against themselves
-    for name in ("card_model", "card_model_divide"):
-        assert all(5e-7 <= x <= 5e-5 for x in own[name]), (name, own[name])
+    assert all(5e-7 <= x <= 5e-5 for x in own["card_model"]), own
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("s", [130, 577])
+@pytest.mark.parametrize("dh", [88, 104])
+def test_card_body_model_at_padded_depth(rng, dh, s, padded):
+    """The card-order model where the streamed body pads q·kᵀ's depth with
+    zero columns (Dh 88 → 96 and 104 → 112: six and seven k16 steps) and
+    keeps its row max and sum online over 64-key tiles (S past one tile),
+    against the JAX package's Pallas #1 in interpret mode, bf16 in and out:
+    within the bf16 gate (max |Δ| < 0.05) on valid rows; its fp32 output
+    is not the plain version's (another order of sums)."""
+    from card_attention_model import card_body_attention, one_pass
+
+    b, h = 2, 2
+    assert not one_pass(dh, s)
+    qkv, kb, valid = _inputs(rng, b, s, h, dh, padded)
+    ref = np.asarray(jax_slab(jnp.asarray(qkv).astype(jnp.bfloat16),
+                              None if kb is None else jnp.asarray(kb),
+                              num_heads=h)).astype(np.float32)
+    x = torch.from_numpy(qkv).bfloat16()
+    tkb = None if kb is None else torch.from_numpy(kb)
+    got = card_body_attention(x, tkb, num_heads=h)
+    assert got.shape == (b, s, h * dh) and got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    assert np.isfinite(got).all()
+    assert np.max(np.abs(got[valid] - ref[valid])) < 0.05
+    f32 = dict(num_heads=h, out_dtype=torch.float32)
+    assert not torch.equal(card_body_attention(x, tkb, **f32),
+                           fa.attention_qkv_slab_reference(x, tkb, **f32))

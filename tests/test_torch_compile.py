@@ -84,6 +84,28 @@ def test_parse_ptxas_records():
         kcompile.parse_ptxas(REPORT.split("ptxas info    : Used 255")[0])
 
 
+def test_parse_ptxas_notes_in_the_function():
+    """ptxas names the kernel of C7515 (wgmma serialised where another
+    instruction defines an accumulator in flight) "in the function", not
+    "for the function" as C7512; both land on their entry. C7519's
+    informational "in function" lines name no entry."""
+    text = "== attention.cu ==\n" + REPORT.replace(
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : (C7519) warpgroup.arrive is injected in around line "
+        "6573 by compiler to allow use of registers in GMMA in function "
+        "'_Z9row_quantPKfPaPfii'\n"
+        "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
+        "instructions are serialized due to non wgmma instructions defining "
+        "accumulator registers of a wgmma between start and end of the "
+        "pipeline stage in the function '_Z9row_quantPKfPaPfii'")
+    attn, rows = kcompile.parse_ptxas(text)
+    assert [n[:5] for n in attn["notes"]] == ["C7512"]
+    assert rows["notes"] == [
+        "C7515: Potential Performance Loss: wgmma.mma_async instructions are "
+        "serialized due to non wgmma instructions defining accumulator "
+        "registers of a wgmma between start and end of the pipeline stage"]
+
+
 @pytest.fixture
 def fake_toolkit(tmp_path, monkeypatch):
     """A stand-in ``nvcc`` that prints ``REPORT`` for each ``-c`` and writes

@@ -145,6 +145,44 @@ def test_kernel_matches_plain_at_zoo_shapes(cuda, dh, s, padded, dtype):
         assert (g - r).abs().max().item() < 0.05
 
 
+# the bf16 forward's lengths: around the one-pass body's 16-key pieces (S ≤
+# 320), the streamed body's 64-key tiles past it, the
+# towers' and the zoo's lengths, and one past the longest row PyTorch's warp
+# softmax serves (chip_smoke.EDGE_S)
+WGMMA_EDGE_S = [1, 15, 16, 17, 64, 197, 256, 257, 320, 321, 512, 513, 575,
+                576, 577, 640, 641, 785, 1025]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("dh", [64, 80, 88, 104, 112, 128])
+@pytest.mark.parametrize("s", WGMMA_EDGE_S)
+def test_wgmma_body_at_every_edge_and_width(cuda, s, dh, padded, out_dtype):
+    """The bf16 forward's wgmma bodies (one pass at Dh = 64, S ≤ 320; K and
+    V streamed through the ring elsewhere), bf16 and fp32 out, at every
+    edge length and head width: one launch, finite, max |Δ| < 0.05 against
+    the plain version on valid rows; bf16 out through the split q, k, v and
+    [B, H, S, Dh] entry points gives the slab's bits."""
+    b, h = 2, 2
+    qkv, kb, valid = _zoo_inputs(cuda, b, s, h, dh, padded, torch.bfloat16)
+    n0 = fa.LAUNCHES
+    got = fa.attention_qkv_slab(qkv, kb, num_heads=h, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == n0 + 1 and got.dtype == out_dtype
+    ref = fa.attention_qkv_slab_reference(qkv, kb, num_heads=h,
+                                          out_dtype=out_dtype)
+    assert torch.isfinite(got).all()
+    assert (got.float()[valid] - ref.float()[valid]).abs().max().item() < 0.05
+    if out_dtype == torch.bfloat16:
+        q, k, v = (t.contiguous() for t in qkv.split(h * dh, dim=-1))
+        heads = fa.attention_qkv_heads(q, k, v, kb, num_heads=h)
+        bhsd = [t.view(b, s, h, dh).transpose(1, 2) for t in (q, k, v)]
+        flash = fa.flash_attention(*bhsd, None if kb is None
+                                   else kb[:, None, None, :])
+        assert torch.equal(heads, got)
+        assert torch.equal(flash.transpose(1, 2).reshape(b, s, h * dh), got)
+
+
 def test_narrow_bodies_refuse_zoo_shapes(cuda):
     """The bodies that kept Dh = 64 and S ≤ 512 until they were widened,
     the bf16 → fp32 form (the int8 blocks' attention) and the backward, now
@@ -400,8 +438,8 @@ def test_attention_fp32_output_matches_plain(cuda):
 @pytest.mark.parametrize("s", EDGE_S)
 def test_attention_fp32_output_at_every_edge(cuda, s, padded):
     """The fp32-out form at the edge lengths, padded and unpadded, within
-    the bf16 attention gate on unpadded query rows: S ≤ 256 in one pass of
-    16-key pieces, 256 < S ≤ 512 in two chunks of 256 keys."""
+    the bf16 attention gate on unpadded query rows: S ≤ 320 in one pass of
+    16-key pieces, longer rows streamed in 64-key tiles."""
     qkv = torch.randn(2, s, 3 * 2 * 64, device="cuda", generator=cuda)
     qkv = qkv.bfloat16()
     kb = None

@@ -16,7 +16,6 @@ SOURCES = sorted((REPO / "keep_tpu_torch").rglob("*.py")) + [
     REPO / "scripts" / "torch_screening_bench.py",
     REPO / "scripts" / "torch_calibration_sweep.py",
     REPO / "scripts" / "torch_attention_shapes_bench.py",
-    REPO / "scripts" / "torch_attention_divide.py",
     REPO / "scripts" / "torch_smoke_phases.py",
     REPO / "tests" / "card_attention_model.py"]
 
@@ -49,7 +48,6 @@ def test_imports_leave_jax_unloaded():
         "keep_tpu_torch.zeroshot.imagenet_metadata\n"
         "from keep_tpu_torch.models import (coca, convnext, eva, hf_text, "
         "kep, moe, pmc_clip, poolers, resnet, swin, t5, vit_relpos)\n"
-        "import scripts.torch_attention_divide\n"
         "from keep_tpu_torch.compat import (aot, composite, export, hub, "
         "registry)\n"
         "import keep_tpu_torch.text.fast_tokenizer, "

@@ -613,7 +613,7 @@ def _tower_block(name):
 
 def _wgmma_order_attention(qkv, key_bias=None, *, num_heads, out_dtype=None):
     """A plain model of the card's bf16 → fp32 attention body
-    (``csrc/attention_qkv_slab_f32.cu``) in the order it takes its sums:
+    (``csrc/attention_qkv_slab_wgmma.cu``) in the order it takes its sums:
     q·kᵀ as four 16-wide partial products added in fp32 (its wgmma k16
     steps), scaled, then biased; the exact row max, e = exp(s − m), p =
     e / l by division, rounded to bf16; p·v as partial products over 16
@@ -665,7 +665,7 @@ def test_qblock_at_tower_width_within_route_tolerance(tower, route):
 def test_softmax_quotient_is_ieee_division():
     """The card's fp32-out attention takes p = e / l as q = RN(e·y) with y =
     RN(1/l), corrected once by an FMA: RN(q + RN(e − l·q)·y)
-    (``div_rn`` in ``csrc/attention_qkv_slab_f32.cu``), in place of div.rn.
+    (``div_rn`` in ``csrc/attention_qkv_slab_wgmma.cu``), in place of div.rn.
     For the softmax's e in (0, 1] and l in [1, 512] that is the IEEE
     quotient, checked here in exact rational arithmetic."""
     from fractions import Fraction
