@@ -138,7 +138,10 @@ exits non-zero without a result line):
    plain version at the training shapes at B=32 and B=128 (ViT-L: S=197,
    H=16, zero key bias; BERT-base: S=256, H=12, padded key bias), fp32 at
    atol 2e-4, rtol 1e-4 and bf16 within 1e-2 of the largest plain gradient
-   on unpadded rows, each timed with CUDA events.
+   on unpadded rows, each timed with CUDA events and in profiler device ms
+   beside SDPA's backward (through autograd) in both; then the bf16 form
+   at every ``EDGE_S`` length at Dh 64 and 80 (B=2, H=2), unpadded and
+   with a ragged key mask, at the same bf16 gate, one launch a call.
 9. train — ``keep_tpu_torch.train.main.main(["--config", <json>,
    "--device", "cuda"])`` on the values of ``configs/keep_train.yml``
    (batch 128, 32 captions, lhp-hn, amp_bf16, fused attention, both towers
@@ -333,7 +336,8 @@ After phase 14, the model families ported last:
     S = 577 / 785; Dh 80 / 88 / 104 / 112 at S = 257; B = 32, H = 16)
     against their plain versions at phase 8's and phase 3's gates, timed
     beside their bounds and SDPA (backward through autograd beside #1b,
-    the bf16 forward beside the fp32 form); (b) an int8 KEEP at 384² and
+    in events and profiler device ms; the bf16 forward beside the fp32
+    form); (b) an int8 KEEP at 384² and
     448² (``keep.init`` statistics) through the server core at bucket 32:
     int8 against bf16 at cos ≥ 0.999 per row, against its plain blocks at
     the JAX route gate (> 0.9999), #4 / #5 launched; (c) KEEP trained at
@@ -426,7 +430,12 @@ ATTENTION_SOURCES = [
     SOURCE, "keep_tpu_torch/kernels/csrc/attention_qkv_slab_wgmma_streamed.cu",
     "keep_tpu_torch/kernels/csrc/attention_qkv_slab.cu"]
 REPLACES = "keep_tpu/kernels/flash_attention.py:190"
-BWD_SOURCE = "keep_tpu_torch/kernels/csrc/attention_qkv_slab_bwd.cu"
+# #1b: the bf16 kernels A and B (wgmma fed by TMA), and the entry point
+# with the fp32 bodies
+BWD_SOURCE = "keep_tpu_torch/kernels/csrc/attention_qkv_slab_bwd_dq.cu"
+BWD_SOURCES = [
+    BWD_SOURCE, "keep_tpu_torch/kernels/csrc/attention_qkv_slab_bwd_dkv.cu",
+    "keep_tpu_torch/kernels/csrc/attention_qkv_slab_bwd.cu"]
 BWD_REPLACES = "keep_tpu/kernels/flash_attention.py:221"
 HEADS_REPLACES = "keep_tpu/kernels/flash_attention.py:115"
 LN_MATMUL_SOURCE = "keep_tpu_torch/kernels/csrc/ln_matmul.cu"
@@ -474,10 +483,10 @@ ATTENTION_SHAPES = [(name, b, s, h, padded) for b in (32, 128)
                     for name, s, h, padded in (("vit_l16", 197, 16, False),
                                                ("bert_base", 256, 12, True))]
 # sequence lengths around the attention bodies' tiles and pieces, the two
-# towers' lengths, the one-pass forward's limit (320), the whole-slice
-# backward's (512) and, past them, the streamed bodies' 64-key tiles,
-# ViT-L-14-336's 577, KEEP at 448²'s 785 and one past the longest row
-# PyTorch's warp softmax serves
+# towers' lengths, the one-pass forward's limit (320), the fp32
+# whole-slice backward's (512) and, past them, the streamed bodies' 64-key
+# tiles, ViT-L-14-336's 577, KEEP at 448²'s 785 and one past the longest
+# row PyTorch's warp softmax serves
 EDGE_S = [1, 15, 16, 17, 64, 197, 256, 257, 320, 321, 512, 513, 575, 576,
           577, 640, 641, 785, 1025]
 # the zoo's attention shapes (name, B, S, H, Dh): every head width of the
@@ -560,15 +569,16 @@ def port_launches() -> int:
             + ln_matmul.LAUNCHES)
 
 
-def device_ms(torch, fn, runs: int = 20, tries: int = 3
-              ) -> tuple[float, str]:
+def device_ms(torch, fn, runs: int = 20, tries: int = 3,
+              per_launch: int = 1) -> tuple[float, str]:
     """The device time of one call of ``fn`` (ms) and where it came from.
     ``"profiler"``: its kernels' time in a profiler session of ``runs``
     calls, over the calls, the host's gaps between launches left out. The
     profiler on the card's machine now and then records no kernel of a
     session, or only some: a session is kept only if it holds as many
     device records as the calls issued, a whole number a call and at least
-    the launches the port's wrappers counted in it, else it is taken again.
+    ``per_launch`` records for each launch the port's wrappers counted in
+    it (#1b's launch is two kernels), else it is taken again.
     After ``tries`` sessions short of that, ``"events"``: CUDA events
     around the ``runs`` calls back to back, the host's gaps in where a call
     is shorter than its launch."""
@@ -587,7 +597,7 @@ def device_ms(torch, fn, runs: int = 20, tries: int = 3
                    if getattr(ev, "device_type", None)
                    == torch.autograd.DeviceType.CUDA]
         count = sum(ev.count for ev in records)
-        if count and count % runs == 0 and count >= issued:
+        if count and count % runs == 0 and count >= issued * per_launch:
             return (sum(ev.self_device_time_total for ev in records) / 1e3
                     / runs, "profiler")
     return cuda_ms(fn, runs=1, calls=runs), "events"
@@ -1692,7 +1702,10 @@ def check_int8_primitives(torch, gen, vit_linears, vit_norm, bert_norm
 
 def check_bwd_kernel(fa, torch, gen) -> list[dict]:
     """Phase 8: the backward kernel against its plain version at the
-    training shapes, B=32 and B=128."""
+    training shapes, B=32 and B=128, its time and SDPA's backward's in CUDA
+    events around single calls and in profiler device ms
+    (``device_ms``, each beside its source); then the bf16 form at every
+    ``EDGE_S`` length (``check_bwd_edges``)."""
     shapes = ATTENTION_SHAPES
     rows = []
     for name, b, s, h, padded in shapes:
@@ -1738,12 +1751,63 @@ def check_bwd_kernel(fa, torch, gen) -> list[dict]:
                    "ms": ms, "plain_ms": plain_ms,
                    "library_ms": cuda_ms(sdpa_bwd),
                    "library_kernel": sdpa_backend(torch, sdpa_bwd)}
+            row["dev_ms"], row["dev_ms_source"] = device_ms(
+                torch, lambda: fa.attention_qkv_slab_bwd(qkv, kb, do, h),
+                per_launch=2)
+            row["library_dev_ms"], row["library_dev_ms_source"] = device_ms(
+                torch, sdpa_bwd)
             row["bound_ms"], row["bound_by"] = attention_bound(
                 b, s, h, qkv.element_size(), True, backward=True)
             del out
             phase("attention_bwd", **row)
             rows.append(row)
+    check_bwd_edges(fa, torch, gen)
     return rows
+
+
+def check_bwd_edges(fa, torch, gen) -> dict:
+    """Phase 8, the edges: the bf16 backward at every ``EDGE_S`` length at
+    Dh 64 and 80 (B=2, H=2), unpadded and with a ragged key mask, against
+    its plain version at phase 8's gate (max |Δ| ≤ 1e-2 · max |plain| on
+    unmasked rows), finite, each call one launch."""
+    worst = {"ratio": 0.0}
+    b, h = 2, 2
+    for dh in (64, 80):
+        for s in EDGE_S:
+            for padded in (False, True):
+                qkv = torch.randn(b, s, 3 * h * dh, device="cuda",
+                                  generator=gen).bfloat16()
+                do = torch.randn(b, s, h * dh, device="cuda",
+                                 generator=gen).bfloat16()
+                valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
+                if padded:
+                    lens = torch.randint(1, s + 1, (b,), device="cuda",
+                                         generator=gen)
+                    valid = (torch.arange(s, device="cuda")[None]
+                             < lens[:, None])
+                kb = (1.0 - valid.float()) * -1e9
+                n0 = fa.BWD_LAUNCHES
+                got = fa.attention_qkv_slab_bwd(qkv, kb, do, h)
+                torch.cuda.synchronize()
+                if fa.BWD_LAUNCHES != n0 + 1:
+                    raise AssertionError(f"Dh {dh}, S {s}: the backward did "
+                                         f"not launch once")
+                ref = fa.attention_qkv_slab_bwd_reference(qkv, kb, do, h)
+                g, r = got.float()[valid], ref.float()[valid]
+                err = (g - r).abs().max().item()
+                limit = 1e-2 * r.abs().max().item()
+                if not (torch.isfinite(got).all() and err <= limit):
+                    raise AssertionError(
+                        f"bf16 backward at Dh {dh}, S {s}, padded {padded} "
+                        f"vs plain: max |Δ| {err} > {limit}")
+                if limit and err / limit > worst["ratio"]:
+                    worst = {"ratio": err / limit, "Dh": dh, "S": s,
+                             "padded": padded, "max_abs_err": err,
+                             "limit": limit}
+    out = {"lengths": EDGE_S, "head_dims": [64, 80], "B": b, "H": h,
+           "calls": 2 * 2 * len(EDGE_S), "worst": worst}
+    phase("attention_bwd_edges", **out)
+    return out
 
 
 TRAIN_NODES = {
@@ -6491,6 +6555,11 @@ def check_wide_kernels(fa, torch, gen) -> tuple[list[dict], list[dict]]:
                            qkv, kb, do, h), runs=5),
                    "library_ms": cuda_ms(sdpa_bwd),
                    "library_kernel": sdpa_backend(torch, sdpa_bwd)}
+            row["dev_ms"], row["dev_ms_source"] = device_ms(
+                torch, lambda: fa.attention_qkv_slab_bwd(qkv, kb, do, h),
+                per_launch=2)
+            row["library_dev_ms"], row["library_dev_ms_source"] = device_ms(
+                torch, sdpa_bwd)
             row["bound_ms"], row["bound_by"] = attention_bound(
                 b, s, h, qkv.element_size(), True, backward=True, dh=dh)
             del out, q, k, v
@@ -7450,7 +7519,9 @@ def kernel_line(rows, bwd_rows, heads_rows, heads_launches, int8_rows,
     kernels.append(entry(
         "attention_qkv_slab_bwd", BWD_SOURCE, BWD_REPLACES,
         trained["bwd_launches"], vit_bwd,
-        max(r["max_abs_err"] for r in bwd_rows),
+        max(r["max_abs_err"] for r in bwd_rows), sources=BWD_SOURCES,
+        dev_ms=vit_bwd["dev_ms"], dev_ms_source=vit_bwd["dev_ms_source"],
+        library_dev_ms=vit_bwd["library_dev_ms"],
         launches_lora_train=lora_trained["bwd_launches"],
         launches_coca_backward=coca_out["backward_launches"],
         launches_moe_train=moe_out["train"]["bwd_launches"],

@@ -1,5 +1,5 @@
 // Backward of the fused multi-head attention over the unsplit qkv slab, for
-// Hopper (sm_90a).
+// Hopper (sm_90a): the C entry point and the fp32 bodies.
 //
 // Replaces keep_tpu/kernels/flash_attention.py `_slab_attn_bwd` (:221-245),
 // the closed-form VJP that `jax.custom_vjp` attaches to the Pallas forward
@@ -8,7 +8,7 @@
 //
 // What it computes, per batch row b and head h, with q/k/v the Dh-wide
 // column slices of qkv[B, S, 3*H*Dh] and do the slice of dout[B, S, H*Dh]:
-//   s  = (q . k^T) * Dh^-0.5 + key_bias[b, :]        fp32 (bf16 . bf16 exact)
+//   s  = (q . k^T) * Dh^-0.5 + key_bias[b, :]
 //   p  = softmax(s), kept in fp32 (the forward rounds p before p . v; the
 //        backward does not, as in the JAX code)
 //   dv = p^T . do,  dp = do . v^T,  ds = p o (dp - rowsum(dp o p))
@@ -19,67 +19,32 @@
 //
 // Both forms are deterministic: two kernels and no atomics, every output
 // element written by exactly one thread, every sum taken in a fixed order.
-// Kernel A runs per query tile and writes each row's statistics (max, sum,
-// rowsum(dp o p)) to an fp32 [B, H, S] x 4 scratch, and dq; kernel B runs
-// per key tile, rebuilds p and ds from the statistics and writes dk and dv.
+// Kernel A runs per query tile and writes each row's statistics (max, the
+// sum or its inverse, rowsum(dp o p)) to an fp32 [B, H, S] x 4 scratch,
+// and dq; kernel B runs per key tile, rebuilds p and ds from the
+// statistics and writes dk and dv.
 //
-// What bounds it on this card: bytes in principle (the slab, dout and dqkv
-// once: 0.027 ms at ViT-L B=32), in practice the products. Without atomics
-// the scores are taken three times (twice in A, once in B), and dp twice in
-// A and once in B, so the two kernels run 9 S^2 Dh multiply-adds per
-// (b, h) against the 5 of one fused kernel with atomic dq sums. Kernel A
-// takes them twice because rowsum(dp o p) needs a whole row of p before
-// any ds, and a warp cannot keep its 16 x S scores in registers at S = 512;
-// dq is summed in the second pass, with no third pass over K.
+// bf16 (dtype 1), at every Dh and S: kernels A and B on wgmma fed by TMA,
+// attention_qkv_slab_bwd_dq.cu and attention_qkv_slab_bwd_dkv.cu, whose
+// heads set out their design; this file writes their TMA maps and launches
+// them. p and ds are rounded to bf16 only as operands of their products
+// (dv = p^T . do, dq = ds . k, dk = ds^T . q), a departure from the JAX
+// package's fp32 products that stays inside the bf16 gate (max |d| <=
+// 1e-2 * max |plain|; the CPU model of this rounding,
+// tests/card_attention_model.py `card_body_attention_bwd`, is held to the
+// JAX VJP in tests/test_torch_attention_grad.py).
 //
-// bf16 form, on the tensor cores (mma.sync.m16n8k16, bf16 operands, fp32
-// accumulators), 4 warps of 16 rows per block. p and ds are rounded to bf16
-// only as operands of their products (dv = p^T . do, dq = ds . k,
-// dk = ds^T . q), a departure from the JAX package's fp32 products that
-// stays inside the bf16 gate (max |d| <= 1e-2 * max |plain|; the CPU model
-// of this rounding is held to the JAX VJP in tests/test_torch_attention_
-// grad.py). rowsum(dp o p) keeps p in fp32.
-//   Kernel A, one block per (64 query rows, head, batch row): Q and dO's
-//   rows and the whole K and V slices go to shared memory by cp.async
-//   (swizzled 128-byte rows, rows past S zero-filled), once.
-//     pass 1: per 64-key tile, s = q . k^T and dp = do . v^T; the row max
-//             m, the sum l and u = sum exp(s - m) * dp with an online
-//             rescale; rowsum(dp o p) = u / l. Statistics -> scratch.
-//     pass 2: s and dp again; p = exp(s - m) / l and ds = p (dp - rowsum)
-//             in fp32; ds rounded to bf16; dq += ds . k (K read by
-//             ldmatrix.trans).
-//   Kernel B, one block per (64 keys, head, batch row): K and V of the tile
-//   are held as A fragments in registers; the query rows stream through two
-//   shared-memory stages by cp.async (Q, dO and their statistics, the next
-//   tile in flight while the current one is multiplied). Per 32 queries:
-//   s^T = k . q^T and dp^T = v . do^T, p^T and ds^T in fp32, then
-//   dv += p^T . do and dk += ds^T . q with p^T and ds^T rounded to bf16.
-// fp32 form: the CUDA-core kernels (scalar FMAs, 32-row tiles, padded
-// shared rows), whose gate is atol 2e-4 / rtol 1e-4.
-//
-// Shapes: the whole-slice bodies above take Dh = 64 and S <= 512 (the KEEP towers
-// at 224^2) and keep the whole K and V slices of a head in shared memory.
-// Every other Dh in 64..128 (multiples of 8) and every S goes to streamed
-// bodies of the same two-kernel layout, whose shared memory does not grow
-// with S:
-//   bf16: kernel A keeps Q and dO of its 64 query rows in shared memory
-//   and streams K and V in 64-key tiles through two cp.async stages, twice
-//   (pass 1 the statistics, pass 2 ds and dq); kernel B keeps K and V of
-//   its 64 keys and streams Q, dO and their statistics through two stages.
-//   A row holds Dh padded with zeros to a multiple of 16, plus one 16-byte
-//   chunk of pitch (the forward's streamed layout, slab_attention.cuh);
-//   operand fragments are loaded from shared memory per k16 step, which
-//   keeps the registers for the Dh-wide accumulators (dq; dk and dv).
-//   fp32: kernel A, one block per 32 query rows, streams K and V in 64-key
-//   tiles twice (an online max / sum in pass 1), ds through shared memory
-//   into dq; kernel B is the fp32 kernel B above with its rows sized by
-//   Dh.
-//
-// What it leaves on the table: wgmma and TMA; one fused kernel (dq summed
-// by atomics, which would cost the determinism); keeping dS tiles of kernel
-// A for kernel B instead of recomputing the scores.
+// fp32 (dtype 0): exact CUDA-core bodies (scalar FMAs), whose gate is atol
+// 2e-4 / rtol 1e-4. At Dh = 64 and S <= 512 kernel A keeps the whole K and
+// V slices of a head in shared memory (32 query rows a block, the row of
+// p and ds in shared memory) and kernel B takes 32 keys a block with the
+// query rows in chunks of 32; at every other Dh in 64..128 (multiples of
+// 8) and S, kernel A, one block per 32 query rows, streams K and V in
+// 64-key tiles twice (an online max / sum in pass 1; ds through shared
+// memory into dq in pass 2) and kernel B is the first kernel B with its
+// rows sized by Dh.
 
-#include "slab_attention.cuh"
+#include "wgmma_attention.cuh"
 
 namespace {
 
@@ -344,537 +309,6 @@ slab_attention_bwd_dkv_kernel(const T* __restrict__ qkv,
       const int d = dg + 16 * c;
       row[D + d] = Elem<T>::from_float(dk[kk][c] * scale);
       row[2 * D + d] = Elem<T>::from_float(dv[kk][c]);
-    }
-  }
-}
-
-// ---- bf16: tensor cores ----------------------------------------------------------
-
-// Kernel A: statistics and dq of 64 query rows.
-__global__ void __launch_bounds__(kTcThreads)
-slab_attention_bwd_tc_dq_kernel(const bf16* __restrict__ qkv,
-                                const float* __restrict__ key_bias,
-                                const bf16* __restrict__ dout,
-                                bf16* __restrict__ dqkv,
-                                float4* __restrict__ stats, int S, int H,
-                                float scale) {
-  extern __shared__ __align__(128) uint8_t tc_smem[];
-  const int sp = (S + kTcTile - 1) / kTcTile * kTcTile;
-  const uint32_t q_s = smem_addr(tc_smem);                  // [64][64]
-  const uint32_t g_s = q_s + kTcRows * kRowBytes;        // [64][64] dO
-  const uint32_t k_s = g_s + kTcRows * kRowBytes;        // [sp][64]
-  const uint32_t v_s = k_s + sp * kRowBytes;             // [sp][64]
-  float* bias_s = reinterpret_cast<float*>(
-      tc_smem + (2 * kTcRows + 2 * sp) * kRowBytes);        // [sp]
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int row0 = blockIdx.x * kTcRows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int D = H * kHeadDim;
-  const long long stride = 3LL * D;
-  const bf16* slab = qkv + (long long)b * S * stride + h * kHeadDim;
-  const bf16* dslab = dout + (long long)b * S * D + h * kHeadDim;
-
-  stage_async(q_s, slab, stride, row0, kTcRows, S);
-  stage_async(g_s, dslab, D, row0, kTcRows, S);
-  stage_async(k_s, slab + D, stride, 0, sp, S);
-  stage_async(v_s, slab + 2 * D, stride, 0, sp, S);
-  cp_async_commit();
-  fill_bias(bias_s, key_bias + (long long)b * S, S, sp);
-  cp_async_wait<0>();
-  __syncthreads();
-
-  uint32_t qa[4][4], ga[4][4];
-  load_a_rows(qa, q_s, 16 * warp, lane);
-  load_a_rows(ga, g_s, 16 * warp, lane);
-
-  // Pass 1: the row max m, sum l and u = sum exp(s - m) dp.
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
-  for (int kb = 0; kb < sp; kb += kTcTile) {
-    float s[8][4], dp[8][4], alpha[2];
-    scores(s, qa, k_s, kb, bias_s, scale, lane);
-    mma_abt<8>(dp, ga, v_s, kb, lane);
-    raise_max(s, m, alpha);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] *= alpha[i];
-      u[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = expf(__fsub_rn(s[n][e], m[e >> 1]));
-        l[e >> 1] += x;
-        u[e >> 1] = fmaf(x, dp[n][e], u[e >> 1]);
-      }
-  }
-  float inv[2], delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    inv[i] = 1.f / quad_sum(l[i]);
-    delta[i] = quad_sum(u[i]) * inv[i];  // rowsum(dp o p), p in fp32
-  }
-  float4* st = stats + ((long long)b * H + h) * S;
-  if ((lane & 3) == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = row0 + 16 * warp + (lane >> 2) + 8 * i;
-      if (row < S) st[row] = make_float4(m[i], inv[i], delta[i], 0.f);
-    }
-  }
-
-  // Pass 2: ds = p o (dp - rowsum), rounded to bf16; dq += ds . k.
-  float dq[8][4] = {};
-  for (int kb = 0; kb < sp; kb += kTcTile) {
-    float s[8][4], dp[8][4];
-    scores(s, qa, k_s, kb, bias_s, scale, lane);
-    mma_abt<8>(dp, ga, v_s, kb, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const float p = __fmul_rn(expf(__fsub_rn(s[n][e], m[i])), inv[i]);
-        s[n][e] = __fmul_rn(p, __fsub_rn(dp[n][e], delta[i]));
-      }
-    uint32_t da[4][4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc_to_a(da[c], s[2 * c], s[2 * c + 1]);
-    mma_ax<4>(dq, da, k_s, kb, lane);
-  }
-
-  bf16* gslab = dqkv + (long long)b * S * stride + h * kHeadDim;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 16 * warp + (lane >> 2) + 8 * i;
-    if (row >= S) continue;
-    bf16* dst = gslab + row * stride + 2 * (lane & 3);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      Elem<bf16>::store(dst + 8 * n, __fmul_rn(dq[n][2 * i], scale),
-                        __fmul_rn(dq[n][2 * i + 1], scale));
-  }
-}
-
-constexpr int kStatsBytes = kTcTile * 16;  // 64 float4
-constexpr int kStageBytes = 2 * kTcTile * kRowBytes + kStatsBytes;
-constexpr size_t kDkvSmem = 2 * kTcRows * kRowBytes + 2 * kStageBytes;
-
-// Starts the copies of query rows [r0, r0 + 64) of Q, dO and their
-// statistics into one stage (rows past S zero-filled: their p and ds are 0).
-__device__ __forceinline__ void stage_queries(uint32_t stage, const bf16* q,
-                                              const bf16* g,
-                                              const float4* st,
-                                              long long stride, int D, int r0,
-                                              int S) {
-  stage_async(stage, q, stride, r0, kTcTile, S);
-  stage_async(stage + kTcTile * kRowBytes, g, D, r0, kTcTile, S);
-  if (threadIdx.x < kTcTile) {
-    const int row = r0 + threadIdx.x;
-    cp_async16(stage + 2 * kTcTile * kRowBytes + threadIdx.x * 16,
-               row < S ? st + row : st, row < S);
-  }
-}
-
-// Kernel B: dk and dv of 64 keys.
-__global__ void __launch_bounds__(kTcThreads)
-slab_attention_bwd_tc_dkv_kernel(const bf16* __restrict__ qkv,
-                                 const float* __restrict__ key_bias,
-                                 const bf16* __restrict__ dout,
-                                 bf16* __restrict__ dqkv,
-                                 const float4* __restrict__ stats, int S,
-                                 int H, float scale) {
-  extern __shared__ __align__(128) uint8_t tc_smem[];
-  const uint32_t k_s = smem_addr(tc_smem);                  // [64][64]
-  const uint32_t v_s = k_s + kTcRows * kRowBytes;        // [64][64]
-  const uint32_t stages = v_s + kTcRows * kRowBytes;     // 2 x (Q, dO, stats)
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int key0 = blockIdx.x * kTcRows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int D = H * kHeadDim;
-  const long long stride = 3LL * D;
-  const bf16* slab = qkv + (long long)b * S * stride + h * kHeadDim;
-  const bf16* dslab = dout + (long long)b * S * D + h * kHeadDim;
-  const float4* st = stats + ((long long)b * H + h) * S;
-
-  stage_async(k_s, slab + D, stride, key0, kTcRows, S);
-  stage_async(v_s, slab + 2 * D, stride, key0, kTcRows, S);
-  stage_queries(stages, slab, dslab, st, stride, D, 0, S);
-  cp_async_commit();
-
-  // this thread's keys (rows of s^T): gid and gid + 8 of the warp's 16
-  float kbias[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + 16 * warp + (lane >> 2) + 8 * i;
-    kbias[i] = key < S ? key_bias[(long long)b * S + key] : -INFINITY;
-  }
-  uint32_t ka[4][4], va[4][4];
-  float dk[8][4] = {}, dv[8][4] = {};
-  const int tiles = (S + kTcTile - 1) / kTcTile;
-  for (int qt = 0; qt < tiles; ++qt) {
-    if (qt + 1 < tiles) {
-      stage_queries(stages + ((qt + 1) & 1) * kStageBytes, slab, dslab, st,
-                    stride, D, (qt + 1) * kTcTile, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (qt == 0) {
-      load_a_rows(ka, k_s, 16 * warp, lane);
-      load_a_rows(va, v_s, 16 * warp, lane);
-    }
-    const uint32_t q_s = stages + (qt & 1) * kStageBytes;
-    const uint32_t g_s = q_s + kTcTile * kRowBytes;
-    const float4* sts = reinterpret_cast<const float4*>(
-        tc_smem + (q_s - smem_addr(tc_smem)) + 2 * kTcTile * kRowBytes);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = 32 * half;  // this step's 32 queries in the tile
-      float s[4][4], dp[4][4];
-      mma_abt<4>(s, ka, q_s, c0, lane);
-      mma_abt<4>(dp, va, g_s, c0, lane);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float4 sq = sts[c0 + 8 * n + 2 * (lane & 3) + (e & 1)];
-          const float x = __fadd_rn(__fmul_rn(s[n][e], scale), kbias[e >> 1]);
-          const float p = __fmul_rn(expf(__fsub_rn(x, sq.x)), sq.y);
-          s[n][e] = p;
-          dp[n][e] = __fmul_rn(p, __fsub_rn(dp[n][e], sq.z));
-        }
-      uint32_t pa[2][4], da[2][4];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        acc_to_a(pa[c], s[2 * c], s[2 * c + 1]);
-        acc_to_a(da[c], dp[2 * c], dp[2 * c + 1]);
-      }
-      mma_ax<2>(dv, pa, g_s, c0, lane);
-      mma_ax<2>(dk, da, q_s, c0, lane);
-    }
-    __syncthreads();  // this stage is refilled two tiles on
-  }
-
-  bf16* gslab = dqkv + (long long)b * S * stride + h * kHeadDim;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + 16 * warp + (lane >> 2) + 8 * i;
-    if (key >= S) continue;
-    bf16* dst = gslab + key * stride + 2 * (lane & 3);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      Elem<bf16>::store(dst + D + 8 * n, __fmul_rn(dk[n][2 * i], scale),
-                        __fmul_rn(dk[n][2 * i + 1], scale));
-      Elem<bf16>::store(dst + 2 * D + 8 * n, dv[n][2 * i], dv[n][2 * i + 1]);
-    }
-  }
-}
-
-
-// ---- any Dh in 64..128 and any S: K, V and the query rows streamed ----------
-
-// acc[n] (n < kN) = A . B^T over kDP columns: A the 16 rows from `ar0` of
-// the padded tile at `a`, B's rows the 8*kN rows from `br0` of the padded
-// tile at `b` (column n*8 + j of the product is row br0 + n*8 + j).
-// For s = q . k^T and dp = do . v^T (kernel A), s^T = k . q^T and
-// dp^T = v . do^T (kernel B). A's fragments are loaded per k16 step, which
-// keeps them out of the registers the wide accumulators need.
-template <int kDP, int kN>
-__device__ __forceinline__ void ptile_abt(float (&acc)[kN][4], uint32_t a,
-                                          int ar0, uint32_t b, int br0,
-                                          int lane) {
-#pragma unroll
-  for (int n = 0; n < kN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kDP / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, a + prow<kDP>(ar0 + (lane & 15), 2 * kk + (lane >> 4)));
-#pragma unroll
-    for (int p = 0; p < kN / 2; ++p) {
-      uint32_t bf[4];
-      ldsm_x4(bf, b + prow<kDP>(br0 + 16 * p + (lane & 7) + ((lane >> 4) << 3),
-                                2 * kk + ((lane >> 3) & 1)));
-      mma_bf16(acc[2 * p], af, bf[0], bf[1]);
-      mma_bf16(acc[2 * p + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc[n] (n < kDP / 8) += P . X: P is 16 rows x 16*kChunks held as A
-// fragments (p[c] covers k rows 16c..16c+15 of X), X's k rows are the rows
-// from `r0` of the padded tile at `x`, read transposed. For dq = ds . k,
-// dv = p^T . do and dk = ds^T . q.
-template <int kDP, int kChunks>
-__device__ __forceinline__ void ptile_ax(float (&acc)[kDP / 8][4],
-                                         const uint32_t (&p)[kChunks][4],
-                                         uint32_t x, int r0, int lane) {
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-#pragma unroll
-    for (int d = 0; d < kDP / 16; ++d) {
-      uint32_t bv[4];
-      ldsm_x4_t(bv, x + prow<kDP>(r0 + 16 * c + (lane & 7) +
-                                      (((lane >> 3) & 1) << 3),
-                                  2 * d + (lane >> 4)));
-      mma_bf16(acc[2 * d], p[c], bv[0], bv[1]);
-      mma_bf16(acc[2 * d + 1], p[c], bv[2], bv[3]);
-    }
-  }
-}
-
-// Kernel A at any shape: statistics and dq of 64 query rows. Q and dO stay
-// in shared memory; K and V stream through two stages, twice (pass 1: the
-// statistics; pass 2: ds and dq), as in the whole-slice kernel A.
-template <int kDP>
-__global__ void __launch_bounds__(kTcThreads)
-slab_attention_bwd_any_dq_kernel(const bf16* __restrict__ qkv,
-                                 const float* __restrict__ key_bias,
-                                 const bf16* __restrict__ dout,
-                                 bf16* __restrict__ dqkv,
-                                 float4* __restrict__ stats, int S, int H,
-                                 int dh, float scale) {
-  extern __shared__ __align__(128) uint8_t tc_smem[];
-  constexpr uint32_t kTile = tile_bytes(kDP);
-  const uint32_t q_s = smem_addr(tc_smem);  // Q, dO, K's 2 and V's 2 stages
-  const uint32_t g_s = q_s + kTile;
-  const uint32_t k_s = q_s + 2 * kTile;
-  const uint32_t v_s = q_s + 4 * kTile;
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int row0 = blockIdx.x * kTcRows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int D = H * dh;
-  const long long stride = 3LL * D;
-  const bf16* slab = qkv + (long long)b * S * stride + h * dh;
-  const bf16* dslab = dout + (long long)b * S * D + h * dh;
-  const float* bias = key_bias + (long long)b * S;
-  const int tiles = (S + kTcTile - 1) / kTcTile;
-
-  stage_tile<kDP>(q_s, slab, stride, row0, S, dh);
-  stage_tile<kDP>(g_s, dslab, D, row0, S, dh);
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
-  float inv[2], delta[2];
-  float dq[kDP / 8][4] = {};
-  for (int pass = 0; pass < 2; ++pass) {
-    stage_tile<kDP>(k_s, slab + D, stride, 0, S, dh);
-    stage_tile<kDP>(v_s, slab + 2 * D, stride, 0, S, dh);
-    cp_async_commit();
-    for (int t = 0; t < tiles; ++t) {
-      if (t + 1 < tiles) {
-        const uint32_t next = ((t + 1) & 1) * kTile;
-        stage_tile<kDP>(k_s + next, slab + D, stride, (t + 1) * kTcTile, S,
-                        dh);
-        stage_tile<kDP>(v_s + next, slab + 2 * D, stride, (t + 1) * kTcTile,
-                        S, dh);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const uint32_t cur = (t & 1) * kTile;
-      const int kb = t * kTcTile;
-      float s[8][4], dp[8][4];
-      ptile_abt<kDP, 8>(s, q_s, 16 * warp, k_s + cur, 0, lane);
-      ptile_abt<kDP, 8>(dp, g_s, 16 * warp, v_s + cur, 0, lane);
-      // scaled, then biased (the reference's order); keys past S -inf
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = kb + 8 * n + 2 * (lane & 3) + (e & 1);
-          const float bj = j < S ? __ldg(bias + j) : -INFINITY;
-          s[n][e] = __fadd_rn(__fmul_rn(s[n][e], scale), bj);
-        }
-      if (pass == 0) {
-        float alpha[2];
-        raise_max(s, m, alpha);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          l[i] *= alpha[i];
-          u[i] *= alpha[i];
-        }
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float x = expf(__fsub_rn(s[n][e], m[e >> 1]));
-            l[e >> 1] += x;
-            u[e >> 1] = fmaf(x, dp[n][e], u[e >> 1]);
-          }
-      } else {
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = e >> 1;
-            const float p = __fmul_rn(expf(__fsub_rn(s[n][e], m[i])), inv[i]);
-            s[n][e] = __fmul_rn(p, __fsub_rn(dp[n][e], delta[i]));
-          }
-        uint32_t da[4][4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc_to_a(da[c], s[2 * c], s[2 * c + 1]);
-        ptile_ax<kDP, 4>(dq, da, k_s + cur, 0, lane);
-      }
-      __syncthreads();  // this stage is refilled two tiles on
-    }
-    if (pass == 0) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        inv[i] = 1.f / quad_sum(l[i]);
-        delta[i] = quad_sum(u[i]) * inv[i];  // rowsum(dp o p), p in fp32
-      }
-      float4* st = stats + ((long long)b * H + h) * S;
-      if ((lane & 3) == 0) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int row = row0 + 16 * warp + (lane >> 2) + 8 * i;
-          if (row < S) st[row] = make_float4(m[i], inv[i], delta[i], 0.f);
-        }
-      }
-    }
-  }
-
-  bf16* gslab = dqkv + (long long)b * S * stride + h * dh;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + 16 * warp + (lane >> 2) + 8 * i;
-    if (row >= S) continue;
-    bf16* dst = gslab + row * stride + 2 * (lane & 3);
-#pragma unroll
-    for (int n = 0; n < kDP / 8; ++n)
-      if (8 * n < dh)
-        Elem<bf16>::store(dst + 8 * n, __fmul_rn(dq[n][2 * i], scale),
-                          __fmul_rn(dq[n][2 * i + 1], scale));
-  }
-}
-
-// Bytes of one stage of kernel B at any shape: Q, dO and their statistics.
-template <int kDP>
-__host__ __device__ constexpr uint32_t any_stage_bytes() {
-  return 2 * tile_bytes(kDP) + kStatsBytes;
-}
-
-// Kernel B at any shape: dk and dv of 64 keys. K and V stay in shared
-// memory (their fragments loaded per k16 step); the query rows stream
-// through two stages, as in the whole-slice kernel B.
-template <int kDP>
-__global__ void __launch_bounds__(kTcThreads)
-slab_attention_bwd_any_dkv_kernel(const bf16* __restrict__ qkv,
-                                  const float* __restrict__ key_bias,
-                                  const bf16* __restrict__ dout,
-                                  bf16* __restrict__ dqkv,
-                                  const float4* __restrict__ stats, int S,
-                                  int H, int dh, float scale) {
-  extern __shared__ __align__(128) uint8_t tc_smem[];
-  constexpr uint32_t kTile = tile_bytes(kDP);
-  constexpr uint32_t kStage = any_stage_bytes<kDP>();
-  const uint32_t k_s = smem_addr(tc_smem);
-  const uint32_t v_s = k_s + kTile;
-  const uint32_t stages = k_s + 2 * kTile;
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int key0 = blockIdx.x * kTcRows;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int D = H * dh;
-  const long long stride = 3LL * D;
-  const bf16* slab = qkv + (long long)b * S * stride + h * dh;
-  const bf16* dslab = dout + (long long)b * S * D + h * dh;
-  const float4* st = stats + ((long long)b * H + h) * S;
-
-  // Q, dO and the statistics of query rows r0.. into stage `at` (rows past
-  // S zero-filled: their p and ds are 0)
-  auto stage_queries = [&](uint32_t at, int r0) {
-    stage_tile<kDP>(at, slab, stride, r0, S, dh);
-    stage_tile<kDP>(at + kTile, dslab, D, r0, S, dh);
-    if (threadIdx.x < kTcTile) {
-      const int row = r0 + threadIdx.x;
-      cp_async16(at + 2 * kTile + threadIdx.x * 16, row < S ? st + row : st,
-                 row < S);
-    }
-  };
-  stage_tile<kDP>(k_s, slab + D, stride, key0, S, dh);
-  stage_tile<kDP>(v_s, slab + 2 * D, stride, key0, S, dh);
-  stage_queries(stages, 0);
-  cp_async_commit();
-
-  // this thread's keys (rows of s^T): gid and gid + 8 of the warp's 16
-  float kbias[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + 16 * warp + (lane >> 2) + 8 * i;
-    kbias[i] = key < S ? key_bias[(long long)b * S + key] : -INFINITY;
-  }
-  float dk[kDP / 8][4] = {}, dv[kDP / 8][4] = {};
-  const int tiles = (S + kTcTile - 1) / kTcTile;
-  for (int qt = 0; qt < tiles; ++qt) {
-    if (qt + 1 < tiles) {
-      stage_queries(stages + ((qt + 1) & 1) * kStage, (qt + 1) * kTcTile);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint32_t q_s = stages + (qt & 1) * kStage;
-    const uint32_t g_s = q_s + kTile;
-    const float4* sts = reinterpret_cast<const float4*>(
-        tc_smem + (q_s - smem_addr(tc_smem)) + 2 * kTile);
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = 32 * half;  // this step's 32 queries in the tile
-      float s[4][4], dp[4][4];
-      ptile_abt<kDP, 4>(s, k_s, 16 * warp, q_s, c0, lane);
-      ptile_abt<kDP, 4>(dp, v_s, 16 * warp, g_s, c0, lane);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float4 sq = sts[c0 + 8 * n + 2 * (lane & 3) + (e & 1)];
-          const float x = __fadd_rn(__fmul_rn(s[n][e], scale), kbias[e >> 1]);
-          const float p = __fmul_rn(expf(__fsub_rn(x, sq.x)), sq.y);
-          s[n][e] = p;
-          dp[n][e] = __fmul_rn(p, __fsub_rn(dp[n][e], sq.z));
-        }
-      uint32_t pa[2][4], da[2][4];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        acc_to_a(pa[c], s[2 * c], s[2 * c + 1]);
-        acc_to_a(da[c], dp[2 * c], dp[2 * c + 1]);
-      }
-      ptile_ax<kDP, 2>(dv, pa, g_s, c0, lane);
-      ptile_ax<kDP, 2>(dk, da, q_s, c0, lane);
-    }
-    __syncthreads();  // this stage is refilled two tiles on
-  }
-
-  bf16* gslab = dqkv + (long long)b * S * stride + h * dh;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = key0 + 16 * warp + (lane >> 2) + 8 * i;
-    if (key >= S) continue;
-    bf16* dst = gslab + key * stride + 2 * (lane & 3);
-#pragma unroll
-    for (int n = 0; n < kDP / 8; ++n) {
-      if (8 * n >= dh) continue;
-      Elem<bf16>::store(dst + D + 8 * n, __fmul_rn(dk[n][2 * i], scale),
-                        __fmul_rn(dk[n][2 * i + 1], scale));
-      Elem<bf16>::store(dst + 2 * D + 8 * n, dv[n][2 * i], dv[n][2 * i + 1]);
     }
   }
 }
@@ -1194,27 +628,6 @@ cudaError_t launch_bwd_f32(const float* qkv, const float* kb,
   return cudaGetLastError();
 }
 
-cudaError_t launch_bwd_tc(const bf16* qkv, const float* kb, const bf16* dout,
-                          bf16* dqkv, float4* stats, int B, int S, int H,
-                          float scale, cudaStream_t stream) {
-  const size_t smem_a = tc_smem_bytes(2, S);
-  cudaError_t e = allow_smem(
-      reinterpret_cast<const void*>(slab_attention_bwd_tc_dq_kernel), smem_a);
-  if (e != cudaSuccess) return e;
-  e = allow_smem(
-      reinterpret_cast<const void*>(slab_attention_bwd_tc_dkv_kernel),
-      kDkvSmem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((S + kTcRows - 1) / kTcRows, H, B);
-  slab_attention_bwd_tc_dq_kernel<<<grid, kTcThreads, smem_a, stream>>>(
-      qkv, kb, dout, dqkv, stats, S, H, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  slab_attention_bwd_tc_dkv_kernel<<<grid, kTcThreads, kDkvSmem, stream>>>(
-      qkv, kb, dout, dqkv, stats, S, H, scale);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_bwd_f32_any(const float* qkv, const float* kb,
                                const float* dout, float* dqkv, float4* stats,
                                int B, int S, int H, int dh, float scale,
@@ -1241,61 +654,39 @@ cudaError_t launch_bwd_f32_any(const float* qkv, const float* kb,
   return cudaGetLastError();
 }
 
-template <int kDP>
-cudaError_t launch_bwd_tc_any(const bf16* qkv, const float* kb,
-                              const bf16* dout, bf16* dqkv, float4* stats,
-                              int B, int S, int H, int dh, float scale,
-                              cudaStream_t stream) {
-  const size_t smem_a = 6 * size_t(tile_bytes(kDP));
-  const size_t smem_b = 2 * size_t(tile_bytes(kDP)) +
-                        2 * size_t(any_stage_bytes<kDP>());
-  cudaError_t e = allow_smem(reinterpret_cast<const void*>(
-                                 slab_attention_bwd_any_dq_kernel<kDP>),
-                             smem_a);
-  if (e != cudaSuccess) return e;
-  e = allow_smem(reinterpret_cast<const void*>(
-                     slab_attention_bwd_any_dkv_kernel<kDP>),
-                 smem_b);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((S + kTcRows - 1) / kTcRows, H, B);
-  slab_attention_bwd_any_dq_kernel<kDP><<<grid, kTcThreads, smem_a, stream>>>(
-      qkv, kb, dout, dqkv, stats, S, H, dh, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  slab_attention_bwd_any_dkv_kernel<kDP>
-      <<<grid, kTcThreads, smem_b, stream>>>(qkv, kb, dout, dqkv, stats, S, H,
-                                             dh, scale);
-  return cudaGetLastError();
-}
-
-// The bf16 bodies: the whole-slice ones at Dh = 64 and S <= 512, the
-// streamed ones at
-// Dh padded to a multiple of 16 elsewhere.
+// The bf16 form: kernel A then kernel B on wgmma, their operands through
+// TMA maps of the slab's q, k and v lanes, of dout and of the statistics,
+// in boxes of kTileKeys rows; cudaErrorNotSupported when libcuda has no
+// TMA encoder or refuses a map.
 cudaError_t launch_bwd_bf16(const bf16* qkv, const float* kb,
                             const bf16* dout, bf16* dqkv, float4* stats,
                             int B, int S, int H, int dh, float scale,
                             cudaStream_t stream) {
-  if (dh == kHeadDim && S <= kMaxSeq)
-    return launch_bwd_tc(qkv, kb, dout, dqkv, stats, B, S, H, scale, stream);
-  switch ((dh + 15) / 16) {
-    case 4:
-      return launch_bwd_tc_any<64>(qkv, kb, dout, dqkv, stats, B, S, H, dh,
-                                   scale, stream);
-    case 5:
-      return launch_bwd_tc_any<80>(qkv, kb, dout, dqkv, stats, B, S, H, dh,
-                                   scale, stream);
-    case 6:
-      return launch_bwd_tc_any<96>(qkv, kb, dout, dqkv, stats, B, S, H, dh,
-                                   scale, stream);
-    case 7:
-      return launch_bwd_tc_any<112>(qkv, kb, dout, dqkv, stats, B, S, H, dh,
-                                    scale, stream);
-    case 8:
-      return launch_bwd_tc_any<128>(qkv, kb, dout, dqkv, stats, B, S, H, dh,
-                                    scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (!aligned16(qkv) || !aligned16(dout) || !aligned16(dqkv) ||
+      !aligned16(stats))
+    return cudaErrorInvalidValue;
+  const long long D = (long long)H * dh;
+  keep_attn::BwdArgs a;
+  if (!head_map(&a.q, qkv, S * 3 * D, dh, 3 * D, B, S, H, dh, kTileKeys) ||
+      !head_map(&a.k, qkv + D, S * 3 * D, dh, 3 * D, B, S, H, dh,
+                kTileKeys) ||
+      !head_map(&a.v, qkv + 2 * D, S * 3 * D, dh, 3 * D, B, S, H, dh,
+                kTileKeys) ||
+      !head_map(&a.dout, dout, S * D, dh, D, B, S, H, dh, kTileKeys) ||
+      !stats_map(&a.stats_map, stats, B, S, H))
+    return cudaErrorNotSupported;
+  a.key_bias = kb;
+  a.stats = stats;
+  a.dqkv = dqkv;
+  a.B = B;
+  a.S = S;
+  a.H = H;
+  a.dh = dh;
+  a.scale = scale;
+  a.stream = stream;
+  const cudaError_t e = keep_attn::launch_bwd_dq(a);
+  if (e != cudaSuccess) return e;
+  return keep_attn::launch_bwd_dkv(a);
 }
 
 }  // namespace
@@ -1317,7 +708,8 @@ extern "C" int keep_attention_qkv_slab_bwd(const void* qkv,
   if (head_dim % 8 || head_dim < 64 || head_dim > 128 || S < 1 || H < 1 ||
       B < 1 || B > 65535 || H > 65535 || key_bias == nullptr)
     return int(cudaErrorInvalidValue);
-  const bool narrow = head_dim == kHeadDim && S <= kMaxSeq;  // the whole-slice bodies
+  // the fp32 whole-slice bodies
+  const bool narrow = head_dim == kHeadDim && S <= kMaxSeq;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* kb = static_cast<const float*>(key_bias);
   float4* stt = static_cast<float4*>(stats);

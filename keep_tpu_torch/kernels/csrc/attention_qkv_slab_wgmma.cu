@@ -343,29 +343,6 @@ slab_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
 // ---- launches ---------------------------------------------------------------------
 
-// The TMA map of one operand, head h's dh-wide rows of batch row b read
-// through the caller's element strides as a [B, H, S, dh] bf16 tensor, in
-// boxes of `box_rows` rows of 64 columns with the 128-byte swizzle; reads
-// past S or past dh give zeros.
-bool head_map(CUtensorMap* map, const void* base, long long batch_stride,
-              long long head_stride, long long row_stride, int B, int S,
-              int H, int dh, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(S), cuuint64_t(H),
-                              cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(row_stride) * 2,
-                                 cuuint64_t(head_stride) * 2,
-                                 cuuint64_t(batch_stride) * 2};
-  const cuuint32_t box[4] = {64, cuuint32_t(box_rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int NB, typename TOut>
 cudaError_t launch_one_pass(const Args& a) {
   constexpr size_t smem = smem_bytes(NB * 16);

@@ -117,17 +117,6 @@ __device__ __forceinline__ void tile_p(const float (&s)[32], int pieces,
   }
 }
 
-// One consumer warp's release of a ring stage (its wgmma have read it).
-__device__ __forceinline__ void release(uint64_t* empty, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(empty);
-}
-
-// The 128 consumer threads' barrier (the producer warp is not in it).
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
 // Two blocks share an SM (at Dh 128 ptxas spills some of the state under
 // that cap; one block an SM, without the spill, was slower).
 template <int kDP, typename TOut>
@@ -143,7 +132,7 @@ slab_attention_wgmma_streamed_kernel(const __grid_constant__ CUtensorMap map_q,
   constexpr int kStages = ring_stages<kDP>();
   constexpr int kN1 = kDP - 64;  // the second panel's output columns
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* q_s = align1024(smem_raw);
   uint8_t* ring = q_s + kTile;  // stage i at i * kTile
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kTile);
   uint64_t* empty = full + kStages;

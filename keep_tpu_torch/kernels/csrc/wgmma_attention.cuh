@@ -1,10 +1,13 @@
-// Pieces shared by the bf16 attention forward's two wgmma bodies:
-// attention_qkv_slab_wgmma.cu (the one-pass body and the entry point,
-// which writes the arguments) and attention_qkv_slab_wgmma_streamed.cu
-// (the streamed body), two sources so that nvcc builds them side by
-// side: the arguments of a launch, the wgmma instructions (A from
-// registers or shared memory), the softmax's quotient and the epilogue
-// that stages the output tile through shared memory.
+// Pieces shared by the bf16 attention's wgmma bodies, forward and
+// backward: attention_qkv_slab_wgmma.cu (the forward's one-pass body and
+// its entry point, which writes the arguments),
+// attention_qkv_slab_wgmma_streamed.cu (the forward's streamed body) and
+// the backward's two kernels, attention_qkv_slab_bwd_dq.cu and
+// attention_qkv_slab_bwd_dkv.cu (launched from attention_qkv_slab_bwd.cu),
+// sources apart so that nvcc builds them side by side: the arguments of a
+// launch, the TMA maps, the wgmma instructions (A from registers or shared
+// memory), the ring's release, the softmax's quotient and the epilogue
+// that stages an output tile through shared memory.
 #pragma once
 
 #include "hopper.cuh"
@@ -27,6 +30,26 @@ struct Args {
 // The streamed body's launch (attention_qkv_slab_wgmma_streamed.cu), its
 // maps in boxes of kTileKeys rows.
 cudaError_t launch_streamed(const Args& a);
+
+// One launch of the bf16 backward: the maps of q, k and v (the slab's
+// lanes) and of dout, in boxes of kTileKeys rows; the map of the row
+// statistics [B, H, S] x float4 (kernel A writes them through `stats`,
+// kernel B reads them through the map); the key bias, dqkv and the shape.
+struct BwdArgs {
+  CUtensorMap q, k, v, dout, stats_map;
+  const float* key_bias;
+  float4* stats;
+  __nv_bfloat16* dqkv;
+  int B, S, H, dh;
+  float scale;
+  cudaStream_t stream;
+};
+
+// Kernel A (statistics and dq; attention_qkv_slab_bwd_dq.cu) and kernel B
+// (dk and dv; attention_qkv_slab_bwd_dkv.cu), launched in that order on
+// a.stream.
+cudaError_t launch_bwd_dq(const BwdArgs& a);
+cudaError_t launch_bwd_dkv(const BwdArgs& a);
 
 }  // namespace keep_attn
 
@@ -217,6 +240,30 @@ __device__ __forceinline__ void acc_fence(float* d) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// d = a . b^T over kDP columns (Dh padded to a multiple of 16; past 64 the
+// second 64-column panel of each tile), one wgmma group: a the 64 rows of
+// the tile at a_tile, b the N rows from row b_row0 of the tile at b_tile,
+// both K-major (TMA's 128-byte swizzle). kDP / 16 k16 steps; the zero
+// columns past Dh add exact zeros. This thread's part, element i: row
+// 16*warp + lane/4 + 8*((i/2) % 2), column 8*(i/4) + 2*(lane % 4) + i % 2.
+template <int kDP, int N>
+__device__ __forceinline__ void issue_abt(float* d, const uint8_t* a_tile,
+                                          const uint8_t* b_tile, int b_row0) {
+  acc_fence<N / 2>(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kDP / 16; ++kk) {
+    const int panel = kk / 4;
+    wgmma_ss(Width<N>{}, d,
+             smem_desc(a_tile + panel * kPanelBytes) + 2 * (kk % 4),
+             smem_desc(b_tile + panel * kPanelBytes + b_row0 * kRowBytes) +
+                 2 * (kk % 4),
+             kk);
+  }
+  wgmma_commit();
+  acc_fence<N / 2>(d);
+}
+
 // e / l in IEEE round-to-nearest, from y = 1/l correctly rounded: the
 // quotient q = e*y rounded is within an ulp of e / l, the remainder
 // e - l*q is exact in one FMA, and q + remainder*y rounded is the correctly
@@ -229,7 +276,68 @@ __device__ __forceinline__ float div_rn(float e, float l, float y) {
   return __fmaf_rn(__fmaf_rn(-q, l, e), y, q);
 }
 
-// ---- the epilogue, shared by both bodies ---------------------------------------
+// The first 1024-byte aligned byte of dynamic shared memory (the
+// 128-byte swizzle's tiles start on 1024 bytes).
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// One consumer warp's release of a ring stage (its wgmma have read it).
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+// The 128 consumer threads' barrier (the producer warp is not in it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// The TMA map of one operand, head h's dh-wide rows of batch row b read
+// through the caller's element strides as a [B, H, S, dh] bf16 tensor, in
+// boxes of `box_rows` rows of 64 columns with the 128-byte swizzle; reads
+// past S or past dh give zeros.
+inline bool head_map(CUtensorMap* map, const void* base,
+                     long long batch_stride, long long head_stride,
+                     long long row_stride, int B, int S, int H, int dh,
+                     int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(S), cuuint64_t(H),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(row_stride) * 2,
+                                 cuuint64_t(head_stride) * 2,
+                                 cuuint64_t(batch_stride) * 2};
+  const cuuint32_t box[4] = {64, cuuint32_t(box_rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The TMA map of the backward's row statistics, an fp32 [B, H, S, 4]
+// tensor, in boxes of kTileKeys rows (1 KB, no swizzle); rows past S
+// arrive as zeros.
+inline bool stats_map(CUtensorMap* map, const void* base, int B, int S,
+                      int H) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {4, cuuint64_t(S), cuuint64_t(H),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {16, cuuint64_t(S) * 16,
+                                 cuuint64_t(S) * cuuint64_t(H) * 16};
+  const cuuint32_t box[4] = {4, cuuint32_t(kTileKeys), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---- the epilogue, shared by the bodies -------------------------------------
 
 // Elements of a staged output row: the padded head width and 8 more, so
 // that the quads' stores of one fragment fall in distinct banks.
@@ -255,7 +363,8 @@ __device__ __forceinline__ void stage_acc(TOut* stage, const float* o,
 
 // The staged tile's rows < S (of the block's 64 from row0), columns < dh,
 // to out[b, row, h*dh ...] in 16-byte stores by the block's 128 consumer
-// threads.
+// threads, rows H*dh apart (the backward's slab: 3H heads' worth, from
+// its lane's first column).
 template <typename TOut, int kPitch>
 __device__ __forceinline__ void store_rows(const TOut* stage,
                                            TOut* __restrict__ out, int b,

@@ -12,7 +12,11 @@ strides) and ``csrc/attention_qkv_slab_bwd.cu`` (the closed-form backward,
 ``_slab_attn_bwd``). bf16 in, bf16 or fp32 out, runs on ``wgmma`` fed by
 TMA (``csrc/attention_qkv_slab_wgmma.cu``: one pass with the scores in
 registers at Dh = 64 and S ≤ 320, K and V streamed through a ring of
-shared-memory stages elsewhere); fp32 on the CUDA cores. For a CPU tensor
+shared-memory stages elsewhere); so does the bf16 backward, two
+deterministic kernels at every shape (``csrc/attention_qkv_slab_bwd_dq.cu``:
+the row statistics and dq per query tile, K and V streamed twice;
+``_dkv.cu``: dk and dv per key tile, Q and dO streamed); fp32 on the CUDA
+cores. For a CPU tensor
 they run the ``*_reference`` versions, the same math in plain PyTorch, which the
 tests and ``chip_smoke.py`` also hold the kernels against. There is no
 fallback from one to the other. The choice is the dispatcher's: the C

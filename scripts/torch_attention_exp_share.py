@@ -32,7 +32,9 @@ from keep_tpu_torch.kernels import _build  # noqa: E402
 from keep_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 
 ATTENTION_SOURCES = ("attention_qkv_slab.cu", "attention_qkv_slab_wgmma.cu",
-                     "attention_qkv_slab_bwd.cu", "slab_attention.cuh")
+                     "attention_qkv_slab_wgmma_streamed.cu",
+                     "attention_qkv_slab_bwd.cu", "attention_qkv_slab_bwd_dq.cu",
+                     "attention_qkv_slab_bwd_dkv.cu", "slab_attention.cuh")
 NO_EXP = "__device__ __forceinline__ float no_exp(float x) { return x; }\n"
 # build name → what replaces "expf(" in the attention sources
 BUILDS = {"expf": None, "__expf": "__expf(", "none": "no_exp("}

@@ -7,6 +7,7 @@ same values and the bound.
 
     python3 scripts/torch_attention_shapes_bench.py [--runs 7] [--calls 10]
         [--out f.json] [--edges 257,273,320 --widths 64,80]
+        [--bwd [--train]]
 
 Shapes (name, B, S, H, Dh, padded key bias): ViT-L/16 (S = 197) and
 BERT-base (S = 256, a ragged key mask) at B = 32 and 128; the zoo's head
@@ -31,6 +32,24 @@ refuses a shape prints ``"refused"`` with its error, so the same file
 times another checkout of the package in the same call (run it from that
 checkout's root with ``PYTHONPATH=.``). Prints the card's name and power
 limit, then one JSON line per shape. Needs an NVIDIA GPU; imports no JAX.
+
+``--bwd`` times the backward (#1b ``attention_qkv_slab_bwd``) instead, in
+bf16 with dout in bf16 and the key bias the kernel always takes (zeros,
+or BERT's ragged -1e9 mask): at ``BWD_SHAPES`` (chip_smoke.py's phase 8:
+ViT-L/16 and BERT-base at B = 32 and 128; phase 25's six: Dh 64 at S =
+577 / 785, Dh 80 / 88 / 104 / 112 at S = 257, B = 32, H = 16) and at
+every ``EDGE_S`` length at Dh 64 and 80 (B = 32, H = 16; ``--edges`` /
+``--widths`` pick others). For each: its events and profiler device ms,
+SDPA's backward on the slab's head views through autograd (the graph
+kept, so that only the backward is timed; the same mask) in both, the
+longest kernel of SDPA's backward, the largest distance from the plain
+version on unmasked rows beside 1e-2 of the largest plain gradient (the
+bf16 gate), and the bound (``chip_smoke.attention_bound(backward=True)``'s
+10·S²·Dh operations a head, 7 values of B·S·H·Dh in bf16 and the bias
+moved). ``--train`` also runs chip_smoke.py's phase 9 (``drive_train``
+of the checkout it is run from: the full-width KEEP trained at batch 128,
+the last unfrozen step traced) and prints its ``slab_attention_bwd``
+family ms, ms per unfrozen step and peak memory.
 """
 
 from __future__ import annotations
@@ -61,6 +80,17 @@ SHAPES = ([(name, b, s, h, 64, padded, True) for b in (32, 128)
              ("dh128", 32, 257, 16, 128, False, False)]
           + [(f"edge_dh{dh}", 32, s, 16, dh, False, False)
              for dh in (64, 80) for s in EDGE_S])
+# the backward's shapes (name, B, S, H, Dh, padded): phase 8's four, then
+# phase 25's six
+BWD_SHAPES = ([(name, b, s, h, 64, padded) for b in (32, 128)
+               for name, s, h, padded in (("vit_l16", 197, 16, False),
+                                          ("bert_base", 256, 12, True))]
+              + [("keep_384", 32, 577, 16, 64, False),
+                 ("keep_448", 32, 785, 16, 64, False),
+                 ("vit_h14", 32, 257, 16, 80, False),
+                 ("vit_g14", 32, 257, 16, 88, False),
+                 ("vit_bigg14", 32, 257, 16, 104, False),
+                 ("vit_e14", 32, 257, 16, 112, False)])
 
 
 def events_ms(fn, runs: int, calls: int, warmup: int = 3) -> float:
@@ -82,14 +112,22 @@ def events_ms(fn, runs: int, calls: int, warmup: int = 3) -> float:
 
 
 def device_ms(fn, calls: int, tries: int = 3) -> tuple[float, str]:
+    ms, source, _ = device_kernels(fn, calls, tries)
+    return ms, source
+
+
+def device_kernels(fn, calls: int, tries: int = 3, per_launch: int = 1
+                   ) -> tuple[float, str, dict[str, float]]:
     """The device time of one call of ``fn`` (ms) and where it came from.
     ``"profiler"``: its kernels' time in a profiler session of ``calls``
     calls, over the calls. The profiler on the card's machine now and then
     records no kernel of a session, or only some: a session is kept only
     if it holds as many device records as the calls issued, a whole number
-    a call and at least the attention launches the port counted in it,
-    else it is taken again. After ``tries`` sessions short of that,
-    ``"events"``: events around the calls back to back."""
+    a call and at least ``per_launch`` records for each attention launch
+    the port counted in it (#1b's launch is two kernels), else it is taken
+    again. After ``tries`` sessions short of that,
+    ``"events"``: events around the calls back to back. Also returns the
+    session's device ms a call by kernel name (empty for events)."""
     from torch.profiler import ProfilerActivity, profile
 
     from keep_tpu_torch.kernels import flash_attention as fa
@@ -97,19 +135,20 @@ def device_ms(fn, calls: int, tries: int = 3) -> tuple[float, str]:
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        n0 = fa.LAUNCHES + fa.HEADS_LAUNCHES
+        n0 = fa.LAUNCHES + fa.HEADS_LAUNCHES + fa.BWD_LAUNCHES
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        issued = fa.LAUNCHES + fa.HEADS_LAUNCHES - n0
+        issued = fa.LAUNCHES + fa.HEADS_LAUNCHES + fa.BWD_LAUNCHES - n0
         records = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         count = sum(e.count for e in records)
-        if count and count % calls == 0 and count >= issued:
-            return (sum(e.self_device_time_total for e in records) / 1e3
-                    / calls, "profiler")
-    return events_ms(fn, 1, calls, warmup=0), "events"
+        if count and count % calls == 0 and count >= issued * per_launch:
+            by_kernel = {e.key: e.self_device_time_total / 1e3 / calls
+                         for e in records}
+            return sum(by_kernel.values()), "profiler", by_kernel
+    return events_ms(fn, 1, calls, warmup=0), "events", {}
 
 
 def bound_ms(b: int, s: int, h: int, dh: int, out_bytes: int = 2,
@@ -121,6 +160,103 @@ def bound_ms(b: int, s: int, h: int, dh: int, out_bytes: int = 2,
                                                            "bytes")
 
 
+def bwd_bound_ms(b: int, s: int, h: int, dh: int) -> tuple[float, str]:
+    """chip_smoke.attention_bound(backward=True) in bf16: the score
+    recompute and four products, 10·S²·Dh a head, over 989 TFLOP/s; q, k,
+    v, dout read and dq, dk, dv written (7 · B·S·H·Dh bf16 values) and the
+    fp32 bias read (the kernel always takes one), over 3.35 TB/s."""
+    ops = 10 * b * h * s * s * dh / PEAK_BF16
+    moved = (7 * b * s * h * dh * 2 + b * s * 4) / HBM_BYTES_PER_S
+    return (ops * 1e3, "operations") if ops >= moved else (moved * 1e3,
+                                                           "bytes")
+
+
+def bwd_rows(shapes, runs: int, calls: int) -> list[dict]:
+    """#1b and SDPA's backward at ``shapes`` (name, B, S, H, Dh, padded):
+    one JSON line each."""
+    from keep_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for name, b, s, h, dh, padded in shapes:
+        qkv = torch.randn(b, s, 3 * h * dh, device="cuda",
+                          generator=gen).bfloat16()
+        do = torch.randn(b, s, h * dh, device="cuda",
+                         generator=gen).bfloat16()
+        valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
+        if padded:
+            lens = torch.randint(8, s + 1, (b,), device="cuda", generator=gen)
+            valid = torch.arange(s, device="cuda")[None] < lens[:, None]
+        kb = (1.0 - valid.float()) * -1e9
+        row = {"shape": name, "B": b, "S": s, "H": h, "Dh": dh,
+               "padded": padded, "dtype": "bfloat16"}
+        try:
+            got = fa.attention_qkv_slab_bwd(qkv, kb, do, h)
+        except (ValueError, RuntimeError) as e:
+            print(json.dumps({**row, "refused": str(e)}), flush=True)
+            continue
+        ref = fa.attention_qkv_slab_bwd_reference(qkv, kb, do, h)
+        g, r = got.float()[valid], ref.float()[valid]
+        row.update(max_abs_err=(g - r).abs().max().item(),
+                   gate=1e-2 * r.abs().max().item(),
+                   finite=bool(torch.isfinite(got).all()))
+        del got, ref, g, r
+        kernel = lambda: fa.attention_qkv_slab_bwd(qkv, kb, do, h)  # noqa
+        q, k, v = (t.detach().requires_grad_() for t in
+                   qkv.view(b, s, 3, h, dh).permute(2, 0, 3, 1, 4))
+        mask = kb[:, None, None, :].bfloat16() if padded else None
+        out = torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask)
+        do4 = do.view(b, s, h, dh).transpose(1, 2)
+        sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            out, (q, k, v), do4, retain_graph=True)
+        row["ms"] = events_ms(kernel, runs, calls)
+        row["library_ms"] = events_ms(sdpa_bwd, runs, calls)
+        row["dev_ms"], row["dev_ms_source"], by_kernel = device_kernels(
+            kernel, calls, per_launch=2)
+        row["dev_ms_by_kernel"] = by_kernel
+        (row["library_dev_ms"], row["library_dev_ms_source"],
+         lib_kernels) = device_kernels(sdpa_bwd, calls)
+        row["library_kernel"] = (max(lib_kernels, key=lib_kernels.get)
+                                 if lib_kernels else "not measured")
+        row["bound_ms"], row["bound_by"] = bwd_bound_ms(b, s, h, dh)
+        row["calls"] = calls
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del qkv, do, kb, out, q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_row() -> dict:
+    """chip_smoke.py's phase 9 from this checkout: its ``slab_attention_bwd``
+    family ms in the traced unfrozen step, ms per unfrozen step and peak
+    memory."""
+    import tempfile
+
+    import chip_smoke as cs
+    from keep_tpu_torch.configs import KEEPConfig
+    from keep_tpu_torch.kernels import flash_attention as fa
+
+    cfg = KEEPConfig()
+    blocks = cfg.vision.depth + cfg.text.num_hidden_layers
+    with tempfile.TemporaryDirectory() as d:
+        out = cs.drive_train(torch, fa, d,
+                             cs.train_config(d, steps_per_epoch=4),
+                             blocks=blocks, steps_per_epoch=4)
+    fams = out["traced_unfrozen_step"]["ms_by_family"]
+    row = {"shape": "phase9_train",
+           "slab_attention_bwd_ms": fams.get("slab_attention_bwd"),
+           "slab_attention_ms": fams.get("slab_attention"),
+           "device_busy_ms": out["traced_unfrozen_step"]["device_busy_ms"],
+           "ms_per_unfrozen_step": out["ms_per_unfrozen_step"],
+           "ms_per_frozen_step": out["ms_per_frozen_step"],
+           "peak_memory_gb": out["peak_memory_gb"],
+           "bwd_launches": out["bwd_launches"]}
+    print(json.dumps(row), flush=True)
+    return row
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--runs", type=int, default=7)
@@ -130,6 +266,10 @@ def main() -> None:
                     "lengths (B = 32, H = 16) at --widths")
     ap.add_argument("--widths", default="64,80",
                     help="head widths of --edges (default 64,80)")
+    ap.add_argument("--bwd", action="store_true",
+                    help="time the backward (#1b) and SDPA's instead")
+    ap.add_argument("--train", action="store_true",
+                    help="with --bwd, also run chip_smoke.py's phase 9")
     args = ap.parse_args()
     shapes = SHAPES
     if args.edges:
@@ -145,6 +285,20 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
+    if args.bwd:
+        widths = [int(w) for w in args.widths.split(",")]
+        edges = ([int(x) for x in args.edges.split(",")] if args.edges
+                 else EDGE_S)
+        shapes = (([] if args.edges else BWD_SHAPES)
+                  + [(f"edge_dh{dh}", 32, s, 16, dh, False)
+                     for dh in widths for s in edges])
+        rows = bwd_rows(shapes, args.runs, args.calls)
+        if args.train:
+            rows.append(train_row())
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": card, "rows": rows}, f)
+        return
     F = torch.nn.functional
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
