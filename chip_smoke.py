@@ -70,7 +70,8 @@ exits non-zero without a result line):
    fp32 bit for bit against the plain version (its bits: PyTorch's warp
    softmax serves these rows), bf16 at max |Δ| < 0.05, the three layouts
    the same bits, each call's launch counted; then every ``EDGE_S`` length
-   at Dh = 64 and 80 (B = 2, H = 2). Each shape's bf16 time beside its
+   at Dh = 64 and 80 (B = 2, H = 2), and fp32 at ``F32_STREAMED_S`` (the
+   three-pass body's rows, within 2e-5). Each shape's bf16 time beside its
    bound, the plain version's and SDPA's.
    zoo_serve — ``factory.create_model("ViT-H-14")`` from a seed in bf16
    (vision 32 × 1280, Dh = 80; text 24 × 1024, context 77): uint8 images
@@ -139,9 +140,10 @@ exits non-zero without a result line):
    H=16, zero key bias; BERT-base: S=256, H=12, padded key bias), fp32 at
    atol 2e-4, rtol 1e-4 and bf16 within 1e-2 of the largest plain gradient
    on unpadded rows, each timed with CUDA events and in profiler device ms
-   beside SDPA's backward (through autograd) in both; then the bf16 form
-   at every ``EDGE_S`` length at Dh 64 and 80 (B=2, H=2), unpadded and
-   with a ragged key mask, at the same bf16 gate, one launch a call.
+   beside SDPA's backward (through autograd) in both; then the bf16 and
+   fp32 forms at every ``EDGE_S`` length at Dh 64 and 80 (B=2, H=2),
+   unpadded and with a ragged key mask, at the same gates, one launch a
+   call.
 9. train — ``keep_tpu_torch.train.main.main(["--config", <json>,
    "--device", "cuda"])`` on the values of ``configs/keep_train.yml``
    (batch 128, 32 captions, lhp-hn, amp_bf16, fused attention, both towers
@@ -424,18 +426,21 @@ import urllib.request
 import numpy as np
 
 # #1 / #2: the bf16 bodies (wgmma fed by TMA: the one-pass body and the
-# streamed one) and the entry point with the fp32 body
+# streamed one) and the entry point with the fp32 bodies (CUDA cores: the
+# scores kept where they fit in shared memory, streamed past it)
 SOURCE = "keep_tpu_torch/kernels/csrc/attention_qkv_slab_wgmma.cu"
 ATTENTION_SOURCES = [
     SOURCE, "keep_tpu_torch/kernels/csrc/attention_qkv_slab_wgmma_streamed.cu",
     "keep_tpu_torch/kernels/csrc/attention_qkv_slab.cu"]
 REPLACES = "keep_tpu/kernels/flash_attention.py:190"
-# #1b: the bf16 kernels A and B (wgmma fed by TMA), and the entry point
-# with the fp32 bodies
+# #1b: the bf16 kernels A and B (wgmma fed by TMA) and the fp32 kernels A
+# and B (split TF32 on wgmma fed by TMA); their entry point,
+# attention_qkv_slab_bwd.cu, holds no kernel
 BWD_SOURCE = "keep_tpu_torch/kernels/csrc/attention_qkv_slab_bwd_dq.cu"
 BWD_SOURCES = [
     BWD_SOURCE, "keep_tpu_torch/kernels/csrc/attention_qkv_slab_bwd_dkv.cu",
-    "keep_tpu_torch/kernels/csrc/attention_qkv_slab_bwd.cu"]
+    "keep_tpu_torch/kernels/csrc/attention_qkv_slab_bwd_f32_dq.cu",
+    "keep_tpu_torch/kernels/csrc/attention_qkv_slab_bwd_f32_dkv.cu"]
 BWD_REPLACES = "keep_tpu/kernels/flash_attention.py:221"
 HEADS_REPLACES = "keep_tpu/kernels/flash_attention.py:115"
 LN_MATMUL_SOURCE = "keep_tpu_torch/kernels/csrc/ln_matmul.cu"
@@ -446,8 +451,10 @@ LN_MATMUL_BODY = ("ln_stats_kernel (one read of x) + ln_matmul_wgmma_kernel: "
                   "epilogue")
 CSRC = "keep_tpu_torch/kernels/csrc/"
 # the card's published peaks (H100 SXM, dense) and memory rate, for the
-# least time a kernel's work could take (bound_ms)
-PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# least time a kernel's work could take (bound_ms); fp32 is the CUDA
+# cores' rate (the fp32 forward's route), tf32 the tensor cores' (the fp32
+# backward's route: each product in split TF32, three TF32 products)
+PEAK = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12, "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12
 # the int8 counterparts of the TPU kernels: the module that composes them
 # and the CUDA sources they run, the TPU kernel each replaces
@@ -483,12 +490,15 @@ ATTENTION_SHAPES = [(name, b, s, h, padded) for b in (32, 128)
                     for name, s, h, padded in (("vit_l16", 197, 16, False),
                                                ("bert_base", 256, 12, True))]
 # sequence lengths around the attention bodies' tiles and pieces, the two
-# towers' lengths, the one-pass forward's limit (320), the fp32
-# whole-slice backward's (512) and, past them, the streamed bodies' 64-key
-# tiles, ViT-L-14-336's 577, KEEP at 448²'s 785 and one past the longest
-# row PyTorch's warp softmax serves
+# towers' lengths, the one-pass forward's limit (320), 512 and, past them,
+# the streamed bodies' 64-key tiles, ViT-L-14-336's 577, KEEP at 448²'s 785
+# and one past the longest row PyTorch's warp softmax serves
 EDGE_S = [1, 15, 16, 17, 64, 197, 256, 257, 320, 321, 512, 513, 575, 576,
           577, 640, 641, 785, 1025]
+# the first length at Dh 64 / 80 / 128 past the fp32 forward's kept-scores
+# body (a block's 32 rows of scores in shared memory), where the three-pass
+# body takes the row
+F32_STREAMED_S = [(64, 1441), (80, 1377), (128, 1121)]
 # the zoo's attention shapes (name, B, S, H, Dh): every head width of the
 # OpenCLIP presets past 64 at their S = 257 (224², patch 14), and Dh = 64
 # past 512: ViT-L-14-336 (577) and KEEP's ViT-L/16 at 448² (785)
@@ -617,19 +627,33 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def attention_flops(b: int, s: int, h: int, backward: bool = False,
+                    dh: int = 64) -> int:
+    """The operations of one attention call: the forward's q·kᵀ and p·v
+    (4·S²·Dh per head), the backward's score recompute and four products
+    (10·S²·Dh)."""
+    return b * h * (10 if backward else 4) * s * s * dh
+
+
 def attention_bound(b: int, s: int, h: int, dtype_bytes: int,
                     key_bias: bool, backward: bool = False,
                     out_bytes: int | None = None,
                     dh: int = 64) -> tuple[float, str]:
-    """The bound of one attention call: the forward's q·kᵀ and p·v
-    (4·S²·Dh per head), the backward's score recompute and four products
-    (10·S²·Dh); q, k, v (and dout) read, the output (dq, dk, dv) written,
-    the forward's output in ``out_bytes`` a value (default: the input's)."""
-    per_head = (10 if backward else 4) * s * s * dh
+    """The bound of one attention call: ``attention_flops`` at the peak of
+    the route its input's type takes (bf16; an fp32 forward at the CUDA
+    cores' fp32 rate; an fp32 backward in split TF32, three TF32 products
+    for each product, at the tensor cores' TF32 rate); q, k, v (and dout)
+    read, the output (dq, dk, dv) written, the forward's output in
+    ``out_bytes`` a value (default: the input's)."""
     io = b * s * h * dh
     moved = (io * dtype_bytes * 3 + io * (out_bytes or dtype_bytes)
              if not backward else io * dtype_bytes * (3 + 1 + 3))
-    return bound({"bf16": b * h * per_head}, moved + key_bias * b * s * 4)
+    flops = attention_flops(b, s, h, backward, dh)
+    if dtype_bytes == 2:
+        ops = {"bf16": flops}
+    else:
+        ops = {"tf32": 3 * flops} if backward else {"fp32": flops}
+    return bound(ops, moved + key_bias * b * s * 4)
 
 
 def sdpa_backend(torch, fn) -> str:
@@ -970,7 +994,8 @@ def check_attention_shapes(fa, torch, gen) -> tuple[list[dict], list[dict]]:
     unpadded, fp32 and bf16 (``check_zoo_call``); each shape's bf16 times
     (the slab, split heads and ``flash_attention`` kernels, the plain
     version, SDPA on the slab's head views) beside its bound; then every
-    ``EDGE_S`` length at Dh = 64 and 80. Returns (slab rows, heads rows)."""
+    ``EDGE_S`` length at Dh = 64 and 80, and fp32 at ``F32_STREAMED_S``.
+    Returns (slab rows, heads rows)."""
     F = torch.nn.functional
     rows, heads_rows = [], []
     for name, b, s, h, dh in ZOO_ATTENTION_SHAPES:
@@ -1012,6 +1037,11 @@ def check_attention_shapes(fa, torch, gen) -> tuple[list[dict], list[dict]]:
                     edges[f"Dh={dh} S={s}{' padded' if padded else ''} "
                           f"{str(dtype)[6:]}"] = check_zoo_call(
                         fa, torch, qkv32.to(dtype), kb, valid, 2, dh)
+    for dh, s in F32_STREAMED_S:
+        for padded in (False, True):
+            qkv32, kb, valid = zoo_inputs(torch, gen, 2, s, 2, dh, padded)
+            edges[f"Dh={dh} S={s}{' padded' if padded else ''} float32"] = \
+                check_zoo_call(fa, torch, qkv32, kb, valid, 2, dh)
     phase("attention_shapes", shapes=[r["shape"] for r in rows],
           edges_max_abs_err=max(edges.values()), edges=len(edges))
     return rows, heads_rows
@@ -1766,19 +1796,21 @@ def check_bwd_kernel(fa, torch, gen) -> list[dict]:
 
 
 def check_bwd_edges(fa, torch, gen) -> dict:
-    """Phase 8, the edges: the bf16 backward at every ``EDGE_S`` length at
-    Dh 64 and 80 (B=2, H=2), unpadded and with a ragged key mask, against
-    its plain version at phase 8's gate (max |Δ| ≤ 1e-2 · max |plain| on
-    unmasked rows), finite, each call one launch."""
+    """Phase 8, the edges: the backward at every ``EDGE_S`` length at Dh 64
+    and 80 (B=2, H=2), unpadded and with a ragged key mask, bf16 and fp32,
+    against its plain version at phase 8's gates (bf16: max |Δ| ≤ 1e-2 ·
+    max |plain| on unmasked rows; fp32: atol 2e-4, rtol 1e-4), finite, each
+    call one launch."""
     worst = {"ratio": 0.0}
+    worst_f32 = {"max_abs_err": 0.0}
     b, h = 2, 2
     for dh in (64, 80):
         for s in EDGE_S:
             for padded in (False, True):
-                qkv = torch.randn(b, s, 3 * h * dh, device="cuda",
-                                  generator=gen).bfloat16()
-                do = torch.randn(b, s, h * dh, device="cuda",
-                                 generator=gen).bfloat16()
+                qkv32 = torch.randn(b, s, 3 * h * dh, device="cuda",
+                                    generator=gen)
+                do32 = torch.randn(b, s, h * dh, device="cuda",
+                                   generator=gen)
                 valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
                 if padded:
                     lens = torch.randint(1, s + 1, (b,), device="cuda",
@@ -1786,26 +1818,40 @@ def check_bwd_edges(fa, torch, gen) -> dict:
                     valid = (torch.arange(s, device="cuda")[None]
                              < lens[:, None])
                 kb = (1.0 - valid.float()) * -1e9
-                n0 = fa.BWD_LAUNCHES
-                got = fa.attention_qkv_slab_bwd(qkv, kb, do, h)
-                torch.cuda.synchronize()
-                if fa.BWD_LAUNCHES != n0 + 1:
-                    raise AssertionError(f"Dh {dh}, S {s}: the backward did "
-                                         f"not launch once")
-                ref = fa.attention_qkv_slab_bwd_reference(qkv, kb, do, h)
-                g, r = got.float()[valid], ref.float()[valid]
-                err = (g - r).abs().max().item()
-                limit = 1e-2 * r.abs().max().item()
-                if not (torch.isfinite(got).all() and err <= limit):
-                    raise AssertionError(
-                        f"bf16 backward at Dh {dh}, S {s}, padded {padded} "
-                        f"vs plain: max |Δ| {err} > {limit}")
-                if limit and err / limit > worst["ratio"]:
-                    worst = {"ratio": err / limit, "Dh": dh, "S": s,
-                             "padded": padded, "max_abs_err": err,
-                             "limit": limit}
+                for dtype in (torch.bfloat16, torch.float32):
+                    qkv, do = qkv32.to(dtype), do32.to(dtype)
+                    n0 = fa.BWD_LAUNCHES
+                    got = fa.attention_qkv_slab_bwd(qkv, kb, do, h)
+                    torch.cuda.synchronize()
+                    if fa.BWD_LAUNCHES != n0 + 1:
+                        raise AssertionError(f"Dh {dh}, S {s}: the backward "
+                                             f"did not launch once")
+                    ref = fa.attention_qkv_slab_bwd_reference(qkv, kb, do, h)
+                    if dtype == torch.float32:
+                        err = (got - ref).abs().max().item()
+                        if not (torch.isfinite(got).all() and torch.allclose(
+                                got, ref, atol=2e-4, rtol=1e-4)):
+                            raise AssertionError(
+                                f"fp32 backward at Dh {dh}, S {s}, padded "
+                                f"{padded} vs plain: max |Δ| {err}")
+                        if err > worst_f32["max_abs_err"]:
+                            worst_f32 = {"max_abs_err": err, "Dh": dh,
+                                         "S": s, "padded": padded}
+                        continue
+                    g, r = got.float()[valid], ref.float()[valid]
+                    err = (g - r).abs().max().item()
+                    limit = 1e-2 * r.abs().max().item()
+                    if not (torch.isfinite(got).all() and err <= limit):
+                        raise AssertionError(
+                            f"bf16 backward at Dh {dh}, S {s}, padded "
+                            f"{padded} vs plain: max |Δ| {err} > {limit}")
+                    if limit and err / limit > worst["ratio"]:
+                        worst = {"ratio": err / limit, "Dh": dh, "S": s,
+                                 "padded": padded, "max_abs_err": err,
+                                 "limit": limit}
     out = {"lengths": EDGE_S, "head_dims": [64, 80], "B": b, "H": h,
-           "calls": 2 * 2 * len(EDGE_S), "worst": worst}
+           "calls": 2 * 2 * 2 * len(EDGE_S), "worst": worst,
+           "worst_fp32": worst_f32}
     phase("attention_bwd_edges", **out)
     return out
 
@@ -1995,8 +2041,10 @@ def step_numbers(torch, steps: list, traced: dict, batch: int) -> dict:
 
     families: dict[str, float] = {}
     for k, v in traced.items():
-        fam = next((f for f in ("slab_attention_bwd", "slab_attention")
-                    if f in k), family(k))
+        fam = next((f for f, keys in (
+            ("slab_attention_bwd", ("slab_attention_bwd",)),
+            ("slab_attention", ("slab_attention", "attention_f32")))
+                    if any(key in k for key in keys)), family(k))
         families[fam] = families.get(fam, 0.0) + v
     busy = sum(traced.values())
     return {"ms_per_unfrozen_step": statistics.median(open_ms),

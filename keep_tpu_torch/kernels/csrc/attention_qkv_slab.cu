@@ -33,25 +33,46 @@
 // 104 for ViT-bigG, 112 for ViT-e) and any S (577 for ViT-L-14-336, 785
 // for KEEP's ViT-L/16 at 448^2).
 //
-// This file holds the entry point and the fp32 body. The bf16 input, with
+// This file holds the entry point and the fp32 bodies. The bf16 input, with
 // a bf16 or an fp32 output, goes to the wgmma bodies fed by TMA in
 // attention_qkv_slab_wgmma.cu (one pass over the keys at Dh = 64 and
 // S <= 320, K and V streamed through a ring elsewhere), which say what
 // bounds them and how they are built.
 //
-// fp32 -> fp32 keeps an exact CUDA-core body: one block per (32 query
-// rows, head, batch row), 8 warps of 4 rows each, K (then V) staged 128
-// rows at a time in padded shared rows, the q rows in shared fp32. Three
-// passes over the keys: the row max, the row sum, then p (rounded after the
-// division) into shared p^T and p . v. Lane l takes keys l, l + 32, ...
-// Every sum runs in the order of the plain version on the card (a chain of
-// fp32 FMAs per score and per output over d and over the keys in order;
-// PyTorch's warp softmax, which serves rows of up to 1024 fp32 values:
-// lane partial sums over its keys in order, then a butterfly), so it gives
-// the plain version's bits there; longer rows go to PyTorch's block softmax,
-// which sums in another order. The tensor cores have no fp32 path that meets
-// the fp32 gate (2e-5). The third pass recomputes the scores instead of
-// keeping a row of them, so shared memory does not grow with S.
+// fp32 -> fp32 stays on the CUDA cores: its gate is the plain version's
+// bits where PyTorch's warp softmax serves the row (S <= 1024; 2e-5 past
+// it), and those bits come from its order of sums (a chain of fp32 FMAs
+// per score and per output over d and over the keys in order; PyTorch's
+// warp softmax: lane l sums keys l, l + 32, ... in order, then a
+// butterfly; p normalised by division before p . v; expf). The tensor
+// cores sum a product's terms in an order of their own, even in split
+// TF32 (the fp32 backward's route, whose gate is a tolerance), so they
+// cannot give those bits. What bounds the body is the CUDA cores' 67
+// TFLOP/s for the 4 * S^2 * Dh FLOPs a head (0.30 ms at ViT-L B = 128).
+//
+// Where a block's scores fit in shared memory (`attention_f32_kept_kernel`:
+// S up to 1,440 at Dh 64, 1,120 at Dh 128), each score is taken once and
+// kept. One block per (32 query rows, head, batch row), 8 warps; the
+// block's scores [32][S] stay in shared memory (129 KB at S = 1024), K and
+// then V stream through 128-key stages by cp.async (two where they fit,
+// so that the next tile loads while this one is summed). A lane owns a
+// 4 x 4 tile: of scores (4 rows x 4 keys; 16 bytes of q and of k a load,
+// 8 loads to 64 FMAs, no bank conflict: rows of Dh + 4 words), then of
+// outputs (4 rows x 4 columns; p and v 16 bytes a load). Between them each
+// warp takes its 4 rows' max, e = exp(s - m) in place with their sum, and
+// p = e / sum in place. What it meets first is shared memory: 8 loads of
+// 16 bytes to 64 FMAs feed an SM's FMA units at about half their rate;
+// larger tiles would need more rows a block than the kept scores leave
+// room for.
+// Longer rows (`attention_f32_kernel`): the streamed three-pass body, 32 query
+// rows a block, 8 warps of 4 rows, K (then V) staged 128 rows at a time:
+// the row max, the row sum, then p (rounded after the division) into
+// shared p^T and p . v, the scores recomputed each pass so that shared
+// memory does not grow with S. Past S = 1024 PyTorch's block softmax
+// serves the plain version's rows and sums in another order, so the gate
+// there is 2e-5 for either body.
+
+#include <atomic>
 
 #include "slab_attention.cuh"
 
@@ -257,24 +278,281 @@ attention_f32_kernel(const float* __restrict__ q_base,
   }
 }
 
+// ---- fp32: the scores kept -----------------------------------------------------
+
+constexpr int kKeptKeys = 128;     // keys of a staged K or V tile
+constexpr size_t kMaxSmem = 232448;  // bytes of shared memory a block may take
+
+// Floats of a staged row (an odd number of 16-byte chunks: the 8
+// consecutive rows a warp reads hit 8 distinct chunks of banks).
+__host__ __device__ inline int kept_pitch(int dh) { return dh + 4; }
+
+// Floats of a row of kept scores: S rounded up to 32, plus 8 (the 4 rows a
+// warp writes or reads at once fall 8 banks apart).
+__host__ __device__ inline int kept_score_pitch(int S) {
+  return (S + 31) / 32 * 32 + 8;
+}
+
+// Shared memory of the kept body, in words: q rows [32][dh + 4], `stages`
+// K / V stages [128][dh + 4], the scores [32][S + ...].
+size_t kept_smem_words(int dh, int S, int stages) {
+  return size_t(kept_pitch(dh)) * (kRowsPerBlock + stages * kKeptKeys) +
+         size_t(kRowsPerBlock) * kept_score_pitch(S);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   uint32_t(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Rows [g, g + 128) of a head's dh-wide fp32 slice (row stride `stride`
+// elements) into rows of dh + 4 words by cp.async, 16 bytes a thread, in
+// this thread's newest group; rows at or past S are zero-filled without a
+// read.
+__device__ void stage_kept(float* dst, const float* src, long long stride,
+                           int g, int S, int dh) {
+  const int chunks = dh / 4;
+  for (int idx = threadIdx.x; idx < kKeptKeys * chunks; idx += kThreads) {
+    const int j = idx / chunks;
+    const int c = idx - j * chunks;
+    const bool valid = g + j < S;
+    cp_async16(dst + j * kept_pitch(dh) + 4 * c,
+               src + (valid ? (g + j) * stride : 0) + 4 * c, valid);
+  }
+  cp_async_commit();
+}
+
+// `stages`: 2 (the next tile loads while this one is summed) where they
+// fit beside the scores, else 1.
+__global__ void __launch_bounds__(kThreads)
+attention_f32_kept_kernel(const float* __restrict__ q_base,
+                          const float* __restrict__ k_base,
+                          const float* __restrict__ v_base, Strides st,
+                          const float* __restrict__ key_bias,
+                          float* __restrict__ out, int S, int H, int dh,
+                          float scale, int stages) {
+  extern __shared__ __align__(16) float fsmem[];
+  const int P = kept_pitch(dh);
+  const int SP = kept_score_pitch(S);
+  float* q_s = fsmem;                             // [32][P]
+  float* kv_s = q_s + kRowsPerBlock * P;          // stages x [128][P]
+  float* sc = kv_s + stages * kKeptKeys * P;      // [32][SP]: s, then p
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int row0 = blockIdx.x * kRowsPerBlock;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long head = b * st.batch + h * st.head;
+  const float* bias = key_bias ? key_bias + (long long)b * S : nullptr;
+  const int tiles = (S + kKeptKeys - 1) / kKeptKeys;
+
+  // item i: K tile i, then (i >= tiles) V tile i - tiles, into stage
+  // i % stages
+  auto issue = [&](int i) {
+    const bool v = i >= tiles;
+    stage_kept(kv_s + (i % stages) * kKeptKeys * P,
+               (v ? v_base : k_base) + head, st.row,
+               (v ? i - tiles : i) * kKeptKeys, S, dh);
+  };
+  issue(0);
+  // the block's q rows (zeros past S)
+  const int chunks = dh / 4;
+  for (int idx = threadIdx.x; idx < kRowsPerBlock * chunks; idx += kThreads) {
+    const int r = idx / chunks;
+    const int c = idx - r * chunks;
+    *reinterpret_cast<float4*>(q_s + r * P + 4 * c) =
+        row0 + r < S ? __ldg(reinterpret_cast<const float4*>(
+                           q_base + head + (row0 + r) * st.row + 4 * c))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  // a lane's 4 x 4 tile: scores of rows rr + 4i, keys kk + 8j of a K tile;
+  // then outputs of rows rr + 4i, columns cc .. cc + 3 (warps whose columns
+  // start past Dh idle)
+  const int rr = 16 * (warp & 1) + (lane >> 3);
+  const int kk = 32 * (warp >> 1) + (lane & 7);
+  const int cc = 32 * (warp >> 1) + 4 * (lane & 7);
+  float o[4][4] = {};
+
+#pragma unroll 1
+  for (int i = 0; i < 2 * tiles; ++i) {
+    if (stages == 2) {
+      if (i + 1 < 2 * tiles)
+        issue(i + 1);
+      else
+        cp_async_commit();
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // item i
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const float* tile = kv_s + (i % stages) * kKeptKeys * P;
+    if (i < tiles && i * kKeptKeys + 32 * (warp >> 1) < S) {
+      // each score a chain of FMAs over d in order, as the plain version's
+      // GEMM sums it (a warp whose 32 keys all lie past S has none)
+      const int g = i * kKeptKeys;
+      float acc[4][4] = {};
+      const float* qr = q_s + rr * P;
+      const float* kr = tile + kk * P;
+#pragma unroll 2
+      for (int d = 0; d < dh; d += 4) {
+        float4 qv[4], kv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          qv[r] = *reinterpret_cast<const float4*>(qr + 4 * r * P + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(kr + 8 * j * P + d);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[r][j] = fmaf(qv[r].x, kv[j].x, acc[r][j]);
+            acc[r][j] = fmaf(qv[r].y, kv[j].y, acc[r][j]);
+            acc[r][j] = fmaf(qv[r].z, kv[j].z, acc[r][j]);
+            acc[r][j] = fmaf(qv[r].w, kv[j].w, acc[r][j]);
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = g + kk + 8 * j;
+        if (key >= S) continue;
+        const float bj = bias ? bias[key] : 0.f;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          float x = __fmul_rn(acc[r][j], scale);
+          if (bias) x = __fadd_rn(x, bj);
+          sc[(rr + 4 * r) * SP + key] = x;
+        }
+      }
+    } else if (i >= tiles) {
+      if (i == tiles) {
+        // warp w's rows 4w .. 4w + 3: the max, e = exp(s - m) in place and
+        // their sum (lane l over keys l, l + 32, ... in order, then the
+        // butterfly), then p = e / sum in place
+        for (int r = 4 * warp; r < 4 * warp + 4 && row0 + r < S; ++r) {
+          float* x = sc + r * SP;
+          float m = -INFINITY;
+          for (int j = lane; j < S; j += 32) m = fmaxf(m, x[j]);
+          m = warp_max(m);
+          float sum = 0.f;
+          for (int j = lane; j < S; j += 32) {
+            const float e = expf(x[j] - m);
+            x[j] = e;
+            sum += e;
+          }
+          sum = warp_sum(sum);
+          for (int j = lane; j < S; j += 32) x[j] = x[j] / sum;
+        }
+        __syncthreads();
+      }
+      // p . v over the tile's keys in order: each output a chain of FMAs
+      const int g = (i - tiles) * kKeptKeys;
+      const int n = min(kKeptKeys, S - g);
+      if (cc < dh) {
+        const float* pr = sc + rr * SP + g;
+        int j = 0;
+        for (; j + 4 <= n; j += 4) {
+          float4 pv[4], vv[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            pv[r] = *reinterpret_cast<const float4*>(pr + 4 * r * SP + j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            vv[e] = *reinterpret_cast<const float4*>(tile + (j + e) * P + cc);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const float pe = e == 0   ? pv[r].x
+                               : e == 1 ? pv[r].y
+                               : e == 2 ? pv[r].z
+                                        : pv[r].w;
+              o[r][0] = fmaf(pe, vv[e].x, o[r][0]);
+              o[r][1] = fmaf(pe, vv[e].y, o[r][1]);
+              o[r][2] = fmaf(pe, vv[e].z, o[r][2]);
+              o[r][3] = fmaf(pe, vv[e].w, o[r][3]);
+            }
+        }
+        for (; j < n; ++j) {
+          const float4 vv = *reinterpret_cast<const float4*>(tile + j * P + cc);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float pe = pr[4 * r * SP + j];
+            o[r][0] = fmaf(pe, vv.x, o[r][0]);
+            o[r][1] = fmaf(pe, vv.y, o[r][1]);
+            o[r][2] = fmaf(pe, vv.z, o[r][2]);
+            o[r][3] = fmaf(pe, vv.w, o[r][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage's readers are done before it refills
+    if (stages == 1 && i + 1 < 2 * tiles) issue(i + 1);
+  }
+  if (cc >= dh) return;
+  const int D = H * dh;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = row0 + rr + 4 * r;
+    if (row < S)
+      *reinterpret_cast<float4*>(out + ((long long)b * S + row) * D +
+                                 h * dh + cc) =
+          make_float4(o[r][0], o[r][1], o[r][2], o[r][3]);
+  }
+}
+
 // ---- launches -------------------------------------------------------------------
 
-cudaError_t allow_smem(const void* kernel, size_t bytes) {
+constexpr int kMaxDevices = 64;
+
+// Lets `kernel` take `bytes` of dynamic shared memory: past 48 KB its limit
+// is raised to kMaxSmem on the current card, once per card (`done` is the
+// launcher's own table, one flag per device). No driver call per launch, and
+// a launch from another thread never lowers the limit under this one.
+cudaError_t allow_smem(const void* kernel, size_t bytes,
+                       std::atomic<int> (&done)[kMaxDevices]) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              int(bytes));
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kMaxSmem));
+  if (e == cudaSuccess) done[dev].store(1, std::memory_order_release);
+  return e;
 }
 
 cudaError_t launch_f32(const float* q, const float* k, const float* v,
                        Strides st, const float* key_bias, float* out, int B,
                        int S, int H, int dh, float scale,
                        cudaStream_t stream) {
-  const size_t smem = f32_smem_words(dh) * 4;
-  const cudaError_t e = allow_smem(
-      reinterpret_cast<const void*>(attention_f32_kernel), smem);
-  if (e != cudaSuccess) return e;
   const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
+  if (kept_smem_words(dh, S, 1) * 4 <= kMaxSmem) {
+    const int stages = kept_smem_words(dh, S, 2) * 4 <= kMaxSmem ? 2 : 1;
+    const size_t smem = kept_smem_words(dh, S, stages) * 4;
+    static std::atomic<int> kept_allowed[kMaxDevices];
+    const cudaError_t e = allow_smem(
+        reinterpret_cast<const void*>(attention_f32_kept_kernel), smem,
+        kept_allowed);
+    if (e != cudaSuccess) return e;
+    attention_f32_kept_kernel<<<grid, kThreads, smem, stream>>>(
+        q, k, v, st, key_bias, out, S, H, dh, scale, stages);
+    return cudaGetLastError();
+  }
+  const size_t smem = f32_smem_words(dh) * 4;
+  static std::atomic<int> allowed[kMaxDevices];
+  const cudaError_t e = allow_smem(
+      reinterpret_cast<const void*>(attention_f32_kernel), smem, allowed);
+  if (e != cudaSuccess) return e;
   attention_f32_kernel<<<grid, kThreads, smem, stream>>>(
       q, k, v, st, key_bias, out, S, H, dh, scale);
   return cudaGetLastError();

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) pieces shared by the kernels that run wgmma fed by TMA
-// (int8_gemm.cu, the attention forward's wgmma bodies, ln_matmul.cu):
+// (int8_gemm.cu, the attention bodies on wgmma, ln_matmul.cu):
 // mbarriers, TMA loads into shared memory, wgmma operand descriptors of
 // 128-byte-swizzled tiles and wgmma's fence / commit / wait, libcuda's TMA
 // map encoder, and the host's SM count and alignment check.

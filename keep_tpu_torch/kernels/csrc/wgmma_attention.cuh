@@ -3,7 +3,8 @@
 // its entry point, which writes the arguments),
 // attention_qkv_slab_wgmma_streamed.cu (the forward's streamed body) and
 // the backward's two kernels, attention_qkv_slab_bwd_dq.cu and
-// attention_qkv_slab_bwd_dkv.cu (launched from attention_qkv_slab_bwd.cu),
+// attention_qkv_slab_bwd_dkv.cu (launched from attention_qkv_slab_bwd.cu;
+// the fp32 pair's own pieces are in tf32_attention.cuh),
 // sources apart so that nvcc builds them side by side: the arguments of a
 // launch, the TMA maps, the wgmma instructions (A from registers or shared
 // memory), the ring's release, the softmax's quotient and the epilogue

@@ -7,7 +7,7 @@ same values and the bound.
 
     python3 scripts/torch_attention_shapes_bench.py [--runs 7] [--calls 10]
         [--out f.json] [--edges 257,273,320 --widths 64,80]
-        [--bwd [--train]]
+        [--bwd [--train]] [--dtype float32]
 
 Shapes (name, B, S, H, Dh, padded key bias): ViT-L/16 (S = 197) and
 BERT-base (S = 256, a ragged key mask) at B = 32 and 128; the zoo's head
@@ -48,8 +48,19 @@ bf16 gate), and the bound (``chip_smoke.attention_bound(backward=True)``'s
 10·S²·Dh operations a head, 7 values of B·S·H·Dh in bf16 and the bias
 moved). ``--train`` also runs chip_smoke.py's phase 9 (``drive_train``
 of the checkout it is run from: the full-width KEEP trained at batch 128,
-the last unfrozen step traced) and prints its ``slab_attention_bwd``
-family ms, ms per unfrozen step and peak memory.
+the last unfrozen step traced) and prints its ``slab_attention`` and
+``slab_attention_bwd`` family ms, ms per unfrozen step and peak memory.
+
+``--dtype float32`` times the fp32 forms instead (the slab, dout and the
+key bias in fp32; TF32 off for the plain versions and SDPA): forward rows
+without the fp32-out form, each with whether the kernel gave the plain
+version's bits on valid rows (``bits_equal_plain``: its gate where S ≤
+1024) and SDPA's longest kernel (``library_kernel``); backward rows held
+to the fp32 gate (``within_gate``: atol 2e-4, rtol 1e-4). The forward's
+bound counts its operations at fp32's 67 TFLOP/s (its route, the CUDA
+cores); the backward's counts each product as three TF32 products at
+495 TFLOP/s (its route, split TF32 on the tensor cores). With
+``--train`` phase 9 runs at ``precision: fp32``.
 """
 
 from __future__ import annotations
@@ -61,7 +72,8 @@ import subprocess
 
 import torch
 
-PEAK_BF16 = 989e12
+PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12
 HBM_BYTES_PER_S = 3.35e12
 EDGE_S = [1, 15, 16, 17, 64, 197, 256, 257, 320, 321, 512, 513, 575, 576,
           577, 640, 641, 785, 1025]
@@ -152,44 +164,52 @@ def device_kernels(fn, calls: int, tries: int = 3, per_launch: int = 1
 
 
 def bound_ms(b: int, s: int, h: int, dh: int, out_bytes: int = 2,
-             padded: bool = False) -> tuple[float, str]:
-    ops = 4 * b * h * s * s * dh / PEAK_BF16
-    moved = (b * s * h * dh * (3 * 2 + out_bytes) + padded * b * s * 4
+             padded: bool = False, dtype=torch.bfloat16) -> tuple[float, str]:
+    """chip_smoke.attention_bound: the forward's 4·S²·Dh operations a head
+    at the input type's peak; q, k, v read and the output written."""
+    size = torch.finfo(dtype).bits // 8
+    ops = 4 * b * h * s * s * dh / PEAK[dtype]
+    moved = (b * s * h * dh * (3 * size + out_bytes) + padded * b * s * 4
              ) / HBM_BYTES_PER_S
     return (ops * 1e3, "operations") if ops >= moved else (moved * 1e3,
                                                            "bytes")
 
 
-def bwd_bound_ms(b: int, s: int, h: int, dh: int) -> tuple[float, str]:
-    """chip_smoke.attention_bound(backward=True) in bf16: the score
-    recompute and four products, 10·S²·Dh a head, over 989 TFLOP/s; q, k,
-    v, dout read and dq, dk, dv written (7 · B·S·H·Dh bf16 values) and the
-    fp32 bias read (the kernel always takes one), over 3.35 TB/s."""
-    ops = 10 * b * h * s * s * dh / PEAK_BF16
-    moved = (7 * b * s * h * dh * 2 + b * s * 4) / HBM_BYTES_PER_S
+def bwd_bound_ms(b: int, s: int, h: int, dh: int,
+                 dtype=torch.bfloat16) -> tuple[float, str]:
+    """chip_smoke.attention_bound(backward=True): the score recompute and
+    four products, 10·S²·Dh a head, at the route's peak (989 TFLOP/s bf16;
+    fp32 in split TF32, three TF32 products each at 495); q, k, v, dout
+    read and dq, dk, dv written (7 · B·S·H·Dh values) and the fp32 bias
+    read (the kernel always takes one), over 3.35 TB/s."""
+    ops = 10 * b * h * s * s * dh * (
+        3 / PEAK_TF32 if dtype == torch.float32 else 1 / PEAK[dtype])
+    moved = (7 * b * s * h * dh * (torch.finfo(dtype).bits // 8)
+             + b * s * 4) / HBM_BYTES_PER_S
     return (ops * 1e3, "operations") if ops >= moved else (moved * 1e3,
                                                            "bytes")
 
 
-def bwd_rows(shapes, runs: int, calls: int) -> list[dict]:
-    """#1b and SDPA's backward at ``shapes`` (name, B, S, H, Dh, padded):
-    one JSON line each."""
+def bwd_rows(shapes, runs: int, calls: int,
+             dtype=torch.bfloat16) -> list[dict]:
+    """#1b and SDPA's backward at ``shapes`` (name, B, S, H, Dh, padded) in
+    ``dtype``: one JSON line each."""
     from keep_tpu_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for name, b, s, h, dh, padded in shapes:
         qkv = torch.randn(b, s, 3 * h * dh, device="cuda",
-                          generator=gen).bfloat16()
+                          generator=gen).to(dtype)
         do = torch.randn(b, s, h * dh, device="cuda",
-                         generator=gen).bfloat16()
+                         generator=gen).to(dtype)
         valid = torch.ones(b, s, dtype=torch.bool, device="cuda")
         if padded:
             lens = torch.randint(8, s + 1, (b,), device="cuda", generator=gen)
             valid = torch.arange(s, device="cuda")[None] < lens[:, None]
         kb = (1.0 - valid.float()) * -1e9
         row = {"shape": name, "B": b, "S": s, "H": h, "Dh": dh,
-               "padded": padded, "dtype": "bfloat16"}
+               "padded": padded, "dtype": str(dtype)[6:]}
         try:
             got = fa.attention_qkv_slab_bwd(qkv, kb, do, h)
         except (ValueError, RuntimeError) as e:
@@ -198,13 +218,17 @@ def bwd_rows(shapes, runs: int, calls: int) -> list[dict]:
         ref = fa.attention_qkv_slab_bwd_reference(qkv, kb, do, h)
         g, r = got.float()[valid], ref.float()[valid]
         row.update(max_abs_err=(g - r).abs().max().item(),
-                   gate=1e-2 * r.abs().max().item(),
                    finite=bool(torch.isfinite(got).all()))
+        if dtype == torch.float32:
+            row["within_gate"] = torch.allclose(got, ref, atol=2e-4,
+                                                rtol=1e-4)
+        else:
+            row["gate"] = 1e-2 * r.abs().max().item()
         del got, ref, g, r
         kernel = lambda: fa.attention_qkv_slab_bwd(qkv, kb, do, h)  # noqa
         q, k, v = (t.detach().requires_grad_() for t in
                    qkv.view(b, s, 3, h, dh).permute(2, 0, 3, 1, 4))
-        mask = kb[:, None, None, :].bfloat16() if padded else None
+        mask = kb[:, None, None, :].to(dtype) if padded else None
         out = torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=mask)
         do4 = do.view(b, s, h, dh).transpose(1, 2)
@@ -219,7 +243,7 @@ def bwd_rows(shapes, runs: int, calls: int) -> list[dict]:
          lib_kernels) = device_kernels(sdpa_bwd, calls)
         row["library_kernel"] = (max(lib_kernels, key=lib_kernels.get)
                                  if lib_kernels else "not measured")
-        row["bound_ms"], row["bound_by"] = bwd_bound_ms(b, s, h, dh)
+        row["bound_ms"], row["bound_by"] = bwd_bound_ms(b, s, h, dh, dtype)
         row["calls"] = calls
         print(json.dumps(row), flush=True)
         rows.append(row)
@@ -228,10 +252,10 @@ def bwd_rows(shapes, runs: int, calls: int) -> list[dict]:
     return rows
 
 
-def train_row() -> dict:
-    """chip_smoke.py's phase 9 from this checkout: its ``slab_attention_bwd``
-    family ms in the traced unfrozen step, ms per unfrozen step and peak
-    memory."""
+def train_row(precision: str = "amp_bf16") -> dict:
+    """chip_smoke.py's phase 9 from this checkout at ``precision``: its
+    ``slab_attention`` and ``slab_attention_bwd`` family ms in the traced
+    unfrozen step, ms per unfrozen step and peak memory."""
     import tempfile
 
     import chip_smoke as cs
@@ -241,13 +265,19 @@ def train_row() -> dict:
     cfg = KEEPConfig()
     blocks = cfg.vision.depth + cfg.text.num_hidden_layers
     with tempfile.TemporaryDirectory() as d:
-        out = cs.drive_train(torch, fa, d,
-                             cs.train_config(d, steps_per_epoch=4),
-                             blocks=blocks, steps_per_epoch=4)
+        raw = cs.train_config(d, steps_per_epoch=4)
+        raw["model"]["precision"] = precision
+        out = cs.drive_train(torch, fa, d, raw, blocks=blocks,
+                             steps_per_epoch=4)
     fams = out["traced_unfrozen_step"]["ms_by_family"]
-    row = {"shape": "phase9_train",
+    # the forward's kernels by name among the step's longest, for a
+    # checkout whose families leave its fp32 forward out
+    forward = sum(ms for k, ms in out["traced_unfrozen_step"]["top_kernels_ms"]
+                  if "attention_f32" in k
+                  or ("slab_attention" in k and "bwd" not in k))
+    row = {"shape": "phase9_train", "precision": precision,
            "slab_attention_bwd_ms": fams.get("slab_attention_bwd"),
-           "slab_attention_ms": fams.get("slab_attention"),
+           "slab_attention_ms": fams.get("slab_attention") or forward,
            "device_busy_ms": out["traced_unfrozen_step"]["device_busy_ms"],
            "ms_per_unfrozen_step": out["ms_per_unfrozen_step"],
            "ms_per_frozen_step": out["ms_per_frozen_step"],
@@ -270,7 +300,10 @@ def main() -> None:
                     help="time the backward (#1b) and SDPA's instead")
     ap.add_argument("--train", action="store_true",
                     help="with --bwd, also run chip_smoke.py's phase 9")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16", help="the forms to time")
     args = ap.parse_args()
+    dtype = getattr(torch, args.dtype)
     shapes = SHAPES
     if args.edges:
         shapes = [(f"edge_dh{dh}", 32, int(s), 16, int(dh), False, False)
@@ -292,9 +325,10 @@ def main() -> None:
         shapes = (([] if args.edges else BWD_SHAPES)
                   + [(f"edge_dh{dh}", 32, s, 16, dh, False)
                      for dh in widths for s in edges])
-        rows = bwd_rows(shapes, args.runs, args.calls)
+        rows = bwd_rows(shapes, args.runs, args.calls, dtype)
         if args.train:
-            rows.append(train_row())
+            rows.append(train_row("fp32" if dtype == torch.float32
+                                  else "amp_bf16"))
         if args.out:
             with open(args.out, "w") as f:
                 json.dump({"card": card, "rows": rows}, f)
@@ -304,15 +338,15 @@ def main() -> None:
     rows = []
     for name, b, s, h, dh, padded, layouts in shapes:
         qkv = torch.randn(b, s, 3 * h * dh, device="cuda", generator=gen)
-        qkv = qkv.bfloat16()
+        qkv = qkv.to(dtype)
         kb = mask = None
         if padded:
             lens = torch.randint(8, s + 1, (b,), device="cuda", generator=gen)
             kb = (torch.arange(s, device="cuda")[None] >= lens[:, None]
                   ).float() * -1e9
-            mask = kb[:, None, None, :].bfloat16()
+            mask = kb[:, None, None, :].to(dtype)
         row = {"shape": name, "B": b, "S": s, "H": h, "Dh": dh,
-               "padded": padded, "dtype": "bfloat16"}
+               "padded": padded, "dtype": args.dtype}
         try:
             got = fa.attention_qkv_slab(qkv, kb, num_heads=h)
         except ValueError as e:
@@ -328,9 +362,19 @@ def main() -> None:
             q, k, v, attn_mask=mask)
         row.update(
             max_abs_err=(got.float() - ref.float()).abs().max().item(),
-            ms=run(slab), f32_out_ms=run(slab32), library_ms=run(sdpa))
-        for key, fn in (("dev_ms", slab), ("f32_out_dev_ms", slab32),
-                        ("library_dev_ms", sdpa)):
+            ms=run(slab), library_ms=run(sdpa))
+        timed = [("dev_ms", slab), ("library_dev_ms", sdpa)]
+        if dtype == torch.float32:
+            valid = (torch.ones(b, s, dtype=torch.bool, device="cuda")
+                     if kb is None else kb == 0)
+            row["bits_equal_plain"] = torch.equal(got[valid], ref[valid])
+            _, _, lib = device_kernels(sdpa, 1)
+            row["library_kernel"] = (max(lib, key=lib.get) if lib
+                                     else "not measured")
+        else:
+            row["f32_out_ms"] = run(slab32)
+            timed.append(("f32_out_dev_ms", slab32))
+        for key, fn in timed:
             row[key], row[f"{key}_source"] = device_ms(fn, args.calls)
         if layouts:
             lanes = [t.contiguous() for t in qkv.split(h * dh, dim=-1)]
@@ -343,9 +387,11 @@ def main() -> None:
                     *bhsd, bias4)),
                 plain_ms=run(lambda: fa.attention_qkv_slab_reference(
                     qkv, kb, num_heads=h)))
-        row["bound_ms"], row["bound_by"] = bound_ms(b, s, h, dh,
-                                                    padded=padded)
-        row["f32_out_bound_ms"], _ = bound_ms(b, s, h, dh, 4, padded)
+        size = torch.finfo(dtype).bits // 8
+        row["bound_ms"], row["bound_by"] = bound_ms(b, s, h, dh, size,
+                                                    padded, dtype)
+        if dtype == torch.bfloat16:
+            row["f32_out_bound_ms"], _ = bound_ms(b, s, h, dh, 4, padded)
         row["calls"] = args.calls
         print(json.dumps(row), flush=True)
         rows.append(row)

@@ -28,7 +28,7 @@ import torch
 
 # kernel families, first match wins: the port's own kernels by name, then
 # cuBLAS's GEMMs, PyTorch's LayerNorm and its elementwise kernels
-FAMILIES = (("attention", ("slab_attention",)),
+FAMILIES = (("attention", ("slab_attention", "attention_f32")),
             ("int8_gemm", ("int8_gemm",)),
             ("quant_rows", ("quant_rows",)),
             ("ln_rows", ("ln_rows",)),

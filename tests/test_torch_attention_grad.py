@@ -162,6 +162,62 @@ def test_bf16_rounding_of_the_kernel_fits_the_gate_at_a_wide_head(rng):
     assert 0 < err <= 1e-2 * np.abs(want).max()
 
 
+def _card_model_f32(qkv, dout, kb, h):
+    """The card's fp32 backward in split TF32, in its order of sums
+    (``tests/card_attention_model.card_body_attention_bwd_f32``), as
+    numpy."""
+    from card_attention_model import card_body_attention_bwd_f32
+
+    return card_body_attention_bwd_f32(
+        torch.from_numpy(qkv), torch.from_numpy(kb), torch.from_numpy(dout),
+        num_heads=h).numpy()
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("b,s,h,dh", [(2, 65, 2, 16), (2, 65, 2, 64),
+                                     (2, 100, 2, 80)])
+def test_split_tf32_of_the_fp32_kernel_fits_the_gate(rng, b, s, h, dh,
+                                                      with_bias):
+    """The card's fp32 backward takes every product in split TF32 (three
+    TF32 products of hi / lo parts a k8 step) and its row statistics online
+    over 32-key tiles. The model of that order of sums
+    (``card_body_attention_bwd_f32``) against the JAX package's closed-form
+    VJP ``_slab_attn_bwd`` in fp32, at the fp32 gate (atol 2e-4, rtol
+    1e-4), at head widths 16, 64 and 80 (the card pads 80 to three
+    32-column panels), S past a 64-key block edge and with a ragged key
+    mask."""
+    qkv, dout, kb = _inputs(rng, b, s, h, dh, with_bias)
+    kb = np.zeros((b, s), np.float32) if kb is None else kb
+    want, _ = _slab_attn_bwd(h, (jnp.asarray(qkv), jnp.asarray(kb)),
+                             jnp.asarray(dout))
+    got = _card_model_f32(qkv, dout, kb, h)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL, rtol=RTOL)
+
+
+def test_split_tf32_parts():
+    """hi = cvt.rna.tf32.f32(x): 10 fraction bits, the nearest, ties away
+    from zero; lo the same of x − hi; hi + lo within 2^-22 of x, where hi
+    alone is within 2^-11 (one TF32 product's error)."""
+    from card_attention_model import tf32_split
+
+    x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -12,
+                      1 + 2 ** -12 - 2 ** -23, 3.0, 0.0], dtype=torch.float32)
+    hi, lo = tf32_split(x)
+    assert hi.tolist()[:4] == [1 + 2 ** -10, -(1 + 2 ** -10), 1 + 2 ** -10,
+                               1.0]
+    assert hi[4] == 3 and hi[5] == 0 and lo[4] == 0 and lo[5] == 0
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32))
+    hi, lo = tf32_split(y)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    rel = ((hi.double() + lo.double() - y.double()).abs()
+           / y.double().abs()).max().item()
+    assert rel <= 2 ** -22
+    assert ((hi.double() - y.double()).abs() / y.double().abs()).max() \
+        <= 2 ** -11
+
+
 def test_bwd_reference_equals_autograd_of_plain_forward(rng):
     """In fp32 the closed form is the exact gradient of the plain forward."""
     qkv, dout, kb = _inputs(rng, 2, 21, 2, 32, True)

@@ -96,9 +96,12 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 # around them at lengths around the streamed body's 64-key tiles, and
 # Dh = 64 past the old 512 limit (ViT-L-14-336: 577; KEEP at 448²: 785;
 # 1024, the longest row PyTorch's warp softmax serves, and one past it)
+# the zoo's head widths and lengths, and at Dh 64 / 128 the first length
+# past the fp32 forward's kept-scores body (the three-pass body's rows)
 ZOO_SHAPES = ([(dh, s) for dh in (72, 80, 88, 104, 112, 128)
                for s in (1, 63, 65, 257)]
-              + [(64, s) for s in (513, 577, 785, 1024, 1025)])
+              + [(64, s) for s in (513, 577, 785, 1024, 1025, 1441)]
+              + [(128, 1121)])
 
 
 def _zoo_inputs(gen, b, s, h, dh, padded, dtype):
@@ -670,6 +673,27 @@ def test_bwd_kernel_matches_the_card_model(cuda, b, s, h, dh, padded):
     diff = got - model
     assert diff.abs().max().item() <= 5e-3 * model.abs().max().item()
     assert diff.norm().item() <= 5e-4 * model.norm().item()
+
+
+@pytest.mark.parametrize("b,s,h,dh,padded", [
+    (4, 197, 3, 64, False), (4, 256, 3, 64, True), (3, 257, 2, 80, False),
+    (3, 100, 2, 128, True), (2, 577, 2, 64, False), (2, 65, 2, 112, True)])
+def test_bwd_f32_kernel_matches_the_card_model(cuda, b, s, h, dh, padded):
+    """The fp32 backward (split TF32 on wgmma) against the model of its
+    split, k8 steps and order of sums
+    (``tests/card_attention_model.card_body_attention_bwd_f32``, which
+    ``tests/test_torch_attention_grad.py`` holds to the JAX VJP), at atol
+    2e-5, rtol 1e-5: ten times tighter than the fp32 gate the kernel meets
+    against the plain version. On an H100 both sat within ~6e-6 of it (the
+    tensor cores' own sum within a step is the rest)."""
+    from card_attention_model import card_body_attention_bwd_f32
+
+    qkv, _, valid = _zoo_inputs(cuda, b, s, h, dh, padded, torch.float32)
+    kb = (1.0 - valid.float()) * -1e9
+    do = torch.randn(b, s, h * dh, device="cuda", generator=cuda)
+    got = fa.attention_qkv_slab_bwd(qkv, kb, do, h)
+    model = card_body_attention_bwd_f32(qkv, kb, do, num_heads=h)
+    torch.testing.assert_close(got, model, atol=2e-5, rtol=1e-5)
 
 
 def test_autograd_launches_both_kernels(cuda):
